@@ -1,0 +1,604 @@
+"""CHGNet on PyTorch: energy, forces, stress and magnetic moments.
+
+Port of ``chgnet_tpu.models.chgnet`` for the directed main path:
+
+* ``CHGNetConfig`` has the same fields and defaults, and ``init_params``
+  draws the same numpy values in the same order, so one seed gives the same
+  weights in both packages;
+* :func:`compute_batch` evaluates the energy at positions
+  ``cart @ (I + strain)`` and lattices ``L @ (I + strain)``; one
+  ``torch.autograd.grad`` over (cart, strain) gives forces and the virial
+  (stress in GPa via 160.21766208 / V); magmoms are
+  ``|Linear(atom_feas_mid)|`` read before the last conv block.
+
+Every gather and reduction of a feature stream runs through the port's
+CUDA kernels (``chgnet_tpu_torch/ops``). The gated-MLP tails run as plain
+PyTorch, which is ``chgnet_tpu``'s ``fused_kernels=False``; their fused
+kernels are not ported yet, so ``fused_kernels=True`` raises on CUDA.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+import warnings
+from collections.abc import Sequence
+from typing import Literal
+
+import numpy as np
+import torch
+
+from chgnet_tpu_torch import PredTask
+from chgnet_tpu_torch.core.structure import Structure
+from chgnet_tpu_torch.device import resolve_device
+from chgnet_tpu_torch.graph.batching import GraphBatch, batch_graphs
+from chgnet_tpu_torch.graph.converter import CrystalGraphConverter
+from chgnet_tpu_torch.graph.crystalgraph import CrystalGraph
+from chgnet_tpu_torch.models import basis
+from chgnet_tpu_torch.models.composition import AtomRef
+from chgnet_tpu_torch.models.convert import count_params, params_from_jax
+from chgnet_tpu_torch.models.functions import (
+    Params,
+    layer_norm_apply,
+    linear_apply,
+    linear_init,
+    mlp_apply,
+    mlp_init,
+    norm_init,
+)
+from chgnet_tpu_torch.models.layers import (
+    angle_update_apply_directed,
+    angle_update_init,
+    atom_conv_apply,
+    atom_conv_init,
+    bond_conv_apply_directed,
+    bond_conv_init,
+)
+from chgnet_tpu_torch.ops.segment import plan_gather, plan_segment_sum
+
+EV_A3_TO_GPA = 160.21766208  # eV/A^3 -> GPa
+
+# the ROADMAP.md item that ports the fused gated-tail kernels
+FUSED_TAILS_ITEM = "ROADMAP.md Queue 2, items 4-6 (the gated-message tails)"
+
+
+@dataclasses.dataclass(frozen=True)
+class CHGNetConfig:
+    """Model hyperparameters: the fields and defaults of
+    ``chgnet_tpu.models.chgnet.CHGNetConfig``.
+
+    The port runs the directed f32 layout; :meth:`check_supported` names
+    the fields whose other values it does not run yet. ``sorted_grads`` has
+    no effect: every backward here is a CSR segment sum.
+    """
+
+    atom_fea_dim: int = 64
+    bond_fea_dim: int = 64
+    angle_fea_dim: int = 64
+    composition_model: str = "MPtrj"
+    num_radial: int = 31
+    num_angular: int = 31
+    n_conv: int = 4
+    atom_conv_hidden_dim: int | tuple[int, ...] = 64
+    update_bond: bool = True
+    bond_conv_hidden_dim: int | tuple[int, ...] = 64
+    update_angle: bool = True
+    angle_layer_hidden_dim: int | tuple[int, ...] = 0
+    conv_dropout: float = 0.0
+    read_out: str = "ave"
+    mlp_hidden_dims: int | tuple[int, ...] = (64, 64, 64)
+    mlp_dropout: float = 0.0
+    mlp_first: bool = True
+    is_intensive: bool = True
+    non_linearity: Literal["silu", "relu", "tanh", "gelu"] = "silu"
+    atom_graph_cutoff: float = 6.0
+    bond_graph_cutoff: float = 3.0
+    graph_converter_algorithm: str = "fast"
+    cutoff_coeff: float = 8.0
+    learnable_rbf: bool = True
+    gMLP_norm: str | None = "layer"
+    readout_norm: str | None = "layer"
+    conv_norm: str | None = None
+    mlp_out_bias: bool = False
+    final_mlp: str = "MLP"
+    num_heads: int = 3
+    version: str | None = None
+    atom_ref_is_intensive: bool = True
+    matmul_precision: str = "highest"
+    compute_dtype: str = "float32"
+    fused_kernels: bool = True
+    sorted_grads: bool = True
+    remat: bool | str = False
+    dense_atom_conv: bool = False
+    directed_bonds: bool = True
+    max_num_elements: int = 94
+
+    def __post_init__(self) -> None:
+        if self.num_angular % 2 != 1:
+            raise ValueError(f"num_angular={self.num_angular} must be odd")
+        for name in ("atom_conv_hidden_dim", "bond_conv_hidden_dim",
+                     "angle_layer_hidden_dim", "mlp_hidden_dims"):
+            val = getattr(self, name)
+            if isinstance(val, list):
+                object.__setattr__(self, name, tuple(val))
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def check_supported(self) -> None:
+        """Raise for settings the port does not run yet."""
+        unported = {
+            "compute_dtype": self.compute_dtype != "float32",
+            "remat": bool(self.remat),
+            "dense_atom_conv": self.dense_atom_conv,
+            "directed_bonds": not self.directed_bonds,
+            "read_out": not self.mlp_first and self.read_out in {"attn", "weighted"},
+            "matmul_precision": self.matmul_precision != "highest",
+        }
+        bad = sorted(k for k, v in unported.items() if v)
+        if bad:
+            raise NotImplementedError(
+                f"CHGNetConfig fields {bad} are not ported to chgnet_tpu_torch "
+                "yet (see ROADMAP.md Queue 1, config variants)"
+            )
+
+
+def init_params(config: CHGNetConfig, seed: int = 0) -> Params:
+    """The full parameter tree as numpy arrays: the same draws, in the same
+    order, as ``chgnet_tpu.models.chgnet.init_params``."""
+    rng = np.random.default_rng(seed)
+    cfg = config
+    params: Params = {
+        "atom_embedding": {
+            "weight": rng.normal(
+                size=(cfg.max_num_elements, cfg.atom_fea_dim)
+            ).astype(np.float32)
+        },
+        "bond_basis": {
+            "freq_ag": basis.bessel_frequencies(cfg.num_radial),
+            "freq_bg": basis.bessel_frequencies(cfg.num_radial),
+        },
+        "angle_basis": {
+            "freq": basis.fourier_frequencies((cfg.num_angular - 1) // 2)
+        },
+        "bond_embedding": linear_init(
+            rng, cfg.num_radial, cfg.bond_fea_dim, bias=False
+        ),
+        "bond_weights_ag": linear_init(
+            rng, cfg.num_radial, cfg.atom_fea_dim, bias=False
+        ),
+        "bond_weights_bg": linear_init(
+            rng, cfg.num_radial, cfg.bond_fea_dim, bias=False
+        ),
+        "angle_embedding": linear_init(
+            rng, cfg.num_angular, cfg.angle_fea_dim, bias=False
+        ),
+        "atom_convs": [
+            atom_conv_init(
+                rng,
+                atom_fea_dim=cfg.atom_fea_dim,
+                bond_fea_dim=cfg.bond_fea_dim,
+                hidden_dim=cfg.atom_conv_hidden_dim,
+                norm=cfg.conv_norm,
+                gmlp_norm=cfg.gMLP_norm,
+                mlp_out_bias=cfg.mlp_out_bias,
+            )
+            for _ in range(cfg.n_conv)
+        ],
+        "site_wise": linear_init(rng, cfg.atom_fea_dim, 1),
+    }
+    if cfg.update_bond:
+        params["bond_convs"] = [
+            bond_conv_init(
+                rng,
+                atom_fea_dim=cfg.atom_fea_dim,
+                bond_fea_dim=cfg.bond_fea_dim,
+                angle_fea_dim=cfg.angle_fea_dim,
+                hidden_dim=cfg.bond_conv_hidden_dim,
+                norm=cfg.conv_norm,
+                gmlp_norm=cfg.gMLP_norm,
+                mlp_out_bias=cfg.mlp_out_bias,
+            )
+            for _ in range(cfg.n_conv - 1)
+        ]
+    if cfg.update_angle:
+        params["angle_updates"] = [
+            angle_update_init(
+                rng,
+                atom_fea_dim=cfg.atom_fea_dim,
+                bond_fea_dim=cfg.bond_fea_dim,
+                angle_fea_dim=cfg.angle_fea_dim,
+                hidden_dim=cfg.angle_layer_hidden_dim,
+                norm=cfg.conv_norm,
+                gmlp_norm=cfg.gMLP_norm,
+            )
+            for _ in range(cfg.n_conv - 1)
+        ]
+    ln = norm_init(cfg.readout_norm, cfg.atom_fea_dim)
+    if ln is not None:
+        params["readout_norm"] = ln
+    if cfg.read_out in {"attn", "weighted"} and not cfg.mlp_first:
+        raise NotImplementedError("attention readout is not ported yet")
+    params["mlp"] = mlp_init(
+        rng, cfg.atom_fea_dim, output_dim=1, hidden_dim=cfg.mlp_hidden_dims
+    )
+    if cfg.composition_model:
+        atom_ref = AtomRef(is_intensive=cfg.is_intensive)
+        atom_ref.initialize_from(cfg.composition_model)
+        params["composition"] = {"weight": atom_ref.weight.copy()}
+    return params
+
+
+# ===================================================================== core
+def _energy_core(
+    params: Params,
+    cfg: CHGNetConfig,
+    batch: GraphBatch,
+    cart: torch.Tensor,  # [N, 3] unstrained cartesian coordinates
+    strains: torch.Tensor,  # [B, 3, 3]
+) -> tuple[torch.Tensor, dict]:
+    """Extensive GNN energy per graph [B] plus auxiliary features,
+    differentiable in (cart, strains). Padded rows contribute exactly zero
+    and stay finite."""
+    n_graphs = batch.lattices.shape[0]
+    dtype = cart.dtype
+    graph_ids = torch.arange(n_graphs, device=cart.device)
+    deform = torch.eye(3, dtype=dtype, device=cart.device) + strains
+    lat = batch.lattices @ deform  # [B, 3, 3]
+    # per-atom and per-edge deformations/lattices as one-hot matmuls: their
+    # backward is a small dense product instead of a scatter-add
+    atom_onehot = (batch.atom_owner[:, None] == graph_ids).to(dtype)
+    edge_onehot = (batch.edge_owner[:, None] == graph_ids).to(dtype)
+    deform_atoms = (atom_onehot @ deform.reshape(n_graphs, 9)).reshape(-1, 3, 3)
+    pos = torch.einsum("ni,nij->nj", cart, deform_atoms)
+    lat_edges = (edge_onehot @ lat.reshape(n_graphs, 9)).reshape(-1, 3, 3)
+
+    center = batch.atom_graph[:, 0].contiguous()
+    nbr = batch.atom_graph[:, 1].contiguous()
+    dir_i = batch.bond_graph[:, 2].contiguous()
+    dir_j = batch.bond_graph[:, 4].contiguous()
+    p_center, p_nbr = batch.plan_center, batch.plan_nbr
+    p_i, p_j = batch.plan_ang_vi, batch.plan_ang_vj
+
+    # positions ride a 4-wide stream (xyz, 0): one 16-byte unit per row
+    pos4 = torch.nn.functional.pad(pos, (0, 1))
+    center_pos = plan_gather(pos4, center, p_center)[:, :3]
+    nbr_pos = plan_gather(pos4, nbr, p_nbr)[:, :3] + torch.einsum(
+        "ei,eij->ej", batch.images, lat_edges
+    )
+    vec = center_pos - nbr_pos
+    dist = torch.linalg.norm(vec, dim=1)  # padded: |a| > 0, finite grads
+    unit = vec / dist[:, None]
+    geom = torch.cat([unit, dist[:, None]], dim=1)  # [E, 4]
+
+    rbf_ag = basis.radial_bessel(
+        dist, params["bond_basis"]["freq_ag"], cfg.atom_graph_cutoff,
+        cfg.cutoff_coeff,
+    )
+    rbf_bg = basis.radial_bessel(
+        dist, params["bond_basis"]["freq_bg"], cfg.bond_graph_cutoff,
+        cfg.cutoff_coeff,
+    )
+    gi = plan_gather(geom, dir_i, p_i)
+    gj = plan_gather(geom, dir_j, p_j)
+    cos_ij = torch.sum(gi[:, :3] * gj[:, :3], dim=1) * (1 - 1e-6)
+    angle_bases = basis.fourier(
+        torch.arccos(cos_ij), params["angle_basis"]["freq"]
+    )
+
+    bond_feas = linear_apply(params["bond_embedding"], rbf_ag)
+    bond_weights_ag = linear_apply(params["bond_weights_ag"], rbf_ag)
+    bond_weights_bg = linear_apply(params["bond_weights_bg"], rbf_bg)
+    angle_feas = linear_apply(params["angle_embedding"], angle_bases)
+    # the per-angle bond-weight product never changes across layers
+    weights_a = None
+    if cfg.update_bond:
+        weights_a = plan_gather(bond_weights_bg, dir_i, p_i) * plan_gather(
+            bond_weights_bg, dir_j, p_j
+        )
+
+    z_index = (batch.atomic_numbers.long() - 1).clamp(0, cfg.max_num_elements - 1)
+    atom_feas = params["atom_embedding"]["weight"][z_index]
+
+    act = cfg.non_linearity
+    edge_mask = batch.edge_mask
+    angle_mask = batch.angle_mask
+
+    def atom_step(atom_p, atom_feas, bond_feas):
+        return atom_conv_apply(
+            atom_p, atom_feas, bond_feas, bond_weights_ag, center, nbr,
+            edge_mask, p_center, p_nbr, activation=act,
+        )
+
+    atom_feas_mid = atom_feas
+    for idx in range(cfg.n_conv - 1):
+        atom_feas = atom_step(params["atom_convs"][idx], atom_feas, bond_feas)
+        # atoms on the edge stream, shared by BondConv and AngleUpdate
+        atom_e = (
+            plan_gather(atom_feas, center, p_center)
+            if cfg.update_bond or cfg.update_angle
+            else None
+        )
+        if cfg.update_bond:
+            bond_feas = bond_conv_apply_directed(
+                params["bond_convs"][idx], atom_e, bond_feas, weights_a,
+                angle_feas, dir_i, dir_j, batch.twin, angle_mask, p_i, p_j,
+                activation=act,
+            )
+        # the last block's angle update feeds nothing (the final AtomConv
+        # reads atoms and bonds only), so it is skipped
+        if cfg.update_angle and idx < cfg.n_conv - 2:
+            angle_feas = angle_update_apply_directed(
+                params["angle_updates"][idx], atom_e, bond_feas, angle_feas,
+                dir_i, dir_j, p_i, p_j, activation=act,
+            )
+        if idx == cfg.n_conv - 2:
+            atom_feas_mid = atom_feas
+    atom_feas = atom_step(params["atom_convs"][cfg.n_conv - 1], atom_feas, bond_feas)
+    if "readout_norm" in params:
+        atom_feas = layer_norm_apply(params["readout_norm"], atom_feas)
+
+    # pooling + readout over the atom -> graph plan
+    p_graph = batch.plan_graph
+    mask = batch.atom_mask[:, None]
+    atoms_per_graph = plan_segment_sum(mask, p_graph).reshape(-1)
+    aux: dict = {
+        "atom_feas_mid": atom_feas_mid,
+        "atom_feas": atom_feas,
+        "atoms_per_graph": atoms_per_graph,
+    }
+    if cfg.mlp_first:
+        site_energies = mlp_apply(params["mlp"], atom_feas, activation=act) * mask
+        energy_ext = plan_segment_sum(site_energies, p_graph).reshape(-1)
+        aux["site_energies"] = site_energies.reshape(-1)
+        aux["crystal_fea"] = plan_segment_sum(atom_feas * mask, p_graph)
+    else:
+        crystal_feas = plan_segment_sum(atom_feas * mask, p_graph) / torch.clamp(
+            atoms_per_graph[:, None], min=1.0
+        )
+        energy_ext = (
+            mlp_apply(params["mlp"], crystal_feas, activation=act).reshape(-1)
+            * atoms_per_graph
+        )
+        aux["crystal_fea"] = crystal_feas
+    return energy_ext, aux
+
+
+@contextlib.contextmanager
+def _full_f32():
+    """f32 matmuls in full f32 (no TF32) for the duration of a call."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def compute_batch(
+    params: Params,
+    batch: GraphBatch,
+    *,
+    config: CHGNetConfig,
+    compute_force: bool = False,
+    compute_stress: bool = False,
+    compute_magmom: bool = False,
+) -> dict[str, torch.Tensor]:
+    """Batched prediction over a padded batch of tensors (``batch.to(dev)``).
+
+    Returns padded tensors on the batch's device: e [B] (eV/atom if
+    intensive), f [N, 3], s [B, 3, 3] (GPa), m [N], site_energies [N],
+    crystal_fea [B, d], atom_fea [N, d], atoms_per_graph [B].
+    """
+    cfg = config
+    cfg.check_supported()
+    device = batch.frac_coords.device
+    if device.type == "cuda" and cfg.fused_kernels:
+        raise NotImplementedError(
+            "fused_kernels=True needs the fused gated-tail kernels, which are "
+            f"not ported to CUDA yet ({FUSED_TAILS_ITEM}); pass "
+            "fused_kernels=False"
+        )
+    n_graphs = batch.lattices.shape[0]
+    want_grad = compute_force or compute_stress
+    with _full_f32(), torch.enable_grad() if want_grad else torch.no_grad():
+        owner = batch.atom_owner.long()
+        cart = torch.einsum(
+            "ni,nij->nj", batch.frac_coords, batch.lattices[owner]
+        ).detach()
+        strains = torch.zeros(
+            (n_graphs, 3, 3), dtype=cart.dtype, device=device
+        )
+        inputs = []
+        if want_grad:
+            cart.requires_grad_(True)
+            inputs.append(cart)
+            if compute_stress:
+                strains.requires_grad_(True)
+                inputs.append(strains)
+        energy_ext, aux = _energy_core(params, cfg, batch, cart, strains)
+        prediction: dict[str, torch.Tensor] = {}
+        if want_grad:
+            grads = torch.autograd.grad(energy_ext.sum(), inputs)
+            if compute_force:
+                prediction["f"] = -grads[0]
+            if compute_stress:
+                volumes = torch.abs(torch.linalg.det(batch.lattices))
+                prediction["s"] = grads[-1] * EV_A3_TO_GPA / volumes[:, None, None]
+
+        atoms_per_graph = aux["atoms_per_graph"]
+        safe_counts = torch.clamp(atoms_per_graph, min=1.0)
+        energy = energy_ext / safe_counts if cfg.is_intensive else energy_ext
+        if "composition" in params:
+            z_index = (batch.atomic_numbers.long() - 1).clamp(
+                0, cfg.max_num_elements - 1
+            )
+            site_ref = params["composition"]["weight"][z_index] * batch.atom_mask
+            comp_ext = plan_segment_sum(site_ref[:, None], batch.plan_graph).reshape(-1)
+            energy = energy + (
+                comp_ext / safe_counts if cfg.atom_ref_is_intensive else comp_ext
+            )
+            prediction["site_energies"] = aux.get(
+                "site_energies", torch.zeros_like(site_ref)
+            ) + site_ref
+        elif "site_energies" in aux:
+            prediction["site_energies"] = aux["site_energies"]
+
+        prediction["e"] = energy
+        prediction["atoms_per_graph"] = atoms_per_graph
+        prediction["crystal_fea"] = aux["crystal_fea"]
+        prediction["atom_fea"] = aux["atom_feas_mid"]
+        if compute_magmom:
+            magmom = torch.abs(
+                linear_apply(params["site_wise"], aux["atom_feas_mid"])
+            ).reshape(-1)
+            prediction["m"] = magmom * batch.atom_mask
+    return {k: v.detach() for k, v in prediction.items()}
+
+
+# ==================================================================== model
+class CHGNet:
+    """Host-facing model: config + parameters on one device + converter.
+
+    Mirrors ``chgnet_tpu.models.chgnet.CHGNet``'s ``forward`` /
+    ``predict_structure`` / ``predict_graph``. ``device`` defaults to
+    ``"cuda"`` and raises when CUDA is absent; tests pass ``"cpu"``.
+    """
+
+    def __init__(
+        self,
+        *,
+        params: Params | None = None,
+        seed: int = 0,
+        device: str | torch.device = "cuda",
+        verbose: bool = False,
+        **kwargs,
+    ) -> None:
+        converter_verbose = kwargs.pop("converter_verbose", False)
+        field_names = {f.name for f in dataclasses.fields(CHGNetConfig)}
+        unknown = set(kwargs) - field_names
+        if unknown:
+            warnings.warn(f"ignoring unknown model args {sorted(unknown)}")
+        cfg_kwargs = {k: v for k, v in kwargs.items() if k in field_names}
+        if "atom_ref_is_intensive" not in cfg_kwargs:
+            # the AtomRef's intensiveness follows the dataset its weights
+            # come from (upstream composition_model.py:320,425,532)
+            comp = cfg_kwargs.get("composition_model", "MPtrj")
+            cfg_kwargs["atom_ref_is_intensive"] = comp != "MPF"
+        self.config = CHGNetConfig(**cfg_kwargs)
+        self.config.check_supported()
+        self.device = resolve_device(device)
+        self.params = params_from_jax(
+            params if params is not None else init_params(self.config, seed),
+            self.device,
+        )
+        self.graph_converter = CrystalGraphConverter(
+            atom_graph_cutoff=self.config.atom_graph_cutoff,
+            bond_graph_cutoff=self.config.bond_graph_cutoff,
+            algorithm=self.config.graph_converter_algorithm,
+            verbose=converter_verbose,
+        )
+        if verbose:
+            print(f"CHGNet (torch) initialized with {self.n_params:,} parameters")
+
+    @property
+    def n_params(self) -> int:
+        return count_params(self.params)
+
+    def forward(
+        self, graphs: Sequence[CrystalGraph], *, task: PredTask = "e"
+    ) -> dict:
+        """Batched prediction: 'e' [B] plus per-graph lists for f/s/m."""
+        batch = batch_graphs(graphs).to(self.device)
+        out = compute_batch(
+            self.params,
+            batch,
+            config=self.config,
+            compute_force="f" in task,
+            compute_stress="s" in task,
+            compute_magmom="m" in task,
+        )
+        return self._unpad({k: v.cpu().numpy() for k, v in out.items()}, graphs, task)
+
+    __call__ = forward
+
+    @staticmethod
+    def _unpad(out: dict, graphs: Sequence[CrystalGraph], task: str) -> dict:
+        n_graphs = len(graphs)
+        offsets = np.concatenate([[0], np.cumsum([g.n_atoms for g in graphs])])
+
+        def per_atom(arr):
+            return [arr[offsets[i]: offsets[i + 1]] for i in range(n_graphs)]
+
+        result: dict = {
+            "e": out["e"][:n_graphs],
+            "atoms_per_graph": out["atoms_per_graph"][:n_graphs],
+        }
+        if "f" in task:
+            result["f"] = per_atom(out["f"])
+        if "s" in task:
+            result["s"] = [out["s"][i] for i in range(n_graphs)]
+        if "m" in task:
+            result["m"] = per_atom(out["m"])
+        for key in ("site_energies", "atom_fea"):
+            if key in out:
+                result[key] = per_atom(out[key])
+        result["crystal_fea"] = [out["crystal_fea"][i] for i in range(n_graphs)]
+        return result
+
+    def predict_structure(
+        self,
+        structure: Structure | Sequence[Structure],
+        *,
+        task: PredTask = "efsm",
+        batch_size: int = 16,
+        return_site_energies: bool = False,
+        return_atom_feas: bool = False,
+        return_crystal_feas: bool = False,
+    ):
+        """Predict E (eV/atom), F (eV/A), S (GPa), M (mu_B) from structures."""
+        structures = (
+            [structure] if isinstance(structure, Structure) else list(structure)
+        )
+        graphs = [self.graph_converter(s) for s in structures]
+        return self.predict_graph(
+            graphs,
+            task=task,
+            batch_size=batch_size,
+            return_site_energies=return_site_energies,
+            return_atom_feas=return_atom_feas,
+            return_crystal_feas=return_crystal_feas,
+        )
+
+    def predict_graph(
+        self,
+        graph: CrystalGraph | Sequence[CrystalGraph],
+        *,
+        task: PredTask = "efsm",
+        batch_size: int = 16,
+        return_site_energies: bool = False,
+        return_atom_feas: bool = False,
+        return_crystal_feas: bool = False,
+    ):
+        """Predict from graphs; one numpy-valued dict per graph (or a single
+        dict for a single input)."""
+        graphs = [graph] if isinstance(graph, CrystalGraph) else list(graph)
+        predictions: list[dict] = [{} for _ in graphs]
+        for step in range(math.ceil(len(graphs) / batch_size)):
+            chunk = graphs[batch_size * step: batch_size * (step + 1)]
+            out = self.forward(chunk, task=task)
+            for idx in range(len(chunk)):
+                pred = predictions[step * batch_size + idx]
+                pred["e"] = float(out["e"][idx])
+                for key in "fsm":
+                    if key in task:
+                        pred[key] = out[key][idx]
+                if return_site_energies:
+                    pred["site_energies"] = out["site_energies"][idx]
+                if return_atom_feas:
+                    pred["atom_fea"] = out["atom_fea"][idx]
+                if return_crystal_feas:
+                    pred["crystal_fea"] = out["crystal_fea"][idx]
+        return predictions[0] if len(graphs) == 1 else predictions
