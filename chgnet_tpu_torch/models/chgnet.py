@@ -12,9 +12,10 @@ Port of ``chgnet_tpu.models.chgnet`` for the directed main path:
   ``|Linear(atom_feas_mid)|`` read before the last conv block.
 
 Every gather and reduction of a feature stream runs through the port's
-CUDA kernels (``chgnet_tpu_torch/ops``). The gated-MLP tails run as plain
-PyTorch, which is ``chgnet_tpu``'s ``fused_kernels=False``; their fused
-kernels are not ported yet, so ``fused_kernels=True`` raises on CUDA.
+CUDA kernels (``chgnet_tpu_torch/ops``). With ``fused_kernels=True`` (the
+default) the gated-MLP tails of the conv layers run through the fused tail
+kernels where ``chgnet_tpu`` fuses them; with ``fused_kernels=False`` they
+run as plain PyTorch.
 """
 
 from __future__ import annotations
@@ -58,9 +59,6 @@ from chgnet_tpu_torch.models.layers import (
 from chgnet_tpu_torch.ops.segment import plan_gather, plan_segment_sum
 
 EV_A3_TO_GPA = 160.21766208  # eV/A^3 -> GPa
-
-# the ROADMAP.md item that ports the fused gated-tail kernels
-FUSED_TAILS_ITEM = "ROADMAP.md Queue 2, items 4-6 (the gated-message tails)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -302,13 +300,14 @@ def _energy_core(
     atom_feas = params["atom_embedding"]["weight"][z_index]
 
     act = cfg.non_linearity
+    fused = cfg.fused_kernels
     edge_mask = batch.edge_mask
     angle_mask = batch.angle_mask
 
     def atom_step(atom_p, atom_feas, bond_feas):
         return atom_conv_apply(
             atom_p, atom_feas, bond_feas, bond_weights_ag, center, nbr,
-            edge_mask, p_center, p_nbr, activation=act,
+            edge_mask, p_center, p_nbr, activation=act, fused=fused,
         )
 
     atom_feas_mid = atom_feas
@@ -324,14 +323,14 @@ def _energy_core(
             bond_feas = bond_conv_apply_directed(
                 params["bond_convs"][idx], atom_e, bond_feas, weights_a,
                 angle_feas, dir_i, dir_j, batch.twin, angle_mask, p_i, p_j,
-                activation=act,
+                activation=act, fused=fused,
             )
         # the last block's angle update feeds nothing (the final AtomConv
         # reads atoms and bonds only), so it is skipped
         if cfg.update_angle and idx < cfg.n_conv - 2:
             angle_feas = angle_update_apply_directed(
                 params["angle_updates"][idx], atom_e, bond_feas, angle_feas,
-                dir_i, dir_j, p_i, p_j, activation=act,
+                dir_i, dir_j, p_i, p_j, activation=act, fused=fused,
             )
         if idx == cfg.n_conv - 2:
             atom_feas_mid = atom_feas
@@ -395,12 +394,6 @@ def compute_batch(
     cfg = config
     cfg.check_supported()
     device = batch.frac_coords.device
-    if device.type == "cuda" and cfg.fused_kernels:
-        raise NotImplementedError(
-            "fused_kernels=True needs the fused gated-tail kernels, which are "
-            f"not ported to CUDA yet ({FUSED_TAILS_ITEM}); pass "
-            "fused_kernels=False"
-        )
     n_graphs = batch.lattices.shape[0]
     want_grad = compute_force or compute_stress
     with _full_f32(), torch.enable_grad() if want_grad else torch.no_grad():

@@ -195,6 +195,57 @@ def first_layer_acc(
     return gather_project_sum(gathered, stream)
 
 
+def gated_mlp_fusable(params: Params, activation: str = "silu") -> bool:
+    """True when both branches are exactly 2 Linears with layer norms and
+    silu: the shape of the fused message tail
+    (``chgnet_tpu.models.functions.gated_mlp_fusable``). Batch norm does
+    not fuse: the kernels compute layer norms."""
+    return (
+        activation == "silu"
+        and "norm_core" in params
+        and "mean" not in params["norm_core"]
+        and len(params["core"]["layers"]) == 2
+        and len(params["gate"]["layers"]) == 2
+    )
+
+
+def gated_mlp_update_fusable(params: Params, activation: str = "silu") -> bool:
+    """Like :func:`gated_mlp_fusable` for the weights-free update tail,
+    where single-Linear branches also fuse
+    (``chgnet_tpu.models.functions.gated_mlp_update_fusable``)."""
+    return (
+        activation == "silu"
+        and "norm_core" in params
+        and "mean" not in params["norm_core"]
+        and len(params["core"]["layers"]) in (1, 2)
+        and len(params["gate"]["layers"]) == len(params["core"]["layers"])
+    )
+
+
+def gated_mlp_fused_pack(params: Params) -> Params:
+    """Second-layer and norm parameters of the fused tails
+    (``chgnet_tpu.models.functions.gated_mlp_fused_pack``): the core and
+    gate second-layer weights as the two diagonal blocks ``w2c``/``w2g``
+    [D, D] of ``chgnet_tpu``'s block-diagonal ``w2``, the concatenated
+    ``b2`` [2D] and the four layer-norm vectors [D]. Single-Linear
+    branches have no second layer: no ``w2c``/``w2g``/``b2``."""
+    out = {
+        "nc_scale": params["norm_core"]["scale"],
+        "nc_bias": params["norm_core"]["bias"],
+        "ng_scale": params["norm_gate"]["scale"],
+        "ng_bias": params["norm_gate"]["bias"],
+    }
+    if len(params["core"]["layers"]) == 1:
+        return out
+    core2 = params["core"]["layers"][1]
+    gate2 = params["gate"]["layers"][1]
+    zeros = core2["w"].new_zeros(core2["w"].shape[1])
+    out["w2c"] = core2["w"]
+    out["w2g"] = gate2["w"]
+    out["b2"] = torch.cat([core2.get("b", zeros), gate2.get("b", zeros)])
+    return out
+
+
 def gated_mlp_tail(
     params: Params, acc: torch.Tensor, *, activation: str = "silu"
 ) -> torch.Tensor:

@@ -5,9 +5,12 @@ Port of the directed forms of ``chgnet_tpu.models.layers``:
 (``:424``) and :func:`angle_update_apply_directed` (``:576``). Bond features
 and weights live on the directed edge stream ([E, d], twin-duplicated);
 angle rows are sorted by their directed bond i. Every first-layer sum goes
-through the gather-project-sum kernel, the AtomConv edge -> atom and the
-BondConv angle -> edge reductions through the CSR segment sum, and the
-gated-MLP tails run as plain PyTorch (``fused_kernels=False``).
+through the gather-project-sum kernel, and the AtomConv edge -> atom and
+the BondConv angle -> edge reductions through the CSR segment sum. With
+``fused`` (``CHGNetConfig.fused_kernels``, the default) the gated-MLP tails
+of a fusable config run through the fused tail kernels
+(``ops/gated_message.py``), as in ``chgnet_tpu``; otherwise they run as
+plain PyTorch.
 """
 
 from __future__ import annotations
@@ -21,18 +24,34 @@ from chgnet_tpu_torch.graph.batching import SegmentPlan
 from chgnet_tpu_torch.models.functions import (
     Params,
     first_layer_acc,
+    gated_mlp_fusable,
+    gated_mlp_fused_pack,
     gated_mlp_init,
     gated_mlp_tail,
+    gated_mlp_update_fusable,
     layer_norm_apply,
     mlp_apply,
     mlp_init,
     norm_init,
 )
+from chgnet_tpu_torch.ops.gated_message import fused_gated_message, fused_gated_update
 from chgnet_tpu_torch.ops.segment import plan_segment_sum
 
 
 def _layer_acc(gmlp: Params, parts) -> torch.Tensor:
     return first_layer_acc(gmlp["core"]["layers"], gmlp["gate"]["layers"], parts)
+
+
+def _fused_layer(gmlp: Params, parts, *, weights=None, mask=None, resnet=None):
+    """A conv layer's gated MLP through the fused tail kernels
+    (``chgnet_tpu.models.layers._fused_layer`` without its opt-in
+    mono-kernel): the message tail ``* weights * mask`` with ``weights``,
+    else the update tail ``+ resnet``."""
+    acc = _layer_acc(gmlp, parts)
+    p2 = gated_mlp_fused_pack(gmlp)
+    if weights is not None:
+        return fused_gated_message(acc, weights, mask, p2)
+    return fused_gated_update(acc, resnet, p2)
 
 
 def _finish(params: Params, new: torch.Tensor, old: torch.Tensor, resnet: bool):
@@ -106,6 +125,7 @@ def atom_conv_apply(
     *,
     activation: str = "silu",
     resnet: bool = True,
+    fused: bool = False,
 ) -> torch.Tensor:
     """Gated-MLP messages over directed edges, scaled by the bond weights,
     summed into their center atoms."""
@@ -115,8 +135,13 @@ def atom_conv_apply(
         (atom_feas, nbr, plan_nbr),
     ]
     gmlp = params["gated_mlp"]
-    messages = gated_mlp_tail(gmlp, _layer_acc(gmlp, parts), activation=activation)
-    messages = messages * weights_e * edge_mask[:, None]
+    if fused and gated_mlp_fusable(gmlp, activation):
+        messages = _fused_layer(gmlp, parts, weights=weights_e, mask=edge_mask)
+    else:
+        messages = gated_mlp_tail(
+            gmlp, _layer_acc(gmlp, parts), activation=activation
+        )
+        messages = messages * weights_e * edge_mask[:, None]
     new_atom_feas = plan_segment_sum(messages, plan_center)
     return _finish(params, new_atom_feas, atom_feas, resnet)
 
@@ -180,6 +205,7 @@ def bond_conv_apply_directed(
     *,
     activation: str = "silu",
     resnet: bool = True,
+    fused: bool = False,
 ) -> torch.Tensor:
     """BondConv on the directed layout: per-angle updates summed into their
     dir_i edge, then each bond's total as ``partial + partial[twin]`` on
@@ -188,8 +214,13 @@ def bond_conv_apply_directed(
         bond_feas, angle_feas, atom_e, dir_i, dir_j, plan_i, plan_j
     )
     gmlp = params["gated_mlp"]
-    update = gated_mlp_tail(gmlp, _layer_acc(gmlp, parts), activation=activation)
-    update = update * weights_a * angle_mask[:, None]
+    if fused and gated_mlp_fusable(gmlp, activation):
+        update = _fused_layer(gmlp, parts, weights=weights_a, mask=angle_mask)
+    else:
+        update = gated_mlp_tail(
+            gmlp, _layer_acc(gmlp, parts), activation=activation
+        )
+        update = update * weights_a * angle_mask[:, None]
     partial = plan_segment_sum(update, plan_i)  # [A] -> [E]
     new_bond_feas = partial + involution_gather(partial, twin)
     return _finish(params, new_bond_feas, bond_feas, resnet)
@@ -233,11 +264,19 @@ def angle_update_apply_directed(
     *,
     activation: str = "silu",
     resnet: bool = True,
+    fused: bool = False,
 ) -> torch.Tensor:
     """Per-angle gated-MLP update on the directed layout (no reduction)."""
     parts = _angle_parts(
         bond_feas, angle_feas, atom_e, dir_i, dir_j, plan_i, plan_j
     )
     gmlp = params["gated_mlp"]
+    if (
+        fused
+        and resnet
+        and "norm" not in params
+        and gated_mlp_update_fusable(gmlp, activation)
+    ):
+        return _fused_layer(gmlp, parts, resnet=angle_feas)
     new = gated_mlp_tail(gmlp, _layer_acc(gmlp, parts), activation=activation)
     return _finish(params, new, angle_feas, resnet)

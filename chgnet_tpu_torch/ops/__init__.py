@@ -3,13 +3,24 @@
 * ``segment``: ``segment_sum_csr``, ``segment_sum_pair`` and ``gather_rows``
   with the autograd pair ``plan_gather`` / ``plan_segment_sum``;
 * ``gproj``: ``gather_project_sum``, the first-layer sum of every conv layer;
+* ``gated_message``: the fused gated-MLP tails (message and update, forward
+  and backward) behind ``fused_gated_message`` / ``fused_gated_update``;
 * ``build``: nvcc -> shared library -> ctypes, at first use.
 """
 
+from chgnet_tpu_torch.ops.gated_message import (
+    gated_message_bwd,
+    gated_message_fwd,
+    gated_update_bwd,
+    gated_update_fwd,
+)
 from chgnet_tpu_torch.ops.gproj import gather_project_sum_kernel
 from chgnet_tpu_torch.ops.segment import gather_rows, segment_sum_csr, segment_sum_pair
 
-KERNELS = (segment_sum_csr, gather_rows, segment_sum_pair, gather_project_sum_kernel)
+KERNELS = (
+    segment_sum_csr, gather_rows, segment_sum_pair, gather_project_sum_kernel,
+    gated_message_fwd, gated_message_bwd, gated_update_fwd, gated_update_bwd,
+)
 
 
 def reset_launch_counts() -> None:
@@ -20,6 +31,10 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "KERNELS",
+    "gated_message_bwd",
+    "gated_message_fwd",
+    "gated_update_bwd",
+    "gated_update_fwd",
     "gather_project_sum_kernel",
     "gather_rows",
     "reset_launch_counts",

@@ -9,7 +9,8 @@ at first use; :func:`build` compiles several sources in parallel, one
 ``nvcc`` each. ``nvcc``'s ``-Xptxas -v`` report (registers, shared memory,
 spills) is kept beside each library as ``<lib>.log``.
 
-The kernel wrappers (``ops/segment.py``, ``ops/gproj.py``) share the launch
+The kernel wrappers (``ops/segment.py``, ``ops/gproj.py``,
+``ops/gated_message.py``) share the launch
 plumbing below: :func:`on_cuda` picks the kernel or the plain version by the
 tensor's device, :func:`check_tensors` raises on what a kernel does not take,
 :func:`ptr` and :func:`stream` give the C entry points their arguments, and
@@ -31,7 +32,7 @@ from chgnet_tpu_torch import ROOT
 
 CSRC = os.path.join(ROOT, "chgnet_tpu_torch", "csrc")
 BUILD_DIR = os.path.join(ROOT, "build", "chgnet_tpu_torch")
-SOURCES = ("segment_sum", "gather_rows", "gproj")
+SOURCES = ("segment_sum", "gather_rows", "gproj", "gated_message")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,7 +42,8 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
+    """Path of the CUDA toolkit's ``nvcc``."""
     found = shutil.which("nvcc")
     if found:
         return found
@@ -67,13 +69,12 @@ def build(names=SOURCES) -> list[str]:
     if not todo:
         return []
     os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = _nvcc()
     procs = []
     for name in todo:
         out = lib_path(name)
         tmp = f"{out}.{os.getpid()}.tmp"
         log = open(f"{out}.log", "w")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
         procs.append((name, out, tmp, log, subprocess.Popen(
             cmd, stdout=log, stderr=subprocess.STDOUT
         )))

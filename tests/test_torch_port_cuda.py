@@ -9,8 +9,11 @@ that has only the port's dependencies:
 Tolerances: gathers are exact; segment sums 2e-4 absolute on sums of up
 to ~50 unit-normal terms (f32 in a fixed order against float64 prefix
 sums); gather-project-sum 1e-4 (64-term f32 dot products, gathered then
-projected against projected then gathered); the model at the port's CPU
-tolerances (e 2e-5 eV/atom, f 5e-5 eV/A, s 2e-4 GPa, m 2e-5 mu_B).
+projected against projected then gathered); the fused gated tails 1e-5
+forward and 1e-4 backward, each relative to the output's max |plain|
+(64-term f32 products and layer norms in another order; the parameter
+gradients sum ~50,000 rows); the model at the port's CPU tolerances (e 2e-5 eV/atom,
+f 5e-5 eV/A, s 2e-4 GPa, m 2e-5 mu_B).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from chgnet_tpu_torch import ROOT
 from chgnet_tpu_torch.core.structure import Structure
 from chgnet_tpu_torch.graph.batching import SegmentPlan, make_plan
 from chgnet_tpu_torch.models.chgnet import CHGNet
+from chgnet_tpu_torch.ops import gated_message as tgm
 from chgnet_tpu_torch.ops import gproj as tgp
 from chgnet_tpu_torch.ops import segment as tsg
 
@@ -30,6 +34,8 @@ pytestmark = pytest.mark.cuda
 
 SEG_ATOL = 2e-4
 GPROJ_ATOL = 1e-4
+TAIL_FWD_TOL = 1e-5
+TAIL_BWD_TOL = 1e-4
 TOL = {"e": 2e-5, "f": 5e-5, "s": 2e-4, "m": 2e-5}
 FULL = dict(graph_converter_algorithm="numpy", fused_kernels=False)
 LIMNO2 = f"{ROOT}/examples/mp-18767-LiMnO2.cif"
@@ -166,7 +172,173 @@ def test_model_on_card_matches_cpu(cuda):
         )
 
 
-def test_fused_kernels_true_raises_on_card(cuda):
-    model = CHGNet(seed=0, device=cuda, graph_converter_algorithm="numpy")
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        model.predict_structure(Structure.from_file(LIMNO2))
+def test_default_model_on_card_matches_cpu(cuda):
+    """CHGNet(seed=0) with its default fused_kernels=True: the fused tail
+    kernels on the card against their plain versions on the CPU."""
+    s = Structure.from_file(LIMNO2)
+    kw = dict(graph_converter_algorithm="numpy")
+    a = CHGNet(seed=0, device="cpu", **kw).predict_structure(s, task="efsm")
+    b = CHGNet(seed=0, device=cuda, **kw).predict_structure(s, task="efsm")
+    for key in "efsm":
+        np.testing.assert_allclose(
+            np.asarray(b[key]), np.asarray(a[key]), atol=TOL[key], err_msg=key
+        )
+
+
+# ------------------------------------------------------- fused gated tails
+def _tail_inputs(device, d=64, n_rows=50_000 + 13, seed=9):
+    """Rows not a multiple of the kernels' 32-row tile, ~10% mask zeros."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(device)
+
+    x = dict(
+        acc=rand(n_rows, 2 * d), weights=rand(n_rows, d),
+        mask=(torch.rand(n_rows, generator=gen) < 0.9).float().to(device),
+        resnet=rand(n_rows, d), g=rand(n_rows, d),
+    )
+    p = dict(
+        w2c=rand(d, d, scale=0.1), w2g=rand(d, d, scale=0.1),
+        b2=rand(2 * d, scale=0.1), nc_scale=rand(d), nc_bias=rand(d, scale=0.1),
+        ng_scale=rand(d), ng_bias=rand(d, scale=0.1),
+    )
+    return x, p
+
+
+def _params(p, has_w2=True):
+    return tgm.tail_params(p if has_w2 else {k: p[k] for k in tgm.LN_KEYS})
+
+
+def _assert_scaled(got, want, tol):
+    """max |got - want| <= tol * max |want|, over every pair."""
+    got = [t for t in got if t is not None]
+    want = [t for t in want if t is not None]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        err = float((g - w).abs().max())
+        assert err <= tol * float(w.abs().max()), err
+
+
+def _flat(out):
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _flat(o)]
+    return [out]
+
+
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize(
+    "need_mask,need_params", [(False, False), (True, True)],
+    ids=["serving", "all"],
+)
+def test_gated_message_kernels_match_plain(cuda, d, need_mask, need_params):
+    x, p = _tail_inputs(cuda, d)
+    args = (x["acc"], x["weights"], x["mask"], _params(p))
+    _assert_scaled(
+        [tgm.gated_message_fwd(*args)], [tgm.gated_message_plain(*args)],
+        TAIL_FWD_TOL,
+    )
+    args += (x["g"], need_mask, need_params)
+    got = _flat(tgm.gated_message_bwd(*args))
+    want = _flat(tgm.gated_message_bwd_plain(*args))
+    assert (got[2] is None) == (not need_mask)
+    _assert_scaled(got, want, TAIL_BWD_TOL)
+
+
+@pytest.mark.parametrize("need_params", [False, True], ids=["serving", "params"])
+@pytest.mark.parametrize("has_w2", [False, True], ids=["y=acc", "w2"])
+def test_gated_update_kernels_match_plain(cuda, has_w2, need_params):
+    x, p = _tail_inputs(cuda)
+    params = _params(p, has_w2)
+    args = (x["acc"], x["resnet"], params)
+    _assert_scaled(
+        [tgm.gated_update_fwd(*args)], [tgm.gated_update_plain(*args)],
+        TAIL_FWD_TOL,
+    )
+    args = (x["acc"], params, x["g"], need_params)
+    _assert_scaled(
+        _flat(tgm.gated_update_bwd(*args)),
+        _flat(tgm.gated_update_bwd_plain(*args)), TAIL_BWD_TOL,
+    )
+
+
+def test_gated_parameter_gradients_are_deterministic(cuda):
+    x, p = _tail_inputs(cuda, n_rows=200_000)
+    args = (x["acc"], x["weights"], x["mask"], _params(p), x["g"], True, True)
+    a, b = tgm.gated_message_bwd(*args), tgm.gated_message_bwd(*args)
+    for s_, t_ in zip(_flat(a), _flat(b)):
+        assert torch.equal(s_, t_)
+
+
+@pytest.mark.parametrize("op", ["message", "update-w2", "update"])
+def test_gated_autograd_second_order_matches_cpu(cuda, op):
+    """First and second order through the autograd ops (backward kernel,
+    then the plain composition) on the card against the CPU."""
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        x, p = _tail_inputs(torch.device("cpu"), n_rows=4096 + 5)
+        leaves = {k: v.to(dev).requires_grad_(True) for k, v in x.items()}
+        tp = {k: v.to(dev).requires_grad_(True) for k, v in p.items()}
+        if op == "message":
+            out = tgm.fused_gated_message(
+                leaves["acc"], leaves["weights"], leaves["mask"], tp
+            )
+            wrt = [leaves["acc"], leaves["weights"], leaves["mask"]]
+        else:
+            if op == "update":
+                tp = {k: tp[k] for k in tgm.LN_KEYS}
+            out = tgm.fused_gated_update(leaves["acc"], leaves["resnet"], tp)
+            wrt = [leaves["acc"]]
+        wrt += list(tp.values())
+        grads = torch.autograd.grad((out * leaves["g"]).sum(), wrt, create_graph=True)
+        second = sum((gr * gr.detach().sin()).sum() for gr in grads)
+        g2 = torch.autograd.grad(second, wrt)
+        res.append([t.detach().cpu() for t in (out, *grads, *g2)])
+    _assert_scaled(res[0], res[1], TAIL_BWD_TOL)
+
+
+@pytest.mark.parametrize("op", ["message", "update-w2", "update"])
+def test_gated_autograd_serving_matches_cpu(cuda, op):
+    """First order as serving runs it, with no gradient for the mask or the
+    tail's parameters (the backward kernels' serving instantiations), on
+    the card against the CPU."""
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        x, p = _tail_inputs(torch.device("cpu"), n_rows=4096 + 5)
+        x = {k: v.to(dev) for k, v in x.items()}
+        p = {k: v.to(dev) for k, v in p.items()}
+        acc = x["acc"].requires_grad_(True)
+        if op == "message":
+            rows = x["weights"].requires_grad_(True)
+            out = tgm.fused_gated_message(acc, rows, x["mask"], p)
+        else:
+            if op == "update":
+                p = {k: p[k] for k in tgm.LN_KEYS}
+            rows = x["resnet"].requires_grad_(True)
+            out = tgm.fused_gated_update(acc, rows, p)
+        grads = torch.autograd.grad(out, [acc, rows], x["g"])
+        res.append([t.detach().cpu() for t in (out, *grads)])
+    _assert_scaled(res[0], res[1], TAIL_BWD_TOL)
+
+
+def test_gated_wrappers_raise_on_what_kernels_do_not_take(cuda):
+    x, p = _tail_inputs(cuda, n_rows=100)
+    params = _params(p)
+    acc, w, m = x["acc"], x["weights"], x["mask"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        shifted = torch.randn(100 * 128 + 1, device=cuda)[1:].view(100, 128)
+        tgm.gated_message_fwd(shifted, w, m, params)
+    with pytest.raises(ValueError, match="contiguous"):
+        tgm.gated_message_fwd(acc, w.T.contiguous().T, m, params)
+    with pytest.raises(TypeError, match="float32"):
+        tgm.gated_update_fwd(acc.double(), x["resnet"], params)
+    with pytest.raises(ValueError, match="tensors on"):
+        tgm.gated_update_fwd(acc, x["resnet"].cpu(), params)
+    with pytest.raises(ValueError, match="2D <= 128"):
+        wide = torch.randn(100, 256, device=cuda)
+        tgm.gated_update_fwd(wide, torch.randn(100, 128, device=cuda), params)
+    with pytest.raises(ValueError, match="D % 4 == 0"):
+        odd = torch.randn(100, 2 * 62, device=cuda)
+        tgm.gated_update_fwd(odd, torch.randn(100, 62, device=cuda), params)
+    with pytest.raises(ValueError, match="tail parameters"):
+        tgm.gated_message_fwd(acc, w, m, params[3:])

@@ -1,8 +1,10 @@
 """CHGNet in the PyTorch port against chgnet_tpu's compute_batch.
 
 Both packages draw the same weights from one numpy seed, so the port must
-reproduce chgnet_tpu's E/F/S/M with ``fused_kernels=False`` in f32 (the
-port's plain PyTorch path on the CPU, chgnet_tpu's XLA path) within:
+reproduce chgnet_tpu's E/F/S/M in f32, with ``fused_kernels=False`` and
+with the default ``fused_kernels=True`` (the port's plain PyTorch path on
+the CPU, its fused tails by their plain versions; chgnet_tpu's XLA path),
+within:
 
 * e <= 2e-5 eV/atom, f <= 5e-5 eV/A, s <= 2e-4 GPa, m <= 2e-5 mu_B.
 
@@ -49,6 +51,8 @@ SMALL = dict(
     fused_kernels=False,
 )
 FULL = dict(graph_converter_algorithm="numpy", fused_kernels=False)
+SMALL_FUSED = dict(SMALL, fused_kernels=True)
+FULL_FUSED = dict(FULL, fused_kernels=True)
 TOL = {"e": 2e-5, "f": 5e-5, "s": 2e-4, "m": 2e-5}
 LIMNO2 = f"{ROOT}/examples/mp-18767-LiMnO2.cif"
 LICOO = f"{ROOT}/examples/mp-1175469-Li9Co7O16.cif"
@@ -130,8 +134,12 @@ def _graphs(paths_and_perturb, kw):
         (SMALL, [(LIMNO2, None)]),
         (SMALL, [(LIMNO2, 1), (LICOO, 2), (LIMNO2, 3)]),
         (FULL, [(LIMNO2, None)]),
+        (SMALL_FUSED, [(LIMNO2, None)]),
+        (SMALL_FUSED, [(LIMNO2, 1), (LICOO, 2), (LIMNO2, 3)]),
+        (FULL_FUSED, [(LIMNO2, None)]),
     ],
-    ids=["small-1", "small-3", "full-1"],
+    ids=["small-1", "small-3", "full-1", "fused-small-1", "fused-small-3",
+         "fused-full-1"],
 )
 def test_efsm_matches_chgnet_tpu(kw, structs):
     gj, gt = _graphs(structs, kw)
@@ -157,12 +165,13 @@ def test_config_variants_match_chgnet_tpu(variant):
     _check(jout, tout, 1, gt[0].n_atoms)
 
 
-def test_reproduces_seed0_golden_pin():
+@pytest.mark.parametrize("kw", [SMALL, SMALL_FUSED], ids=["plain", "fused"])
+def test_reproduces_seed0_golden_pin(kw):
     """The pin of tests/test_model.py::test_self_golden_regression (its
     chgnet_tpu model runs the default fused_kernels=True, which off the TPU
     computes the same XLA function as fused_kernels=False), at its
-    tolerances."""
-    model = TCHGNet(seed=0, device="cpu", **SMALL)
+    tolerances, with either setting of the port's fused_kernels."""
+    model = TCHGNet(seed=0, device="cpu", **kw)
     out = model.predict_structure(TStructure.from_file(LIMNO2), task="efsm")
     assert float(out["e"]) == pytest.approx(-7.386071681976318, abs=2e-5)
     np.testing.assert_allclose(
@@ -175,12 +184,17 @@ def test_reproduces_seed0_golden_pin():
 
 
 def test_fused_flag_computes_the_same_function_on_cpu():
+    """The fused tails' plain versions take their products and sums in
+    another order than the plain gated MLP: equal at the port's
+    tolerances."""
     s = TStructure.from_file(LIMNO2).perturb(0.05, seed=4)
-    kw = dict(SMALL, fused_kernels=True)
     a = TCHGNet(seed=0, device="cpu", **SMALL).predict_structure(s)
-    b = TCHGNet(seed=0, device="cpu", **kw).predict_structure(s)
+    b = TCHGNet(seed=0, device="cpu", **SMALL_FUSED).predict_structure(s)
     for key in "efsm":
-        np.testing.assert_array_equal(np.asarray(a[key]), np.asarray(b[key]))
+        np.testing.assert_allclose(
+            np.asarray(b[key]), np.asarray(a[key]), atol=TOL[key], rtol=0,
+            err_msg=key,
+        )
 
 
 def test_physics_invariants_on_batch():
