@@ -11,12 +11,18 @@
 // _kernel_nw (:620, update forward) and _bwd_kernel_nw (:734, its
 // backward). One template of each direction serves both tails, and the
 // per-row layer norms, gating and their backward are shared device
-// functions, so the four cannot drift apart.
+// functions, so the four cannot drift apart. A fifth kernel,
+// tail_reduce_kernel, replaces _reduce_kernel (:378, _reduce_pallas :426):
+// the message tail and the sorted segment sum of its rows in one sweep (see
+// the note above it).
 //
-// Bound: every call is bound by bytes. A message row moves 2D + D + 1
-// floats in and D out (the backward 2D + 2D + 1 in, 2D + D out) against
-// 4 D^2 FLOPs of the block-diagonal product (8 D^2 in the backward), so at
-// D = 64 the bytes take about 1.4x the time of the f32 FMAs.
+// Bound: a message row moves 2D + D + 1 floats in and D out (the backward
+// 2D + 2D + 1 in, 2D + D out) against 4 D^2 FLOPs of the block-diagonal
+// product (8 D^2 in the backward) plus the elementwise work of the norms and
+// gates. At D = 64 the forward tails and the update backward are bound by
+// bytes; the message backward, with the elementwise work counted, is bound
+// by operations, as are the message-reduce's calls whose output is short
+// (edges into atoms), which write almost nothing.
 // Design: f32 throughout with FMAs, no TF32. A block stages W2c and W2g
 // (and their transposes in the backward, 16 KB each at D = 64) in dynamic
 // shared memory once, then walks 32-row tiles: it loads the tile's acc
@@ -248,6 +254,23 @@ __device__ __forceinline__ void load_bias(const Tail& t, int d, int lane,
   for (int j = 0; j < 4; ++j) b[j] = col < 2 * d ? t.b2[col + j] : 0.f;
 }
 
+// The gate of one row, silu(LN(y_c)) * sigmoid(LN(y_g)), for the lane's
+// elements (unspecified past D); y_c and y_g are the row's two halves.
+__device__ __forceinline__ void gate_row(const float* y_c, const float* y_g,
+                                         const LaneParams& lp, int d, int lane,
+                                         float gate[kPerLane]) {
+  float yc[kPerLane], yg[kPerLane], zc[kPerLane], zg[kPerLane];
+  float invc, invg;
+  load_lane(y_c, d, lane, yc);
+  load_lane(y_g, d, lane, yg);
+  ln_parts(yc, d, lane, zc, invc);
+  ln_parts(yg, d, lane, zg, invg);
+#pragma unroll
+  for (int i = 0; i < kPerLane; ++i)
+    gate[i] = silu(fmaf(zc[i], lp.ncs[i], lp.ncb[i])) *
+              sigm(fmaf(zg[i], lp.ngs[i], lp.ngb[i]));
+}
+
 // ------------------------------------------------------------- forward
 template <bool kMsg, bool kW2>
 __global__ void __launch_bounds__(kThreads)
@@ -285,26 +308,130 @@ __global__ void __launch_bounds__(kThreads)
       const int r = warp * kRowsPerWarp + rr;
       const long l = row0 + r;
       if (l >= n_rows) break;  // warp-uniform
-      float yc[kPerLane], yg[kPerLane], zc[kPerLane], zg[kPerLane];
-      float invc, invg;
       const float* src_c = kW2 ? half_tile(y_s, 0) + r * d : acc + l * 2 * d;
       const float* src_g = kW2 ? half_tile(y_s, 1) + r * d : acc + l * 2 * d + d;
-      load_lane(src_c, d, lane, yc);
-      load_lane(src_g, d, lane, yg);
-      ln_parts(yc, d, lane, zc, invc);
-      ln_parts(yg, d, lane, zg, invg);
+      float gate[kPerLane];
+      gate_row(src_c, src_g, lp, d, lane, gate);
       const float m = kMsg ? mask[l] : 0.f;
 #pragma unroll
       for (int i = 0; i < kPerLane; ++i) {
         const int e = lane + 32 * i;
         if (e >= d) continue;
-        const float gate = silu(fmaf(zc[i], lp.ncs[i], lp.ncb[i])) *
-                           sigm(fmaf(zg[i], lp.ngs[i], lp.ngb[i]));
-        out[l * d + e] = kMsg ? gate * weights[l * d + e] * m
-                              : gate + resnet[l * d + e];
+        out[l * d + e] = kMsg ? gate[i] * weights[l * d + e] * m
+                              : gate[i] + resnet[l * d + e];
       }
     }
   }
+}
+
+
+// ------------------------------------------------- forward + segment sum
+// out[n] = sum over rows l of segment n of message(acc, weights, mask)[l],
+// the segments given as CSR offsets [n_out + 1] of the stream's sorted keys:
+// rows offsets[n] .. offsets[n + 1] feed output row n, rows past
+// offsets[n_out] (dropped keys) are never read. The mask multiplies inside
+// the sum: a masked row whose key stays in range adds exactly zero.
+//
+// Bound: the forward tail's, less the [L, D] message stream, which never
+// reaches device memory: by bytes where the output is long (angles into
+// edges), by operations where it is short (edges into atoms). The sum phase
+// below keeps d of the block's 256 threads busy behind a fourth barrier per
+// tile: the first suspect for the distance to that bound.
+// Design: no float atomics. The output rows are
+// cut into one contiguous range per block, balanced by
+// cost(n) = kRowCost * offsets[n] + n (input rows weigh kRowCost output
+// rows, so the empty segments of the padding are shared out too); a block
+// finds its range by two binary searches and owns the contiguous input rows
+// offsets[n0] .. offsets[n1] that feed it. It walks them in 32-row tiles
+// with the forward tail's phases, leaves the tile's messages in shared
+// memory (over h_s, which the product has consumed) and lets one thread per
+// column add them in row order into the open segment, writing each output
+// row once when its segment closes. Two runs give equal bits. The add order
+// differs from segment_sum_csr's lane-group tree, so the two agree only to
+// rounding.
+constexpr int kRowCost = 8;
+
+// first n in [0, n_out] with kRowCost * offsets[n] + n >= x (n_out if none)
+__device__ __forceinline__ int cost_lower_bound(const int* __restrict__ offsets,
+                                                int n_out, long x) {
+  int lo = 0, hi = n_out;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if ((long)kRowCost * offsets[mid] + mid >= x) hi = mid; else lo = mid + 1;
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    tail_reduce_kernel(Tail t, const float* __restrict__ acc,
+                       const float* __restrict__ weights,
+                       const float* __restrict__ mask,
+                       const int* __restrict__ offsets, float* __restrict__ out,
+                       int n_out, int d) {
+  extern __shared__ float4 smem4[];
+  float* w_s = reinterpret_cast<float*>(smem4);  // [2][D][D]
+  float* h_s = w_s + kWeights;                   // 2 half tiles, then messages
+  float* y_s = h_s + 2 * kHalf;                  // 2 half tiles
+  const long total = (long)kRowCost * offsets[n_out] + n_out;
+  const long chunk = (total + gridDim.x - 1) / gridDim.x;
+  const int n0 = cost_lower_bound(offsets, n_out, chunk * blockIdx.x);
+  const int n1 = blockIdx.x + 1 == gridDim.x
+                     ? n_out
+                     : cost_lower_bound(offsets, n_out, chunk * (blockIdx.x + 1));
+  if (n0 >= n1) return;  // block-uniform
+  const int row_end = offsets[n1];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  LaneParams lp;
+  lp.load(t, d, lane);
+  float b[4];
+  load_bias(t, d, lane, b);
+  stage_weights(w_s, t, d, false);
+  // the open segment of this thread's column (threads < d)
+  int n = n0;
+  int seg_end = offsets[n0 + 1];
+  float sum = 0.f;
+  for (int row0 = offsets[n0]; row0 < row_end; row0 += kTile) {
+    __syncthreads();  // weights staged, the previous tile's messages summed
+    load_silu(acc, h_s, row0, row_end, d);
+    __syncthreads();
+    float y[kRowsPerWarp][4];
+    tile_product(h_s, w_s, d, warp, lane, y);
+    store_y(y_s, y, b, d, warp, lane);
+    __syncthreads();  // y_s written, h_s consumed
+    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+      const int r = warp * kRowsPerWarp + rr;
+      const long l = (long)row0 + r;
+      if (l >= row_end) break;  // warp-uniform
+      float gate[kPerLane];
+      gate_row(half_tile(y_s, 0) + r * d, half_tile(y_s, 1) + r * d, lp, d, lane,
+               gate);
+      const float m = mask[l];
+#pragma unroll
+      for (int i = 0; i < kPerLane; ++i) {
+        const int e = lane + 32 * i;
+        if (e < d) h_s[r * d + e] = gate[i] * weights[l * d + e] * m;
+      }
+    }
+    __syncthreads();  // the tile's messages in h_s
+    if (threadIdx.x < d) {
+      const int rows = row_end - row0 < kTile ? row_end - row0 : kTile;
+      for (int r = 0; r < rows; ++r) {
+        while (row0 + r >= seg_end) {  // close segments, empty ones too
+          out[(long)n * d + threadIdx.x] = sum;
+          sum = 0.f;
+          ++n;
+          seg_end = offsets[n + 1];
+        }
+        sum += h_s[r * d + threadIdx.x];
+      }
+    }
+  }
+  if (threadIdx.x < d)
+    for (; n < n1; ++n) {
+      out[(long)n * d + threadIdx.x] = sum;
+      sum = 0.f;
+    }
 }
 
 
@@ -508,6 +635,8 @@ using FwdFn = void (*)(Tail, const float*, const float*, const float*,
                        const float*, float*, int, int);
 using BwdFn = void (*)(Tail, const float*, const float*, const float*,
                        const float*, float*, float*, float*, float*, int, int);
+using ReduceFn = void (*)(Tail, const float*, const float*, const float*,
+                          const int*, float*, int, int);
 
 size_t fwd_smem(bool w2) { return w2 ? (kWeights + 4 * kHalf) * sizeof(float) : 0; }
 
@@ -648,6 +777,30 @@ extern "C" int gated_bwd_f32(int msg, const void* const* tail, const float* acc,
     const int n_part = (w2 ? 2 * d * d + 2 * d : 0) + 4 * d;
     sum_blocks_kernel<<<(n_part + 255) / 256, 256, 0, stream>>>(
         partial, n_blocks, n_part, d_params);
+  }
+  return (int)cudaGetLastError();
+}
+
+// out [n_out, d] = the message tail's rows summed per segment of the sorted
+// stream: offsets [n_out + 1] int32, offsets[n_out] <= n_rows valid rows
+// first. One block per kRowCost * n_rows + n_out cost units of a 32-row
+// tile, at most one wave.
+extern "C" int gated_reduce_f32(const void* const* tail, const float* acc,
+                                const float* weights, const float* mask,
+                                const int* offsets, float* out, int n_rows,
+                                int n_out, int d, void* cuda_stream) {
+  const Tail t = make_tail(tail);
+  if (bad_shape(true, t.w2c != nullptr, d)) return (int)cudaErrorInvalidValue;
+  if (n_out > 0) {
+    static std::atomic<int> waves[kMaxDevices];
+    const Kernel<ReduceFn> k{tail_reduce_kernel, fwd_smem(true), waves};
+    const int wave = wave_blocks(k);
+    if (wave < 0) return -wave;
+    const long cost = (long)kRowCost * n_rows + n_out;
+    const long want = (cost + kRowCost * kTile - 1) / (kRowCost * kTile);
+    const int grid = want < wave ? (int)want : wave;
+    k.fn<<<grid, kThreads, k.smem, static_cast<cudaStream_t>(cuda_stream)>>>(
+        t, acc, weights, mask, offsets, out, n_out, d);
   }
   return (int)cudaGetLastError();
 }

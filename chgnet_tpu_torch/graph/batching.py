@@ -112,12 +112,16 @@ class GraphBatch(NamedTuple):
     angle_scatter: np.ndarray  # i32 [A] undirected bond i or U (drop)
     angle_scatter_dir: np.ndarray  # i32 [A] directed bond i or E (drop)
     angle_mask: np.ndarray  # f32 [A]
-    # segment plans of the streams the directed main path gathers/reduces
+    # segment plans of the streams the model gathers/reduces
     plan_center: SegmentPlan  # atom_graph[:, 0] -> atoms (sorted)
     plan_nbr: SegmentPlan  # atom_graph[:, 1] -> atoms
     plan_ang_vi: SegmentPlan  # bond_graph[:, 2] -> edges (sorted)
     plan_ang_vj: SegmentPlan  # bond_graph[:, 4] -> edges
     plan_graph: SegmentPlan  # atom_owner -> graphs (sorted; readout sums)
+    # the undirected bond layout's maps between the [E] and [U] streams
+    plan_d2u: SegmentPlan  # directed2undirected -> bonds
+    plan_u2d: SegmentPlan  # undirected2directed -> edges (sorted)
+    plan_u2d2: SegmentPlan  # und_second -> edges
 
     def to(self, device: str | torch.device) -> GraphBatch:
         """This batch as tensors on ``device`` (indices stay int32)."""
@@ -291,6 +295,7 @@ def batch_graphs(
 
     e_valid = edge_mask > 0
     a_valid = angle_mask > 0
+    u_valid = und_mask > 0
     return GraphBatch(
         atomic_numbers=atomic_numbers,
         frac_coords=frac_coords,
@@ -322,4 +327,11 @@ def batch_graphs(
         plan_graph=make_plan(
             atom_owner, atom_mask > 0, n_graphs, assume_sorted=True
         ),
+        plan_d2u=make_plan(directed2undirected, e_valid, cap_u),
+        # undirected ids are assigned by first appearance along the
+        # center-sorted edges, so each bond's first edge is sorted
+        plan_u2d=make_plan(
+            undirected2directed, u_valid, cap_e, assume_sorted=True
+        ),
+        plan_u2d2=make_plan(und_second, u_valid, cap_e),
     )

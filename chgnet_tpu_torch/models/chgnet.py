@@ -1,6 +1,7 @@
 """CHGNet on PyTorch: energy, forces, stress and magnetic moments.
 
-Port of ``chgnet_tpu.models.chgnet`` for the directed main path:
+Port of ``chgnet_tpu.models.chgnet``, in both bond layouts
+(``CHGNetConfig.directed_bonds``):
 
 * ``CHGNetConfig`` has the same fields and defaults, and ``init_params``
   draws the same numpy values in the same order, so one seed gives the same
@@ -49,6 +50,7 @@ from chgnet_tpu_torch.models.functions import (
     norm_init,
 )
 from chgnet_tpu_torch.models.layers import (
+    UndirectedMaps,
     angle_update_apply_directed,
     angle_update_init,
     atom_conv_apply,
@@ -66,9 +68,13 @@ class CHGNetConfig:
     """Model hyperparameters: the fields and defaults of
     ``chgnet_tpu.models.chgnet.CHGNetConfig``.
 
-    The port runs the directed f32 layout; :meth:`check_supported` names
-    the fields whose other values it does not run yet. ``sorted_grads`` has
-    no effect: every backward here is a CSR segment sum.
+    The port runs f32 in both bond layouts: ``directed_bonds=True`` (the
+    default) keeps bond features and weights on the directed edge stream
+    [E, d], ``directed_bonds=False`` on the undirected bonds [U, d], as
+    upstream CHGNet does; one parameter tree serves both.
+    :meth:`check_supported` names the fields whose other values the port
+    does not run yet. ``sorted_grads`` has no effect: every backward here is
+    a CSR segment sum.
     """
 
     atom_fea_dim: int = 64
@@ -130,7 +136,6 @@ class CHGNetConfig:
             "compute_dtype": self.compute_dtype != "float32",
             "remat": bool(self.remat),
             "dense_atom_conv": self.dense_atom_conv,
-            "directed_bonds": not self.directed_bonds,
             "read_out": not self.mlp_first and self.read_out in {"attn", "weighted"},
             "matmul_precision": self.matmul_precision != "highest",
         }
@@ -270,12 +275,23 @@ def _energy_core(
     unit = vec / dist[:, None]
     geom = torch.cat([unit, dist[:, None]], dim=1)  # [E, 4]
 
+    # the bond bases and embeddings live on the directed edges [E], each
+    # reverse edge with its own (twin-equal to rounding) length, or, in the
+    # undirected layout, on the bonds [U] by their first edge's length
+    und = None
+    bond_dist = dist
+    if not cfg.directed_bonds:
+        und = UndirectedMaps(
+            batch.directed2undirected, batch.plan_d2u,
+            batch.undirected2directed, batch.und_second,
+        )
+        bond_dist = plan_gather(geom, und.u2d, batch.plan_u2d)[:, 3]
     rbf_ag = basis.radial_bessel(
-        dist, params["bond_basis"]["freq_ag"], cfg.atom_graph_cutoff,
+        bond_dist, params["bond_basis"]["freq_ag"], cfg.atom_graph_cutoff,
         cfg.cutoff_coeff,
     )
     rbf_bg = basis.radial_bessel(
-        dist, params["bond_basis"]["freq_bg"], cfg.bond_graph_cutoff,
+        bond_dist, params["bond_basis"]["freq_bg"], cfg.bond_graph_cutoff,
         cfg.cutoff_coeff,
     )
     gi = plan_gather(geom, dir_i, p_i)
@@ -289,12 +305,17 @@ def _energy_core(
     bond_weights_ag = linear_apply(params["bond_weights_ag"], rbf_ag)
     bond_weights_bg = linear_apply(params["bond_weights_bg"], rbf_bg)
     angle_feas = linear_apply(params["angle_embedding"], angle_bases)
-    # the per-angle bond-weight product never changes across layers
+    # the bond weights on the edge stream and their per-angle product never
+    # change across layers: expanded once here
+    weights_e = bond_weights_ag
+    if und is not None:
+        weights_e = plan_gather(bond_weights_ag, und.d2u, und.plan_d2u)
     weights_a = None
     if cfg.update_bond:
-        weights_a = plan_gather(bond_weights_bg, dir_i, p_i) * plan_gather(
-            bond_weights_bg, dir_j, p_j
-        )
+        w_dir = bond_weights_bg
+        if und is not None:
+            w_dir = plan_gather(bond_weights_bg, und.d2u, und.plan_d2u)
+        weights_a = plan_gather(w_dir, dir_i, p_i) * plan_gather(w_dir, dir_j, p_j)
 
     z_index = (batch.atomic_numbers.long() - 1).clamp(0, cfg.max_num_elements - 1)
     atom_feas = params["atom_embedding"]["weight"][z_index]
@@ -306,8 +327,8 @@ def _energy_core(
 
     def atom_step(atom_p, atom_feas, bond_feas):
         return atom_conv_apply(
-            atom_p, atom_feas, bond_feas, bond_weights_ag, center, nbr,
-            edge_mask, p_center, p_nbr, activation=act, fused=fused,
+            atom_p, atom_feas, bond_feas, weights_e, center, nbr,
+            edge_mask, p_center, p_nbr, activation=act, fused=fused, und=und,
         )
 
     atom_feas_mid = atom_feas
@@ -323,14 +344,14 @@ def _energy_core(
             bond_feas = bond_conv_apply_directed(
                 params["bond_convs"][idx], atom_e, bond_feas, weights_a,
                 angle_feas, dir_i, dir_j, batch.twin, angle_mask, p_i, p_j,
-                activation=act, fused=fused,
+                activation=act, fused=fused, und=und,
             )
         # the last block's angle update feeds nothing (the final AtomConv
         # reads atoms and bonds only), so it is skipped
         if cfg.update_angle and idx < cfg.n_conv - 2:
             angle_feas = angle_update_apply_directed(
                 params["angle_updates"][idx], atom_e, bond_feas, angle_feas,
-                dir_i, dir_j, p_i, p_j, activation=act, fused=fused,
+                dir_i, dir_j, p_i, p_j, activation=act, fused=fused, und=und,
             )
         if idx == cfg.n_conv - 2:
             atom_feas_mid = atom_feas

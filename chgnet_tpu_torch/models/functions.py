@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from chgnet_tpu_torch.ops.gproj import gather_project_sum
+from chgnet_tpu_torch.ops.multi_gather import gather_sum
 
 Params = dict
 
@@ -160,6 +161,40 @@ def gated_mlp_init(
     return params
 
 
+def project_parts(
+    layers_c: Sequence[Params],
+    layers_g: Sequence[Params],
+    parts: Sequence[tuple],
+) -> tuple[list[tuple], torch.Tensor | None]:
+    """Every part's table through its rows of the joint first Linear (core |
+    gate packed side by side), before any gather, and the joint bias or None
+    (``chgnet_tpu.models.functions.project_parts``)."""
+    first_w = torch.cat([layers_c[0]["w"], layers_g[0]["w"]], dim=1)
+    projected: list[tuple] = []
+    offset = 0
+    for table, idx, plan in parts:
+        w = first_w[offset: offset + table.shape[1]]
+        offset += table.shape[1]
+        projected.append((table @ w, idx, plan))
+    b1 = None
+    if "b" in layers_c[0]:
+        b1 = torch.cat([layers_c[0]["b"], layers_g[0]["b"]])
+    return projected, b1
+
+
+def fold_bias_into_stream(parts: Sequence[tuple], b1):
+    """Add the joint first-layer bias to the first aligned part's table:
+    ``(parts, the bias if no aligned part took it)``
+    (``chgnet_tpu.models.functions.fold_bias_into_stream``)."""
+    if b1 is not None:
+        for k, (table, idx, plan) in enumerate(parts):
+            if idx is None:
+                out = list(parts)
+                out[k] = (table + b1, idx, plan)
+                return out, None
+    return list(parts), b1
+
+
 def first_layer_acc(
     layers_c: Sequence[Params],
     layers_g: Sequence[Params],
@@ -170,12 +205,30 @@ def first_layer_acc(
 
     ``parts``: ``(table, idx, plan)`` per block in the first Linear's input
     order; ``idx=None`` marks a block already on the stream axis [L, d].
-    Aligned blocks are projected with ``torch.matmul`` and, with the bias,
-    form the stream; the gathered blocks go through the gather-project-sum
-    kernel (``ops/gproj.py``)."""
+
+    Two routes, chosen by the parts' shapes (the structural half of
+    ``chgnet_tpu.ops.gproj.gproj_eligible``):
+
+    * at least two gathered blocks whose tables share one shape (the
+      directed layout's layers, and the angle side of both layouts): the
+      aligned blocks are projected with ``torch.matmul`` and, with the
+      bias, form the stream; the gathered blocks go through the
+      gather-project-sum kernel (``ops/gproj.py``);
+    * otherwise (the undirected AtomConv: atom and bond tables of different
+      lengths): every table is projected first (:func:`project_parts`) and
+      the projected rows are summed by the multi-gather kernel
+      (``ops/multi_gather.py``), as ``chgnet_tpu`` does
+      (``models/functions.py:407-412``)."""
+    gathered = [table for table, idx, _ in parts if idx is not None]
+    if len(gathered) < 2 or len({t.shape for t in gathered}) != 1:
+        projected, b1 = fold_bias_into_stream(
+            *project_parts(layers_c, layers_g, parts)
+        )
+        acc = gather_sum(projected)
+        return acc if b1 is None else acc + b1
     first_w = torch.cat([layers_c[0]["w"], layers_g[0]["w"]], dim=1)
     stream = None
-    gathered = []
+    pairs = []
     offset = 0
     for table, idx, plan in parts:
         w = first_w[offset: offset + table.shape[1]]
@@ -184,15 +237,13 @@ def first_layer_acc(
             proj = table @ w
             stream = proj if stream is None else stream + proj
         else:
-            gathered.append((table, idx, plan, w))
+            pairs.append((table, idx, plan, w))
     if "b" in layers_c[0]:
         b1 = torch.cat([layers_c[0]["b"], layers_g[0]["b"]])
         stream = b1 + stream if stream is not None else b1.expand(
-            gathered[0][1].shape[0], -1
+            pairs[0][1].shape[0], -1
         )
-    if not gathered:
-        return stream
-    return gather_project_sum(gathered, stream)
+    return gather_project_sum(pairs, stream)
 
 
 def gated_mlp_fusable(params: Params, activation: str = "silu") -> bool:

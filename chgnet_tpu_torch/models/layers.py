@@ -1,21 +1,35 @@
 """Message-passing layers over the directed edge and angle streams.
 
-Port of the directed forms of ``chgnet_tpu.models.layers``:
-:func:`atom_conv_apply` (``layers.py:164``), :func:`bond_conv_apply_directed`
-(``:424``) and :func:`angle_update_apply_directed` (``:576``). Bond features
-and weights live on the directed edge stream ([E, d], twin-duplicated);
-angle rows are sorted by their directed bond i. Every first-layer sum goes
-through the gather-project-sum kernel, and the AtomConv edge -> atom and
-the BondConv angle -> edge reductions through the CSR segment sum. With
-``fused`` (``CHGNetConfig.fused_kernels``, the default) the gated-MLP tails
-of a fusable config run through the fused tail kernels
-(``ops/gated_message.py``), as in ``chgnet_tpu``; otherwise they run as
-plain PyTorch.
+Port of ``chgnet_tpu.models.layers``: :func:`atom_conv_apply`
+(``layers.py:164``), :func:`bond_conv_apply_directed` (``:424``) and
+:func:`angle_update_apply_directed` (``:576``), in both bond layouts. Angle
+rows are sorted by their directed bond i in both.
+
+* Directed (``CHGNetConfig.directed_bonds``, the default): bond features
+  and weights live on the directed edge stream ([E, d], twin-duplicated).
+  Every first-layer sum goes through the gather-project-sum kernel, and a
+  bond's total is ``partial + partial[twin]``.
+* Undirected (``und`` given, upstream CHGNet's layout): they live on the
+  undirected bonds ([U, d]). AtomConv gathers its bond part by ``d2u``, so
+  its first-layer sum projects each table and goes through the multi-gather
+  kernel; the angle-side layers expand ``bond_dir = bond_feas[d2u]`` once
+  and then run as in the directed layout; a bond's total is
+  :func:`~chgnet_tpu_torch.ops.multi_gather.twin_reduce` of its two
+  directed partial sums.
+
+The AtomConv edge -> atom and the BondConv angle -> edge reductions go
+through the CSR segment sum. With ``fused`` (``CHGNetConfig.fused_kernels``,
+the default) the gated-MLP tails of a fusable config run through the fused
+tail kernels (``ops/gated_message.py``), as in ``chgnet_tpu``, the message
+tail together with its reduction when
+:func:`~chgnet_tpu_torch.ops.gated_message.msg_reduce_ok` says so;
+otherwise they run as plain PyTorch.
 """
 
 from __future__ import annotations
 
 from collections.abc import Sequence
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -34,24 +48,40 @@ from chgnet_tpu_torch.models.functions import (
     mlp_init,
     norm_init,
 )
-from chgnet_tpu_torch.ops.gated_message import fused_gated_message, fused_gated_update
-from chgnet_tpu_torch.ops.segment import plan_segment_sum
+from chgnet_tpu_torch.ops.gated_message import (
+    fused_gated_message,
+    fused_gated_message_reduce,
+    fused_gated_update,
+    msg_reduce_ok,
+)
+from chgnet_tpu_torch.ops.multi_gather import twin_reduce
+from chgnet_tpu_torch.ops.segment import plan_gather, plan_segment_sum
+
+
+class UndirectedMaps(NamedTuple):
+    """The maps between the directed edge stream [E] and the undirected
+    bonds [U] that the undirected bond layout gathers by."""
+
+    d2u: torch.Tensor  # [E] i32 bond of every directed edge
+    plan_d2u: SegmentPlan
+    u2d: torch.Tensor  # [U] i32 first directed edge of every bond
+    und_second: torch.Tensor  # [U] i32 its second directed edge
 
 
 def _layer_acc(gmlp: Params, parts) -> torch.Tensor:
     return first_layer_acc(gmlp["core"]["layers"], gmlp["gate"]["layers"], parts)
 
 
-def _fused_layer(gmlp: Params, parts, *, weights=None, mask=None, resnet=None):
-    """A conv layer's gated MLP through the fused tail kernels
-    (``chgnet_tpu.models.layers._fused_layer`` without its opt-in
-    mono-kernel): the message tail ``* weights * mask`` with ``weights``,
-    else the update tail ``+ resnet``."""
+def _fused_message_sum(gmlp: Params, parts, weights, mask, plan: SegmentPlan):
+    """A message layer through the fused kernels: the gated MLP's message
+    tail ``* weights * mask`` summed over ``plan``, in one sweep when
+    ``msg_reduce_ok`` (``chgnet_tpu.models.layers`` :224-233, :525-536),
+    else the tail kernel and then the segment sum."""
     acc = _layer_acc(gmlp, parts)
     p2 = gated_mlp_fused_pack(gmlp)
-    if weights is not None:
-        return fused_gated_message(acc, weights, mask, p2)
-    return fused_gated_update(acc, resnet, p2)
+    if msg_reduce_ok(plan):
+        return fused_gated_message_reduce(acc, weights, mask, p2, plan)
+    return plan_segment_sum(fused_gated_message(acc, weights, mask, p2), plan)
 
 
 def _finish(params: Params, new: torch.Tensor, old: torch.Tensor, resnet: bool):
@@ -115,8 +145,8 @@ def atom_conv_init(
 def atom_conv_apply(
     params: Params,
     atom_feas: torch.Tensor,  # [N, d_atom]
-    bond_feas: torch.Tensor,  # [E, d_bond] directed
-    weights_e: torch.Tensor,  # [E, d_atom] directed bond weights
+    bond_feas: torch.Tensor,  # [E, d_bond] directed, or [U, d_bond] with und
+    weights_e: torch.Tensor,  # [E, d_atom] bond weights on the edge stream
     center: torch.Tensor,  # [E] i32 center atom per edge
     nbr: torch.Tensor,  # [E] i32 neighbor atom per edge
     edge_mask: torch.Tensor,  # [E]
@@ -126,23 +156,31 @@ def atom_conv_apply(
     activation: str = "silu",
     resnet: bool = True,
     fused: bool = False,
+    und: UndirectedMaps | None = None,
 ) -> torch.Tensor:
     """Gated-MLP messages over directed edges, scaled by the bond weights,
-    summed into their center atoms."""
+    summed into their center atoms. With ``und`` the bond features are
+    gathered from the undirected bonds by ``d2u``."""
+    bond_part = (
+        (bond_feas, None, None) if und is None
+        else (bond_feas, und.d2u, und.plan_d2u)
+    )
     parts = [
         (atom_feas, center, plan_center),
-        (bond_feas, None, None),
+        bond_part,
         (atom_feas, nbr, plan_nbr),
     ]
     gmlp = params["gated_mlp"]
     if fused and gated_mlp_fusable(gmlp, activation):
-        messages = _fused_layer(gmlp, parts, weights=weights_e, mask=edge_mask)
+        new_atom_feas = _fused_message_sum(
+            gmlp, parts, weights_e, edge_mask, plan_center
+        )
     else:
         messages = gated_mlp_tail(
             gmlp, _layer_acc(gmlp, parts), activation=activation
         )
         messages = messages * weights_e * edge_mask[:, None]
-    new_atom_feas = plan_segment_sum(messages, plan_center)
+        new_atom_feas = plan_segment_sum(messages, plan_center)
     return _finish(params, new_atom_feas, atom_feas, resnet)
 
 
@@ -177,14 +215,22 @@ def bond_conv_init(
     return params
 
 
-def _angle_parts(bond_feas, angle_feas, atom_e, dir_i, dir_j, plan_i, plan_j):
+def _bond_dir(bond_feas, und: UndirectedMaps | None):
+    """Bond features on the directed edge stream [E, d]: as they are, or
+    the undirected table expanded by ``d2u``, once per layer."""
+    if und is None:
+        return bond_feas
+    return plan_gather(bond_feas, und.d2u, und.plan_d2u)
+
+
+def _angle_parts(bond_dir, angle_feas, atom_e, dir_i, dir_j, plan_i, plan_j):
     """First-layer blocks of the angle-side layers, in the upstream input
     order [bond_i, bond_j, angle, center atom]. The center atom of an angle
     row is its dir_i edge's center, so the atoms ride the edge stream
     (``atom_e``) and share dir_i's gather and backward segment sum."""
     return [
-        (bond_feas, dir_i, plan_i),
-        (bond_feas, dir_j, plan_j),
+        (bond_dir, dir_i, plan_i),
+        (bond_dir, dir_j, plan_j),
         (angle_feas, None, None),
         (atom_e, dir_i, plan_i),
     ]
@@ -193,7 +239,7 @@ def _angle_parts(bond_feas, angle_feas, atom_e, dir_i, dir_j, plan_i, plan_j):
 def bond_conv_apply_directed(
     params: Params,
     atom_e: torch.Tensor,  # [E, d_atom] atom features on the edge stream
-    bond_feas: torch.Tensor,  # [E, d_bond] directed
+    bond_feas: torch.Tensor,  # [E, d_bond] directed, or [U, d_bond] with und
     weights_a: torch.Tensor,  # [A, d_bond] w[dir_i] * w[dir_j]
     angle_feas: torch.Tensor,  # [A, d_angle]
     dir_i: torch.Tensor,  # [A] i32, rows sorted by it
@@ -206,23 +252,32 @@ def bond_conv_apply_directed(
     activation: str = "silu",
     resnet: bool = True,
     fused: bool = False,
+    und: UndirectedMaps | None = None,
 ) -> torch.Tensor:
-    """BondConv on the directed layout: per-angle updates summed into their
-    dir_i edge, then each bond's total as ``partial + partial[twin]`` on
-    both of its directed rows."""
+    """BondConv over the dir_i-sorted angle stream: per-angle updates summed
+    into their dir_i edge, then each bond's total: ``partial +
+    partial[twin]`` on both of its directed rows or, with ``und``, the
+    ``twin_reduce`` of its two directed partial sums on its undirected
+    row."""
     parts = _angle_parts(
-        bond_feas, angle_feas, atom_e, dir_i, dir_j, plan_i, plan_j
+        _bond_dir(bond_feas, und), angle_feas, atom_e, dir_i, dir_j, plan_i,
+        plan_j,
     )
     gmlp = params["gated_mlp"]
     if fused and gated_mlp_fusable(gmlp, activation):
-        update = _fused_layer(gmlp, parts, weights=weights_a, mask=angle_mask)
+        partial = _fused_message_sum(gmlp, parts, weights_a, angle_mask, plan_i)
     else:
         update = gated_mlp_tail(
             gmlp, _layer_acc(gmlp, parts), activation=activation
         )
         update = update * weights_a * angle_mask[:, None]
-    partial = plan_segment_sum(update, plan_i)  # [A] -> [E]
-    new_bond_feas = partial + involution_gather(partial, twin)
+        partial = plan_segment_sum(update, plan_i)  # [A] -> [E]
+    if und is None:
+        new_bond_feas = partial + involution_gather(partial, twin)
+    else:
+        new_bond_feas = twin_reduce(
+            partial, und.u2d, und.und_second, und.d2u, und.plan_d2u
+        )
     return _finish(params, new_bond_feas, bond_feas, resnet)
 
 
@@ -265,10 +320,13 @@ def angle_update_apply_directed(
     activation: str = "silu",
     resnet: bool = True,
     fused: bool = False,
+    und: UndirectedMaps | None = None,
 ) -> torch.Tensor:
-    """Per-angle gated-MLP update on the directed layout (no reduction)."""
+    """Per-angle gated-MLP update over the dir_i-sorted angle stream (no
+    reduction); ``bond_feas`` [E, d] directed, or [U, d] with ``und``."""
     parts = _angle_parts(
-        bond_feas, angle_feas, atom_e, dir_i, dir_j, plan_i, plan_j
+        _bond_dir(bond_feas, und), angle_feas, atom_e, dir_i, dir_j, plan_i,
+        plan_j,
     )
     gmlp = params["gated_mlp"]
     if (
@@ -277,6 +335,8 @@ def angle_update_apply_directed(
         and "norm" not in params
         and gated_mlp_update_fusable(gmlp, activation)
     ):
-        return _fused_layer(gmlp, parts, resnet=angle_feas)
+        return fused_gated_update(
+            _layer_acc(gmlp, parts), angle_feas, gated_mlp_fused_pack(gmlp)
+        )
     new = gated_mlp_tail(gmlp, _layer_acc(gmlp, parts), activation=activation)
     return _finish(params, new, angle_feas, resnet)

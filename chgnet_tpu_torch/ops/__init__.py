@@ -4,22 +4,29 @@
   with the autograd pair ``plan_gather`` / ``plan_segment_sum``;
 * ``gproj``: ``gather_project_sum``, the first-layer sum of every conv layer;
 * ``gated_message``: the fused gated-MLP tails (message and update, forward
-  and backward) behind ``fused_gated_message`` / ``fused_gated_update``;
+  and backward) behind ``fused_gated_message`` / ``fused_gated_update``, and
+  the message tail fused with its sorted segment sum behind
+  ``fused_gated_message_reduce``;
+* ``multi_gather``: ``gather_sum_rows``, the sum of several gathered tables,
+  behind ``gather_sum`` / ``twin_reduce`` (the undirected bond layout);
 * ``build``: nvcc -> shared library -> ctypes, at first use.
 """
 
 from chgnet_tpu_torch.ops.gated_message import (
     gated_message_bwd,
     gated_message_fwd,
+    gated_message_reduce,
     gated_update_bwd,
     gated_update_fwd,
 )
 from chgnet_tpu_torch.ops.gproj import gather_project_sum_kernel
+from chgnet_tpu_torch.ops.multi_gather import gather_sum_rows
 from chgnet_tpu_torch.ops.segment import gather_rows, segment_sum_csr, segment_sum_pair
 
 KERNELS = (
     segment_sum_csr, gather_rows, segment_sum_pair, gather_project_sum_kernel,
     gated_message_fwd, gated_message_bwd, gated_update_fwd, gated_update_bwd,
+    gather_sum_rows, gated_message_reduce,
 )
 
 
@@ -33,10 +40,12 @@ __all__ = [
     "KERNELS",
     "gated_message_bwd",
     "gated_message_fwd",
+    "gated_message_reduce",
     "gated_update_bwd",
     "gated_update_fwd",
     "gather_project_sum_kernel",
     "gather_rows",
+    "gather_sum_rows",
     "reset_launch_counts",
     "segment_sum_csr",
     "segment_sum_pair",

@@ -10,7 +10,7 @@ at first use; :func:`build` compiles several sources in parallel, one
 spills) is kept beside each library as ``<lib>.log``.
 
 The kernel wrappers (``ops/segment.py``, ``ops/gproj.py``,
-``ops/gated_message.py``) share the launch
+``ops/gated_message.py``, ``ops/multi_gather.py``) share the launch
 plumbing below: :func:`on_cuda` picks the kernel or the plain version by the
 tensor's device, :func:`check_tensors` raises on what a kernel does not take,
 :func:`ptr` and :func:`stream` give the C entry points their arguments, and
@@ -32,7 +32,9 @@ from chgnet_tpu_torch import ROOT
 
 CSRC = os.path.join(ROOT, "chgnet_tpu_torch", "csrc")
 BUILD_DIR = os.path.join(ROOT, "build", "chgnet_tpu_torch")
-SOURCES = ("segment_sum", "gather_rows", "gproj", "gated_message")
+SOURCES = (
+    "segment_sum", "gather_rows", "gproj", "gated_message", "multi_gather",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -18,6 +18,15 @@ PyTorch version, replace the four Pallas functions of
 * :func:`gated_update_bwd` replaces ``_bwd_kernel_nw`` (:734,
   ``_backward_nw`` :777; math ``_bwd_math_nw`` :690).
 
+A fifth, :func:`gated_message_reduce`, replaces ``_reduce_kernel`` (:378,
+``_reduce_pallas`` :426): the message tail and the sorted segment sum of its
+rows in one sweep, so that the ``[L, D]`` message stream never reaches
+device memory. The mask multiplies inside the sum: a masked row whose key
+stays in range adds exactly zero (the simulation loops' dynamic-cutoff
+masks zero such rows). It runs where ``chgnet_tpu`` runs it, when the
+environment variable ``CHGNET_TPU_MSG_REDUCE`` is set
+(:func:`msg_reduce_ok`).
+
 A tail's parameters travel as a tuple, ``(w2c, w2g, b2, nc_scale, nc_bias,
 ng_scale, ng_bias)`` or, without a second layer, the last four
 (:func:`tail_params`). The backward wrappers compute ``d_mask`` and the
@@ -27,17 +36,23 @@ The autograd functions mirror ``chgnet_tpu``'s ``custom_vjp``: a tail's
 backward is the backward-kernel op, and that op's own backward (second
 order, for force training) differentiates the plain composition, as
 ``_fused_grads_bwd`` (:346) and ``_fused_nw_grads_bwd`` (:882) do. The
-update's ``d_resnet`` is the cotangent itself (:864-868).
+update's ``d_resnet`` is the cotangent itself (:864-868). The reduce op's
+backward (``_msg_reduce_bwd`` :509) gathers the cotangent back to the rows
+by the plan's keys, dropped rows zero, and hands it to the message tail's
+backward-kernel op.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 import torch.nn.functional as F
 
+from chgnet_tpu_torch.graph.batching import SegmentPlan
 from chgnet_tpu_torch.ops import build
+from chgnet_tpu_torch.ops.segment import plan_gather, segment_sum_plain
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +62,7 @@ _SIGNATURES = {
         _I, ctypes.POINTER(_P), _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
         _I, _P,
     ],
+    "gated_reduce_f32": [ctypes.POINTER(_P), _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 TILE = 32  # rows per tile of the kernels
 # blocks of the backward with parameter gradients (kParamBlocks), at most
@@ -138,6 +154,13 @@ def gated_message_plain(acc, weights, mask, params):
     w2c, w2g, b2, *ln = params
     y, _ = _project(acc, w2c, w2g, b2)
     return _gate(y, *ln) * weights * mask[:, None]
+
+
+def gated_message_reduce_plain(acc, weights, mask, params, offsets):
+    """Plain version of :func:`gated_message_reduce` (``_reduce_reference``
+    :483): the message tail, then the segment sum of its sorted rows."""
+    msg = gated_message_plain(acc, weights, mask, params)
+    return segment_sum_plain(msg, offsets, offsets.new_zeros(0))
 
 
 def gated_message_bwd_plain(acc, weights, mask, params, g, need_mask, need_params):
@@ -279,6 +302,32 @@ def gated_message_fwd(acc, weights, mask, params):
 gated_message_fwd.launches = 0
 
 
+def gated_message_reduce(acc, weights, mask, params, offsets):
+    """Segment sums ``[n_out, D]`` of the message tail's rows (see
+    :func:`gated_message_fwd`) over CSR ``offsets [n_out + 1]`` of the
+    stream's sorted keys: rows ``offsets[n] .. offsets[n + 1]`` add into
+    output row ``n``, rows past ``offsets[n_out]`` are dropped."""
+    if not build.on_cuda(acc, "gated_message_reduce"):
+        return gated_message_reduce_plain(acc, weights, mask, params, offsets)
+    what = "gated_message_reduce"
+    n_rows, d = _check(what, acc, (weights,), (mask,), params, True)
+    if offsets.dim() != 1 or offsets.shape[0] < 1:
+        raise ValueError(f"{what}: offsets [n_out + 1] expected")
+    build.check_tensors(what, (acc,), (offsets,))
+    n_out = offsets.shape[0] - 1
+    out = acc.new_empty((n_out, d))
+    err = _lib().gated_reduce_f32(
+        _tail_ptrs(params), *_ptrs(acc, weights, mask, offsets, out),
+        n_rows, n_out, d, build.stream(),
+    )
+    build.check(err, what)
+    gated_message_reduce.launches += 1
+    return out
+
+
+gated_message_reduce.launches = 0
+
+
 def gated_message_bwd(acc, weights, mask, params, g, need_mask, need_params):
     """``(d_acc, d_weights, d_mask | None, d_params | None)`` of the message
     tail for the cotangent ``g [L, D]``."""
@@ -380,6 +429,26 @@ class _GatedMessageGrads(torch.autograd.Function):
         return (None, *_second_order(first_order, ctx.saved_tensors, cts))
 
 
+class _GatedMessageReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, plan, acc, weights, mask, *params):
+        ctx.plan = plan
+        ctx.save_for_backward(acc, weights, mask, *params)
+        return gated_message_reduce(acc, weights, mask, params, plan.offsets)
+
+    @staticmethod
+    def backward(ctx, ct):
+        acc, weights, mask, *params = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        flags = (need[3], any(need[4:]))
+        # the cotangent of every row: ct[key], zero for dropped rows
+        g = plan_gather(ct, ctx.plan.key, ctx.plan)
+        grads = _GatedMessageGrads.apply(flags, acc, weights, mask, g, *params)
+        d_mask = grads[2] if flags[0] else None
+        d_params = grads[2 + flags[0]:] if flags[1] else (None,) * len(params)
+        return None, grads[0], grads[1], d_mask, *d_params
+
+
 class _GatedUpdate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, acc, resnet, *params):
@@ -427,6 +496,38 @@ def fused_gated_message(acc, weights, mask, p2: dict) -> torch.Tensor:
         raise ValueError("fused_gated_message needs a second layer (w2c/w2g)")
     return _GatedMessage.apply(
         acc.contiguous(), weights.contiguous(), mask.contiguous(),
+        *tail_params(p2),
+    )
+
+
+def msg_reduce_ok(plan: SegmentPlan) -> bool:
+    """Whether a message layer reduces through
+    :func:`fused_gated_message_reduce`: the switch of ``chgnet_tpu``'s
+    ``msg_reduce_ok`` (:530), read at call time (``CHGNET_TPU_MSG_REDUCE``
+    non-empty, ``CHGNET_TPU_NO_MSG_REDUCE`` empty), and a stream sorted by
+    its keys (a plan without a permutation)."""
+    return (
+        bool(os.environ.get("CHGNET_TPU_MSG_REDUCE"))
+        and not os.environ.get("CHGNET_TPU_NO_MSG_REDUCE")
+        and plan.perm.shape[0] == 0
+    )
+
+
+def fused_gated_message_reduce(
+    acc, weights, mask, p2: dict, plan: SegmentPlan
+) -> torch.Tensor:
+    """``plan_segment_sum(fused_gated_message(acc, weights, mask, p2), plan)``
+    ``[plan.n_out, D]`` in one sweep; ``plan`` of the stream's sorted keys
+    (no permutation)."""
+    if "w2c" not in p2:
+        raise ValueError("fused_gated_message_reduce needs a second layer (w2c/w2g)")
+    if plan.perm.shape[0] or plan.key.shape[0] != acc.shape[0]:
+        raise ValueError(
+            "fused_gated_message_reduce: a plan of the stream's sorted keys "
+            "expected"
+        )
+    return _GatedMessageReduce.apply(
+        plan, acc.contiguous(), weights.contiguous(), mask.contiguous(),
         *tail_params(p2),
     )
 

@@ -3,39 +3,45 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``chgnet_tpu_torch/csrc`` and drives
-the port's main path, E+F+S+M serving with the default ``CHGNet(seed=0)``
-(``fused_kernels=True``) at the default (published 0.3.0) width, on the
-card, beside the ``fused_kernels=False`` path:
+four paths of the port, E+F+S+M serving at the default (published 0.3.0)
+width, on the card (``PATHS``): the default ``CHGNet(seed=0)``
+(``fused_kernels=True``, directed bonds), ``fused_kernels=False``, the
+undirected bond layout ``directed_bonds=False``, and the default model with
+the fused message-reduce switched on (``CHGNET_TPU_MSG_REDUCE=1``, set
+around that path only):
 
 1. card and build: the card's name and power limit, the TF32 flags, the
    kernel build time, each kernel's registers and spills (``ptxas``'s
    report, names demangled by ``cu++filt``);
-2. kernels: one recorded E+F+S+M pass of the default model on the
-   benchmark batch (32 perturbed 216-atom LiMnO2 supercells, ``bench.py``'s
-   workload) captures every kernel call with its inputs; each call is
+2. kernels: one recorded E+F+S+M pass of each path on the benchmark batch
+   (32 perturbed 216-atom LiMnO2 supercells, ``bench.py``'s workload)
+   captures every kernel call of that path with its inputs; each call is
    re-run through the kernel and through its plain PyTorch version on the
-   card and compared, each output's error relative to its largest value;
-   each kernel's autograd op is checked forward and backward against the
-   CPU (the fused tails as serving runs them, at the edge and angle
-   streams' shapes, and also with parameter gradients and in the update's
-   second-layer form, which the pass does not reach);
-3. model, for ``fused_kernels=False`` and then the default: LiMnO2 against
-   the port's own CPU run, then ``compute_batch`` on the benchmark batch,
-   whose outputs must be finite, with per-graph force sums ~0 and
-   symmetric stress; the launch counts are set to 0 just before that pass
-   and read just after it, and every kernel of the path must have
-   launched; edges/s by CUDA events;
-4. a ``{"kernels": [...]}`` line: per kernel, its launches in one default
-   pass and, summed over that pass's calls, its time, its plain version's
-   time, the time of one PyTorch library call computing the same function
-   (null where none does: the fused tails), and the least time the card
-   could take: summed over the calls, each call's larger of its bytes over
-   3.35 TB/s and its f32 FLOPs over 67 TFLOP/s (the H100 SXM data-sheet
-   peaks), the FLOPs counted in the cheaper order where the function has
-   two, and for the fused tails as the two diagonal blocks' products plus
-   ``TAIL_OPS`` per row element of the call's form;
-5. profile: one pass under ``torch.profiler``, the device's busy share of
-   its wall time and the kernels that take the most device time.
+   card and compared, each output's error relative to its largest value,
+   so every kernel is held at every shape any path gives it; each kernel's
+   autograd op is checked forward and backward against the CPU (the fused
+   tails as serving runs them, at the edge and angle streams' shapes, and
+   also with parameter gradients and in the update's second-layer form,
+   which the passes do not reach);
+3. model, for each path: LiMnO2 against the port's own CPU run, then
+   ``compute_batch`` on the benchmark batch, whose outputs must be finite,
+   with per-graph force sums ~0 and symmetric stress; the launch counts are
+   set to 0 just before that pass and read just after it, and must equal
+   the path's launch set (``PATHS``); the message-reduce path's outputs must
+   also agree with the default path's; edges/s by CUDA events;
+4. a ``{"kernels": [...]}`` line: per kernel, its largest error over the
+   calls of all four paths, the path its times were taken on, its
+   launches in one pass of that path and, summed over that pass's calls,
+   its time, its plain version's time, the time of PyTorch library calls
+   computing the same function (null where none does: the fused tails), and
+   the least time the card could take: summed over the calls, each call's
+   larger of its bytes over 3.35 TB/s and its f32 FLOPs over 67 TFLOP/s (the
+   H100 SXM data-sheet peaks), the FLOPs counted in the cheaper order where
+   the function has two, and for the fused tails as the two diagonal
+   blocks' products plus ``TAIL_OPS`` per row element of the call's form;
+5. profile: one pass of the default and of the undirected path under
+   ``torch.profiler``, the device's busy share of its wall time and the
+   kernels that take the most device time.
 
 Any failure raises. The last line is the result JSON. Needs one CUDA card;
 exits non-zero without one.
@@ -43,6 +49,7 @@ exits non-zero without one.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -87,41 +94,67 @@ TAIL_OPS = {
 D_MASK_OPS = 3
 PARAM_OPS = {False: 6, True: 8}  # by has_w2
 
-# per kernel: tolerance on max|kernel - plain| / max|plain| per output
-KERNELS = {
-    "segment_sum_csr": dict(
-        source="chgnet_tpu_torch/csrc/segment_sum.cu",
-        replaces="chgnet_tpu/ops/stream_ops.py:135", tol=1e-5,
-    ),
-    "gather_rows": dict(
-        source="chgnet_tpu_torch/csrc/gather_rows.cu",
-        replaces="chgnet_tpu/ops/stream_ops.py:645", tol=0.0,
-    ),
-    "segment_sum_pair": dict(
-        source="chgnet_tpu_torch/csrc/segment_sum.cu",
-        replaces="chgnet_tpu/ops/stream_ops.py:257", tol=1e-5,
-    ),
-    "gather_project_sum": dict(
-        source="chgnet_tpu_torch/csrc/gproj.cu",
-        replaces="chgnet_tpu/ops/gproj.py:62", tol=2e-5,
-    ),
-    "gated_message_fwd": dict(
-        source="chgnet_tpu_torch/csrc/gated_message.cu",
-        replaces="chgnet_tpu/ops/gated_message.py:55", tol=1e-5,
-    ),
-    "gated_message_bwd": dict(
-        source="chgnet_tpu_torch/csrc/gated_message.cu",
-        replaces="chgnet_tpu/ops/gated_message.py:190", tol=1e-4,
-    ),
-    "gated_update_fwd": dict(
-        source="chgnet_tpu_torch/csrc/gated_message.cu",
-        replaces="chgnet_tpu/ops/gated_message.py:620", tol=1e-5,
-    ),
-    "gated_update_bwd": dict(
-        source="chgnet_tpu_torch/csrc/gated_message.cu",
-        replaces="chgnet_tpu/ops/gated_message.py:734", tol=1e-4,
-    ),
+# the four paths and the launches of one E+F+S+M pass of each, by kernel in
+# the order of KERNELS: the model's keywords, whether the message-reduce
+# switch is set, and the counts, worked out from the model's code. The
+# undirected layout adds to the default's the d2u expansions (bond features
+# per angle-side layer, the two bond-weight tables, the bond lengths) and
+# their backward sums, and sends AtomConv's first layers and the BondConv
+# totals through the multi-gather; the switch folds the 7 message layers'
+# segment sums into their tails.
+PATHS = {
+    "default": ({}, False, (20, 17, 8, 9, 7, 7, 2, 2, 0, 0)),
+    "fused_kernels=False": (
+        dict(fused_kernels=False), False, (20, 17, 8, 9, 0, 0, 0, 0, 0, 0)),
+    "directed_bonds=False": (
+        dict(directed_bonds=False), False, (32, 28, 8, 5, 7, 7, 2, 2, 7, 0)),
+    "CHGNET_TPU_MSG_REDUCE=1": ({}, True, (13, 17, 8, 9, 0, 7, 2, 2, 0, 7)),
 }
+MODEL_TOL = {"e": 2e-5, "f": 5e-5, "s": 2e-4, "m": 2e-5}
+
+_CSRC = "chgnet_tpu_torch/csrc/"
+_TPU = "chgnet_tpu/ops/"
+# per kernel: its source, the TPU kernel it replaces, the tolerance on
+# max|kernel - plain| / max|plain| per output, and the path its calls,
+# launches and times are taken on
+KERNELS = {
+    name: dict(source=_CSRC + source, replaces=_TPU + replaces, tol=tol, path=path)
+    for name, source, replaces, tol, path in (
+        ("segment_sum_csr", "segment_sum.cu", "stream_ops.py:135", 1e-5, "default"),
+        ("gather_rows", "gather_rows.cu", "stream_ops.py:645", 0.0, "default"),
+        ("segment_sum_pair", "segment_sum.cu", "stream_ops.py:257", 1e-5, "default"),
+        ("gather_project_sum", "gproj.cu", "gproj.py:62", 2e-5, "default"),
+        ("gated_message_fwd", "gated_message.cu", "gated_message.py:55", 1e-5,
+         "default"),
+        ("gated_message_bwd", "gated_message.cu", "gated_message.py:190", 1e-4,
+         "default"),
+        ("gated_update_fwd", "gated_message.cu", "gated_message.py:620", 1e-5,
+         "default"),
+        ("gated_update_bwd", "gated_message.cu", "gated_message.py:734", 1e-4,
+         "default"),
+        ("gather_sum_rows", "multi_gather.cu", "stream_ops.py:775", 0.0,
+         "directed_bonds=False"),
+        # row-order adds against the tail's rounding and float64 prefix sums
+        ("gated_message_reduce", "gated_message.cu", "gated_message.py:378", 1e-5,
+         "CHGNET_TPU_MSG_REDUCE=1"),
+    )
+}
+
+
+@contextlib.contextmanager
+def msg_reduce_switch(on: bool):
+    """``CHGNET_TPU_MSG_REDUCE=1`` for the duration, when ``on``; the
+    variable is restored afterwards."""
+    saved = os.environ.get("CHGNET_TPU_MSG_REDUCE")
+    if on:
+        os.environ["CHGNET_TPU_MSG_REDUCE"] = "1"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("CHGNET_TPU_MSG_REDUCE", None)
+        else:
+            os.environ["CHGNET_TPU_MSG_REDUCE"] = saved
 
 
 def log(*args) -> None:
@@ -154,16 +187,20 @@ class Recorder:
     """Swaps each kernel wrapper for one that logs its arguments, for one
     pass; the wrappers' own launch counts are untouched meanwhile."""
 
-    def __init__(self, segment, gproj, gated):
-        self.slots = [
+    def __init__(self):
+        from chgnet_tpu_torch.ops import gated_message, gproj, multi_gather, segment
+
+        slots = [
             (segment, "segment_sum_csr", "segment_sum_csr"),
             (segment, "gather_rows", "gather_rows"),
             (segment, "segment_sum_pair", "segment_sum_pair"),
             (gproj, "gather_project_sum_kernel", "gather_project_sum"),
-        ] + [(gated, name, name) for name in (
+            (multi_gather, "gather_sum_rows", "gather_sum_rows"),
+        ] + [(gated_message, name, name) for name in (
             "gated_message_fwd", "gated_message_bwd", "gated_update_fwd",
-            "gated_update_bwd",
+            "gated_update_bwd", "gated_message_reduce",
         )]
+        self.slots = slots
         self.calls = {name: [] for *_, name in self.slots}
         self.saved = []
 
@@ -217,6 +254,39 @@ def _tail_bound(name, args):
 
 def bound_and_library(name, args):
     """(bytes, flops, library callable or None) of one recorded call."""
+    if name == "gated_message_reduce":
+        # the message tail over the rows that feed a segment (the dropped
+        # rows past offsets[-1] are never needed), their sum, n_out rows out
+        acc, weights, mask, params, offsets = args
+        d, n_out = weights.shape[1], offsets.shape[0] - 1
+        nv = _rows_valid(offsets)
+        n_floats = nv * (3 * d + 1) + sum(p.numel() for p in params) + n_out * d
+        flops = 4 * nv * d * d + (TAIL_OPS["fwd", "message"] + 1) * nv * d
+        return 4 * (n_floats + n_out + 1), flops, None
+    if name == "gather_sum_rows":
+        # every index stream, the distinct rows they name of every distinct
+        # table, the stream, the output; one add per part and element
+        tables, idxs, stream = args
+        n_rows, d = idxs[0].shape[0], tables[0].shape[1]
+        named = {}
+        for t, i in zip(tables, idxs):
+            ok = i[(i >= 0) & (i < t.shape[0])]
+            named.setdefault(t.data_ptr(), []).append(ok)
+        distinct = sum(int(torch.unique(torch.cat(v)).numel()) for v in named.values())
+        n_streams = len({i.data_ptr() for i in idxs})
+        n_adds = len(tables) - (stream is None)
+        nbytes = 4 * (n_streams * n_rows + distinct * d
+                      + (1 + (stream is not None)) * n_rows * d)
+        longs = [i.clamp(0, t.shape[0] - 1).long() for t, i in zip(tables, idxs)]
+
+        def lib():
+            out = stream
+            for t, i in zip(tables, longs):
+                rows = torch.index_select(t, 0, i)
+                out = rows if out is None else out + rows
+            return out
+
+        return nbytes, n_adds * n_rows * d, lib
     if name.startswith("gated_"):
         return (*_tail_bound(name, args), None)
     if name == "segment_sum_csr":
@@ -368,7 +438,7 @@ def run_pass(model, batch):
 def kernel_versions() -> dict:
     """Kernel name -> (kernel wrapper, its plain version)."""
     from chgnet_tpu_torch.ops import gated_message as gm
-    from chgnet_tpu_torch.ops import gproj, segment
+    from chgnet_tpu_torch.ops import gproj, multi_gather, segment
 
     return {
         "segment_sum_csr": (segment.segment_sum_csr, segment.segment_sum_plain),
@@ -381,6 +451,10 @@ def kernel_versions() -> dict:
         "gated_message_bwd": (gm.gated_message_bwd, gm.gated_message_bwd_plain),
         "gated_update_fwd": (gm.gated_update_fwd, gm.gated_update_plain),
         "gated_update_bwd": (gm.gated_update_bwd, gm.gated_update_bwd_plain),
+        "gather_sum_rows": (multi_gather.gather_sum_rows,
+                            multi_gather.gather_sum_rows_plain),
+        "gated_message_reduce": (gm.gated_message_reduce,
+                                 gm.gated_message_reduce_plain),
     }
 
 
@@ -393,13 +467,17 @@ def _errors(got, want):
     return err, err / scale if scale else math.inf if err else 0.0
 
 
-def phase_kernels(calls):
-    """Every recorded call through the kernel and its plain version, each
-    output's error relative to that output's largest value."""
+def phase_kernels(path, calls):
+    """Every call recorded on one pass of ``path`` through the kernel and
+    its plain version, each output's error relative to that output's
+    largest value. Every kernel the path launches must have been recorded."""
     errors, failed = {}, []
+    expected = dict(zip(KERNELS, PATHS[path][2]))
     for name, (kern, plain) in kernel_versions().items():
+        if not expected[name]:
+            continue
         if not calls[name]:
-            raise RuntimeError(f"{name}: no call recorded on the main path")
+            raise RuntimeError(f"{name}: no call recorded on the {path} path")
         worst, worst_scaled = 0.0, 0.0
         for args in calls[name]:
             got, want = list(_tensors([kern(*args)])), list(_tensors([plain(*args)]))
@@ -411,14 +489,18 @@ def phase_kernels(calls):
                 worst_scaled = max(worst_scaled, scaled)
         torch.cuda.synchronize()
         tol = KERNELS[name]["tol"]
-        shapes = sorted({tuple(a.shape) for a in _tensors(calls[name][0])})
-        log(f"kernel {name}: {len(calls[name])} calls, max_abs_err {worst:.3e}, "
-            f"relative {worst_scaled:.3e} (tol {tol:g}); first call shapes {shapes}")
+        shapes = sorted({
+            tuple(a.shape) for args in calls[name] for a in _tensors(args)
+        })
+        log(f"kernel {name} ({path} path): "
+            f"{len(calls[name])} calls, max_abs_err {worst:.3e}, "
+            f"relative {worst_scaled:.3e} (tol {tol:g}); shapes {shapes}")
         if not worst_scaled <= tol:
             failed.append(name)
         errors[name] = worst
     if failed:
-        raise AssertionError(f"disagree with their plain versions: {failed}")
+        raise AssertionError(
+            f"{path} path: disagree with their plain versions: {failed}")
     return errors
 
 
@@ -433,16 +515,21 @@ def _tensors(args):
 def check_autograd(batch):
     """Each autograd op (forward + backward, so both directions of the
     gather/segment-sum pair) on the card against the same op on the CPU,
-    at the benchmark batch's angle-stream shapes (the message tail also at
-    the edge stream's); errors relative to each output's largest value."""
+    at the benchmark batch's angle-stream shapes (the message tail and the
+    message-reduce also at the edge stream's, the multi-gather ops at the
+    undirected AtomConv's and BondConv's); errors relative to each output's
+    largest value."""
     from chgnet_tpu_torch.ops.gated_message import (
-        LN_KEYS, fused_gated_message, fused_gated_update,
+        LN_KEYS, fused_gated_message, fused_gated_message_reduce,
+        fused_gated_update,
     )
     from chgnet_tpu_torch.ops.gproj import gather_project_sum
+    from chgnet_tpu_torch.ops.multi_gather import gather_sum, twin_reduce
     from chgnet_tpu_torch.ops.segment import (
         plan_gather, plan_segment_sum, plan_segment_sum_pair,
     )
 
+    n_atoms = batch.atomic_numbers.shape[0]
     n_edges = batch.atom_graph.shape[0]
     n_ang = batch.bond_graph.shape[0]
     gen = torch.Generator().manual_seed(0)
@@ -460,6 +547,8 @@ def check_autograd(batch):
         acc_e=torch.randn(n_edges, 128, generator=gen),
         wts_e=torch.randn(n_edges, 64, generator=gen),
         mask_e=(torch.rand(n_edges, generator=gen) < 0.9).float(),
+        atoms_p=torch.randn(n_atoms, 128, generator=gen),
+        bonds_p=torch.randn(n_edges // 2, 128, generator=gen),
     )
     tail = dict(
         w2c=torch.randn(64, 64, generator=gen) * 0.1,
@@ -477,6 +566,8 @@ def check_autograd(batch):
         gproj=torch.randn(n_ang, 128, generator=gen),
         tail=torch.randn(n_ang, 64, generator=gen),
         tail_e=torch.randn(n_edges, 64, generator=gen),
+        und=torch.randn(n_edges // 2, 64, generator=gen),
+        atoms=torch.randn(n_atoms, 64, generator=gen),
     )
 
     def ops(dev, b, di, dj, t):
@@ -526,6 +617,31 @@ def check_autograd(batch):
         outs["gated_update_bwd serving"] = (
             [fused_gated_update(t["acc"], t["x"], fixed_ln)],
             [t["acc"], t["x"]], [cts["tail"]])
+        # the undirected layout's ops: AtomConv's three projected tables
+        # (atoms by center and by neighbor, bonds by d2u) and BondConv's
+        # two directed partial sums per bond
+        center = b.atom_graph[:, 0].contiguous()
+        nbr = b.atom_graph[:, 1].contiguous()
+        d2u = b.directed2undirected
+        outs["gather_sum_rows"] = (
+            [gather_sum([(t["atoms_p"], center, b.plan_center),
+                         (t["bonds_p"], d2u, b.plan_d2u),
+                         (t["atoms_p"], nbr, b.plan_nbr)])],
+            [t["atoms_p"], t["bonds_p"]], [cts["pair"]])
+        outs["gather_sum_rows twin_reduce"] = (
+            [twin_reduce(t["table"], b.undirected2directed, b.und_second, d2u,
+                         b.plan_d2u)],
+            [t["table"]], [cts["und"]])
+        # the message-reduce as serving runs it; the random masks zero rows
+        # whose keys stay in range
+        outs["gated_message_reduce E"] = (
+            [fused_gated_message_reduce(
+                t["acc_e"], t["wts_e"], t["mask_e"].detach(), fixed, b.plan_center)],
+            [t["acc_e"], t["wts_e"]], [cts["atoms"]])
+        outs["gated_message_reduce A"] = (
+            [fused_gated_message_reduce(
+                t["acc"], t["wts"], t["mask"].detach(), fixed, b.plan_ang_vi)],
+            [t["acc"], t["wts"]], [cts["seg"]])
         res = {}
         for name, (out, wrt, ct) in outs.items():
             grads = torch.autograd.grad(out, wrt, [c.to(dev) for c in ct])
@@ -551,39 +667,39 @@ def check_autograd(batch):
         raise AssertionError(f"autograd disagrees with the CPU: {failed}")
 
 
-def phase_model(model, cpu_model, batch, n_edges, graphs):
-    """One path (``model``): LiMnO2 against the CPU, then one pass of the
-    benchmark batch between a reset and a read of the launch counts, its
-    outputs checked, and its edges/s."""
+def phase_model(path, batch, n_edges, graphs):
+    """One path of ``PATHS``: LiMnO2 on the card against the CPU, then one
+    pass of the benchmark batch between a reset and a read of the launch
+    counts, which must equal the path's launch set, its outputs checked,
+    and its edges/s. Returns the launches and the batch's outputs."""
     from chgnet_tpu_torch import ROOT, ops
     from chgnet_tpu_torch.core.structure import Structure
+    from chgnet_tpu_torch.models import CHGNet
 
-    path = f"fused_kernels={model.config.fused_kernels}"
+    kwargs, switch, expect = PATHS[path]
+    model = CHGNet(seed=0, device="cuda", **kwargs)
+    cpu_model = CHGNet(seed=0, device="cpu", **kwargs)
     struct = Structure.from_file(f"{ROOT}/examples/mp-18767-LiMnO2.cif")
-    got = model.predict_structure(struct, task="efsm")
-    want = cpu_model.predict_structure(struct, task="efsm")
-    tol = {"e": 2e-5, "f": 5e-5, "s": 2e-4, "m": 2e-5}
-    for key in "efsm":
+    with msg_reduce_switch(switch):
+        got = model.predict_structure(struct, task="efsm")
+        want = cpu_model.predict_structure(struct, task="efsm")
+    for key, tol in MODEL_TOL.items():
         err = float(np.abs(np.asarray(got[key]) - np.asarray(want[key])).max())
-        log(f"{path} LiMnO2 {key}: card vs CPU max err {err:.3e} "
-            f"(tol {tol[key]:g})")
-        if not err <= tol[key]:
+        log(f"{path} LiMnO2 {key}: card vs CPU max err {err:.3e} (tol {tol:g})")
+        if not err <= tol:
             raise AssertionError(f"{path} LiMnO2 {key}: card disagrees with the CPU")
     log(f"{path} LiMnO2 e = {got['e']:.6f} eV/atom")
 
-    ops.reset_launch_counts()
-    out = run_pass(model, batch)
-    torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
+    with msg_reduce_switch(switch):
+        ops.reset_launch_counts()
+        out = run_pass(model, batch)
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
     log(f"{path} launches in one E+F+S+M pass:", launches)
-    # the default path launches every kernel, the plain tails no fused one
-    tails = [n for n in launches if n.startswith("gated_")]
-    if model.config.fused_kernels:
-        tails = []
-    if any(launches[n] for n in tails) or not all(
-        launches[n] > 0 for n in launches if n not in tails
-    ):
-        raise AssertionError(f"wrong kernels launched on the {path} path: {launches}")
+    if tuple(launches.values()) != expect:
+        raise AssertionError(
+            f"wrong launches on the {path} path: {launches}, expected {expect}"
+        )
 
     n_graphs = len(graphs)
     for key in ("e", "f", "s", "m"):
@@ -602,30 +718,46 @@ def phase_model(model, cpu_model, batch, n_edges, graphs):
     e = out["e"].cpu().numpy()[:n_graphs]
     log(f"e mean {e.mean():.6f} eV/atom over {n_graphs} graphs")
 
-    samples = sorted(
-        cuda_ms(lambda: run_pass(model, batch), 1) for _ in range(MODEL_SAMPLES)
-    )
+    with msg_reduce_switch(switch):
+        samples = sorted(
+            cuda_ms(lambda: run_pass(model, batch), 1) for _ in range(MODEL_SAMPLES)
+        )
     ms = float(np.median(samples))
     n_atoms = sum(g.n_atoms for g in graphs)
     log(f"{path} E+F+S+M on {n_graphs} graphs, {n_atoms} atoms, {n_edges} directed "
         f"edges: median {ms:.3f} ms/pass over {MODEL_SAMPLES} passes "
         f"(min {samples[0]:.3f}, max {samples[-1]:.3f}), "
         f"{n_edges / ms * 1e3:.1f} edges/s ({card_line()})")
-    return launches
+    return launches, out
 
 
-def profile_pass(model, batch):
-    """One E+F+S+M pass under torch.profiler: device time by kernel and the
-    device's busy share of the pass's wall time."""
+def check_same_outputs(path, out, ref_path, ref):
+    """The batch outputs of two paths on the card, at the model's bars."""
+    for key, tol in MODEL_TOL.items():
+        err = float((out[key] - ref[key]).abs().max())
+        log(f"{path} vs {ref_path} on the batch, {key}: max diff {err:.3e} "
+            f"(tol {tol:g})")
+        if not err <= tol:
+            raise AssertionError(f"{path} {key}: disagrees with the {ref_path} path")
+
+
+def profile_pass(path, batch):
+    """One E+F+S+M pass of a path under torch.profiler: device time by kernel
+    and the device's busy share of the pass's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    run_pass(model, batch)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    from chgnet_tpu_torch.models import CHGNet
+
+    kwargs, switch, _ = PATHS[path]
+    model = CHGNet(seed=0, device="cuda", **kwargs)
+    with msg_reduce_switch(switch):
         run_pass(model, batch)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run_pass(model, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
     events = [
         e for e in prof.key_averages()
         if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
@@ -633,9 +765,9 @@ def profile_pass(model, batch):
     ]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     if busy_ms <= 0:
-        log("profile: the profiler recorded no device time (not measured)")
+        log(f"profile {path}: the profiler recorded no device time (not measured)")
         return
-    log(f"profile: one traced pass {wall_ms:.3f} ms wall, device busy "
+    log(f"profile {path}: one traced pass {wall_ms:.3f} ms wall, device busy "
         f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), {len(events)} "
         "kernel names; top by device time:")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
@@ -644,7 +776,8 @@ def profile_pass(model, batch):
 
 
 def phase_timing(calls, launches, errors):
-    """The kernels line: per kernel, totals over one pass's calls."""
+    """The kernels line: per kernel, totals over the calls of one pass of
+    its path; ``launches[path]`` are that path's counts."""
     rows = []
     for name, (kern, plain) in kernel_versions().items():
         args_list = calls[name]
@@ -667,7 +800,8 @@ def phase_timing(calls, launches, errors):
             route="cuda",
             source=KERNELS[name]["source"],
             replaces=KERNELS[name]["replaces"],
-            launches=launches[kern.__name__],
+            path=KERNELS[name]["path"],
+            launches=launches[KERNELS[name]["path"]][kern.__name__],
             max_abs_err=errors[name],
             ms=cuda_ms(lambda: [kern(*a) for a in args_list], TIMED_REPEATS),
             plain_ms=cuda_ms(lambda: [plain(*a) for a in args_list], 2),
@@ -695,13 +829,9 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from chgnet_tpu_torch.graph.batching import batch_graphs
     from chgnet_tpu_torch.models import CHGNet
-    from chgnet_tpu_torch.ops import gated_message, gproj, segment
 
     phase_card_and_build()
     model = CHGNet(seed=0, device="cuda")
-    cpu_model = CHGNet(seed=0, device="cpu")
-    plain = CHGNet(seed=0, fused_kernels=False, device="cuda")
-    cpu_plain = CHGNet(seed=0, fused_kernels=False, device="cpu")
     log(f"model: {model.n_params:,} parameters, default width, "
         f"n_conv={model.config.n_conv}, fused_kernels="
         f"{model.config.fused_kernels}")
@@ -715,17 +845,33 @@ def main() -> int:
         f"E={batch.atom_graph.shape[0]} A={batch.bond_graph.shape[0]} "
         f"(host build {time.perf_counter() - t0:.1f} s)")
 
-    with Recorder(segment, gproj, gated_message) as rec:
-        run_pass(model, batch)
-    torch.cuda.synchronize()
-    with torch.no_grad():
-        errors = phase_kernels(rec.calls)
+    # every path records every kernel it runs and holds each call against
+    # the plain version before the next path is recorded; the calls a
+    # kernel's row is timed on are those of its own path (KERNELS), and its
+    # error is the largest over all four paths
+    calls, errors = {}, {}
+    for path, (kwargs, switch, _) in PATHS.items():
+        with msg_reduce_switch(switch), Recorder() as rec:
+            run_pass(CHGNet(seed=0, device="cuda", **kwargs), batch)
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            found = phase_kernels(path, rec.calls)
+        for name, err in found.items():
+            errors[name] = max(err, errors.get(name, 0.0))
+        calls.update({n: c for n, c in rec.calls.items() if KERNELS[n]["path"] == path})
+        del rec
     check_autograd(batch)
-    phase_model(plain, cpu_plain, batch, n_edges, graphs)
-    launches = phase_model(model, cpu_model, batch, n_edges, graphs)
+    launches, outs = {}, {}
+    for path in PATHS:
+        launches[path], outs[path] = phase_model(path, batch, n_edges, graphs)
+    check_same_outputs(
+        "CHGNET_TPU_MSG_REDUCE=1", outs["CHGNET_TPU_MSG_REDUCE=1"], "default",
+        outs["default"],
+    )
     with torch.no_grad():
-        rows = phase_timing(rec.calls, launches, errors)
-    profile_pass(model, batch)
+        rows = phase_timing(calls, launches, errors)
+    for path in ("default", "directed_bonds=False"):
+        profile_pass(path, batch)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({

@@ -6,7 +6,10 @@ that has only the port's dependencies:
 
     python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest
 
-Tolerances: gathers are exact; segment sums 2e-4 absolute on sums of up
+Tolerances: gathers and the multi-gather sum are exact (the kernel adds in
+the plain version's order); the message tail fused with its segment sum
+1e-5 of the output's largest value (its row-order adds against the
+tail's 1e-5 and float64 prefix sums); segment sums 2e-4 absolute on sums of up
 to ~50 unit-normal terms (f32 in a fixed order against float64 prefix
 sums); gather-project-sum 1e-4 (64-term f32 dot products, gathered then
 projected against projected then gathered); the fused gated tails 1e-5
@@ -28,6 +31,7 @@ from chgnet_tpu_torch.graph.batching import SegmentPlan, make_plan
 from chgnet_tpu_torch.models.chgnet import CHGNet
 from chgnet_tpu_torch.ops import gated_message as tgm
 from chgnet_tpu_torch.ops import gproj as tgp
+from chgnet_tpu_torch.ops import multi_gather as tmg
 from chgnet_tpu_torch.ops import segment as tsg
 
 pytestmark = pytest.mark.cuda
@@ -36,6 +40,7 @@ SEG_ATOL = 2e-4
 GPROJ_ATOL = 1e-4
 TAIL_FWD_TOL = 1e-5
 TAIL_BWD_TOL = 1e-4
+REDUCE_TOL = 1e-5
 TOL = {"e": 2e-5, "f": 5e-5, "s": 2e-4, "m": 2e-5}
 FULL = dict(graph_converter_algorithm="numpy", fused_kernels=False)
 LIMNO2 = f"{ROOT}/examples/mp-18767-LiMnO2.cif"
@@ -342,3 +347,163 @@ def test_gated_wrappers_raise_on_what_kernels_do_not_take(cuda):
         tgm.gated_update_fwd(odd, torch.randn(100, 62, device=cuda), params)
     with pytest.raises(ValueError, match="tail parameters"):
         tgm.gated_message_fwd(acc, w, m, params[3:])
+
+
+# --------------------------------------------------------- multi-gather sum
+@pytest.mark.parametrize("with_stream", [False, True], ids=["bare", "stream"])
+@pytest.mark.parametrize("n_parts", [1, 2, 3, 4])
+@pytest.mark.parametrize("d", [4, 64, 128])
+def test_gather_sum_rows_kernel_is_exact(cuda, d, n_parts, with_stream):
+    """Tables of different lengths, indices one past either end (zero rows),
+    a row count off every block size."""
+    rng = np.random.default_rng(12)
+    n_rows = (1 << 16) + 37
+    sizes = [7000, 30000, 7000, 100][:n_parts]
+    tabs = [torch.randn(s_, d, device=cuda) for s_ in sizes]
+    idxs = [
+        torch.as_tensor(rng.integers(-1, s_ + 1, n_rows).astype(np.int32), device=cuda)
+        for s_ in sizes
+    ]
+    st = torch.randn(n_rows, d, device=cuda) if with_stream else None
+    got = tmg.gather_sum_rows(tabs, idxs, st)
+    assert torch.equal(got, tmg.gather_sum_rows_plain(tabs, idxs, st))
+
+
+def test_gather_sum_and_twin_reduce_on_card_match_cpu(cuda):
+    """Value, first and second derivative of gather_sum (three tables of two
+    lengths and an aligned stream) and twin_reduce on the card against the
+    CPU's plain versions, each relative to the tensor's largest value."""
+    rng = np.random.default_rng(13)
+    n_rows, n_a, n_b, d = 4096, 300, 2048, 16
+    ia, ic = (rng.integers(0, n_a, n_rows).astype(np.int32) for _ in range(2))
+    ib = rng.permutation(n_rows).astype(np.int32) // 2  # each bond twice
+    first = np.argsort(ib, kind="stable").reshape(-1, 2).astype(np.int32)
+    valid = rng.random(n_rows) < 0.9
+    data = [rng.standard_normal(sh).astype(np.float32)
+            for sh in ((n_a, d), (n_b, d), (n_rows, d), (n_b, d))]
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        ta, tb, st, v = (torch.tensor(x, device=dev) for x in data)
+        leaves = [t.requires_grad_(True) for t in (ta, tb, st)]
+        pa, pc = (_plan(i, valid, n_a, False, dev) for i in (ia, ic))
+        pb = _plan(ib, valid, n_b, False, dev)
+        idx = [torch.as_tensor(i, device=dev) for i in (ia, ib, ic)]
+        out = tmg.gather_sum(
+            [(ta, idx[0], pa), (tb, idx[1], pb), (st, None, None), (ta, idx[2], pc)]
+        )
+        u2d, und2 = (torch.as_tensor(first[:, k].copy(), device=dev) for k in (0, 1))
+        red = tmg.twin_reduce(torch.sin(out) * out, u2d, und2, idx[1], pb)
+        energy = (red * v).sum() + (red ** 2).sum()
+        g1 = torch.autograd.grad(energy, leaves, create_graph=True)
+        g2 = torch.autograd.grad(sum((g * x.detach()).sum() for g, x in zip(g1, leaves)), leaves)
+        res.append([t.detach().cpu() for t in (out, red, *g1, *g2)])
+    # sums of ~30 f32 terms of size up to ~30, in two orders
+    _assert_scaled(res[0], res[1], 1e-5)
+
+
+def test_gather_sum_rows_raises_on_what_the_kernel_does_not_take(cuda):
+    t = torch.randn(10, 64, device=cuda)
+    i = torch.zeros(5, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="parts"):
+        tmg.gather_sum_rows([], [])
+    with pytest.raises(ValueError, match="parts"):
+        tmg.gather_sum_rows([t] * 5, [i] * 5)
+    with pytest.raises(ValueError, match="one width"):
+        tmg.gather_sum_rows([t, torch.randn(10, 32, device=cuda)], [i, i])
+    with pytest.raises(ValueError, match="d % 4"):
+        tmg.gather_sum_rows([torch.randn(10, 6, device=cuda)] * 2, [i, i])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        shifted = torch.randn(10 * 64 + 1, device=cuda)[1:].view(10, 64)
+        tmg.gather_sum_rows([t, shifted], [i, i])
+    with pytest.raises(ValueError, match="contiguous"):
+        tmg.gather_sum_rows([t, torch.randn(64, 10, device=cuda).T], [i, i])
+    with pytest.raises(ValueError, match="tensors on"):
+        tmg.gather_sum_rows([t, t.cpu()], [i, i])
+    with pytest.raises(TypeError, match="int32"):
+        tmg.gather_sum_rows([t, t], [i, i.long()])
+    with pytest.raises(ValueError, match="differ in rows"):
+        tmg.gather_sum_rows([t, t], [i, i], torch.randn(6, 64, device=cuda))
+
+
+# ------------------------------------------ message tail + segment sum
+def _reduce_inputs(device, d, n_rows, n_out, seed=14):
+    """A sorted key stream with empty segments, ~10% masked rows whose keys
+    stay in range, and dropped rows at the tail."""
+    x, p = _tail_inputs(device, d, n_rows, seed)
+    rng = np.random.default_rng(seed)
+    key = np.sort(rng.integers(0, n_out, n_rows)).astype(np.int32)
+    valid = np.arange(n_rows) < int(0.93 * n_rows)
+    plan = _plan(key, valid, n_out, True, device)
+    return x, p, plan
+
+
+@pytest.mark.parametrize(
+    "d,n_rows,n_out",
+    [(64, 50_000 + 13, 700), (64, 40_000, 60_000), (16, 5_000, 3), (64, 20, 500)],
+    ids=["long-segments", "short-segments", "narrow", "tiny"],
+)
+def test_gated_message_reduce_kernel_matches_plain(cuda, d, n_rows, n_out):
+    x, p, plan = _reduce_inputs(cuda, d, n_rows, n_out)
+    args = (x["acc"], x["weights"], x["mask"], _params(p), plan.offsets)
+    got = tgm.gated_message_reduce(*args)
+    assert got.shape == (n_out, d)
+    _assert_scaled([got], [tgm.gated_message_reduce_plain(*args)], REDUCE_TOL)
+    assert torch.equal(got, tgm.gated_message_reduce(*args))  # deterministic
+    # the mask multiplies inside the sum: rows masked to zero add nothing
+    keep = x["mask"] > 0
+    masked = x["acc"].clone()
+    masked[~keep] = 1e3
+    args = (masked, x["weights"], x["mask"], _params(p), plan.offsets)
+    assert torch.equal(got, tgm.gated_message_reduce(*args))
+
+
+def test_gated_message_reduce_with_no_valid_row_is_zero(cuda):
+    x, p = _tail_inputs(cuda, n_rows=100)
+    off = torch.zeros(41, dtype=torch.int32, device=cuda)
+    out = tgm.gated_message_reduce(
+        x["acc"], x["weights"], x["mask"], _params(p), off
+    )
+    assert out.shape == (40, 64) and not bool(out.any())
+
+
+@pytest.mark.parametrize("serving", [False, True], ids=["all", "serving"])
+def test_gated_message_reduce_autograd_matches_cpu(cuda, serving):
+    """First and second order through the reduce op on the card (the reduce
+    kernel, the gather, the message backward kernel, then the plain
+    composition) against the CPU; ``serving`` asks for no gradient by the
+    mask or the parameters."""
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        x, p, plan = _reduce_inputs(torch.device("cpu"), 64, 4096 + 5, 300)
+        plan = SegmentPlan(*(t.to(dev) for t in plan))
+        grad = not serving
+        leaves = {k: x[k].to(dev).requires_grad_(grad or k in ("acc", "weights"))
+                  for k in ("acc", "weights", "mask")}
+        tp = {k: v.to(dev).requires_grad_(grad) for k, v in p.items()}
+        out = tgm.fused_gated_message_reduce(
+            leaves["acc"], leaves["weights"], leaves["mask"], tp, plan
+        )
+        wrt = [leaves["acc"], leaves["weights"]]
+        wrt += [] if serving else [leaves["mask"], *tp.values()]
+        grads = torch.autograd.grad(torch.tanh(out).sum(), wrt, create_graph=True)
+        second = sum((gr * gr.detach().sin()).sum() for gr in grads)
+        g2 = torch.autograd.grad(second, wrt)
+        res.append([t.detach().cpu() for t in (out, *grads, *g2)])
+    _assert_scaled(res[0], res[1], TAIL_BWD_TOL)
+
+
+@pytest.mark.parametrize(
+    "kw,switch",
+    [(dict(directed_bonds=False), ""), (dict(directed_bonds=False), "1"), ({}, "1")],
+    ids=["undirected", "undirected-msg-reduce", "msg-reduce"],
+)
+def test_undirected_and_msg_reduce_paths_on_card_match_cpu(cuda, monkeypatch, kw, switch):
+    monkeypatch.setenv("CHGNET_TPU_MSG_REDUCE", switch)
+    s = Structure.from_file(LIMNO2).perturb(0.05, seed=9)
+    kw = dict(kw, graph_converter_algorithm="numpy")
+    a = CHGNet(seed=0, device="cpu", **kw).predict_structure(s, task="efsm")
+    b = CHGNet(seed=0, device=cuda, **kw).predict_structure(s, task="efsm")
+    for key in "efsm":
+        np.testing.assert_allclose(
+            np.asarray(b[key]), np.asarray(a[key]), atol=TOL[key], err_msg=key
+        )

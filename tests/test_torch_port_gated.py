@@ -12,6 +12,13 @@ Tolerances, as tests/test_ops.py: forward 1e-5 absolute; gradients, first
 and second order, 1e-4 absolute and 1e-5 relative (64-term f32 products
 and 2,500-row parameter sums taken in different orders).
 
+The fifth, ``_reduce_pallas`` behind ``fused_gated_message_reduce`` (the
+tail fused with its sorted segment sum), runs in interpret mode with
+``CHGNET_TPU_MSG_REDUCE`` set and the TPU gate patched open, on the inputs
+of tests/test_msg_reduce.py (masked rows whose keys stay in range, dropped
+rows) and at that file's bars: forward 3e-5, gradients 5e-4, second order
+1e-3.
+
 The kernels are held against these plain versions on the card in
 tests/test_torch_port_cuda.py.
 """
@@ -26,6 +33,9 @@ import torch
 
 from chgnet_tpu.models import functions as jfn
 from chgnet_tpu.ops import gated_message as jgm
+from chgnet_tpu.ops import scatter as jsc
+from chgnet_tpu.ops import stream_ops as jso
+from chgnet_tpu_torch.graph.batching import SegmentPlan, make_plan
 from chgnet_tpu_torch.models import functions as tfn
 from chgnet_tpu_torch.models.convert import params_from_jax
 from chgnet_tpu_torch.ops import gated_message as tgm
@@ -285,3 +295,139 @@ def test_fusable_predicates_match_chgnet_tpu(n_layers, norm, act):
     assert tfn.gated_mlp_update_fusable(port, act) == (
         jfn.gated_mlp_update_fusable(tree, act)
     )
+
+
+# ---------------------------------------------- message tail + segment sum
+@pytest.fixture()
+def reduce_gates(monkeypatch):
+    """chgnet_tpu's opt-in switch and TPU gate open, its stream kernels in
+    interpret mode (the fixture of tests/test_msg_reduce.py)."""
+    import functools as ft
+
+    monkeypatch.setenv("CHGNET_TPU_MSG_REDUCE", "1")
+    monkeypatch.delenv("CHGNET_TPU_NO_MSG_REDUCE", raising=False)
+    monkeypatch.setattr(jso, "tpu_backend", lambda: True)
+    for name in ("_multi_gather_pallas", "_gather_pallas", "_segsum_pallas",
+                 "_segsum2_pallas"):
+        monkeypatch.setattr(jso, name, ft.partial(getattr(jso, name), interpret=True))
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
+
+
+def _reduce_case(n_rows=2048, n_out=1024, seed=0):
+    """``_setup`` of tests/test_msg_reduce.py: a sorted key stream with
+    dropped rows at the tail and rows whose mask is zero while their key
+    stays in range."""
+    rng = np.random.default_rng(seed)
+    dst = np.sort(rng.integers(0, n_out, n_rows)).astype(np.int32)
+    mask = (rng.random(n_rows) > 0.1).astype(np.float32)
+    drop = (rng.random(n_rows) > 0.5) & (mask == 0)
+    dst = np.where(drop, n_out, dst).astype(np.int32)
+    order = np.argsort(dst, kind="stable")
+    dst, mask = dst[order], mask[order]
+    assert ((mask == 0) & (dst < n_out)).any()
+    x = dict(
+        acc=rng.standard_normal((n_rows, 2 * D)).astype(np.float32),
+        weights=rng.standard_normal((n_rows, D)).astype(np.float32),
+        mask=mask,
+        w2c=(rng.standard_normal((D, D)) * 0.1).astype(np.float32),
+        w2g=(rng.standard_normal((D, D)) * 0.1).astype(np.float32),
+        b2=(rng.standard_normal(2 * D) * 0.1).astype(np.float32),
+        nc_scale=np.ones(D, np.float32), nc_bias=np.zeros(D, np.float32),
+        ng_scale=np.ones(D, np.float32), ng_bias=np.zeros(D, np.float32),
+    )
+    jplan = jsc.make_plan(dst, dst < n_out, n_out, assume_sorted=True)
+    tplan = SegmentPlan(*(
+        torch.as_tensor(f)
+        for f in make_plan(dst, dst < n_out, n_out, assume_sorted=True)
+    ))
+    return x, jplan, tplan, n_out
+
+
+def test_message_reduce_forward_matches_pallas_interpret(reduce_gates):
+    x, jplan, tplan, n_out = _reduce_case()
+    assert jgm.msg_reduce_ok(jnp.asarray(x["acc"]), jplan, n_out)
+    want = jgm.fused_gated_message_reduce(
+        jnp.asarray(x["acc"]), jnp.asarray(x["weights"]), jnp.asarray(x["mask"]),
+        {k: jnp.asarray(v) for k, v in _jp2(x).items()}, jplan, n_out,
+    )
+    got = tgm.gated_message_reduce(
+        torch.tensor(x["acc"]), torch.tensor(x["weights"]),
+        torch.tensor(x["mask"]), tgm.tail_params(_tp2(x)), tplan.offsets,
+    )
+    assert got.shape == (n_out, D)
+    _close(got, want, atol=3e-5, rtol=3e-5)
+    # the mask multiplies inside the sum: what a masked row holds is ignored
+    acc = torch.tensor(x["acc"])
+    acc[torch.tensor(x["mask"]) == 0] = 50.0
+    again = tgm.gated_message_reduce(
+        acc, torch.tensor(x["weights"]), torch.tensor(x["mask"]),
+        tgm.tail_params(_tp2(x)), tplan.offsets,
+    )
+    assert torch.equal(again, got)
+
+
+def test_message_reduce_gradients_match_custom_vjp(reduce_gates):
+    x, jplan, tplan, n_out = _reduce_case(1024, 512)
+    ct = np.random.default_rng(1).standard_normal((n_out, D)).astype(np.float32)
+
+    def jloss(a, w, p):
+        out = jgm.fused_gated_message_reduce(
+            a, w, jnp.asarray(x["mask"]), p, jplan, n_out
+        )
+        return jnp.sum(out * ct)
+
+    jp = {k: jnp.asarray(v) for k, v in _jp2(x).items()}
+    j_acc, j_w, j_p = jax.grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(x["acc"]), jnp.asarray(x["weights"]), jp
+    )
+    acc = torch.tensor(x["acc"], requires_grad=True)
+    w = torch.tensor(x["weights"], requires_grad=True)
+    tp = _tp2(x, requires_grad=True)
+    out = tgm.fused_gated_message_reduce(acc, w, torch.tensor(x["mask"]), tp, tplan)
+    leaves = [acc, w, *tgm.tail_params(tp)]
+    grads = torch.autograd.grad((out * torch.tensor(ct)).sum(), leaves)
+    want = [j_acc, j_w, *_jparams_like_port(j_p)]
+    for got, wnt in zip(grads, want, strict=True):
+        _close(got, wnt, atol=5e-4, rtol=5e-4)
+
+
+def test_message_reduce_second_order_matches_custom_vjp(reduce_gates):
+    x, jplan, tplan, n_out = _reduce_case(1024, 512)
+    jp = {k: jnp.asarray(v) for k, v in _jp2(x).items()}
+
+    def j_energy(a):
+        out = jgm.fused_gated_message_reduce(
+            a, jnp.asarray(x["weights"]), jnp.asarray(x["mask"]), jp, jplan, n_out
+        )
+        return jnp.sum(jnp.tanh(out))
+
+    want = jax.grad(lambda a: jnp.sum(jax.grad(j_energy)(a) ** 2))(
+        jnp.asarray(x["acc"])
+    )
+    acc = torch.tensor(x["acc"], requires_grad=True)
+    out = tgm.fused_gated_message_reduce(
+        acc, torch.tensor(x["weights"]), torch.tensor(x["mask"]), _tp2(x), tplan
+    )
+    (g,) = torch.autograd.grad(torch.tanh(out).sum(), acc, create_graph=True)
+    (gg,) = torch.autograd.grad((g ** 2).sum(), acc)
+    _close(gg, want, atol=1e-3, rtol=1e-3)
+
+
+def test_message_reduce_needs_a_sorted_plan_and_reads_the_switch(monkeypatch):
+    x, _, tplan, _ = _reduce_case(256, 64)
+    monkeypatch.delenv("CHGNET_TPU_MSG_REDUCE", raising=False)
+    monkeypatch.delenv("CHGNET_TPU_NO_MSG_REDUCE", raising=False)
+    assert not tgm.msg_reduce_ok(tplan)
+    monkeypatch.setenv("CHGNET_TPU_MSG_REDUCE", "1")
+    assert tgm.msg_reduce_ok(tplan)
+    permuted = SegmentPlan(tplan.key, torch.arange(256, dtype=torch.int32), tplan.offsets)
+    assert not tgm.msg_reduce_ok(permuted)
+    monkeypatch.setenv("CHGNET_TPU_NO_MSG_REDUCE", "1")
+    assert not tgm.msg_reduce_ok(tplan)
+    args = (torch.tensor(x["acc"]), torch.tensor(x["weights"]), torch.tensor(x["mask"]))
+    with pytest.raises(ValueError, match="sorted keys"):
+        tgm.fused_gated_message_reduce(*args, _tp2(x), permuted)
+    with pytest.raises(ValueError, match="second layer"):
+        tgm.fused_gated_message_reduce(*args, _tp2(x, False), tplan)

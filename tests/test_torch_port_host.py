@@ -39,6 +39,15 @@ PLANS = [
     ("plan_nbr", "plan_nbr"),
     ("plan_ang_vi", "plan_ang_vi"),
     ("plan_ang_vj", "plan_ang_vj"),
+    ("plan_d2u", "plan_d2u"),
+    ("plan_u2d", "plan_u2d"),
+    ("plan_u2d2", "plan_u2d2"),
+]
+# port plan -> the chgnet_tpu batch's index stream and validity mask
+UNDIRECTED_PLANS = [
+    ("plan_d2u", "directed2undirected", "edge_mask"),
+    ("plan_u2d", "undirected2directed", "und_mask"),
+    ("plan_u2d2", "und_second", "und_mask"),
 ]
 
 
@@ -120,6 +129,37 @@ def test_csr_offsets_agree_with_chgnet_tpu_plans(
     want = np.searchsorted(jp.dst, np.arange(n_out + 1), side="left")
     np.testing.assert_array_equal(tp.offsets, want)
     assert tp.offsets[-1] == int((jp.dst < n_out).sum())
+
+
+@pytest.mark.parametrize("n_graphs", ["1", "3"])
+@pytest.mark.parametrize("t_name,stream,mask", UNDIRECTED_PLANS)
+def test_undirected_plans_reproduce_jax_segment_sum(
+    graph_sets, n_graphs, t_name, stream, mask
+):
+    """The port's CSR segment sum over the undirected layout's plans equals
+    ``jax.ops.segment_sum`` over the chgnet_tpu batch's streams, padded rows
+    dropped; exact on integer-valued rows."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from chgnet_tpu_torch.ops.segment import segment_sum_plain
+
+    jgraphs, tgraphs = graph_sets[n_graphs]
+    jb, tb = j_batch_graphs(jgraphs), t_batch_graphs(tgraphs)
+    plan = getattr(tb, t_name)
+    idx, valid = getattr(jb, stream), getattr(jb, mask) > 0
+    n_out = plan.n_out
+    np.testing.assert_array_equal(plan.key, np.where(valid, idx, n_out))
+    rng = np.random.default_rng(9)
+    x = rng.integers(-8, 9, (idx.shape[0], 4)).astype(np.float32)
+    want = jax.ops.segment_sum(
+        jnp.asarray(x), jnp.where(valid, idx, n_out), num_segments=n_out
+    )
+    got = segment_sum_plain(
+        torch.tensor(x), torch.as_tensor(plan.offsets), torch.as_tensor(plan.perm)
+    )
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_graph_plan_counts_atoms_per_graph(graph_sets):

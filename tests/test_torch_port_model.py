@@ -222,6 +222,14 @@ def test_unsupported_config_raises():
         TCHGNet(seed=0, device="cpu", compute_dtype="bfloat16", **SMALL)
 
 
+def test_undirected_bond_layout_is_supported():
+    model = TCHGNet(seed=0, device="cpu", directed_bonds=False, **SMALL)
+    assert not model.config.directed_bonds
+    model.config.check_supported()
+    out = model.predict_structure(TStructure.from_file(LIMNO2), task="efsm")
+    assert np.isfinite(out["e"]) and np.isfinite(out["f"]).all()
+
+
 def test_cuda_device_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the no-fallback check needs its absence")
