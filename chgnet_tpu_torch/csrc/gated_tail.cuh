@@ -1,0 +1,438 @@
+// The gated-MLP tail shared by the fused tail kernels (gated_message.cu)
+// and the one-kernel conv pass (fused_pass.cu): tile sizes, the staged
+// block-diagonal product, the per-row layer norms and gate with their
+// backward, and the launch plumbing (wave size per instantiation, the
+// in-order sum of the per-block parameter gradients). Both sources include
+// it, so the two cannot drift apart; chgnet_tpu_torch/ops/build.py digests
+// every header of this directory into each library's name, so both rebuild
+// when it changes.
+#pragma once
+
+#include <atomic>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 32;                      // rows per tile
+constexpr int kRowsPerWarp = kTile / kWarps;   // 4
+constexpr int kMaxD = 64;                      // 2D <= 128
+constexpr int kPerLane = kMaxD / 32;           // a half's elements per lane
+// floats of one half tile; the 4 extra floats move the gate half off the
+// core half's banks
+constexpr int kHalf = kTile * kMaxD + 4;
+constexpr int kWeights = 2 * kMaxD * kMaxD;    // W2c and W2g
+constexpr int kVecs = 6;                       // per-row gradient vectors
+constexpr float kEps = 1e-5f;
+// Blocks of the backward with parameter gradients, whatever the card, so
+// that the wrapper can size their [blocks, n_part] scratch and the sums
+// repeat bit for bit on any card: about one wave on an H100 (132 SMs, two
+// blocks each at 128 registers).
+constexpr int kParamBlocks = 256;
+constexpr int kMaxDevices = 16;
+
+struct Tail {
+  const float* w2c;  // [D, D], null without a second layer
+  const float* w2g;  // [D, D]
+  const float* b2;   // [2D]
+  const float* ncs;  // [D] layer-norm scales and biases
+  const float* ncb;
+  const float* ngs;
+  const float* ngb;
+};
+
+__device__ __forceinline__ float sigm(float x) { return 1.f / (1.f + expf(-x)); }
+__device__ __forceinline__ float silu(float x) { return x / (1.f + expf(-x)); }
+__device__ __forceinline__ float silu_grad(float x) {
+  const float s = sigm(x);
+  return s * (1.f + x * (1.f - s));
+}
+
+// the same sum in every lane (a + b == b + a at each step)
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float* half_tile(float* buf, int half) {
+  return buf + half * kHalf;
+}
+__device__ __forceinline__ const float* half_tile(const float* buf, int half) {
+  return buf + half * kHalf;
+}
+
+// A half row's elements e = lane + 32 i (zero past D).
+__device__ __forceinline__ void load_lane(const float* src, int d, int lane,
+                                          float v[kPerLane]) {
+#pragma unroll
+  for (int i = 0; i < kPerLane; ++i) {
+    const int e = lane + 32 * i;
+    v[i] = e < d ? src[e] : 0.f;
+  }
+}
+
+__device__ __forceinline__ void store_lane(float* dst, int d, int lane,
+                                           const float v[kPerLane]) {
+#pragma unroll
+  for (int i = 0; i < kPerLane; ++i) {
+    const int e = lane + 32 * i;
+    if (e < d) dst[e] = v[i];
+  }
+}
+
+// w_s[half][k][c] = W_half[k][c], or W_half[c][k] with transpose
+__device__ void stage_weights(float* w_s, const Tail& t, int d, bool transpose) {
+  const int dd = d * d;
+  for (int i = threadIdx.x; i < 2 * dd; i += kThreads) {
+    const int half = i >= dd;
+    const int j = i - half * dd;
+    const int k = j / d;
+    const int c = j - k * d;
+    w_s[half * dd + (transpose ? c * d + k : j)] = (half ? t.w2g : t.w2c)[j];
+  }
+}
+
+// h_s = silu(acc) of the tile's rows, zero rows past n_rows
+__device__ void load_silu(const float* __restrict__ acc, float* h_s, long row0,
+                          int n_rows, int d) {
+  const int d4 = d / 4;
+  for (int i = threadIdx.x; i < kTile * 2 * d4; i += kThreads) {
+    const int r = i / (2 * d4);
+    const int c4 = i - r * 2 * d4;
+    const long l = row0 + r;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (l < n_rows) {
+      v = reinterpret_cast<const float4*>(acc + l * 2 * d)[c4];
+      v = make_float4(silu(v.x), silu(v.y), silu(v.z), silu(v.w));
+    }
+    const int half = c4 >= d4;
+    reinterpret_cast<float4*>(half_tile(h_s, half) + r * d)[c4 - half * d4] = v;
+  }
+}
+
+// out[r][j] = sum_k in[half][row r of the warp][k] * w[half][k][c + j] for
+// the lane's columns col = 4 lane = half D + c (nothing past 2D)
+__device__ __forceinline__ void tile_product(const float* in_s, const float* w_s,
+                                             int d, int warp, int lane,
+                                             float out[kRowsPerWarp][4]) {
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r)
+    out[r][0] = out[r][1] = out[r][2] = out[r][3] = 0.f;
+  const int col = 4 * lane;
+  if (col >= 2 * d) return;
+  const int half = col >= d;
+  const float* in = half_tile(in_s, half) + warp * kRowsPerWarp * d;
+  const float* w = w_s + half * d * d + (col - half * d);
+  for (int k = 0; k < d; k += 4) {
+    const float4 w0 = *reinterpret_cast<const float4*>(w + (k + 0) * d);
+    const float4 w1 = *reinterpret_cast<const float4*>(w + (k + 1) * d);
+    const float4 w2 = *reinterpret_cast<const float4*>(w + (k + 2) * d);
+    const float4 w3 = *reinterpret_cast<const float4*>(w + (k + 3) * d);
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const float4 x = *reinterpret_cast<const float4*>(in + r * d + k);
+      float* o = out[r];
+      o[0] = fmaf(x.x, w0.x, o[0]);
+      o[1] = fmaf(x.x, w0.y, o[1]);
+      o[2] = fmaf(x.x, w0.z, o[2]);
+      o[3] = fmaf(x.x, w0.w, o[3]);
+      o[0] = fmaf(x.y, w1.x, o[0]);
+      o[1] = fmaf(x.y, w1.y, o[1]);
+      o[2] = fmaf(x.y, w1.z, o[2]);
+      o[3] = fmaf(x.y, w1.w, o[3]);
+      o[0] = fmaf(x.z, w2.x, o[0]);
+      o[1] = fmaf(x.z, w2.y, o[1]);
+      o[2] = fmaf(x.z, w2.z, o[2]);
+      o[3] = fmaf(x.z, w2.w, o[3]);
+      o[0] = fmaf(x.w, w3.x, o[0]);
+      o[1] = fmaf(x.w, w3.y, o[1]);
+      o[2] = fmaf(x.w, w3.z, o[2]);
+      o[3] = fmaf(x.w, w3.w, o[3]);
+    }
+  }
+}
+
+// y_s rows of the warp = y + b2
+__device__ __forceinline__ void store_y(float* y_s, const float y[kRowsPerWarp][4],
+                                        const float b[4], int d, int warp,
+                                        int lane) {
+  const int col = 4 * lane;
+  if (col >= 2 * d) return;
+  const int half = col >= d;
+  float* dst = half_tile(y_s, half) + warp * kRowsPerWarp * d + (col - half * d);
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r)
+    *reinterpret_cast<float4*>(dst + r * d) =
+        make_float4(y[r][0] + b[0], y[r][1] + b[1], y[r][2] + b[2], y[r][3] + b[3]);
+}
+
+// Two-pass layer norm of one half row: z = (v - mean) * inv.
+__device__ __forceinline__ void ln_parts(const float v[kPerLane], int d, int lane,
+                                         float z[kPerLane], float& inv) {
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < kPerLane; ++i)
+    if (lane + 32 * i < d) s += v[i];
+  const float mean = warp_sum(s) / d;
+  float q = 0.f;
+#pragma unroll
+  for (int i = 0; i < kPerLane; ++i)
+    if (lane + 32 * i < d) {
+      const float c = v[i] - mean;
+      q = fmaf(c, c, q);
+    }
+  inv = rsqrtf(warp_sum(q) / d + kEps);
+#pragma unroll
+  for (int i = 0; i < kPerLane; ++i)
+    z[i] = lane + 32 * i < d ? (v[i] - mean) * inv : 0.f;
+}
+
+// d x of out = z * scale + bias for the cotangent gout (_ln_bwd :141)
+__device__ __forceinline__ void ln_bwd(const float gout[kPerLane],
+                                       const float z[kPerLane], float inv,
+                                       const float scale[kPerLane], int d,
+                                       int lane, float dx[kPerLane]) {
+  float gz[kPerLane];
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < kPerLane; ++i) {
+    gz[i] = gout[i] * scale[i];  // zero past D, as gout and scale are
+    s1 += gz[i];
+    s2 = fmaf(gz[i], z[i], s2);
+  }
+  const float m1 = warp_sum(s1) / d;
+  const float m2 = warp_sum(s2) / d;
+#pragma unroll
+  for (int i = 0; i < kPerLane; ++i) dx[i] = (gz[i] - m1 - z[i] * m2) * inv;
+}
+
+struct LaneParams {  // the lane's layer-norm parameters, zero past D
+  float ncs[kPerLane], ncb[kPerLane], ngs[kPerLane], ngb[kPerLane];
+  __device__ void load(const Tail& t, int d, int lane) {
+    load_lane(t.ncs, d, lane, ncs);
+    load_lane(t.ncb, d, lane, ncb);
+    load_lane(t.ngs, d, lane, ngs);
+    load_lane(t.ngb, d, lane, ngb);
+  }
+};
+
+__device__ __forceinline__ void load_bias(const Tail& t, int d, int lane,
+                                          float b[4]) {
+  const int col = 4 * lane;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) b[j] = col < 2 * d ? t.b2[col + j] : 0.f;
+}
+
+// The gate of one row, silu(LN(y_c)) * sigmoid(LN(y_g)), for the lane's
+// elements (unspecified past D); y_c and y_g are the row's two halves.
+__device__ __forceinline__ void gate_row(const float* y_c, const float* y_g,
+                                         const LaneParams& lp, int d, int lane,
+                                         float gate[kPerLane]) {
+  float yc[kPerLane], yg[kPerLane], zc[kPerLane], zg[kPerLane];
+  float invc, invg;
+  load_lane(y_c, d, lane, yc);
+  load_lane(y_g, d, lane, yg);
+  ln_parts(yc, d, lane, zc, invc);
+  ln_parts(yg, d, lane, zg, invg);
+#pragma unroll
+  for (int i = 0; i < kPerLane; ++i)
+    gate[i] = silu(fmaf(zc[i], lp.ncs[i], lp.ncb[i])) *
+              sigm(fmaf(zg[i], lp.ngs[i], lp.ngb[i]));
+}
+
+// The backward of one row's gate for the cotangent row g (_bwd_math :150,
+// _bwd_math_nw :690): the layer-norm parts of y, the cotangents of the two
+// affine outputs, d_y, and for a message row d_weights and the row's part of
+// d_mask. Everything is zero past D.
+struct RowGrads {
+  float zc[kPerLane], zg[kPerLane];      // normalised y halves
+  float d_cn[kPerLane], d_gn[kPerLane];  // cotangents of the affine outputs
+  float dyc[kPerLane], dyg[kPerLane];    // d_y halves
+  float dw[kPerLane];                    // d_weights (message only)
+  float mask_part;                       // this lane's part of d_mask
+};
+
+template <bool kMsg>
+__device__ __forceinline__ void gate_row_bwd(const float* y_c, const float* y_g,
+                                             const float* g_row,
+                                             const float* w_row, float m,
+                                             const LaneParams& lp, int d,
+                                             int lane, RowGrads& o) {
+  float yc[kPerLane], yg[kPerLane];
+  float invc, invg;
+  load_lane(y_c, d, lane, yc);
+  load_lane(y_g, d, lane, yg);
+  ln_parts(yc, d, lane, o.zc, invc);
+  ln_parts(yg, d, lane, o.zg, invg);
+  float gv[kPerLane];
+  load_lane(g_row, d, lane, gv);  // zero past D, and so is all below
+  if (kMsg) load_lane(w_row, d, lane, o.dw);
+  o.mask_part = 0.f;
+#pragma unroll
+  for (int i = 0; i < kPerLane; ++i) {
+    const float cn = fmaf(o.zc[i], lp.ncs[i], lp.ncb[i]);
+    const float gn = fmaf(o.zg[i], lp.ngs[i], lp.ngb[i]);
+    const float silu_cn = silu(cn);
+    const float sig_gn = sigm(gn);
+    float up = gv[i];
+    if (kMsg) {
+      o.mask_part = fmaf(gv[i], silu_cn * sig_gn * o.dw[i], o.mask_part);
+      up = gv[i] * o.dw[i] * m;
+      o.dw[i] = gv[i] * silu_cn * sig_gn * m;  // d_weights
+    }
+    o.d_cn[i] = up * sig_gn * silu_grad(cn);
+    o.d_gn[i] = up * silu_cn * sig_gn * (1.f - sig_gn);
+  }
+  ln_bwd(o.d_cn, o.zc, invc, lp.ncs, d, lane, o.dyc);
+  ln_bwd(o.d_gn, o.zg, invg, lp.ngs, d, lane, o.dyg);
+}
+
+// A block's parameter-gradient sums: per-lane vectors (ncs, ncb, ngs, ngb,
+// and the two halves of d_y: b2's gradient where there is a second layer)
+// and this thread's 8 x 4 entries of dW2 (half threadIdx / 128, rows k0..,
+// columns c0..).
+struct ParamSums {
+  float pv[kVecs][kPerLane];
+  float pw[8][4];
+
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int q = 0; q < kVecs; ++q)
+#pragma unroll
+      for (int i = 0; i < kPerLane; ++i) pv[q][i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) pw[i][0] = pw[i][1] = pw[i][2] = pw[i][3] = 0.f;
+  }
+
+  // one row's terms of the vectors
+  __device__ __forceinline__ void add_row(const RowGrads& o) {
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) {
+      pv[0][i] = fmaf(o.d_cn[i], o.zc[i], pv[0][i]);
+      pv[1][i] += o.d_cn[i];
+      pv[2][i] = fmaf(o.d_gn[i], o.zg[i], pv[2][i]);
+      pv[3][i] += o.d_gn[i];
+      pv[4][i] += o.dyc[i];
+      pv[5][i] += o.dyg[i];
+    }
+  }
+
+  // dW2 += h^T @ d_y over the tile's 32 rows, in order
+  __device__ __forceinline__ void add_tile(const float* h_s, const float* y_s,
+                                           int d) {
+    const int w_half = threadIdx.x >> 7;
+    const int k0 = ((threadIdx.x & 127) >> 4) * 8;
+    const int c0 = (threadIdx.x & 15) * 4;
+    if (k0 >= d || c0 >= d) return;
+    const float* hh = half_tile(h_s, w_half);
+    const float* dy = half_tile(y_s, w_half);
+    for (int r = 0; r < kTile; ++r) {
+      const float4 y4 = *reinterpret_cast<const float4*>(dy + r * d + c0);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float hv = k0 + i < d ? hh[r * d + k0 + i] : 0.f;
+        pw[i][0] = fmaf(hv, y4.x, pw[i][0]);
+        pw[i][1] = fmaf(hv, y4.y, pw[i][1]);
+        pw[i][2] = fmaf(hv, y4.z, pw[i][2]);
+        pw[i][3] = fmaf(hv, y4.w, pw[i][3]);
+      }
+    }
+  }
+
+  // This block's row out of the partial buffer, by every thread of the
+  // block: dW2c and dW2g (D x D each) at its front with kW2, the four
+  // layer-norm vectors from ln_at, d_y's two sums from dy_at (negative: not
+  // stored). The warps' vectors pass through red [kWarps][kVecs][kMaxD] in
+  // shared memory, which nothing else may use meanwhile, and add in warp
+  // order; a barrier lies between the writes to red and the reads.
+  template <bool kW2>
+  __device__ void store(float* red, float* out, int ln_at, int dy_at, int d,
+                        int warp, int lane) const {
+#pragma unroll
+    for (int q = 0; q < kVecs; ++q)
+      store_lane(red + (warp * kVecs + q) * kMaxD, d, lane, pv[q]);
+    __syncthreads();
+    const int w_half = threadIdx.x >> 7;
+    const int k0 = ((threadIdx.x & 127) >> 4) * 8;
+    const int c0 = (threadIdx.x & 15) * 4;
+    if (kW2 && k0 < d && c0 < d) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (k0 + i >= d) break;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          out[w_half * d * d + (k0 + i) * d + c0 + j] = pw[i][j];
+      }
+    }
+    for (int j = threadIdx.x; j < kVecs * d; j += kThreads) {
+      const int q = j / d;
+      const int e = j - q * d;
+      if (q >= 4 && dy_at < 0) continue;
+      float s = 0.f;
+      for (int w = 0; w < kWarps; ++w) s += red[(w * kVecs + q) * kMaxD + e];
+      out[(q >= 4 ? dy_at + (q - 4) * d : ln_at + q * d) + e] = s;
+    }
+  }
+};
+
+// out[j] = sum over blocks b, in order, of partial[b][j]
+__global__ void sum_blocks_kernel(const float* __restrict__ partial,
+                                  int n_blocks, int n_part,
+                                  float* __restrict__ out) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n_part) return;
+  float s = 0.f;
+  for (int b = 0; b < n_blocks; ++b) s += partial[(long)b * n_part + j];
+  out[j] = s;
+}
+
+// One instantiation: its dynamic shared memory and, per device, the blocks
+// of one full wave (0 until first found).
+template <typename Fn>
+struct Kernel {
+  Fn fn;
+  size_t smem;
+  std::atomic<int>* waves;
+};
+
+// Blocks of one full wave of k on the current device: its SMs times the
+// blocks k's occupancy allows on each. Found once per instantiation and
+// device, when k's shared memory limit is also set; negative: minus a
+// cudaError_t.
+template <typename Fn>
+int wave_blocks(const Kernel<Fn>& k) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return -(int)err;
+  if (dev >= kMaxDevices) return -(int)cudaErrorInvalidDevice;
+  int blocks = k.waves[dev].load(std::memory_order_relaxed);
+  if (blocks != 0) return blocks;
+  int per_sm = 0;
+  err = cudaFuncSetAttribute(k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)k.smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k.fn, kThreads,
+                                                        k.smem);
+  if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;
+  blocks = err == cudaSuccess ? chgnet::sm_count() * per_sm : -(int)err;
+  k.waves[dev].store(blocks, std::memory_order_relaxed);
+  return blocks;
+}
+
+int n_tiles(int n_rows) { return (n_rows + kTile - 1) / kTile; }
+
+Tail make_tail(const void* const* p) {
+  return Tail{static_cast<const float*>(p[0]), static_cast<const float*>(p[1]),
+              static_cast<const float*>(p[2]), static_cast<const float*>(p[3]),
+              static_cast<const float*>(p[4]), static_cast<const float*>(p[5]),
+              static_cast<const float*>(p[6])};
+}
+
+bool bad_shape(bool msg, bool w2, int d) {
+  return d < 4 || d > kMaxD || d % 4 || (msg && !w2);
+}
+
+}  // namespace

@@ -139,3 +139,141 @@ extern "C" int segment_sum_pair_f32(const float* x, const int* perm_a,
   }
   return (int)cudaGetLastError();
 }
+
+// ------------------------------------------------ input-stationary sums
+// segment_sum_tiles: the function of segment_sum_csr with the input owned,
+// not the output. Replaces chgnet_tpu/ops/stream_ops.py _segsum_v2_kernel
+// (:1003, wrapper _segsum_v2_pallas :1033), whose grid walks input chunks
+// and flushes each output block once; the dispatch takes it for d < 128
+// under CHGNET_TPU_STREAM_V2 (_segsum_impl :453).
+//
+// Bound: bytes, as segment_sum_csr. Design: the valid sorted rows are cut
+// into tiles of kTileRows rows, one per group of lanes (a lane per float4
+// unit of a row, so at d = 64 a warp holds two tiles and no lane idles, and
+// the work per group is the same whatever the segment lengths). A group
+// finds the segment of its first row by a binary search over the offsets,
+// then walks its rows in order, adding runs of one segment: a segment that
+// lies wholly inside the tile is written straight to out; the tile's first
+// and last runs, when their segments reach past it, go to two carry slots
+// of the tile (slot 0: the run that holds the tile's first row). A second
+// kernel owns the output rows: it zeroes the empty segments and adds the
+// carries of every segment that spans tiles, in tile order. No float
+// atomics: two runs give equal bits. The add order (rows in order inside a
+// tile, then tiles in order) differs from segment_sum_csr's lane-group tree,
+// so the two agree to rounding only.
+namespace {
+
+constexpr int kTileRows = 32;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    segment_sum_tiles_kernel(const T* __restrict__ x, const int* __restrict__ perm,
+                             const int* __restrict__ offsets, T* __restrict__ out,
+                             T* __restrict__ carry, int n_out, int units,
+                             int lpr) {
+  const int groups = kThreads / lpr;
+  const long t = (long)blockIdx.x * groups + threadIdx.x / lpr;  // the tile
+  const int u = threadIdx.x % lpr;
+  const int n_valid = offsets[n_out];
+  const long b = t * kTileRows;
+  if (b >= n_valid || u >= units) return;
+  const int e = b + kTileRows < n_valid ? (int)b + kTileRows : n_valid;
+  // the segment of row b: the first n with offsets[n + 1] > b
+  int lo = 0, hi = n_out - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (offsets[mid + 1] > b) hi = mid; else lo = mid + 1;
+  }
+  int n = lo;
+  int seg_beg = offsets[n];
+  int seg_end = offsets[n + 1];
+  T acc = vzero<T>();
+  for (int k = (int)b; k <= e; ++k) {
+    if (k == e || k >= seg_end) {  // the run of segment n ends before row k
+      if (seg_beg >= b && seg_end <= e)
+        out[(long)n * units + u] = acc;
+      else
+        carry[(t * 2 + (seg_beg > b)) * units + u] = acc;
+      if (k == e) break;
+      acc = vzero<T>();
+      do {  // the next segment with a row, past the empty ones
+        ++n;
+        seg_end = offsets[n + 1];
+      } while (k >= seg_end);
+      seg_beg = offsets[n];
+    }
+    const long row = perm ? perm[k] : k;
+    vadd(acc, x[row * units + u]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    segment_sum_carry_kernel(const int* __restrict__ offsets,
+                             const T* __restrict__ carry, T* __restrict__ out,
+                             int n_out, int units, int lpr) {
+  const int groups = kThreads / lpr;
+  const int u = threadIdx.x % lpr;
+  if (u >= units) return;
+  for (long n = (long)blockIdx.x * groups + threadIdx.x / lpr; n < n_out;
+       n += (long)gridDim.x * groups) {
+    const int beg = offsets[n];
+    const int end = offsets[n + 1];
+    if (beg == end) {
+      out[n * units + u] = vzero<T>();
+      continue;
+    }
+    const int t0 = beg / kTileRows;
+    const int t1 = (end - 1) / kTileRows;
+    if (t0 == t1) continue;  // wholly inside a tile: the first kernel wrote it
+    T acc = vzero<T>();
+    for (long t = t0; t <= t1; ++t) {
+      const int slot = t == t0 && beg > t * kTileRows;
+      vadd(acc, carry[(t * 2 + slot) * units + u]);
+    }
+    out[n * units + u] = acc;
+  }
+}
+
+template <typename T>
+void launch_tiles(const T* x, const int* perm, const int* offsets, T* out,
+                  T* carry, int n_rows, int n_out, int units, cudaStream_t st) {
+  int lpr = 1;  // lanes per tile (power of two)
+  while (lpr < units) lpr <<= 1;
+  const int groups = kThreads / lpr;
+  const long tiles = ((long)n_rows + kTileRows - 1) / kTileRows;
+  if (tiles > 0)
+    segment_sum_tiles_kernel<T><<<(int)((tiles + groups - 1) / groups), kThreads,
+                                  0, st>>>(x, perm, offsets, out, carry, n_out,
+                                           units, lpr);
+  const long want = ((long)n_out + groups - 1) / groups;
+  const long cap = (long)chgnet::sm_count() * 16;
+  segment_sum_carry_kernel<T><<<(int)(want < cap ? want : cap), kThreads, 0, st>>>(
+      offsets, carry, out, n_out, units, lpr);
+}
+
+}  // namespace
+
+// out [n_out, d] as segment_sum_csr_f32; n_rows bounds the valid rows
+// (offsets[n_out] <= n_rows); carry: scratch of 2 d floats per tile of 32
+// rows, ceil(n_rows / 32) tiles, 16-byte aligned.
+extern "C" int segment_sum_tiles_f32(const float* x, const int* perm,
+                                     const int* offsets, float* out,
+                                     float* carry, int n_rows, int n_out, int d,
+                                     void* stream) {
+  const bool vec4 = chgnet::vec4_ok(x, d) && chgnet::vec4_ok(out, d) &&
+                    chgnet::vec4_ok(carry, d);
+  if ((vec4 ? d / 4 : d) > kMaxUnits) return (int)cudaErrorInvalidValue;
+  if (n_out > 0) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (vec4) {
+      launch_tiles<float4>(reinterpret_cast<const float4*>(x), perm, offsets,
+                           reinterpret_cast<float4*>(out),
+                           reinterpret_cast<float4*>(carry), n_rows, n_out,
+                           d / 4, st);
+    } else {
+      launch_tiles<float>(x, perm, offsets, out, carry, n_rows, n_out, d, st);
+    }
+  }
+  return (int)cudaGetLastError();
+}

@@ -21,11 +21,18 @@ sorts them (empty when the stream is sorted by construction) and the CSR
 segment offsets ``[n_out + 1]`` of the sorted keys. A segment sum then
 reads ``offsets[n]..offsets[n + 1]`` for output row ``n``, in a fixed
 order and without atomics (``chgnet_tpu_torch/ops/segment.py``).
+
+With ``CHGNET_TPU_STREAM_V2`` set while the batch is built
+(:func:`stream_v2_enabled`), a plan also carries the source window of every
+block of ``WINDOW_BLOCK`` stream rows (:func:`build_window_plan`), the
+counterpart of ``chgnet_tpu``'s paired-window plan (``GatherPlan.pw``), for
+the windowed gather kernel.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -34,6 +41,23 @@ import torch
 from chgnet_tpu_torch.graph.crystalgraph import CrystalGraph
 
 STREAM_CHUNK = 512  # row alignment of the padded streams (chgnet_tpu's C)
+# The windowed gather (ops/segment.py gather_rows_window): stream rows per
+# block, and the most source rows a block's window may span. A block stages
+# its window in shared memory, of which an H100 block may use 227 KB
+# (232,448 bytes): 448 rows of 128 floats are 229,376 bytes.
+WINDOW_BLOCK = 128
+WINDOW_ROWS = 448
+_EMPTY = np.zeros(0, np.int32)
+
+
+def stream_v2_enabled() -> bool:
+    """The switch of the input-stationary segment sum and the windowed
+    gather, as ``chgnet_tpu.ops.stream_ops.stream_v2_enabled`` (:1196):
+    ``CHGNET_TPU_STREAM_V2`` non-empty and ``CHGNET_TPU_NO_STREAM_V2`` empty.
+    Read when a batch is built (the window plans) and at every call."""
+    return bool(os.environ.get("CHGNET_TPU_STREAM_V2")) and not os.environ.get(
+        "CHGNET_TPU_NO_STREAM_V2"
+    )
 
 
 class SegmentPlan(NamedTuple):
@@ -43,12 +67,16 @@ class SegmentPlan(NamedTuple):
     (dropped). ``perm`` is the stable argsort of ``key``, empty when the
     stream is sorted by construction. ``offsets[n]`` is the first sorted
     row of segment ``n``; ``offsets[n_out]`` counts the valid rows.
+    ``window[j]`` is the first and last key of the valid rows of block ``j``
+    of ``WINDOW_BLOCK`` rows (first > last for a block without one); empty
+    when absent (``chgnet_tpu``'s ``GatherPlan.pw``).
     Fields are numpy arrays on the host and int32 tensors on the device.
     """
 
     key: np.ndarray  # i32 [L]
     perm: np.ndarray  # i32 [L] or [0]
     offsets: np.ndarray  # i32 [n_out + 1]
+    window: np.ndarray = _EMPTY  # i32 [ceil(L / WINDOW_BLOCK), 2] or [0]
 
     @property
     def n_out(self) -> int:
@@ -57,6 +85,30 @@ class SegmentPlan(NamedTuple):
     def sorted_keys(self) -> np.ndarray:
         """The keys in segment order (``chgnet_tpu``'s ``GatherPlan.dst``)."""
         return self.key[self.perm] if self.perm.shape[0] else self.key
+
+
+def build_window_plan(key: np.ndarray, n_out: int) -> np.ndarray:
+    """Per block of ``WINDOW_BLOCK`` rows of the stream, the least and the
+    largest key among its valid rows (``key < n_out``), ``[n_blocks, 2]``
+    int32, (0, -1) for a block without a valid row; empty (absent) when any
+    block spans more than ``WINDOW_ROWS`` source rows or the stream is
+    empty. Built over the valid rows only, as ``chgnet_tpu`` builds
+    ``build_pw_plan(idx, valid, n_src)`` (``ops/scatter.py:117-123``): a
+    padded row may lie outside its block's window and then gathers zero."""
+    n_rows = key.shape[0]
+    if n_rows == 0:
+        return _EMPTY
+    n_blocks = -(-n_rows // WINDOW_BLOCK)
+    padded = np.full(n_blocks * WINDOW_BLOCK, n_out, dtype=np.int64)
+    padded[:n_rows] = key
+    blocks = padded.reshape(n_blocks, WINDOW_BLOCK)
+    valid = blocks < n_out
+    lo = np.where(valid, blocks, n_out).min(axis=1)
+    hi = np.where(valid, blocks, -1).max(axis=1)
+    lo = np.where(hi < 0, 0, lo)
+    if (hi - lo >= WINDOW_ROWS).any():
+        return _EMPTY
+    return np.stack([lo, hi], axis=1).astype(np.int32)
 
 
 def make_plan(
@@ -69,7 +121,9 @@ def make_plan(
     """Plan for stream ``idx`` whose rows with ``valid`` False are dropped.
 
     ``assume_sorted`` marks streams sorted by construction (checked): they
-    carry no permutation."""
+    carry no permutation. The window plan is built only while
+    :func:`stream_v2_enabled` (``chgnet_tpu.ops.scatter.make_plan``
+    :114)."""
     key = np.where(valid, idx, n_out).astype(np.int32)
     if assume_sorted:
         if not bool((np.diff(key) >= 0).all()):
@@ -82,7 +136,8 @@ def make_plan(
     offsets = np.searchsorted(
         sorted_key, np.arange(n_out + 1, dtype=np.int32), side="left"
     ).astype(np.int32)
-    return SegmentPlan(key=key, perm=perm, offsets=offsets)
+    window = build_window_plan(key, n_out) if stream_v2_enabled() else _EMPTY
+    return SegmentPlan(key=key, perm=perm, offsets=offsets, window=window)
 
 
 class GraphBatch(NamedTuple):

@@ -182,6 +182,40 @@ def project_parts(
     return projected, b1
 
 
+def project_parts_fold(
+    layers_c: Sequence[Params],
+    layers_g: Sequence[Params],
+    parts: Sequence[tuple],
+    fold: dict[int, int] | None = None,
+) -> tuple[list[tuple], torch.Tensor | None]:
+    """:func:`project_parts` with part folding
+    (``chgnet_tpu.models.functions.project_parts_fold``): ``fold`` maps a
+    part's position to an earlier part whose index stream and plan it
+    shares; its projected table is added to that part's before any gather,
+    so one gather (and one backward segment sum) serves both. Exact row by
+    row: ``(a + b)[i] == a[i] + b[i]``."""
+    projected, b1 = project_parts(layers_c, layers_g, parts)
+    if not fold:
+        return projected, b1
+    merged: dict[int, torch.Tensor] = {}
+    for src, dst in fold.items():
+        if not 0 <= dst < len(projected) or dst in fold:
+            raise ValueError(f"fold target {dst} invalid")
+        tab_s, tab_d = projected[src][0], projected[dst][0]
+        if tab_s.shape != tab_d.shape:
+            raise ValueError(
+                f"folded part {src} shape {tuple(tab_s.shape)} != target "
+                f"{dst} shape {tuple(tab_d.shape)} (index streams must match)"
+            )
+        merged[dst] = merged.get(dst, tab_d) + tab_s
+    out = [
+        (merged.get(k, tab), idx, plan)
+        for k, (tab, idx, plan) in enumerate(projected)
+        if k not in fold
+    ]
+    return out, b1
+
+
 def fold_bias_into_stream(parts: Sequence[tuple], b1):
     """Add the joint first-layer bias to the first aligned part's table:
     ``(parts, the bias if no aligned part took it)``

@@ -23,11 +23,14 @@ the default) the gated-MLP tails of a fusable config run through the fused
 tail kernels (``ops/gated_message.py``), as in ``chgnet_tpu``, the message
 tail together with its reduction when
 :func:`~chgnet_tpu_torch.ops.gated_message.msg_reduce_ok` says so;
-otherwise they run as plain PyTorch.
+otherwise they run as plain PyTorch. With ``CHGNET_TPU_FUSED_PASS`` set the
+fused layers project every part first and run the first-layer sum and the
+tail in one kernel (:func:`_fused_layer`, ``ops/fused_pass.py``).
 """
 
 from __future__ import annotations
 
+import os
 from collections.abc import Sequence
 from typing import NamedTuple
 
@@ -47,7 +50,9 @@ from chgnet_tpu_torch.models.functions import (
     mlp_apply,
     mlp_init,
     norm_init,
+    project_parts_fold,
 )
+from chgnet_tpu_torch.ops.fused_pass import fused_layer_pass
 from chgnet_tpu_torch.ops.gated_message import (
     fused_gated_message,
     fused_gated_message_reduce,
@@ -72,16 +77,43 @@ def _layer_acc(gmlp: Params, parts) -> torch.Tensor:
     return first_layer_acc(gmlp["core"]["layers"], gmlp["gate"]["layers"], parts)
 
 
-def _fused_message_sum(gmlp: Params, parts, weights, mask, plan: SegmentPlan):
+def _fused_layer(gmlp: Params, parts, fold=None, *, weights=None, mask=None,
+                 resnet=None):
+    """A conv layer's first-layer sum and fused tail
+    (``chgnet_tpu.models.layers._fused_layer`` :72): with
+    ``CHGNET_TPU_FUSED_PASS`` set, every part projected first (``fold``: see
+    :func:`~chgnet_tpu_torch.models.functions.project_parts_fold`) and the
+    one-kernel pass; else the first-layer accumulator and then the tail
+    kernel. ``weights`` selects the message form, ``resnet`` the update."""
+    p2 = gated_mlp_fused_pack(gmlp)
+    if os.environ.get("CHGNET_TPU_FUSED_PASS"):
+        projected, b1 = project_parts_fold(
+            gmlp["core"]["layers"], gmlp["gate"]["layers"], parts, fold
+        )
+        return fused_layer_pass(
+            projected, b1, p2, weights=weights, mask=mask, resnet=resnet
+        )
+    acc = _layer_acc(gmlp, parts)
+    if weights is not None:
+        return fused_gated_message(acc, weights, mask, p2)
+    return fused_gated_update(acc, resnet, p2)
+
+
+def _fused_message_sum(
+    gmlp: Params, parts, weights, mask, plan: SegmentPlan, fold=None
+):
     """A message layer through the fused kernels: the gated MLP's message
     tail ``* weights * mask`` summed over ``plan``, in one sweep when
     ``msg_reduce_ok`` (``chgnet_tpu.models.layers`` :224-233, :525-536),
-    else the tail kernel and then the segment sum."""
-    acc = _layer_acc(gmlp, parts)
-    p2 = gated_mlp_fused_pack(gmlp)
+    else :func:`_fused_layer` and then the segment sum."""
     if msg_reduce_ok(plan):
-        return fused_gated_message_reduce(acc, weights, mask, p2, plan)
-    return plan_segment_sum(fused_gated_message(acc, weights, mask, p2), plan)
+        return fused_gated_message_reduce(
+            _layer_acc(gmlp, parts), weights, mask, gated_mlp_fused_pack(gmlp),
+            plan,
+        )
+    return plan_segment_sum(
+        _fused_layer(gmlp, parts, fold, weights=weights, mask=mask), plan
+    )
 
 
 def _finish(params: Params, new: torch.Tensor, old: torch.Tensor, resnet: bool):
@@ -223,6 +255,12 @@ def _bond_dir(bond_feas, und: UndirectedMaps | None):
     return plan_gather(bond_feas, und.d2u, und.plan_d2u)
 
 
+# the atom part of the angle-side layers shares dir_i's index stream and
+# plan with the first bond part: projected, the two tables add before the
+# gather (chgnet_tpu.models.layers :503, :613)
+ANGLE_FOLD = {3: 0}
+
+
 def _angle_parts(bond_dir, angle_feas, atom_e, dir_i, dir_j, plan_i, plan_j):
     """First-layer blocks of the angle-side layers, in the upstream input
     order [bond_i, bond_j, angle, center atom]. The center atom of an angle
@@ -265,7 +303,9 @@ def bond_conv_apply_directed(
     )
     gmlp = params["gated_mlp"]
     if fused and gated_mlp_fusable(gmlp, activation):
-        partial = _fused_message_sum(gmlp, parts, weights_a, angle_mask, plan_i)
+        partial = _fused_message_sum(
+            gmlp, parts, weights_a, angle_mask, plan_i, ANGLE_FOLD
+        )
     else:
         update = gated_mlp_tail(
             gmlp, _layer_acc(gmlp, parts), activation=activation
@@ -335,8 +375,6 @@ def angle_update_apply_directed(
         and "norm" not in params
         and gated_mlp_update_fusable(gmlp, activation)
     ):
-        return fused_gated_update(
-            _layer_acc(gmlp, parts), angle_feas, gated_mlp_fused_pack(gmlp)
-        )
+        return _fused_layer(gmlp, parts, ANGLE_FOLD, resnet=angle_feas)
     new = gated_mlp_tail(gmlp, _layer_acc(gmlp, parts), activation=activation)
     return _finish(params, new, angle_feas, resnet)

@@ -10,7 +10,8 @@ at first use; :func:`build` compiles several sources in parallel, one
 spills) is kept beside each library as ``<lib>.log``.
 
 The kernel wrappers (``ops/segment.py``, ``ops/gproj.py``,
-``ops/gated_message.py``, ``ops/multi_gather.py``) share the launch
+``ops/gated_message.py``, ``ops/multi_gather.py``, ``ops/fused_pass.py``)
+share the launch
 plumbing below: :func:`on_cuda` picks the kernel or the plain version by the
 tensor's device, :func:`check_tensors` raises on what a kernel does not take,
 :func:`ptr` and :func:`stream` give the C entry points their arguments, and
@@ -34,6 +35,7 @@ CSRC = os.path.join(ROOT, "chgnet_tpu_torch", "csrc")
 BUILD_DIR = os.path.join(ROOT, "build", "chgnet_tpu_torch")
 SOURCES = (
     "segment_sum", "gather_rows", "gproj", "gated_message", "multi_gather",
+    "fused_pass",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -56,9 +58,12 @@ def nvcc() -> str:
 
 
 def lib_path(name: str) -> str:
-    """Path of ``name``'s library for the current sources and flags."""
+    """Path of ``name``'s library for the current sources and flags: its
+    source and every header of the directory go into the digest, so a
+    change to a shared header rebuilds every library that may include it."""
     digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for fname in (f"{name}.cu", "common.cuh"):
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in (f"{name}.cu", *headers):
         with open(os.path.join(CSRC, fname), "rb") as fh:
             digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")

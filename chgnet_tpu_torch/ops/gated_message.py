@@ -207,14 +207,15 @@ def _lib() -> ctypes.CDLL:
     return build.load("gated_message", _SIGNATURES)
 
 
-def _check(what, acc, rows, vecs, params, msg):
-    """Raise on what the kernels do not take; returns ``(n_rows, D)``."""
-    if acc.dim() != 2 or acc.shape[1] % 8 or not 8 <= acc.shape[1] <= 128:
+def _check_shapes(what, acc_shape, rows, vecs, params, msg):
+    """Raise on shapes the tail kernels do not take, for an accumulator of
+    ``acc_shape``; returns ``(n_rows, D)``."""
+    if len(acc_shape) != 2 or acc_shape[1] % 8 or not 8 <= acc_shape[1] <= 128:
         raise ValueError(
             f"{what}: acc [L, 2D] with D % 4 == 0 and 2D <= 128 expected, "
-            f"got {tuple(acc.shape)}"
+            f"got {tuple(acc_shape)}"
         )
-    n_rows, d = acc.shape[0], acc.shape[1] // 2
+    n_rows, d = acc_shape[0], acc_shape[1] // 2
     if len(params) != 7 and (msg or len(params) != 4):
         raise ValueError(f"{what}: {len(params)} tail parameters")
     want = ((d, d), (d, d), (2 * d,)) if len(params) == 7 else ()
@@ -225,6 +226,12 @@ def _check(what, acc, rows, vecs, params, msg):
         v.shape != (n_rows,) for v in vecs
     ):
         raise ValueError(f"{what}: rows of acc and the other streams differ")
+    return n_rows, d
+
+
+def _check(what, acc, rows, vecs, params, msg):
+    """Raise on what the kernels do not take; returns ``(n_rows, D)``."""
+    n_rows, d = _check_shapes(what, tuple(acc.shape), rows, vecs, params, msg)
     build.check_tensors(what, (acc, *rows, *vecs, *params), aligned=(acc,))
     return n_rows, d
 
@@ -505,9 +512,12 @@ def msg_reduce_ok(plan: SegmentPlan) -> bool:
     :func:`fused_gated_message_reduce`: the switch of ``chgnet_tpu``'s
     ``msg_reduce_ok`` (:530), read at call time (``CHGNET_TPU_MSG_REDUCE``
     non-empty, ``CHGNET_TPU_NO_MSG_REDUCE`` empty), and a stream sorted by
-    its keys (a plan without a permutation)."""
+    its keys (a plan without a permutation). Off while
+    ``CHGNET_TPU_FUSED_PASS`` is set: the one-kernel pass keeps the tail and
+    its sum apart (``chgnet_tpu.models.layers._msg_reduce_ok`` :62)."""
     return (
         bool(os.environ.get("CHGNET_TPU_MSG_REDUCE"))
+        and not os.environ.get("CHGNET_TPU_FUSED_PASS")
         and not os.environ.get("CHGNET_TPU_NO_MSG_REDUCE")
         and plan.perm.shape[0] == 0
     )

@@ -1,6 +1,6 @@
 """Row gathers and segment sums over CSR plans, with autograd.
 
-Three kernel wrappers, each beside its plain PyTorch version:
+Five kernel wrappers, each beside its plain PyTorch version:
 
 * :func:`segment_sum_csr` (``csrc/segment_sum.cu``) replaces
   ``chgnet_tpu/ops/stream_ops.py`` ``_segsum_kernel`` (``_segsum_pallas``
@@ -11,6 +11,21 @@ Three kernel wrappers, each beside its plain PyTorch version:
 * :func:`gather_rows` (``csrc/gather_rows.cu``) replaces ``_gather_kernel``
   (``_gather_pallas`` :733): ``out[l] = src[idx[l]]``, zero where the index
   is out of range (how ``expand_rows`` zeroes dropped rows).
+* :func:`segment_sum_tiles` (``csrc/segment_sum.cu``) replaces
+  ``_segsum_v2_kernel`` (:1003, ``_segsum_v2_pallas`` :1033): the function
+  of :func:`segment_sum_csr` with the input owned, not the output.
+* :func:`gather_rows_window` (``csrc/gather_rows.cu``) replaces
+  ``_gather_v2_kernel`` (:1109, ``_gather_v2_pallas`` :1132): the gather
+  over a per-block source window, a zero row outside it.
+
+The last two run under ``CHGNET_TPU_STREAM_V2``
+(:func:`~chgnet_tpu_torch.graph.batching.stream_v2_enabled`, read at call
+time; the window plans are built only when it is also set while the batch is
+built): :func:`plan_segment_sum` takes the tile kernel for rows narrower
+than 128 floats (``_segsum_impl`` :461) and :func:`plan_gather` the window
+kernel when the plan carries windows that fit at this width
+(``_gather_fwd_impl``, ``scatter.py:195``, and ``expand_rows`` :572).
+``segment_sum_pair`` keeps its kernel, as ``_segsum2`` does in ``chgnet_tpu``.
 
 A wrapper launches its kernel on a CUDA tensor (or raises) and uses the
 plain version only for a tensor on the CPU. Each keeps a count of its
@@ -29,7 +44,12 @@ import ctypes
 
 import torch
 
-from chgnet_tpu_torch.graph.batching import SegmentPlan
+from chgnet_tpu_torch.graph.batching import (
+    WINDOW_BLOCK,
+    WINDOW_ROWS,
+    SegmentPlan,
+    stream_v2_enabled,
+)
 from chgnet_tpu_torch.ops import build
 
 _P = ctypes.c_void_p
@@ -39,9 +59,15 @@ _SIGNATURES = {
     "segment_sum": {
         "segment_sum_csr_f32": [_P, _P, _P, _P, _I, _I, _P],
         "segment_sum_pair_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+        "segment_sum_tiles_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
-    "gather_rows": {"gather_rows_f32": [_P, _P, _P, _L, _I, _I, _P]},
+    "gather_rows": {
+        "gather_rows_f32": [_P, _P, _P, _L, _I, _I, _P],
+        "gather_rows_window_f32": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
+    },
 }
+TILE_ROWS = 32  # sorted rows per tile of segment_sum_tiles (kTileRows)
+SHARED_BYTES = 232448  # shared memory a block may use on an H100 (227 KB)
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -77,6 +103,18 @@ def gather_rows_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     n_src = src.shape[0]
     ok = (idx >= 0) & (idx < n_src)
     rows = src[idx.clamp(0, max(n_src - 1, 0)).long()]
+    return torch.where(ok[:, None], rows, rows.new_zeros(()))
+
+
+def gather_rows_window_plain(
+    src: torch.Tensor, idx: torch.Tensor, window: torch.Tensor
+) -> torch.Tensor:
+    """Plain version of :func:`gather_rows_window`: ``src[idx]`` with the
+    rows whose index lies outside their block's window zeroed."""
+    block = torch.arange(idx.shape[0], device=idx.device) // WINDOW_BLOCK
+    lo, hi = window[block, 0], window[block, 1]
+    ok = (idx >= lo) & (idx <= hi) & (idx >= 0) & (idx < src.shape[0])
+    rows = src[idx.clamp(0, max(src.shape[0] - 1, 0)).long()]
     return torch.where(ok[:, None], rows, rows.new_zeros(()))
 
 
@@ -117,6 +155,39 @@ def segment_sum_csr(
 
 
 segment_sum_csr.launches = 0
+
+
+def segment_sum_tiles(
+    x: torch.Tensor, offsets: torch.Tensor, perm: torch.Tensor
+) -> torch.Tensor:
+    """:func:`segment_sum_csr`'s function, input-stationary: tiles of
+    ``TILE_ROWS`` sorted rows are summed run by run, segments inside one
+    tile written at once, the others through a carry buffer that a second
+    kernel adds in tile order. It adds in another order than
+    :func:`segment_sum_csr`, so the two agree to rounding. The TPU
+    dispatch's raw-mode capacity clause (``_segsum_impl`` :462-473) has no
+    counterpart: the port has CSR plans and no block-local raw plans."""
+    if not build.on_cuda(x, "segment_sum_tiles"):
+        return segment_sum_plain(x, offsets, perm)
+    build.check_tensors("segment_sum_tiles", (x,), (offsets, perm))
+    _check_width("segment_sum_tiles", x)
+    n_rows, d = x.shape
+    n_out = offsets.shape[0] - 1
+    out = torch.empty((n_out, d), dtype=x.dtype, device=x.device)
+    carry = torch.empty(
+        (-(-n_rows // TILE_ROWS), 2, d), dtype=x.dtype, device=x.device
+    )
+    ptr = build.ptr
+    err = _lib("segment_sum").segment_sum_tiles_f32(
+        ptr(x), ptr(perm), ptr(offsets), ptr(out), ptr(carry), n_rows, n_out,
+        d, build.stream(),
+    )
+    build.check(err, "segment_sum_tiles")
+    segment_sum_tiles.launches += 1
+    return out
+
+
+segment_sum_tiles.launches = 0
 
 
 def segment_sum_pair(x, offsets_a, perm_a, offsets_b, perm_b):
@@ -168,14 +239,68 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 gather_rows.launches = 0
 
 
+def window_fits(src: torch.Tensor) -> bool:
+    """Whether :func:`gather_rows_window` takes rows of ``src``'s width:
+    ``float4`` units, and the largest window within a block's shared
+    memory."""
+    d = src.shape[1]
+    return (
+        d % 4 == 0
+        and src.data_ptr() % 16 == 0
+        and WINDOW_ROWS * d * src.element_size() <= SHARED_BYTES
+    )
+
+
+def gather_rows_window(
+    src: torch.Tensor, idx: torch.Tensor, window: torch.Tensor
+) -> torch.Tensor:
+    """``out[l] = src[idx[l]]`` where ``window[l // WINDOW_BLOCK]`` = (first,
+    last) source row of the block holds ``idx[l]``, a zero row elsewhere;
+    windows of at most ``WINDOW_ROWS`` rows
+    (:func:`~chgnet_tpu_torch.graph.batching.build_window_plan`)."""
+    n_rows = idx.shape[0]
+    if window.shape != (-(-n_rows // WINDOW_BLOCK), 2):
+        raise ValueError(
+            f"gather_rows_window: window {tuple(window.shape)} for {n_rows} rows"
+        )
+    if not build.on_cuda(src, "gather_rows_window"):
+        return gather_rows_window_plain(src, idx, window)
+    build.check_tensors("gather_rows_window", (src,), (idx, window))
+    if not window_fits(src):
+        raise ValueError(
+            "gather_rows_window: 16-byte aligned rows of 4k floats whose "
+            f"{WINDOW_ROWS}-row window fits in {SHARED_BYTES} bytes expected "
+            f"(d={src.shape[1]})"
+        )
+    out = torch.empty((n_rows, src.shape[1]), dtype=src.dtype, device=src.device)
+    ptr = build.ptr
+    err = _lib("gather_rows").gather_rows_window_f32(
+        ptr(src), ptr(idx), ptr(window), ptr(out), n_rows, src.shape[0],
+        src.shape[1], WINDOW_ROWS, build.stream(),
+    )
+    build.check(err, "gather_rows_window")
+    gather_rows_window.launches += 1
+    return out
+
+
+gather_rows_window.launches = 0
+
+
 # ------------------------------------------------------------ autograd
 class _Gather(torch.autograd.Function):
-    """``src[idx]`` whose backward is the segment sum over ``plan``."""
+    """``src[idx]`` whose backward is the segment sum over ``plan``. Under
+    the stream-v2 switch a plan with windows that fit sends it through the
+    window kernel: ``idx`` equals ``plan.key`` on every valid row, and a
+    padded row outside its block's window comes out zero (every consumer
+    masks padded rows, as in ``chgnet_tpu``)."""
 
     @staticmethod
     def forward(ctx, src, idx, plan):
         ctx.plan = plan
-        return gather_rows(src.contiguous(), idx)
+        src = src.contiguous()
+        if stream_v2_enabled() and plan.window.shape[0] and window_fits(src):
+            return gather_rows_window(src, idx, plan.window)
+        return gather_rows(src, idx)
 
     @staticmethod
     def backward(ctx, ct):
@@ -189,7 +314,9 @@ class _SegmentSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, plan):
         ctx.plan = plan
-        return segment_sum_csr(x.contiguous(), plan.offsets, plan.perm)
+        v2 = stream_v2_enabled() and x.shape[1] < 128
+        kernel = segment_sum_tiles if v2 else segment_sum_csr
+        return kernel(x.contiguous(), plan.offsets, plan.perm)
 
     @staticmethod
     def backward(ctx, ct):

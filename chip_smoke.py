@@ -3,12 +3,15 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``chgnet_tpu_torch/csrc`` and drives
-four paths of the port, E+F+S+M serving at the default (published 0.3.0)
+six paths of the port, E+F+S+M serving at the default (published 0.3.0)
 width, on the card (``PATHS``): the default ``CHGNet(seed=0)``
 (``fused_kernels=True``, directed bonds), ``fused_kernels=False``, the
 undirected bond layout ``directed_bonds=False``, and the default model with
-the fused message-reduce switched on (``CHGNET_TPU_MSG_REDUCE=1``, set
-around that path only):
+one of three environment switches set around its path only: the fused
+message-reduce (``CHGNET_TPU_MSG_REDUCE=1``), the input-stationary segment
+sum and windowed gather (``CHGNET_TPU_STREAM_V2=1``, set around the batch
+build too: the window plans are built under it) and the one-kernel conv
+pass (``CHGNET_TPU_FUSED_PASS=1``):
 
 1. card and build: the card's name and power limit, the TF32 flags, the
    kernel build time, each kernel's registers and spills (``ptxas``'s
@@ -27,10 +30,10 @@ around that path only):
    ``compute_batch`` on the benchmark batch, whose outputs must be finite,
    with per-graph force sums ~0 and symmetric stress; the launch counts are
    set to 0 just before that pass and read just after it, and must equal
-   the path's launch set (``PATHS``); the message-reduce path's outputs must
+   the path's launch set (``PATHS``); the three switched paths' outputs must
    also agree with the default path's; edges/s by CUDA events;
 4. a ``{"kernels": [...]}`` line: per kernel, its largest error over the
-   calls of all four paths, the path its times were taken on, its
+   calls of all six paths, the path its times were taken on, its
    launches in one pass of that path and, summed over that pass's calls,
    its time, its plain version's time, the time of PyTorch library calls
    computing the same function (null where none does: the fused tails), and
@@ -38,12 +41,15 @@ around that path only):
    larger of its bytes over 3.35 TB/s and its f32 FLOPs over 67 TFLOP/s (the
    H100 SXM data-sheet peaks), the FLOPs counted in the cheaper order where
    the function has two, and for the fused tails as the two diagonal
-   blocks' products plus ``TAIL_OPS`` per row element of the call's form;
-5. profile: one pass of the default and of the undirected path under
+   blocks' products plus ``TAIL_OPS`` per row element of the call's form
+   (the one-kernel pass also one add per part and accumulator element);
+5. profile: one pass of the default, the undirected and the one-kernel-pass
+   path under
    ``torch.profiler``, the device's busy share of its wall time and the
    kernels that take the most device time.
 
-Any failure raises. The last line is the result JSON. Needs one CUDA card;
+Every line but the last also goes to ``build/chip_smoke.log`` beside the
+script (``build/`` is where the kernels' libraries go). Any failure raises. The last line is the result JSON. Needs one CUDA card;
 exits non-zero without one.
 """
 
@@ -94,22 +100,35 @@ TAIL_OPS = {
 D_MASK_OPS = 3
 PARAM_OPS = {False: 6, True: 8}  # by has_w2
 
-# the four paths and the launches of one E+F+S+M pass of each, by kernel in
-# the order of KERNELS: the model's keywords, whether the message-reduce
-# switch is set, and the counts, worked out from the model's code. The
-# undirected layout adds to the default's the d2u expansions (bond features
-# per angle-side layer, the two bond-weight tables, the bond lengths) and
-# their backward sums, and sends AtomConv's first layers and the BondConv
-# totals through the multi-gather; the switch folds the 7 message layers'
-# segment sums into their tails.
+# the six paths and the launches of one E+F+S+M pass of each, by kernel in
+# the order of KERNELS: the model's keywords, the environment switch set
+# around the path (None: none), and the counts, worked out from the model's
+# code. The undirected layout adds to the default's the d2u expansions (bond
+# features per angle-side layer, the two bond-weight tables, the bond
+# lengths) and their backward sums, and sends AtomConv's first layers and the
+# BondConv totals through the multi-gather; the message-reduce switch folds
+# the 7 message layers' segment sums into their tails. Under the stream-v2
+# switch all 20 segment sums are narrower than 128 floats and take the tile
+# kernel, and 16 of the 17 gathers the window kernel (the atom -> graph
+# cotangent is 1 float wide). Under the fused-pass switch the 9 conv layers
+# (4 AtomConv, 3 BondConv, 2 AngleUpdate) take the one-kernel pass forward
+# and backward in place of gather_project_sum and the four tails.
 PATHS = {
-    "default": ({}, False, (20, 17, 8, 9, 7, 7, 2, 2, 0, 0)),
+    "default": ({}, None, (20, 17, 8, 9, 7, 7, 2, 2, 0, 0, 0, 0, 0, 0)),
     "fused_kernels=False": (
-        dict(fused_kernels=False), False, (20, 17, 8, 9, 0, 0, 0, 0, 0, 0)),
+        dict(fused_kernels=False), None,
+        (20, 17, 8, 9, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
     "directed_bonds=False": (
-        dict(directed_bonds=False), False, (32, 28, 8, 5, 7, 7, 2, 2, 7, 0)),
-    "CHGNET_TPU_MSG_REDUCE=1": ({}, True, (13, 17, 8, 9, 0, 7, 2, 2, 0, 7)),
+        dict(directed_bonds=False), None,
+        (32, 28, 8, 5, 7, 7, 2, 2, 7, 0, 0, 0, 0, 0)),
+    "CHGNET_TPU_MSG_REDUCE=1": (
+        {}, "CHGNET_TPU_MSG_REDUCE", (13, 17, 8, 9, 0, 7, 2, 2, 0, 7, 0, 0, 0, 0)),
+    "CHGNET_TPU_STREAM_V2=1": (
+        {}, "CHGNET_TPU_STREAM_V2", (0, 1, 8, 9, 7, 7, 2, 2, 0, 0, 20, 16, 0, 0)),
+    "CHGNET_TPU_FUSED_PASS=1": (
+        {}, "CHGNET_TPU_FUSED_PASS", (20, 17, 8, 0, 0, 0, 0, 0, 0, 0, 0, 0, 9, 9)),
 }
+SWITCHED = [path for path, (_, switch, _) in PATHS.items() if switch]
 MODEL_TOL = {"e": 2e-5, "f": 5e-5, "s": 2e-4, "m": 2e-5}
 
 _CSRC = "chgnet_tpu_torch/csrc/"
@@ -137,28 +156,47 @@ KERNELS = {
         # row-order adds against the tail's rounding and float64 prefix sums
         ("gated_message_reduce", "gated_message.cu", "gated_message.py:378", 1e-5,
          "CHGNET_TPU_MSG_REDUCE=1"),
+        # rows in order inside a tile, then tiles in order, against float64
+        # prefix sums
+        ("segment_sum_tiles", "segment_sum.cu", "stream_ops.py:1003", 1e-5,
+         "CHGNET_TPU_STREAM_V2=1"),
+        ("gather_rows_window", "gather_rows.cu", "stream_ops.py:1109", 0.0,
+         "CHGNET_TPU_STREAM_V2=1"),
+        ("fused_pass_fwd", "fused_pass.cu", "fused_pass.py:157", 1e-5,
+         "CHGNET_TPU_FUSED_PASS=1"),
+        ("fused_pass_bwd", "fused_pass.cu", "fused_pass.py:393", 1e-4,
+         "CHGNET_TPU_FUSED_PASS=1"),
     )
 }
 
 
 @contextlib.contextmanager
-def msg_reduce_switch(on: bool):
-    """``CHGNET_TPU_MSG_REDUCE=1`` for the duration, when ``on``; the
-    variable is restored afterwards."""
-    saved = os.environ.get("CHGNET_TPU_MSG_REDUCE")
-    if on:
-        os.environ["CHGNET_TPU_MSG_REDUCE"] = "1"
+def env_switch(name: str | None):
+    """The environment variable ``name`` set to 1 for the duration (nothing
+    for None); it is restored afterwards."""
+    saved = os.environ.get(name) if name else None
+    if name:
+        os.environ[name] = "1"
     try:
         yield
     finally:
-        if saved is None:
-            os.environ.pop("CHGNET_TPU_MSG_REDUCE", None)
-        else:
-            os.environ["CHGNET_TPU_MSG_REDUCE"] = saved
+        if name and saved is None:
+            os.environ.pop(name, None)
+        elif name:
+            os.environ[name] = saved
+
+
+LOG_PATH = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke.log"
+)
 
 
 def log(*args) -> None:
+    """Print a line, and keep it in ``build/chip_smoke.log`` beside the
+    script (the whole run's lines, where a terminal shows only the last)."""
     print(*args, flush=True)
+    with open(LOG_PATH, "a") as fh:
+        print(*args, file=fh)
 
 
 def card_line() -> str:
@@ -188,14 +226,20 @@ class Recorder:
     pass; the wrappers' own launch counts are untouched meanwhile."""
 
     def __init__(self):
-        from chgnet_tpu_torch.ops import gated_message, gproj, multi_gather, segment
+        from chgnet_tpu_torch.ops import (
+            fused_pass, gated_message, gproj, multi_gather, segment,
+        )
 
         slots = [
             (segment, "segment_sum_csr", "segment_sum_csr"),
             (segment, "gather_rows", "gather_rows"),
             (segment, "segment_sum_pair", "segment_sum_pair"),
+            (segment, "segment_sum_tiles", "segment_sum_tiles"),
+            (segment, "gather_rows_window", "gather_rows_window"),
             (gproj, "gather_project_sum_kernel", "gather_project_sum"),
             (multi_gather, "gather_sum_rows", "gather_sum_rows"),
+            (fused_pass, "fused_pass_fwd", "fused_pass_fwd"),
+            (fused_pass, "fused_pass_bwd", "fused_pass_bwd"),
         ] + [(gated_message, name, name) for name in (
             "gated_message_fwd", "gated_message_bwd", "gated_update_fwd",
             "gated_update_bwd", "gated_message_reduce",
@@ -252,8 +296,51 @@ def _tail_bound(name, args):
     return 4 * (n_in + n_out), flops + ops * n_rows * d
 
 
+def _distinct_rows(tables, idxs):
+    """Rows named in range, counted once per distinct table."""
+    named = {}
+    for t, i in zip(tables, idxs):
+        ok = i[(i >= 0) & (i < t.shape[0])]
+        named.setdefault(t.data_ptr(), []).append(ok)
+    return sum(int(torch.unique(torch.cat(v)).numel()) for v in named.values())
+
+
+def _pass_bound(name, args):
+    """(bytes, flops) of one call of the one-kernel pass: the index streams,
+    the distinct gathered rows of the projected tables, the aligned stream,
+    weights and mask or resnet (and the cotangent), and the outputs, each
+    once; the tail's products and ``TAIL_OPS``, and one add per part (the
+    gathered ones, the aligned one, the bias) and accumulator element."""
+    tables, idxs, aligned, b1, params, weights, mask = args[:7]
+    n_rows, d = idxs[0].shape[0], tables[0].shape[1] // 2
+    msg = weights is not None
+    has_w2 = len(params) == 7
+    form = "message" if msg else "update_w2" if has_w2 else "update"
+    n_streams = len({i.data_ptr() for i in idxs})
+    n_in = n_streams * n_rows + _distinct_rows(tables, idxs) * 2 * d + 2 * d
+    n_in += n_rows * 2 * d if aligned is not None else 0
+    n_in += sum(p.numel() for p in params)
+    n_in += n_rows * (d + 1) if msg else 0
+    adds = (len(tables) + (aligned is not None) + 1) * n_rows * 2 * d
+    product = 4 * n_rows * d * d if has_w2 else 0
+    if name == "fused_pass_fwd":
+        n_in += 0 if msg else n_rows * d  # resnet
+        flops = product + TAIL_OPS["fwd", form] * n_rows * d + adds
+        return 4 * (n_in + n_rows * d), flops
+    need_mask, need_params = args[8], args[9]
+    n_in += n_rows * d  # the cotangent
+    ops = TAIL_OPS["bwd", form] + (D_MASK_OPS if need_mask else 0)
+    ops += PARAM_OPS[has_w2] + 2 if need_params else 0  # + d_b1's sums
+    n_out = n_rows * 2 * d + (n_rows * d if msg else 0) + (n_rows if need_mask else 0)
+    n_out += sum(p.numel() for p in params) + 2 * d if need_params else 0
+    flops = (3 if need_params else 2) * product + ops * n_rows * d + adds
+    return 4 * (n_in + n_out), flops
+
+
 def bound_and_library(name, args):
     """(bytes, flops, library callable or None) of one recorded call."""
+    if name.startswith("fused_pass"):
+        return (*_pass_bound(name, args), None)
     if name == "gated_message_reduce":
         # the message tail over the rows that feed a segment (the dropped
         # rows past offsets[-1] are never needed), their sum, n_out rows out
@@ -268,11 +355,7 @@ def bound_and_library(name, args):
         # table, the stream, the output; one add per part and element
         tables, idxs, stream = args
         n_rows, d = idxs[0].shape[0], tables[0].shape[1]
-        named = {}
-        for t, i in zip(tables, idxs):
-            ok = i[(i >= 0) & (i < t.shape[0])]
-            named.setdefault(t.data_ptr(), []).append(ok)
-        distinct = sum(int(torch.unique(torch.cat(v)).numel()) for v in named.values())
+        distinct = _distinct_rows(tables, idxs)
         n_streams = len({i.data_ptr() for i in idxs})
         n_adds = len(tables) - (stream is None)
         nbytes = 4 * (n_streams * n_rows + distinct * d
@@ -289,7 +372,7 @@ def bound_and_library(name, args):
         return nbytes, n_adds * n_rows * d, lib
     if name.startswith("gated_"):
         return (*_tail_bound(name, args), None)
-    if name == "segment_sum_csr":
+    if name in ("segment_sum_csr", "segment_sum_tiles"):
         x, offsets, perm = args
         n_out, d = offsets.shape[0] - 1, x.shape[1]
         nv = _rows_valid(offsets)
@@ -315,12 +398,20 @@ def bound_and_library(name, args):
             bufs[1].zero_().index_add_(0, kb, x)
 
         return nbytes, nv * d, lib
-    if name == "gather_rows":
-        src, idx = args
+    if name in ("gather_rows", "gather_rows_window"):
+        src, idx = args[:2]
         d = src.shape[1]
         ok = (idx >= 0) & (idx < src.shape[0])
+        nbytes = 0
+        if name == "gather_rows_window":  # only rows inside their windows
+            from chgnet_tpu_torch.graph.batching import WINDOW_BLOCK
+
+            window = args[2]
+            block = torch.arange(idx.shape[0], device=idx.device) // WINDOW_BLOCK
+            ok &= (idx >= window[block, 0]) & (idx <= window[block, 1])
+            nbytes = window.numel() * 4
         distinct = int(torch.unique(idx[ok]).numel())
-        nbytes = idx.numel() * 4 + distinct * d * 4 + idx.numel() * d * 4
+        nbytes += idx.numel() * 4 + distinct * d * 4 + idx.numel() * d * 4
         safe = idx.clamp(0, src.shape[0] - 1).long()
         return nbytes, 0, lambda: torch.index_select(src, 0, safe)
     if name == "gather_project_sum":
@@ -437,6 +528,7 @@ def run_pass(model, batch):
 
 def kernel_versions() -> dict:
     """Kernel name -> (kernel wrapper, its plain version)."""
+    from chgnet_tpu_torch.ops import fused_pass as fp
     from chgnet_tpu_torch.ops import gated_message as gm
     from chgnet_tpu_torch.ops import gproj, multi_gather, segment
 
@@ -455,6 +547,11 @@ def kernel_versions() -> dict:
                             multi_gather.gather_sum_rows_plain),
         "gated_message_reduce": (gm.gated_message_reduce,
                                  gm.gated_message_reduce_plain),
+        "segment_sum_tiles": (segment.segment_sum_tiles, segment.segment_sum_plain),
+        "gather_rows_window": (segment.gather_rows_window,
+                               segment.gather_rows_window_plain),
+        "fused_pass_fwd": (fp.fused_pass_fwd, fp.fused_pass_fwd_plain),
+        "fused_pass_bwd": (fp.fused_pass_bwd, fp.fused_pass_bwd_plain),
     }
 
 
@@ -517,8 +614,10 @@ def check_autograd(batch):
     gather/segment-sum pair) on the card against the same op on the CPU,
     at the benchmark batch's angle-stream shapes (the message tail and the
     message-reduce also at the edge stream's, the multi-gather ops at the
-    undirected AtomConv's and BondConv's); errors relative to each output's
-    largest value."""
+    undirected AtomConv's and BondConv's, the one-kernel pass in its three
+    forms at the directed AtomConv's and the angle-side layers' parts);
+    errors relative to each output's largest value."""
+    from chgnet_tpu_torch.ops.fused_pass import fused_layer_pass
     from chgnet_tpu_torch.ops.gated_message import (
         LN_KEYS, fused_gated_message, fused_gated_message_reduce,
         fused_gated_update,
@@ -549,7 +648,11 @@ def check_autograd(batch):
         mask_e=(torch.rand(n_edges, generator=gen) < 0.9).float(),
         atoms_p=torch.randn(n_atoms, 128, generator=gen),
         bonds_p=torch.randn(n_edges // 2, 128, generator=gen),
+        edges_p=torch.randn(n_edges, 128, generator=gen),
+        edges_q=torch.randn(n_edges, 128, generator=gen),
+        x_e=torch.randn(n_edges, 64, generator=gen),
     )
+    b1 = torch.randn(128, generator=gen) * 0.1
     tail = dict(
         w2c=torch.randn(64, 64, generator=gen) * 0.1,
         w2g=torch.randn(64, 64, generator=gen) * 0.1,
@@ -642,6 +745,41 @@ def check_autograd(batch):
             [fused_gated_message_reduce(
                 t["acc"], t["wts"], t["mask"].detach(), fixed, b.plan_ang_vi)],
             [t["acc"], t["wts"]], [cts["seg"]])
+        # the one-kernel pass with the switch on: message and both update
+        # forms, at the directed AtomConv's parts (two atom tables by center
+        # and neighbor, the aligned edge stream) and the angle-side layers'
+        # (two edge tables by dir_i and dir_j, the aligned angle stream), as
+        # serving runs it and with parameter gradients
+        bias = b1.to(dev).requires_grad_(True)
+        shapes = {
+            "E": ([(t["atoms_p"], center, b.plan_center), (t["acc_e"], None, None),
+                   (t["atoms_p"], nbr, b.plan_nbr)],
+                  [t["atoms_p"], t["acc_e"]], t["wts_e"], t["mask_e"], t["x_e"],
+                  cts["tail_e"]),
+            "A": ([(t["edges_p"], di, b.plan_ang_vi), (t["edges_q"], dj, b.plan_ang_vj),
+                   (t["acc"], None, None)],
+                  [t["edges_p"], t["edges_q"], t["acc"]], t["wts"], t["mask"],
+                  t["x"], cts["tail"]),
+        }
+        with env_switch("CHGNET_TPU_FUSED_PASS"):
+            for rows, (parts, tabs, wts, mask, res_in, ct) in shapes.items():
+                modes = {
+                    "serving": (fixed, fixed_ln, bias.detach(), mask.detach()),
+                    "params": (tp, ln, bias, mask),
+                }
+                for mode, (p7, p4, bb, mm) in modes.items():
+                    extra = [bb, *p7.values()] if mode == "params" else []
+                    outs[f"fused_pass_bwd message {mode} {rows}"] = (
+                        [fused_layer_pass(parts, bb, p7, weights=wts, mask=mm)],
+                        [*tabs, wts, *([mm] if mode == "params" else []), *extra],
+                        [ct])
+                    outs[f"fused_pass_bwd update w2 {mode} {rows}"] = (
+                        [fused_layer_pass(parts, bb, p7, resnet=res_in)],
+                        [*tabs, res_in, *extra], [ct])
+                    extra = [bb, *p4.values()] if mode == "params" else []
+                    outs[f"fused_pass_bwd update {mode} {rows}"] = (
+                        [fused_layer_pass(parts, bb, p4, resnet=res_in)],
+                        [*tabs, res_in, *extra], [ct])
         res = {}
         for name, (out, wrt, ct) in outs.items():
             grads = torch.autograd.grad(out, wrt, [c.to(dev) for c in ct])
@@ -667,7 +805,7 @@ def check_autograd(batch):
         raise AssertionError(f"autograd disagrees with the CPU: {failed}")
 
 
-def phase_model(path, batch, n_edges, graphs):
+def phase_model(path, batch, n_edges, graphs):  # batch: the path's own
     """One path of ``PATHS``: LiMnO2 on the card against the CPU, then one
     pass of the benchmark batch between a reset and a read of the launch
     counts, which must equal the path's launch set, its outputs checked,
@@ -680,7 +818,7 @@ def phase_model(path, batch, n_edges, graphs):
     model = CHGNet(seed=0, device="cuda", **kwargs)
     cpu_model = CHGNet(seed=0, device="cpu", **kwargs)
     struct = Structure.from_file(f"{ROOT}/examples/mp-18767-LiMnO2.cif")
-    with msg_reduce_switch(switch):
+    with env_switch(switch):
         got = model.predict_structure(struct, task="efsm")
         want = cpu_model.predict_structure(struct, task="efsm")
     for key, tol in MODEL_TOL.items():
@@ -690,7 +828,7 @@ def phase_model(path, batch, n_edges, graphs):
             raise AssertionError(f"{path} LiMnO2 {key}: card disagrees with the CPU")
     log(f"{path} LiMnO2 e = {got['e']:.6f} eV/atom")
 
-    with msg_reduce_switch(switch):
+    with env_switch(switch):
         ops.reset_launch_counts()
         out = run_pass(model, batch)
         torch.cuda.synchronize()
@@ -718,7 +856,7 @@ def phase_model(path, batch, n_edges, graphs):
     e = out["e"].cpu().numpy()[:n_graphs]
     log(f"e mean {e.mean():.6f} eV/atom over {n_graphs} graphs")
 
-    with msg_reduce_switch(switch):
+    with env_switch(switch):
         samples = sorted(
             cuda_ms(lambda: run_pass(model, batch), 1) for _ in range(MODEL_SAMPLES)
         )
@@ -741,7 +879,7 @@ def check_same_outputs(path, out, ref_path, ref):
             raise AssertionError(f"{path} {key}: disagrees with the {ref_path} path")
 
 
-def profile_pass(path, batch):
+def profile_pass(path, batch):  # batch: the path's own
     """One E+F+S+M pass of a path under torch.profiler: device time by kernel
     and the device's busy share of the pass's wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -750,7 +888,7 @@ def profile_pass(path, batch):
 
     kwargs, switch, _ = PATHS[path]
     model = CHGNet(seed=0, device="cuda", **kwargs)
-    with msg_reduce_switch(switch):
+    with env_switch(switch):
         run_pass(model, batch)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -827,6 +965,9 @@ def main() -> int:
               "CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    os.makedirs(os.path.dirname(LOG_PATH), exist_ok=True)
+    open(LOG_PATH, "w").close()
+    t_start = time.perf_counter()
     from chgnet_tpu_torch.graph.batching import batch_graphs
     from chgnet_tpu_torch.models import CHGNet
 
@@ -844,15 +985,25 @@ def main() -> int:
         f"capacities N={batch.atomic_numbers.shape[0]} "
         f"E={batch.atom_graph.shape[0]} A={batch.bond_graph.shape[0]} "
         f"(host build {time.perf_counter() - t0:.1f} s)")
+    # the stream-v2 path's batch is built under its switch: only then do the
+    # plans carry their gather windows
+    with env_switch("CHGNET_TPU_STREAM_V2"):
+        batch_v2 = batch_graphs(graphs).to("cuda")
+    windows = {f: tuple(getattr(batch_v2, f).window.shape)
+               for f in batch_v2._fields if f.startswith("plan_")}
+    log("window plans under CHGNET_TPU_STREAM_V2 ([blocks, 2], (0,) absent):",
+        windows)
+    batches = {path: batch for path in PATHS}
+    batches["CHGNET_TPU_STREAM_V2=1"] = batch_v2
 
     # every path records every kernel it runs and holds each call against
     # the plain version before the next path is recorded; the calls a
     # kernel's row is timed on are those of its own path (KERNELS), and its
-    # error is the largest over all four paths
+    # error is the largest over all six paths
     calls, errors = {}, {}
     for path, (kwargs, switch, _) in PATHS.items():
-        with msg_reduce_switch(switch), Recorder() as rec:
-            run_pass(CHGNet(seed=0, device="cuda", **kwargs), batch)
+        with env_switch(switch), Recorder() as rec:
+            run_pass(CHGNet(seed=0, device="cuda", **kwargs), batches[path])
         torch.cuda.synchronize()
         with torch.no_grad():
             found = phase_kernels(path, rec.calls)
@@ -863,17 +1014,16 @@ def main() -> int:
     check_autograd(batch)
     launches, outs = {}, {}
     for path in PATHS:
-        launches[path], outs[path] = phase_model(path, batch, n_edges, graphs)
-    check_same_outputs(
-        "CHGNET_TPU_MSG_REDUCE=1", outs["CHGNET_TPU_MSG_REDUCE=1"], "default",
-        outs["default"],
-    )
+        launches[path], outs[path] = phase_model(path, batches[path], n_edges, graphs)
+    for path in SWITCHED:
+        check_same_outputs(path, outs[path], "default", outs["default"])
     with torch.no_grad():
         rows = phase_timing(calls, launches, errors)
-    for path in ("default", "directed_bonds=False"):
-        profile_pass(path, batch)
-    print(json.dumps({"kernels": rows}), flush=True)
-    print(card_line(), flush=True)
+    for path in ("default", "directed_bonds=False", "CHGNET_TPU_FUSED_PASS=1"):
+        profile_pass(path, batches[path])
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s")
+    log(json.dumps({"kernels": rows}))
+    log(card_line())
     print(json.dumps({
         "ok": True,
         "device": {

@@ -507,3 +507,281 @@ def test_undirected_and_msg_reduce_paths_on_card_match_cpu(cuda, monkeypatch, kw
         np.testing.assert_allclose(
             np.asarray(b[key]), np.asarray(a[key]), atol=TOL[key], err_msg=key
         )
+
+
+# ------------------------------------ stream v2: tile sums, windowed gather
+@pytest.mark.parametrize("d", [1, 3, 4, 32, 64, 124])
+@pytest.mark.parametrize("sorted_", [True, False], ids=["sorted", "perm"])
+@pytest.mark.parametrize(
+    "L,S", [((1 << 16) + 11, 700), (40_000, 60_000), (100, 7)],
+    ids=["long-segments", "short-segments", "tiny"],
+)
+def test_segment_sum_tiles_matches_plain(cuda, d, sorted_, L, S):
+    """Ragged sizes, empty segments (S > L), dropped keys at the tail or
+    scattered, segments that span many tiles and many segments per tile;
+    two runs give equal bits."""
+    rng = np.random.default_rng(21)
+    plan = _plan(*_stream(rng, L, S, sorted_), S, sorted_, cuda)
+    x = torch.randn(L, d, device=cuda)
+    got = tsg.segment_sum_tiles(x, plan.offsets, plan.perm)
+    want = tsg.segment_sum_plain(x, plan.offsets, plan.perm)
+    assert got.shape == (S, d)
+    _assert_scaled([got], [want], 1e-5)
+    assert torch.equal(got, tsg.segment_sum_tiles(x, plan.offsets, plan.perm))
+    # rows past offsets[-1] are never read
+    if sorted_:
+        x2 = x.clone()
+        x2[int(plan.offsets[-1]):] = float("nan")
+        assert torch.equal(got, tsg.segment_sum_tiles(x2, plan.offsets, plan.perm))
+
+
+def test_segment_sum_tiles_with_no_valid_row_is_zero(cuda):
+    x = torch.randn(300, 64, device=cuda)
+    off = torch.zeros(41, dtype=torch.int32, device=cuda)
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda)
+    out = tsg.segment_sum_tiles(x, off, empty)
+    assert out.shape == (40, 64) and not bool(out.any())
+    with pytest.raises(ValueError, match="at most 128"):
+        tsg.segment_sum_tiles(torch.randn(8, 256, device=cuda), off, empty)
+
+
+def _window_stream(rng, L, S, span):
+    """Keys whose blocks of WINDOW_BLOCK rows stay within ``span`` source
+    rows, ~10% of the rows dropped."""
+    from chgnet_tpu_torch.graph.batching import WINDOW_BLOCK
+
+    nb = -(-L // WINDOW_BLOCK)
+    base = np.repeat(rng.integers(0, S - span, nb), WINDOW_BLOCK)[:L]
+    idx = (base + rng.integers(0, span, L)).astype(np.int32)
+    return idx, rng.random(L) < 0.9
+
+
+@pytest.mark.parametrize("d", [4, 64, 128])
+def test_gather_rows_window_matches_plain(cuda, monkeypatch, d):
+    """Exact against the plain version: the rows inside their window equal
+    ``src[idx]``, a padded row that points outside it is zero."""
+    from chgnet_tpu_torch.graph.batching import WINDOW_ROWS
+
+    monkeypatch.setenv("CHGNET_TPU_STREAM_V2", "1")
+    rng = np.random.default_rng(22)
+    L, S = 20_000 + 77, 9_000
+    idx, valid = _window_stream(rng, L, S, WINDOW_ROWS)
+    plan = _plan(idx, valid, S, False, cuda)
+    assert plan.window.shape == (-(-L // 128), 2)
+    fwd = torch.as_tensor(np.where(valid, idx, S - 1).astype(np.int32), device=cuda)
+    src = torch.randn(S, d, device=cuda)
+    for index in (plan.key, fwd):  # the backward's keys, the forward's indices
+        got = tsg.gather_rows_window(src, index, plan.window)
+        assert torch.equal(got, tsg.gather_rows_window_plain(src, index, plan.window))
+        ok = torch.as_tensor(valid, device=cuda)
+        assert torch.equal(got[ok], src[plan.key[ok].long()])
+    assert not bool(tsg.gather_rows_window(src, plan.key, plan.window)[~ok].any())
+
+
+def test_window_plan_is_absent_when_a_block_spans_too_far(cuda, monkeypatch):
+    monkeypatch.setenv("CHGNET_TPU_STREAM_V2", "1")
+    rng = np.random.default_rng(23)
+    idx = rng.integers(0, 5000, 4096).astype(np.int32)
+    plan = _plan(idx, np.ones(4096, bool), 5000, False, cuda)
+    assert plan.window.shape[0] == 0
+    src = torch.randn(5000, 64, device=cuda)
+    n0 = tsg.gather_rows.launches
+    out = tsg.plan_gather(src, plan.key, plan)  # falls to gather_rows
+    assert tsg.gather_rows.launches == n0 + 1
+    assert torch.equal(out, src[idx.astype(np.int64)])
+    with pytest.raises(ValueError, match="window"):
+        tsg.gather_rows_window(src, plan.key, plan.window)
+    good = torch.zeros((32, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="fits"):
+        tsg.gather_rows_window(torch.randn(5000, 256, device=cuda), plan.key, good)
+    with pytest.raises(ValueError, match="fits"):
+        tsg.gather_rows_window(torch.randn(5000, 6, device=cuda), plan.key, good)
+
+
+def test_stream_v2_autograd_matches_cpu(cuda, monkeypatch):
+    """plan_gather and plan_segment_sum under the switch, first and second
+    order, on the card (window and tile kernels) against the CPU."""
+    from chgnet_tpu_torch.graph.batching import WINDOW_ROWS
+
+    monkeypatch.setenv("CHGNET_TPU_STREAM_V2", "1")
+    rng = np.random.default_rng(24)
+    L, S, d = 6000 + 5, 2500, 64
+    idx, valid = _window_stream(rng, L, S, WINDOW_ROWS // 2)
+    table = rng.standard_normal((S, d)).astype(np.float32)
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        plan = _plan(idx, valid, S, False, dev)
+        t = torch.tensor(table, device=dev, requires_grad=True)
+        before = (tsg.gather_rows_window.launches, tsg.segment_sum_tiles.launches)
+        rows = tsg.plan_gather(t, plan.key.clamp(max=S - 1), plan)
+        out = tsg.plan_segment_sum(torch.sin(rows) * rows, plan)
+        (g1,) = torch.autograd.grad((out ** 2).sum(), t, create_graph=True)
+        (g2,) = torch.autograd.grad((g1 * t.detach()).sum(), t)
+        res.append([x.detach().cpu() for x in (rows, out, g1, g2)])
+        if dev.type == "cuda":
+            assert tsg.gather_rows_window.launches > before[0]
+            assert tsg.segment_sum_tiles.launches > before[1]
+    _assert_scaled(res[0], res[1], 1e-5)
+
+
+# ---------------------------------------------------- the one-kernel pass
+def _pass_inputs(device, n_gathered, with_aligned, d=64, n_rows=30_000 + 13, seed=31):
+    x, p = _tail_inputs(device, d, n_rows, seed)
+    rng = np.random.default_rng(seed)
+    sizes = [4000, 9000, 4000][:n_gathered]
+    tables = [torch.tensor(rng.standard_normal((s, 2 * d)).astype(np.float32),
+                           device=device) for s in sizes]
+    # a few indices out of range: those rows add zero
+    idxs = [torch.as_tensor(rng.integers(-1, s + 1, n_rows).astype(np.int32),
+                            device=device) for s in sizes]
+    aligned = x["acc"] if with_aligned else None
+    b1 = torch.tensor(rng.standard_normal(2 * d).astype(np.float32), device=device)
+    return x, p, tables, idxs, aligned, b1
+
+
+@pytest.mark.parametrize("with_aligned", [False, True], ids=["bare", "aligned"])
+@pytest.mark.parametrize("n_gathered", [1, 2, 3])
+@pytest.mark.parametrize(
+    "form,need", [("message", False), ("message", True), ("update_w2", False),
+                  ("update_w2", True), ("update", False), ("update", True)],
+)
+def test_fused_pass_kernels_match_plain(cuda, form, need, n_gathered, with_aligned):
+    from chgnet_tpu_torch.ops import fused_pass as tfp
+
+    x, p, tables, idxs, aligned, b1 = _pass_inputs(cuda, n_gathered, with_aligned)
+    params = _params(p, has_w2=form != "update")
+    msg = form == "message"
+    weights, mask = (x["weights"], x["mask"]) if msg else (None, None)
+    resnet = None if msg else x["resnet"]
+    fwd = (tables, idxs, aligned, b1, params, weights, mask, resnet)
+    got = tfp.fused_pass_fwd(*fwd)
+    _assert_scaled([got], [tfp.fused_pass_fwd_plain(*fwd)], TAIL_FWD_TOL)
+    assert torch.equal(got, tfp.fused_pass_fwd(*fwd))
+    bwd = (tables, idxs, aligned, b1, params, weights, mask, x["g"], msg and need, need)
+    got = _flat(tfp.fused_pass_bwd(*bwd))
+    _assert_scaled(got, _flat(tfp.fused_pass_bwd_plain(*bwd)), TAIL_BWD_TOL)
+    again = _flat(tfp.fused_pass_bwd(*bwd))
+    assert all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
+
+
+@pytest.mark.parametrize("d", [16, 36])
+def test_fused_pass_kernels_at_narrow_widths(cuda, d):
+    from chgnet_tpu_torch.ops import fused_pass as tfp
+
+    x, p, tables, idxs, aligned, b1 = _pass_inputs(cuda, 2, True, d=d, n_rows=5000 + 3)
+    params = _params(p)
+    fwd = (tables, idxs, aligned, b1, params, x["weights"], x["mask"], None)
+    _assert_scaled([tfp.fused_pass_fwd(*fwd)], [tfp.fused_pass_fwd_plain(*fwd)],
+                   TAIL_FWD_TOL)
+    bwd = (tables, idxs, aligned, b1, params, x["weights"], x["mask"], x["g"], True, True)
+    _assert_scaled(_flat(tfp.fused_pass_bwd(*bwd)),
+                   _flat(tfp.fused_pass_bwd_plain(*bwd)), TAIL_BWD_TOL)
+
+
+@pytest.mark.parametrize("form", ["message", "update_w2", "update"])
+@pytest.mark.parametrize("serving", [False, True], ids=["all", "serving"])
+def test_fused_layer_pass_autograd_matches_cpu(cuda, monkeypatch, form, serving):
+    """First and second order through fused_layer_pass with the switch on,
+    on the card (both kernels, the cotangent sums, then the unfused
+    composition) against the CPU."""
+    from chgnet_tpu_torch.ops import fused_pass as tfp
+
+    monkeypatch.setenv("CHGNET_TPU_FUSED_PASS", "1")
+    rng = np.random.default_rng(33)
+    n_rows, sizes, d = 4096 + 5, (700, 900), 64
+    idx = [rng.integers(0, s, n_rows).astype(np.int32) for s in sizes]
+    valid = rng.random(n_rows) < 0.9
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        x, p, tables, _, aligned, b1 = _pass_inputs(
+            torch.device("cpu"), 2, True, n_rows=n_rows)
+        tables = [t[:s].to(dev).requires_grad_(True) for t, s in zip(tables, sizes)]
+        aligned = aligned.to(dev).requires_grad_(True)
+        plans = [_plan(i, valid, s, False, dev) for i, s in zip(idx, sizes)]
+        parts = [(tables[0], torch.as_tensor(idx[0], device=dev), plans[0]),
+                 (aligned, None, None),
+                 (tables[1], torch.as_tensor(idx[1], device=dev), plans[1])]
+        grad = not serving
+        keys = tgm.LN_KEYS if form == "update" else tuple(p)
+        tp = {k: p[k].to(dev).requires_grad_(grad) for k in keys}
+        b1 = b1.to(dev).requires_grad_(grad)
+        wrt = [*tables, aligned]
+        kw = {}
+        if form == "message":
+            kw["weights"] = x["weights"].to(dev).requires_grad_(True)
+            kw["mask"] = x["mask"].to(dev).requires_grad_(grad)
+            wrt += [kw["weights"]] + ([kw["mask"]] if grad else [])
+        else:
+            kw["resnet"] = x["resnet"].to(dev).requires_grad_(True)
+            wrt.append(kw["resnet"])
+        wrt += [b1, *tp.values()] if grad else []
+        before = (tfp.fused_pass_fwd.launches, tfp.fused_pass_bwd.launches)
+        out = tfp.fused_layer_pass(parts, b1, tp, **kw)
+        grads = torch.autograd.grad(torch.tanh(out).sum(), wrt, create_graph=True)
+        # fixed coefficients: a function of the gradients' own values (a sine,
+        # say) would turn the parameter gradients' 1e-6 into 1e-4 here
+        second = sum(
+            (gr * torch.linspace(-1, 1, gr.numel(), device=dev).view_as(gr)).sum()
+            for gr in grads
+        )
+        g2 = torch.autograd.grad(second, wrt, allow_unused=True)
+        if dev.type == "cuda":
+            # the second order passes the forward op's backward once more
+            # (tanh' depends on out), so the backward kernel runs twice
+            assert tfp.fused_pass_fwd.launches == before[0] + 1
+            assert tfp.fused_pass_bwd.launches == before[1] + 2
+        res.append([t.detach().cpu() for t in (out, *grads, *g2) if t is not None])
+    _assert_scaled(res[0], res[1], TAIL_BWD_TOL)
+
+
+def test_fused_pass_raises_on_what_the_kernels_do_not_take(cuda, monkeypatch):
+    from chgnet_tpu_torch.ops import fused_pass as tfp
+
+    monkeypatch.setenv("CHGNET_TPU_FUSED_PASS", "1")
+    x, p, tables, idxs, aligned, b1 = _pass_inputs(cuda, 3, True, n_rows=64)
+    params = _params(p)
+    args = dict(weights=x["weights"], mask=x["mask"])
+    plan = _plan(np.zeros(64, np.int32), np.ones(64, bool), 4000, False, cuda)
+    part = (tables[0], idxs[0], plan)
+    with pytest.raises(ValueError, match="gathered"):
+        tfp.fused_layer_pass([part] * 4, b1, p, **args)
+    with pytest.raises(ValueError, match="aligned"):
+        tfp.fused_layer_pass([part, (aligned, None, None)] * 2, b1, p, **args)
+    wide = torch.randn(10, 256, device=cuda)
+    with pytest.raises(ValueError, match="2D <= 128"):
+        tfp.fused_layer_pass([(wide, idxs[0], plan)], None, p, **args)
+    with pytest.raises(ValueError, match="gathered parts"):
+        tfp.fused_pass_fwd(tables * 2, idxs * 2, aligned, b1, params,
+                           x["weights"], x["mask"], None)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        shifted = torch.randn(4000 * 128 + 1, device=cuda)[1:].view(4000, 128)
+        tfp.fused_pass_fwd([shifted], idxs[:1], aligned, b1, params,
+                           x["weights"], x["mask"], None)
+    with pytest.raises(TypeError, match="int32"):
+        tfp.fused_pass_fwd(tables[:1], [idxs[0].long()], aligned, b1, params,
+                           x["weights"], x["mask"], None)
+    with pytest.raises(ValueError, match="b1"):
+        tfp.fused_pass_fwd(tables[:1], idxs[:1], aligned, b1[:64], params,
+                           x["weights"], x["mask"], None)
+
+
+@pytest.mark.parametrize("directed", [True, False], ids=["directed", "undirected"])
+@pytest.mark.parametrize("switch", ["CHGNET_TPU_STREAM_V2", "CHGNET_TPU_FUSED_PASS"])
+def test_stream_v2_and_fused_pass_paths_on_card_match_cpu(
+    cuda, monkeypatch, switch, directed
+):
+    from chgnet_tpu_torch import ops
+
+    monkeypatch.setenv(switch, "1")
+    s = Structure.from_file(LIMNO2).make_supercell(2).perturb(0.05, seed=9)
+    kw = dict(graph_converter_algorithm="numpy", directed_bonds=directed)
+    a = CHGNet(seed=0, device="cpu", **kw).predict_structure(s, task="efsm")
+    ops.reset_launch_counts()
+    b = CHGNet(seed=0, device=cuda, **kw).predict_structure(s, task="efsm")
+    new = (ops.segment_sum_tiles, ops.gather_rows_window) if "STREAM" in switch \
+        else (ops.fused_pass_fwd, ops.fused_pass_bwd)
+    assert all(fn.launches > 0 for fn in new)
+    for key in "efsm":
+        np.testing.assert_allclose(
+            np.asarray(b[key]), np.asarray(a[key]), atol=TOL[key], err_msg=key
+        )
