@@ -19,11 +19,12 @@
 // Bound: a message row moves 2D + D + 1 floats in and D out (the backward
 // 2D + 2D + 1 in, 2D + D out) against 4 D^2 FLOPs of the block-diagonal
 // product (8 D^2 in the backward) plus the elementwise work of the norms and
-// gates. At D = 64 the forward tails and the update backward are bound by
-// bytes; the message backward, with the elementwise work counted, is bound
-// by operations, as are the message-reduce's calls whose output is short
-// (edges into atoms), which write almost nothing.
-// Design: f32 throughout with FMAs, no TF32. A block stages W2c and W2g
+// gates. At D = 64, with the products at the tensor cores' f32-accurate
+// rate (3xTF32), the tails are bound by bytes.
+// Design of the serving backward: tail_bwd_tc_kernel (namespace tcb below),
+// on tensor cores with asynchronous copies and warp-local tiles.
+// Design of the forward tails, the message-reduce and the backward with
+// parameter gradients: f32 FMAs throughout, no TF32. A block stages W2c and W2g
 // (and their transposes in the backward, 16 KB each at D = 64) in dynamic
 // shared memory once, then walks 32-row tiles: it loads the tile's acc
 // rows as float4, keeps h = silu(acc) in shared memory, and each of 256
@@ -37,6 +38,7 @@
 // of blocks, kParamBlocks), which a second kernel reduces over the blocks in
 // order: no float atomics, and the result repeats bit for bit.
 #include "gated_tail.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -307,6 +309,438 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 
+// -------------------------------------- backward on tensor cores (serving)
+// The backward without parameter gradients, which serving runs: the
+// function of tail_bwd_kernel, redesigned for Hopper.
+//
+// Bound: at D = 64 a message row moves 1,796 bytes against 2 x 4 D^2 FLOPs
+// of products (1.0 ms for the default pass's 7 calls at 3xTF32) and 70
+// elementwise operations per row element (0.34 ms): bytes (2.7 ms).
+// Design: every warp is its own pipeline and owns 16 rows through every
+// phase, so nothing in the tile loop waits on the block. Its next tile's
+// acc rows are in flight (cp.async into the second of two stages) while it
+// computes this one; g, weights and mask follow into their one slot as
+// soon as this tile's d_y has left it. The two products run on the tensor
+// cores at f32 accuracy (3xTF32, tf32x3.cuh), with silu(acc), then d_y, as
+// the A operand and the block's one staged copy of W2c and W2g as B, read
+// in both orientations; k and n are padded with zeros to multiples of 8.
+// The accumulators' layout puts each row on one quad of lanes, so every
+// layer-norm sum of the row phase is two shuffles. The row phase reads the
+// accumulators back from a per-lane slot in shared memory in loops over
+// the 8-column tiles: fully unrolled over its 64 values a lane, the kernel
+// outgrew the instruction cache and ran 2.5x slower. gz, then d_y, take the
+// g and weights slots a lane has just read, and d_y is the A operand of
+// d_y @ W2^T from there.
+namespace tcb {
+
+constexpr int kRows = 16;                      // rows of a warp's tile
+constexpr int kAccFloats = kRows * 2 * kMaxD;  // one acc stage
+constexpr int kRowFloats = kRows * kMaxD;      // g or weights, then d_y's halves
+constexpr int kFragFloats = 64 * 32;           // a [2][8][4] fragment per lane
+constexpr int kWFloats = 2 * kMaxD * kMaxD;          // W2c, W2g, swizzled
+constexpr int kParamFloats = 2 * kMaxD + 4 * kMaxD;  // b2, ncs, ncb, ngs, ngb
+// A block's warps, as many as shared memory allows: with a second layer
+// the weights and the parked fragments take room.
+__host__ __device__ constexpr int warps(bool w2) { return w2 ? 6 : 9; }
+__host__ __device__ constexpr int warp_floats(bool w2) {
+  return 2 * kAccFloats + 2 * kRowFloats + (w2 ? kFragFloats : 0) + kRows;
+}
+__host__ __device__ constexpr size_t smem_bytes(bool w2) {
+  return (size_t)((w2 ? kWFloats : 0) + kParamFloats + warps(w2) * warp_floats(w2)) *
+         sizeof(float);
+}
+
+// W_half[k][n] lives at k * kMaxD + (n ^ swz(k)): the B fragments of both
+// W (k = 8 s + q, n = 8 t + gid) and W^T (row n, column k) then hit 32
+// distinct banks.
+__device__ __forceinline__ int swz(int k) {
+  return 4 * (((k & 3) << 1) | ((k >> 2) & 1));
+}
+
+// sigmoid with the fast exponential and division (a few ulp, against the
+// backward's tolerance of 1e-4): the row phase's cost is its instructions
+__device__ __forceinline__ float sigm_fast(float x) {
+  return __fdividef(1.f, 1.f + __expf(-x));
+}
+__device__ __forceinline__ float silu_grad_of(float x, float s) {  // s = sigm(x)
+  return s * (1.f + x * (1.f - s));
+}
+
+// A tile row r's column c lives at r * width + (c ^ rswz(r)) (width 2 kMaxD
+// for acc, kMaxD for g and weights): conflict-free A fragments, and 16-byte
+// chunks stay whole for the copies; c ^ rswz(r) keeps c in its half.
+__device__ __forceinline__ int rswz(int r) { return 4 * (r & 7); }
+__device__ __forceinline__ int at_acc(int r, int c) {
+  return r * 2 * kMaxD + (c ^ rswz(r));
+}
+__device__ __forceinline__ int at_row(int r, int c) {
+  return r * kMaxD + (c ^ rswz(r));
+}
+
+// Copies of tile t's acc rows into acc_s (zeros past n_rows; the gate half
+// at column kMaxD); the caller commits them.
+__device__ __forceinline__ void fetch_acc(float* acc_s, const float* acc, int t,
+                                          int n_rows, int d, int lane) {
+  const long row0 = (long)t * kRows;
+  const int d4 = d / 4;
+  for (int i = lane; i < kRows * 2 * d4; i += 32) {
+    const int r = i / (2 * d4);
+    const int c = i - r * 2 * d4;
+    const long l = row0 + r;
+    const bool ok = l < n_rows;
+    const int half = c >= d4;
+    tc::copy16(acc_s + at_acc(r, half * kMaxD + 4 * (c - half * d4)),
+               acc + (ok ? l : 0) * 2 * d + 4 * c, ok);
+  }
+}
+
+// Copies of tile t's g, weights and mask rows; vec: g and weights are
+// 16-byte aligned. The caller commits them.
+template <bool kMsg>
+__device__ __forceinline__ void fetch_rows(float* g_s, float* w_s, float* m_s,
+                                           const float* g, const float* weights,
+                                           const float* mask, int t, int n_rows,
+                                           int d, bool vec, int lane) {
+  const long row0 = (long)t * kRows;
+  const int unit = vec ? 4 : 1;  // floats a copy
+  const int per_row = d / unit;
+  for (int i = lane; i < kRows * per_row; i += 32) {
+    const int r = i / per_row;
+    const int c = (i - r * per_row) * unit;
+    const long l = row0 + r;
+    const bool ok = l < n_rows;
+    const long src = (ok ? l : 0) * d + c;
+    if (vec) {
+      tc::copy16(g_s + at_row(r, c), g + src, ok);
+      if (kMsg) tc::copy16(w_s + at_row(r, c), weights + src, ok);
+    } else {
+      tc::copy4(g_s + at_row(r, c), g + src, ok);
+      if (kMsg) tc::copy4(w_s + at_row(r, c), weights + src, ok);
+    }
+  }
+  if (kMsg && lane < kRows) {
+    const long l = row0 + lane;
+    tc::copy4(m_s + lane, mask + (l < n_rows ? l : 0), l < n_rows);
+  }
+}
+
+// out[h][nt] += the warp's 16 rows of A_h @ W_h, or @ W_h^T with kT, over
+// all kMaxD columns (W is zero-padded); A_h's row r, column c at
+// a_h[r * width + (c ^ rswz(r))]; act: silu of A first. The step loop
+// stays rolled: a fully unrolled kernel outgrows the instruction cache.
+template <bool kT, bool kAct>
+__device__ __forceinline__ void product(const float* a0, const float* a1,
+                                        int width, const float* w_s, int d8,
+                                        int lane, float out[2][8][4]) {
+  const int gid = lane >> 2;
+  const int q = lane & 3;
+  const int s = rswz(gid);  // rows gid and gid + 8 alike
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float* a = (h ? a1 : a0) + gid * width;
+    const float* w = w_s + h * kMaxD * kMaxD;
+#pragma unroll 1
+    for (int ks = 0; ks < d8; ++ks) {
+      const int k0 = ks * 8 + q;
+      const int k1 = k0 + 4;
+      float av[4] = {a[k0 ^ s], a[8 * width + (k0 ^ s)], a[k1 ^ s],
+                     a[8 * width + (k1 ^ s)]};
+      if (kAct) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) av[i] *= sigm_fast(av[i]);
+      }
+      uint32_t hi[4], lo[4];
+      tc::split_a(av, hi, lo);
+      float b[8][2];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int n = nt * 8 + gid;
+        if (kT) {
+          b[nt][0] = w[n * kMaxD + (k0 ^ swz(n))];
+          b[nt][1] = w[n * kMaxD + (k1 ^ swz(n))];
+        } else {
+          b[nt][0] = w[k0 * kMaxD + (n ^ swz(k0))];
+          b[nt][1] = w[k1 * kMaxD + (n ^ swz(k1))];
+        }
+      }
+      tc::mma3_tiles<8>(out[h], hi, lo, b);
+    }
+  }
+}
+
+// A [2][8][4] accumulator set: zeroed, and parked in shared memory per
+// lane (f_s[((h * 8 + nt) * 4 + j) * 32 + lane]), so that the row phase
+// runs as rolled loops over nt
+__device__ __forceinline__ void zero(float v[2][8][4]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[h][nt][j] = 0.f;
+}
+__device__ __forceinline__ void park(float* f_s, const float v[2][8][4], int lane) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) f_s[((h * 8 + nt) * 4 + j) * 32 + lane] = v[h][nt][j];
+}
+
+template <bool kMsg, bool kW2>
+__global__ void __launch_bounds__(32 * warps(kW2), 1)
+    tail_bwd_tc_kernel(Tail t, const float* __restrict__ acc,
+                       const float* __restrict__ weights,
+                       const float* __restrict__ mask,
+                       const float* __restrict__ g, float* __restrict__ d_acc,
+                       float* __restrict__ d_weights, float* __restrict__ d_mask,
+                       int n_rows, int d, int vec) {
+  extern __shared__ float4 smem4[];
+  float* w_s = reinterpret_cast<float*>(smem4);  // [2][kMaxD][kMaxD] with W2
+  float* b2_s = w_s + (kW2 ? kWFloats : 0);      // [2 kMaxD], gate at kMaxD
+  float* ncs_s = b2_s + 2 * kMaxD;
+  float* ncb_s = ncs_s + kMaxD;
+  float* ngs_s = ncb_s + kMaxD;
+  float* ngb_s = ngs_s + kMaxD;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  // this warp's buffers: two acc stages; g and weights, whose slots take
+  // gz and then d_y's core and gate halves once read; the parked
+  // fragments (y, then d_h); the mask
+  float* mine = ngb_s + kMaxD + warp * warp_floats(kW2);
+  float* g_s = mine + 2 * kAccFloats;
+  float* wt_s = g_s + kRowFloats;
+  float* f_s = wt_s + kRowFloats;  // with W2
+  float* m_s = f_s + (kW2 ? kFragFloats : 0);
+
+  // weights and parameters zero-padded to kMaxD; this warp's buffers zeroed
+  // (the copies never write the pad columns)
+  for (int i = threadIdx.x; kW2 && i < kWFloats; i += blockDim.x) {
+    const int h = i / (kMaxD * kMaxD);
+    const int k = (i / kMaxD) % kMaxD;
+    const int n = i % kMaxD;
+    float v = 0.f;
+    if (kW2 && k < d && n < d) v = (h ? t.w2g : t.w2c)[k * d + n];
+    w_s[h * kMaxD * kMaxD + k * kMaxD + (n ^ swz(k))] = v;
+  }
+  for (int i = threadIdx.x; i < 2 * kMaxD; i += blockDim.x) {
+    const int h = i / kMaxD;
+    const int e = i % kMaxD;
+    b2_s[i] = kW2 && e < d ? t.b2[h * d + e] : 0.f;
+    if (h == 0) {
+      ncs_s[e] = e < d ? t.ncs[e] : 0.f;
+      ncb_s[e] = e < d ? t.ncb[e] : 0.f;
+      ngs_s[e] = e < d ? t.ngs[e] : 0.f;
+      ngb_s[e] = e < d ? t.ngb[e] : 0.f;
+    }
+  }
+  for (int i = lane; i < warp_floats(kW2); i += 32) mine[i] = 0.f;
+  __syncthreads();  // the only block barrier
+
+  const int gid = lane >> 2;
+  const int q = lane & 3;
+  const int d8 = (d + 7) / 8;
+  const float inv_d = 1.f / d;
+  const int n_tiles = (n_rows + kRows - 1) / kRows;
+  const int step = gridDim.x * warps(kW2);
+  int tile = blockIdx.x * warps(kW2) + warp;
+  // acc runs one tile ahead through the two stages; g, weights and mask
+  // for the next tile are copied as soon as this tile's d_y has left
+  // their slots
+  if (tile < n_tiles) fetch_acc(mine, acc, tile, n_rows, d, lane);
+  tc::commit();
+  if (tile < n_tiles)
+    fetch_rows<kMsg>(g_s, wt_s, m_s, g, weights, mask, tile, n_rows, d, vec, lane);
+  tc::commit();
+  for (int it = 0; tile < n_tiles; ++it, tile += step) {
+    const float* acc_s = mine + (it & 1) * kAccFloats;
+    if (tile + step < n_tiles)
+      fetch_acc(mine + ((it + 1) & 1) * kAccFloats, acc, tile + step, n_rows, d,
+                lane);
+    tc::commit();
+    tc::wait_pending<1>();  // all but the next tile's acc have landed
+    __syncwarp();
+    const long row0 = (long)tile * kRows;
+
+    // y = silu(acc) @ blockdiag(W2c, W2g) + b2, or acc. Element (h, nt, j):
+    // row gid + 8 (j >> 1), column 8 nt + 2 q + (j & 1) of half h.
+    if (kW2) {
+      float y[2][8][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            y[h][nt][j] = b2_s[h * kMaxD + nt * 8 + 2 * q + (j & 1)];
+      product<false, true>(acc_s, acc_s + kMaxD, 2 * kMaxD, w_s, d8, lane, y);
+      park(f_s, y, lane);
+    }
+    auto y_at = [&](int h, int nt, int j) {
+      return kW2 ? f_s[((h * 8 + nt) * 4 + j) * 32 + lane]
+                 : acc_s[at_acc(gid + 8 * (j >> 1), h * kMaxD + nt * 8 + 2 * q + (j & 1))];
+    };
+
+    // two-pass layer-norm statistics of each half row
+    float mean[2][2] = {}, inv[2][2] = {};
+#pragma unroll 1
+    for (int nt = 0; nt < d8; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (nt * 8 + 2 * q + (j & 1) < d) mean[h][j >> 1] += y_at(h, nt, j);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) mean[h][rr] = tc::quad_sum(mean[h][rr]) * inv_d;
+#pragma unroll 1
+    for (int nt = 0; nt < d8; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (nt * 8 + 2 * q + (j & 1) < d) {
+            const float c = y_at(h, nt, j) - mean[h][j >> 1];
+            inv[h][j >> 1] = fmaf(c, c, inv[h][j >> 1]);
+          }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+        inv[h][rr] = rsqrtf(tc::quad_sum(inv[h][rr]) * inv_d + kEps);
+    // z of element (h, nt, j), zero past D
+    auto z_at = [&](int h, int nt, int j) {
+      return nt * 8 + 2 * q + (j & 1) < d
+                 ? (y_at(h, nt, j) - mean[h][j >> 1]) * inv[h][j >> 1]
+                 : 0.f;
+    };
+
+    // the gate's backward (gate_row_bwd's arithmetic): d_weights, d_mask,
+    // and the layer norms' gz = d_out * scale with their sums; a lane
+    // writes gz over the g and weights slots it has just read
+    float s1[2][2] = {}, s2[2][2] = {}, mask_part[2] = {};
+#pragma unroll 1
+    for (int nt = 0; nt < d8; ++nt) {
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int r = gid + 8 * rr;
+        const float m = kMsg ? m_s[r] : 1.f;
+        float dw[2];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int e = nt * 8 + 2 * q + jj;
+          const int at = at_row(r, e);
+          const float zc = z_at(0, nt, 2 * rr + jj);
+          const float zg = z_at(1, nt, 2 * rr + jj);
+          const float cn = fmaf(zc, ncs_s[e], ncb_s[e]);
+          const float gn = fmaf(zg, ngs_s[e], ngb_s[e]);
+          const float sig_cn = sigm_fast(cn);
+          const float silu_cn = cn * sig_cn;
+          const float sig_gn = sigm_fast(gn);
+          const float gv = g_s[at];  // zero past D
+          float up = gv;
+          if (kMsg) {
+            const float wv = wt_s[at];
+            mask_part[rr] = fmaf(gv, silu_cn * sig_gn * wv, mask_part[rr]);
+            up = gv * wv * m;
+            dw[jj] = gv * silu_cn * sig_gn * m;
+          }
+          const float gzc = up * sig_gn * silu_grad_of(cn, sig_cn) * ncs_s[e];
+          const float gzg = up * silu_cn * sig_gn * (1.f - sig_gn) * ngs_s[e];
+          s1[0][rr] += gzc;
+          s2[0][rr] = fmaf(gzc, zc, s2[0][rr]);
+          s1[1][rr] += gzg;
+          s2[1][rr] = fmaf(gzg, zg, s2[1][rr]);
+          g_s[at] = gzc;
+          wt_s[at] = gzg;
+        }
+        const long l = row0 + r;
+        const int e0 = nt * 8 + 2 * q;
+        if (kMsg && e0 < d && l < n_rows)
+          *reinterpret_cast<float2*>(d_weights + l * d + e0) =
+              make_float2(dw[0], dw[1]);
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const long l = row0 + gid + 8 * rr;
+      if (kMsg && d_mask != nullptr) {
+        const float dm = tc::quad_sum(mask_part[rr]);
+        if (q == 0 && l < n_rows) d_mask[l] = dm;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        s1[h][rr] = tc::quad_sum(s1[h][rr]) * inv_d;
+        s2[h][rr] = tc::quad_sum(s2[h][rr]) * inv_d;
+      }
+    // d_y = (gz - mean(gz) - z mean(gz z)) * inv, zero past D: in place
+    // with W2, else straight to d_acc
+#pragma unroll 1
+    for (int nt = 0; nt < d8; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int r = gid + 8 * rr;
+          const long l = row0 + r;
+          const int e0 = nt * 8 + 2 * q;
+          float* half = h ? wt_s : g_s;
+          float dy[2];
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            float* p = half + at_row(r, e0 + jj);
+            dy[jj] = e0 + jj < d ? (*p - s1[h][rr] - z_at(h, nt, 2 * rr + jj) *
+                                                         s2[h][rr]) *
+                                       inv[h][rr]
+                                 : 0.f;
+            if (kW2) *p = dy[jj];
+          }
+          if (!kW2 && e0 < d && l < n_rows)
+            *reinterpret_cast<float2*>(d_acc + l * 2 * d + h * d + e0) =
+                make_float2(dy[0], dy[1]);
+        }
+
+    if (kW2) {
+      __syncwarp();  // the warp's d_y rows in g_s and wt_s
+      // d_acc = (d_y @ W2^T) * silu'(acc)
+      float dh[2][8][4];
+      zero(dh);
+      product<true, false>(g_s, wt_s, kMaxD, w_s, d8, lane, dh);
+      park(f_s, dh, lane);
+#pragma unroll 1
+      for (int nt = 0; nt < d8; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int r = gid + 8 * rr;
+            const long l = row0 + r;
+            const int e0 = nt * 8 + 2 * q;
+            if (e0 >= d || l >= n_rows) continue;
+            const float a0 = acc_s[at_acc(r, h * kMaxD + e0)];
+            const float a1 = acc_s[at_acc(r, h * kMaxD + e0 + 1)];
+            *reinterpret_cast<float2*>(d_acc + l * 2 * d + h * d + e0) =
+                make_float2(y_at(h, nt, 2 * rr) * silu_grad_of(a0, sigm_fast(a0)),
+                            y_at(h, nt, 2 * rr + 1) *
+                                silu_grad_of(a1, sigm_fast(a1)));
+          }
+    }
+    __syncwarp();  // this acc stage and the row slots free
+    if (tile + step < n_tiles)
+      fetch_rows<kMsg>(g_s, wt_s, m_s, g, weights, mask, tile + step, n_rows, d,
+                       vec, lane);
+    tc::commit();
+  }
+}
+
+}  // namespace tcb
+
+
 using FwdFn = void (*)(Tail, const float*, const float*, const float*,
                        const float*, float*, int, int);
 using BwdFn = void (*)(Tail, const float*, const float*, const float*,
@@ -338,15 +772,44 @@ Kernel<FwdFn> fwd_kernel(bool msg, bool w2) {
   return w2 ? fwd_instance<false, true>() : fwd_instance<false, false>();
 }
 
-Kernel<BwdFn> bwd_kernel(bool msg, bool w2, bool params) {
-  if (msg)
-    return params ? bwd_instance<true, true, true>()
-                  : bwd_instance<true, true, false>();
-  if (w2)
-    return params ? bwd_instance<false, true, true>()
-                  : bwd_instance<false, true, false>();
-  return params ? bwd_instance<false, false, true>()
-                : bwd_instance<false, false, false>();
+// the backward with parameter gradients
+Kernel<BwdFn> bwd_kernel(bool msg, bool w2) {
+  if (msg) return bwd_instance<true, true, true>();
+  return w2 ? bwd_instance<false, true, true>() : bwd_instance<false, false, true>();
+}
+
+// the serving backward on tensor cores
+using TcBwdFn = void (*)(Tail, const float*, const float*, const float*,
+                         const float*, float*, float*, float*, int, int, int);
+
+TcBwdFn tc_bwd_kernel(bool msg, bool w2) {
+  if (msg) return tcb::tail_bwd_tc_kernel<true, true>;
+  return w2 ? tcb::tail_bwd_tc_kernel<false, true>
+            : tcb::tail_bwd_tc_kernel<false, false>;
+}
+
+// Blocks of one full wave of the serving backward on the current device
+// (found once per instantiation and device); negative: minus a cudaError_t.
+int tc_bwd_wave(bool msg, bool w2) {
+  static std::atomic<int> waves[3][kMaxDevices];
+  const int form = msg ? 0 : w2 ? 1 : 2;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return -(int)err;
+  if (dev >= kMaxDevices) return -(int)cudaErrorInvalidDevice;
+  int blocks = waves[form][dev].load(std::memory_order_relaxed);
+  if (blocks != 0) return blocks;
+  const TcBwdFn fn = tc_bwd_kernel(msg, w2);
+  int per_sm = 0;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)tcb::smem_bytes(w2));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fn, 32 * tcb::warps(w2), tcb::smem_bytes(w2));
+  if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;
+  blocks = err == cudaSuccess ? chgnet::sm_count() * per_sm : -(int)err;
+  waves[form][dev].store(blocks, std::memory_order_relaxed);
+  return blocks;
 }
 
 }  // namespace
@@ -375,11 +838,12 @@ extern "C" int gated_fwd_f32(int msg, const void* const* tail, const float* acc,
 }
 
 // d_acc [n_rows, 2d] (16-byte aligned, as acc), and for msg = 1 d_weights
-// [n_rows, d] and, unless null, d_mask [n_rows]; grid as the forward's.
-// With d_params non-null the parameter gradients too, by exactly n_blocks =
-// min(tiles, kParamBlocks) blocks, one row each of partial [n_blocks,
-// n_part]: d_params [n_part] = dW2c, dW2g, db2 (with w2), d nc_scale,
-// d nc_bias, d ng_scale, d ng_bias.
+// [n_rows, d] and, unless null, d_mask [n_rows]. Without d_params: the
+// tensor-core kernel, 16 rows a warp, at most one wave of persistent
+// blocks. With d_params non-null the parameter gradients too, by
+// tail_bwd_kernel in exactly n_blocks = min(tiles, kParamBlocks) blocks,
+// one row each of partial [n_blocks, n_part]: d_params [n_part] = dW2c,
+// dW2g, db2 (with w2), d nc_scale, d nc_bias, d ng_scale, d ng_bias.
 extern "C" int gated_bwd_f32(int msg, const void* const* tail, const float* acc,
                              const float* weights, const float* mask,
                              const float* g, float* d_acc, float* d_weights,
@@ -394,14 +858,23 @@ extern "C" int gated_bwd_f32(int msg, const void* const* tail, const float* acc,
       (params && n_blocks != (tiles < kParamBlocks ? tiles : kParamBlocks)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t stream = static_cast<cudaStream_t>(cuda_stream);
-  if (n_rows > 0) {
-    const Kernel<BwdFn> k = bwd_kernel(msg, w2, params);
+  if (n_rows > 0 && params) {
+    const Kernel<BwdFn> k = bwd_kernel(msg, w2);
     const int wave = wave_blocks(k);
     if (wave < 0) return -wave;
-    const int grid = params ? n_blocks : (tiles < wave ? tiles : wave);
-    k.fn<<<grid, kThreads, k.smem, stream>>>(t, acc, weights, mask, g, d_acc,
-                                             d_weights, d_mask, partial, n_rows,
-                                             d);
+    k.fn<<<n_blocks, kThreads, k.smem, stream>>>(t, acc, weights, mask, g, d_acc,
+                                                 d_weights, d_mask, partial,
+                                                 n_rows, d);
+  } else if (n_rows > 0) {
+    const int wave = tc_bwd_wave(msg, w2);
+    if (wave < 0) return -wave;
+    const int rows = tcb::kRows * tcb::warps(w2);  // of a block's first tiles
+    const int want = (n_rows + rows - 1) / rows;
+    const int vec = ((uintptr_t)g | (uintptr_t)(msg ? weights : g)) % 16 == 0;
+    const TcBwdFn fn = tc_bwd_kernel(msg, w2);
+    fn<<<want < wave ? want : wave, 32 * tcb::warps(w2), tcb::smem_bytes(w2),
+         stream>>>(
+        t, acc, weights, mask, g, d_acc, d_weights, d_mask, n_rows, d, vec);
   }
   if (params) {
     const int n_part = (w2 ? 2 * d * d + 2 * d : 0) + 4 * d;

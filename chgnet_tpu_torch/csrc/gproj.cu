@@ -9,167 +9,388 @@
 // Replaces chgnet_tpu/ops/gproj.py _gproj_kernel (:62, wrapper _gproj_pallas
 // :175). The TPU kernel DMAs the union source window of each 512-row block
 // and expands it with one-hot MXU matmuls before applying the weights; on
-// Hopper a block gathers its rows directly.
+// Hopper the rows are gathered directly, and the order of the two steps is
+// chosen by the tables' length (the wrapper, ops/gproj.py, picks the route).
 //
 // Bound: the function needs the fewer FLOPs of two orders, gather first
 // (2 * L * n_pairs * dt * K) or project each (table, W) first (2 * S * dt * K)
-// and add the gathered rows (L * K per pair). In AtomConv the atom tables
-// are short (S = atoms << L = edges): the function is bound by bytes (the
-// [L, K] stream read and out written), and this kernel, which gathers
-// first, does far more work than it needs. In BondConv and AngleUpdate
-// S = edges is close to L = angles, and the function is bound by f32
-// operations. Projecting short tables first is later work. TF32 tensor
-// cores would be faster but are not exact enough for the port's f32
-// contract.
-// Design: all pair weights (n_pairs * dt * K floats, 96 KB for 3 pairs at
-// 64 x 128) are staged once in dynamic shared memory per block, and each
-// block walks 64-row tiles of the stream. For every pair the tile's rows
-// of T_p are gathered into shared memory, then each of 256 threads
-// accumulates an 8-row x 4-column register tile with f32 FMAs: rows are
-// read as broadcasts (a warp shares its 8 rows) and the weight row as one
-// float4 per lane, conflict-free. The pairs and the depth are summed in a
-// fixed order; out-of-range indices gather a zero row.
+// and add the gathered rows (L * K per pair). Where the tables are short
+// (AtomConv: S = atoms << L = edges) the projected tables stay in L2 and
+// the function is bound by bytes: the [L, K] stream read and out written.
+// Where they are long (BondConv and AngleUpdate: S = edges ~ L = angles)
+// the products at 3xTF32 take less time than the gathered rows' bytes.
+// Design: every product runs on the tensor cores at f32 accuracy (3xTF32,
+// tf32x3.cuh), with W_p staged once per block in shared memory, swizzled
+// so that the B fragments hit 32 distinct banks. Short tables, two
+// launches: gproj_project_kernel computes P_p = T_p @ W_p into a scratch
+// buffer (a table that pairs share is read from L1 after the first), then
+// gproj_gather_add_kernel adds stream[l] + P_0[idx_0[l]] + P_1[idx_1[l]] +
+// ... in pair order, a float4 per thread. Long tables, one launch:
+// gproj_tc_kernel, persistent, in which every warp is its own pipeline and
+// owns 16 rows of the stream; it gathers the rows of each (tile, pair) unit
+// into a ring of four stages with cp.async, three units in flight while it
+// multiplies the fourth; a tile's sums start from its stream rows. A
+// tile's indices are loaded one tile ahead, once per distinct stream. Sums
+// run in a fixed order; out-of-range indices gather a zero row.
 #include "common.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
 constexpr int kMaxPairs = 3;
-constexpr int kTile = 64;     // stream rows per tile
-constexpr int kThreads = 256; // 8 warps x 32 lanes
-constexpr int kRowsPerWarp = kTile / (kThreads / 32);
+constexpr int kMaxDt = 64;
+constexpr int kMaxK = 128;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16;     // stream (or table) rows of a warp's tile
+constexpr int kStages = 4;    // (tile, pair) units in a warp's ring
+constexpr int kUnitFloats = kRows * kMaxDt;
+constexpr int kPairWFloats = kMaxDt * kMaxK;
 
 struct Pairs {
   const float* tab[kMaxPairs];
   const int* idx[kMaxPairs];
+  int same_idx[kMaxPairs];  // first pair with the same index stream
 };
 
-__global__ void __launch_bounds__(kThreads)
-    gproj_kernel(Pairs pairs, int n_pairs, const float* __restrict__ w,
-                 const float* __restrict__ stream, float* __restrict__ out,
-                 int n_rows, int n_src, int dt, int k_out) {
+// W_p[k][n] lives at k * kMaxK + (n ^ wswz(k)); a unit's row r, column c at
+// r * kMaxDt + (c ^ aswz(r)): conflict-free B and A fragments
+__device__ __forceinline__ int wswz(int k) { return 8 * (k & 3); }
+__device__ __forceinline__ int aswz(int r) { return 4 * (r & 7); }
+
+// every pair's W, zero-padded to kMaxDt x kMaxK, by the whole block
+__device__ void stage_w(float* w_s, const float* __restrict__ w, int n_pairs,
+                        int dt, int k_out) {
+  for (int i = threadIdx.x; i < n_pairs * kPairWFloats; i += kThreads) {
+    const int p = i / kPairWFloats;
+    const int k = (i / kMaxK) % kMaxDt;
+    const int n = i % kMaxK;
+    const float v = k < dt && n < k_out ? w[((long)p * dt + k) * k_out + n] : 0.f;
+    w_s[p * kPairWFloats + k * kMaxK + (n ^ wswz(k))] = v;
+  }
+}
+
+// acc[nt] += A @ W for the warp's 16 rows and all kMaxK columns (W is
+// zero-padded), eight 8-column tiles at a time; load_a(ks, v) gives A's
+// fragment of the 8-deep step ks. The step loop stays rolled: a fully
+// unrolled kernel outgrows the instruction cache.
+template <typename LoadA>
+__device__ __forceinline__ void product(LoadA load_a, const float* w, int dt8,
+                                        int lane, float acc[16][4]) {
+  const int gid = lane >> 2;
+  const int q = lane & 3;
+#pragma unroll 1
+  for (int ks = 0; ks < dt8; ++ks) {
+    float av[4];
+    load_a(ks, av);
+    uint32_t hi[4], lo[4];
+    tc::split_a(av, hi, lo);
+    const int k0 = ks * 8 + q;
+    const int k1 = k0 + 4;
+#pragma unroll
+    for (int part = 0; part < 2; ++part) {
+      float b[8][2];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = (8 * part + j) * 8 + gid;
+        b[j][0] = w[k0 * kMaxK + (n ^ wswz(k0))];
+        b[j][1] = w[k1 * kMaxK + (n ^ wswz(k1))];
+      }
+      tc::mma3_tiles<8>(acc + 8 * part, hi, lo, b);
+    }
+  }
+}
+
+// ------------------------------------------------- long tables: gather first
+// this warp's index registers for the tile at row0: lane r < 16 holds
+// idx_p[row0 + r], -1 past n_rows; pairs that share a stream share it
+__device__ __forceinline__ void load_idx(const Pairs& pairs, int n_pairs,
+                                         long row0, int n_rows, int lane,
+                                         int ix[kMaxPairs]) {
+  const long l = row0 + lane;
+#pragma unroll
+  for (int p = 0; p < kMaxPairs; ++p) {
+    if (p < n_pairs && pairs.same_idx[p] == p)
+      ix[p] = lane < kRows && l < n_rows ? __ldg(pairs.idx[p] + l) : -1;
+    else if (p < n_pairs)
+      ix[p] = pairs.same_idx[p] == 0 ? ix[0] : ix[1];
+    else
+      ix[p] = -1;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    gproj_tc_kernel(Pairs pairs, int n_pairs, const float* __restrict__ w,
+                    const float* __restrict__ stream, float* __restrict__ out,
+                    int n_rows, int n_src, int dt, int k_out) {
   extern __shared__ float4 smem4[];
-  float* w_s = reinterpret_cast<float*>(smem4);  // [n_pairs][dt][k_out]
-  float* g_s = w_s + (long)n_pairs * dt * k_out;  // [kTile][dt]
-
-  const int n_w4 = n_pairs * dt * k_out / 4;
-  for (int i = threadIdx.x; i < n_w4; i += kThreads)
-    reinterpret_cast<float4*>(w_s)[i] = reinterpret_cast<const float4*>(w)[i];
-
+  float* w_s = reinterpret_cast<float*>(smem4);  // [n_pairs][kMaxDt][kMaxK]
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int col = lane * 4;
-  const bool col_ok = col < k_out;
+  float* ring = w_s + n_pairs * kPairWFloats + warp * kStages * kUnitFloats;
+  stage_w(w_s, w, n_pairs, dt, k_out);
+  for (int i = lane; i < kStages * kUnitFloats; i += 32) ring[i] = 0.f;
+  __syncthreads();  // the only block barrier
+
+  const int gid = lane >> 2;
+  const int q = lane & 3;
   const int dt4 = dt / 4;
-  const int n_tiles = (n_rows + kTile - 1) / kTile;
+  const int dt8 = (dt + 7) / 8;
+  const int n_tiles = (n_rows + kRows - 1) / kRows;
+  const int step = gridDim.x * kWarps;
+  const int first = blockIdx.x * kWarps + warp;
+  const int n_mine = first < n_tiles ? (n_tiles - 1 - first) / step + 1 : 0;
+  const int n_units = n_mine * n_pairs;
 
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long row0 = (long)tile * kTile;
-    float acc[kRowsPerWarp][4];
+  // the copies of unit u = (tile u / n_pairs, pair u % n_pairs): lane
+  // copies 16-byte chunk lane % 16 of rows lane / 16 + 2 i
+  int ix[kMaxPairs], ix_next[kMaxPairs];
+  load_idx(pairs, n_pairs, (long)first * kRows, n_rows, lane, ix);
+  load_idx(pairs, n_pairs, (long)(first + step) * kRows, n_rows, lane, ix_next);
+  const int chunk = lane & 15;
+  auto fetch = [&](int u) {
+    const int p = u % n_pairs;
+    if (p == 0 && u > 0) {  // the next tile: rotate its indices in
+      const int tile = first + (u / n_pairs + 1) * step;
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r)
-      acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
-
-    for (int p = 0; p < n_pairs; ++p) {
-      __syncthreads();  // weights staged / previous pair's rows consumed
-      const float* tab = pairs.tab[p];
-      const int* idx = pairs.idx[p];
-      for (int i = threadIdx.x; i < kTile * dt4; i += kThreads) {
-        const int r = i / dt4;
-        const int c = i - r * dt4;
-        const long l = row0 + r;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (l < n_rows) {
-          const int s = idx[l];
-          if (s >= 0 && s < n_src)
-            v = reinterpret_cast<const float4*>(tab + (long)s * dt)[c];
-        }
-        reinterpret_cast<float4*>(g_s + r * dt)[c] = v;
+      for (int k = 0; k < kMaxPairs; ++k) ix[k] = ix_next[k];
+      load_idx(pairs, n_pairs, (long)tile * kRows, n_rows, lane, ix_next);
+    }
+    const int mine = p == 0 ? ix[0] : p == 1 ? ix[1] : ix[2];
+    const float* tab = p == 0 ? pairs.tab[0] : p == 1 ? pairs.tab[1] : pairs.tab[2];
+    float* unit = ring + (u % kStages) * kUnitFloats;
+#pragma unroll
+    for (int i = 0; i < kRows / 2; ++i) {
+      const int r = (lane >> 4) + 2 * i;
+      const int s = __shfl_sync(0xffffffffu, mine, r);
+      if (chunk < dt4) {
+        const bool ok = s >= 0 && s < n_src;
+        tc::copy16(unit + r * kMaxDt + ((4 * chunk) ^ aswz(r)),
+                   tab + (ok ? (long)s * dt + 4 * chunk : 0), ok);
       }
-      __syncthreads();
-      if (col_ok) {
-        const float* wp = w_s + (long)p * dt * k_out + col;
-        const float* gp = g_s + warp * kRowsPerWarp * dt;
-        for (int k = 0; k < dt; k += 4) {
-          const float4 w0 = *reinterpret_cast<const float4*>(wp + (k + 0) * k_out);
-          const float4 w1 = *reinterpret_cast<const float4*>(wp + (k + 1) * k_out);
-          const float4 w2 = *reinterpret_cast<const float4*>(wp + (k + 2) * k_out);
-          const float4 w3 = *reinterpret_cast<const float4*>(wp + (k + 3) * k_out);
+    }
+  };
+
+  int next = 0;  // the next unit to fetch
+#pragma unroll 1
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (next < n_units) fetch(next++);
+    tc::commit();
+  }
+  float acc[16][4];
+  for (int u = 0; u < n_units; ++u) {
+    tc::wait_pending<kStages - 2>();  // unit u has landed
+    __syncwarp();  // ... for every lane, and unit u - 1 is consumed
+    if (next < n_units) fetch(next++);
+    tc::commit();
+    const int p = u % n_pairs;
+    const long row0 = (long)(first + (u / n_pairs) * step) * kRows;
+    if (p == 0) {  // the tile's sums start from the stream
 #pragma unroll
-          for (int r = 0; r < kRowsPerWarp; ++r) {
-            const float4 g = *reinterpret_cast<const float4*>(gp + r * dt + k);
-            acc[r][0] = fmaf(g.x, w0.x, acc[r][0]);
-            acc[r][1] = fmaf(g.x, w0.y, acc[r][1]);
-            acc[r][2] = fmaf(g.x, w0.z, acc[r][2]);
-            acc[r][3] = fmaf(g.x, w0.w, acc[r][3]);
-            acc[r][0] = fmaf(g.y, w1.x, acc[r][0]);
-            acc[r][1] = fmaf(g.y, w1.y, acc[r][1]);
-            acc[r][2] = fmaf(g.y, w1.z, acc[r][2]);
-            acc[r][3] = fmaf(g.y, w1.w, acc[r][3]);
-            acc[r][0] = fmaf(g.z, w2.x, acc[r][0]);
-            acc[r][1] = fmaf(g.z, w2.y, acc[r][1]);
-            acc[r][2] = fmaf(g.z, w2.z, acc[r][2]);
-            acc[r][3] = fmaf(g.z, w2.w, acc[r][3]);
-            acc[r][0] = fmaf(g.w, w3.x, acc[r][0]);
-            acc[r][1] = fmaf(g.w, w3.y, acc[r][1]);
-            acc[r][2] = fmaf(g.w, w3.z, acc[r][2]);
-            acc[r][3] = fmaf(g.w, w3.w, acc[r][3]);
-          }
+      for (int rr = 0; rr < 2; ++rr) {
+        const long l = row0 + gid + 8 * rr;
+#pragma unroll
+        for (int nt = 0; nt < 16; ++nt) {
+          const int c = nt * 8 + 2 * q;
+          float2 v = make_float2(0.f, 0.f);
+          if (l < n_rows && c < k_out)
+            v = __ldg(reinterpret_cast<const float2*>(stream + l * k_out + c));
+          acc[nt][2 * rr] = v.x;
+          acc[nt][2 * rr + 1] = v.y;
         }
       }
     }
-
-    if (col_ok) {
+    const float* unit = ring + (u % kStages) * kUnitFloats;
+    const int sw = aswz(gid);
+    product(
+        [&](int ks, float v[4]) {
+          const int c0 = (ks * 8 + q) ^ sw;
+          const int c1 = (ks * 8 + q + 4) ^ sw;
+          v[0] = unit[gid * kMaxDt + c0];
+          v[1] = unit[(gid + 8) * kMaxDt + c0];
+          v[2] = unit[gid * kMaxDt + c1];
+          v[3] = unit[(gid + 8) * kMaxDt + c1];
+        },
+        w_s + p * kPairWFloats, dt8, lane, acc);
+    if (p == n_pairs - 1) {  // the tile's last pair: store
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const long l = row0 + warp * kRowsPerWarp + r;
-        if (l >= n_rows) break;
-        const float4 s =
-            *reinterpret_cast<const float4*>(stream + l * k_out + col);
-        const float4 o = make_float4(acc[r][0] + s.x, acc[r][1] + s.y,
-                                     acc[r][2] + s.z, acc[r][3] + s.w);
-        *reinterpret_cast<float4*>(out + l * k_out + col) = o;
+      for (int rr = 0; rr < 2; ++rr) {
+        const long l = row0 + gid + 8 * rr;
+        if (l >= n_rows) continue;
+#pragma unroll
+        for (int nt = 0; nt < 16; ++nt) {
+          const int c = nt * 8 + 2 * q;
+          if (c >= k_out) break;
+          *reinterpret_cast<float2*>(out + l * k_out + c) =
+              make_float2(acc[nt][2 * rr], acc[nt][2 * rr + 1]);
+        }
       }
     }
   }
+}
+
+// -------------------------------------------- short tables: project first
+// proj[p][s] = T_p[s] @ W_p for every row s < n_src, 16 rows a warp
+__global__ void __launch_bounds__(kThreads, 1)
+    gproj_project_kernel(Pairs pairs, int n_pairs, const float* __restrict__ w,
+                         float* __restrict__ proj, int n_src, int dt, int k_out) {
+  extern __shared__ float4 smem4[];
+  float* w_s = reinterpret_cast<float*>(smem4);
+  stage_w(w_s, w, n_pairs, dt, k_out);
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gid = lane >> 2;
+  const int q = lane & 3;
+  const int dt8 = (dt + 7) / 8;
+  const int n_tiles = (n_src + kRows - 1) / kRows;
+  for (int tile = blockIdx.x * kWarps + warp; tile < n_tiles;
+       tile += gridDim.x * kWarps) {
+    const long s0 = (long)tile * kRows;
+#pragma unroll 1
+    for (int p = 0; p < n_pairs; ++p) {
+      // a table shared with an earlier pair comes from L1 the second time
+      const float* tab = p == 0 ? pairs.tab[0] : p == 1 ? pairs.tab[1] : pairs.tab[2];
+      float acc[16][4] = {};
+      product(
+          [&](int ks, float v[4]) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const long s = s0 + gid + 8 * (i & 1);
+              const int c = ks * 8 + q + 4 * (i >> 1);
+              v[i] = s < n_src && c < dt ? __ldg(tab + s * dt + c) : 0.f;
+            }
+          },
+          w_s + p * kPairWFloats, dt8, lane, acc);
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const long s = s0 + gid + 8 * rr;
+        if (s >= n_src) continue;
+#pragma unroll
+        for (int nt = 0; nt < 16; ++nt) {
+          const int c = nt * 8 + 2 * q;
+          if (c >= k_out) break;
+          *reinterpret_cast<float2*>(proj + ((long)p * n_src + s) * k_out + c) =
+              make_float2(acc[nt][2 * rr], acc[nt][2 * rr + 1]);
+        }
+      }
+    }
+  }
+}
+
+// out[l] = stream[l] + proj[0][idx_0[l]] + proj[1][idx_1[l]] + ..., in
+// pair order, a float4 a thread
+__global__ void __launch_bounds__(kThreads)
+    gproj_gather_add_kernel(Pairs pairs, int n_pairs, const float* __restrict__ proj,
+                            const float* __restrict__ stream,
+                            float* __restrict__ out, int n_rows, int n_src,
+                            int k_out) {
+  const int k4 = k_out / 4;
+  const long n = (long)n_rows * k4;
+  for (long i = blockIdx.x * (long)kThreads + threadIdx.x; i < n;
+       i += (long)gridDim.x * kThreads) {
+    const long l = i / k4;
+    const int c = (int)(i - l * k4);
+    float4 v = __ldg(reinterpret_cast<const float4*>(stream) + i);
+#pragma unroll
+    for (int p = 0; p < kMaxPairs; ++p) {
+      if (p >= n_pairs) break;
+      const int s = __ldg((p == 0 ? pairs.idx[0] : p == 1 ? pairs.idx[1] : pairs.idx[2]) + l);
+      if (s >= 0 && s < n_src)
+        chgnet::vadd(v, __ldg(reinterpret_cast<const float4*>(
+                            proj + ((long)p * n_src + s) * k_out) + c));
+    }
+    reinterpret_cast<float4*>(out)[i] = v;
+  }
+}
+
+size_t w_smem(int n_pairs) { return (size_t)n_pairs * kPairWFloats * sizeof(float); }
+
+// blocks of one full wave of fn at smem bytes (negative: minus a cudaError_t)
+template <typename Fn>
+int wave(Fn fn, size_t smem) {
+  cudaError_t err =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, smem);
+  if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;
+  return err == cudaSuccess ? chgnet::sm_count() * per_sm : -(int)err;
+}
+
+bool bad_shape(int n_pairs, int dt, int k_out) {
+  return n_pairs < 1 || n_pairs > kMaxPairs || dt < 4 || dt > kMaxDt || dt % 4 ||
+         k_out < 4 || k_out > kMaxK || k_out % 4;
+}
+
+Pairs make_pairs(int n_pairs, const void* const* tabs, const void* const* idxs) {
+  Pairs pairs;
+  for (int p = 0; p < kMaxPairs; ++p) {
+    pairs.tab[p] = p < n_pairs ? static_cast<const float*>(tabs[p]) : nullptr;
+    pairs.idx[p] = p < n_pairs ? static_cast<const int*>(idxs[p]) : nullptr;
+    pairs.same_idx[p] = p;
+    for (int e = p - 1; e >= 0; --e)
+      if (pairs.idx[e] == pairs.idx[p]) pairs.same_idx[p] = e;
+  }
+  return pairs;
 }
 
 }  // namespace
 
 extern "C" size_t gproj_smem_bytes(int n_pairs, int dt, int k_out) {
-  return ((size_t)n_pairs * dt * k_out + (size_t)kTile * dt) * sizeof(float);
+  (void)dt;
+  (void)k_out;
+  return w_smem(n_pairs) + (size_t)kWarps * kStages * kUnitFloats * sizeof(float);
 }
 
-// tabs/idxs: n_pairs pointers each; w: [n_pairs * dt, k_out] row-major;
-// stream: [n_rows, k_out]. Requires dt % 4 == 0, k_out % 4 == 0,
-// k_out <= 128, 1 <= n_pairs <= 3 and 16-byte aligned tables, w, stream
-// and out (checked by the wrapper).
+// The long-table route (gather first). tabs/idxs: n_pairs pointers each;
+// w: [n_pairs * dt, k_out] row-major; stream: [n_rows, k_out]. Requires
+// 4 <= dt <= 64, 4 <= k_out <= 128, both multiples of 4, 1 <= n_pairs <= 3
+// and 16-byte aligned tables, w, stream and out (checked by the wrapper).
 extern "C" int gproj_f32(int n_pairs, const void* const* tabs,
                          const void* const* idxs, const float* w,
                          const float* stream, float* out, int n_rows,
                          int n_src, int dt, int k_out, void* cuda_stream) {
-  if (n_pairs < 1 || n_pairs > kMaxPairs || dt % 4 || k_out % 4 ||
-      k_out > 128)
-    return (int)cudaErrorInvalidValue;
+  if (bad_shape(n_pairs, dt, k_out)) return (int)cudaErrorInvalidValue;
   if (n_rows > 0) {
-    Pairs pairs;
-    for (int p = 0; p < kMaxPairs; ++p) {
-      pairs.tab[p] = p < n_pairs ? static_cast<const float*>(tabs[p]) : nullptr;
-      pairs.idx[p] = p < n_pairs ? static_cast<const int*>(idxs[p]) : nullptr;
-    }
+    const Pairs pairs = make_pairs(n_pairs, tabs, idxs);
     const size_t smem = gproj_smem_bytes(n_pairs, dt, k_out);
-    cudaError_t err = cudaFuncSetAttribute(
-        gproj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gproj_kernel,
-                                                        kThreads, smem);
-    if (err != cudaSuccess) return (int)err;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    const int n_tiles = (n_rows + kTile - 1) / kTile;
-    const int cap = chgnet::sm_count() * per_sm;
-    const int grid = n_tiles < cap ? n_tiles : cap;
-    gproj_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(cuda_stream)>>>(
+    const int cap = wave(gproj_tc_kernel, smem);
+    if (cap < 0) return -cap;
+    const int want = (n_rows + kRows * kWarps - 1) / (kRows * kWarps);
+    gproj_tc_kernel<<<want < cap ? want : cap, kThreads, smem,
+                      static_cast<cudaStream_t>(cuda_stream)>>>(
         pairs, n_pairs, w, stream, out, n_rows, n_src, dt, k_out);
   }
+  return (int)cudaGetLastError();
+}
+
+// The short-table route (project first), two launches: proj [n_pairs,
+// n_src, k_out] (16-byte aligned scratch from the caller) = each pair's
+// table @ W, then out = stream + the gathered rows of proj in pair order.
+// Arguments and requirements otherwise as gproj_f32's.
+extern "C" int gproj_short_f32(int n_pairs, const void* const* tabs,
+                               const void* const* idxs, const float* w,
+                               const float* stream, float* out, float* proj,
+                               int n_rows, int n_src, int dt, int k_out,
+                               void* cuda_stream) {
+  if (bad_shape(n_pairs, dt, k_out)) return (int)cudaErrorInvalidValue;
+  if (n_rows <= 0) return (int)cudaGetLastError();
+  const cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
+  const Pairs pairs = make_pairs(n_pairs, tabs, idxs);
+  if (n_src > 0) {
+    const size_t smem = w_smem(n_pairs);
+    const int cap = wave(gproj_project_kernel, smem);
+    if (cap < 0) return -cap;
+    const int want = (n_src + kRows * kWarps - 1) / (kRows * kWarps);
+    gproj_project_kernel<<<want < cap ? want : cap, kThreads, smem, st>>>(
+        pairs, n_pairs, w, proj, n_src, dt, k_out);
+  }
+  const int cap = wave(gproj_gather_add_kernel, 0);
+  if (cap < 0) return -cap;
+  const long units = (long)n_rows * (k_out / 4);
+  const long want = (units + kThreads - 1) / kThreads;
+  gproj_gather_add_kernel<<<want < cap ? (int)want : cap, kThreads, 0, st>>>(
+      pairs, n_pairs, proj, stream, out, n_rows, n_src, k_out);
   return (int)cudaGetLastError();
 }

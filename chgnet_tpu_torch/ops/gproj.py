@@ -5,10 +5,13 @@ table rows, in one kernel.
 
 :func:`gather_project_sum_kernel` (``csrc/gproj.cu``) replaces
 ``chgnet_tpu/ops/gproj.py`` ``_gproj_kernel`` (``_gproj_pallas`` :175). It
-computes gather-then-project; its plain version
-(:func:`gather_project_sum_plain`) projects each table first and gathers
-the projected rows, as ``chgnet_tpu`` computes the same function off the
-TPU (``models/functions.py:407-412``). The two round differently.
+takes one of two routes by the tables' length (:func:`gproj_route`):
+short tables are projected first and their rows gathered and added (two
+launches of ``csrc/gproj.cu``'s own kernels); long ones are gathered and
+then projected. Both multiply on the tensor cores at f32 accuracy
+(3xTF32). The plain version (:func:`gather_project_sum_plain`) projects
+each table first and gathers the projected rows, as ``chgnet_tpu``
+computes the same function off the TPU (``models/functions.py:407-412``).
 
 The backward (``chgnet_tpu/ops/gproj.py:290-320``) takes one segment sum of
 the cotangent per distinct index stream, two of them paired into one
@@ -33,8 +36,24 @@ _SIGNATURES = {
         _I, ctypes.POINTER(_P), ctypes.POINTER(_P), _P, _P, _P, _I, _I, _I,
         _I, _P,
     ],
+    "gproj_short_f32": [
+        _I, ctypes.POINTER(_P), ctypes.POINTER(_P), _P, _P, _P, _P, _I, _I,
+        _I, _I, _P,
+    ],
 }
 MAX_PAIRS = 3  # AtomConv 2, BondConv and AngleUpdate 3 with the atom_e fold
+MAX_DT = 64  # table width the kernels stage (kMaxDt)
+MAX_K = 128  # projected width (kMaxK)
+# Project first while the projected tables, n_pairs x S x K f32, fit in half
+# of the H100's 50 MB L2 (the gathers of the second launch then hit L2):
+# AtomConv's 2 x 7,680 x 128 x 4 = 7.9 MB. Longer tables are gathered first.
+SHORT_TABLE_BYTES = 25 << 20
+
+
+def gproj_route(n_pairs: int, n_src: int, k_out: int) -> str:
+    """``"short"`` (project first) or ``"long"`` (gather first) for a call
+    with ``n_pairs`` tables of ``n_src`` rows projected to ``k_out``."""
+    return "short" if n_pairs * n_src * k_out * 4 <= SHORT_TABLE_BYTES else "long"
 
 
 def gather_project_sum_plain(tables, idxs, ws, stream):
@@ -63,10 +82,10 @@ def gather_project_sum_kernel(tables, idxs, ws, stream):
         )
     n_src, dt = tables[0].shape
     n_rows, k_out = stream.shape
-    if dt % 4 or k_out % 4 or k_out > 128:
+    if dt % 4 or k_out % 4 or not (4 <= dt <= MAX_DT and 4 <= k_out <= MAX_K):
         raise ValueError(
-            f"gather_project_sum: needs dt % 4 == 0 and K % 4 == 0, K <= 128 "
-            f"(dt={dt}, K={k_out})"
+            f"gather_project_sum: needs dt % 4 == 0 and K % 4 == 0, "
+            f"4 <= dt <= {MAX_DT}, 4 <= K <= {MAX_K} (dt={dt}, K={k_out})"
         )
     for t, i, w in zip(tables, idxs, ws):
         if t.shape != (n_src, dt) or i.shape != (n_rows,) or w.shape != (dt, k_out):
@@ -81,10 +100,17 @@ def gather_project_sum_kernel(tables, idxs, ws, stream):
     idx_ptrs = (_P * n_pairs)(*(i.data_ptr() for i in idxs))
     lib = build.load("gproj", _SIGNATURES)
     ptr = build.ptr
-    err = lib.gproj_f32(
-        n_pairs, tab_ptrs, idx_ptrs, ptr(w_cat), ptr(stream), ptr(out),
-        n_rows, n_src, dt, k_out, build.stream(),
-    )
+    if gproj_route(n_pairs, n_src, k_out) == "short":
+        proj = stream.new_empty((n_pairs, n_src, k_out))
+        err = lib.gproj_short_f32(
+            n_pairs, tab_ptrs, idx_ptrs, ptr(w_cat), ptr(stream), ptr(out),
+            ptr(proj), n_rows, n_src, dt, k_out, build.stream(),
+        )
+    else:
+        err = lib.gproj_f32(
+            n_pairs, tab_ptrs, idx_ptrs, ptr(w_cat), ptr(stream), ptr(out),
+            n_rows, n_src, dt, k_out, build.stream(),
+        )
     build.check(err, "gather_project_sum")
     gather_project_sum_kernel.launches += 1
     return out

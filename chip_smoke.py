@@ -38,11 +38,15 @@ pass (``CHGNET_TPU_FUSED_PASS=1``):
    its time, its plain version's time, the time of PyTorch library calls
    computing the same function (null where none does: the fused tails), and
    the least time the card could take: summed over the calls, each call's
-   larger of its bytes over 3.35 TB/s and its f32 FLOPs over 67 TFLOP/s (the
-   H100 SXM data-sheet peaks), the FLOPs counted in the cheaper order where
-   the function has two, and for the fused tails as the two diagonal
-   blocks' products plus ``TAIL_OPS`` per row element of the call's form
-   (the one-kernel pass also one add per part and accumulator element);
+   larger of its bytes over 3.35 TB/s and its operations' time, its matrix
+   products' FLOPs over 165 TFLOP/s (495 / 3: f32-accurate 3xTF32 on the
+   tensor cores) plus its elementwise FLOPs over 67 TFLOP/s (the H100 SXM
+   data-sheet peaks), the FLOPs counted in the cheaper order where the
+   function has two, and for the fused tails as the two diagonal blocks'
+   products plus ``TAIL_OPS`` per row element of the call's form (the
+   one-kernel pass also one add per part and accumulator element);
+   ``gather_project_sum`` is also timed and bounded per route (short
+   tables projected first, long ones gathered first);
 5. profile: one pass of the default, the undirected and the one-kernel-pass
    path under
    ``torch.profiler``, the device's busy share of its wall time and the
@@ -69,6 +73,9 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS = 67e12  # H100 SXM, f32 without tensor cores
+# H100 SXM, f32-accurate products on the TF32 tensor cores (495 TFLOP/s
+# dense): 3xTF32 takes three TF32 products for each f32 one
+F32_TC_FLOPS = 495e12 / 3
 N_STRUCTS = 32  # bench.py's workload
 TIMED_REPEATS = 5
 MODEL_SAMPLES = 10
@@ -271,9 +278,9 @@ def _rows_valid(offsets: torch.Tensor) -> int:
 
 
 def _tail_bound(name, args):
-    """(bytes, flops) of one fused-tail call: its inputs read once, its
-    outputs written once; the two diagonal blocks' FLOPs per product and
-    ``TAIL_OPS`` per row element."""
+    """(bytes, product FLOPs, elementwise FLOPs) of one fused-tail call: its
+    inputs read once, its outputs written once; the two diagonal blocks'
+    FLOPs per product and ``TAIL_OPS`` per row element."""
     acc = args[0]
     n_rows, d = acc.shape[0], acc.shape[1] // 2
     msg = name.startswith("gated_message")
@@ -283,7 +290,7 @@ def _tail_bound(name, args):
     product = 4 * n_rows * d * d if has_w2 else 0
     n_in = sum(t.numel() for t in _tensors(args))
     if name.endswith("_fwd"):
-        return 4 * (n_in + n_rows * d), product + TAIL_OPS["fwd", form] * n_rows * d
+        return 4 * (n_in + n_rows * d), product, TAIL_OPS["fwd", form] * n_rows * d
     need_params = args[-1]
     need_mask = msg and args[-2]
     ops = TAIL_OPS["bwd", form] + (D_MASK_OPS if need_mask else 0)
@@ -292,8 +299,8 @@ def _tail_bound(name, args):
     if msg:
         n_out += n_rows * d + (n_rows if need_mask else 0)
     n_out += sum(p.numel() for p in params) if need_params else 0
-    flops = (3 if need_params else 2) * product
-    return 4 * (n_in + n_out), flops + ops * n_rows * d
+    products = (3 if need_params else 2) * product
+    return 4 * (n_in + n_out), products, ops * n_rows * d
 
 
 def _distinct_rows(tables, idxs):
@@ -306,7 +313,8 @@ def _distinct_rows(tables, idxs):
 
 
 def _pass_bound(name, args):
-    """(bytes, flops) of one call of the one-kernel pass: the index streams,
+    """(bytes, product FLOPs, elementwise FLOPs) of one call of the
+    one-kernel pass: the index streams,
     the distinct gathered rows of the projected tables, the aligned stream,
     weights and mask or resnet (and the cotangent), and the outputs, each
     once; the tail's products and ``TAIL_OPS``, and one add per part (the
@@ -325,20 +333,21 @@ def _pass_bound(name, args):
     product = 4 * n_rows * d * d if has_w2 else 0
     if name == "fused_pass_fwd":
         n_in += 0 if msg else n_rows * d  # resnet
-        flops = product + TAIL_OPS["fwd", form] * n_rows * d + adds
-        return 4 * (n_in + n_rows * d), flops
+        ops = TAIL_OPS["fwd", form] * n_rows * d + adds
+        return 4 * (n_in + n_rows * d), product, ops
     need_mask, need_params = args[8], args[9]
     n_in += n_rows * d  # the cotangent
     ops = TAIL_OPS["bwd", form] + (D_MASK_OPS if need_mask else 0)
     ops += PARAM_OPS[has_w2] + 2 if need_params else 0  # + d_b1's sums
     n_out = n_rows * 2 * d + (n_rows * d if msg else 0) + (n_rows if need_mask else 0)
     n_out += sum(p.numel() for p in params) + 2 * d if need_params else 0
-    flops = (3 if need_params else 2) * product + ops * n_rows * d + adds
-    return 4 * (n_in + n_out), flops
+    products = (3 if need_params else 2) * product
+    return 4 * (n_in + n_out), products, ops * n_rows * d + adds
 
 
 def bound_and_library(name, args):
-    """(bytes, flops, library callable or None) of one recorded call."""
+    """(bytes, product FLOPs, elementwise FLOPs, library callable or None)
+    of one recorded call."""
     if name.startswith("fused_pass"):
         return (*_pass_bound(name, args), None)
     if name == "gated_message_reduce":
@@ -348,8 +357,8 @@ def bound_and_library(name, args):
         d, n_out = weights.shape[1], offsets.shape[0] - 1
         nv = _rows_valid(offsets)
         n_floats = nv * (3 * d + 1) + sum(p.numel() for p in params) + n_out * d
-        flops = 4 * nv * d * d + (TAIL_OPS["fwd", "message"] + 1) * nv * d
-        return 4 * (n_floats + n_out + 1), flops, None
+        ops = (TAIL_OPS["fwd", "message"] + 1) * nv * d
+        return 4 * (n_floats + n_out + 1), 4 * nv * d * d, ops, None
     if name == "gather_sum_rows":
         # every index stream, the distinct rows they name of every distinct
         # table, the stream, the output; one add per part and element
@@ -369,7 +378,7 @@ def bound_and_library(name, args):
                 out = rows if out is None else out + rows
             return out
 
-        return nbytes, n_adds * n_rows * d, lib
+        return nbytes, 0, n_adds * n_rows * d, lib
     if name.startswith("gated_"):
         return (*_tail_bound(name, args), None)
     if name in ("segment_sum_csr", "segment_sum_tiles"):
@@ -380,7 +389,7 @@ def bound_and_library(name, args):
         nbytes += (n_out + 1) * 4 + n_out * d * 4
         key = _segment_ids(offsets, perm, x.shape[0])
         buf = torch.zeros((n_out + 1, d), device=x.device)
-        return nbytes, nv * d, lambda: buf.zero_().index_add_(0, key, x)
+        return nbytes, 0, nv * d, lambda: buf.zero_().index_add_(0, key, x)
     if name == "segment_sum_pair":
         x, oa, pa, ob, pb = args
         n_out, d = oa.shape[0] - 1, x.shape[1]
@@ -397,7 +406,7 @@ def bound_and_library(name, args):
             bufs[0].zero_().index_add_(0, ka, x)
             bufs[1].zero_().index_add_(0, kb, x)
 
-        return nbytes, nv * d, lib
+        return nbytes, 0, nv * d, lib
     if name in ("gather_rows", "gather_rows_window"):
         src, idx = args[:2]
         d = src.shape[1]
@@ -413,7 +422,7 @@ def bound_and_library(name, args):
         distinct = int(torch.unique(idx[ok]).numel())
         nbytes += idx.numel() * 4 + distinct * d * 4 + idx.numel() * d * 4
         safe = idx.clamp(0, src.shape[0] - 1).long()
-        return nbytes, 0, lambda: torch.index_select(src, 0, safe)
+        return nbytes, 0, 0, lambda: torch.index_select(src, 0, safe)
     if name == "gather_project_sum":
         tables, idxs, ws, stream = args
         n_rows, k_out = stream.shape
@@ -423,15 +432,16 @@ def bound_and_library(name, args):
         nbytes = sum(t.numel() * 4 for t in uniq_t.values())
         nbytes += sum(i.numel() * 4 for i in uniq_i.values())
         nbytes += len(ws) * dt * k_out * 4 + 2 * n_rows * k_out * 4
-        # the fewer FLOPs of two orders: gather then project every row, or
-        # project each distinct (table, W) once and add the gathered rows
-        gather_first = 2 * n_rows * len(ws) * dt * k_out + n_rows * k_out
+        # the cheaper of two orders: gather then project every row, or
+        # project each distinct (table, W) once and add the gathered rows;
+        # (products, adds) of each
+        gather_first = (2 * n_rows * len(ws) * dt * k_out, n_rows * k_out)
         projected = {
             (t.data_ptr(), w.data_ptr()): t.shape[0] for t, w in zip(tables, ws)
         }
-        project_first = sum(2 * n * dt * k_out for n in projected.values())
-        project_first += len(ws) * n_rows * k_out
-        flops = min(gather_first, project_first)
+        project_first = (sum(2 * n * dt * k_out for n in projected.values()),
+                         len(ws) * n_rows * k_out)
+        products, adds = min(gather_first, project_first, key=_ops_ms)
         longs = [i.long() for i in idxs]
 
         def lib():
@@ -440,8 +450,14 @@ def bound_and_library(name, args):
                 out = out + torch.index_select(t, 0, i) @ w
             return out
 
-        return nbytes, flops, lib
+        return nbytes, products, adds, lib
     raise KeyError(name)
+
+
+def _ops_ms(flops) -> float:
+    """Least ms of (product FLOPs, elementwise FLOPs) on the card."""
+    products, ops = flops
+    return (products / F32_TC_FLOPS + ops / F32_FLOPS) * 1e3
 
 
 def _segment_ids(offsets, perm, n_rows):
@@ -913,26 +929,61 @@ def profile_pass(path, batch):  # batch: the path's own
             f"{e.key[:110]}")
 
 
+def _bounds(name, args_list):
+    """Bounds of a kernel's calls: (ms by what bounds each call, bytes,
+    product FLOPs, elementwise FLOPs, library callables)."""
+    bound = {"bytes": 0.0, "operations": 0.0}
+    totals = [0, 0, 0]
+    libs = []
+    for args in args_list:
+        b, products, ops, lib = bound_and_library(name, args)
+        for i, v in enumerate((b, products, ops)):
+            totals[i] += v
+        libs.append(lib)
+        t_bytes = b / HBM_BYTES_PER_S * 1e3
+        t_ops = _ops_ms((products, ops))
+        if t_bytes >= t_ops:
+            bound["bytes"] += t_bytes
+        else:
+            bound["operations"] += t_ops
+    return bound, *totals, libs
+
+
+def _bound_text(bound, nbytes, products, ops):
+    return (f"bound {bound['bytes'] + bound['operations']:.4f}: "
+            f"{bound['bytes']:.4f} in calls bound by bytes, "
+            f"{bound['operations']:.4f} by operations; {nbytes} B, "
+            f"{products} product FLOP, {ops} elementwise FLOP")
+
+
+def log_gproj_routes(args_list) -> None:
+    """gather_project_sum's calls timed and bounded per route."""
+    from chgnet_tpu_torch.ops import gproj
+
+    routes = {}
+    for args in args_list:
+        tables, _, _, stream = args
+        route = gproj.gproj_route(len(tables), tables[0].shape[0], stream.shape[1])
+        routes.setdefault(route, []).append(args)
+    for route, group in sorted(routes.items()):
+        ms = cuda_ms(
+            lambda: [gproj.gather_project_sum_kernel(*a) for a in group],
+            TIMED_REPEATS,
+        )
+        bound, nbytes, products, ops, _ = _bounds("gather_project_sum", group)
+        shapes = sorted({(len(a[0]), a[0][0].shape[0], a[3].shape[0]) for a in group})
+        log(f"time gather_project_sum route {route}: {ms:.4f} ms over {len(group)} "
+            f"calls (pairs, S, L) {shapes}, "
+            f"{_bound_text(bound, nbytes, products, ops)}")
+
+
 def phase_timing(calls, launches, errors):
     """The kernels line: per kernel, totals over the calls of one pass of
     its path; ``launches[path]`` are that path's counts."""
     rows = []
     for name, (kern, plain) in kernel_versions().items():
         args_list = calls[name]
-        nbytes = flops = 0
-        bound = {"bytes": 0.0, "operations": 0.0}  # ms, by what bounds a call
-        libs = []
-        for args in args_list:
-            b, f, lib = bound_and_library(name, args)
-            nbytes += b
-            flops += f
-            libs.append(lib)
-            t_bytes = b / HBM_BYTES_PER_S * 1e3
-            t_ops = f / F32_FLOPS * 1e3
-            if t_bytes >= t_ops:
-                bound["bytes"] += t_bytes
-            else:
-                bound["operations"] += t_ops
+        bound, nbytes, products, ops, libs = _bounds(name, args_list)
         row = dict(
             name=name,
             route="cuda",
@@ -952,9 +1003,9 @@ def phase_timing(calls, launches, errors):
         lib_ms = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
         log(f"time {name}: {row['ms']:.4f} ms over {len(args_list)} calls "
             f"(plain {row['plain_ms']:.4f}, library {lib_ms}, "
-            f"bound {row['bound_ms']:.4f}: {bound['bytes']:.4f} in calls bound "
-            f"by bytes, {bound['operations']:.4f} by operations; "
-            f"{nbytes} B, {flops} FLOP)")
+            f"{_bound_text(bound, nbytes, products, ops)})")
+        if name == "gather_project_sum":
+            log_gproj_routes(args_list)
         rows.append(row)
     return rows
 

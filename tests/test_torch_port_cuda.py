@@ -11,8 +11,8 @@ the plain version's order); the message tail fused with its segment sum
 1e-5 of the output's largest value (its row-order adds against the
 tail's 1e-5 and float64 prefix sums); segment sums 2e-4 absolute on sums of up
 to ~50 unit-normal terms (f32 in a fixed order against float64 prefix
-sums); gather-project-sum 1e-4 (64-term f32 dot products, gathered then
-projected against projected then gathered); the fused gated tails 1e-5
+sums); gather-project-sum 1e-4 (64-term dot products at 3xTF32 on the
+tensor cores, either route, against the plain f32 product); the fused gated tails 1e-5
 forward and 1e-4 backward, each relative to the output's max |plain|
 (64-term f32 products and layer norms in another order; the parameter
 gradients sum ~50,000 rows); the model at the port's CPU tolerances (e 2e-5 eV/atom,
@@ -87,31 +87,94 @@ def test_segment_kernels_match_plain(cuda, d, sorted_):
     )
 
 
-def test_segment_sum_is_deterministic(cuda):
+def _gproj_inputs(device, n_pairs, n_src, n_rows=65_573, shared=False, seed=7):
+    """Tables of n_src rows, indices out of range on both sides; with
+    shared, pairs 0 and 1 share a table (AtomConv) and pairs 0 and 2 an
+    index stream (dir_i on the angle side)."""
+    rng = np.random.default_rng(seed)
+    tabs = [torch.randn(n_src, 64, device=device) for _ in range(n_pairs)]
+    idxs = [
+        torch.as_tensor(rng.integers(-2, n_src + 2, n_rows).astype(np.int32),
+                        device=device)
+        for _ in range(n_pairs)
+    ]
+    if shared and n_pairs >= 2:
+        tabs[1] = tabs[0]
+    if shared and n_pairs == 3:
+        idxs[2] = idxs[0]
+    ws = [torch.randn(64, 128, device=device) * 0.1 for _ in range(n_pairs)]
+    return tabs, idxs, ws, torch.randn(n_rows, 128, device=device)
+
+
+@pytest.mark.parametrize("op", ["segment_sum", "gproj short", "gproj long"])
+def test_segment_sum_is_deterministic(cuda, op):
     rng = np.random.default_rng(6)
-    plan = _plan(*_stream(rng, 1 << 18, 3000, False), 3000, False, cuda)
-    x = torch.randn(1 << 18, 64, device=cuda)
-    a = tsg.segment_sum_csr(x, plan.offsets, plan.perm)
-    b = tsg.segment_sum_csr(x, plan.offsets, plan.perm)
+    if op == "segment_sum":
+        plan = _plan(*_stream(rng, 1 << 18, 3000, False), 3000, False, cuda)
+        x = torch.randn(1 << 18, 64, device=cuda)
+        a = tsg.segment_sum_csr(x, plan.offsets, plan.perm)
+        b = tsg.segment_sum_csr(x, plan.offsets, plan.perm)
+    else:
+        args = _gproj_inputs(cuda, 3, 7_680 if op.endswith("short") else 60_000,
+                             shared=True)
+        a = tgp.gather_project_sum_kernel(*args)
+        b = tgp.gather_project_sum_kernel(*args)
     assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("n_pairs", [1, 2, 3])
-def test_gather_project_sum_kernel_matches_plain(cuda, n_pairs):
-    rng = np.random.default_rng(7)
-    L, S = (1 << 16) + 37, 20000  # a ragged last tile
-    tabs = [torch.randn(S, 64, device=cuda) for _ in range(n_pairs)]
-    idxs = [
-        torch.as_tensor(rng.integers(-2, S + 2, L).astype(np.int32), device=cuda)
-        for _ in range(n_pairs)
-    ]
-    ws = [torch.randn(64, 128, device=cuda) * 0.1 for _ in range(n_pairs)]
-    st = torch.randn(L, 128, device=cuda)
-    torch.testing.assert_close(
-        tgp.gather_project_sum_kernel(tabs, idxs, ws, st),
-        tgp.gather_project_sum_plain(tabs, idxs, ws, st),
-        atol=GPROJ_ATOL, rtol=0,
+class _Calls:
+    """A kernel library that records which C entry points are called."""
+
+    def __init__(self, lib):
+        self.lib, self.names = lib, []
+
+    def __getattr__(self, name):
+        self.names.append(name)
+        return getattr(self.lib, name)
+
+
+def _record_gproj_calls(monkeypatch) -> list:
+    load = tgp.build.load
+    libs = []
+    monkeypatch.setattr(
+        tgp.build, "load", lambda *a: libs.append(_Calls(load(*a))) or libs[-1]
     )
+    return libs
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["distinct", "shared"])
+@pytest.mark.parametrize("route", ["short", "long"])
+@pytest.mark.parametrize("n_pairs", [1, 2, 3])
+def test_gather_project_sum_kernel_matches_plain(cuda, monkeypatch, n_pairs, route,
+                                                 shared):
+    """Both routes: short tables (S = 7,680, AtomConv's atoms) are projected
+    first, long ones (S = 60,000: over the threshold even for one pair)
+    gathered first; a ragged last tile, indices out of range on both
+    sides."""
+    n_src = 7_680 if route == "short" else 60_000
+    assert tgp.gproj_route(n_pairs, n_src, 128) == route
+    args = _gproj_inputs(cuda, n_pairs, n_src, shared=shared)
+    libs = _record_gproj_calls(monkeypatch)
+    got = tgp.gather_project_sum_kernel(*args)
+    assert libs[0].names == ["gproj_short_f32" if route == "short" else "gproj_f32"]
+    torch.testing.assert_close(
+        got, tgp.gather_project_sum_plain(*args), atol=GPROJ_ATOL, rtol=0,
+    )
+
+
+def test_gproj_routes_of_the_benchmark_shapes(cuda, monkeypatch):
+    """The wrapper takes the route the threshold gives for the benchmark
+    batch's two shapes: AtomConv (2 pairs over N = 7,680 atoms) projects
+    first, the bond side (3 pairs over E = 647,168 edges) gathers first."""
+    libs = _record_gproj_calls(monkeypatch)
+    for n_pairs, n_src, want in ((2, 7_680, "gproj_short_f32"),
+                                 (3, 647_168, "gproj_f32")):
+        args = _gproj_inputs(cuda, n_pairs, n_src, n_rows=4_099, shared=True)
+        got = tgp.gather_project_sum_kernel(*args)
+        assert libs[-1].names == [want]
+        torch.testing.assert_close(
+            got, tgp.gather_project_sum_plain(*args), atol=GPROJ_ATOL, rtol=0,
+        )
 
 
 def test_wrappers_raise_on_what_kernels_do_not_take(cuda):
@@ -231,13 +294,17 @@ def _flat(out):
     return [out]
 
 
-@pytest.mark.parametrize("d", [16, 64])
+TAIL_ROWS = [1, 15, 17, 2_500, 65_573]  # one, under, over a 16-row tile
+
+
+@pytest.mark.parametrize("n_rows", TAIL_ROWS)
+@pytest.mark.parametrize("d", [4, 16, 36, 64])
 @pytest.mark.parametrize(
     "need_mask,need_params", [(False, False), (True, True)],
     ids=["serving", "all"],
 )
-def test_gated_message_kernels_match_plain(cuda, d, need_mask, need_params):
-    x, p = _tail_inputs(cuda, d)
+def test_gated_message_kernels_match_plain(cuda, d, need_mask, need_params, n_rows):
+    x, p = _tail_inputs(cuda, d, n_rows)
     args = (x["acc"], x["weights"], x["mask"], _params(p))
     _assert_scaled(
         [tgm.gated_message_fwd(*args)], [tgm.gated_message_plain(*args)],
@@ -250,10 +317,12 @@ def test_gated_message_kernels_match_plain(cuda, d, need_mask, need_params):
     _assert_scaled(got, want, TAIL_BWD_TOL)
 
 
+@pytest.mark.parametrize("n_rows", TAIL_ROWS)
+@pytest.mark.parametrize("d", [4, 16, 36, 64])
 @pytest.mark.parametrize("need_params", [False, True], ids=["serving", "params"])
 @pytest.mark.parametrize("has_w2", [False, True], ids=["y=acc", "w2"])
-def test_gated_update_kernels_match_plain(cuda, has_w2, need_params):
-    x, p = _tail_inputs(cuda)
+def test_gated_update_kernels_match_plain(cuda, has_w2, need_params, d, n_rows):
+    x, p = _tail_inputs(cuda, d, n_rows)
     params = _params(p, has_w2)
     args = (x["acc"], x["resnet"], params)
     _assert_scaled(
@@ -267,12 +336,14 @@ def test_gated_update_kernels_match_plain(cuda, has_w2, need_params):
     )
 
 
-def test_gated_parameter_gradients_are_deterministic(cuda):
+@pytest.mark.parametrize("need_params", [True, False], ids=["params", "serving"])
+def test_gated_parameter_gradients_are_deterministic(cuda, need_params):
     x, p = _tail_inputs(cuda, n_rows=200_000)
-    args = (x["acc"], x["weights"], x["mask"], _params(p), x["g"], True, True)
+    args = (x["acc"], x["weights"], x["mask"], _params(p), x["g"], need_params,
+            need_params)
     a, b = tgm.gated_message_bwd(*args), tgm.gated_message_bwd(*args)
     for s_, t_ in zip(_flat(a), _flat(b)):
-        assert torch.equal(s_, t_)
+        assert (s_ is None and t_ is None) or torch.equal(s_, t_)
 
 
 @pytest.mark.parametrize("op", ["message", "update-w2", "update"])

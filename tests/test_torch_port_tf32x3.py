@@ -1,0 +1,120 @@
+"""The numerics of the port's tensor-core products, emulated in numpy.
+
+The redesigned message-tail backward and gather-project-sum kernels
+(``chgnet_tpu_torch/csrc/tf32x3.cuh``) multiply f32 matrices on the TF32
+tensor cores with the 3xTF32 split: hi = tf32(x) (round to nearest, ties
+away: ``(bits + 0x1000) & 0xFFFFE000``), lo = tf32(x - hi), and per 8-deep
+step of k the terms lo_a hi_b, hi_a lo_b, hi_a hi_b added to an f32
+accumulator in that order. This emulation (each 8-deep partial exact in
+float64, the accumulator rounded to f32 after every term) holds the split
+against a float64 product at the kernels' shapes, under the tolerances that
+``chip_smoke.py``'s ``KERNELS`` set for those kernels (2e-5 gather-project-
+sum, 1e-5 forward and 1e-4 backward tails, relative to the output's
+largest value), and shows that a single TF32 product would not be.
+Runs on the CPU; no card, no JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+from chgnet_tpu_torch.ops import gproj
+
+GPROJ_TOL = 2e-5
+TAIL_FWD_TOL = 1e-5
+TAIL_BWD_TOL = 1e-4
+
+
+def tf32(x: np.ndarray) -> np.ndarray:
+    """Round f32 to TF32 (10 mantissa bits) to nearest, ties away: what
+    ``cvt.rna.tf32.f32`` gives."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def tc_product(a: np.ndarray, b: np.ndarray, split: bool) -> np.ndarray:
+    """``a @ b`` as the tensor cores compute it: 3xTF32 with ``split``,
+    else one TF32 product, f32 accumulation over 8-deep steps of k."""
+    a, b = a.astype(np.float32), b.astype(np.float32)
+    a_hi, b_hi = tf32(a), tf32(b)
+    a_lo, b_lo = tf32(a - a_hi), tf32(b - b_hi)
+    terms = [(a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)] if split else [(a_hi, b_hi)]
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k in range(0, a.shape[1], 8):
+        for x, y in terms:
+            part = x[:, k: k + 8].astype(np.float64) @ y[k: k + 8].astype(np.float64)
+            acc = (acc.astype(np.float64) + part).astype(np.float32)
+    return acc
+
+
+def _silu(x):
+    return x / (1.0 + np.exp(-x))
+
+
+def _case(name: str):
+    """(A, B, tolerance) at a kernel's shapes and the model's scales: the
+    tail's h = silu(acc) @ W2 and d_y @ W2^T ([2,500, 64] @ [64, 64]), and
+    gather-project-sum's gathered rows @ W ([4,096, 64] @ [64, 128])."""
+    rng = np.random.default_rng(0)
+    if name == "tail forward":
+        a, b, tol = _silu(rng.standard_normal((2_500, 64))), rng.standard_normal(
+            (64, 64)) * 0.1, TAIL_FWD_TOL
+    elif name == "tail backward":
+        a, b, tol = rng.standard_normal((2_500, 64)), (
+            rng.standard_normal((64, 64)) * 0.1).T, TAIL_BWD_TOL
+    else:
+        a, b, tol = rng.standard_normal((4_096, 64)), rng.standard_normal(
+            (64, 128)) * 0.1, GPROJ_TOL
+    return a.astype(np.float32), np.ascontiguousarray(b, np.float32), tol
+
+
+def _scaled_error(got, a, b) -> float:
+    want = a.astype(np.float64) @ b.astype(np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+CASES = ["tail forward", "tail backward", "gproj"]
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_three_tf32_products_stay_under_the_kernel_tolerance(name):
+    a, b, tol = _case(name)
+    err = _scaled_error(tc_product(a, b, split=True), a, b)
+    # f32's own rounding of 64-term sums: well under every tolerance
+    assert err < 1e-6 < tol, err
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_one_tf32_product_is_not_accurate_enough(name):
+    """Why three products: one keeps ~11 bits of each operand, and its error
+    is above even the backward tails' 1e-4."""
+    a, b, _ = _case(name)
+    err = _scaled_error(tc_product(a, b, split=False), a, b)
+    assert err > TAIL_BWD_TOL, err
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    ulp = 2.0 ** -10  # TF32's unit in the last place at 1.0
+    x = np.array([1.0, 1.0 + ulp / 2, 1.0 + ulp / 2 - 2.0 ** -23, -1.0 - ulp / 2,
+                  1.0 + 3 * ulp / 4], np.float32)
+    want = np.array([1.0, 1.0 + ulp, 1.0, -1.0 - ulp, 1.0 + ulp], np.float32)
+    np.testing.assert_array_equal(tf32(x), want)
+    # hi + lo carries x to f32 precision less the lo term's own rounding
+    hi = tf32(x)
+    assert np.abs(hi + tf32(x - hi) - x).max() <= 2.0 ** -21
+
+
+@pytest.mark.parametrize(
+    "n_pairs,n_src,route",
+    [(2, 7_680, "short"), (3, 647_168, "long"), (3, 7_680, "short"),
+     (1, 60_000, "long")],
+    ids=["atom-conv", "bond-side", "three-short", "one-long"],
+)
+def test_gproj_route_follows_the_l2_threshold(n_pairs, n_src, route):
+    """The benchmark's AtomConv calls (2 pairs over 7,680 atoms) project
+    first, its bond-side calls (3 pairs over 647,168 edges) gather first;
+    60,000 rows are over the threshold even for one pair."""
+    assert gproj.gproj_route(n_pairs, n_src, 128) == route
+    fits = n_pairs * n_src * 128 * 4 <= gproj.SHORT_TABLE_BYTES
+    assert fits == (route == "short")
