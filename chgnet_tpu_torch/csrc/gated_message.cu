@@ -9,29 +9,29 @@
 // Replaces the four Pallas kernels of chgnet_tpu/ops/gated_message.py:
 // _kernel (:55, message forward), _bwd_kernel (:190, its backward),
 // _kernel_nw (:620, update forward) and _bwd_kernel_nw (:734, its
-// backward). One template of each direction serves both tails, and the
-// per-row layer norms, gating and their backward are shared device
-// functions, so the four cannot drift apart. A fifth kernel,
-// tail_reduce_kernel, replaces _reduce_kernel (:378, _reduce_pallas :426):
-// the message tail and the sorted segment sum of its rows in one sweep (see
-// the note above it).
+// backward), and a fifth, _reduce_kernel (:378, _reduce_pallas :426): the
+// message tail and the sorted segment sum of its rows in one sweep (see
+// tail_reduce_tc_kernel). The per-row layer norms and gating are the same
+// arithmetic in every kernel, so the five cannot drift apart.
 //
 // Bound: a message row moves 2D + D + 1 floats in and D out (the backward
 // 2D + 2D + 1 in, 2D + D out) against 4 D^2 FLOPs of the block-diagonal
 // product (8 D^2 in the backward) plus the elementwise work of the norms and
 // gates. At D = 64, with the products at the tensor cores' f32-accurate
 // rate (3xTF32), the tails are bound by bytes.
-// Design of the serving backward: tail_bwd_tc_kernel (namespace tcb below),
-// on tensor cores with asynchronous copies and warp-local tiles.
-// Design of the forward tails, the message-reduce and the backward with
-// parameter gradients: f32 FMAs throughout, no TF32. A block stages W2c and W2g
-// (and their transposes in the backward, 16 KB each at D = 64) in dynamic
-// shared memory once, then walks 32-row tiles: it loads the tile's acc
-// rows as float4, keeps h = silu(acc) in shared memory, and each of 256
-// threads computes a 4-row x 4-column register tile of the two diagonal
-// blocks only (half the FLOPs of the dense 2D x 2D product). The row
-// phase gives each row to one warp: two-pass layer norms (mean, then the
-// centred variance) by warp shuffles, the gating, and in the backward the
+// Design of the message forward, the message-reduce and the serving
+// backward: tail_fwd_tc_kernel, tail_reduce_tc_kernel and
+// tail_bwd_tc_kernel (namespace tcb below), on tensor cores with
+// asynchronous copies and warp-local tiles.
+// Design of the update forward and the backward with parameter gradients:
+// f32 FMAs throughout, no TF32. A block stages W2c and W2g (and their
+// transposes in the backward, 16 KB each at D = 64) in dynamic shared
+// memory once, then walks 32-row tiles: it loads the tile's acc rows as
+// float4, keeps h = silu(acc) in shared memory, and each of 256 threads
+// computes a 4-row x 4-column register tile of the two diagonal blocks
+// only (half the FLOPs of the dense 2D x 2D product). The row phase gives
+// each row to one warp: two-pass layer norms (mean, then the centred
+// variance) by warp shuffles, the gating, and in the backward the
 // layer-norm backward; the ragged last tile is masked, nothing is padded.
 // Parameter gradients (the backward's optional mode) are summed per block
 // in a fixed order into a [blocks, n_part] scratch buffer (a fixed number
@@ -42,12 +42,10 @@
 
 namespace {
 
-// ------------------------------------------------------------- forward
-template <bool kMsg, bool kW2>
+// ------------------------------------------------------- update forward
+template <bool kW2>
 __global__ void __launch_bounds__(kThreads)
     tail_fwd_kernel(Tail t, const float* __restrict__ acc,
-                    const float* __restrict__ weights,
-                    const float* __restrict__ mask,
                     const float* __restrict__ resnet, float* __restrict__ out,
                     int n_rows, int d) {
   extern __shared__ float4 smem4[];
@@ -83,126 +81,13 @@ __global__ void __launch_bounds__(kThreads)
       const float* src_g = kW2 ? half_tile(y_s, 1) + r * d : acc + l * 2 * d + d;
       float gate[kPerLane];
       gate_row(src_c, src_g, lp, d, lane, gate);
-      const float m = kMsg ? mask[l] : 0.f;
 #pragma unroll
       for (int i = 0; i < kPerLane; ++i) {
         const int e = lane + 32 * i;
-        if (e >= d) continue;
-        out[l * d + e] = kMsg ? gate[i] * weights[l * d + e] * m
-                              : gate[i] + resnet[l * d + e];
+        if (e < d) out[l * d + e] = gate[i] + resnet[l * d + e];
       }
     }
   }
-}
-
-
-// ------------------------------------------------- forward + segment sum
-// out[n] = sum over rows l of segment n of message(acc, weights, mask)[l],
-// the segments given as CSR offsets [n_out + 1] of the stream's sorted keys:
-// rows offsets[n] .. offsets[n + 1] feed output row n, rows past
-// offsets[n_out] (dropped keys) are never read. The mask multiplies inside
-// the sum: a masked row whose key stays in range adds exactly zero.
-//
-// Bound: the forward tail's, less the [L, D] message stream, which never
-// reaches device memory: by bytes where the output is long (angles into
-// edges), by operations where it is short (edges into atoms). The sum phase
-// below keeps d of the block's 256 threads busy behind a fourth barrier per
-// tile: the first suspect for the distance to that bound.
-// Design: no float atomics. The output rows are
-// cut into one contiguous range per block, balanced by
-// cost(n) = kRowCost * offsets[n] + n (input rows weigh kRowCost output
-// rows, so the empty segments of the padding are shared out too); a block
-// finds its range by two binary searches and owns the contiguous input rows
-// offsets[n0] .. offsets[n1] that feed it. It walks them in 32-row tiles
-// with the forward tail's phases, leaves the tile's messages in shared
-// memory (over h_s, which the product has consumed) and lets one thread per
-// column add them in row order into the open segment, writing each output
-// row once when its segment closes. Two runs give equal bits. The add order
-// differs from segment_sum_csr's lane-group tree, so the two agree only to
-// rounding.
-constexpr int kRowCost = 8;
-
-// first n in [0, n_out] with kRowCost * offsets[n] + n >= x (n_out if none)
-__device__ __forceinline__ int cost_lower_bound(const int* __restrict__ offsets,
-                                                int n_out, long x) {
-  int lo = 0, hi = n_out;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if ((long)kRowCost * offsets[mid] + mid >= x) hi = mid; else lo = mid + 1;
-  }
-  return lo;
-}
-
-__global__ void __launch_bounds__(kThreads)
-    tail_reduce_kernel(Tail t, const float* __restrict__ acc,
-                       const float* __restrict__ weights,
-                       const float* __restrict__ mask,
-                       const int* __restrict__ offsets, float* __restrict__ out,
-                       int n_out, int d) {
-  extern __shared__ float4 smem4[];
-  float* w_s = reinterpret_cast<float*>(smem4);  // [2][D][D]
-  float* h_s = w_s + kWeights;                   // 2 half tiles, then messages
-  float* y_s = h_s + 2 * kHalf;                  // 2 half tiles
-  const long total = (long)kRowCost * offsets[n_out] + n_out;
-  const long chunk = (total + gridDim.x - 1) / gridDim.x;
-  const int n0 = cost_lower_bound(offsets, n_out, chunk * blockIdx.x);
-  const int n1 = blockIdx.x + 1 == gridDim.x
-                     ? n_out
-                     : cost_lower_bound(offsets, n_out, chunk * (blockIdx.x + 1));
-  if (n0 >= n1) return;  // block-uniform
-  const int row_end = offsets[n1];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  LaneParams lp;
-  lp.load(t, d, lane);
-  float b[4];
-  load_bias(t, d, lane, b);
-  stage_weights(w_s, t, d, false);
-  // the open segment of this thread's column (threads < d)
-  int n = n0;
-  int seg_end = offsets[n0 + 1];
-  float sum = 0.f;
-  for (int row0 = offsets[n0]; row0 < row_end; row0 += kTile) {
-    __syncthreads();  // weights staged, the previous tile's messages summed
-    load_silu(acc, h_s, row0, row_end, d);
-    __syncthreads();
-    float y[kRowsPerWarp][4];
-    tile_product(h_s, w_s, d, warp, lane, y);
-    store_y(y_s, y, b, d, warp, lane);
-    __syncthreads();  // y_s written, h_s consumed
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const int r = warp * kRowsPerWarp + rr;
-      const long l = (long)row0 + r;
-      if (l >= row_end) break;  // warp-uniform
-      float gate[kPerLane];
-      gate_row(half_tile(y_s, 0) + r * d, half_tile(y_s, 1) + r * d, lp, d, lane,
-               gate);
-      const float m = mask[l];
-#pragma unroll
-      for (int i = 0; i < kPerLane; ++i) {
-        const int e = lane + 32 * i;
-        if (e < d) h_s[r * d + e] = gate[i] * weights[l * d + e] * m;
-      }
-    }
-    __syncthreads();  // the tile's messages in h_s
-    if (threadIdx.x < d) {
-      const int rows = row_end - row0 < kTile ? row_end - row0 : kTile;
-      for (int r = 0; r < rows; ++r) {
-        while (row0 + r >= seg_end) {  // close segments, empty ones too
-          out[(long)n * d + threadIdx.x] = sum;
-          sum = 0.f;
-          ++n;
-          seg_end = offsets[n + 1];
-        }
-        sum += h_s[r * d + threadIdx.x];
-      }
-    }
-  }
-  if (threadIdx.x < d)
-    for (; n < n1; ++n) {
-      out[(long)n * d + threadIdx.x] = sum;
-      sum = 0.f;
-    }
 }
 
 
@@ -377,17 +262,16 @@ __device__ __forceinline__ int at_row(int r, int c) {
   return r * kMaxD + (c ^ rswz(r));
 }
 
-// Copies of tile t's acc rows into acc_s (zeros past n_rows; the gate half
-// at column kMaxD); the caller commits them.
-__device__ __forceinline__ void fetch_acc(float* acc_s, const float* acc, int t,
-                                          int n_rows, int d, int lane) {
-  const long row0 = (long)t * kRows;
+// Copies of the 16 acc rows from row0 into acc_s (zeros from row_end on;
+// the gate half at column kMaxD); the caller commits them.
+__device__ __forceinline__ void fetch_acc(float* acc_s, const float* acc, long row0,
+                                          long row_end, int d, int lane) {
   const int d4 = d / 4;
   for (int i = lane; i < kRows * 2 * d4; i += 32) {
     const int r = i / (2 * d4);
     const int c = i - r * 2 * d4;
     const long l = row0 + r;
-    const bool ok = l < n_rows;
+    const bool ok = l < row_end;
     const int half = c >= d4;
     tc::copy16(acc_s + at_acc(r, half * kMaxD + 4 * (c - half * d4)),
                acc + (ok ? l : 0) * 2 * d + 4 * c, ok);
@@ -548,7 +432,7 @@ __global__ void __launch_bounds__(32 * warps(kW2), 1)
   // acc runs one tile ahead through the two stages; g, weights and mask
   // for the next tile are copied as soon as this tile's d_y has left
   // their slots
-  if (tile < n_tiles) fetch_acc(mine, acc, tile, n_rows, d, lane);
+  if (tile < n_tiles) fetch_acc(mine, acc, (long)tile * kRows, n_rows, d, lane);
   tc::commit();
   if (tile < n_tiles)
     fetch_rows<kMsg>(g_s, wt_s, m_s, g, weights, mask, tile, n_rows, d, vec, lane);
@@ -556,8 +440,8 @@ __global__ void __launch_bounds__(32 * warps(kW2), 1)
   for (int it = 0; tile < n_tiles; ++it, tile += step) {
     const float* acc_s = mine + (it & 1) * kAccFloats;
     if (tile + step < n_tiles)
-      fetch_acc(mine + ((it + 1) & 1) * kAccFloats, acc, tile + step, n_rows, d,
-                lane);
+      fetch_acc(mine + ((it + 1) & 1) * kAccFloats, acc, (long)(tile + step) * kRows,
+                n_rows, d, lane);
     tc::commit();
     tc::wait_pending<1>();  // all but the next tile's acc have landed
     __syncwarp();
@@ -738,15 +622,401 @@ __global__ void __launch_bounds__(32 * warps(kW2), 1)
   }
 }
 
+
+// ------------------------------------ message forward on tensor cores
+// The message tail's forward, and the message tail fused with the sorted
+// segment sum of its rows, on the serving backward's tile.
+//
+// Bound: at D = 64 a message row moves 1,028 bytes (acc, weights, mask in,
+// the message out) against 4 D^2 FLOPs of products (0.5 ms for the default
+// pass's 7 calls at 3xTF32) and 34 elementwise operations per row element
+// (0.16 ms): bytes (1.5 ms). The reduce moves the same less the message
+// stream, plus its output rows.
+// Design: every warp owns 16 rows at a time through every phase, with no
+// block barrier in its loop. The product silu(acc) @ blockdiag(W2c, W2g)
+// runs on the tensor cores at f32 accuracy (3xTF32) with y starting at b2.
+// The block stages W2c and W2g once as B fragments split ahead into hi and
+// lo (64 KB, tf32x3.cuh split_pair), so a k-step loads each 8-column
+// tile's fragment as one 16-byte word and splits only A; k and n are padded
+// with zeros to kMaxD, so no branch lies between the tiles' loads. The
+// layer-norm statistics (mean, then the centred variance) come from the
+// accumulators in registers; y is then parked over the acc rows it came
+// from, and the gate reads it back in a loop over the 8-column tiles
+// unrolled twice only (the instruction cache). silu(acc) and the gate take
+// the fast exponential and division (the forward's error against its plain
+// version stays under 2e-6 of its largest value).
+// What holds the tile is latency, so the design buys warps: a warp has one
+// acc stage (8 KB), one weights slot (4 KB) and its mask, so 12 warps fit
+// beside the weights (215,296 bytes, one block an SM), and 12 warps (3 a
+// scheduler) leave each thread up to 170 registers. A warp copies its next
+// tile's acc rows and weights (cp.async) once the gate has read this tile's;
+// the acc rows are waited for before the product, the weights only before
+// the gate. Measured side by side (PERF.md §6), this beat two acc stages
+// at 8 warps an SM; fetching the next tile into L2 ahead of its copy did
+// not help.
+constexpr int kFwdWarps = 12;
+constexpr int kSplitW = 2 * 8 * 8 * 32;  // uint4 B fragments of W2c and W2g
+constexpr int kPrmFloats = 2 * kMaxD + 4 * kMaxD;  // b2, ncs, ncb, ngs, ngb
+// a warp's acc stage, its weights slot and its mask
+constexpr int kFwdWarpFloats = kAccFloats + kRowFloats + kRows;
+__host__ __device__ constexpr size_t fwd_smem_bytes() {
+  return kSplitW * sizeof(uint4) +
+         (kPrmFloats + kFwdWarps * kFwdWarpFloats) * sizeof(float);
+}
+static_assert(fwd_smem_bytes() <= 232448, "over the H100's shared memory a block");
+
+// The block's set-up, ended by its only barrier: W2c and W2g as split B
+// fragments, wf[((h * 8 + ks) * 8 + nt) * 32 + lane] for the 8-deep step ks
+// and the 8-column tile nt of half h (zero past D); b2 (gate half at
+// kMaxD) and the layer-norm vectors, zero past D; the warp's buffers zeroed
+// (the copies never write the columns past D).
+__device__ void stage_fwd(uint4* wf, float* prm, float* mine, const Tail& t, int d,
+                          int lane) {
+  for (int i = threadIdx.x; i < kSplitW; i += blockDim.x) {
+    const int n = ((i >> 5) & 7) * 8 + ((i & 31) >> 2);
+    const int k0 = ((i >> 8) & 7) * 8 + (i & 3);
+    const int k1 = k0 + 4;
+    const float* w = (i >> 11) ? t.w2g : t.w2c;
+    wf[i] = tc::split_pair(k0 < d && n < d ? w[k0 * d + n] : 0.f,
+                           k1 < d && n < d ? w[k1 * d + n] : 0.f);
+  }
+  for (int i = threadIdx.x; i < 2 * kMaxD; i += blockDim.x) {
+    const int h = i / kMaxD;
+    const int e = i % kMaxD;
+    prm[i] = e < d ? t.b2[h * d + e] : 0.f;
+    if (h == 0) {
+      prm[2 * kMaxD + e] = e < d ? t.ncs[e] : 0.f;
+      prm[3 * kMaxD + e] = e < d ? t.ncb[e] : 0.f;
+      prm[4 * kMaxD + e] = e < d ? t.ngs[e] : 0.f;
+      prm[5 * kMaxD + e] = e < d ? t.ngb[e] : 0.f;
+    }
+  }
+  for (int i = lane; i < kFwdWarpFloats; i += 32) mine[i] = 0.f;
+  __syncthreads();
+}
+
+// Copies of the weights rows and mask entries of the 16 rows from row0
+// (zeros from row_end on); vec: weights 16-byte aligned. The caller commits
+// them.
+__device__ __forceinline__ void fetch_weights(float* w_s, float* m_s,
+                                              const float* weights,
+                                              const float* mask, long row0,
+                                              long row_end, int d, bool vec,
+                                              int lane) {
+  const int unit = vec ? 4 : 1;  // floats a copy
+  const int per_row = d / unit;
+  for (int i = lane; i < kRows * per_row; i += 32) {
+    const int r = i / per_row;
+    const int c = (i - r * per_row) * unit;
+    const long l = row0 + r;
+    const bool ok = l < row_end;
+    const float* src = weights + (ok ? l : 0) * d + c;
+    if (vec)
+      tc::copy16(w_s + at_row(r, c), src, ok);
+    else
+      tc::copy4(w_s + at_row(r, c), src, ok);
+  }
+  if (lane < kRows) {
+    const long l = row0 + lane;
+    tc::copy4(m_s + lane, mask + (l < row_end ? l : 0), l < row_end);
+  }
+}
+
+// y[h] += the warp's 16 rows of silu(A_h) @ W_h over all kMaxD columns,
+// A_h the acc stage's half h (row r, column c at at_acc(r, h kMaxD + c)),
+// W_h from the split fragments. The step loop is unrolled twice only, so
+// that one step's loads overlap the other's products.
+__device__ __forceinline__ void product_split(const float* acc_s, const uint4* wf,
+                                              int d8, int lane, float y[2][8][4]) {
+  const int gid = lane >> 2;
+  const int q = lane & 3;
+  const int s = rswz(gid);  // rows gid and gid + 8 alike
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float* a = acc_s + gid * 2 * kMaxD + h * kMaxD;
+#pragma unroll 2
+    for (int ks = 0; ks < d8; ++ks) {
+      const int k0 = ks * 8 + q;
+      const int k1 = k0 + 4;
+      float av[4] = {a[k0 ^ s], a[16 * kMaxD + (k0 ^ s)], a[k1 ^ s],
+                     a[16 * kMaxD + (k1 ^ s)]};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] *= sigm_fast(av[i]);
+      uint32_t hi[4], lo[4];
+      tc::split_a(av, hi, lo);
+      const uint4* b = wf + (h * 8 + ks) * 8 * 32 + lane;
+      uint4 bf[8];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) bf[nt] = b[nt * 32];
+      tc::mma3_tiles_split<8>(y[h], hi, lo, bf);
+    }
+  }
+}
+
+// The messages of the warp's 16 rows in the acc stage acc_s, with their
+// weights and mask in w_s and m_s: emit(r, e0, v0, v1) for row r and the
+// lane's columns e0, e0 + 1 < D, tile by tile. y is left parked in acc_s.
+// The caller has committed the copies of acc_s, then of w_s and m_s: the
+// acc rows are waited for before the product, the weights only before the
+// gate, so their copy overlaps the product.
+template <typename Emit>
+__device__ __forceinline__ void message_tile(float* acc_s, const float* w_s,
+                                             const float* m_s, const uint4* wf,
+                                             const float* prm, int d, int lane,
+                                             Emit emit) {
+  tc::wait_pending<1>();  // the acc rows; the weights may still be in flight
+  __syncwarp();
+  const int gid = lane >> 2;
+  const int q = lane & 3;
+  const int d8 = (d + 7) / 8;
+  const float inv_d = 1.f / d;
+  const float* ncs_s = prm + 2 * kMaxD;
+  const float* ncb_s = ncs_s + kMaxD;
+  const float* ngs_s = ncb_s + kMaxD;
+  const float* ngb_s = ngs_s + kMaxD;
+  // y = b2 + silu(acc) @ blockdiag(W2c, W2g). Element (h, nt, j): row
+  // gid + 8 (j >> 1), column 8 nt + 2 q + (j & 1) of half h; exactly 0
+  // past D (zero weights and b2)
+  float y[2][8][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) y[h][nt][j] = prm[h * kMaxD + nt * 8 + 2 * q + (j & 1)];
+  product_split(acc_s, wf, d8, lane, y);
+
+  // two-pass layer-norm statistics of each half row
+  float mean[2][2] = {}, inv[2][2] = {};
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mean[h][j >> 1] += y[h][nt][j];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) mean[h][rr] = tc::quad_sum(mean[h][rr]) * inv_d;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (nt * 8 + 2 * q + (j & 1) < d) {
+          const float c = y[h][nt][j] - mean[h][j >> 1];
+          inv[h][j >> 1] = fmaf(c, c, inv[h][j >> 1]);
+        }
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+      inv[h][rr] = rsqrtf(tc::quad_sum(inv[h][rr]) * inv_d + kEps);
+  tc::wait_pending<0>();  // the weights and mask too
+  __syncwarp();  // every lane's A fragments read: y parks over them
+  park(acc_s, y, lane);
+
+  // the gate times weights and mask; a lane reads back only its own parked
+  // values. Two tiles an iteration, for independent work.
+#pragma unroll 2
+  for (int nt = 0; nt < d8; ++nt)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = gid + 8 * rr;
+      const int e0 = nt * 8 + 2 * q;
+      float v[2];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = 2 * rr + jj;
+        const int e = e0 + jj;
+        const float zc = (acc_s[(nt * 4 + j) * 32 + lane] - mean[0][rr]) * inv[0][rr];
+        const float zg = (acc_s[((8 + nt) * 4 + j) * 32 + lane] - mean[1][rr]) * inv[1][rr];
+        const float cn = fmaf(zc, ncs_s[e], ncb_s[e]);
+        v[jj] = cn * sigm_fast(cn) * sigm_fast(fmaf(zg, ngs_s[e], ngb_s[e])) *
+                w_s[at_row(r, e)] * m_s[r];
+      }
+      if (e0 < d) emit(r, e0, v[0], v[1]);
+    }
+}
+
+// Zero the acc stage's columns between D and the next multiple of 8, which
+// the product reads and the copies never write, once parked y has used
+// them (else a non-finite y would reach the next tile's rows); nothing at
+// D = 64.
+__device__ __forceinline__ void clear_pad(float* acc_s, int d, int lane) {
+  const int pad = ((d + 7) & ~7) - d;
+  for (int i = lane; i < kRows * 2 * pad; i += 32) {
+    const int r = i / (2 * pad);
+    const int c = i - r * 2 * pad;
+    const int h = c >= pad;
+    acc_s[at_acc(r, h * kMaxD + d + c - h * pad)] = 0.f;
+  }
+}
+
+__global__ void __launch_bounds__(32 * kFwdWarps, 1)
+    tail_fwd_tc_kernel(Tail t, const float* __restrict__ acc,
+                       const float* __restrict__ weights,
+                       const float* __restrict__ mask, float* __restrict__ out,
+                       int n_rows, int d, int vec) {
+  extern __shared__ float4 smem4[];
+  uint4* wf = reinterpret_cast<uint4*>(smem4);
+  float* prm = reinterpret_cast<float*>(wf + kSplitW);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  // this warp's buffers: its acc stage (y parks over it), the weights
+  // slot, the mask
+  float* mine = prm + kPrmFloats + warp * kFwdWarpFloats;
+  float* w_s = mine + kAccFloats;
+  float* m_s = w_s + kRowFloats;
+  stage_fwd(wf, prm, mine, t, d, lane);
+
+  const int n_tiles = (n_rows + kRows - 1) / kRows;
+  const int step = gridDim.x * kFwdWarps;
+  int tile = blockIdx.x * kFwdWarps + warp;
+  if (tile < n_tiles) fetch_acc(mine, acc, (long)tile * kRows, n_rows, d, lane);
+  tc::commit();
+  if (tile < n_tiles)
+    fetch_weights(w_s, m_s, weights, mask, (long)tile * kRows, n_rows, d, vec, lane);
+  tc::commit();
+  for (; tile < n_tiles; tile += step) {
+    const long row0 = (long)tile * kRows;
+    message_tile(mine, w_s, m_s, wf, prm, d, lane,
+                 [&](int r, int e0, float v0, float v1) {
+                   const long l = row0 + r;
+                   if (l < n_rows)
+                     *reinterpret_cast<float2*>(out + l * d + e0) = make_float2(v0, v1);
+                 });
+    __syncwarp();  // parked y and the weights slot read
+    clear_pad(mine, d, lane);
+    const long next0 = row0 + (long)step * kRows;
+    if (tile + step < n_tiles) fetch_acc(mine, acc, next0, n_rows, d, lane);
+    tc::commit();
+    if (tile + step < n_tiles)
+      fetch_weights(w_s, m_s, weights, mask, next0, n_rows, d, vec, lane);
+    tc::commit();
+  }
+}
+
+// ---------------------------------------- message tail + segment sum
+// out[n] = sum over rows l of segment n of message(acc, weights, mask)[l],
+// the segments given as CSR offsets [n_out + 1] of the stream's sorted keys:
+// rows offsets[n] .. offsets[n + 1] feed output row n, rows past
+// offsets[n_out] (dropped keys) are never read. The mask multiplies inside
+// the sum: a masked row whose key stays in range adds exactly zero.
+// Design: no float atomics, no carries. The output rows are cut into one
+// contiguous range per warp, balanced by cost(n) = kRowCost * offsets[n] + n
+// (input rows weigh kRowCost output rows, so the empty segments of the
+// padding are shared out too): warp w of block b owns chunk b * kFwdWarps + w
+// and finds its range [n0, n1) by two binary searches, one in each of two
+// lanes. It walks the rows offsets[n0] .. offsets[n1] that feed its range
+// in 16-row tiles with the forward's phases, writes each tile's messages
+// over the weights they were made from, and then every lane adds two
+// columns of the tile's rows, in row order, into the open segment, kept in
+// registers; it writes each output row once, when its segment closes, empty
+// segments as zeros. No segment crosses a warp, so two runs give equal
+// bits. The add order differs from segment_sum_csr's lane-group tree, so
+// the two agree only to rounding.
+constexpr int kRowCost = 8;
+
+// first n in [0, n_out] with kRowCost * offsets[n] + n >= x (n_out if none)
+__device__ __forceinline__ int cost_lower_bound(const int* __restrict__ offsets,
+                                                int n_out, long x) {
+  int lo = 0, hi = n_out;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if ((long)kRowCost * offsets[mid] + mid >= x) hi = mid; else lo = mid + 1;
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(32 * kFwdWarps, 1)
+    tail_reduce_tc_kernel(Tail t, const float* __restrict__ acc,
+                          const float* __restrict__ weights,
+                          const float* __restrict__ mask,
+                          const int* __restrict__ offsets, float* __restrict__ out,
+                          int n_out, int d, int vec) {
+  extern __shared__ float4 smem4[];
+  uint4* wf = reinterpret_cast<uint4*>(smem4);
+  float* prm = reinterpret_cast<float*>(wf + kSplitW);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float* mine = prm + kPrmFloats + warp * kFwdWarpFloats;
+  float* w_s = mine + kAccFloats;  // weights, then the tile's messages
+  float* m_s = w_s + kRowFloats;
+  stage_fwd(wf, prm, mine, t, d, lane);
+
+  // this warp's output rows [n0, n1): lane 0 searches n0, lane 1 n1
+  const long n_chunks = (long)gridDim.x * kFwdWarps;
+  const long chunk = ((long)kRowCost * offsets[n_out] + n_out + n_chunks - 1) / n_chunks;
+  const long c = (long)blockIdx.x * kFwdWarps + warp;
+  const long end = c + (lane & 1);
+  const int found = end == n_chunks ? n_out : cost_lower_bound(offsets, n_out, chunk * end);
+  const int n0 = __shfl_sync(0xffffffffu, found, 0);
+  const int n1 = __shfl_sync(0xffffffffu, found, 1);
+  if (n0 >= n1) return;  // warp-uniform, after the block's only barrier
+  const long row_begin = offsets[n0];
+  const long row_end = offsets[n1];
+  const int n_tiles = (int)((row_end - row_begin + kRows - 1) / kRows);
+  // the open segment of the lane's columns 2 lane, 2 lane + 1
+  const bool own = 2 * lane < d;
+  float* out_col = out + 2 * lane;
+  int n = n0;
+  long seg_end = offsets[n0 + 1];
+  float2 sum = make_float2(0.f, 0.f);
+  if (n_tiles > 0) fetch_acc(mine, acc, row_begin, row_end, d, lane);
+  tc::commit();
+  if (n_tiles > 0)
+    fetch_weights(w_s, m_s, weights, mask, row_begin, row_end, d, vec, lane);
+  tc::commit();
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const long row0 = row_begin + (long)tile * kRows;
+    const bool more = tile + 1 < n_tiles;
+    message_tile(mine, w_s, m_s, wf, prm, d, lane,
+                 [&](int r, int e0, float v0, float v1) {
+                   *reinterpret_cast<float2*>(w_s + at_row(r, e0)) = make_float2(v0, v1);
+                 });
+    __syncwarp();  // the tile's messages in w_s, parked y read
+    clear_pad(mine, d, lane);
+    if (more) fetch_acc(mine, acc, row0 + kRows, row_end, d, lane);
+    tc::commit();
+    const int rows = row_end - row0 < kRows ? (int)(row_end - row0) : kRows;
+    for (int r = 0; r < rows; ++r) {
+      while (row0 + r >= seg_end) {  // close segments, empty ones too
+        if (own) *reinterpret_cast<float2*>(out_col + (long)n * d) = sum;
+        sum = make_float2(0.f, 0.f);
+        ++n;
+        seg_end = offsets[n + 1];
+      }
+      if (own) {
+        const float2 v = *reinterpret_cast<const float2*>(w_s + at_row(r, 2 * lane));
+        sum.x += v.x;
+        sum.y += v.y;
+      }
+    }
+    __syncwarp();  // the messages summed: the slot is free
+    if (more) fetch_weights(w_s, m_s, weights, mask, row0 + kRows, row_end, d, vec, lane);
+    tc::commit();
+  }
+  for (; n < n1; ++n) {
+    if (own) *reinterpret_cast<float2*>(out_col + (long)n * d) = sum;
+    sum = make_float2(0.f, 0.f);
+  }
+}
+
 }  // namespace tcb
 
 
-using FwdFn = void (*)(Tail, const float*, const float*, const float*,
-                       const float*, float*, int, int);
+using FwdFn = void (*)(Tail, const float*, const float*, float*, int, int);
 using BwdFn = void (*)(Tail, const float*, const float*, const float*,
                        const float*, float*, float*, float*, float*, int, int);
-using ReduceFn = void (*)(Tail, const float*, const float*, const float*,
-                          const int*, float*, int, int);
+// the tensor-core kernels
+using TcFwdFn = void (*)(Tail, const float*, const float*, const float*, float*,
+                         int, int, int);
+using TcReduceFn = void (*)(Tail, const float*, const float*, const float*,
+                            const int*, float*, int, int, int);
+using TcBwdFn = void (*)(Tail, const float*, const float*, const float*,
+                         const float*, float*, float*, float*, int, int, int);
 
 size_t fwd_smem(bool w2) { return w2 ? (kWeights + 4 * kHalf) * sizeof(float) : 0; }
 
@@ -755,10 +1025,10 @@ size_t bwd_smem(bool w2, bool params) {
   return params ? kWarps * kVecs * kMaxD * sizeof(float) : 0;
 }
 
-template <bool kMsg, bool kW2>
+template <bool kW2>
 Kernel<FwdFn> fwd_instance() {
   static std::atomic<int> waves[kMaxDevices];
-  return {tail_fwd_kernel<kMsg, kW2>, fwd_smem(kW2), waves};
+  return {tail_fwd_kernel<kW2>, fwd_smem(kW2), waves};
 }
 
 template <bool kMsg, bool kW2, bool kParams>
@@ -767,9 +1037,9 @@ Kernel<BwdFn> bwd_instance() {
   return {tail_bwd_kernel<kMsg, kW2, kParams>, bwd_smem(kW2, kParams), waves};
 }
 
-Kernel<FwdFn> fwd_kernel(bool msg, bool w2) {
-  if (msg) return fwd_instance<true, true>();
-  return w2 ? fwd_instance<false, true>() : fwd_instance<false, false>();
+// the update forward
+Kernel<FwdFn> fwd_kernel(bool w2) {
+  return w2 ? fwd_instance<true>() : fwd_instance<false>();
 }
 
 // the backward with parameter gradients
@@ -778,47 +1048,36 @@ Kernel<BwdFn> bwd_kernel(bool msg, bool w2) {
   return w2 ? bwd_instance<false, true, true>() : bwd_instance<false, false, true>();
 }
 
-// the serving backward on tensor cores
-using TcBwdFn = void (*)(Tail, const float*, const float*, const float*,
-                         const float*, float*, float*, float*, int, int, int);
-
-TcBwdFn tc_bwd_kernel(bool msg, bool w2) {
-  if (msg) return tcb::tail_bwd_tc_kernel<true, true>;
-  return w2 ? tcb::tail_bwd_tc_kernel<false, true>
-            : tcb::tail_bwd_tc_kernel<false, false>;
+Kernel<TcFwdFn> tc_fwd_kernel() {
+  static std::atomic<int> waves[kMaxDevices];
+  return {tcb::tail_fwd_tc_kernel, tcb::fwd_smem_bytes(), waves};
 }
 
-// Blocks of one full wave of the serving backward on the current device
-// (found once per instantiation and device); negative: minus a cudaError_t.
-int tc_bwd_wave(bool msg, bool w2) {
-  static std::atomic<int> waves[3][kMaxDevices];
-  const int form = msg ? 0 : w2 ? 1 : 2;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return -(int)err;
-  if (dev >= kMaxDevices) return -(int)cudaErrorInvalidDevice;
-  int blocks = waves[form][dev].load(std::memory_order_relaxed);
-  if (blocks != 0) return blocks;
-  const TcBwdFn fn = tc_bwd_kernel(msg, w2);
-  int per_sm = 0;
-  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)tcb::smem_bytes(w2));
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fn, 32 * tcb::warps(w2), tcb::smem_bytes(w2));
-  if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;
-  blocks = err == cudaSuccess ? chgnet::sm_count() * per_sm : -(int)err;
-  waves[form][dev].store(blocks, std::memory_order_relaxed);
-  return blocks;
+Kernel<TcReduceFn> tc_reduce_kernel() {
+  static std::atomic<int> waves[kMaxDevices];
+  return {tcb::tail_reduce_tc_kernel, tcb::fwd_smem_bytes(), waves};
+}
+
+// the serving backward
+template <bool kMsg, bool kW2>
+Kernel<TcBwdFn> tc_bwd_instance() {
+  static std::atomic<int> waves[kMaxDevices];
+  return {tcb::tail_bwd_tc_kernel<kMsg, kW2>, tcb::smem_bytes(kW2), waves};
+}
+
+Kernel<TcBwdFn> tc_bwd_kernel(bool msg, bool w2) {
+  if (msg) return tc_bwd_instance<true, true>();
+  return w2 ? tc_bwd_instance<false, true>() : tc_bwd_instance<false, false>();
 }
 
 }  // namespace
 
 // tail: 7 pointers (w2c, w2g, b2, nc_scale, nc_bias, ng_scale, ng_bias),
 // the first three null for an update without a second layer. msg = 1:
-// out = message(acc, weights, mask); msg = 0: out = update(acc) + resnet.
-// acc [n_rows, 2d] 16-byte aligned; every tensor contiguous f32. One block
-// per 32-row tile, at most one wave.
+// out = message(acc, weights, mask) by the tensor-core kernel, 16 rows a
+// warp; msg = 0: out = update(acc) + resnet, one block per 32-row tile.
+// acc [n_rows, 2d] 16-byte aligned; every tensor contiguous f32. At most one
+// wave of blocks.
 extern "C" int gated_fwd_f32(int msg, const void* const* tail, const float* acc,
                              const float* weights, const float* mask,
                              const float* resnet, float* out, int n_rows,
@@ -826,13 +1085,22 @@ extern "C" int gated_fwd_f32(int msg, const void* const* tail, const float* acc,
   const Tail t = make_tail(tail);
   const bool w2 = t.w2c != nullptr;
   if (bad_shape(msg, w2, d)) return (int)cudaErrorInvalidValue;
-  if (n_rows > 0) {
-    const Kernel<FwdFn> k = fwd_kernel(msg, w2);
+  const cudaStream_t stream = static_cast<cudaStream_t>(cuda_stream);
+  if (n_rows > 0 && msg) {
+    const Kernel<TcFwdFn> k = tc_fwd_kernel();
+    const int wave = wave_blocks(k, 32 * tcb::kFwdWarps);
+    if (wave < 0) return -wave;
+    const int rows = tcb::kRows * tcb::kFwdWarps;  // of a block's first tiles
+    const int want = (n_rows + rows - 1) / rows;
+    const int vec = (uintptr_t)weights % 16 == 0;
+    k.fn<<<want < wave ? want : wave, 32 * tcb::kFwdWarps, k.smem, stream>>>(
+        t, acc, weights, mask, out, n_rows, d, vec);
+  } else if (n_rows > 0) {
+    const Kernel<FwdFn> k = fwd_kernel(w2);
     const int wave = wave_blocks(k);
     if (wave < 0) return -wave;
     const int grid = n_tiles(n_rows) < wave ? n_tiles(n_rows) : wave;
-    k.fn<<<grid, kThreads, k.smem, static_cast<cudaStream_t>(cuda_stream)>>>(
-        t, acc, weights, mask, resnet, out, n_rows, d);
+    k.fn<<<grid, kThreads, k.smem, stream>>>(t, acc, resnet, out, n_rows, d);
   }
   return (int)cudaGetLastError();
 }
@@ -866,14 +1134,13 @@ extern "C" int gated_bwd_f32(int msg, const void* const* tail, const float* acc,
                                                  d_weights, d_mask, partial,
                                                  n_rows, d);
   } else if (n_rows > 0) {
-    const int wave = tc_bwd_wave(msg, w2);
+    const Kernel<TcBwdFn> k = tc_bwd_kernel(msg, w2);
+    const int wave = wave_blocks(k, 32 * tcb::warps(w2));
     if (wave < 0) return -wave;
     const int rows = tcb::kRows * tcb::warps(w2);  // of a block's first tiles
     const int want = (n_rows + rows - 1) / rows;
     const int vec = ((uintptr_t)g | (uintptr_t)(msg ? weights : g)) % 16 == 0;
-    const TcBwdFn fn = tc_bwd_kernel(msg, w2);
-    fn<<<want < wave ? want : wave, 32 * tcb::warps(w2), tcb::smem_bytes(w2),
-         stream>>>(
+    k.fn<<<want < wave ? want : wave, 32 * tcb::warps(w2), k.smem, stream>>>(
         t, acc, weights, mask, g, d_acc, d_weights, d_mask, n_rows, d, vec);
   }
   if (params) {
@@ -886,8 +1153,8 @@ extern "C" int gated_bwd_f32(int msg, const void* const* tail, const float* acc,
 
 // out [n_out, d] = the message tail's rows summed per segment of the sorted
 // stream: offsets [n_out + 1] int32, offsets[n_out] <= n_rows valid rows
-// first. One block per kRowCost * n_rows + n_out cost units of a 32-row
-// tile, at most one wave.
+// first. One warp per kRowCost * n_rows + n_out cost units of a 16-row
+// tile, at most one wave of blocks.
 extern "C" int gated_reduce_f32(const void* const* tail, const float* acc,
                                 const float* weights, const float* mask,
                                 const int* offsets, float* out, int n_rows,
@@ -895,15 +1162,36 @@ extern "C" int gated_reduce_f32(const void* const* tail, const float* acc,
   const Tail t = make_tail(tail);
   if (bad_shape(true, t.w2c != nullptr, d)) return (int)cudaErrorInvalidValue;
   if (n_out > 0) {
-    static std::atomic<int> waves[kMaxDevices];
-    const Kernel<ReduceFn> k{tail_reduce_kernel, fwd_smem(true), waves};
-    const int wave = wave_blocks(k);
+    const Kernel<TcReduceFn> k = tc_reduce_kernel();
+    const int wave = wave_blocks(k, 32 * tcb::kFwdWarps);
     if (wave < 0) return -wave;
-    const long cost = (long)kRowCost * n_rows + n_out;
-    const long want = (cost + kRowCost * kTile - 1) / (kRowCost * kTile);
-    const int grid = want < wave ? (int)want : wave;
-    k.fn<<<grid, kThreads, k.smem, static_cast<cudaStream_t>(cuda_stream)>>>(
-        t, acc, weights, mask, offsets, out, n_out, d);
+    const long cost = (long)tcb::kRowCost * n_rows + n_out;
+    const long per_block = (long)tcb::kRowCost * tcb::kRows * tcb::kFwdWarps;
+    const long want = (cost + per_block - 1) / per_block;
+    const int vec = (uintptr_t)weights % 16 == 0;
+    k.fn<<<want < wave ? (int)want : wave, 32 * tcb::kFwdWarps, k.smem,
+           static_cast<cudaStream_t>(cuda_stream)>>>(t, acc, weights, mask,
+                                                     offsets, out, n_out, d, vec);
   }
   return (int)cudaGetLastError();
+}
+
+// The dynamic shared memory, warps a block and blocks of one wave on the
+// current device of the tensor-core kernels, info[3 * i ..] for the message
+// forward (i = 0), the message-reduce (1) and the message backward (2);
+// nothing is launched. For the build report.
+extern "C" int gated_tc_occupancy(int* info) {
+  const int waves[3] = {wave_blocks(tc_fwd_kernel(), 32 * tcb::kFwdWarps),
+                        wave_blocks(tc_reduce_kernel(), 32 * tcb::kFwdWarps),
+                        wave_blocks(tc_bwd_kernel(true, true), 32 * tcb::warps(true))};
+  const size_t smem[3] = {tcb::fwd_smem_bytes(), tcb::fwd_smem_bytes(),
+                          tcb::smem_bytes(true)};
+  const int warps[3] = {tcb::kFwdWarps, tcb::kFwdWarps, tcb::warps(true)};
+  for (int i = 0; i < 3; ++i) {
+    if (waves[i] < 0) return -waves[i];
+    info[3 * i] = (int)smem[i];
+    info[3 * i + 1] = warps[i];
+    info[3 * i + 2] = waves[i];
+  }
+  return (int)cudaSuccess;
 }

@@ -398,12 +398,12 @@ struct Kernel {
   std::atomic<int>* waves;
 };
 
-// Blocks of one full wave of k on the current device: its SMs times the
-// blocks k's occupancy allows on each. Found once per instantiation and
-// device, when k's shared memory limit is also set; negative: minus a
-// cudaError_t.
+// Blocks of one full wave of k, launched with `threads` a block, on the
+// current device: its SMs times the blocks k's occupancy allows on each.
+// Found once per instantiation and device, when k's shared memory limit is
+// also set; negative: minus a cudaError_t.
 template <typename Fn>
-int wave_blocks(const Kernel<Fn>& k) {
+int wave_blocks(const Kernel<Fn>& k, int threads = kThreads) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return -(int)err;
@@ -414,7 +414,7 @@ int wave_blocks(const Kernel<Fn>& k) {
   err = cudaFuncSetAttribute(k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)k.smem);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k.fn, kThreads,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k.fn, threads,
                                                         k.smem);
   if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;
   blocks = err == cudaSuccess ? chgnet::sm_count() * per_sm : -(int)err;

@@ -69,6 +69,29 @@ __device__ __forceinline__ void mma3_tiles(float (*c)[4], const uint32_t a_hi[4]
   for (int j = 0; j < kN; ++j) mma(c[j], a_hi, hi[j][0], hi[j][1]);
 }
 
+// A B fragment's two values split ahead of use: {hi(b0), hi(b1), lo(b0),
+// lo(b1)}, for weights staged once and read by every tile
+__device__ __forceinline__ uint4 split_pair(float b0, float b1) {
+  uint4 v;
+  split(b0, v.x, v.z);
+  split(b1, v.y, v.w);
+  return v;
+}
+
+// mma3_tiles from B fragments split ahead of use (split_pair): the same
+// terms in the same order, without the splits
+template <int kN>
+__device__ __forceinline__ void mma3_tiles_split(float (*c)[4], const uint32_t a_hi[4],
+                                                 const uint32_t a_lo[4],
+                                                 const uint4* b) {
+#pragma unroll
+  for (int j = 0; j < kN; ++j) mma(c[j], a_lo, b[j].x, b[j].y);
+#pragma unroll
+  for (int j = 0; j < kN; ++j) mma(c[j], a_hi, b[j].z, b[j].w);
+#pragma unroll
+  for (int j = 0; j < kN; ++j) mma(c[j], a_hi, b[j].x, b[j].y);
+}
+
 // the A fragment of 4 f32 values, split
 __device__ __forceinline__ void split_a(const float v[4], uint32_t hi[4],
                                         uint32_t lo[4]) {

@@ -58,7 +58,9 @@ from chgnet_tpu_torch.models.layers import (
     bond_conv_apply_directed,
     bond_conv_init,
 )
-from chgnet_tpu_torch.ops.segment import plan_gather, plan_segment_sum
+from chgnet_tpu_torch.ops.gated_message import TAIL_MAX_D
+from chgnet_tpu_torch.ops.gproj import MAX_DT, MAX_K
+from chgnet_tpu_torch.ops.segment import SEGMENT_MAX_D, plan_gather, plan_segment_sum
 
 EV_A3_TO_GPA = 160.21766208  # eV/A^3 -> GPa
 
@@ -73,8 +75,9 @@ class CHGNetConfig:
     [E, d], ``directed_bonds=False`` on the undirected bonds [U, d], as
     upstream CHGNet does; one parameter tree serves both.
     :meth:`check_supported` names the fields whose other values the port
-    does not run yet. ``sorted_grads`` has no effect: every backward here is
-    a CSR segment sum.
+    does not run yet, and on a CUDA device also the widths its kernels do
+    not take (:meth:`kernel_width_faults`). ``sorted_grads`` has no effect:
+    every backward here is a CSR segment sum.
     """
 
     atom_fea_dim: int = 64
@@ -130,8 +133,17 @@ class CHGNetConfig:
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
 
-    def check_supported(self) -> None:
-        """Raise for settings the port does not run yet."""
+    def check_supported(self, device_type: str = "cpu") -> None:
+        """Raise for settings the port does not run yet on a device of
+        ``device_type`` (``"cpu"`` or ``"cuda"``): on ``"cuda"`` also for
+        widths the kernels do not take, before anything is launched."""
+        faults = self.kernel_width_faults() if device_type == "cuda" else []
+        if faults:
+            raise NotImplementedError(
+                "CHGNetConfig widths the port's CUDA kernels do not take yet "
+                "(the CPU runs them; see ROADMAP.md Queue 1, config "
+                "variants): " + "; ".join(faults)
+            )
         unported = {
             "compute_dtype": self.compute_dtype != "float32",
             "remat": bool(self.remat),
@@ -145,6 +157,98 @@ class CHGNetConfig:
                 f"CHGNetConfig fields {bad} are not ported to chgnet_tpu_torch "
                 "yet (see ROADMAP.md Queue 1, config variants)"
             )
+
+
+    def kernel_width_faults(self) -> list[str]:
+        """The widths of this config that the CUDA kernels do not take, one
+        line for each limit a width breaks, naming its fields and the
+        kernel's limit; empty when every width fits. Worked out from the
+        config alone, by the kernels each conv layer picks
+        (``models/layers.py``, ``models/functions.py`` ``first_layer_acc``,
+        ``gated_mlp_fusable``). The plain versions take any width."""
+        faults: list[str] = []
+
+        def need(ok: bool, fields: str, limit: str) -> None:
+            if not ok and f"{fields}: {limit}" not in faults:
+                faults.append(f"{fields}: {limit}")
+
+        def rows_fit(w: int) -> bool:
+            return w <= SEGMENT_MAX_D and (w % 4 == 0 or w <= SEGMENT_MAX_D // 4)
+
+        rows_limit = (
+            f"segment sums take rows of at most {SEGMENT_MAX_D} floats, "
+            f"{SEGMENT_MAX_D // 4} when not a multiple of 4"
+        )
+        for field in ("atom_fea_dim", "bond_fea_dim"):
+            width = getattr(self, field)
+            need(rows_fit(width), f"{field}={width}", rows_limit)
+        fusing = (
+            self.fused_kernels
+            and self.non_linearity == "silu"
+            and self.gMLP_norm == "layer"
+        )
+        # (output width, hidden width, message layer, first layer by
+        # gather_project_sum: two gathered tables of one shape)
+        layers = [("atom_fea_dim", "atom_conv_hidden_dim", True, self.directed_bonds)]
+        angle_side_gproj = self.atom_fea_dim == self.bond_fea_dim
+        if self.update_bond:
+            layers.append(
+                ("bond_fea_dim", "bond_conv_hidden_dim", True, angle_side_gproj)
+            )
+        if self.update_angle and self.n_conv > 2:
+            layers.append(
+                ("angle_fea_dim", "angle_layer_hidden_dim", False, angle_side_gproj)
+            )
+        for out_field, hidden_field, message, gproj in layers:
+            d = getattr(self, out_field)
+            hidden = getattr(self, hidden_field)
+            first, n_linears = _first_linear(hidden, d)
+            k = 2 * first  # the first layer's joint [L, 2 first] output
+            fields = f"{out_field}={d}, {hidden_field}={hidden!r}"
+            need(rows_fit(k), fields, f"its first layer's K = {k} wide cotangent: "
+                 + rows_limit)
+            if gproj:
+                need(
+                    self.atom_fea_dim % 4 == 0 and 4 <= self.atom_fea_dim <= MAX_DT,
+                    f"atom_fea_dim={self.atom_fea_dim}"
+                    + ("" if out_field == "atom_fea_dim"
+                       else f", bond_fea_dim={self.bond_fea_dim}"),
+                    f"gather_project_sum takes tables dt <= {MAX_DT} wide, "
+                    "a multiple of 4",
+                )
+                need(k % 4 == 0 and 4 <= k <= MAX_K, fields,
+                     f"gather_project_sum takes K = 2 x first hidden <= {MAX_K}, "
+                     f"a multiple of 4 (K = {k})")
+            else:
+                need(k % 4 == 0, fields,
+                     f"gather_sum_rows takes K = 2 x first hidden, a multiple "
+                     f"of 4 (K = {k})")
+            fused = fusing and (
+                n_linears == 2 if message
+                else n_linears in (1, 2) and self.conv_norm is None
+            )
+            if fused:
+                need(d % 4 == 0 and 4 <= d <= TAIL_MAX_D, fields,
+                     f"the fused tails and the one-kernel pass take D <= "
+                     f"{TAIL_MAX_D} (2D <= {2 * TAIL_MAX_D}), a multiple of 4")
+                need(n_linears == 1 or first == d, fields,
+                     "the fused tails take a second layer of D x D blocks "
+                     "(hidden width = D)")
+        if not self.directed_bonds and self.update_bond:
+            need(self.bond_fea_dim % 4 == 0, f"bond_fea_dim={self.bond_fea_dim}",
+                 "twin_reduce (directed_bonds=False) takes rows of a multiple "
+                 "of 4 floats")
+        return faults
+
+
+def _first_linear(hidden, out: int) -> tuple[int, int]:
+    """(output width of a gated-MLP branch's first Linear, the branch's
+    Linears) for ``hidden_dim`` as ``mlp_init`` reads it."""
+    if not hidden:
+        return out, 1
+    if isinstance(hidden, int):
+        return hidden, 2
+    return hidden[0], len(hidden) + 1
 
 
 def init_params(config: CHGNetConfig, seed: int = 0) -> Params:
@@ -413,8 +517,8 @@ def compute_batch(
     crystal_fea [B, d], atom_fea [N, d], atoms_per_graph [B].
     """
     cfg = config
-    cfg.check_supported()
     device = batch.frac_coords.device
+    cfg.check_supported(device.type)
     n_graphs = batch.lattices.shape[0]
     want_grad = compute_force or compute_stress
     with _full_f32(), torch.enable_grad() if want_grad else torch.no_grad():
@@ -502,8 +606,8 @@ class CHGNet:
             comp = cfg_kwargs.get("composition_model", "MPtrj")
             cfg_kwargs["atom_ref_is_intensive"] = comp != "MPF"
         self.config = CHGNetConfig(**cfg_kwargs)
-        self.config.check_supported()
         self.device = resolve_device(device)
+        self.config.check_supported(self.device.type)
         self.params = params_from_jax(
             params if params is not None else init_params(self.config, seed),
             self.device,

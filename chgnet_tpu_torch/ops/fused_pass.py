@@ -48,6 +48,7 @@ import torch
 from chgnet_tpu_torch.ops import build
 from chgnet_tpu_torch.ops.gated_message import (
     PARAM_BLOCKS,
+    TAIL_MAX_D,
     TILE,
     _check_shapes,
     _ptrs,
@@ -416,10 +417,10 @@ def fused_layer_pass(
             f"fused_layer_pass: {len(lay.gathered)} gathered and "
             f"{len(lay.aligned)} aligned parts (at most {MAX_PARTS} and 1)"
         )
-    if d2 % 8 or not 8 <= d2 <= 128:
+    if d2 % 8 or not 8 <= d2 <= 2 * TAIL_MAX_D:
         raise ValueError(
-            f"fused_layer_pass: tables [S, 2D] with D % 4 == 0 and 2D <= 128 "
-            f"expected (2D={d2})"
+            f"fused_layer_pass: tables [S, 2D] with D % 4 == 0 and "
+            f"2D <= {2 * TAIL_MAX_D} expected (2D={d2})"
         )
     params = tail_params(p2)
     tensors = [t.contiguous() for t in tables] + [b1.contiguous()]

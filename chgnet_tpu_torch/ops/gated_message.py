@@ -63,8 +63,10 @@ _SIGNATURES = {
         _I, _P,
     ],
     "gated_reduce_f32": [ctypes.POINTER(_P), _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "gated_tc_occupancy": [ctypes.POINTER(_I)],
 }
-TILE = 32  # rows per tile of the kernels
+TAIL_MAX_D = 64  # widest tail the kernels take (kMaxD): 2D <= 128
+TILE = 32  # rows per tile of the update forward and the parameter gradients
 # blocks of the backward with parameter gradients (kParamBlocks), at most
 # one per tile: the rows of its scratch buffer
 PARAM_BLOCKS = 256
@@ -210,9 +212,10 @@ def _lib() -> ctypes.CDLL:
 def _check_shapes(what, acc_shape, rows, vecs, params, msg):
     """Raise on shapes the tail kernels do not take, for an accumulator of
     ``acc_shape``; returns ``(n_rows, D)``."""
-    if len(acc_shape) != 2 or acc_shape[1] % 8 or not 8 <= acc_shape[1] <= 128:
+    widest = 2 * TAIL_MAX_D
+    if len(acc_shape) != 2 or acc_shape[1] % 8 or not 8 <= acc_shape[1] <= widest:
         raise ValueError(
-            f"{what}: acc [L, 2D] with D % 4 == 0 and 2D <= 128 expected, "
+            f"{what}: acc [L, 2D] with D % 4 == 0 and 2D <= {widest} expected, "
             f"got {tuple(acc_shape)}"
         )
     n_rows, d = acc_shape[0], acc_shape[1] // 2
@@ -234,6 +237,17 @@ def _check(what, acc, rows, vecs, params, msg):
     n_rows, d = _check_shapes(what, tuple(acc.shape), rows, vecs, params, msg)
     build.check_tensors(what, (acc, *rows, *vecs, *params), aligned=(acc,))
     return n_rows, d
+
+
+def tc_occupancy() -> dict[str, tuple[int, int, int]]:
+    """``(shared memory bytes, warps a block, blocks of one wave)`` on the
+    current card of the tensor-core tails, by kernel name; nothing is
+    launched."""
+    info = (_I * 9)()
+    build.check(_lib().gated_tc_occupancy(info), "gated_tc_occupancy")
+    names = ("tail_fwd_tc_kernel", "tail_reduce_tc_kernel",
+             "tail_bwd_tc_kernel<true, true>")
+    return {name: tuple(info[3 * i: 3 * i + 3]) for i, name in enumerate(names)}
 
 
 def _ptrs(*tensors):

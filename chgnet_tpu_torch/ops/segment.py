@@ -66,6 +66,9 @@ _SIGNATURES = {
         "gather_rows_window_f32": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
     },
 }
+# widest row of the segment sums: one warp's 32 lanes each hold a float4
+# (a float where the row is not 16-byte aligned)
+SEGMENT_MAX_D = 128
 TILE_ROWS = 32  # sorted rows per tile of segment_sum_tiles (kTileRows)
 SHARED_BYTES = 232448  # shared memory a block may use on an H100 (227 KB)
 
@@ -125,10 +128,10 @@ def _check_width(what: str, x: torch.Tensor) -> None:
     16-byte aligned)."""
     d = x.shape[1]
     units = d // 4 if d % 4 == 0 and x.data_ptr() % 16 == 0 else d
-    if units > 32:
+    if units > SEGMENT_MAX_D // 4:
         raise ValueError(
-            f"{what}: rows of at most 128 aligned or 32 unaligned floats "
-            f"(d={d})"
+            f"{what}: rows of at most {SEGMENT_MAX_D} aligned or "
+            f"{SEGMENT_MAX_D // 4} unaligned floats (d={d})"
         )
 
 

@@ -14,8 +14,10 @@ build too: the window plans are built under it) and the one-kernel conv
 pass (``CHGNET_TPU_FUSED_PASS=1``):
 
 1. card and build: the card's name and power limit, the TF32 flags, the
-   kernel build time, each kernel's registers and spills (``ptxas``'s
-   report, names demangled by ``cu++filt``);
+   kernel build time, each kernel's registers, spills and static shared
+   memory (``ptxas``'s report, names demangled by ``cu++filt``), and the
+   tensor-core tails' dynamic shared memory, warps a block and blocks an SM
+   (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
 2. kernels: one recorded E+F+S+M pass of each path on the benchmark batch
    (32 perturbed 216-atom LiMnO2 supercells, ``bench.py``'s workload)
    captures every kernel call of that path with its inputs; each call is
@@ -47,10 +49,11 @@ pass (``CHGNET_TPU_FUSED_PASS=1``):
    one-kernel pass also one add per part and accumulator element);
    ``gather_project_sum`` is also timed and bounded per route (short
    tables projected first, long ones gathered first);
-5. profile: one pass of the default, the undirected and the one-kernel-pass
-   path under
-   ``torch.profiler``, the device's busy share of its wall time and the
-   kernels that take the most device time.
+5. profile: one pass of the default, the undirected, the message-reduce
+   and the one-kernel-pass path under ``torch.profiler``, the device's busy
+   share of its wall time and the kernels that take the most device time;
+   the traced default and message-reduce passes must show the tensor-core
+   message forward and message-reduce kernels by name (``PROFILED``).
 
 Every line but the last also goes to ``build/chip_smoke.log`` beside the
 script (``build/`` is where the kernels' libraries go). Any failure raises. The last line is the result JSON. Needs one CUDA card;
@@ -136,6 +139,13 @@ PATHS = {
         {}, "CHGNET_TPU_FUSED_PASS", (20, 17, 8, 0, 0, 0, 0, 0, 0, 0, 0, 0, 9, 9)),
 }
 SWITCHED = [path for path, (_, switch, _) in PATHS.items() if switch]
+# the paths traced in phase 5, and the CUDA kernels each trace must show
+PROFILED = {
+    "default": ("tail_fwd_tc_kernel", "tail_bwd_tc_kernel"),
+    "directed_bonds=False": (),
+    "CHGNET_TPU_MSG_REDUCE=1": ("tail_reduce_tc_kernel",),
+    "CHGNET_TPU_FUSED_PASS=1": (),
+}
 MODEL_TOL = {"e": 2e-5, "f": 5e-5, "s": 2e-4, "m": 2e-5}
 
 _CSRC = "chgnet_tpu_torch/csrc/"
@@ -490,11 +500,19 @@ def phase_card_and_build():
     log(f"kernel build: {time.perf_counter() - t0:.2f} s (compiled {built})")
     for name in build.SOURCES:
         log_ptxas(name, f"{build.lib_path(name)}.log")
+    from chgnet_tpu_torch.ops.gated_message import tc_occupancy
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for kernel, (smem, warps, wave) in tc_occupancy().items():
+        log(f"occupancy gated_message: {kernel}: {smem} bytes dynamic shared "
+            f"memory, {warps} warps a block, {wave / n_sm:g} blocks "
+            f"({warps * wave / n_sm:g} warps) an SM of {n_sm}")
 
 
 def log_ptxas(name: str, path: str) -> None:
-    """Registers and spills per kernel from nvcc's ``-Xptxas -v`` report,
-    the kernel names demangled by the toolkit's ``cu++filt``."""
+    """Registers, spills and static shared memory per kernel from nvcc's
+    ``-Xptxas -v`` report, the kernel names demangled by the toolkit's
+    ``cu++filt``."""
     from chgnet_tpu_torch.ops import build
 
     if not os.path.exists(path):
@@ -510,15 +528,17 @@ def log_ptxas(name: str, path: str) -> None:
                 spills = int(m.group(1))
             m = re.search(r"Used (\d+) registers", line)
             if m and kernel:
-                rows.append((kernel, m.group(1), spills))
+                smem = re.search(r"(\d+) bytes smem", line)
+                rows.append((kernel, m.group(1), spills, smem.group(1) if smem else "0"))
                 kernel, spills = None, 0
     filt = os.path.join(os.path.dirname(build.nvcc()), "cu++filt")
     names = subprocess.run(
         [filt, "-p", *(r[0] for r in rows)], check=True, capture_output=True,
         text=True, timeout=60,
     ).stdout.splitlines()
-    for kernel, (_, regs, spills) in zip(names, rows):
-        log(f"ptxas {name}: {kernel}: {regs} registers, {spills} bytes spilled")
+    for kernel, (_, regs, spills, smem) in zip(names, rows):
+        log(f"ptxas {name}: {kernel}: {regs} registers, {spills} bytes spilled, "
+            f"{smem} bytes static shared memory")
 
 
 def bench_graphs(converter):
@@ -897,7 +917,8 @@ def check_same_outputs(path, out, ref_path, ref):
 
 def profile_pass(path, batch):  # batch: the path's own
     """One E+F+S+M pass of a path under torch.profiler: device time by kernel
-    and the device's busy share of the pass's wall time."""
+    and the device's busy share of the pass's wall time. Every kernel that
+    ``PROFILED`` names for the path must appear in the trace."""
     from torch.profiler import ProfilerActivity, profile
 
     from chgnet_tpu_torch.models import CHGNet
@@ -921,6 +942,9 @@ def profile_pass(path, batch):  # batch: the path's own
     if busy_ms <= 0:
         log(f"profile {path}: the profiler recorded no device time (not measured)")
         return
+    missing = [k for k in PROFILED[path] if not any(k in e.key for e in events)]
+    if missing:
+        raise AssertionError(f"profile {path}: no device time of {missing}")
     log(f"profile {path}: one traced pass {wall_ms:.3f} ms wall, device busy "
         f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), {len(events)} "
         "kernel names; top by device time:")
@@ -1070,7 +1094,7 @@ def main() -> int:
         check_same_outputs(path, outs[path], "default", outs["default"])
     with torch.no_grad():
         rows = phase_timing(calls, launches, errors)
-    for path in ("default", "directed_bonds=False", "CHGNET_TPU_FUSED_PASS=1"):
+    for path in PROFILED:
         profile_pass(path, batches[path])
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s")
     log(json.dumps({"kernels": rows}))

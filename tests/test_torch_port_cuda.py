@@ -27,8 +27,10 @@ import torch
 
 from chgnet_tpu_torch import ROOT
 from chgnet_tpu_torch.core.structure import Structure
-from chgnet_tpu_torch.graph.batching import SegmentPlan, make_plan
-from chgnet_tpu_torch.models.chgnet import CHGNet
+from chgnet_tpu_torch import ops
+from chgnet_tpu_torch.graph.batching import SegmentPlan, batch_graphs, make_plan
+from chgnet_tpu_torch.models.chgnet import CHGNet, compute_batch, init_params
+from chgnet_tpu_torch.models.convert import params_from_jax
 from chgnet_tpu_torch.ops import gated_message as tgm
 from chgnet_tpu_torch.ops import gproj as tgp
 from chgnet_tpu_torch.ops import multi_gather as tmg
@@ -561,6 +563,84 @@ def test_gated_message_reduce_autograd_matches_cpu(cuda, serving):
         g2 = torch.autograd.grad(second, wrt)
         res.append([t.detach().cpu() for t in (out, *grads, *g2)])
     _assert_scaled(res[0], res[1], TAIL_BWD_TOL)
+
+
+def _misaligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` whose storage starts 4 bytes past a
+    16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    assert out.data_ptr() % 16
+    return out
+
+
+@pytest.mark.parametrize("n_rows", TAIL_ROWS)
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_message_forward_with_misaligned_weights_matches_plain(cuda, d, n_rows):
+    """The tensor-core message forward at ragged row counts, its weights
+    copied 4 bytes at a time."""
+    x, p = _tail_inputs(cuda, d, n_rows)
+    args = (x["acc"], _misaligned(x["weights"]), x["mask"], _params(p))
+    _assert_scaled(
+        [tgm.gated_message_fwd(*args)], [tgm.gated_message_plain(*args)],
+        TAIL_FWD_TOL,
+    )
+
+
+def _segment_layout(device, d, seed=21):
+    """Runs of empty segments, one segment longer than any warp's share,
+    short segments, ~10% masked rows and dropped rows at the tail."""
+    rng = np.random.default_rng(seed)
+    counts = np.r_[np.zeros(3_000, int), 60_000, rng.integers(0, 3, 20_000),
+                   np.zeros(500, int), rng.integers(0, 90, 700)]
+    n_out = counts.shape[0]
+    key = np.repeat(np.arange(n_out), counts).astype(np.int32)
+    n_valid = key.shape[0]
+    key = np.r_[key, np.full(1_001, n_out - 1, np.int32)]
+    valid = np.arange(key.shape[0]) < n_valid
+    x, p = _tail_inputs(device, d, key.shape[0], seed)
+    return x, p, _plan(key, valid, n_out, True, device)
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "misaligned"])
+def test_message_reduce_over_empty_and_long_segments_matches_plain(cuda, aligned):
+    x, p, plan = _segment_layout(cuda, 64)
+    weights = x["weights"] if aligned else _misaligned(x["weights"])
+    args = (x["acc"], weights, x["mask"], _params(p), plan.offsets)
+    got = tgm.gated_message_reduce(*args)
+    _assert_scaled([got], [tgm.gated_message_reduce_plain(*args)], REDUCE_TOL)
+    counts = (plan.offsets[1:] - plan.offsets[:-1]).cpu()
+    assert not bool(got[counts.to(cuda) == 0].any())  # empty segments are zero
+
+
+def test_message_reduce_runs_give_equal_bits(cuda):
+    x, p, plan = _segment_layout(cuda, 64, seed=5)
+    args = (x["acc"], x["weights"], x["mask"], _params(p), plan.offsets)
+    a, b = tgm.gated_message_reduce(*args), tgm.gated_message_reduce(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_width_guard_refuses_a_wide_cuda_model_before_any_launch(cuda):
+    """A model wider than the kernels take raises NotImplementedError on
+    the card, at construction and, for a CUDA batch, in compute_batch
+    before any kernel launches; the same model serves on the CPU."""
+    wide = dict(atom_fea_dim=128, atom_conv_hidden_dim=128,
+                graph_converter_algorithm="numpy")
+    ops.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="atom_fea_dim=128"):
+        CHGNet(device=cuda, **wide)
+    cpu_model = CHGNet(device="cpu", **wide)
+    graph = cpu_model.graph_converter(Structure.from_file(LIMNO2))
+    batch = batch_graphs([graph]).to(cuda)
+    params = params_from_jax(init_params(cpu_model.config), cuda)
+    with pytest.raises(NotImplementedError, match="dt <= 64"):
+        compute_batch(params, batch, config=cpu_model.config, compute_force=True)
+    torch.cuda.synchronize()
+    assert all(fn.launches == 0 for fn in ops.KERNELS)
+    e = cpu_model.predict_structure(Structure.from_file(LIMNO2), task="e")["e"]
+    assert np.isfinite(e)
 
 
 @pytest.mark.parametrize(

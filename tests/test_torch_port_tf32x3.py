@@ -1,7 +1,8 @@
 """The numerics of the port's tensor-core products, emulated in numpy.
 
-The redesigned message-tail backward and gather-project-sum kernels
-(``chgnet_tpu_torch/csrc/tf32x3.cuh``) multiply f32 matrices on the TF32
+The redesigned message-tail forward, backward and message-reduce and the
+gather-project-sum kernels (``chgnet_tpu_torch/csrc/tf32x3.cuh``) multiply
+f32 matrices on the TF32
 tensor cores with the 3xTF32 split: hi = tf32(x) (round to nearest, ties
 away: ``(bits + 0x1000) & 0xFFFFE000``), lo = tf32(x - hi), and per 8-deep
 step of k the terms lo_a hi_b, hi_a lo_b, hi_a hi_b added to an f32
@@ -10,7 +11,10 @@ float64, the accumulator rounded to f32 after every term) holds the split
 against a float64 product at the kernels' shapes, under the tolerances that
 ``chip_smoke.py``'s ``KERNELS`` set for those kernels (2e-5 gather-project-
 sum, 1e-5 forward and 1e-4 backward tails, relative to the output's
-largest value), and shows that a single TF32 product would not be.
+largest value), and shows that a single TF32 product would not be. A model
+of the whole message-forward tile (``tail_fwd_tc_kernel``: y = b2 + the
+3xTF32 product over 16-row tiles, two-pass layer norms, the gate, weights
+and mask, all in f32) is held against a float64 forward.
 Runs on the CPU; no card, no JAX.
 """
 
@@ -33,14 +37,17 @@ def tf32(x: np.ndarray) -> np.ndarray:
     return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
 
 
-def tc_product(a: np.ndarray, b: np.ndarray, split: bool) -> np.ndarray:
-    """``a @ b`` as the tensor cores compute it: 3xTF32 with ``split``,
-    else one TF32 product, f32 accumulation over 8-deep steps of k."""
+def tc_product(a: np.ndarray, b: np.ndarray, split: bool, init=None) -> np.ndarray:
+    """``init + a @ b`` as the tensor cores compute it: 3xTF32 with
+    ``split``, else one TF32 product, f32 accumulation from ``init`` (a row
+    broadcast over the rows; zero by default) over 8-deep steps of k."""
     a, b = a.astype(np.float32), b.astype(np.float32)
     a_hi, b_hi = tf32(a), tf32(b)
     a_lo, b_lo = tf32(a - a_hi), tf32(b - b_hi)
     terms = [(a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)] if split else [(a_hi, b_hi)]
     acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    if init is not None:
+        acc += np.asarray(init, np.float32)
     for k in range(0, a.shape[1], 8):
         for x, y in terms:
             part = x[:, k: k + 8].astype(np.float64) @ y[k: k + 8].astype(np.float64)
@@ -118,3 +125,80 @@ def test_gproj_route_follows_the_l2_threshold(n_pairs, n_src, route):
     assert gproj.gproj_route(n_pairs, n_src, 128) == route
     fits = n_pairs * n_src * 128 * 4 <= gproj.SHORT_TABLE_BYTES
     assert fits == (route == "short")
+
+
+# ------------------------------------------- the message forward's tile
+TILE_ROWS = 16  # rows of a warp's tile in tail_fwd_tc_kernel
+
+
+def _ln_f32(y: np.ndarray) -> np.ndarray:
+    """Two-pass layer norm in f32: the mean, then the centred variance."""
+    d = np.float32(y.shape[1])
+    mean = (y.sum(axis=1, dtype=np.float32) / d)[:, None]
+    c = y - mean
+    var = (c * c).sum(axis=1, dtype=np.float32) / d
+    return c * (np.float32(1) / np.sqrt(var + np.float32(1e-5)))[:, None]
+
+
+def _gate_f32(zc, zg, p):
+    cn = zc * p["ncs"] + p["ncb"]
+    gn = zg * p["ngs"] + p["ngb"]
+    return (cn / (np.float32(1) + np.exp(-cn))) * (np.float32(1) / (np.float32(1) + np.exp(-gn)))
+
+
+def message_tile_model(acc, weights, mask, p) -> np.ndarray:
+    """The message forward as ``tail_fwd_tc_kernel`` computes it: the rows
+    in 16-row tiles (the last one ragged, its missing rows zero), y = b2 +
+    silu(acc) @ W per half on the tensor cores (3xTF32, the accumulator
+    starting at b2), the two-pass layer norms, the gate, weights and mask,
+    all in f32."""
+    n_rows, d = weights.shape
+    n_pad = -n_rows % TILE_ROWS
+    acc = np.concatenate([acc, np.zeros((n_pad, 2 * d), np.float32)])
+    h = acc * (np.float32(1) / (np.float32(1) + np.exp(-acc)))
+    yc = tc_product(h[:, :d], p["w2c"], split=True, init=p["b2"][:d])
+    yg = tc_product(h[:, d:], p["w2g"], split=True, init=p["b2"][d:])
+    assert yc.shape[0] % TILE_ROWS == 0
+    gate = _gate_f32(_ln_f32(yc), _ln_f32(yg), p)[:n_rows]
+    return gate * weights * mask[:, None]
+
+
+def message_f64(acc, weights, mask, p) -> np.ndarray:
+    """The message tail in float64."""
+    d = weights.shape[1]
+    acc, f = acc.astype(np.float64), {k: v.astype(np.float64) for k, v in p.items()}
+    h = acc / (1.0 + np.exp(-acc))
+    y = np.concatenate([h[:, :d] @ f["w2c"], h[:, d:] @ f["w2g"]], axis=1) + f["b2"]
+
+    def ln(x):
+        c = x - x.mean(axis=1, keepdims=True)
+        return c / np.sqrt((c * c).mean(axis=1, keepdims=True) + 1e-5)
+
+    cn = ln(y[:, :d]) * f["ncs"] + f["ncb"]
+    gn = ln(y[:, d:]) * f["ngs"] + f["ngb"]
+    gate = cn / (1.0 + np.exp(-cn)) / (1.0 + np.exp(-gn))
+    return gate * weights * mask[:, None]
+
+
+@pytest.mark.parametrize("d", [64, 32])
+def test_message_forward_tile_stays_under_the_forward_tolerance(d):
+    """At the model's scales (the chip run's ``check_autograd`` draws) and
+    a row count that leaves the last 16-row tile ragged, with ~10% of the
+    rows masked."""
+    rng = np.random.default_rng(d)
+    n_rows = 2_000 + 13
+
+    def rand(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    acc, weights = rand(n_rows, 2 * d), rand(n_rows, d)
+    mask = (rng.random(n_rows) < 0.9).astype(np.float32)
+    p = dict(w2c=rand(d, d, scale=0.1), w2g=rand(d, d, scale=0.1),
+             b2=rand(2 * d, scale=0.1), ncs=rand(d), ncb=rand(d, scale=0.1),
+             ngs=rand(d), ngb=rand(d, scale=0.1))
+    got = message_tile_model(acc, weights, mask, p)
+    want = message_f64(acc, weights, mask, p)
+    assert got.shape == want.shape == (n_rows, d)
+    assert not got[mask == 0].any()  # the mask zeroes its rows exactly
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    assert err < TAIL_FWD_TOL, err
