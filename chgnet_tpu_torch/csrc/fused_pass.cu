@@ -10,34 +10,54 @@
 // b2, or y = acc without a second layer; per-half layer norms; silu * sigmoid).
 //
 // Replaces chgnet_tpu/ops/fused_pass.py _kernel (:157, wrapper
-// _fused_pass_pallas :219) -> pass_fwd_kernel, and _bwd_kernel (:393,
-// wrapper _pass_bwd_pallas :526) -> pass_bwd_kernel. The TPU kernels DMA a
-// source window per part and output block and reduce it with one-hot MXU
-// matmuls; here a thread loads its 16-byte unit of each part's row.
+// _fused_pass_pallas :219) -> pass_fwd_tc_kernel, and _bwd_kernel (:393,
+// wrapper _pass_bwd_pallas :526) -> pass_bwd_tc_kernel (serving) and
+// pass_bwd_kernel (with parameter gradients). The TPU kernels DMA a source
+// window per part and output block and reduce it with one-hot MXU matmuls;
+// here each gathered row is read whole, 16 bytes a lane.
 //
 // Bound: a message row reads K index entries, K table rows of 2D floats
 // (short tables stay in L2 and come from device memory once), the aligned
 // row, D weights and the mask, and writes D floats, against 4 D^2 FLOPs of
-// the two diagonal blocks plus the tail's elementwise work: bytes, forward.
-// The backward gathers the same rows again, reads the cotangent and writes
-// d_total [L, 2D] and d_weights: with a second layer it is bound by
-// operations, as the message backward is.
-// Design: 256 threads walk 32-row tiles. Thread (warp, lane) owns rows
-// 4 warp .. 4 warp + 3 and columns 4 lane .. 4 lane + 3 of the tile: it
-// loads its K indices, then its K float4 units, and adds from zero in part
-// order, then the aligned unit, then the bias (the order of the plain
-// version). The 16 sums stay in registers; silu(acc) (or acc itself without
-// a second layer) goes to shared memory in the tails' half-tile layout, and
-// from there the phases are the tails' own (gated_tail.cuh): the 4 x 4
-// register tile of the two diagonal blocks, one warp per row for the norms
-// and the gate. Every phase of a tile reads only what the same warp wrote,
-// so the serving kernels order their phases with __syncwarp; the
-// parameter-gradient mode, whose dW2 sum reads all 32 rows, uses block
-// barriers. The backward multiplies d_h by silu'(acc) from the registers, so
-// acc is not gathered twice. Parameter gradients, d_b1 = sum of d_total
-// among them, go through the fixed kParamBlocks scratch rows and
-// sum_blocks_kernel: no float atomics, equal bits on every run.
+// the two diagonal blocks plus the tail's elementwise work: at D = 64, with
+// the products at the tensor cores' f32-accurate rate (3xTF32), bytes. The
+// backward gathers the same rows again, reads the cotangent and writes
+// d_total [L, 2D] and d_weights: bytes too.
+//
+// Design of the serving kernels (pass_fwd_tc_kernel, pass_bwd_tc_kernel;
+// namespace tcp below): warp-specialised. Producer warps gather: each builds
+// 16-row acc tiles in part order (from zero, each gathered part, the aligned
+// part, then the bias: the plain version's order) in a ring of acc slots in
+// shared memory: the aligned rows copied into the slot (cp.async) while the
+// gathered units load into registers 8 rows at a time, the next tile's
+// indices already loaded.
+// Consumer warps run the tensor-core tails of gated_message.cu on the slots:
+// each owns 16 rows through every phase, with no block barrier in its loop
+// (the forward: row 6's tile, W2 staged pre-split, the statistics from the
+// accumulators, y parked over the slot; the backward: row 7's tile, W2 staged
+// once, swizzled and read in both orientations, silu'(acc) parked over y so
+// that the slot is released before the second product). A slot passes
+// between its producer and its consumer through two mbarriers (full,
+// empty), so the gathers' latency overlaps the consumers' products. A consumer copies its
+// tile's aligned rows (weights and mask, resnet, the cotangent) with cp.async
+// and waits for them only before the row phase. The step loops stay rolled
+// or unrolled twice: a fully unrolled tail outgrows the instruction cache.
+//
+// Design of the backward with parameter gradients (pass_bwd_kernel, not on
+// the serving path): f32 FMAs. 256 threads walk 32-row tiles; thread (warp,
+// lane) owns rows 4 warp .. 4 warp + 3 and columns 4 lane .. 4 lane + 3 of
+// the tile: it loads its K indices, then its K float4 units, and adds them
+// in the same order. The 16 sums stay in registers; silu(acc) (or acc itself
+// without a second layer) goes to shared memory in the tails' half-tile
+// layout, and from there the phases are the tails' own (gated_tail.cuh): the
+// 4 x 4 register tile of the two diagonal blocks, one warp per row for the
+// norms and the gate, block barriers between the phases (the dW2 sum reads
+// all 32 rows). d_h is multiplied by silu'(acc) from the registers.
+// Parameter gradients, d_b1 = sum of d_total among them, go through the
+// fixed kParamBlocks scratch rows and sum_blocks_kernel: no float atomics,
+// equal bits on every run.
 #include "gated_tail.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -51,11 +71,6 @@ struct Parts {
   const float* aligned;  // [L, 2D] or null
   const float* b1;       // [2D]
 };
-
-template <bool kBlock>
-__device__ __forceinline__ void tile_sync() {
-  if (kBlock) __syncthreads(); else __syncwarp();
-}
 
 // acc[j] = columns 4 lane .. + 3 of row row0 + 4 warp + j of the first-layer
 // sum; zero past n_rows and past 2D. A row whose index lies outside its
@@ -115,62 +130,8 @@ __device__ __forceinline__ void store_acc(float* buf,
   }
 }
 
-// ------------------------------------------------------------- forward
+// ------------------------------------ backward with parameter gradients
 template <bool kMsg, bool kW2>
-__global__ void __launch_bounds__(kThreads)
-    pass_fwd_kernel(Tail t, Parts p, const float* __restrict__ weights,
-                    const float* __restrict__ mask,
-                    const float* __restrict__ resnet, float* __restrict__ out,
-                    int n_rows, int d) {
-  extern __shared__ float4 smem4[];
-  float* w_s = reinterpret_cast<float*>(smem4);  // [2][D][D] with W2
-  float* h_s = w_s + (kW2 ? kWeights : 0);       // 2 half tiles with W2
-  float* y_s = h_s + (kW2 ? 2 * kHalf : 0);      // 2 half tiles
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  LaneParams lp;
-  lp.load(t, d, lane);
-  float b[4];
-  if (kW2) {
-    load_bias(t, d, lane, b);
-    stage_weights(w_s, t, d, false);
-    __syncthreads();
-  }
-  const int tiles = (n_rows + kTile - 1) / kTile;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long row0 = (long)tile * kTile;
-    float4 acc[kRowsPerWarp];
-    build_acc(p, row0, n_rows, d, warp, lane, acc);
-    __syncwarp();  // the previous tile's y_s rows of this warp are read
-    store_acc(kW2 ? h_s : y_s, acc, d, warp, lane, kW2);
-    __syncwarp();
-    if (kW2) {
-      float y[kRowsPerWarp][4];
-      tile_product(h_s, w_s, d, warp, lane, y);
-      store_y(y_s, y, b, d, warp, lane);
-      __syncwarp();
-    }
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const int r = warp * kRowsPerWarp + rr;
-      const long l = row0 + r;
-      if (l >= n_rows) break;  // warp-uniform
-      float gate[kPerLane];
-      gate_row(half_tile(y_s, 0) + r * d, half_tile(y_s, 1) + r * d, lp, d, lane,
-               gate);
-      const float m = kMsg ? mask[l] : 0.f;
-#pragma unroll
-      for (int i = 0; i < kPerLane; ++i) {
-        const int e = lane + 32 * i;
-        if (e >= d) continue;
-        out[l * d + e] = kMsg ? gate[i] * weights[l * d + e] * m
-                              : gate[i] + resnet[l * d + e];
-      }
-    }
-  }
-}
-
-// ------------------------------------------------------------ backward
-template <bool kMsg, bool kW2, bool kParams>
 __global__ void __launch_bounds__(kThreads)
     pass_bwd_kernel(Tail t, Parts p, const float* __restrict__ weights,
                     const float* __restrict__ mask, const float* __restrict__ g,
@@ -199,20 +160,20 @@ __global__ void __launch_bounds__(kThreads)
   // whose sums are the tails' vectors 4 and 5)
   ParamSums ps;
   float pb[4] = {0.f, 0.f, 0.f, 0.f};
-  if (kParams) ps.clear();
+  ps.clear();
   const int tiles = (n_rows + kTile - 1) / kTile;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long row0 = (long)tile * kTile;
     float4 acc[kRowsPerWarp];
     build_acc(p, row0, n_rows, d, warp, lane, acc);
-    tile_sync<kParams>();  // the previous tile consumed
+    __syncthreads();  // the previous tile consumed
     store_acc(kW2 ? h_s : y_s, acc, d, warp, lane, kW2);
-    tile_sync<kParams>();
+    __syncthreads();
     if (kW2) {
       float y[kRowsPerWarp][4];
       tile_product(h_s, w_s, d, warp, lane, y);
       store_y(y_s, y, b, d, warp, lane);
-      tile_sync<kParams>();
+      __syncthreads();
     }
     for (int rr = 0; rr < kRowsPerWarp; ++rr) {
       const int r = warp * kRowsPerWarp + rr;
@@ -237,7 +198,7 @@ __global__ void __launch_bounds__(kThreads)
           if (lane == 0) d_mask[l] = dm;
         }
       }
-      if (kParams) ps.add_row(o);
+      ps.add_row(o);
       if (kW2) {  // over y: a lane reads, then writes, its own elements
         store_lane(yc_s, d, lane, o.dyc);
         store_lane(yg_s, d, lane, o.dyg);
@@ -247,7 +208,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     if (kW2) {
-      tile_sync<kParams>();  // d_y of every row in y_s
+      __syncthreads();  // d_y of every row in y_s
       float dh[kRowsPerWarp][4];
       tile_product(y_s, wt_s, d, warp, lane, dh);  // d_h = d_y @ W2^T
       if (col < 2 * d) {
@@ -260,18 +221,15 @@ __global__ void __launch_bounds__(kThreads)
               dh[rr][0] * silu_grad(a.x), dh[rr][1] * silu_grad(a.y),
               dh[rr][2] * silu_grad(a.z), dh[rr][3] * silu_grad(a.w));
           *reinterpret_cast<float4*>(d_total + l * 2 * d + col) = dt;
-          if (kParams) {
-            pb[0] += dt.x;
-            pb[1] += dt.y;
-            pb[2] += dt.z;
-            pb[3] += dt.w;
-          }
+          pb[0] += dt.x;
+          pb[1] += dt.y;
+          pb[2] += dt.z;
+          pb[3] += dt.w;
         }
       }
-      if (kParams) ps.add_tile(h_s, y_s, d);
+      ps.add_tile(h_s, y_s, d);
     }
   }
-  if (!kParams) return;
   // this block's row of partial: [dW2c, dW2g (D x D each), db2 (2D)] with
   // W2, then ncs, ncb, ngs, ngb (D each), then d_b1 (2D): with W2 the
   // warps' column sums of d_total, added in warp order; without it d_total
@@ -296,45 +254,866 @@ __global__ void __launch_bounds__(kThreads)
     }
 }
 
-using FwdFn = void (*)(Tail, Parts, const float*, const float*, const float*,
-                       float*, int, int);
+// --------------------------------------------- serving kernels (tensor cores)
+namespace tcp {
+
+constexpr int kRows = 16;                       // rows of a tile
+constexpr int kSlotFloats = kRows * 2 * kMaxD;  // one acc slot
+constexpr int kRowFloats = kRows * kMaxD;       // weights, resnet or g of a tile
+constexpr int kFragFloats = 64 * 32;            // a [2][8][4] fragment set per lane
+constexpr int kSplitW = 2 * 8 * 8 * 32;         // uint4 B fragments of W2c, W2g
+constexpr int kSwzW = 2 * kMaxD * kMaxD;        // floats of W2c, W2g swizzled
+constexpr int kPrmFloats = 6 * kMaxD;  // b2 (gate half at kMaxD), ncs, ncb, ngs, ngb
+
+// A block's warps: kCons consumers and kProd producers, each producer with a
+// ring of ring() acc slots for its kPer consumers (c % kProd == producer).
+// Measured side by side (PERF.md section 6): fewer producers starve
+// the forward's consumers (8 + 4 warps beat 9 + 3 and 10 + 2); the
+// backward's consumers bind it, so with W2 it keeps one slot per consumer
+// for 8 of them (W2 swizzled, 32 KB) over 6 with two slots or with W2
+// stored pre-split; 12 consumers slowed the forms without W2.
+constexpr int kCons = 8;
+constexpr int kProd = 4;
+constexpr int kBlockWarps = kCons + kProd;
+constexpr int kPer = kCons / kProd;
+__host__ __device__ constexpr int ring(bool bwd, bool w2) { return bwd && w2 ? 2 : 4; }
+
+// floats of a consumer's own buffers: the forward's side rows (weights or
+// resnet) and mask; the backward's g and weights, its parked fragments (with
+// W2) and mask
+__host__ __device__ constexpr int cons_floats(bool bwd, bool w2) {
+  return bwd ? 2 * kRowFloats + (w2 ? kFragFloats : 0) + kRows : kRowFloats + kRows;
+}
+__host__ __device__ constexpr int w_bytes(bool bwd, bool w2) {
+  return !w2 ? 0 : bwd ? kSwzW * 4 : kSplitW * 16;
+}
+// W2, the parameters, the full and empty barriers of every slot, the slots,
+// the consumers' buffers
+template <bool kBwd, bool kW2>
+__host__ __device__ constexpr size_t smem_bytes() {
+  constexpr int kSlots = kProd * ring(kBwd, kW2);
+  return (size_t)w_bytes(kBwd, kW2) + kPrmFloats * 4 + 2 * kSlots * 8 +
+         (size_t)kSlots * kSlotFloats * 4 + (size_t)kCons * cons_floats(kBwd, kW2) * 4;
+}
+static_assert(smem_bytes<false, true>() <= 232448, "over the H100's shared memory a block");
+static_assert(smem_bytes<false, false>() <= 232448, "over the H100's shared memory a block");
+static_assert(smem_bytes<true, true>() <= 232448, "over the H100's shared memory a block");
+static_assert(smem_bytes<true, false>() <= 232448, "over the H100's shared memory a block");
+
+// W_half[k][n] lives at k * kMaxD + (n ^ swz(k)): the B fragments of both
+// W (k = 8 s + q, n = 8 t + gid) and W^T (row n, column k) then hit 32
+// distinct banks.
+__device__ __forceinline__ int swz(int k) {
+  return 4 * (((k & 3) << 1) | ((k >> 2) & 1));
+}
+
+// sigmoid with the fast exponential and division (a few ulp)
+__device__ __forceinline__ float sigm_fast(float x) {
+  return __fdividef(1.f, 1.f + __expf(-x));
+}
+__device__ __forceinline__ float silu_grad_of(float x, float s) {  // s = sigm(x)
+  return s * (1.f + x * (1.f - s));
+}
+
+// A tile row r's column c lives at r * width + (c ^ rswz(r)) (width 2 kMaxD
+// for acc, kMaxD for the side rows): conflict-free A fragments, and 16-byte
+// chunks stay whole; c ^ rswz(r) keeps c in its half.
+__device__ __forceinline__ int rswz(int r) { return 4 * (r & 7); }
+__device__ __forceinline__ int at_acc(int r, int c) {
+  return r * 2 * kMaxD + (c ^ rswz(r));
+}
+__device__ __forceinline__ int at_row(int r, int c) {
+  return r * kMaxD + (c ^ rswz(r));
+}
+
+// ------------------------------------------------------------ mbarriers
+__device__ __forceinline__ void bar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(tc::smem_addr(b)),
+               "r"(count)
+               : "memory");
+}
+
+// this thread's arrival, releasing its shared-memory reads and writes
+__device__ __forceinline__ void bar_arrive(uint64_t* b) {
+  asm volatile(
+      "{\n\t.reg .b64 st;\n\t"
+      "mbarrier.arrive.shared::cta.b64 st, [%0];\n\t}\n" ::"r"(tc::smem_addr(b))
+      : "memory");
+}
+
+// until the phase of the given parity has completed
+__device__ __forceinline__ void bar_wait(uint64_t* b, uint32_t parity) {
+  asm volatile(
+      "{\n\t.reg .pred done;\n\t"
+      "WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n\t"
+      "@!done bra WAIT;\n\t}\n" ::"r"(tc::smem_addr(b)),
+      "r"(parity)
+      : "memory");
+}
+
+// ------------------------------------------------------------- set-up
+// The block's set-up, ended by its only barrier: W2 (the forward: split B
+// fragments, wf[((h * 8 + ks) * 8 + nt) * 32 + lane] for the 8-deep step ks
+// and the 8-column tile nt of half h; the backward: swizzled), zero past D;
+// b2 and the layer-norm vectors, zero past D; the consumers' buffers zeroed
+// (the copies never write the columns past D); every slot's two barriers,
+// one arrival of each lane of a warp a phase.
+template <bool kBwd, bool kW2>
+__device__ void stage(void* w, float* prm, uint64_t* bars, float* cons, const Tail& t,
+                      int d) {
+  if (kW2 && !kBwd) {
+    uint4* wf = static_cast<uint4*>(w);
+    for (int i = threadIdx.x; i < kSplitW; i += blockDim.x) {
+      const int n = ((i >> 5) & 7) * 8 + ((i & 31) >> 2);
+      const int k0 = ((i >> 8) & 7) * 8 + (i & 3);
+      const int k1 = k0 + 4;
+      const float* src = (i >> 11) ? t.w2g : t.w2c;
+      wf[i] = tc::split_pair(k0 < d && n < d ? src[k0 * d + n] : 0.f,
+                             k1 < d && n < d ? src[k1 * d + n] : 0.f);
+    }
+  }
+  if (kW2 && kBwd) {
+    float* ws = static_cast<float*>(w);
+    for (int i = threadIdx.x; i < kSwzW; i += blockDim.x) {
+      const int h = i / (kMaxD * kMaxD);
+      const int k = (i / kMaxD) % kMaxD;
+      const int n = i % kMaxD;
+      const float v = k < d && n < d ? (h ? t.w2g : t.w2c)[k * d + n] : 0.f;
+      ws[h * kMaxD * kMaxD + k * kMaxD + (n ^ swz(k))] = v;
+    }
+  }
+  for (int i = threadIdx.x; i < 2 * kMaxD; i += blockDim.x) {
+    const int h = i / kMaxD;
+    const int e = i % kMaxD;
+    prm[i] = kW2 && e < d ? t.b2[h * d + e] : 0.f;
+    if (h == 0) {
+      prm[2 * kMaxD + e] = e < d ? t.ncs[e] : 0.f;
+      prm[3 * kMaxD + e] = e < d ? t.ncb[e] : 0.f;
+      prm[4 * kMaxD + e] = e < d ? t.ngs[e] : 0.f;
+      prm[5 * kMaxD + e] = e < d ? t.ngb[e] : 0.f;
+    }
+  }
+  for (int i = threadIdx.x; i < kCons * cons_floats(kBwd, kW2); i += blockDim.x)
+    cons[i] = 0.f;
+  if (threadIdx.x < 2 * kProd * ring(kBwd, kW2)) bar_init(bars + threadIdx.x, 32);
+  __syncthreads();
+}
+
+// --------------------------------------------------------- producers
+// Job j of producer pw: iteration j / kPer of its consumer (j % kPer) kProd
+// + pw, whose tiles are blockIdx.x kCons + c + i step. Tiles grow with j.
+__device__ __forceinline__ long job_tile(int j, int pw, int step) {
+  return (long)blockIdx.x * kCons + (j % kPer) * kProd + pw + (long)(j / kPer) * step;
+}
+
+// lane r < 16: the indices of row r of the tile (-1 past n_rows)
+__device__ __forceinline__ void load_idx(const Parts& p, long tile, int n_rows,
+                                         int lane, int s[kMaxParts]) {
+  const long l = tile * kRows + lane;
+#pragma unroll
+  for (int k = 0; k < kMaxParts; ++k)
+    s[k] = lane < kRows && l < n_rows && k < p.n_parts ? __ldg(p.idx[k] + l) : -1;
+}
+
+// The acc tile of the 16 rows from row0 into slot: lane u owns half u / 16,
+// columns 4 (u % 16) .. + 3 of it, and writes zeros past D and past n_rows,
+// so every column the tails read is rewritten. The aligned rows are copied
+// into the slot (cp.async) while the kParts gathered parts' 16-byte loads,
+// 8 rows of them, are in flight in registers; then each unit is summed
+// from zero in part order, plus the aligned unit, plus the bias. s: the
+// tile's indices, row r's in lane r.
+template <int kParts>
+__device__ __forceinline__ void build_tile(float* slot, const Parts& p,
+                                           const int s[kMaxParts], long row0,
+                                           int n_rows, int d, int lane,
+                                           float4 bias) {
+  constexpr int kGroup = 8;  // 16 rows of 2 parts spill at 168 registers
+  const int h = lane >> 4;
+  const int cu = 4 * (lane & 15);
+  const bool live = cu < d;
+  const int col = h * d + cu;
+  const bool aligned = p.aligned != nullptr;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (aligned) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const long l = row0 + r;
+      const bool ok = live && l < n_rows;
+      const float* src = p.aligned + (ok ? l : 0) * 2 * d + col;
+      tc::copy16(slot + at_acc(r, h * kMaxD + cu), src, ok);
+    }
+  }
+  tc::commit();
+#pragma unroll 1
+  for (int r0 = 0; r0 < kRows; r0 += kGroup) {
+    float4 v[kGroup][kParts];
+#pragma unroll
+    for (int gr = 0; gr < kGroup; ++gr) {
+#pragma unroll
+      for (int k = 0; k < kParts; ++k) {
+        const int sk = __shfl_sync(0xffffffffu, s[k], r0 + gr);
+        const float* src = p.table[k] + (long)sk * 2 * d + col;
+        v[gr][k] = live && sk >= 0 && sk < p.n_src[k]
+                       ? __ldg(reinterpret_cast<const float4*>(src))
+                       : zero;
+      }
+    }
+    tc::wait_pending<0>();  // this lane's aligned units
+#pragma unroll
+    for (int gr = 0; gr < kGroup; ++gr) {
+      const int r = r0 + gr;
+      float4* unit = reinterpret_cast<float4*>(slot + at_acc(r, h * kMaxD + cu));
+      float4 a = zero;
+      if (live && row0 + r < n_rows) {
+#pragma unroll
+        for (int k = 0; k < kParts; ++k) chgnet::vadd(a, v[gr][k]);
+        if (aligned) chgnet::vadd(a, *unit);
+        chgnet::vadd(a, bias);
+      }
+      *unit = a;
+    }
+  }
+}
+
+// A producer warp: its jobs in order, each into the next slot of its ring
+// once the consumer has released that slot's previous tile; the next job's
+// indices load while this one builds.
+template <int kRing>
+__device__ void produce(const Parts& p, float* slots, uint64_t* full,
+                        uint64_t* empty, int n_rows, int d, int pw, int lane) {
+  const int n_tiles = (n_rows + kRows - 1) / kRows;
+  const int step = gridDim.x * kCons;
+  const int cu = 4 * (lane & 15);
+  const float4 bias =
+      cu < d ? __ldg(reinterpret_cast<const float4*>(p.b1 + (lane >> 4) * d + cu))
+             : make_float4(0.f, 0.f, 0.f, 0.f);
+  int s[kMaxParts];
+  long tile = job_tile(0, pw, step);
+  if (tile < n_tiles) load_idx(p, tile, n_rows, lane, s);
+  for (int j = 0; tile < n_tiles; ++j) {
+    const long next = job_tile(j + 1, pw, step);
+    int sn[kMaxParts] = {-1, -1, -1};
+    if (next < n_tiles) load_idx(p, next, n_rows, lane, sn);
+    const int k = pw * kRing + j % kRing;
+    bar_wait(empty + k, ((j / kRing) & 1) ^ 1);
+    float* slot = slots + k * kSlotFloats;
+    const long row0 = tile * kRows;
+    switch (p.n_parts) {
+      case 1: build_tile<1>(slot, p, s, row0, n_rows, d, lane, bias); break;
+      case 2: build_tile<2>(slot, p, s, row0, n_rows, d, lane, bias); break;
+      default: build_tile<3>(slot, p, s, row0, n_rows, d, lane, bias); break;
+    }
+    bar_arrive(full + k);
+#pragma unroll
+    for (int kk = 0; kk < kMaxParts; ++kk) s[kk] = sn[kk];
+    tile = next;
+  }
+}
+
+// ---------------------------------------------------- consumer helpers
+// Copies of the side rows (weights or resnet, [L, D]) of the 16 rows from
+// row0, and with kMsg their mask entries (zeros from n_rows on); vec: side
+// 16-byte aligned. The caller commits them.
+template <bool kMsg>
+__device__ __forceinline__ void fetch_side(float* w_s, float* m_s, const float* side,
+                                           const float* mask, long row0, int n_rows,
+                                           int d, bool vec, int lane) {
+  const int unit = vec ? 4 : 1;  // floats a copy
+  const int per_row = d / unit;
+  for (int i = lane; i < kRows * per_row; i += 32) {
+    const int r = i / per_row;
+    const int c = (i - r * per_row) * unit;
+    const long l = row0 + r;
+    const bool ok = l < n_rows;
+    const float* src = side + (ok ? l : 0) * d + c;
+    if (vec)
+      tc::copy16(w_s + at_row(r, c), src, ok);
+    else
+      tc::copy4(w_s + at_row(r, c), src, ok);
+  }
+  if (kMsg && lane < kRows) {
+    const long l = row0 + lane;
+    tc::copy4(m_s + lane, mask + (l < n_rows ? l : 0), l < n_rows);
+  }
+}
+
+// Copies of the g, weights and mask rows of the 16 rows from row0; vec: g
+// and weights 16-byte aligned. The caller commits them.
+template <bool kMsg>
+__device__ __forceinline__ void fetch_rows(float* g_s, float* wv_s, float* m_s,
+                                           const float* g, const float* weights,
+                                           const float* mask, long row0, int n_rows,
+                                           int d, bool vec, int lane) {
+  fetch_side<false>(g_s, nullptr, g, nullptr, row0, n_rows, d, vec, lane);
+  if (kMsg) fetch_side<true>(wv_s, m_s, weights, mask, row0, n_rows, d, vec, lane);
+}
+
+// y[h] += the warp's 16 rows of silu(A_h) @ W_h over all kMaxD columns,
+// A_h the slot's half h, W_h from the split fragments. The step loop is
+// unrolled twice only, so that one step's loads overlap the other's products.
+__device__ __forceinline__ void product_split(const float* acc_s, const uint4* wf,
+                                              int d8, int lane, float y[2][8][4]) {
+  const int gid = lane >> 2;
+  const int q = lane & 3;
+  const int s = rswz(gid);  // rows gid and gid + 8 alike
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float* a = acc_s + gid * 2 * kMaxD + h * kMaxD;
+#pragma unroll 2
+    for (int ks = 0; ks < d8; ++ks) {
+      const int k0 = ks * 8 + q;
+      const int k1 = k0 + 4;
+      float av[4] = {a[k0 ^ s], a[16 * kMaxD + (k0 ^ s)], a[k1 ^ s],
+                     a[16 * kMaxD + (k1 ^ s)]};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] *= sigm_fast(av[i]);
+      uint32_t hi[4], lo[4];
+      tc::split_a(av, hi, lo);
+      const uint4* b = wf + (h * 8 + ks) * 8 * 32 + lane;
+      uint4 bf[8];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) bf[nt] = b[nt * 32];
+      tc::mma3_tiles_split<8>(y[h], hi, lo, bf);
+    }
+  }
+}
+
+// out[h][nt] += the warp's 16 rows of A_h @ W_h, or @ W_h^T with kT, over
+// all kMaxD columns (W swizzled, zero-padded); A_h's row r, column c at
+// a_h[r * width + (c ^ rswz(r))]; kAct: silu of A first. The step loop is
+// unrolled twice only (2% faster than rolled, PERF.md section 6).
+template <bool kT, bool kAct>
+__device__ __forceinline__ void product(const float* a0, const float* a1, int width,
+                                        const float* w_s, int d8, int lane,
+                                        float out[2][8][4]) {
+  const int gid = lane >> 2;
+  const int q = lane & 3;
+  const int s = rswz(gid);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float* a = (h ? a1 : a0) + gid * width;
+    const float* w = w_s + h * kMaxD * kMaxD;
+#pragma unroll 2
+    for (int ks = 0; ks < d8; ++ks) {
+      const int k0 = ks * 8 + q;
+      const int k1 = k0 + 4;
+      float av[4] = {a[k0 ^ s], a[8 * width + (k0 ^ s)], a[k1 ^ s],
+                     a[8 * width + (k1 ^ s)]};
+      if (kAct) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) av[i] *= sigm_fast(av[i]);
+      }
+      uint32_t hi[4], lo[4];
+      tc::split_a(av, hi, lo);
+      float b[8][2];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int n = nt * 8 + gid;
+        if (kT) {
+          b[nt][0] = w[n * kMaxD + (k0 ^ swz(n))];
+          b[nt][1] = w[n * kMaxD + (k1 ^ swz(n))];
+        } else {
+          b[nt][0] = w[k0 * kMaxD + (n ^ swz(k0))];
+          b[nt][1] = w[k1 * kMaxD + (n ^ swz(k1))];
+        }
+      }
+      tc::mma3_tiles<8>(out[h], hi, lo, b);
+    }
+  }
+}
+
+// A [2][8][4] accumulator set: zeroed, and parked in shared memory per lane
+// (f_s[((h * 8 + nt) * 4 + j) * 32 + lane])
+__device__ __forceinline__ void zero(float v[2][8][4]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[h][nt][j] = 0.f;
+}
+__device__ __forceinline__ void park(float* f_s, const float v[2][8][4], int lane) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) f_s[((h * 8 + nt) * 4 + j) * 32 + lane] = v[h][nt][j];
+}
+
+// The two-pass layer-norm statistics (mean, then inverse deviation) of the
+// half rows gid, gid + 8 of a tile whose element (h, nt, j) - row gid + 8
+// (j >> 1), column 8 nt + 2 q + (j & 1) of half h - y_at gives, in rolled
+// loops; every lane of a quad ends with its rows' values.
+template <typename YAt>
+__device__ __forceinline__ void row_stats(YAt y_at, int d, int q, float mean[2][2],
+                                          float inv[2][2]) {
+  const int d8 = (d + 7) / 8;
+  const float inv_d = 1.f / d;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) mean[h][0] = mean[h][1] = inv[h][0] = inv[h][1] = 0.f;
+#pragma unroll 1
+  for (int nt = 0; nt < d8; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (nt * 8 + 2 * q + (j & 1) < d) mean[h][j >> 1] += y_at(h, nt, j);
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) mean[h][rr] = tc::quad_sum(mean[h][rr]) * inv_d;
+#pragma unroll 1
+  for (int nt = 0; nt < d8; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (nt * 8 + 2 * q + (j & 1) < d) {
+          const float c = y_at(h, nt, j) - mean[h][j >> 1];
+          inv[h][j >> 1] = fmaf(c, c, inv[h][j >> 1]);
+        }
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+      inv[h][rr] = rsqrtf(tc::quad_sum(inv[h][rr]) * inv_d + kEps);
+}
+
+// row_stats of y held in registers, fully unrolled (a rolled loop would
+// send y to local memory); y is exactly 0 past D, so the means sum it all
+__device__ __forceinline__ void reg_stats(const float y[2][8][4], int d, int q,
+                                          float mean[2][2], float inv[2][2]) {
+  const float inv_d = 1.f / d;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) mean[h][0] = mean[h][1] = inv[h][0] = inv[h][1] = 0.f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mean[h][j >> 1] += y[h][nt][j];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) mean[h][rr] = tc::quad_sum(mean[h][rr]) * inv_d;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (nt * 8 + 2 * q + (j & 1) < d) {
+          const float c = y[h][nt][j] - mean[h][j >> 1];
+          inv[h][j >> 1] = fmaf(c, c, inv[h][j >> 1]);
+        }
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+      inv[h][rr] = rsqrtf(tc::quad_sum(inv[h][rr]) * inv_d + kEps);
+}
+
+// The block's shared memory: W2, the parameters, the slots' full and empty
+// barriers, the slots, the consumers' buffers
+template <bool kBwd, bool kW2>
+struct Layout {
+  static constexpr int kSlots = kProd * ring(kBwd, kW2);
+  void* w;
+  float* prm;
+  uint64_t* full;
+  uint64_t* empty;
+  float* slots;
+  float* cons;
+  __device__ explicit Layout(float4* base) {
+    char* at = reinterpret_cast<char*>(base);
+    w = at;
+    prm = reinterpret_cast<float*>(at + w_bytes(kBwd, kW2));
+    full = reinterpret_cast<uint64_t*>(prm + kPrmFloats);
+    empty = full + kSlots;
+    slots = reinterpret_cast<float*>(empty + kSlots);
+    cons = slots + kSlots * kSlotFloats;
+  }
+};
+
+// ------------------------------------------------------------ forward
+// The consumer of an acc tile: with W2, y = b2 + silu(acc) @ blockdiag(W2c,
+// W2g) on the tensor cores (3xTF32), the statistics from the accumulators,
+// y parked over the slot; without, y = acc read from the slot. Then the gate
+// times weights and mask, or plus resnet.
+template <bool kMsg, bool kW2>
+__global__ void __launch_bounds__(32 * kBlockWarps, 1)
+    pass_fwd_tc_kernel(Tail t, Parts p, const float* __restrict__ side,
+                       const float* __restrict__ mask, float* __restrict__ out,
+                       int n_rows, int d, int vec) {
+  constexpr int kRing = ring(false, kW2);
+  extern __shared__ float4 smem4[];
+  const Layout<false, kW2> s(smem4);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  stage<false, kW2>(s.w, s.prm, s.full, s.cons, t, d);
+  if (warp >= kCons) {
+    produce<kRing>(p, s.slots, s.full, s.empty, n_rows, d, warp - kCons, lane);
+    return;
+  }
+  const uint4* wf = static_cast<const uint4*>(s.w);
+  float* w_s = s.cons + warp * cons_floats(false, kW2);  // weights or resnet
+  float* m_s = w_s + kRowFloats;
+  const float* ncs_s = s.prm + 2 * kMaxD;
+  const float* ncb_s = ncs_s + kMaxD;
+  const float* ngs_s = ncb_s + kMaxD;
+  const float* ngb_s = ngs_s + kMaxD;
+  const int gid = lane >> 2;
+  const int q = lane & 3;
+  const int d8 = (d + 7) / 8;
+  const int first = (warp % kProd) * kRing;  // this warp's producer's slots
+  const int member = warp / kProd;
+  const int n_tiles = (n_rows + kRows - 1) / kRows;
+  const int step = gridDim.x * kCons;
+  int tile = blockIdx.x * kCons + warp;
+  if (tile < n_tiles)
+    fetch_side<kMsg>(w_s, m_s, side, mask, (long)tile * kRows, n_rows, d, vec, lane);
+  tc::commit();
+  for (int i = 0; tile < n_tiles; ++i, tile += step) {
+    const long row0 = (long)tile * kRows;
+    const int j = i * kPer + member;
+    const int k = first + j % kRing;
+    float* acc_s = s.slots + k * kSlotFloats;
+    bar_wait(s.full + k, (j / kRing) & 1);
+    float mean[2][2], inv[2][2];
+    if (kW2) {
+      // y = b2 + silu(acc) @ blockdiag(W2c, W2g); exactly 0 past D
+      float y[2][8][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            y[h][nt][jj] = s.prm[h * kMaxD + nt * 8 + 2 * q + (jj & 1)];
+      product_split(acc_s, wf, d8, lane, y);
+      reg_stats(y, d, q, mean, inv);
+      tc::wait_pending<0>();  // the side rows
+      __syncwarp();           // every lane's A fragments read: y parks over them
+      park(acc_s, y, lane);
+    } else {
+      row_stats([&](int h, int nt, int jj) {
+        return acc_s[at_acc(gid + 8 * (jj >> 1), h * kMaxD + nt * 8 + 2 * q + (jj & 1))];
+      }, d, q, mean, inv);
+      tc::wait_pending<0>();
+      __syncwarp();
+    }
+    // the gate, times weights and mask or plus resnet; with W2 a lane reads
+    // back only its own parked values
+#pragma unroll 2
+    for (int nt = 0; nt < d8; ++nt)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int r = gid + 8 * rr;
+        const int e0 = nt * 8 + 2 * q;
+        float v[2];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int jx = 2 * rr + jj;
+          const int e = e0 + jj;
+          const float yc = kW2 ? acc_s[(nt * 4 + jx) * 32 + lane] : acc_s[at_acc(r, e)];
+          const float yg = kW2 ? acc_s[((8 + nt) * 4 + jx) * 32 + lane]
+                               : acc_s[at_acc(r, kMaxD + e)];
+          const float zc = (yc - mean[0][rr]) * inv[0][rr];
+          const float zg = (yg - mean[1][rr]) * inv[1][rr];
+          const float cn = fmaf(zc, ncs_s[e], ncb_s[e]);
+          const float gate =
+              cn * sigm_fast(cn) * sigm_fast(fmaf(zg, ngs_s[e], ngb_s[e]));
+          const float sv = w_s[at_row(r, e)];
+          v[jj] = kMsg ? gate * sv * m_s[r] : gate + sv;
+        }
+        const long l = row0 + r;
+        if (e0 < d && l < n_rows)
+          *reinterpret_cast<float2*>(out + l * d + e0) = make_float2(v[0], v[1]);
+      }
+    __syncwarp();  // the slot and the side rows read
+    bar_arrive(s.empty + k);
+    if (tile + step < n_tiles)
+      fetch_side<kMsg>(w_s, m_s, side, mask, row0 + (long)step * kRows, n_rows, d,
+                       vec, lane);
+    tc::commit();
+  }
+}
+
+// ----------------------------------------------------------- backward
+// The consumer of an acc tile, serving (no parameter gradients): with W2,
+// y = b2 + silu(acc) @ W2 parked per lane; the statistics; then, once g,
+// weights and mask have landed, the gate's backward (d_weights, d_mask),
+// d_y in place over g and weights (or straight to d_total without W2);
+// silu'(acc) parked over y and the slot released; d_total = (d_y @ W2^T) *
+// silu'(acc), both products on the tensor cores.
+template <bool kMsg, bool kW2>
+__global__ void __launch_bounds__(32 * kBlockWarps, 1)
+    pass_bwd_tc_kernel(Tail t, Parts p, const float* __restrict__ weights,
+                       const float* __restrict__ mask, const float* __restrict__ g,
+                       float* __restrict__ d_total, float* __restrict__ d_weights,
+                       float* __restrict__ d_mask, int n_rows, int d, int vec) {
+  constexpr int kRing = ring(true, kW2);
+  extern __shared__ float4 smem4[];
+  const Layout<true, kW2> s(smem4);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  stage<true, kW2>(s.w, s.prm, s.full, s.cons, t, d);
+  if (warp >= kCons) {
+    produce<kRing>(p, s.slots, s.full, s.empty, n_rows, d, warp - kCons, lane);
+    return;
+  }
+  const float* w_s = static_cast<const float*>(s.w);
+  const float* b2_s = s.prm;
+  const float* ncs_s = s.prm + 2 * kMaxD;
+  const float* ncb_s = ncs_s + kMaxD;
+  const float* ngs_s = ncb_s + kMaxD;
+  const float* ngb_s = ngs_s + kMaxD;
+  // this warp's buffers: g and weights, whose slots take gz and then d_y's
+  // core and gate halves once read; the parked fragments (y, then d_h); the
+  // mask
+  float* g_s = s.cons + warp * cons_floats(true, kW2);
+  float* wv_s = g_s + kRowFloats;
+  float* f_s = wv_s + kRowFloats;  // with W2
+  float* m_s = f_s + (kW2 ? kFragFloats : 0);
+  const int gid = lane >> 2;
+  const int q = lane & 3;
+  const int d8 = (d + 7) / 8;
+  const float inv_d = 1.f / d;
+  const int first = (warp % kProd) * kRing;  // this warp's producer's slots
+  const int member = warp / kProd;
+  const int n_tiles = (n_rows + kRows - 1) / kRows;
+  const int step = gridDim.x * kCons;
+  int tile = blockIdx.x * kCons + warp;
+  if (tile < n_tiles)
+    fetch_rows<kMsg>(g_s, wv_s, m_s, g, weights, mask, (long)tile * kRows, n_rows, d,
+                     vec, lane);
+  tc::commit();
+  for (int i = 0; tile < n_tiles; ++i, tile += step) {
+    const long row0 = (long)tile * kRows;
+    const int j = i * kPer + member;
+    const int k = first + j % kRing;
+    const float* acc_s = s.slots + k * kSlotFloats;
+    bar_wait(s.full + k, (j / kRing) & 1);
+
+    // y = silu(acc) @ blockdiag(W2c, W2g) + b2, or acc. Element (h, nt, j):
+    // row gid + 8 (j >> 1), column 8 nt + 2 q + (j & 1) of half h.
+    if (kW2) {
+      float y[2][8][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            y[h][nt][jj] = b2_s[h * kMaxD + nt * 8 + 2 * q + (jj & 1)];
+      product<false, true>(acc_s, acc_s + kMaxD, 2 * kMaxD, w_s, d8, lane, y);
+      park(f_s, y, lane);
+    }
+    auto y_at = [&](int h, int nt, int jj) {
+      return kW2 ? f_s[((h * 8 + nt) * 4 + jj) * 32 + lane]
+                 : acc_s[at_acc(gid + 8 * (jj >> 1), h * kMaxD + nt * 8 + 2 * q + (jj & 1))];
+    };
+    float mean[2][2], inv[2][2];
+    row_stats(y_at, d, q, mean, inv);
+    // z of element (h, nt, j), zero past D
+    auto z_at = [&](int h, int nt, int jj) {
+      return nt * 8 + 2 * q + (jj & 1) < d
+                 ? (y_at(h, nt, jj) - mean[h][jj >> 1]) * inv[h][jj >> 1]
+                 : 0.f;
+    };
+    tc::wait_pending<0>();  // g, weights and mask
+    __syncwarp();
+
+    // the gate's backward (gate_row_bwd's arithmetic): d_weights, d_mask,
+    // and the layer norms' gz = d_out * scale with their sums; a lane writes
+    // gz over the g and weights slots it has just read
+    float s1[2][2] = {}, s2[2][2] = {}, mask_part[2] = {};
+#pragma unroll 1
+    for (int nt = 0; nt < d8; ++nt) {
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int r = gid + 8 * rr;
+        const float m = kMsg ? m_s[r] : 1.f;
+        float dw[2];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int e = nt * 8 + 2 * q + jj;
+          const int at = at_row(r, e);
+          const float zc = z_at(0, nt, 2 * rr + jj);
+          const float zg = z_at(1, nt, 2 * rr + jj);
+          const float cn = fmaf(zc, ncs_s[e], ncb_s[e]);
+          const float gn = fmaf(zg, ngs_s[e], ngb_s[e]);
+          const float sig_cn = sigm_fast(cn);
+          const float silu_cn = cn * sig_cn;
+          const float sig_gn = sigm_fast(gn);
+          const float gv = g_s[at];  // zero past D
+          float up = gv;
+          if (kMsg) {
+            const float wv = wv_s[at];
+            mask_part[rr] = fmaf(gv, silu_cn * sig_gn * wv, mask_part[rr]);
+            up = gv * wv * m;
+            dw[jj] = gv * silu_cn * sig_gn * m;
+          }
+          const float gzc = up * sig_gn * silu_grad_of(cn, sig_cn) * ncs_s[e];
+          const float gzg = up * silu_cn * sig_gn * (1.f - sig_gn) * ngs_s[e];
+          s1[0][rr] += gzc;
+          s2[0][rr] = fmaf(gzc, zc, s2[0][rr]);
+          s1[1][rr] += gzg;
+          s2[1][rr] = fmaf(gzg, zg, s2[1][rr]);
+          g_s[at] = gzc;
+          wv_s[at] = gzg;
+        }
+        const long l = row0 + r;
+        const int e0 = nt * 8 + 2 * q;
+        if (kMsg && e0 < d && l < n_rows)
+          *reinterpret_cast<float2*>(d_weights + l * d + e0) = make_float2(dw[0], dw[1]);
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const long l = row0 + gid + 8 * rr;
+      if (kMsg && d_mask != nullptr) {
+        const float dm = tc::quad_sum(mask_part[rr]);
+        if (q == 0 && l < n_rows) d_mask[l] = dm;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        s1[h][rr] = tc::quad_sum(s1[h][rr]) * inv_d;
+        s2[h][rr] = tc::quad_sum(s2[h][rr]) * inv_d;
+      }
+    // d_y = (gz - mean(gz) - z mean(gz z)) * inv, zero past D: in place with
+    // W2, else straight to d_total
+#pragma unroll 1
+    for (int nt = 0; nt < d8; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int r = gid + 8 * rr;
+          const long l = row0 + r;
+          const int e0 = nt * 8 + 2 * q;
+          float* half = h ? wv_s : g_s;
+          float dy[2];
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            float* pv = half + at_row(r, e0 + jj);
+            dy[jj] = e0 + jj < d
+                         ? (*pv - s1[h][rr] - z_at(h, nt, 2 * rr + jj) * s2[h][rr]) *
+                               inv[h][rr]
+                         : 0.f;
+            if (kW2) *pv = dy[jj];
+          }
+          if (!kW2 && e0 < d && l < n_rows)
+            *reinterpret_cast<float2*>(d_total + l * 2 * d + h * d + e0) =
+                make_float2(dy[0], dy[1]);
+        }
+
+    if (kW2) {
+      // silu'(acc) of the lane's elements over its parked y, which the d_y
+      // loop has read: the slot is then free for the producer while d_h is
+      // computed
+#pragma unroll 1
+      for (int nt = 0; nt < d8; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const float a =
+                acc_s[at_acc(gid + 8 * (jj >> 1), h * kMaxD + nt * 8 + 2 * q + (jj & 1))];
+            f_s[((h * 8 + nt) * 4 + jj) * 32 + lane] = silu_grad_of(a, sigm_fast(a));
+          }
+    }
+    __syncwarp();  // the slot read; with W2 the warp's d_y rows in g_s and wv_s
+    bar_arrive(s.empty + k);
+    if (kW2) {
+      // d_total = (d_y @ W2^T) * silu'(acc), from the accumulators
+      float dh[2][8][4];
+      zero(dh);
+      product<true, false>(g_s, wv_s, kMaxD, w_s, d8, lane, dh);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const long l = row0 + gid + 8 * rr;
+            const int e0 = nt * 8 + 2 * q;
+            if (e0 >= d || l >= n_rows) continue;
+            const float* sg = f_s + ((h * 8 + nt) * 4 + 2 * rr) * 32 + lane;
+            *reinterpret_cast<float2*>(d_total + l * 2 * d + h * d + e0) =
+                make_float2(dh[h][nt][2 * rr] * sg[0], dh[h][nt][2 * rr + 1] * sg[32]);
+          }
+      __syncwarp();  // d_y read
+    }
+    if (tile + step < n_tiles)
+      fetch_rows<kMsg>(g_s, wv_s, m_s, g, weights, mask, row0 + (long)step * kRows,
+                       n_rows, d, vec, lane);
+    tc::commit();
+  }
+}
+
+}  // namespace tcp
+
+using TcFwdFn = void (*)(Tail, Parts, const float*, const float*, float*, int, int,
+                         int);
+using TcBwdFn = void (*)(Tail, Parts, const float*, const float*, const float*,
+                         float*, float*, float*, int, int, int);
 using BwdFn = void (*)(Tail, Parts, const float*, const float*, const float*,
                        float*, float*, float*, float*, int, int);
-
-size_t fwd_smem(bool w2) {
-  return (w2 ? kWeights + 4 * kHalf : 2 * kHalf) * sizeof(float);
-}
 
 size_t bwd_smem(bool w2) {
   return (w2 ? 2 * kWeights + 4 * kHalf : 2 * kHalf) * sizeof(float);
 }
 
 template <bool kMsg, bool kW2>
-Kernel<FwdFn> fwd_instance() {
+Kernel<TcFwdFn> fwd_instance() {
   static std::atomic<int> waves[kMaxDevices];
-  return {pass_fwd_kernel<kMsg, kW2>, fwd_smem(kW2), waves};
+  return {tcp::pass_fwd_tc_kernel<kMsg, kW2>, tcp::smem_bytes<false, kW2>(), waves};
 }
 
-template <bool kMsg, bool kW2, bool kParams>
+template <bool kMsg, bool kW2>
+Kernel<TcBwdFn> tc_bwd_instance() {
+  static std::atomic<int> waves[kMaxDevices];
+  return {tcp::pass_bwd_tc_kernel<kMsg, kW2>, tcp::smem_bytes<true, kW2>(), waves};
+}
+
+template <bool kMsg, bool kW2>
 Kernel<BwdFn> bwd_instance() {
   static std::atomic<int> waves[kMaxDevices];
-  return {pass_bwd_kernel<kMsg, kW2, kParams>, bwd_smem(kW2), waves};
+  return {pass_bwd_kernel<kMsg, kW2>, bwd_smem(kW2), waves};
 }
 
-Kernel<FwdFn> fwd_kernel(bool msg, bool w2) {
+Kernel<TcFwdFn> fwd_kernel(bool msg, bool w2) {
   if (msg) return fwd_instance<true, true>();
   return w2 ? fwd_instance<false, true>() : fwd_instance<false, false>();
 }
 
-Kernel<BwdFn> bwd_kernel(bool msg, bool w2, bool params) {
-  if (msg)
-    return params ? bwd_instance<true, true, true>()
-                  : bwd_instance<true, true, false>();
-  if (w2)
-    return params ? bwd_instance<false, true, true>()
-                  : bwd_instance<false, true, false>();
-  return params ? bwd_instance<false, false, true>()
-                : bwd_instance<false, false, false>();
+// the serving backward
+Kernel<TcBwdFn> tc_bwd_kernel(bool msg, bool w2) {
+  if (msg) return tc_bwd_instance<true, true>();
+  return w2 ? tc_bwd_instance<false, true>() : tc_bwd_instance<false, false>();
+}
+
+// the backward with parameter gradients
+Kernel<BwdFn> bwd_kernel(bool msg, bool w2) {
+  if (msg) return bwd_instance<true, true>();
+  return w2 ? bwd_instance<false, true>() : bwd_instance<false, false>();
+}
+
+// blocks of a tensor-core launch: enough for every consumer's first tile,
+// at most one wave (negative: minus a cudaError_t)
+template <typename Fn>
+int tc_grid(const Kernel<Fn>& k, int n_rows) {
+  const int wave = wave_blocks(k, 32 * tcp::kBlockWarps);
+  if (wave < 0) return wave;
+  const int rows = tcp::kRows * tcp::kCons;
+  const int want = (n_rows + rows - 1) / rows;
+  return want < wave ? want : wave;
 }
 
 // false when the parts are not what the kernels take
@@ -363,7 +1142,8 @@ bool make_parts(int n_parts, const void* const* tables, const void* const* idxs,
 // [n_rows] int32 for the 1..3 gathered parts, aligned [n_rows, 2d] or null,
 // b1 [2d]; tables, aligned and b1 16-byte aligned, every tensor contiguous
 // f32. msg = 1: out = message(acc, weights, mask); msg = 0: out =
-// update(acc) + resnet. One block per 32-row tile, at most one wave.
+// update(acc) + resnet. The tensor-core kernel, 16 rows a consumer warp, at
+// most one wave of blocks.
 extern "C" int fused_pass_fwd_f32(int msg, const void* const* tail, int n_parts,
                                   const void* const* tables,
                                   const void* const* idxs, const int* n_srcs,
@@ -378,22 +1158,25 @@ extern "C" int fused_pass_fwd_f32(int msg, const void* const* tail, int n_parts,
       !make_parts(n_parts, tables, idxs, n_srcs, aligned, b1, d, &p))
     return (int)cudaErrorInvalidValue;
   if (n_rows > 0) {
-    const Kernel<FwdFn> k = fwd_kernel(msg, w2);
-    const int wave = wave_blocks(k);
-    if (wave < 0) return -wave;
-    const int grid = n_tiles(n_rows) < wave ? n_tiles(n_rows) : wave;
-    k.fn<<<grid, kThreads, k.smem, static_cast<cudaStream_t>(cuda_stream)>>>(
-        t, p, weights, mask, resnet, out, n_rows, d);
+    const Kernel<TcFwdFn> k = fwd_kernel(msg, w2);
+    const int grid = tc_grid(k, n_rows);
+    if (grid < 0) return -grid;
+    const float* side = msg ? weights : resnet;
+    const int vec = (uintptr_t)side % 16 == 0;
+    k.fn<<<grid, 32 * tcp::kBlockWarps, k.smem,
+           static_cast<cudaStream_t>(cuda_stream)>>>(t, p, side, mask, out, n_rows, d,
+                                                     vec);
   }
   return (int)cudaGetLastError();
 }
 
 // d_total [n_rows, 2d] (16-byte aligned), and for msg = 1 d_weights
-// [n_rows, d] and, unless null, d_mask [n_rows]. With d_params non-null the
-// parameter gradients too, by exactly n_blocks = min(tiles, kParamBlocks)
-// blocks, one row each of partial [n_blocks, n_part]: d_params [n_part] =
-// dW2c, dW2g, db2 (with w2), d nc_scale, d nc_bias, d ng_scale, d ng_bias,
-// d_b1.
+// [n_rows, d] and, unless null, d_mask [n_rows]. Without d_params: the
+// tensor-core kernel, at most one wave. With d_params non-null the
+// parameter gradients too, by pass_bwd_kernel in exactly n_blocks =
+// min(tiles, kParamBlocks) blocks, one row each of partial [n_blocks,
+// n_part]: d_params [n_part] = dW2c, dW2g, db2 (with w2), d nc_scale, d
+// nc_bias, d ng_scale, d ng_bias, d_b1.
 extern "C" int fused_pass_bwd_f32(int msg, const void* const* tail, int n_parts,
                                   const void* const* tables,
                                   const void* const* idxs, const int* n_srcs,
@@ -414,14 +1197,20 @@ extern "C" int fused_pass_bwd_f32(int msg, const void* const* tail, int n_parts,
       (params && n_blocks != (tiles < kParamBlocks ? tiles : kParamBlocks)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t stream = static_cast<cudaStream_t>(cuda_stream);
-  if (n_rows > 0) {
-    const Kernel<BwdFn> k = bwd_kernel(msg, w2, params);
+  if (n_rows > 0 && params) {
+    const Kernel<BwdFn> k = bwd_kernel(msg, w2);
     const int wave = wave_blocks(k);
     if (wave < 0) return -wave;
-    const int grid = params ? n_blocks : (tiles < wave ? tiles : wave);
-    k.fn<<<grid, kThreads, k.smem, stream>>>(t, p, weights, mask, g, d_total,
-                                             d_weights, d_mask, partial, n_rows,
-                                             d);
+    k.fn<<<n_blocks, kThreads, k.smem, stream>>>(t, p, weights, mask, g, d_total,
+                                                 d_weights, d_mask, partial,
+                                                 n_rows, d);
+  } else if (n_rows > 0) {
+    const Kernel<TcBwdFn> k = tc_bwd_kernel(msg, w2);
+    const int grid = tc_grid(k, n_rows);
+    if (grid < 0) return -grid;
+    const int vec = ((uintptr_t)g | (uintptr_t)(msg ? weights : g)) % 16 == 0;
+    k.fn<<<grid, 32 * tcp::kBlockWarps, k.smem, stream>>>(
+        t, p, weights, mask, g, d_total, d_weights, d_mask, n_rows, d, vec);
   }
   if (params) {
     const int n_part = (w2 ? 2 * d * d + 2 * d : 0) + 6 * d;
@@ -429,4 +1218,23 @@ extern "C" int fused_pass_bwd_f32(int msg, const void* const* tail, int n_parts,
         partial, n_blocks, n_part, d_params);
   }
   return (int)cudaGetLastError();
+}
+
+// The dynamic shared memory, warps a block and blocks of one wave on the
+// current device of the serving kernels, info[3 * i ..] for the message
+// forward (i = 0), the update forward without a second layer (1), the
+// message backward (2) and the update backward without a second layer (3);
+// nothing is launched. For the build report.
+extern "C" int fused_tc_occupancy(int* info) {
+  const Kernel<TcFwdFn> fwd[2] = {fwd_kernel(true, true), fwd_kernel(false, false)};
+  const Kernel<TcBwdFn> bwd[2] = {tc_bwd_kernel(true, true), tc_bwd_kernel(false, false)};
+  for (int i = 0; i < 4; ++i) {
+    const int wave = i < 2 ? wave_blocks(fwd[i], 32 * tcp::kBlockWarps)
+                           : wave_blocks(bwd[i - 2], 32 * tcp::kBlockWarps);
+    if (wave < 0) return -wave;
+    info[3 * i] = (int)(i < 2 ? fwd[i].smem : bwd[i - 2].smem);
+    info[3 * i + 1] = tcp::kBlockWarps;
+    info[3 * i + 2] = wave;
+  }
+  return (int)cudaSuccess;
 }

@@ -4,7 +4,9 @@
     out = tail(acc) * weights * mask   (message)  |  tail(acc) + resnet (update)
 
 Port of ``chgnet_tpu/ops/fused_pass.py``. Two kernel wrappers
-(``csrc/fused_pass.cu``), each beside its plain PyTorch version:
+(``csrc/fused_pass.cu``: warp-specialised tensor-core kernels, the backward
+with parameter gradients on CUDA-core FMAs), each beside its plain PyTorch
+version:
 
 * :func:`fused_pass_fwd` replaces ``_kernel`` (:157, ``_fused_pass_pallas``
   :219): K = 1..3 gathered, already projected tables ``[S_k, 2D]``, at most
@@ -80,6 +82,7 @@ _SIGNATURES = {
         _I, ctypes.POINTER(_P), *_PARTS, _P, _P, _P, _P, _P, _P, _P, _P, _I,
         _I, _I, _P,
     ],
+    "fused_tc_occupancy": [ctypes.POINTER(_I)],
 }
 MAX_PARTS = 3  # gathered parts of one launch
 
@@ -156,6 +159,17 @@ def _part_args(tables, idxs, aligned, b1):
 
 def _lib() -> ctypes.CDLL:
     return build.load("fused_pass", _SIGNATURES)
+
+
+def tc_occupancy() -> dict[str, tuple[int, int, int]]:
+    """``(shared memory bytes, warps a block, blocks of one wave)`` on the
+    current card of the serving kernels, by kernel and form; nothing is
+    launched."""
+    info = (_I * 12)()
+    build.check(_lib().fused_tc_occupancy(info), "fused_tc_occupancy")
+    names = ("pass_fwd_tc_kernel<true, true>", "pass_fwd_tc_kernel<false, false>",
+             "pass_bwd_tc_kernel<true, true>", "pass_bwd_tc_kernel<false, false>")
+    return {name: tuple(info[3 * i: 3 * i + 3]) for i, name in enumerate(names)}
 
 
 def fused_pass_fwd(tables, idxs, aligned, b1, params, weights, mask, resnet):

@@ -3,20 +3,22 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``chgnet_tpu_torch/csrc`` and drives
-six paths of the port, E+F+S+M serving at the default (published 0.3.0)
+seven paths of the port, E+F+S+M serving at the default (published 0.3.0)
 width, on the card (``PATHS``): the default ``CHGNet(seed=0)``
 (``fused_kernels=True``, directed bonds), ``fused_kernels=False``, the
-undirected bond layout ``directed_bonds=False``, and the default model with
+undirected bond layout ``directed_bonds=False``, the default model with
 one of three environment switches set around its path only: the fused
 message-reduce (``CHGNET_TPU_MSG_REDUCE=1``), the input-stationary segment
 sum and windowed gather (``CHGNET_TPU_STREAM_V2=1``, set around the batch
 build too: the window plans are built under it) and the one-kernel conv
-pass (``CHGNET_TPU_FUSED_PASS=1``):
+pass (``CHGNET_TPU_FUSED_PASS=1``), and the undirected layout under the
+one-kernel pass:
 
 1. card and build: the card's name and power limit, the TF32 flags, the
    kernel build time, each kernel's registers, spills and static shared
    memory (``ptxas``'s report, names demangled by ``cu++filt``), and the
-   tensor-core tails' dynamic shared memory, warps a block and blocks an SM
+   tensor-core tails' and the one-kernel pass's serving kernels' dynamic
+   shared memory, warps a block and blocks an SM
    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
 2. kernels: one recorded E+F+S+M pass of each path on the benchmark batch
    (32 perturbed 216-atom LiMnO2 supercells, ``bench.py``'s workload)
@@ -32,10 +34,10 @@ pass (``CHGNET_TPU_FUSED_PASS=1``):
    ``compute_batch`` on the benchmark batch, whose outputs must be finite,
    with per-graph force sums ~0 and symmetric stress; the launch counts are
    set to 0 just before that pass and read just after it, and must equal
-   the path's launch set (``PATHS``); the three switched paths' outputs must
+   the path's launch set (``PATHS``); the four switched paths' outputs must
    also agree with the default path's; edges/s by CUDA events;
 4. a ``{"kernels": [...]}`` line: per kernel, its largest error over the
-   calls of all six paths, the path its times were taken on, its
+   calls of all seven paths, the path its times were taken on, its
    launches in one pass of that path and, summed over that pass's calls,
    its time, its plain version's time, the time of PyTorch library calls
    computing the same function (null where none does: the fused tails), and
@@ -48,12 +50,15 @@ pass (``CHGNET_TPU_FUSED_PASS=1``):
    products plus ``TAIL_OPS`` per row element of the call's form (the
    one-kernel pass also one add per part and accumulator element);
    ``gather_project_sum`` is also timed and bounded per route (short
-   tables projected first, long ones gathered first);
+   tables projected first, long ones gathered first), and the one-kernel
+   pass per form (``forms``: the message form with its second layer, the
+   update form);
 5. profile: one pass of the default, the undirected, the message-reduce
    and the one-kernel-pass path under ``torch.profiler``, the device's busy
    share of its wall time and the kernels that take the most device time;
-   the traced default and message-reduce passes must show the tensor-core
-   message forward and message-reduce kernels by name (``PROFILED``).
+   the traced default, message-reduce and one-kernel-pass passes must show
+   their tensor-core kernels by name (``PROFILED``), and the one-kernel
+   pass's trace none of the CUDA-core pass kernels (``UNPROFILED``).
 
 Every line but the last also goes to ``build/chip_smoke.log`` beside the
 script (``build/`` is where the kernels' libraries go). Any failure raises. The last line is the result JSON. Needs one CUDA card;
@@ -110,7 +115,7 @@ TAIL_OPS = {
 D_MASK_OPS = 3
 PARAM_OPS = {False: 6, True: 8}  # by has_w2
 
-# the six paths and the launches of one E+F+S+M pass of each, by kernel in
+# the seven paths and the launches of one E+F+S+M pass of each, by kernel in
 # the order of KERNELS: the model's keywords, the environment switch set
 # around the path (None: none), and the counts, worked out from the model's
 # code. The undirected layout adds to the default's the d2u expansions (bond
@@ -122,7 +127,10 @@ PARAM_OPS = {False: 6, True: 8}  # by has_w2
 # kernel, and 16 of the 17 gathers the window kernel (the atom -> graph
 # cotangent is 1 float wide). Under the fused-pass switch the 9 conv layers
 # (4 AtomConv, 3 BondConv, 2 AngleUpdate) take the one-kernel pass forward
-# and backward in place of gather_project_sum and the four tails.
+# and backward in place of gather_project_sum and the four tails; in the
+# undirected layout too (AtomConv's bond part gathered by d2u from the
+# projected [U, 2D] table), where the multi-gather keeps only the 3 BondConv
+# totals and the d2u expansions and their sums stay.
 PATHS = {
     "default": ({}, None, (20, 17, 8, 9, 7, 7, 2, 2, 0, 0, 0, 0, 0, 0)),
     "fused_kernels=False": (
@@ -137,6 +145,9 @@ PATHS = {
         {}, "CHGNET_TPU_STREAM_V2", (0, 1, 8, 9, 7, 7, 2, 2, 0, 0, 20, 16, 0, 0)),
     "CHGNET_TPU_FUSED_PASS=1": (
         {}, "CHGNET_TPU_FUSED_PASS", (20, 17, 8, 0, 0, 0, 0, 0, 0, 0, 0, 0, 9, 9)),
+    "directed_bonds=False CHGNET_TPU_FUSED_PASS=1": (
+        dict(directed_bonds=False), "CHGNET_TPU_FUSED_PASS",
+        (32, 28, 8, 0, 0, 0, 0, 0, 3, 0, 0, 0, 9, 9)),
 }
 SWITCHED = [path for path, (_, switch, _) in PATHS.items() if switch]
 # the paths traced in phase 5, and the CUDA kernels each trace must show
@@ -144,8 +155,11 @@ PROFILED = {
     "default": ("tail_fwd_tc_kernel", "tail_bwd_tc_kernel"),
     "directed_bonds=False": (),
     "CHGNET_TPU_MSG_REDUCE=1": ("tail_reduce_tc_kernel",),
-    "CHGNET_TPU_FUSED_PASS=1": (),
+    "CHGNET_TPU_FUSED_PASS=1": ("pass_fwd_tc_kernel", "pass_bwd_tc_kernel"),
 }
+# ... and the kernels it must not show: the CUDA-core one-kernel pass
+# (parameter gradients only) has no place in serving
+UNPROFILED = {"CHGNET_TPU_FUSED_PASS=1": ("pass_fwd_kernel<", "pass_bwd_kernel<")}
 MODEL_TOL = {"e": 2e-5, "f": 5e-5, "s": 2e-4, "m": 2e-5}
 
 _CSRC = "chgnet_tpu_torch/csrc/"
@@ -500,13 +514,14 @@ def phase_card_and_build():
     log(f"kernel build: {time.perf_counter() - t0:.2f} s (compiled {built})")
     for name in build.SOURCES:
         log_ptxas(name, f"{build.lib_path(name)}.log")
-    from chgnet_tpu_torch.ops.gated_message import tc_occupancy
+    from chgnet_tpu_torch.ops import fused_pass, gated_message
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    for kernel, (smem, warps, wave) in tc_occupancy().items():
-        log(f"occupancy gated_message: {kernel}: {smem} bytes dynamic shared "
-            f"memory, {warps} warps a block, {wave / n_sm:g} blocks "
-            f"({warps * wave / n_sm:g} warps) an SM of {n_sm}")
+    for lib, mod in (("gated_message", gated_message), ("fused_pass", fused_pass)):
+        for kernel, (smem, warps, wave) in mod.tc_occupancy().items():
+            log(f"occupancy {lib}: {kernel}: {smem} bytes dynamic shared "
+                f"memory, {warps} warps a block, {wave / n_sm:g} blocks "
+                f"({warps * wave / n_sm:g} warps) an SM of {n_sm}")
 
 
 def log_ptxas(name: str, path: str) -> None:
@@ -945,6 +960,9 @@ def profile_pass(path, batch):  # batch: the path's own
     missing = [k for k in PROFILED[path] if not any(k in e.key for e in events)]
     if missing:
         raise AssertionError(f"profile {path}: no device time of {missing}")
+    banned = [k for k in UNPROFILED.get(path, ()) if any(k in e.key for e in events)]
+    if banned:
+        raise AssertionError(f"profile {path}: device time of {banned}")
     log(f"profile {path}: one traced pass {wall_ms:.3f} ms wall, device busy "
         f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), {len(events)} "
         "kernel names; top by device time:")
@@ -1001,6 +1019,24 @@ def log_gproj_routes(args_list) -> None:
             f"{_bound_text(bound, nbytes, products, ops)}")
 
 
+def pass_forms(name, kern, args_list) -> dict:
+    """The one-kernel pass's calls timed and bounded per form: the message
+    form (with its second layer) and the update form (``weights`` None)."""
+    forms = {}
+    for form in ("message", "update"):
+        group = [a for a in args_list if (a[5] is not None) == (form == "message")]
+        if not group:
+            continue
+        ms = cuda_ms(lambda: [kern(*a) for a in group], TIMED_REPEATS)
+        bound, nbytes, products, ops, _ = _bounds(name, group)
+        forms[form] = dict(calls=len(group), ms=ms,
+                           bound_ms=bound["bytes"] + bound["operations"],
+                           bound_by=max(bound, key=bound.get))
+        log(f"time {name} form {form}: {ms:.4f} ms over {len(group)} calls, "
+            f"{_bound_text(bound, nbytes, products, ops)}")
+    return forms
+
+
 def phase_timing(calls, launches, errors):
     """The kernels line: per kernel, totals over the calls of one pass of
     its path; ``launches[path]`` are that path's counts."""
@@ -1030,6 +1066,8 @@ def phase_timing(calls, launches, errors):
             f"{_bound_text(bound, nbytes, products, ops)})")
         if name == "gather_project_sum":
             log_gproj_routes(args_list)
+        if name.startswith("fused_pass"):
+            row["forms"] = pass_forms(name, kern, args_list)
         rows.append(row)
     return rows
 
@@ -1074,7 +1112,7 @@ def main() -> int:
     # every path records every kernel it runs and holds each call against
     # the plain version before the next path is recorded; the calls a
     # kernel's row is timed on are those of its own path (KERNELS), and its
-    # error is the largest over all six paths
+    # error is the largest over all seven paths
     calls, errors = {}, {}
     for path, (kwargs, switch, _) in PATHS.items():
         with env_switch(switch), Recorder() as rec:

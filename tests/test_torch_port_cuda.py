@@ -829,6 +829,112 @@ def test_fused_pass_kernels_at_narrow_widths(cuda, d):
                    _flat(tfp.fused_pass_bwd_plain(*bwd)), TAIL_BWD_TOL)
 
 
+def _pass_args(x, p, tables, idxs, aligned, b1, form, need_mask, need_params,
+               side=lambda t: t):
+    """The forward's and the backward's arguments of one form; ``side`` maps
+    the weights, resnet and cotangent rows (to misalign them, say)."""
+    params = _params(p, has_w2=form != "update")
+    msg = form == "message"
+    weights = side(x["weights"]) if msg else None
+    mask = x["mask"] if msg else None
+    fwd = (tables, idxs, aligned, b1, params, weights, mask,
+           None if msg else side(x["resnet"]))
+    bwd = (tables, idxs, aligned, b1, params, weights, mask, side(x["g"]),
+           msg and need_mask, need_params)
+    return fwd, bwd
+
+
+def _check_pass(fwd, bwd, repeat=True):
+    """Both kernels against their plain versions; with ``repeat`` a second
+    run of each gives equal bits."""
+    from chgnet_tpu_torch.ops import fused_pass as tfp
+
+    got = tfp.fused_pass_fwd(*fwd)
+    _assert_scaled([got], [tfp.fused_pass_fwd_plain(*fwd)], TAIL_FWD_TOL)
+    grads = _flat(tfp.fused_pass_bwd(*bwd))
+    _assert_scaled(grads, _flat(tfp.fused_pass_bwd_plain(*bwd)), TAIL_BWD_TOL)
+    if repeat:
+        assert torch.equal(got, tfp.fused_pass_fwd(*fwd))
+        again = _flat(tfp.fused_pass_bwd(*bwd))
+        assert all(torch.equal(a, b) for a, b in zip(grads, again) if a is not None)
+
+
+@pytest.mark.parametrize("form", ["message", "update_w2", "update"])
+@pytest.mark.parametrize("n_rows", [1, 15, 17, 5_003])
+@pytest.mark.parametrize("d", [16, 36, 64])
+def test_fused_pass_serving_kernels_at_narrow_widths_and_ragged_rows(
+    cuda, d, n_rows, form
+):
+    """The tensor-core kernels (no parameter gradients) at widths whose
+    8-column tiles are padded, and with fewer rows than one warp's tile."""
+    x, p, tables, idxs, aligned, b1 = _pass_inputs(cuda, 2, True, d=d, n_rows=n_rows)
+    _check_pass(*_pass_args(x, p, tables, idxs, aligned, b1, form, True, False))
+
+
+@pytest.mark.parametrize("form", ["message", "update"])
+@pytest.mark.parametrize("n_gathered,with_aligned", [(1, False), (3, True)])
+def test_fused_pass_serving_kernels_with_misaligned_rows(
+    cuda, form, n_gathered, with_aligned
+):
+    """Weights, resnet and the cotangent copied 4 bytes at a time."""
+    x, p, tables, idxs, aligned, b1 = _pass_inputs(
+        cuda, n_gathered, with_aligned, n_rows=7_001)
+    _check_pass(*_pass_args(x, p, tables, idxs, aligned, b1, form, False, False,
+                            side=_misaligned))
+
+
+# the benchmark batch's stream capacities (PERF.md section 5): the edge
+# stream gathers two atom tables that stay in L2, the angle stream two edge
+# tables of 331 MB, each larger than L2, one of them by random indices
+PATH_SHAPES = {"edge": (647_168 + 5, 7_680), "angle": (808_960 + 5, 647_168)}
+
+
+@pytest.mark.parametrize("form", ["message", "update"])
+@pytest.mark.parametrize("stream", list(PATH_SHAPES))
+def test_fused_pass_serving_kernels_at_the_path_shapes(cuda, stream, form):
+    """Path P's row counts plus a ragged tail, its table sizes, a sorted
+    and a random index stream with some indices out of range; both kernels
+    give equal bits on a second run."""
+    n_rows, n_src = PATH_SHAPES[stream]
+    d = 64
+    rng = np.random.default_rng(41)
+    x, p = _tail_inputs(cuda, d, n_rows, seed=41)
+    tables = [torch.randn(n_src, 2 * d, device=cuda) for _ in range(2)]
+    sorted_idx = np.sort(rng.integers(0, n_src, n_rows)).astype(np.int32)
+    random_idx = rng.integers(-2, n_src + 2, n_rows).astype(np.int32)
+    idxs = [torch.as_tensor(i, device=cuda) for i in (sorted_idx, random_idx)]
+    aligned = torch.randn(n_rows, 2 * d, device=cuda)
+    b1 = torch.randn(2 * d, device=cuda) * 0.1
+    _check_pass(*_pass_args(x, p, tables, idxs, aligned, b1, form, False, False))
+
+
+def _kernel_names(fn) -> set[str]:
+    """The CUDA kernels that ``fn()`` launches, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages() if e.device_type.name == "CUDA"}
+
+
+@pytest.mark.parametrize("need_params", [False, True], ids=["serving", "params"])
+def test_fused_pass_backward_kernel_follows_the_parameter_gradients(
+    cuda, need_params
+):
+    """Serving runs the tensor-core backward; parameter gradients stay on
+    the CUDA-core kernel, with its fixed block count."""
+    from chgnet_tpu_torch.ops import fused_pass as tfp
+
+    x, p, tables, idxs, aligned, b1 = _pass_inputs(cuda, 2, True, n_rows=4_099)
+    _, bwd = _pass_args(x, p, tables, idxs, aligned, b1, "message", True,
+                        need_params)
+    names = _kernel_names(lambda: tfp.fused_pass_bwd(*bwd))
+    tc = any("pass_bwd_tc_kernel" in n for n in names)
+    fma = any("pass_bwd_kernel" in n for n in names)
+    assert (tc, fma) == (not need_params, need_params), names
+
+
 @pytest.mark.parametrize("form", ["message", "update_w2", "update"])
 @pytest.mark.parametrize("serving", [False, True], ids=["all", "serving"])
 def test_fused_layer_pass_autograd_matches_cpu(cuda, monkeypatch, form, serving):

@@ -14,7 +14,9 @@ sum, 1e-5 forward and 1e-4 backward tails, relative to the output's
 largest value), and shows that a single TF32 product would not be. A model
 of the whole message-forward tile (``tail_fwd_tc_kernel``: y = b2 + the
 3xTF32 product over 16-row tiles, two-pass layer norms, the gate, weights
-and mask, all in f32) is held against a float64 forward.
+and mask, all in f32) is held against a float64 forward, and a model of the
+one-kernel pass's serving tiles (``csrc/fused_pass.cu``: the gathered acc,
+then the forward and the serving backward of each form) against float64.
 Runs on the CPU; no card, no JAX.
 """
 
@@ -202,3 +204,189 @@ def test_message_forward_tile_stays_under_the_forward_tolerance(d):
     assert not got[mask == 0].any()  # the mask zeroes its rows exactly
     err = float(np.abs(got - want).max() / np.abs(want).max())
     assert err < TAIL_FWD_TOL, err
+
+
+# ------------------------------------------- the one-kernel pass's tiles
+# The serving kernels of csrc/fused_pass.cu (pass_fwd_tc_kernel,
+# pass_bwd_tc_kernel): a producer sums each 16-row acc tile from the
+# gathered parts in part order (an index out of range adds a zero row), then
+# the aligned part, then the bias; the consumers run the message or update
+# tail on it with 3xTF32 products and the fast gate (f32 exp and division).
+def pass_acc_model(tables, idxs, aligned, b1) -> np.ndarray:
+    """acc in f32, in the kernels' order: from zero, each gathered part,
+    the aligned part, then the bias."""
+    acc = np.zeros((idxs[0].shape[0], tables[0].shape[1]), np.float32)
+    for table, idx in zip(tables, idxs):
+        ok = (idx >= 0) & (idx < table.shape[0])
+        acc = acc + np.where(ok[:, None], table[np.where(ok, idx, 0)], np.float32(0))
+    if aligned is not None:
+        acc = acc + aligned
+    return acc + b1
+
+
+def _pad_rows(x: np.ndarray) -> np.ndarray:
+    """x with zero rows up to a whole number of 16-row tiles."""
+    return np.concatenate([x, np.zeros((-x.shape[0] % TILE_ROWS, *x.shape[1:]), x.dtype)])
+
+
+def _sig_f32(x):
+    return np.float32(1) / (np.float32(1) + np.exp(-x))
+
+
+def pass_tile_model(acc, side, mask, g, p, form):
+    """(out, d_acc, d_weights) of the serving kernels in f32: y = b2 +
+    silu(acc) @ W per half by 3xTF32 over 16-row tiles (the last one ragged,
+    padded with zero rows), or y = acc for the update without W2; the
+    two-pass layer norms, the gate; the gate's and the norms' backward;
+    d_h = d_y @ W^T by 3xTF32 and d_acc = d_h silu'(acc)."""
+    n_rows, d = side.shape
+    msg, w2 = form == "message", form != "update"
+    a = _pad_rows(acc)
+    if w2:
+        h = a * _sig_f32(a)
+        yc = tc_product(h[:, :d], p["w2c"], split=True, init=p["b2"][:d])
+        yg = tc_product(h[:, d:], p["w2g"], split=True, init=p["b2"][d:])
+    else:
+        yc, yg = a[:, :d], a[:, d:]
+    zc, zg = _ln_f32(yc)[:n_rows], _ln_f32(yg)[:n_rows]
+    cn = zc * p["ncs"] + p["ncb"]
+    gn = zg * p["ngs"] + p["ngb"]
+    s_cn, s_gn = _sig_f32(cn), _sig_f32(gn)
+    gate = cn * s_cn * s_gn
+    m = mask[:, None] if msg else np.float32(1)
+    out = gate * side * m if msg else gate + side
+    up = g * side * m if msg else g
+    d_weights = g * gate * m if msg else None
+    gzc = up * s_gn * (s_cn * (np.float32(1) + cn * (np.float32(1) - s_cn))) * p["ncs"]
+    gzg = up * (cn * s_cn) * s_gn * (np.float32(1) - s_gn) * p["ngs"]
+
+    def ln_bwd(gz, z, y):
+        c = y[:n_rows] - y[:n_rows].mean(axis=1, dtype=np.float32, keepdims=True)
+        inv = np.float32(1) / np.sqrt((c * c).mean(axis=1, dtype=np.float32,
+                                                   keepdims=True) + np.float32(1e-5))
+        m1 = gz.mean(axis=1, dtype=np.float32, keepdims=True)
+        m2 = (gz * z).mean(axis=1, dtype=np.float32, keepdims=True)
+        return (gz - m1 - z * m2) * inv
+
+    dyc, dyg = ln_bwd(gzc, zc, yc), ln_bwd(gzg, zg, yg)
+    if not w2:
+        return out, np.concatenate([dyc, dyg], axis=1), d_weights
+    dhc = tc_product(_pad_rows(dyc), np.ascontiguousarray(p["w2c"].T), split=True)
+    dhg = tc_product(_pad_rows(dyg), np.ascontiguousarray(p["w2g"].T), split=True)
+    dh = np.concatenate([dhc, dhg], axis=1)[:n_rows]
+    s = _sig_f32(acc)
+    return out, dh * (s * (np.float32(1) + acc * (np.float32(1) - s))), d_weights
+
+
+def pass_f64(acc, side, mask, g, p, form):
+    """(out, d_acc, d_weights) of the same tail in float64."""
+    d = side.shape[1]
+    msg, w2 = form == "message", form != "update"
+    acc, side, g = (x.astype(np.float64) for x in (acc, side, g))
+    f = {k: v.astype(np.float64) for k, v in p.items()}
+    sig = lambda x: 1.0 / (1.0 + np.exp(-x))  # noqa: E731
+    if w2:
+        hh = acc * sig(acc)
+        y = np.concatenate([hh[:, :d] @ f["w2c"], hh[:, d:] @ f["w2g"]], axis=1) + f["b2"]
+    else:
+        y = acc
+
+    def ln(x):
+        c = x - x.mean(axis=1, keepdims=True)
+        inv = 1.0 / np.sqrt((c * c).mean(axis=1, keepdims=True) + 1e-5)
+        return c * inv, inv
+
+    (zc, ic), (zg, ig) = ln(y[:, :d]), ln(y[:, d:])
+    cn, gn = zc * f["ncs"] + f["ncb"], zg * f["ngs"] + f["ngb"]
+    gate = cn * sig(cn) * sig(gn)
+    m = mask.astype(np.float64)[:, None] if msg else 1.0
+    out = gate * side * m if msg else gate + side
+    up = g * side * m if msg else g
+    d_cn = up * sig(gn) * sig(cn) * (1 + cn * (1 - sig(cn)))
+    d_gn = up * cn * sig(cn) * sig(gn) * (1 - sig(gn))
+
+    def ln_bwd(dz_out, scale, z, inv):
+        gz = dz_out * scale
+        return (gz - gz.mean(axis=1, keepdims=True)
+                - z * (gz * z).mean(axis=1, keepdims=True)) * inv
+
+    dy = np.concatenate([ln_bwd(d_cn, f["ncs"], zc, ic), ln_bwd(d_gn, f["ngs"], zg, ig)],
+                        axis=1)
+    d_weights = g * gate * m if msg else None
+    if not w2:
+        return out, dy, d_weights
+    dh = np.concatenate([dy[:, :d] @ f["w2c"].T, dy[:, d:] @ f["w2g"].T], axis=1)
+    return out, dh * sig(acc) * (1 + acc * (1 - sig(acc))), d_weights
+
+
+def _pass_case(d, n_parts, with_aligned, form, seed):
+    """Inputs at the model's scales: tables, indices with ~2% out of range,
+    a ragged row count, ~10% of the rows masked."""
+    rng = np.random.default_rng(seed)
+    n_rows = 1_000 + 13
+
+    def rand(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    sizes = [300, 700, 500][:n_parts]
+    tables = [rand(s, 2 * d, scale=0.5) for s in sizes]
+    idxs = [rng.integers(-5, s + 5, n_rows).astype(np.int32) for s in sizes]
+    aligned = rand(n_rows, 2 * d, scale=0.5) if with_aligned else None
+    b1 = rand(2 * d, scale=0.1)
+    side, g = rand(n_rows, d), rand(n_rows, d)
+    mask = (rng.random(n_rows) < 0.9).astype(np.float32)
+    p = dict(w2c=rand(d, d, scale=0.1), w2g=rand(d, d, scale=0.1),
+             b2=rand(2 * d, scale=0.1), ncs=rand(d), ncb=rand(d, scale=0.1),
+             ngs=rand(d), ngb=rand(d, scale=0.1))
+    return (tables, idxs, aligned, b1), side, mask, g, p
+
+
+PASS_CASES = [
+    (64, 1, False, "message"), (64, 2, True, "message"), (64, 3, True, "message"),
+    (32, 2, True, "message"), (32, 3, False, "message"), (64, 2, True, "update"),
+    (32, 1, True, "update"), (64, 3, False, "update_w2"),
+]
+
+
+@pytest.mark.parametrize("d,n_parts,with_aligned,form", PASS_CASES)
+def test_pass_forward_tile_stays_under_the_forward_tolerance(d, n_parts, with_aligned,
+                                                             form):
+    parts, side, mask, g, p = _pass_case(d, n_parts, with_aligned, form, seed=d + n_parts)
+    acc = pass_acc_model(*parts)
+    got = pass_tile_model(acc, side, mask, g, p, form)[0]
+    want = pass_f64(acc, side, mask, g, p, form)[0]
+    assert got.shape == want.shape == side.shape
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    assert err < TAIL_FWD_TOL, err
+
+
+@pytest.mark.parametrize("d,n_parts,with_aligned,form", PASS_CASES)
+def test_pass_serving_backward_tile_stays_under_the_backward_tolerance(
+    d, n_parts, with_aligned, form
+):
+    parts, side, mask, g, p = _pass_case(d, n_parts, with_aligned, form, seed=d * n_parts)
+    acc = pass_acc_model(*parts)
+    got = pass_tile_model(acc, side, mask, g, p, form)[1:]
+    want = pass_f64(acc, side, mask, g, p, form)[1:]
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None
+            continue
+        assert a.shape == b.shape
+        err = float(np.abs(a - b).max() / np.abs(b).max())
+        assert err < TAIL_BWD_TOL, err
+
+
+@pytest.mark.parametrize("n_parts,with_aligned", [(1, False), (2, True), (3, True)])
+def test_pass_acc_model_is_the_plain_sum_bit_for_bit(n_parts, with_aligned):
+    """The producers' order of adds is the port's plain version's
+    (``ops/fused_pass.py`` ``_acc_plain``): equal bits on the CPU."""
+    import torch
+
+    from chgnet_tpu_torch.ops import fused_pass
+
+    (tables, idxs, aligned, b1), *_ = _pass_case(64, n_parts, with_aligned, "message", 3)
+    want = fused_pass._acc_plain(
+        [torch.from_numpy(t) for t in tables], [torch.from_numpy(i) for i in idxs],
+        None if aligned is None else torch.from_numpy(aligned), torch.from_numpy(b1))
+    np.testing.assert_array_equal(pass_acc_model(tables, idxs, aligned, b1), want.numpy())
