@@ -26,7 +26,9 @@ With ``CHGNET_TPU_STREAM_V2`` set while the batch is built
 (:func:`stream_v2_enabled`), a plan also carries the source window of every
 block of ``WINDOW_BLOCK`` stream rows (:func:`build_window_plan`), the
 counterpart of ``chgnet_tpu``'s paired-window plan (``GatherPlan.pw``), for
-the windowed gather kernel.
+the windowed gather kernel, and the widest of those windows as a host int
+(``window_rows``), which ``chip_smoke.py`` and
+``tools/time_gather_window.py`` report beside the kernel's times.
 """
 
 from __future__ import annotations
@@ -42,9 +44,10 @@ from chgnet_tpu_torch.graph.crystalgraph import CrystalGraph
 
 STREAM_CHUNK = 512  # row alignment of the padded streams (chgnet_tpu's C)
 # The windowed gather (ops/segment.py gather_rows_window): stream rows per
-# block, and the most source rows a block's window may span. A block stages
-# its window in shared memory, of which an H100 block may use 227 KB
-# (232,448 bytes): 448 rows of 128 floats are 229,376 bytes.
+# block, and the most source rows a block's window may span. The cap was
+# set for a kernel that staged every window whole (448 rows of 128 floats
+# fill a block's 227 KB of shared memory); it stays, so that the same
+# streams carry windows.
 WINDOW_BLOCK = 128
 WINDOW_ROWS = 448
 _EMPTY = np.zeros(0, np.int32)
@@ -69,22 +72,47 @@ class SegmentPlan(NamedTuple):
     row of segment ``n``; ``offsets[n_out]`` counts the valid rows.
     ``window[j]`` is the first and last key of the valid rows of block ``j``
     of ``WINDOW_BLOCK`` rows (first > last for a block without one); empty
-    when absent (``chgnet_tpu``'s ``GatherPlan.pw``).
-    Fields are numpy arrays on the host and int32 tensors on the device.
+    when absent (``chgnet_tpu``'s ``GatherPlan.pw``). ``window_rows`` is the
+    widest window's ``last - first + 1`` (0 when every block is empty), None
+    when the window is absent.
+    The arrays are numpy arrays on the host and int32 tensors on the device;
+    ``window_rows`` is a host int on both.
     """
 
     key: np.ndarray  # i32 [L]
     perm: np.ndarray  # i32 [L] or [0]
     offsets: np.ndarray  # i32 [n_out + 1]
     window: np.ndarray = _EMPTY  # i32 [ceil(L / WINDOW_BLOCK), 2] or [0]
+    window_rows: int | None = None
 
     @property
     def n_out(self) -> int:
         return int(self.offsets.shape[0]) - 1
 
+    def to(self, device: str | torch.device) -> SegmentPlan:
+        """This plan's arrays as tensors on ``device``; ``window_rows``
+        stays on the host."""
+        return SegmentPlan(
+            *(_on(a, device) for a in self[:4]), window_rows=self.window_rows
+        )
+
     def sorted_keys(self) -> np.ndarray:
         """The keys in segment order (``chgnet_tpu``'s ``GatherPlan.dst``)."""
         return self.key[self.perm] if self.perm.shape[0] else self.key
+
+
+def _on(x, device: str | torch.device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return torch.as_tensor(np.ascontiguousarray(x), device=device)
+
+
+def window_span(window: np.ndarray) -> int | None:
+    """The widest window of a window plan, ``last - first + 1`` rows (0 when
+    every block is empty), or None for an absent plan."""
+    if window.shape[0] == 0:
+        return None
+    return int(max((window[:, 1] - window[:, 0]).max() + 1, 0))
 
 
 def build_window_plan(key: np.ndarray, n_out: int) -> np.ndarray:
@@ -137,7 +165,8 @@ def make_plan(
         sorted_key, np.arange(n_out + 1, dtype=np.int32), side="left"
     ).astype(np.int32)
     window = build_window_plan(key, n_out) if stream_v2_enabled() else _EMPTY
-    return SegmentPlan(key=key, perm=perm, offsets=offsets, window=window)
+    return SegmentPlan(key=key, perm=perm, offsets=offsets, window=window,
+                       window_rows=window_span(window))
 
 
 class GraphBatch(NamedTuple):
@@ -180,14 +209,10 @@ class GraphBatch(NamedTuple):
 
     def to(self, device: str | torch.device) -> GraphBatch:
         """This batch as tensors on ``device`` (indices stay int32)."""
-        def conv(x):
-            if isinstance(x, SegmentPlan):
-                return SegmentPlan(*(conv(f) for f in x))
-            if isinstance(x, torch.Tensor):
-                return x.to(device)
-            return torch.as_tensor(np.ascontiguousarray(x), device=device)
-
-        return GraphBatch(*(conv(f) for f in self))
+        return GraphBatch(*(
+            f.to(device) if isinstance(f, SegmentPlan) else _on(f, device)
+            for f in self
+        ))
 
 
 def round_up(n: int, *, base: int = 32, growth: float = 1.25) -> int:

@@ -34,8 +34,8 @@ from chgnet_tpu_torch import ROOT
 CSRC = os.path.join(ROOT, "chgnet_tpu_torch", "csrc")
 BUILD_DIR = os.path.join(ROOT, "build", "chgnet_tpu_torch")
 SOURCES = (
-    "segment_sum", "gather_rows", "gproj", "gated_message", "multi_gather",
-    "fused_pass",
+    "segment_sum", "gather_rows", "gather_window", "gproj", "gated_message",
+    "multi_gather", "fused_pass",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -14,7 +14,7 @@ Five kernel wrappers, each beside its plain PyTorch version:
 * :func:`segment_sum_tiles` (``csrc/segment_sum.cu``) replaces
   ``_segsum_v2_kernel`` (:1003, ``_segsum_v2_pallas`` :1033): the function
   of :func:`segment_sum_csr` with the input owned, not the output.
-* :func:`gather_rows_window` (``csrc/gather_rows.cu``) replaces
+* :func:`gather_rows_window` (``csrc/gather_window.cu``) replaces
   ``_gather_v2_kernel`` (:1109, ``_gather_v2_pallas`` :1132): the gather
   over a per-block source window, a zero row outside it.
 
@@ -46,7 +46,6 @@ import torch
 
 from chgnet_tpu_torch.graph.batching import (
     WINDOW_BLOCK,
-    WINDOW_ROWS,
     SegmentPlan,
     stream_v2_enabled,
 )
@@ -61,16 +60,13 @@ _SIGNATURES = {
         "segment_sum_pair_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
         "segment_sum_tiles_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
-    "gather_rows": {
-        "gather_rows_f32": [_P, _P, _P, _L, _I, _I, _P],
-        "gather_rows_window_f32": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
-    },
+    "gather_rows": {"gather_rows_f32": [_P, _P, _P, _L, _I, _I, _P]},
+    "gather_window": {"gather_rows_window_f32": [_P, _P, _P, _P, _L, _I, _I, _P]},
 }
 # widest row of the segment sums: one warp's 32 lanes each hold a float4
 # (a float where the row is not 16-byte aligned)
 SEGMENT_MAX_D = 128
 TILE_ROWS = 32  # sorted rows per tile of segment_sum_tiles (kTileRows)
-SHARED_BYTES = 232448  # shared memory a block may use on an H100 (227 KB)
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -244,22 +240,15 @@ gather_rows.launches = 0
 
 def window_fits(src: torch.Tensor) -> bool:
     """Whether :func:`gather_rows_window` takes rows of ``src``'s width:
-    ``float4`` units, and the largest window within a block's shared
-    memory."""
-    d = src.shape[1]
-    return (
-        d % 4 == 0
-        and src.data_ptr() % 16 == 0
-        and WINDOW_ROWS * d * src.element_size() <= SHARED_BYTES
-    )
+    ``float4`` units (rows of 4k floats on 16-byte aligned storage)."""
+    return src.shape[1] % 4 == 0 and src.data_ptr() % 16 == 0
 
 
 def gather_rows_window(
     src: torch.Tensor, idx: torch.Tensor, window: torch.Tensor
 ) -> torch.Tensor:
     """``out[l] = src[idx[l]]`` where ``window[l // WINDOW_BLOCK]`` = (first,
-    last) source row of the block holds ``idx[l]``, a zero row elsewhere;
-    windows of at most ``WINDOW_ROWS`` rows
+    last) source row of the block holds ``idx[l]``, a zero row elsewhere
     (:func:`~chgnet_tpu_torch.graph.batching.build_window_plan`)."""
     n_rows = idx.shape[0]
     if window.shape != (-(-n_rows // WINDOW_BLOCK), 2):
@@ -271,15 +260,14 @@ def gather_rows_window(
     build.check_tensors("gather_rows_window", (src,), (idx, window))
     if not window_fits(src):
         raise ValueError(
-            "gather_rows_window: 16-byte aligned rows of 4k floats whose "
-            f"{WINDOW_ROWS}-row window fits in {SHARED_BYTES} bytes expected "
+            "gather_rows_window: 16-byte aligned rows of 4k floats expected "
             f"(d={src.shape[1]})"
         )
     out = torch.empty((n_rows, src.shape[1]), dtype=src.dtype, device=src.device)
     ptr = build.ptr
-    err = _lib("gather_rows").gather_rows_window_f32(
+    err = _lib("gather_window").gather_rows_window_f32(
         ptr(src), ptr(idx), ptr(window), ptr(out), n_rows, src.shape[0],
-        src.shape[1], WINDOW_ROWS, build.stream(),
+        src.shape[1], build.stream(),
     )
     build.check(err, "gather_rows_window")
     gather_rows_window.launches += 1

@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``chgnet_tpu_torch/csrc`` and drives
-seven paths of the port, E+F+S+M serving at the default (published 0.3.0)
+eight paths of the port, E+F+S+M serving at the default (published 0.3.0)
 width, on the card (``PATHS``): the default ``CHGNet(seed=0)``
 (``fused_kernels=True``, directed bonds), ``fused_kernels=False``, the
 undirected bond layout ``directed_bonds=False``, the default model with
@@ -12,7 +12,7 @@ message-reduce (``CHGNET_TPU_MSG_REDUCE=1``), the input-stationary segment
 sum and windowed gather (``CHGNET_TPU_STREAM_V2=1``, set around the batch
 build too: the window plans are built under it) and the one-kernel conv
 pass (``CHGNET_TPU_FUSED_PASS=1``), and the undirected layout under the
-one-kernel pass:
+one-kernel pass and under the stream-v2 switch:
 
 1. card and build: the card's name and power limit, the TF32 flags, the
    kernel build time, each kernel's registers, spills and static shared
@@ -34,10 +34,10 @@ one-kernel pass:
    ``compute_batch`` on the benchmark batch, whose outputs must be finite,
    with per-graph force sums ~0 and symmetric stress; the launch counts are
    set to 0 just before that pass and read just after it, and must equal
-   the path's launch set (``PATHS``); the four switched paths' outputs must
+   the path's launch set (``PATHS``); the five switched paths' outputs must
    also agree with the default path's; edges/s by CUDA events;
 4. a ``{"kernels": [...]}`` line: per kernel, its largest error over the
-   calls of all seven paths, the path its times were taken on, its
+   calls of all eight paths, the path its times were taken on, its
    launches in one pass of that path and, summed over that pass's calls,
    its time, its plain version's time, the time of PyTorch library calls
    computing the same function (null where none does: the fused tails), and
@@ -53,12 +53,14 @@ one-kernel pass:
    tables projected first, long ones gathered first), and the one-kernel
    pass per form (``forms``: the message form with its second layer, the
    update form);
-5. profile: one pass of the default, the undirected, the message-reduce
-   and the one-kernel-pass path under ``torch.profiler``, the device's busy
-   share of its wall time and the kernels that take the most device time;
-   the traced default, message-reduce and one-kernel-pass passes must show
-   their tensor-core kernels by name (``PROFILED``), and the one-kernel
-   pass's trace none of the CUDA-core pass kernels (``UNPROFILED``).
+5. profile: one pass of the default, the undirected, the message-reduce,
+   the stream-v2 and the one-kernel-pass path under ``torch.profiler``, the
+   device's busy share of its wall time and the kernels that take the most
+   device time; the traced default, message-reduce, stream-v2 and
+   one-kernel-pass passes must show their kernels by name (``PROFILED``:
+   the tensor-core tails, the windowed gather), and the stream-v2 and
+   one-kernel pass's traces none of the kernels they replaced
+   (``UNPROFILED``).
 
 Every line but the last also goes to ``build/chip_smoke.log`` beside the
 script (``build/`` is where the kernels' libraries go). Any failure raises. The last line is the result JSON. Needs one CUDA card;
@@ -115,7 +117,7 @@ TAIL_OPS = {
 D_MASK_OPS = 3
 PARAM_OPS = {False: 6, True: 8}  # by has_w2
 
-# the seven paths and the launches of one E+F+S+M pass of each, by kernel in
+# the eight paths and the launches of one E+F+S+M pass of each, by kernel in
 # the order of KERNELS: the model's keywords, the environment switch set
 # around the path (None: none), and the counts, worked out from the model's
 # code. The undirected layout adds to the default's the d2u expansions (bond
@@ -130,7 +132,12 @@ PARAM_OPS = {False: 6, True: 8}  # by has_w2
 # and backward in place of gather_project_sum and the four tails; in the
 # undirected layout too (AtomConv's bond part gathered by d2u from the
 # projected [U, 2D] table), where the multi-gather keeps only the 3 BondConv
-# totals and the d2u expansions and their sums stay.
+# totals and the d2u expansions and their sums stay. The undirected layout
+# under the stream-v2 switch sends its 28 segment sums narrower than 128
+# floats to the tile kernel (the 4 of [E, 128] stay) and the same 16 gathers
+# as the directed one to the window kernel: the d2u, u2d and u2d2 plans carry
+# no windows (a block of them spans more than WINDOW_ROWS source rows in any
+# crystal of a few hundred bonds), so their 11 gathers stay on gather_rows.
 PATHS = {
     "default": ({}, None, (20, 17, 8, 9, 7, 7, 2, 2, 0, 0, 0, 0, 0, 0)),
     "fused_kernels=False": (
@@ -148,6 +155,9 @@ PATHS = {
     "directed_bonds=False CHGNET_TPU_FUSED_PASS=1": (
         dict(directed_bonds=False), "CHGNET_TPU_FUSED_PASS",
         (32, 28, 8, 0, 0, 0, 0, 0, 3, 0, 0, 0, 9, 9)),
+    "directed_bonds=False CHGNET_TPU_STREAM_V2=1": (
+        dict(directed_bonds=False), "CHGNET_TPU_STREAM_V2",
+        (4, 12, 8, 5, 7, 7, 2, 2, 7, 0, 28, 16, 0, 0)),
 }
 SWITCHED = [path for path, (_, switch, _) in PATHS.items() if switch]
 # the paths traced in phase 5, and the CUDA kernels each trace must show
@@ -155,11 +165,16 @@ PROFILED = {
     "default": ("tail_fwd_tc_kernel", "tail_bwd_tc_kernel"),
     "directed_bonds=False": (),
     "CHGNET_TPU_MSG_REDUCE=1": ("tail_reduce_tc_kernel",),
+    "CHGNET_TPU_STREAM_V2=1": ("gather_window_kernel",),
     "CHGNET_TPU_FUSED_PASS=1": ("pass_fwd_tc_kernel", "pass_bwd_tc_kernel"),
 }
 # ... and the kernels it must not show: the CUDA-core one-kernel pass
-# (parameter gradients only) has no place in serving
-UNPROFILED = {"CHGNET_TPU_FUSED_PASS=1": ("pass_fwd_kernel<", "pass_bwd_kernel<")}
+# (parameter gradients only) has no place in serving, and the windowed
+# gather's first kernel, which staged every window whole, is gone
+UNPROFILED = {
+    "CHGNET_TPU_STREAM_V2=1": ("gather_rows_window_kernel",),
+    "CHGNET_TPU_FUSED_PASS=1": ("pass_fwd_kernel<", "pass_bwd_kernel<"),
+}
 MODEL_TOL = {"e": 2e-5, "f": 5e-5, "s": 2e-4, "m": 2e-5}
 
 _CSRC = "chgnet_tpu_torch/csrc/"
@@ -191,7 +206,7 @@ KERNELS = {
         # prefix sums
         ("segment_sum_tiles", "segment_sum.cu", "stream_ops.py:1003", 1e-5,
          "CHGNET_TPU_STREAM_V2=1"),
-        ("gather_rows_window", "gather_rows.cu", "stream_ops.py:1109", 0.0,
+        ("gather_rows_window", "gather_window.cu", "stream_ops.py:1109", 0.0,
          "CHGNET_TPU_STREAM_V2=1"),
         ("fused_pass_fwd", "fused_pass.cu", "fused_pass.py:157", 1e-5,
          "CHGNET_TPU_FUSED_PASS=1"),
@@ -1098,21 +1113,22 @@ def main() -> int:
         f"capacities N={batch.atomic_numbers.shape[0]} "
         f"E={batch.atom_graph.shape[0]} A={batch.bond_graph.shape[0]} "
         f"(host build {time.perf_counter() - t0:.1f} s)")
-    # the stream-v2 path's batch is built under its switch: only then do the
-    # plans carry their gather windows
+    # the stream-v2 paths' batch is built under their switch: only then do
+    # the plans carry their gather windows
     with env_switch("CHGNET_TPU_STREAM_V2"):
         batch_v2 = batch_graphs(graphs).to("cuda")
-    windows = {f: tuple(getattr(batch_v2, f).window.shape)
+    windows = {f: (tuple(getattr(batch_v2, f).window.shape),
+                   getattr(batch_v2, f).window_rows)
                for f in batch_v2._fields if f.startswith("plan_")}
-    log("window plans under CHGNET_TPU_STREAM_V2 ([blocks, 2], (0,) absent):",
-        windows)
-    batches = {path: batch for path in PATHS}
-    batches["CHGNET_TPU_STREAM_V2=1"] = batch_v2
+    log("window plans under CHGNET_TPU_STREAM_V2 ([blocks, 2] and the widest "
+        "window's rows; (0,) and None absent):", windows)
+    batches = {path: batch_v2 if switch == "CHGNET_TPU_STREAM_V2" else batch
+               for path, (_, switch, _) in PATHS.items()}
 
     # every path records every kernel it runs and holds each call against
     # the plain version before the next path is recorded; the calls a
     # kernel's row is timed on are those of its own path (KERNELS), and its
-    # error is the largest over all seven paths
+    # error is the largest over all eight paths
     calls, errors = {}, {}
     for path, (kwargs, switch, _) in PATHS.items():
         with env_switch(switch), Recorder() as rec:

@@ -57,7 +57,7 @@ def cuda():
 
 def _plan(idx, valid, n_out, sorted_, device) -> SegmentPlan:
     plan = make_plan(idx, valid, n_out, assume_sorted=sorted_)
-    return SegmentPlan(*(torch.as_tensor(x, device=device) for x in plan))
+    return plan.to(device)
 
 
 def _stream(rng, L, S, sorted_):
@@ -548,7 +548,7 @@ def test_gated_message_reduce_autograd_matches_cpu(cuda, serving):
     res = []
     for dev in (cuda, torch.device("cpu")):
         x, p, plan = _reduce_inputs(torch.device("cpu"), 64, 4096 + 5, 300)
-        plan = SegmentPlan(*(t.to(dev) for t in plan))
+        plan = plan.to(dev)
         grad = not serving
         leaves = {k: x[k].to(dev).requires_grad_(grad or k in ("acc", "weights"))
                   for k in ("acc", "weights", "mask")}
@@ -729,6 +729,58 @@ def test_gather_rows_window_matches_plain(cuda, monkeypatch, d):
     assert not bool(tsg.gather_rows_window(src, plan.key, plan.window)[~ok].any())
 
 
+def _window_case(rng, L, S, span):
+    """Windows of ``span`` rows on even blocks and of 1-3 rows on odd ones,
+    a few empty (lo > hi), one crossing the end of the table and one
+    starting before it; indices inside their window but for a few padded
+    rows outside it or outside ``[0, S)``."""
+    from chgnet_tpu_torch.graph.batching import WINDOW_BLOCK
+
+    nb = -(-L // WINDOW_BLOCK)
+    spans = np.where(np.arange(nb) % 2 == 0, span, rng.integers(1, 4, nb))
+    lo = rng.integers(0, S - spans + 1)
+    hi = lo + spans - 1
+    empty = rng.random(nb) < 0.05
+    lo[empty], hi[empty] = rng.integers(1, 50, int(empty.sum())), 0
+    lo[-2], hi[-2] = S - spans[-2] // 2, S - spans[-2] // 2 + spans[-2] - 1
+    lo[0], hi[0] = -2, spans[0] - 3
+    block = np.arange(L) // WINDOW_BLOCK
+    idx = lo[block] + (rng.random(L) * spans[block]).astype(np.int64)
+    pad = rng.random(L) < 0.05
+    idx[pad] = rng.choice([-1, -7, S, S + 3], int(pad.sum()))
+    out_of_window = rng.random(L) < 0.02
+    idx[out_of_window] = np.clip(hi[block] + 1, 0, S - 1)[out_of_window]
+    return idx.astype(np.int32), np.stack([lo, hi], axis=1).astype(np.int32)
+
+
+@pytest.mark.parametrize("span", [1, 3, 200, 447])
+@pytest.mark.parametrize("d", [4, 64, 128])
+def test_gather_rows_window_kernel_matches_plain_exactly(cuda, d, span):
+    """The kernel against the plain version, bit for bit: narrow and wide
+    windows in one call, empty windows, windows past either end of the
+    table, a ragged last block, indices outside the window or the table,
+    and 1.2M 16-byte units, more than the grid's threads (at most 32 blocks
+    of 256 a multiprocessor), so that every thread strides."""
+    rng = np.random.default_rng(40 + span + d)
+    L, S = 1_200_000 * 4 // d + 77, 3000
+    idx, window = _window_case(rng, L, S, span)
+    src = torch.randn(S, d, device=cuda)
+    idx_t = torch.as_tensor(idx, device=cuda)
+    win_t = torch.as_tensor(window, device=cuda)
+    n0 = tsg.gather_rows_window.launches
+    got = tsg.gather_rows_window(src, idx_t, win_t)
+    torch.cuda.synchronize()
+    assert tsg.gather_rows_window.launches == n0 + 1
+    assert torch.equal(got, tsg.gather_rows_window_plain(src, idx_t, win_t))
+    block = np.arange(L) // 128
+    inside = (idx >= np.maximum(window[block, 0], 0)) & (idx <= window[block, 1])
+    inside &= idx < S
+    assert (~inside).sum() > 0 and inside.sum() > L // 2
+    assert not bool(got[torch.as_tensor(~inside, device=cuda)].any())
+    assert torch.equal(got[torch.as_tensor(inside, device=cuda)],
+                       src[torch.as_tensor(idx[inside], device=cuda).long()])
+
+
 def test_window_plan_is_absent_when_a_block_spans_too_far(cuda, monkeypatch):
     monkeypatch.setenv("CHGNET_TPU_STREAM_V2", "1")
     rng = np.random.default_rng(23)
@@ -743,9 +795,11 @@ def test_window_plan_is_absent_when_a_block_spans_too_far(cuda, monkeypatch):
     with pytest.raises(ValueError, match="window"):
         tsg.gather_rows_window(src, plan.key, plan.window)
     good = torch.zeros((32, 2), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="fits"):
-        tsg.gather_rows_window(torch.randn(5000, 256, device=cuda), plan.key, good)
-    with pytest.raises(ValueError, match="fits"):
+    wide = torch.randn(5000, 256, device=cuda)  # any width of 4k floats
+    key = plan.key.clamp(max=4999)
+    assert torch.equal(tsg.gather_rows_window(wide, key, good),
+                       tsg.gather_rows_window_plain(wide, key, good))
+    with pytest.raises(ValueError, match="4k floats"):
         tsg.gather_rows_window(torch.randn(5000, 6, device=cuda), plan.key, good)
 
 

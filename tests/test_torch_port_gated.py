@@ -338,10 +338,7 @@ def _reduce_case(n_rows=2048, n_out=1024, seed=0):
         ng_scale=np.ones(D, np.float32), ng_bias=np.zeros(D, np.float32),
     )
     jplan = jsc.make_plan(dst, dst < n_out, n_out, assume_sorted=True)
-    tplan = SegmentPlan(*(
-        torch.as_tensor(f)
-        for f in make_plan(dst, dst < n_out, n_out, assume_sorted=True)
-    ))
+    tplan = make_plan(dst, dst < n_out, n_out, assume_sorted=True).to("cpu")
     return x, jplan, tplan, n_out
 
 

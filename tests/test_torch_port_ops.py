@@ -71,7 +71,7 @@ def _stream(L, S, rng, sorted_):
 
 def _tplan(idx, valid, n_out, sorted_) -> SegmentPlan:
     plan = make_plan(idx, valid, n_out, assume_sorted=sorted_)
-    return SegmentPlan(*(torch.as_tensor(x) for x in plan))
+    return plan.to("cpu")
 
 
 def _t(x, requires_grad=False):

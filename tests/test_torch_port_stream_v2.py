@@ -82,7 +82,7 @@ def _t(x):
 
 def _tplan(idx, valid, n_out, sorted_=False) -> SegmentPlan:
     plan = make_plan(idx, valid, n_out, assume_sorted=sorted_)
-    return SegmentPlan(*(torch.as_tensor(x) for x in plan))
+    return plan.to("cpu")
 
 
 # ------------------------------------------------------------ row 11
@@ -185,6 +185,62 @@ def test_window_plans_follow_the_switch(monkeypatch):
     assert make_plan(idx, valid, S).window.shape == (0,)
 
 
+def test_window_rows_is_the_widest_window(monkeypatch):
+    """``window_rows`` equals the widest ``hi - lo + 1`` over the blocks,
+    and stays a host int when the plan moves to a device (read without
+    reading the device back)."""
+    monkeypatch.setenv("CHGNET_TPU_STREAM_V2", "1")
+    rng = np.random.default_rng(26)
+    L, S = 1000 + 37, 5000
+    idx = (np.arange(L) * 2 + rng.integers(0, 150, L)).astype(np.int32)
+    valid = rng.random(L) < 0.8
+    plan = make_plan(idx, valid, S)
+    spans = plan.window[:, 1] - plan.window[:, 0] + 1
+    assert plan.window_rows == int(spans.max()) and isinstance(plan.window_rows, int)
+    assert 1 < plan.window_rows < tb.WINDOW_ROWS
+    dev = plan.to("cpu")
+    assert dev.window_rows == plan.window_rows and isinstance(dev.window_rows, int)
+    conv = TCHGNet(seed=0, device="cpu", **SMALL).graph_converter
+    batch = t_batch_graphs([conv(TStructure.from_file(LIMNO2))])
+    on_dev = batch.to("cpu")
+    assert batch.plan_center.window_rows and batch.plan_ang_vj.window_rows
+    for name in batch._fields:
+        host = getattr(batch, name)
+        if not isinstance(host, SegmentPlan) or not host.window.shape[0]:
+            continue
+        win = host.window
+        assert host.window_rows == int((win[:, 1] - win[:, 0] + 1).max()), name
+        assert getattr(on_dev, name).window_rows == host.window_rows, name
+
+
+def test_window_rows_is_zero_when_every_block_is_empty(monkeypatch):
+    monkeypatch.setenv("CHGNET_TPU_STREAM_V2", "1")
+    idx = np.arange(300, dtype=np.int32)
+    plan = make_plan(idx, np.zeros(300, bool), 300)
+    assert plan.window.shape == (3, 2) and (plan.window == (0, -1)).all()
+    assert plan.window_rows == 0
+    out = tsg.gather_rows_window(torch.ones(300, 4), _t(idx), _t(plan.window))
+    assert not out.any()
+
+
+def test_window_rows_is_absent_with_the_window(monkeypatch):
+    rng = np.random.default_rng(27)
+    idx = np.sort(rng.integers(0, 400, 500)).astype(np.int32)
+    valid = np.ones(500, bool)
+    monkeypatch.delenv("CHGNET_TPU_STREAM_V2", raising=False)
+    off = make_plan(idx, valid, 400)
+    assert off.window.shape == (0,) and off.window_rows is None
+    assert off.to("cpu").window_rows is None
+    monkeypatch.setenv("CHGNET_TPU_STREAM_V2", "1")
+    monkeypatch.setenv("CHGNET_TPU_NO_STREAM_V2", "1")
+    assert make_plan(idx, valid, 400).window_rows is None
+    monkeypatch.delenv("CHGNET_TPU_NO_STREAM_V2")
+    far = idx.copy()
+    far[3] = 999  # the first block spans more than WINDOW_ROWS rows
+    plan = make_plan(far, valid, 1000)
+    assert plan.window.shape == (0,) and plan.window_rows is None
+
+
 def test_window_plan_is_absent_beyond_the_cap_and_empty_blocks_gather_zero(
     monkeypatch,
 ):
@@ -266,7 +322,7 @@ def test_dispatch_under_the_switch(monkeypatch):
         assert calls[want] == before[want] + 1, d
     for d, p, want in ((64, plan, "gather_rows_window"),
                        (128, plan, "gather_rows_window"),
-                       (256, plan, "gather_rows"),  # the window does not fit
+                       (256, plan, "gather_rows_window"),  # any width of 4k
                        (3, plan, "gather_rows"),  # no float4 units
                        (64, bare, "gather_rows")):
         before = dict(calls)

@@ -67,7 +67,7 @@ def _t(x, requires_grad=False):
 
 def _tplan(idx, valid, n_out, sorted_=False) -> SegmentPlan:
     plan = make_plan(idx, valid, n_out, assume_sorted=sorted_)
-    return SegmentPlan(*(torch.as_tensor(x) for x in plan))
+    return plan.to("cpu")
 
 
 def _window_local_idx(rng, S, L, window):
