@@ -23,7 +23,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import glob
 import math
+import os
 import warnings
 from collections.abc import Sequence
 from typing import Literal
@@ -39,7 +41,11 @@ from chgnet_tpu_torch.graph.converter import CrystalGraphConverter
 from chgnet_tpu_torch.graph.crystalgraph import CrystalGraph
 from chgnet_tpu_torch.models import basis
 from chgnet_tpu_torch.models.composition import AtomRef
-from chgnet_tpu_torch.models.convert import count_params, params_from_jax
+from chgnet_tpu_torch.models.convert import (
+    count_params,
+    params_from_jax,
+    params_to_numpy,
+)
 from chgnet_tpu_torch.models.functions import (
     Params,
     layer_norm_apply,
@@ -61,6 +67,7 @@ from chgnet_tpu_torch.models.layers import (
 from chgnet_tpu_torch.ops.gated_message import TAIL_MAX_D
 from chgnet_tpu_torch.ops.gproj import MAX_DT, MAX_K
 from chgnet_tpu_torch.ops.segment import SEGMENT_MAX_D, plan_gather, plan_segment_sum
+from chgnet_tpu_torch.utils.common import load_params, save_params
 
 EV_A3_TO_GPA = 160.21766208  # eV/A^3 -> GPa
 
@@ -581,7 +588,9 @@ class CHGNet:
     """Host-facing model: config + parameters on one device + converter.
 
     Mirrors ``chgnet_tpu.models.chgnet.CHGNet``'s ``forward`` /
-    ``predict_structure`` / ``predict_graph``. ``device`` defaults to
+    ``predict_structure`` / ``predict_graph`` and its persistence
+    (``as_dict`` / ``from_dict`` / ``save`` / ``from_file`` / ``load``),
+    whose ``.npz`` files either package reads. ``device`` defaults to
     ``"cuda"`` and raises when CUDA is absent; tests pass ``"cpu"``.
     """
 
@@ -622,8 +631,16 @@ class CHGNet:
             print(f"CHGNet (torch) initialized with {self.n_params:,} parameters")
 
     @property
+    def version(self) -> str | None:
+        return self.config.version
+
+    @property
     def n_params(self) -> int:
         return count_params(self.params)
+
+    @property
+    def is_intensive(self) -> bool:
+        return self.config.is_intensive
 
     def forward(
         self, graphs: Sequence[CrystalGraph], *, task: PredTask = "e"
@@ -720,3 +737,82 @@ class CHGNet:
                 if return_crystal_feas:
                     pred["crystal_fea"] = out["crystal_fea"][idx]
         return predictions[0] if len(graphs) == 1 else predictions
+
+    # ---------------------------------------------------------- persistence
+    def as_dict(self) -> dict:
+        """Parameters (numpy, ``chgnet_tpu``'s layout) and model args."""
+        return {
+            "params": params_to_numpy(self.params),
+            "model_args": self.config.as_dict(),
+        }
+
+    def save(self, path: str) -> None:
+        """Save params + config to one ``.npz`` checkpoint, in the layout
+        ``chgnet_tpu``'s ``CHGNet.save`` writes."""
+        save_params(params_to_numpy(self.params), self.config.as_dict(), path)
+
+    @classmethod
+    def from_dict(cls, dct: dict, **kwargs) -> CHGNet:
+        return cls(params=dct["params"], **{**dct["model_args"], **kwargs})
+
+    @classmethod
+    def from_file(cls, path: str, **kwargs) -> CHGNet:
+        """Load a ``.npz`` checkpoint (either package's), or convert an
+        upstream torch ``.pth.tar`` on the fly. ``kwargs`` (``device``
+        among them) override the stored model args."""
+        if path.endswith((".pth.tar", ".pt", ".tar")):
+            from chgnet_tpu_torch.models.checkpoint import load_torch_checkpoint
+
+            params, model_args = load_torch_checkpoint(path)
+        else:
+            params, model_args = load_params(path)
+        model_args.update(kwargs)
+        return cls(params=params, **model_args)
+
+    @classmethod
+    def load(
+        cls,
+        *,
+        model_name: str = "0.3.0",
+        device: str | torch.device = "cuda",
+        verbose: bool = True,
+    ) -> CHGNet:
+        """Load pretrained weights by name from the first root that holds
+        them: ``chgnet_tpu_torch/pretrained``, ``$CHGNET_TPU_WEIGHTS``, then
+        ``~/.cache/chgnet_tpu``; in each, ``<name>.npz``, then
+        ``<name>/*.pth.tar``, then ``*<name>*.pth.tar``. Nothing is fetched:
+        with no weights found it raises ``FileNotFoundError``."""
+        known = {"0.3.0", "0.2.0", "r2scan"}
+        if model_name not in known:
+            raise ValueError(f"Unknown {model_name=}, choose from {known}")
+        roots = [os.path.join(os.path.dirname(__file__), "..", "pretrained")]
+        if os.environ.get("CHGNET_TPU_WEIGHTS"):
+            roots.append(os.environ["CHGNET_TPU_WEIGHTS"])
+        roots.append(os.path.join(os.path.expanduser("~"), ".cache", "chgnet_tpu"))
+        found = None
+        for root in roots:
+            for pattern in (
+                f"{model_name}.npz",
+                f"{model_name}/*.pth.tar",
+                f"*{model_name}*.pth.tar",
+            ):
+                hits = sorted(glob.glob(os.path.join(root, pattern)))
+                if hits:
+                    found = hits[0]
+                    break
+            if found:
+                break
+        if found is None:
+            raise FileNotFoundError(
+                f"No pretrained weights for {model_name!r} under "
+                f"{[os.path.abspath(r) for r in roots]}. Place the published "
+                "upstream .pth.tar (or a converted .npz) in one of these "
+                "directories, or point CHGNET_TPU_WEIGHTS at it."
+            )
+        model = cls.from_file(found, version=model_name, device=device)
+        if verbose:
+            print(f"CHGNet (torch) {model_name} loaded ({model.n_params:,} params)")
+        return model
+
+    def todict(self) -> dict:
+        return {"model_name": type(self).__name__, "model_args": self.config.as_dict()}

@@ -60,7 +60,21 @@ one-kernel pass and under the stream-v2 switch:
    one-kernel-pass passes must show their kernels by name (``PROFILED``:
    the tensor-core tails, the windowed gather), and the stream-v2 and
    one-kernel pass's traces none of the kernels they replaced
-   (``UNPROFILED``).
+   (``UNPROFILED``);
+6. simulation (``chgnet_tpu_torch.simulation``): (a) the pinned seed-0 MD
+   traces of every ensemble and the FIRE trace (``GOLDEN_MD``,
+   ``GOLDEN_FIRE``) with the SMALL model, at rtol 2e-3; (b) NVT MD of
+   ``CHGNet(seed=0)`` on tools/bench_md.py's 10,240-atom workload (skin
+   0.15): steps/s, capacities, rebuild stats, peak device memory, the launch
+   counts of the timed steps (the default path's kernels, no other), the
+   final state against a fresh exact-cutoff ``predict_structure`` (2e-5
+   eV/atom, 5e-5 eV/A), every kernel call of one MD step against its plain
+   version, and one traced step by kernel; (c) FIRE with the cell free over
+   8 of bench.py's supercells in one batch: steps/s, each final energy
+   against a fresh prediction of its last frame, the energy falling; (d)
+   ``CHGNetCalculator`` equal to ``predict_structure``. The ``kernels``
+   line's rows gain ``sim_launches`` (the timed MD steps' launches) and
+   their ``max_abs_err`` covers the MD step's calls too.
 
 Every line but the last also goes to ``build/chip_smoke.log`` beside the
 script (``build/`` is where the kernels' libraries go). Any failure raises. The last line is the result JSON. Needs one CUDA card;
@@ -176,6 +190,71 @@ UNPROFILED = {
     "CHGNET_TPU_FUSED_PASS=1": ("pass_fwd_kernel<", "pass_bwd_kernel<"),
 }
 MODEL_TOL = {"e": 2e-5, "f": 5e-5, "s": 2e-4, "m": 2e-5}
+
+# the simulation phase's pinned seed-0 traces: a copy of
+# tests/test_golden_traces.py's (that module imports chgnet_tpu; a CPU test
+# holds the two copies equal). The model's widths, then per MD ensemble the
+# potential energy [eV] and temperature [K] after each of 10 runs of 3 steps,
+# then FIRE's energy at each of 25 steps
+GOLDEN_SMALL = dict(
+    atom_fea_dim=16,
+    bond_fea_dim=16,
+    angle_fea_dim=16,
+    num_radial=9,
+    num_angular=9,
+    n_conv=2,
+    mlp_hidden_dims=(16,),
+    atom_conv_hidden_dim=16,
+    bond_conv_hidden_dim=16,
+)
+
+# (ensemble, thermostat) -> (epot [eV] every 3rd step, T [K] every 3rd step)
+GOLDEN_MD = {
+    ("nve", "Berendsen_inhomogeneous"): (
+        [-56.184486, -56.180012, -56.174957, -56.169758, -56.16481,
+         -56.160439, -56.156845, -56.154091, -56.152088, -56.150677],
+        [296.647, 292.322, 287.44, 282.414, 277.63,
+         273.404, 269.933, 267.268, 265.329, 263.96],
+    ),
+    ("nvt", "Nose-Hoover"): (
+        [-56.184486, -56.180012, -56.174957, -56.16975, -56.164783,
+         -56.160389, -56.156765, -56.153969, -56.151913, -56.150433],
+        [296.662, 292.447, 287.882, 283.496, 279.78,
+         277.138, 275.835, 275.963, 277.449, 280.12],
+    ),
+    ("nvt", "Berendsen"): (
+        [-56.184486, -56.180008, -56.174942, -56.169716, -56.164722,
+         -56.160297, -56.156651, -56.153831, -56.151756, -56.150261],
+        [296.897, 293.257, 289.518, 286.069, 283.23,
+         281.224, 280.141, 279.923, 280.391, 281.321],
+    ),
+    ("npt", "Nose-Hoover"): (
+        [-56.184483, -56.17997, -56.174812, -56.169403, -56.164101,
+         -56.159153, -56.154625, -56.150364, -56.146065, -56.141438],
+        [296.314, 291.265, 285.435, 279.417, 273.761,
+         268.907, 265.118, 262.455, 260.838, 260.175],
+    ),
+    ("npt", "Nose-Hoover-full"): (
+        [-56.184509, -56.18013, -56.175278, -56.170406, -56.165932,
+         -56.162174, -56.159309, -56.157307, -56.155941, -56.154919],
+        [296.433, 291.665, 286.251, 280.753, 275.69,
+         271.484, 268.398, 266.502, 265.706, 265.858],
+    ),
+    ("npt", "Berendsen"): (
+        [-56.184486, -56.180004, -56.174934, -56.169704, -56.164707,
+         -56.160275, -56.156616, -56.153786, -56.151691, -56.150173],
+        [296.897, 293.256, 289.516, 286.065, 283.224,
+         281.215, 280.129, 279.905, 280.364, 281.282],
+    ),
+}
+
+GOLDEN_FIRE = [
+    -56.177689, -56.177723, -56.177792, -56.177895, -56.178032,
+    -56.178207, -56.178413, -56.178654, -56.178955, -56.17934,
+    -56.179817, -56.180412, -56.181145, -56.182045, -56.18314,
+    -56.184471, -56.186077, -56.187992, -56.190266, -56.192936,
+    -56.196037, -56.199589, -56.203587, -56.208008, -56.212807,
+]
 
 _CSRC = "chgnet_tpu_torch/csrc/"
 _TPU = "chgnet_tpu/ops/"
@@ -630,12 +709,14 @@ def _errors(got, want):
     return err, err / scale if scale else math.inf if err else 0.0
 
 
-def phase_kernels(path, calls):
+def phase_kernels(path, calls, counts=None):
     """Every call recorded on one pass of ``path`` through the kernel and
     its plain version, each output's error relative to that output's
-    largest value. Every kernel the path launches must have been recorded."""
+    largest value. Every kernel the path launches (``counts``, in the order
+    of ``KERNELS``; by default the path's launch set in ``PATHS``) must have
+    been recorded."""
     errors, failed = {}, []
-    expected = dict(zip(KERNELS, PATHS[path][2]))
+    expected = dict(zip(KERNELS, counts or PATHS[path][2]))
     for name, (kern, plain) in kernel_versions().items():
         if not expected[name]:
             continue
@@ -946,23 +1027,32 @@ def check_same_outputs(path, out, ref_path, ref):
 
 
 def profile_pass(path, batch):  # batch: the path's own
-    """One E+F+S+M pass of a path under torch.profiler: device time by kernel
-    and the device's busy share of the pass's wall time. Every kernel that
-    ``PROFILED`` names for the path must appear in the trace."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """One E+F+S+M pass of a path under torch.profiler (``profile_call``).
+    Every kernel that ``PROFILED`` names for the path must appear in the
+    trace, and none that ``UNPROFILED`` names."""
     from chgnet_tpu_torch.models import CHGNet
 
     kwargs, switch, _ = PATHS[path]
     model = CHGNet(seed=0, device="cuda", **kwargs)
     with env_switch(switch):
-        run_pass(model, batch)
+        profile_call(f"profile {path}", "pass", lambda: run_pass(model, batch),
+                     PROFILED[path], UNPROFILED.get(path, ()))
+
+
+def profile_call(label, what, fn, need=(), banned=()):
+    """One call of ``fn`` (after one untraced call) under torch.profiler:
+    device time by kernel and the device's busy share of the call's wall
+    time. Each name in ``need`` must appear in the trace, none in
+    ``banned``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run_pass(model, batch)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
     events = [
         e for e in prof.key_averages()
         if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
@@ -970,15 +1060,15 @@ def profile_pass(path, batch):  # batch: the path's own
     ]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     if busy_ms <= 0:
-        log(f"profile {path}: the profiler recorded no device time (not measured)")
+        log(f"{label}: the profiler recorded no device time (not measured)")
         return
-    missing = [k for k in PROFILED[path] if not any(k in e.key for e in events)]
+    missing = [k for k in need if not any(k in e.key for e in events)]
     if missing:
-        raise AssertionError(f"profile {path}: no device time of {missing}")
-    banned = [k for k in UNPROFILED.get(path, ()) if any(k in e.key for e in events)]
-    if banned:
-        raise AssertionError(f"profile {path}: device time of {banned}")
-    log(f"profile {path}: one traced pass {wall_ms:.3f} ms wall, device busy "
+        raise AssertionError(f"{label}: no device time of {missing}")
+    found = [k for k in banned if any(k in e.key for e in events)]
+    if found:
+        raise AssertionError(f"{label}: device time of {found}")
+    log(f"{label}: one traced {what} {wall_ms:.3f} ms wall, device busy "
         f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), {len(events)} "
         "kernel names; top by device time:")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
@@ -1087,6 +1177,236 @@ def phase_timing(calls, launches, errors):
     return rows
 
 
+# the simulation phase: NVT MD at full width on tools/bench_md.py's workload
+# (the (16, 10, 8) LiMnO2 supercell, 10,240 atoms, spatially sorted; 300 K
+# from 300 K, 1 fs, seed 0, skin 0.15), and FIRE over the first 8 of
+# bench.py's perturbed 216-atom supercells in one padded batch
+SIM_MD_SCALE = (16, 10, 8)
+SIM_MD_SKIN = 0.15
+SIM_MD_STEPS = 50
+SIM_RELAX_STRUCTS = 8
+SIM_RELAX_STEPS = 50
+SIM_RELAX_FMAX = 0.01  # eV/A: the seed-0 model's forces there are ~0.08
+GOLDEN_RTOL = 2e-3
+SIM_E_TOL = 2e-5  # eV/atom
+SIM_F_TOL = 5e-5  # eV/A
+
+
+def _rel_err(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float((np.abs(got - want) / np.abs(want)).max())
+
+
+def check_launched(label, launches, counts) -> None:
+    """Every kernel with a count in ``counts`` (the order of ``KERNELS``)
+    launched at least once, and no other."""
+    from chgnet_tpu_torch import ops
+
+    wrong = [n for n, fn, c in zip(KERNELS, ops.KERNELS, counts)
+             if bool(launches[fn.__name__]) != bool(c)]
+    if wrong:
+        raise AssertionError(f"{label}: launched against the expected set: {wrong}")
+
+
+def phase_goldens():
+    """(a) The pinned seed-0 traces on the card (``GOLDEN_MD``,
+    ``GOLDEN_FIRE``): the SMALL model on LiMnO2, each MD ensemble 10 runs of
+    3 steps, FIRE 25 steps from ``perturb(0.1, seed=3)``, at rtol 2e-3."""
+    from chgnet_tpu_torch import ROOT
+    from chgnet_tpu_torch.core.structure import Structure
+    from chgnet_tpu_torch.models import CHGNet
+    from chgnet_tpu_torch.simulation import MolecularDynamics, StructOptimizer
+
+    model = CHGNet(seed=0, device="cuda", **GOLDEN_SMALL)
+    struct = Structure.from_file(f"{ROOT}/examples/mp-18767-LiMnO2.cif")
+    failed = []
+    for (ensemble, thermostat), (want_e, want_t) in GOLDEN_MD.items():
+        t0 = time.perf_counter()
+        md = MolecularDynamics(
+            struct, model=model, ensemble=ensemble, thermostat=thermostat,
+            temperature=300.0, starting_temperature=300.0, timestep=2.0,
+            taut=50.0, taup=200.0, pressure=0.0, bulk_modulus=100.0, seed=0,
+        )
+        es, ts = [], []
+        for _ in range(10):
+            md.run(3)
+            es.append(float(md.state.epot[0]))
+            ts.append(float(md.get_temperature()))
+        err = max(_rel_err(es, want_e), _rel_err(ts, want_t))
+        log(f"golden MD {ensemble} {thermostat}: 10 x run(3), max relative err "
+            f"{err:.3e} (rtol {GOLDEN_RTOL:g}), {md.runtime.n_rebuilds} rebuilds, "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not err <= GOLDEN_RTOL:
+            failed.append(f"MD {ensemble} {thermostat}")
+    res = StructOptimizer(model=model, optimizer_class="FIRE").relax(
+        struct.perturb(0.1, seed=3), fmax=0.01, steps=25, relax_cell=True,
+        assign_magmoms=False,
+    )
+    err = _rel_err(res["trajectory"].energies[:25], GOLDEN_FIRE)
+    log(f"golden FIRE: 25 steps, max relative err {err:.3e} (rtol {GOLDEN_RTOL:g})")
+    if not err <= GOLDEN_RTOL:
+        failed.append("FIRE")
+    if failed:
+        raise AssertionError(f"golden traces off on the card: {failed}")
+
+
+def phase_sim_md():
+    """(b) NVT MD at full width, 10,240 atoms: one chunk to warm up, then
+    ``SIM_MD_STEPS`` steps between a reset and a read of the launch counts
+    (every kernel of the default path must launch, no other); steps/s, the
+    rebuild stats over those steps, peak device memory above what was
+    allocated before; the final state against a fresh exact-cutoff
+    ``predict_structure``; every kernel call of one MD step against its
+    plain version; one traced step. Returns (launches, errors)."""
+    from chgnet_tpu_torch import ROOT, ops
+    from chgnet_tpu_torch.core.structure import Structure
+    from chgnet_tpu_torch.models import CHGNet
+    from chgnet_tpu_torch.simulation import MolecularDynamics, units
+    from chgnet_tpu_torch.simulation.md import md_chunk
+    from chgnet_tpu_torch.simulation.runtime import (
+        apply_dynamic_cutoff, compute_batch_dynamic,
+    )
+
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = CHGNet(seed=0, device="cuda")
+    struct = Structure.from_file(
+        f"{ROOT}/examples/mp-18767-LiMnO2.cif").make_supercell(SIM_MD_SCALE).spatial_sort()
+    n_atoms = len(struct)
+    t0 = time.perf_counter()
+    md = MolecularDynamics(
+        struct, model=model, ensemble="nvt", thermostat="Berendsen",
+        temperature=300.0, starting_temperature=300.0, timestep=1.0, seed=0,
+        skin=SIM_MD_SKIN,
+    )
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    md.run(1)  # one chunk: the Verlet budget caps a chunk at 1 step here
+    warm_s = time.perf_counter() - t0
+    rt = md.runtime
+    stats0, rebuilds0 = dict(rt.stats), rt.n_rebuilds
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    md.run(SIM_MD_STEPS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
+    peak = torch.cuda.max_memory_allocated() - base_bytes
+    stats = {k: rt.stats[k] - stats0[k] for k in rt.stats}
+    batch = rt.batch
+    live = apply_dynamic_cutoff(
+        batch._replace(frac_coords=md.state.frac, lattices=md.state.lat), model.config)
+    log(f"sim MD: {n_atoms} atoms, NVT Berendsen 300 K, 1 fs, skin {SIM_MD_SKIN}: "
+        f"capacities N={batch.atomic_numbers.shape[0]} E={batch.atom_graph.shape[0]} "
+        f"A={batch.bond_graph.shape[0]}; rows valid in the plans E "
+        f"{int(batch.edge_mask.sum())} A {int(batch.angle_mask.sum())}, kept by the "
+        f"dynamic cutoff E {int(live.edge_mask.sum())} A {int(live.angle_mask.sum())}")
+    log(f"sim MD: set-up {setup_s:.2f} s, warm-up chunk {warm_s:.2f} s; "
+        f"{SIM_MD_STEPS} steps in {wall_s:.3f} s = {SIM_MD_STEPS / wall_s:.4f} steps/s; "
+        f"{rt.n_rebuilds - rebuilds0} rebuilds; stats over the steps "
+        + json.dumps({k: round(v, 3) for k, v in stats.items()})
+        + f"; peak device memory {peak / 2**30:.3f} GiB above the "
+        f"{base_bytes / 2**30:.3f} GiB allocated before ({card_line()})")
+    log(f"sim MD launches over {SIM_MD_STEPS} steps:", launches)
+    check_launched("sim MD", launches, PATHS["default"][2])
+
+    final = md.atoms
+    pred = model.predict_structure(final, task="ef")
+    e_state = float(md.state.epot[0]) / n_atoms
+    f_state = (md.state.accel * md.masses[:, None]
+               * units.AMU_A2_FS2_TO_EV)[:n_atoms].cpu().numpy()
+    e_err = abs(pred["e"] - e_state)
+    f_err = float(np.abs(pred["f"] - f_state).max())
+    log(f"sim MD final state vs a fresh exact-cutoff predict_structure: e err "
+        f"{e_err:.3e} eV/atom (tol {SIM_E_TOL:g}), f err {f_err:.3e} eV/A "
+        f"(tol {SIM_F_TOL:g}); e = {e_state:.6f} eV/atom, T = "
+        f"{md.get_temperature():.2f} K")
+    if not (e_err <= SIM_E_TOL and f_err <= SIM_F_TOL):
+        raise AssertionError("sim MD: the skin state disagrees with the exact graph")
+
+    step_batch = batch._replace(frac_coords=md.state.frac, lattices=md.state.lat)
+    with Recorder() as rec:
+        compute_batch_dynamic(model.params, step_batch, config=model.config,
+                              compute_stress=False, compute_magmom=False)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        errors = phase_kernels("MD step", rec.calls, PATHS["default"][2])
+    del rec
+
+    def one_step():
+        md_chunk(model.params, batch, md.state, md.md_params, md.masses, md.dof,
+                 config=model.config, ensemble="nvt", thermostat="Berendsen",
+                 n_steps=1, record=False)
+
+    profile_call(f"profile MD step ({n_atoms} atoms)", "MD step", one_step,
+                 PROFILED["default"])
+    return launches, errors
+
+
+def phase_sim_relax():
+    """(c) FIRE with the cell free over ``SIM_RELAX_STRUCTS`` of bench.py's
+    perturbed 216-atom supercells in one padded batch, ``SIM_RELAX_STEPS``
+    steps: steps/s; each result's ``final_energy`` (the last evaluated
+    state's, one move before ``final_structure``) against a fresh
+    ``predict_structure`` of the trajectory's last frame; the energy falls.
+    (d) ``CHGNetCalculator`` against ``predict_structure``, exactly."""
+    from chgnet_tpu_torch import ROOT
+    from chgnet_tpu_torch.core.structure import Structure
+    from chgnet_tpu_torch.models import CHGNet
+    from chgnet_tpu_torch.simulation import CHGNetCalculator, StructOptimizer
+
+    model = CHGNet(seed=0, device="cuda")
+    base = Structure.from_file(f"{ROOT}/examples/mp-18767-LiMnO2.cif")
+    structs = [base.make_supercell(3).perturb(0.05, seed=seed)
+               for seed in range(SIM_RELAX_STRUCTS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = StructOptimizer(model, optimizer_class="FIRE").relax(
+        structs, fmax=SIM_RELAX_FMAX, steps=SIM_RELAX_STEPS, relax_cell=True,
+        assign_magmoms=False)
+    wall_s = time.perf_counter() - t0
+    n_steps = len(results[0]["trajectory"])
+    log(f"sim relax: FIRE, {len(structs)} x {len(structs[0])} atoms in one batch, "
+        f"relax_cell, fmax {SIM_RELAX_FMAX:g}, {n_steps} steps in {wall_s:.3f} s (first graph build "
+        f"included) = {n_steps / wall_s:.4f} steps/s ({card_line()})")
+    frames = [
+        Structure(r["trajectory"].cells[-1], s.atomic_numbers.tolist(),
+                  r["trajectory"].atom_positions[-1], coords_are_cartesian=True)
+        for r, s in zip(results, structs)
+    ]
+    preds = model.predict_structure(frames, task="e")
+    worst, failed = 0.0, []
+    for i, (r, p, s) in enumerate(zip(results, preds, structs)):
+        err = abs(p["e"] * len(s) - r["final_energy"])
+        worst = max(worst, err / len(s))
+        if not (err <= SIM_E_TOL * len(s)
+                and r["final_energy"] < r["trajectory"].energies[0]):
+            failed.append(i)
+    log(f"sim relax: final_energy vs predict_structure of the last frame: max err "
+        f"{worst:.3e} eV/atom (tol {SIM_E_TOL:g}); energy per atom "
+        + ", ".join(f"{r['trajectory'].energies[0] / len(s):.7f} -> "
+                    f"{r['final_energy'] / len(s):.7f}"
+                    for r, s in zip(results, structs)))
+    if failed:
+        raise AssertionError(f"sim relax: structures {failed} off or not falling")
+
+    calc = CHGNetCalculator(model)
+    calc.calculate(base)
+    pred = model.predict_structure(base, task="efsm")
+    same = (
+        calc.results["energy"] == pred["e"] * len(base)
+        and np.array_equal(calc.results["forces"], pred["f"])
+        and np.array_equal(calc.results["stress"], pred["s"] * calc.stress_weight)
+        and np.array_equal(calc.results["magmoms"], pred["m"])
+    )
+    log(f"sim calculator: CHGNetCalculator(model).calculate == predict_structure "
+        f"exactly: {same}")
+    if not same:
+        raise AssertionError("sim calculator: results differ from predict_structure")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a "
@@ -1150,6 +1470,16 @@ def main() -> int:
         rows = phase_timing(calls, launches, errors)
     for path in PROFILED:
         profile_pass(path, batches[path])
+    del calls, outs, batches, batch, batch_v2
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_goldens()
+    sim_launches, sim_errors = phase_sim_md()
+    phase_sim_relax()
+    log(f"simulation phase: {time.perf_counter() - t0:.0f} s")
+    for row in rows:
+        row["sim_launches"] = sim_launches[kernel_versions()[row["name"]][0].__name__]
+        row["max_abs_err"] = max(row["max_abs_err"], sim_errors.get(row["name"], 0.0))
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s")
     log(json.dumps({"kernels": rows}))
     log(card_line())

@@ -1096,3 +1096,92 @@ def test_stream_v2_and_fused_pass_paths_on_card_match_cpu(
         np.testing.assert_allclose(
             np.asarray(b[key]), np.asarray(a[key]), atol=TOL[key], err_msg=key
         )
+
+
+# ------------------------------------------------------------- simulation
+def _chip_smoke_goldens():
+    """The pinned seed-0 traces as chip_smoke.py keeps them (held equal to
+    tests/test_golden_traces.py's by a CPU test; that module imports JAX)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", f"{ROOT}/chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.GOLDEN_SMALL, module.GOLDEN_MD, module.GOLDEN_FIRE
+
+
+GOLDEN_SMALL, GOLDEN_MD, GOLDEN_FIRE = _chip_smoke_goldens()
+
+
+@pytest.mark.parametrize(("ensemble", "thermostat"), sorted(GOLDEN_MD))
+def test_md_golden_traces_on_card(cuda, ensemble, thermostat):
+    from chgnet_tpu_torch.simulation import MolecularDynamics
+
+    model = CHGNet(seed=0, device=cuda, **GOLDEN_SMALL)
+    md = MolecularDynamics(
+        Structure.from_file(LIMNO2), model=model, ensemble=ensemble,
+        thermostat=thermostat, temperature=300.0, starting_temperature=300.0,
+        timestep=2.0, taut=50.0, taup=200.0, pressure=0.0, bulk_modulus=100.0,
+        seed=0,
+    )
+    es, ts = [], []
+    for _ in range(10):
+        md.run(3)
+        es.append(float(md.state.epot[0]))
+        ts.append(float(md.get_temperature()))
+    want_e, want_t = GOLDEN_MD[(ensemble, thermostat)]
+    np.testing.assert_allclose(es, want_e, rtol=2e-3)
+    np.testing.assert_allclose(ts, want_t, rtol=2e-3)
+
+
+def test_fire_golden_trace_on_card(cuda):
+    from chgnet_tpu_torch.simulation import StructOptimizer
+
+    model = CHGNet(seed=0, device=cuda, **GOLDEN_SMALL)
+    res = StructOptimizer(model=model, optimizer_class="FIRE").relax(
+        Structure.from_file(LIMNO2).perturb(0.1, seed=3), fmax=0.01, steps=25,
+        relax_cell=True, assign_magmoms=False,
+    )
+    np.testing.assert_allclose(res["trajectory"].energies[:25], GOLDEN_FIRE, rtol=2e-3)
+
+
+def test_md_final_state_matches_the_exact_graph_on_card(cuda):
+    """Skin reuse with the dynamic masks on the card: the MD state's energy
+    and forces equal a fresh exact-cutoff prediction of its positions."""
+    from chgnet_tpu_torch import ops
+    from chgnet_tpu_torch.simulation import MolecularDynamics, units
+
+    model = CHGNet(seed=0, device=cuda, **GOLDEN_SMALL)
+    struct = Structure.from_file(LIMNO2).make_supercell(2)
+    md = MolecularDynamics(
+        struct, model=model, ensemble="nvt", thermostat="Berendsen",
+        temperature=300.0, starting_temperature=300.0, timestep=1.0, seed=0,
+        skin=0.15,
+    )
+    ops.reset_launch_counts()
+    md.run(20)
+    assert md.runtime.n_rebuilds >= 1
+    assert ops.gated_message_bwd.launches > 0 and ops.segment_sum_csr.launches > 0
+    n = len(struct)
+    pred = model.predict_structure(md.atoms, task="ef")
+    assert abs(pred["e"] - float(md.state.epot[0]) / n) <= TOL["e"]
+    forces = (md.state.accel * md.masses[:, None] * units.AMU_A2_FS2_TO_EV)[:n]
+    np.testing.assert_allclose(forces.cpu().numpy(), pred["f"], rtol=0, atol=TOL["f"])
+
+
+def test_compute_batch_dynamic_on_card_matches_cpu(cuda):
+    from chgnet_tpu_torch.simulation.runtime import GraphRuntime, compute_batch_dynamic
+
+    model = CHGNet(seed=0, device="cpu", **GOLDEN_SMALL)
+    struct = Structure.from_file(LIMNO2).make_supercell(2).perturb(0.1, seed=3)
+    rt = GraphRuntime(model.config, [struct], skin=0.3, device="cpu")
+    rng = np.random.default_rng(4)
+    frac = rt.batch.frac_coords + torch.as_tensor(
+        rng.uniform(-0.004, 0.004, rt.batch.frac_coords.shape), dtype=torch.float32)
+    batch = rt.batch._replace(frac_coords=frac)
+    want = compute_batch_dynamic(model.params, batch, config=model.config)
+    card = CHGNet(seed=0, device=cuda, **GOLDEN_SMALL)
+    got = compute_batch_dynamic(card.params, batch.to(cuda), config=card.config)
+    for key in "efsm":
+        np.testing.assert_allclose(got[key].cpu().numpy(), want[key].numpy(),
+                                   rtol=0, atol=TOL[key], err_msg=key)

@@ -186,7 +186,9 @@ def test_make_plan_drops_invalid_rows_and_rejects_unsorted():
 def test_import_leaves_jax_and_chgnet_tpu_out():
     code = (
         "import sys, chgnet_tpu_torch, chgnet_tpu_torch.models, "
-        "chgnet_tpu_torch.ops, chgnet_tpu_torch.graph, chgnet_tpu_torch.core\n"
+        "chgnet_tpu_torch.ops, chgnet_tpu_torch.graph, chgnet_tpu_torch.core, "
+        "chgnet_tpu_torch.simulation, chgnet_tpu_torch.utils, "
+        "chgnet_tpu_torch.models.checkpoint\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'chgnet_tpu.')) or m == 'chgnet_tpu')\n"
         "assert not bad, bad\n"
