@@ -22,3 +22,10 @@ PredTask = Literal["e", "ef", "em", "efs", "efsm"]
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 __version__ = "0.1.0"
+
+# Large-array host preprocessing is page-fault-bound without this (see
+# chgnet_tpu_torch/utils/hostmem.py); opt out with CHGNET_TPU_NO_MALLOC_TUNE=1.
+from chgnet_tpu_torch.utils.hostmem import tune_host_allocator as _tune  # noqa: E402
+
+_tune()
+del _tune

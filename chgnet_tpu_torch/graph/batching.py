@@ -22,6 +22,12 @@ segment offsets ``[n_out + 1]`` of the sorted keys. A segment sum then
 reads ``offsets[n]..offsets[n + 1]`` for output row ``n``, in a fixed
 order and without atomics (``chgnet_tpu_torch/ops/segment.py``).
 
+As in ``chgnet_tpu``, the sorts and the angle stream's reorder go through
+the threaded host ops (``utils/native/hostops.py``: a radix argsort equal
+to numpy's stable one, a row gather), and the eight plans are built on a
+pool of four threads; every array equals the one numpy's sort and fancy
+indexing give.
+
 With ``CHGNET_TPU_STREAM_V2`` set while the batch is built
 (:func:`stream_v2_enabled`), a plan also carries the source window of every
 block of ``WINDOW_BLOCK`` stream rows (:func:`build_window_plan`), the
@@ -35,14 +41,17 @@ from __future__ import annotations
 
 import math
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from chgnet_tpu_torch.graph.crystalgraph import CrystalGraph
+from chgnet_tpu_torch.utils.native.hostops import gather_col, stable_argsort_i32
 
 STREAM_CHUNK = 512  # row alignment of the padded streams (chgnet_tpu's C)
+PLAN_WORKERS = 4  # threads building a batch's plans (chgnet_tpu's pool)
 # The windowed gather (ops/segment.py gather_rows_window): stream rows per
 # block, and the most source rows a block's window may span. The cap was
 # set for a kernel that staged every window whole (448 rows of 128 floats
@@ -159,7 +168,7 @@ def make_plan(
         perm = np.zeros(0, np.int32)
         sorted_key = key
     else:
-        perm = np.argsort(key, kind="stable").astype(np.int32)
+        perm = stable_argsort_i32(key)
         sorted_key = key[perm]
     offsets = np.searchsorted(
         sorted_key, np.arange(n_out + 1, dtype=np.int32), side="left"
@@ -314,8 +323,8 @@ def batch_graphs(
         undirected2directed[sl_u] = g.undirected2directed + e_off
         # each bond's OTHER directed edge: stable-sort edges by their
         # undirected id; the two rows per id are (first, second)
-        d2u_g = np.asarray(g.directed2undirected, dtype=np.int32)
-        pairs = np.argsort(d2u_g, kind="stable").reshape(-1, 2)
+        d2u_g = np.ascontiguousarray(g.directed2undirected, dtype=np.int32)
+        pairs = stable_argsort_i32(d2u_g).reshape(-1, 2)
         if not (d2u_g[pairs[:, 0]] == d2u_g[pairs[:, 1]]).all():
             raise ValueError(
                 "graph invariant violated: an undirected bond does not "
@@ -365,10 +374,10 @@ def batch_graphs(
     # partial sum over dir_i is a sorted segment sum
     a_key = np.where(angle_mask > 0, bond_graph[:, 2], cap_e).astype(np.int32)
     if not bool((np.diff(a_key) >= 0).all()):
-        a_order = np.argsort(a_key, kind="stable")
-        bond_graph = bond_graph[a_order]
-        angle_scatter = angle_scatter[a_order]
-        angle_mask = angle_mask[a_order]
+        a_order = stable_argsort_i32(a_key)
+        bond_graph = gather_col(bond_graph, None, a_order)
+        angle_scatter = gather_col(angle_scatter, None, a_order)
+        angle_mask = gather_col(angle_mask, None, a_order)
     angle_scatter_dir = np.where(
         angle_mask > 0, bond_graph[:, 2], cap_e
     ).astype(np.int32)
@@ -376,6 +385,25 @@ def batch_graphs(
     e_valid = edge_mask > 0
     a_valid = angle_mask > 0
     u_valid = und_mask > 0
+    # the plans are independent (numpy and the GIL-free native sort)
+    plan_args = {
+        "plan_center": (atom_graph[:, 0], e_valid, cap_n, True),
+        "plan_nbr": (atom_graph[:, 1], e_valid, cap_n, False),
+        "plan_ang_vi": (bond_graph[:, 2], a_valid, cap_e, True),
+        "plan_ang_vj": (bond_graph[:, 4], a_valid, cap_e, False),
+        "plan_graph": (atom_owner, atom_mask > 0, n_graphs, True),
+        "plan_d2u": (directed2undirected, e_valid, cap_u, False),
+        # undirected ids are assigned by first appearance along the
+        # center-sorted edges, so each bond's first edge is sorted
+        "plan_u2d": (undirected2directed, u_valid, cap_e, True),
+        "plan_u2d2": (und_second, u_valid, cap_e, False),
+    }
+    with ThreadPoolExecutor(max_workers=PLAN_WORKERS) as pool:
+        futures = {
+            name: pool.submit(make_plan, idx, valid, n_out, assume_sorted=srt)
+            for name, (idx, valid, n_out, srt) in plan_args.items()
+        }
+        plans = {name: fut.result() for name, fut in futures.items()}
     return GraphBatch(
         atomic_numbers=atomic_numbers,
         frac_coords=frac_coords,
@@ -396,22 +424,5 @@ def batch_graphs(
         angle_scatter=angle_scatter,
         angle_scatter_dir=angle_scatter_dir,
         angle_mask=angle_mask,
-        plan_center=make_plan(
-            atom_graph[:, 0], e_valid, cap_n, assume_sorted=True
-        ),
-        plan_nbr=make_plan(atom_graph[:, 1], e_valid, cap_n),
-        plan_ang_vi=make_plan(
-            bond_graph[:, 2], a_valid, cap_e, assume_sorted=True
-        ),
-        plan_ang_vj=make_plan(bond_graph[:, 4], a_valid, cap_e),
-        plan_graph=make_plan(
-            atom_owner, atom_mask > 0, n_graphs, assume_sorted=True
-        ),
-        plan_d2u=make_plan(directed2undirected, e_valid, cap_u),
-        # undirected ids are assigned by first appearance along the
-        # center-sorted edges, so each bond's first edge is sorted
-        plan_u2d=make_plan(
-            undirected2directed, u_valid, cap_e, assume_sorted=True
-        ),
-        plan_u2d2=make_plan(und_second, u_valid, cap_e),
+        **plans,
     )

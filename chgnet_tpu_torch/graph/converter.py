@@ -3,10 +3,13 @@
 Mirrors the upstream CHGNet ``CrystalGraphConverter``
 (``chgnet/graph/converter.py:29-291``): radius neighbor search, edge
 pairing, line graph, isolated-atom policy and error dumping. Copied from
-``chgnet_tpu.graph.converter``. The port has the numpy builder only (the
-semantic spec); ``algorithm="fast"`` names the C++ builder, which the port
-does not carry yet, so it warns and builds with numpy, as ``chgnet_tpu``
-does when its extension is missing.
+``chgnet_tpu.graph.converter``, with two interchangeable builders:
+
+* ``"fast"`` (the default): the port's C++ builder (``graph/fast``), neighbor
+  search and topology in one native call. It has no fallback: a library
+  that cannot be built makes the constructor raise;
+* ``"numpy"`` (alias ``"legacy"``): the vectorized numpy builder, the
+  semantic spec. An unknown name warns and uses it, as ``chgnet_tpu`` does.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import numpy as np
 from chgnet_tpu_torch.core.structure import Structure
 from chgnet_tpu_torch.graph.builder import build_graph_arrays
 from chgnet_tpu_torch.graph.crystalgraph import CrystalGraph
+from chgnet_tpu_torch.graph.fast import fast_graph
 from chgnet_tpu_torch.graph.neighbors import get_neighbor_list
 
 
@@ -44,13 +48,8 @@ class CrystalGraphConverter:
         if algorithm == "legacy":  # reference-API compatibility alias
             algorithm = "numpy"
         if algorithm == "fast":
-            warnings.warn(
-                "`fast` C++ graph builder is not ported yet, using `numpy`",
-                UserWarning,
-                stacklevel=2,
-            )
-            algorithm = "numpy"
-        if algorithm != "numpy":
+            fast_graph.load()  # build the library now: raises if it cannot
+        elif algorithm != "numpy":
             warnings.warn(
                 f"Unknown {algorithm=}, using `numpy`", UserWarning, stacklevel=2
             )
@@ -86,19 +85,24 @@ class CrystalGraphConverter:
         """Convert one structure to a CrystalGraph."""
         n_atoms = len(structure)
 
-        center, neighbor, image, dist = get_neighbor_list(
-            structure, r=self.atom_graph_cutoff
-        )
-        try:
-            arrays = build_graph_arrays(
-                n_atoms, center, neighbor, image, dist, self.bond_graph_cutoff
+        if self.algorithm == "fast":
+            arrays = fast_graph.build(
+                structure, self.atom_graph_cutoff, self.bond_graph_cutoff
             )
-        except Exception as exc:
-            structure.to("bond_graph_error.cif")
-            raise RuntimeError(
-                f"Failed creating bond graph for {graph_id}, check "
-                "bond_graph_error.cif"
-            ) from exc
+        else:
+            center, neighbor, image, dist = get_neighbor_list(
+                structure, r=self.atom_graph_cutoff
+            )
+            try:
+                arrays = build_graph_arrays(
+                    n_atoms, center, neighbor, image, dist, self.bond_graph_cutoff
+                )
+            except Exception as exc:
+                structure.to("bond_graph_error.cif")
+                raise RuntimeError(
+                    f"Failed creating bond graph for {graph_id}, check "
+                    "bond_graph_error.cif"
+                ) from exc
 
         n_isolated = n_atoms - len(np.unique(arrays.atom_graph[:, 0]))
         if n_isolated:

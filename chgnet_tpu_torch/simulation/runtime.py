@@ -9,7 +9,9 @@ the *current* positions, so a masked row keeps its place in the batch and
 in its plans and only stops contributing (the masks multiply; nothing is
 re-planned). The host rebuilds only when accumulated atomic drift or
 lattice strain could let a neighbour cross the skin shell (the Verlet-list
-criterion), on background threads while the loop keeps stepping.
+criterion), on background threads while the loop keeps stepping: the C++
+graph builder and the threaded host ops release the interpreter lock, so
+one rebuild's graphs overlap the previous one's batching.
 
 The atom capacity is pinned, so per-atom state (velocities, ...) stays
 valid across rebuilds; edge and angle capacities grow monotonically on the
@@ -175,12 +177,10 @@ class GraphRuntime:
         self.config = config
         self.device = resolve_device(device)
         self.skin = float(skin)
-        # the port's builder is the numpy one (algorithm="fast" would fall
-        # back to it with a warning)
         self.converter = CrystalGraphConverter(
             atom_graph_cutoff=config.atom_graph_cutoff + self.skin,
             bond_graph_cutoff=config.bond_graph_cutoff + self.skin,
-            algorithm="numpy",
+            algorithm="fast",
             on_isolated_atoms=on_isolated_atoms,  # type: ignore[arg-type]
         )
         self.n_structs = len(structures)

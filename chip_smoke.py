@@ -72,9 +72,27 @@ one-kernel pass and under the stream-v2 switch:
    version, and one traced step by kernel; (c) FIRE with the cell free over
    8 of bench.py's supercells in one batch: steps/s, each final energy
    against a fresh prediction of its last frame, the energy falling; (d)
-   ``CHGNetCalculator`` equal to ``predict_structure``. The ``kernels``
-   line's rows gain ``sim_launches`` (the timed MD steps' launches) and
-   their ``max_abs_err`` covers the MD step's calls too.
+   ``CHGNetCalculator`` equal to ``predict_structure``; (e) the host stack
+   on the MD workload's structure at the MD cutoffs (6.15 / 3.15 A): the
+   C++ graph builder and the numpy builder timed once each and their arrays
+   held equal (ids and images exact, distances 1e-10 A), ``batch_graphs``
+   timed with the host ops and with ``CHGNET_TPU_NO_HOSTOPS=1``, and the two
+   host libraries' g++ builds timed in a fresh directory; (f) LBFGS,
+   LBFGSLineSearch, BFGS and BFGSLineSearch over (c)'s batch for
+   ``SIM_RELAXERS_STEPS`` steps each: steps/s (for BFGS also the share of
+   the wall time an ``eigh`` of its [8, 657, 657] Hessian takes), the
+   energy falling and each final energy against a fresh prediction of its
+   last frame; then SciPyFminCG on one 216-atom supercell, its energy
+   falling. The ``kernels`` line's rows gain ``sim_launches`` (the timed MD
+   steps' launches) and their ``max_abs_err`` covers the MD step's calls
+   too.
+
+``python3 chip_smoke.py --compare ROOT [ROOT ...]`` times checkouts against
+each other in turns on one card, each ROOT in its own process and by its
+own ``chip_smoke.py`` (so a parent is timed by its own code): the kernel
+build, each of its ``PATHS`` (``phase_model``) and its NVT MD run at
+10,240 atoms (``phase_sim_md``), without the rest; each line goes out with
+its ROOT in front.
 
 Every line but the last also goes to ``build/chip_smoke.log`` beside the
 script (``build/`` is where the kernels' libraries go). Any failure raises. The last line is the result JSON. Needs one CUDA card;
@@ -1187,6 +1205,10 @@ SIM_MD_STEPS = 50
 SIM_RELAX_STRUCTS = 8
 SIM_RELAX_STEPS = 50
 SIM_RELAX_FMAX = 0.01  # eV/A: the seed-0 model's forces there are ~0.08
+SIM_RELAXERS = ("LBFGS", "LBFGSLineSearch", "BFGS", "BFGSLineSearch")
+SIM_RELAXERS_STEPS = 30
+SIM_SCIPY_STEPS = 30
+DIST_ATOL = 1e-10  # A: the two graph builders' distances
 GOLDEN_RTOL = 2e-3
 SIM_E_TOL = 2e-5  # eV/atom
 SIM_F_TOL = 5e-5  # eV/A
@@ -1298,7 +1320,8 @@ def phase_sim_md():
     batch = rt.batch
     live = apply_dynamic_cutoff(
         batch._replace(frac_coords=md.state.frac, lattices=md.state.lat), model.config)
-    log(f"sim MD: {n_atoms} atoms, NVT Berendsen 300 K, 1 fs, skin {SIM_MD_SKIN}: "
+    log(f"sim MD: {n_atoms} atoms, NVT Berendsen 300 K, 1 fs, skin {SIM_MD_SKIN}, "
+        f"graphs by the {rt.converter.algorithm!r} builder: "
         f"capacities N={batch.atomic_numbers.shape[0]} E={batch.atom_graph.shape[0]} "
         f"A={batch.bond_graph.shape[0]}; rows valid in the plans E "
         f"{int(batch.edge_mask.sum())} A {int(batch.angle_mask.sum())}, kept by the "
@@ -1345,30 +1368,35 @@ def phase_sim_md():
     return launches, errors
 
 
-def phase_sim_relax():
-    """(c) FIRE with the cell free over ``SIM_RELAX_STRUCTS`` of bench.py's
-    perturbed 216-atom supercells in one padded batch, ``SIM_RELAX_STEPS``
-    steps: steps/s; each result's ``final_energy`` (the last evaluated
-    state's, one move before ``final_structure``) against a fresh
-    ``predict_structure`` of the trajectory's last frame; the energy falls.
-    (d) ``CHGNetCalculator`` against ``predict_structure``, exactly."""
+def relax_structs():
+    """(c)'s batch: the first ``SIM_RELAX_STRUCTS`` of bench.py's perturbed
+    216-atom supercells."""
     from chgnet_tpu_torch import ROOT
     from chgnet_tpu_torch.core.structure import Structure
-    from chgnet_tpu_torch.models import CHGNet
-    from chgnet_tpu_torch.simulation import CHGNetCalculator, StructOptimizer
 
-    model = CHGNet(seed=0, device="cuda")
     base = Structure.from_file(f"{ROOT}/examples/mp-18767-LiMnO2.cif")
-    structs = [base.make_supercell(3).perturb(0.05, seed=seed)
-               for seed in range(SIM_RELAX_STRUCTS)]
+    return [base.make_supercell(3).perturb(0.05, seed=seed)
+            for seed in range(SIM_RELAX_STRUCTS)]
+
+
+def run_relaxer(model, name, structs, steps) -> float:
+    """Relax ``structs`` in one batch with the cell free; log steps/s, and
+    hold each ``final_energy`` (the last evaluated state's, one move before
+    ``final_structure``) against a fresh ``predict_structure`` of the
+    trajectory's last frame at ``SIM_E_TOL``, the energy falling. Returns
+    the wall seconds a step."""
+    from chgnet_tpu_torch.core.structure import Structure
+    from chgnet_tpu_torch.simulation import StructOptimizer
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    results = StructOptimizer(model, optimizer_class="FIRE").relax(
-        structs, fmax=SIM_RELAX_FMAX, steps=SIM_RELAX_STEPS, relax_cell=True,
+    results = StructOptimizer(model, optimizer_class=name).relax(
+        structs, fmax=SIM_RELAX_FMAX, steps=steps, relax_cell=True,
         assign_magmoms=False)
+    torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     n_steps = len(results[0]["trajectory"])
-    log(f"sim relax: FIRE, {len(structs)} x {len(structs[0])} atoms in one batch, "
+    log(f"sim relax: {name}, {len(structs)} x {len(structs[0])} atoms in one batch, "
         f"relax_cell, fmax {SIM_RELAX_FMAX:g}, {n_steps} steps in {wall_s:.3f} s (first graph build "
         f"included) = {n_steps / wall_s:.4f} steps/s ({card_line()})")
     frames = [
@@ -1384,14 +1412,32 @@ def phase_sim_relax():
         if not (err <= SIM_E_TOL * len(s)
                 and r["final_energy"] < r["trajectory"].energies[0]):
             failed.append(i)
-    log(f"sim relax: final_energy vs predict_structure of the last frame: max err "
+    log(f"sim relax: {name}: final_energy vs predict_structure of the last frame: max err "
         f"{worst:.3e} eV/atom (tol {SIM_E_TOL:g}); energy per atom "
         + ", ".join(f"{r['trajectory'].energies[0] / len(s):.7f} -> "
                     f"{r['final_energy'] / len(s):.7f}"
                     for r, s in zip(results, structs)))
     if failed:
-        raise AssertionError(f"sim relax: structures {failed} off or not falling")
+        raise AssertionError(f"sim relax: {name}: structures {failed} off or not falling")
+    return wall_s / n_steps
 
+
+def phase_sim_relax():
+    """(c) FIRE with the cell free over ``SIM_RELAX_STRUCTS`` of bench.py's
+    perturbed 216-atom supercells in one padded batch, ``SIM_RELAX_STEPS``
+    steps: steps/s; each result's ``final_energy`` (the last evaluated
+    state's, one move before ``final_structure``) against a fresh
+    ``predict_structure`` of the trajectory's last frame; the energy falls.
+    (d) ``CHGNetCalculator`` against ``predict_structure``, exactly."""
+    from chgnet_tpu_torch import ROOT
+    from chgnet_tpu_torch.core.structure import Structure
+    from chgnet_tpu_torch.models import CHGNet
+    from chgnet_tpu_torch.simulation import CHGNetCalculator
+
+    model = CHGNet(seed=0, device="cuda")
+    run_relaxer(model, "FIRE", relax_structs(), SIM_RELAX_STEPS)
+
+    base = Structure.from_file(f"{ROOT}/examples/mp-18767-LiMnO2.cif")
     calc = CHGNetCalculator(model)
     calc.calculate(base)
     pred = model.predict_structure(base, task="efsm")
@@ -1405,6 +1451,117 @@ def phase_sim_relax():
         f"exactly: {same}")
     if not same:
         raise AssertionError("sim calculator: results differ from predict_structure")
+
+
+def phase_sim_host():
+    """(e) The host stack on the MD workload's structure at the MD cutoffs:
+    the C++ builder and the numpy builder (neighbor list and topology) once
+    each, their arrays equal; ``batch_graphs`` with the host ops and
+    without them, equal; the two host libraries' g++ builds in a fresh
+    directory."""
+    import shutil
+    import tempfile
+
+    from chgnet_tpu_torch import ROOT
+    from chgnet_tpu_torch.core.structure import Structure
+    from chgnet_tpu_torch.graph.batching import batch_graphs
+    from chgnet_tpu_torch.graph.builder import build_graph_arrays
+    from chgnet_tpu_torch.graph.converter import CrystalGraphConverter
+    from chgnet_tpu_torch.graph.fast import fast_graph
+    from chgnet_tpu_torch.graph.neighbors import get_neighbor_list
+    from chgnet_tpu_torch.models import CHGNetConfig
+    from chgnet_tpu_torch.utils.native import build as native_build
+    from chgnet_tpu_torch.utils.native import hostops
+
+    cfg = CHGNetConfig()
+    r_atom = cfg.atom_graph_cutoff + SIM_MD_SKIN
+    r_bond = cfg.bond_graph_cutoff + SIM_MD_SKIN
+    struct = Structure.from_file(
+        f"{ROOT}/examples/mp-18767-LiMnO2.cif").make_supercell(SIM_MD_SCALE).spatial_sort()
+    times = {}
+    t0 = time.perf_counter()
+    fast = fast_graph.build(struct, r_atom, r_bond)
+    times["fast"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = build_graph_arrays(len(struct), *get_neighbor_list(struct, r=r_atom), r_bond)
+    times["numpy"] = time.perf_counter() - t0
+    same = all(
+        np.array_equal(getattr(fast, f), getattr(ref, f))
+        for f in ("atom_graph", "neighbor_image", "directed2undirected",
+                  "undirected2directed", "bond_graph")
+    )
+    dist_err = float(np.abs(fast.distances - ref.distances).max())
+    graph = CrystalGraphConverter(atom_graph_cutoff=r_atom, bond_graph_cutoff=r_bond)(struct)
+    t0 = time.perf_counter()
+    batch = batch_graphs([graph])
+    times["batch"] = time.perf_counter() - t0
+    with env_switch("CHGNET_TPU_NO_HOSTOPS"):
+        t0 = time.perf_counter()
+        batch_plain = batch_graphs([graph])
+        times["batch_numpy"] = time.perf_counter() - t0
+    same_batch = all(
+        all(np.array_equal(a, b) for a, b in zip(x, y)) if f.startswith("plan_")
+        else np.array_equal(x, y)
+        for f, x, y in zip(batch._fields, batch, batch_plain)
+    )
+    tmp = tempfile.mkdtemp(dir=os.path.dirname(native_build.HOST_DIR))
+    try:
+        for name, source in (("fast_graph", fast_graph.SOURCE), ("hostops", hostops.SOURCE)):
+            t0 = time.perf_counter()
+            native_build.build(source, tmp)
+            times[name] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp)
+    log(f"sim host: {len(struct)} atoms at {r_atom:g} / {r_bond:g} A: "
+        f"{fast.n_directed} directed edges, {fast.n_angles} angles; C++ builder "
+        f"{times['fast']:.3f} s, numpy builder {times['numpy']:.3f} s, arrays equal: "
+        f"{same}, distances max err {dist_err:.3e} A (tol {DIST_ATOL:g}); "
+        f"batch_graphs {times['batch']:.3f} s with the host ops, "
+        f"{times['batch_numpy']:.3f} s without, equal: {same_batch}; g++ builds "
+        f"fast_graph {times['fast_graph']:.2f} s, hostops {times['hostops']:.2f} s "
+        f"({os.cpu_count()} host cores)")
+    if not (same and same_batch and dist_err <= DIST_ATOL):
+        raise AssertionError("sim host: the native host stack disagrees with numpy")
+
+
+def phase_sim_relaxers():
+    """(f) LBFGS, LBFGSLineSearch, BFGS and BFGSLineSearch over (c)'s batch,
+    ``SIM_RELAXERS_STEPS`` steps each (``run_relaxer``); for BFGS the share
+    of a step's wall time that one ``eigh`` of a [8, D, D] f32 Hessian like
+    its own (70 I plus a rank-30 term, D = 3 * 216 + 9) takes, by CUDA
+    events; then SciPyFminCG on one 216-atom supercell, the energy
+    falling."""
+    from chgnet_tpu_torch.models import CHGNet
+    from chgnet_tpu_torch.simulation import StructOptimizer
+
+    model = CHGNet(seed=0, device="cuda")
+    structs = relax_structs()
+    dof = 3 * len(structs[0]) + 9
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    low = torch.randn((len(structs), dof, 30), device="cuda", generator=gen)
+    hessian = 70.0 * torch.eye(dof, device="cuda") + 0.1 * low @ low.transpose(1, 2)
+    eigh_ms = cuda_ms(lambda: torch.linalg.eigh(hessian), 5)
+    log(f"sim relax: torch.linalg.eigh of [{len(structs)}, {dof}, {dof}] f32: "
+        f"{eigh_ms:.3f} ms ({card_line()})")
+    for name in SIM_RELAXERS:
+        step_s = run_relaxer(model, name, structs, SIM_RELAXERS_STEPS)
+        if name.startswith("BFGS"):
+            log(f"sim relax: {name}: eigh {eigh_ms:.3f} ms of {step_s * 1e3:.3f} ms "
+                f"a step ({eigh_ms / (step_s * 1e3):.1%})")
+    struct = structs[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = StructOptimizer(model, optimizer_class="SciPyFminCG").relax(
+        struct, fmax=SIM_RELAX_FMAX, steps=SIM_SCIPY_STEPS, relax_cell=True,
+        assign_magmoms=False)
+    wall_s = time.perf_counter() - t0
+    energies = res["trajectory"].energies
+    log(f"sim relax: SciPyFminCG, {len(struct)} atoms, {SIM_SCIPY_STEPS} iterations at "
+        f"most: {len(energies)} evaluations in {wall_s:.3f} s = "
+        f"{len(energies) / wall_s:.4f} evaluations/s; energy per atom "
+        f"{energies[0] / len(struct):.7f} -> {res['final_energy'] / len(struct):.7f}")
+    if not res["final_energy"] < energies[0]:
+        raise AssertionError("sim relax: SciPyFminCG did not lower the energy")
 
 
 def main() -> int:
@@ -1476,6 +1633,8 @@ def main() -> int:
     phase_goldens()
     sim_launches, sim_errors = phase_sim_md()
     phase_sim_relax()
+    phase_sim_host()
+    phase_sim_relaxers()
     log(f"simulation phase: {time.perf_counter() - t0:.0f} s")
     for row in rows:
         row["sim_launches"] = sim_launches[kernel_versions()[row["name"]][0].__name__]
@@ -1494,5 +1653,50 @@ def main() -> int:
     return 0
 
 
+# run in each ROOT of --compare, by that checkout's own chip_smoke.py
+_COMPARE_CHILD = """
+import os, sys
+sys.path.insert(0, os.getcwd())
+import chip_smoke as cs
+from chgnet_tpu_torch.graph.batching import batch_graphs
+from chgnet_tpu_torch.models import CHGNet
+os.makedirs(os.path.dirname(cs.LOG_PATH), exist_ok=True)
+open(cs.LOG_PATH, "w").close()
+cs.phase_card_and_build()
+graphs = cs.bench_graphs(CHGNet(seed=0, device="cuda").graph_converter)
+n_edges = sum(g.n_directed for g in graphs)
+batch = batch_graphs(graphs).to("cuda")
+with cs.env_switch("CHGNET_TPU_STREAM_V2"):
+    batch_v2 = batch_graphs(graphs).to("cuda")
+for path, (_, switch, _) in cs.PATHS.items():
+    own = batch_v2 if switch == "CHGNET_TPU_STREAM_V2" else batch
+    cs.phase_model(path, own, n_edges, graphs)
+del batch, batch_v2
+cs.phase_sim_md()
+"""
+
+
+def compare(roots) -> int:
+    """``--compare``: each root's paths and MD run, in turns."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this needs a "
+              "CUDA card", file=sys.stderr)
+        return 1
+    for root in roots:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", _COMPARE_CHILD], cwd=root,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for line in proc.stdout:
+            print(f"[{root}] {line}", end="", flush=True)
+        if proc.wait():
+            print(f"chip_smoke --compare: {root} failed with exit code "
+                  f"{proc.returncode}", file=sys.stderr)
+            return 1
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--compare"] and sys.argv[2:]:
+        sys.exit(compare(sys.argv[2:]))
     sys.exit(main())

@@ -16,7 +16,8 @@ tensor cores, either route, against the plain f32 product); the fused gated tail
 forward and 1e-4 backward, each relative to the output's max |plain|
 (64-term f32 products and layer norms in another order; the parameter
 gradients sum ~50,000 rows); the model at the port's CPU tolerances (e 2e-5 eV/atom,
-f 5e-5 eV/A, s 2e-4 GPa, m 2e-5 mu_B).
+f 5e-5 eV/A, s 2e-4 GPa, m 2e-5 mu_B); the relaxers' first 5 energies 1e-5
+relative of the CPU's.
 """
 
 from __future__ import annotations
@@ -1185,3 +1186,38 @@ def test_compute_batch_dynamic_on_card_matches_cpu(cuda):
     for key in "efsm":
         np.testing.assert_allclose(got[key].cpu().numpy(), want[key].numpy(),
                                    rtol=0, atol=TOL[key], err_msg=key)
+
+
+RELAX_RTOL = 1e-5  # 5 steps, each a pass within 2e-5 eV/atom of the CPU's
+
+
+@pytest.mark.parametrize(
+    "name",
+    ["LBFGS", "LBFGSLineSearch", "BFGS", "BFGSLineSearch", "SciPyFminCG",
+     "SciPyFminBFGS"],
+)
+def test_relaxers_on_card_match_cpu(cuda, name):
+    """The first 5 energies of each relaxer (cell free) on the card equal
+    the port's on the CPU (the BFGS forms: cuSOLVER's eigh on the card,
+    LAPACK's on the CPU)."""
+    from chgnet_tpu_torch.simulation import StructOptimizer
+
+    struct = Structure.from_file(LIMNO2).perturb(0.05, seed=1)
+    energies = []
+    for device in ("cpu", cuda):
+        model = CHGNet(seed=0, device=device, **GOLDEN_SMALL)
+        result = StructOptimizer(model, optimizer_class=name).relax(
+            struct, steps=5, fmax=1e-6, relax_cell=True, assign_magmoms=False
+        )
+        energies.append(np.asarray(result["trajectory"].energies[:5]))
+    assert len(energies[1]) == 5
+    np.testing.assert_allclose(energies[1], energies[0], rtol=RELAX_RTOL, atol=0)
+
+
+def test_graph_runtime_on_card_builds_with_the_native_builder(cuda):
+    from chgnet_tpu_torch.simulation.runtime import GraphRuntime
+
+    model = CHGNet(seed=0, device=cuda, **GOLDEN_SMALL)
+    rt = GraphRuntime(model.config, [Structure.from_file(LIMNO2)], device=cuda)
+    assert rt.converter.algorithm == "fast"
+    assert rt.batch.frac_coords.device.type == "cuda"

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import subprocess
 import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -83,10 +84,22 @@ def test_graph_arrays_equal_numpy_builder(name, cutoffs):
         assert (tg.n_directed, tg.n_undirected, tg.n_angles) == (384, 192, 744)
 
 
-def test_fast_algorithm_warns_and_builds_with_numpy():
-    with pytest.warns(UserWarning, match="fast"):
+def test_fast_algorithm_builds_natively():
+    """``"fast"`` is the port's C++ builder: no warning, and the same arrays
+    as the numpy builder (images and ids exact)."""
+    _, ts = _structures(CIFS[0])
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
         conv = TConverter(algorithm="fast")
-    assert conv.algorithm == "numpy"
+    assert conv.algorithm == "fast"
+    fast, ref = conv(ts), TConverter(algorithm="numpy")(ts)
+    for field in (
+        "atom_graph", "neighbor_image", "directed2undirected",
+        "undirected2directed", "bond_graph",
+    ):
+        got, want = getattr(fast, field), getattr(ref, field)
+        assert got.dtype == want.dtype, field
+        np.testing.assert_array_equal(got, want, err_msg=field)
 
 
 def _graph_sets():
@@ -188,7 +201,8 @@ def test_import_leaves_jax_and_chgnet_tpu_out():
         "import sys, chgnet_tpu_torch, chgnet_tpu_torch.models, "
         "chgnet_tpu_torch.ops, chgnet_tpu_torch.graph, chgnet_tpu_torch.core, "
         "chgnet_tpu_torch.simulation, chgnet_tpu_torch.utils, "
-        "chgnet_tpu_torch.models.checkpoint\n"
+        "chgnet_tpu_torch.models.checkpoint, chgnet_tpu_torch.utils.native, "
+        "chgnet_tpu_torch.graph.fast.fast_graph\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'chgnet_tpu.')) or m == 'chgnet_tpu')\n"
         "assert not bad, bad\n"
