@@ -17,6 +17,13 @@ CUDA kernels (``chgnet_tpu_torch/ops``). With ``fused_kernels=True`` (the
 default) the gated-MLP tails of the conv layers run through the fused tail
 kernels where ``chgnet_tpu`` fuses them; with ``fused_kernels=False`` they
 run as plain PyTorch.
+
+For training, :func:`compute_batch` takes a dropout generator (the conv
+layers unfuse while dropout is on, as in ``chgnet_tpu``) and
+``create_graph``, which keeps forces and stress differentiable in the
+parameters; ``remat`` rematerializes layers by ``torch.utils.checkpoint``;
+``read_out`` "attn" / "weighted" pool by per-graph attention; and
+``matmul_precision`` sets the precision of the plain GEMMs.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from typing import Literal
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from chgnet_tpu_torch import PredTask
 from chgnet_tpu_torch.core.structure import Structure
@@ -48,6 +56,7 @@ from chgnet_tpu_torch.models.convert import (
 )
 from chgnet_tpu_torch.models.functions import (
     Params,
+    block_generator,
     layer_norm_apply,
     linear_apply,
     linear_init,
@@ -61,6 +70,8 @@ from chgnet_tpu_torch.models.layers import (
     angle_update_init,
     atom_conv_apply,
     atom_conv_init,
+    attention_readout_apply,
+    attention_readout_init,
     bond_conv_apply_directed,
     bond_conv_init,
 )
@@ -70,6 +81,18 @@ from chgnet_tpu_torch.ops.segment import SEGMENT_MAX_D, plan_gather, plan_segmen
 from chgnet_tpu_torch.utils.common import load_params, save_params
 
 EV_A3_TO_GPA = 160.21766208  # eV/A^3 -> GPa
+# matmul_precision -> whether the plain f32 GEMMs may use TF32: "highest"
+# keeps them full f32; "high" and "default" let cuBLAS run them on the TF32
+# tensor cores. The hand-written kernels multiply at f32 accuracy (3xTF32)
+# under every setting.
+TF32_MATMULS = {"highest": False, "high": True, "default": True}
+
+
+def _remat_mode(remat) -> str | None:
+    """``""`` (off), ``"all"`` or ``"angle"`` for a ``remat`` value; None for
+    one ``chgnet_tpu`` refuses (``models/chgnet.py:351-356``)."""
+    mode = remat if isinstance(remat, str) else ("all" if remat else "")
+    return mode if mode in ("", "all", "angle") else None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,9 +105,10 @@ class CHGNetConfig:
     [E, d], ``directed_bonds=False`` on the undirected bonds [U, d], as
     upstream CHGNet does; one parameter tree serves both.
     :meth:`check_supported` names the fields whose other values the port
-    does not run yet, and on a CUDA device also the widths its kernels do
-    not take (:meth:`kernel_width_faults`). ``sorted_grads`` has no effect:
-    every backward here is a CSR segment sum.
+    does not run yet (bf16, ``dense_atom_conv``), and on a CUDA device also
+    the widths its kernels do not take (:meth:`kernel_width_faults`).
+    ``sorted_grads`` has no effect: every backward here is a CSR segment
+    sum.
     """
 
     atom_fea_dim: int = 64
@@ -131,6 +155,19 @@ class CHGNetConfig:
     def __post_init__(self) -> None:
         if self.num_angular % 2 != 1:
             raise ValueError(f"num_angular={self.num_angular} must be odd")
+        if self.conv_dropout and self.dense_atom_conv:
+            raise NotImplementedError(
+                "conv_dropout with dense_atom_conv is not supported"
+            )
+        if self.matmul_precision not in TF32_MATMULS:
+            raise ValueError(
+                f"matmul_precision={self.matmul_precision!r}: use one of "
+                f"{sorted(TF32_MATMULS)}"
+            )
+        if _remat_mode(self.remat) is None:
+            raise ValueError(
+                f"remat={self.remat!r}: use False, True/'all', or 'angle'"
+            )
         for name in ("atom_conv_hidden_dim", "bond_conv_hidden_dim",
                      "angle_layer_hidden_dim", "mlp_hidden_dims"):
             val = getattr(self, name)
@@ -153,18 +190,14 @@ class CHGNetConfig:
             )
         unported = {
             "compute_dtype": self.compute_dtype != "float32",
-            "remat": bool(self.remat),
             "dense_atom_conv": self.dense_atom_conv,
-            "read_out": not self.mlp_first and self.read_out in {"attn", "weighted"},
-            "matmul_precision": self.matmul_precision != "highest",
         }
         bad = sorted(k for k, v in unported.items() if v)
         if bad:
             raise NotImplementedError(
                 f"CHGNetConfig fields {bad} are not ported to chgnet_tpu_torch "
-                "yet (see ROADMAP.md Queue 1, config variants)"
+                "yet (see ROADMAP.md Queue 1 item 6b)"
             )
-
 
     def kernel_width_faults(self) -> list[str]:
         """The widths of this config that the CUDA kernels do not take, one
@@ -332,10 +365,14 @@ def init_params(config: CHGNetConfig, seed: int = 0) -> Params:
     ln = norm_init(cfg.readout_norm, cfg.atom_fea_dim)
     if ln is not None:
         params["readout_norm"] = ln
-    if cfg.read_out in {"attn", "weighted"} and not cfg.mlp_first:
-        raise NotImplementedError("attention readout is not ported yet")
+    readout_in = cfg.atom_fea_dim
+    if not cfg.mlp_first and cfg.read_out in {"attn", "weighted"}:
+        params["attn_readout"] = attention_readout_init(
+            rng, cfg.atom_fea_dim, num_heads=cfg.num_heads
+        )
+        readout_in = cfg.atom_fea_dim * cfg.num_heads
     params["mlp"] = mlp_init(
-        rng, cfg.atom_fea_dim, output_dim=1, hidden_dim=cfg.mlp_hidden_dims
+        rng, readout_in, output_dim=1, hidden_dim=cfg.mlp_hidden_dims
     )
     if cfg.composition_model:
         atom_ref = AtomRef(is_intensive=cfg.is_intensive)
@@ -345,16 +382,30 @@ def init_params(config: CHGNetConfig, seed: int = 0) -> Params:
 
 
 # ===================================================================== core
+def _checkpointed(fn, on: bool):
+    """``fn`` rematerialized in the backward (``torch.utils.checkpoint``,
+    non-reentrant) when ``on``, else ``fn`` itself."""
+    if not on:
+        return fn
+    return lambda *args: torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False
+    )
+
+
 def _energy_core(
     params: Params,
     cfg: CHGNetConfig,
     batch: GraphBatch,
     cart: torch.Tensor,  # [N, 3] unstrained cartesian coordinates
     strains: torch.Tensor,  # [B, 3, 3]
+    seeds: Sequence[int] | None = None,
 ) -> tuple[torch.Tensor, dict]:
     """Extensive GNN energy per graph [B] plus auxiliary features,
     differentiable in (cart, strains). Padded rows contribute exactly zero
-    and stay finite."""
+    and stay finite. ``seeds`` (``3 * n_conv + 1`` of them) turn dropout
+    on: layer ``k`` of block ``idx`` draws from seed ``3 * idx + k`` (atom,
+    bond, angle), the readout MLP from the last, as ``chgnet_tpu`` splits
+    its key (``models/chgnet.py:508-510``)."""
     n_graphs = batch.lattices.shape[0]
     dtype = cart.dtype
     graph_ids = torch.arange(n_graphs, device=cart.device)
@@ -366,7 +417,6 @@ def _energy_core(
     edge_onehot = (batch.edge_owner[:, None] == graph_ids).to(dtype)
     deform_atoms = (atom_onehot @ deform.reshape(n_graphs, 9)).reshape(-1, 3, 3)
     pos = torch.einsum("ni,nij->nj", cart, deform_atoms)
-    lat_edges = (edge_onehot @ lat.reshape(n_graphs, 9)).reshape(-1, 3, 3)
 
     center = batch.atom_graph[:, 0].contiguous()
     nbr = batch.atom_graph[:, 1].contiguous()
@@ -374,59 +424,77 @@ def _energy_core(
     dir_j = batch.bond_graph[:, 4].contiguous()
     p_center, p_nbr = batch.plan_center, batch.plan_nbr
     p_i, p_j = batch.plan_ang_vi, batch.plan_ang_vj
+    remat = _remat_mode(cfg.remat)
 
-    # positions ride a 4-wide stream (xyz, 0): one 16-byte unit per row
-    pos4 = torch.nn.functional.pad(pos, (0, 1))
-    center_pos = plan_gather(pos4, center, p_center)[:, :3]
-    nbr_pos = plan_gather(pos4, nbr, p_nbr)[:, :3] + torch.einsum(
-        "ei,eij->ej", batch.images, lat_edges
-    )
-    vec = center_pos - nbr_pos
-    dist = torch.linalg.norm(vec, dim=1)  # padded: |a| > 0, finite grads
-    unit = vec / dist[:, None]
-    geom = torch.cat([unit, dist[:, None]], dim=1)  # [E, 4]
-
-    # the bond bases and embeddings live on the directed edges [E], each
-    # reverse edge with its own (twin-equal to rounding) length, or, in the
-    # undirected layout, on the bonds [U] by their first edge's length
+    # the undirected layout's maps: bond features and weights on the bonds
+    # [U], expanded to the directed edges by d2u
     und = None
-    bond_dist = dist
     if not cfg.directed_bonds:
         und = UndirectedMaps(
             batch.directed2undirected, batch.plan_d2u,
             batch.undirected2directed, batch.und_second,
         )
-        bond_dist = plan_gather(geom, und.u2d, batch.plan_u2d)[:, 3]
-    rbf_ag = basis.radial_bessel(
-        bond_dist, params["bond_basis"]["freq_ag"], cfg.atom_graph_cutoff,
-        cfg.cutoff_coeff,
-    )
-    rbf_bg = basis.radial_bessel(
-        bond_dist, params["bond_basis"]["freq_bg"], cfg.bond_graph_cutoff,
-        cfg.cutoff_coeff,
-    )
-    gi = plan_gather(geom, dir_i, p_i)
-    gj = plan_gather(geom, dir_j, p_j)
-    cos_ij = torch.sum(gi[:, :3] * gj[:, :3], dim=1) * (1 - 1e-6)
-    angle_bases = basis.fourier(
-        torch.arccos(cos_ij), params["angle_basis"]["freq"]
-    )
 
-    bond_feas = linear_apply(params["bond_embedding"], rbf_ag)
-    bond_weights_ag = linear_apply(params["bond_weights_ag"], rbf_ag)
-    bond_weights_bg = linear_apply(params["bond_weights_bg"], rbf_bg)
-    angle_feas = linear_apply(params["angle_embedding"], angle_bases)
-    # the bond weights on the edge stream and their per-angle product never
-    # change across layers: expanded once here
-    weights_e = bond_weights_ag
-    if und is not None:
-        weights_e = plan_gather(bond_weights_ag, und.d2u, und.plan_d2u)
-    weights_a = None
-    if cfg.update_bond:
-        w_dir = bond_weights_bg
+    def encode(pos, lat):
+        """Geometry, bases, embeddings and the loop-invariant weight
+        streams from the positions and lattices; rematerialized under
+        ``remat`` (``chgnet_tpu.models.chgnet._encode``)."""
+        lat_edges = (edge_onehot @ lat.reshape(n_graphs, 9)).reshape(-1, 3, 3)
+        # positions ride a 4-wide stream (xyz, 0): one 16-byte unit per row
+        pos4 = torch.nn.functional.pad(pos, (0, 1))
+        center_pos = plan_gather(pos4, center, p_center)[:, :3]
+        nbr_pos = plan_gather(pos4, nbr, p_nbr)[:, :3] + torch.einsum(
+            "ei,eij->ej", batch.images, lat_edges
+        )
+        vec = center_pos - nbr_pos
+        dist = torch.linalg.norm(vec, dim=1)  # padded: |a| > 0, finite grads
+        unit = vec / dist[:, None]
+        geom = torch.cat([unit, dist[:, None]], dim=1)  # [E, 4]
+
+        # the bond bases and embeddings live on the directed edges [E],
+        # each reverse edge with its own (twin-equal to rounding) length,
+        # or, in the undirected layout, on the bonds [U] by their first
+        # edge's length
+        bond_dist = dist
         if und is not None:
-            w_dir = plan_gather(bond_weights_bg, und.d2u, und.plan_d2u)
-        weights_a = plan_gather(w_dir, dir_i, p_i) * plan_gather(w_dir, dir_j, p_j)
+            bond_dist = plan_gather(geom, und.u2d, batch.plan_u2d)[:, 3]
+        rbf_ag = basis.radial_bessel(
+            bond_dist, params["bond_basis"]["freq_ag"], cfg.atom_graph_cutoff,
+            cfg.cutoff_coeff,
+        )
+        rbf_bg = basis.radial_bessel(
+            bond_dist, params["bond_basis"]["freq_bg"], cfg.bond_graph_cutoff,
+            cfg.cutoff_coeff,
+        )
+        gi = plan_gather(geom, dir_i, p_i)
+        gj = plan_gather(geom, dir_j, p_j)
+        cos_ij = torch.sum(gi[:, :3] * gj[:, :3], dim=1) * (1 - 1e-6)
+        angle_bases = basis.fourier(
+            torch.arccos(cos_ij), params["angle_basis"]["freq"]
+        )
+
+        bond_feas = linear_apply(params["bond_embedding"], rbf_ag)
+        bond_weights_ag = linear_apply(params["bond_weights_ag"], rbf_ag)
+        bond_weights_bg = linear_apply(params["bond_weights_bg"], rbf_bg)
+        angle_feas = linear_apply(params["angle_embedding"], angle_bases)
+        # the bond weights on the edge stream and their per-angle product
+        # never change across layers: expanded once here
+        weights_e = bond_weights_ag
+        if und is not None:
+            weights_e = plan_gather(bond_weights_ag, und.d2u, und.plan_d2u)
+        weights_a = None
+        if cfg.update_bond:
+            w_dir = bond_weights_bg
+            if und is not None:
+                w_dir = plan_gather(bond_weights_bg, und.d2u, und.plan_d2u)
+            weights_a = (
+                plan_gather(w_dir, dir_i, p_i) * plan_gather(w_dir, dir_j, p_j)
+            )
+        return bond_feas, angle_feas, weights_e, weights_a
+
+    bond_feas, angle_feas, weights_e, weights_a = _checkpointed(
+        encode, bool(remat)
+    )(pos, lat)
 
     z_index = (batch.atomic_numbers.long() - 1).clamp(0, cfg.max_num_elements - 1)
     atom_feas = params["atom_embedding"]["weight"][z_index]
@@ -435,16 +503,40 @@ def _energy_core(
     fused = cfg.fused_kernels
     edge_mask = batch.edge_mask
     angle_mask = batch.angle_mask
+    rate = float(cfg.conv_dropout)
+    block_seeds = list(seeds) if seeds is not None else [None] * (3 * cfg.n_conv + 1)
 
-    def atom_step(atom_p, atom_feas, bond_feas):
+    def atom_step(atom_p, atom_feas, bond_feas, seed):
         return atom_conv_apply(
             atom_p, atom_feas, bond_feas, weights_e, center, nbr,
             edge_mask, p_center, p_nbr, activation=act, fused=fused, und=und,
+            dropout=rate, seed=seed,
         )
+
+    def bond_step(bond_p, atom_e, bond_feas, angle_feas, seed):
+        return bond_conv_apply_directed(
+            bond_p, atom_e, bond_feas, weights_a, angle_feas, dir_i, dir_j,
+            batch.twin, angle_mask, p_i, p_j, activation=act, fused=fused,
+            und=und, dropout=rate, seed=seed,
+        )
+
+    def angle_step(angle_p, atom_e, bond_feas, angle_feas, seed):
+        return angle_update_apply_directed(
+            angle_p, atom_e, bond_feas, angle_feas, dir_i, dir_j, p_i, p_j,
+            activation=act, fused=fused, und=und, dropout=rate, seed=seed,
+        )
+
+    # remat "all" checkpoints every layer of the blocks, "angle" only the
+    # angle-stream layers (chgnet_tpu.models.chgnet :594-604)
+    block_atom_step = _checkpointed(atom_step, remat == "all")
+    bond_step = _checkpointed(bond_step, bool(remat))
+    angle_step = _checkpointed(angle_step, bool(remat))
 
     atom_feas_mid = atom_feas
     for idx in range(cfg.n_conv - 1):
-        atom_feas = atom_step(params["atom_convs"][idx], atom_feas, bond_feas)
+        atom_feas = block_atom_step(
+            params["atom_convs"][idx], atom_feas, bond_feas, block_seeds[3 * idx]
+        )
         # atoms on the edge stream, shared by BondConv and AngleUpdate
         atom_e = (
             plan_gather(atom_feas, center, p_center)
@@ -452,21 +544,23 @@ def _energy_core(
             else None
         )
         if cfg.update_bond:
-            bond_feas = bond_conv_apply_directed(
-                params["bond_convs"][idx], atom_e, bond_feas, weights_a,
-                angle_feas, dir_i, dir_j, batch.twin, angle_mask, p_i, p_j,
-                activation=act, fused=fused, und=und,
+            bond_feas = bond_step(
+                params["bond_convs"][idx], atom_e, bond_feas, angle_feas,
+                block_seeds[3 * idx + 1],
             )
         # the last block's angle update feeds nothing (the final AtomConv
         # reads atoms and bonds only), so it is skipped
         if cfg.update_angle and idx < cfg.n_conv - 2:
-            angle_feas = angle_update_apply_directed(
+            angle_feas = angle_step(
                 params["angle_updates"][idx], atom_e, bond_feas, angle_feas,
-                dir_i, dir_j, p_i, p_j, activation=act, fused=fused, und=und,
+                block_seeds[3 * idx + 2],
             )
         if idx == cfg.n_conv - 2:
             atom_feas_mid = atom_feas
-    atom_feas = atom_step(params["atom_convs"][cfg.n_conv - 1], atom_feas, bond_feas)
+    atom_feas = atom_step(
+        params["atom_convs"][cfg.n_conv - 1], atom_feas, bond_feas,
+        block_seeds[3 * (cfg.n_conv - 1)],
+    )
     if "readout_norm" in params:
         atom_feas = layer_norm_apply(params["readout_norm"], atom_feas)
 
@@ -479,17 +573,27 @@ def _energy_core(
         "atom_feas": atom_feas,
         "atoms_per_graph": atoms_per_graph,
     }
+    mlp_kw = dict(
+        activation=act, dropout=float(cfg.mlp_dropout),
+        generator=block_generator(block_seeds[-1], atom_feas.device),
+    )
     if cfg.mlp_first:
-        site_energies = mlp_apply(params["mlp"], atom_feas, activation=act) * mask
+        site_energies = mlp_apply(params["mlp"], atom_feas, **mlp_kw) * mask
         energy_ext = plan_segment_sum(site_energies, p_graph).reshape(-1)
         aux["site_energies"] = site_energies.reshape(-1)
         aux["crystal_fea"] = plan_segment_sum(atom_feas * mask, p_graph)
     else:
-        crystal_feas = plan_segment_sum(atom_feas * mask, p_graph) / torch.clamp(
-            atoms_per_graph[:, None], min=1.0
-        )
+        if cfg.read_out in {"attn", "weighted"}:
+            crystal_feas = attention_readout_apply(
+                params["attn_readout"], atom_feas, batch.atom_owner,
+                batch.atom_mask, p_graph, average=True, activation=act,
+            )
+        else:
+            crystal_feas = plan_segment_sum(
+                atom_feas * mask, p_graph
+            ) / torch.clamp(atoms_per_graph[:, None], min=1.0)
         energy_ext = (
-            mlp_apply(params["mlp"], crystal_feas, activation=act).reshape(-1)
+            mlp_apply(params["mlp"], crystal_feas, **mlp_kw).reshape(-1)
             * atoms_per_graph
         )
         aux["crystal_fea"] = crystal_feas
@@ -497,15 +601,28 @@ def _energy_core(
 
 
 @contextlib.contextmanager
-def _full_f32():
-    """f32 matmuls in full f32 (no TF32) for the duration of a call."""
+def _matmul_precision(precision: str):
+    """The plain f32 GEMMs at ``precision`` for the duration of a call:
+    full f32 for "highest", TF32 for "high" and "default"
+    (``TF32_MATMULS``)."""
+    tf32 = TF32_MATMULS[precision]
     saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
     try:
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def dropout_seeds(generator: torch.Generator, n_conv: int) -> list[int]:
+    """``3 * n_conv + 1`` layer seeds drawn from ``generator``: the
+    counterpart of ``jax.random.split(dropout_rng, 3 * n_conv + 1)``. A
+    generator on the CPU draws without touching the card."""
+    draws = torch.randint(
+        0, 2**62, (3 * n_conv + 1,), generator=generator, device=generator.device
+    )
+    return draws.tolist()
 
 
 def compute_batch(
@@ -516,19 +633,37 @@ def compute_batch(
     compute_force: bool = False,
     compute_stress: bool = False,
     compute_magmom: bool = False,
+    dropout_generator: torch.Generator | None = None,
+    create_graph: bool = False,
 ) -> dict[str, torch.Tensor]:
     """Batched prediction over a padded batch of tensors (``batch.to(dev)``).
 
     Returns padded tensors on the batch's device: e [B] (eV/atom if
     intensive), f [N, 3], s [B, 3, 3] (GPa), m [N], site_energies [N],
     crystal_fea [B, d], atom_fea [N, d], atoms_per_graph [B].
+
+    ``dropout_generator`` turns train-mode dropout on at the configured
+    ``conv_dropout`` / ``mlp_dropout`` rates (the counterpart of
+    ``chgnet_tpu``'s ``dropout_rng``; see :func:`dropout_seeds`). With
+    ``create_graph`` the outputs keep their autograd graph to the
+    parameters, forces and stress included (the force backward is itself
+    differentiable), as a training loss needs; otherwise they are detached.
+    ``config.matmul_precision`` sets the plain GEMMs' precision
+    (``TF32_MATMULS``); the hand-written kernels stay at f32 accuracy
+    (3xTF32 on the tensor cores) under every setting.
     """
     cfg = config
     device = batch.frac_coords.device
     cfg.check_supported(device.type)
     n_graphs = batch.lattices.shape[0]
     want_grad = compute_force or compute_stress
-    with _full_f32(), torch.enable_grad() if want_grad else torch.no_grad():
+    seeds = (
+        dropout_seeds(dropout_generator, cfg.n_conv)
+        if dropout_generator is not None
+        else None
+    )
+    grad_mode = torch.enable_grad() if want_grad or create_graph else torch.no_grad()
+    with _matmul_precision(cfg.matmul_precision), grad_mode:
         owner = batch.atom_owner.long()
         cart = torch.einsum(
             "ni,nij->nj", batch.frac_coords, batch.lattices[owner]
@@ -543,10 +678,12 @@ def compute_batch(
             if compute_stress:
                 strains.requires_grad_(True)
                 inputs.append(strains)
-        energy_ext, aux = _energy_core(params, cfg, batch, cart, strains)
+        energy_ext, aux = _energy_core(params, cfg, batch, cart, strains, seeds)
         prediction: dict[str, torch.Tensor] = {}
         if want_grad:
-            grads = torch.autograd.grad(energy_ext.sum(), inputs)
+            grads = torch.autograd.grad(
+                energy_ext.sum(), inputs, create_graph=create_graph
+            )
             if compute_force:
                 prediction["f"] = -grads[0]
             if compute_stress:
@@ -580,6 +717,8 @@ def compute_batch(
                 linear_apply(params["site_wise"], aux["atom_feas_mid"])
             ).reshape(-1)
             prediction["m"] = magmom * batch.atom_mask
+    if create_graph:
+        return prediction
     return {k: v.detach() for k, v in prediction.items()}
 
 
@@ -629,6 +768,15 @@ class CHGNet:
         )
         if verbose:
             print(f"CHGNet (torch) initialized with {self.n_params:,} parameters")
+
+    def to(self, device: str | torch.device) -> CHGNet:
+        """Move the parameters to ``device`` (raises as the constructor
+        does for a device the config cannot run on); returns the model."""
+        dev = resolve_device(device)
+        self.config.check_supported(dev.type)
+        self.params = params_from_jax(params_to_numpy(self.params), dev)
+        self.device = dev
+        return self
 
     @property
     def version(self) -> str | None:

@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from chgnet_tpu_torch.utils.common import count_params
+
 
 def _map(tree, fn):
     if isinstance(tree, dict):
@@ -37,12 +39,4 @@ def params_to_numpy(tree):
     return _map(tree, lambda x: x.detach().cpu().numpy())
 
 
-def count_params(tree) -> int:
-    total = 0
-
-    def add(x):
-        nonlocal total
-        total += int(np.prod(x.shape))
-
-    _map(tree, add)
-    return total
+__all__ = ["count_params", "params_from_jax", "params_to_numpy"]

@@ -128,11 +128,44 @@ def mlp_init(
     }
 
 
-def mlp_apply(params: Params, x: torch.Tensor, *, activation: str = "silu"):
+def dropout_apply(
+    x: torch.Tensor, rate: float, generator: torch.Generator | None
+) -> torch.Tensor:
+    """Inverted dropout (``chgnet_tpu.models.functions.dropout_apply``): each
+    element kept with probability ``1 - rate`` and scaled by its inverse,
+    the mask drawn from ``generator`` (on ``x``'s device). Rate 0 or no
+    generator (eval mode) returns ``x`` itself."""
+    if rate <= 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, x.new_zeros(()))
+
+
+def block_generator(seed: int | None, device) -> torch.Generator | None:
+    """A generator on ``device`` seeded with ``seed`` (None for None): one per
+    layer, made inside the layer, so that a rematerialized layer draws the
+    same mask again."""
+    if seed is None:
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def mlp_apply(
+    params: Params,
+    x: torch.Tensor,
+    *,
+    activation: str = "silu",
+    dropout: float = 0.0,
+    generator: torch.Generator | None = None,
+):
+    """Upstream CHGNet's MLP layout: dropout sits before the last Linear,
+    active only with a ``generator``."""
     act = find_activation(activation)
     layers = params["layers"]
     for layer in layers[:-1]:
         x = act(linear_apply(layer, x))
+    x = dropout_apply(x, dropout, generator)
     return linear_apply(layers[-1], x)
 
 
@@ -332,12 +365,20 @@ def gated_mlp_fused_pack(params: Params) -> Params:
 
 
 def gated_mlp_tail(
-    params: Params, acc: torch.Tensor, *, activation: str = "silu"
+    params: Params,
+    acc: torch.Tensor,
+    *,
+    activation: str = "silu",
+    dropout: float = 0.0,
+    generator: torch.Generator | None = None,
 ) -> torch.Tensor:
     """The gated MLP after its first Linear: the remaining block-diagonal
     joint Linears, per-half norms and act(core) * sigmoid(gate), applied
     to the joint [L, 2D] first-layer output ``acc`` (bias included).
-    Plain PyTorch (``chgnet_tpu.models.functions.gated_mlp_tail``)."""
+    Plain PyTorch (``chgnet_tpu.models.functions.gated_mlp_tail``). With a
+    ``generator``, dropout acts where ``chgnet_tpu`` puts it: on the packed
+    input of the last Linear, or on ``acc`` itself for single-Linear
+    branches."""
     act = find_activation(activation)
     layers_c = params["core"]["layers"]
     layers_g = params["gate"]["layers"]
@@ -345,9 +386,13 @@ def gated_mlp_tail(
     if len(layers_c) != len(layers_g):
         raise ValueError("core/gate layer counts differ")
     x = acc
-    if len(layers_c) > 1:
+    if len(layers_c) == 1:
+        x = dropout_apply(acc, dropout, generator)
+    else:
         x = act(acc)
         for n, (lc, lg) in enumerate(zip(layers_c[1:], layers_g[1:])):
+            if n == len(layers_c) - 2:
+                x = dropout_apply(x, dropout, generator)
             x = x @ torch.block_diag(lc["w"], lg["w"])
             if "b" in lc:
                 x = x + torch.cat([lc["b"], lg["b"]])

@@ -40,6 +40,7 @@ import torch
 from chgnet_tpu_torch.graph.batching import SegmentPlan
 from chgnet_tpu_torch.models.functions import (
     Params,
+    block_generator,
     first_layer_acc,
     gated_mlp_fusable,
     gated_mlp_fused_pack,
@@ -61,6 +62,10 @@ from chgnet_tpu_torch.ops.gated_message import (
 )
 from chgnet_tpu_torch.ops.multi_gather import twin_reduce
 from chgnet_tpu_torch.ops.segment import plan_gather, plan_segment_sum
+
+# the fused tails have no dropout: a layer whose dropout is on runs its
+# tail as plain PyTorch (chgnet_tpu.models.layers :222-223, :396-397,
+# :523-524, :621-622, :691-692)
 
 
 class UndirectedMaps(NamedTuple):
@@ -114,6 +119,11 @@ def _fused_message_sum(
     return plan_segment_sum(
         _fused_layer(gmlp, parts, fold, weights=weights, mask=mask), plan
     )
+
+
+def _dropout_generator(rate: float, seed: int | None, like: torch.Tensor):
+    """The layer's dropout generator, None when dropout is off."""
+    return block_generator(seed, like.device) if rate > 0.0 else None
 
 
 def _finish(params: Params, new: torch.Tensor, old: torch.Tensor, resnet: bool):
@@ -189,10 +199,14 @@ def atom_conv_apply(
     resnet: bool = True,
     fused: bool = False,
     und: UndirectedMaps | None = None,
+    dropout: float = 0.0,
+    seed: int | None = None,
 ) -> torch.Tensor:
     """Gated-MLP messages over directed edges, scaled by the bond weights,
     summed into their center atoms. With ``und`` the bond features are
-    gathered from the undirected bonds by ``d2u``."""
+    gathered from the undirected bonds by ``d2u``. ``seed`` turns dropout
+    at rate ``dropout`` on (:func:`~chgnet_tpu_torch.models.functions.
+    block_generator`)."""
     bond_part = (
         (bond_feas, None, None) if und is None
         else (bond_feas, und.d2u, und.plan_d2u)
@@ -203,13 +217,15 @@ def atom_conv_apply(
         (atom_feas, nbr, plan_nbr),
     ]
     gmlp = params["gated_mlp"]
-    if fused and gated_mlp_fusable(gmlp, activation):
+    gen = _dropout_generator(dropout, seed, atom_feas)
+    if fused and gen is None and gated_mlp_fusable(gmlp, activation):
         new_atom_feas = _fused_message_sum(
             gmlp, parts, weights_e, edge_mask, plan_center
         )
     else:
         messages = gated_mlp_tail(
-            gmlp, _layer_acc(gmlp, parts), activation=activation
+            gmlp, _layer_acc(gmlp, parts), activation=activation,
+            dropout=dropout, generator=gen,
         )
         messages = messages * weights_e * edge_mask[:, None]
         new_atom_feas = plan_segment_sum(messages, plan_center)
@@ -291,6 +307,8 @@ def bond_conv_apply_directed(
     resnet: bool = True,
     fused: bool = False,
     und: UndirectedMaps | None = None,
+    dropout: float = 0.0,
+    seed: int | None = None,
 ) -> torch.Tensor:
     """BondConv over the dir_i-sorted angle stream: per-angle updates summed
     into their dir_i edge, then each bond's total: ``partial +
@@ -302,13 +320,15 @@ def bond_conv_apply_directed(
         plan_j,
     )
     gmlp = params["gated_mlp"]
-    if fused and gated_mlp_fusable(gmlp, activation):
+    gen = _dropout_generator(dropout, seed, angle_feas)
+    if fused and gen is None and gated_mlp_fusable(gmlp, activation):
         partial = _fused_message_sum(
             gmlp, parts, weights_a, angle_mask, plan_i, ANGLE_FOLD
         )
     else:
         update = gated_mlp_tail(
-            gmlp, _layer_acc(gmlp, parts), activation=activation
+            gmlp, _layer_acc(gmlp, parts), activation=activation,
+            dropout=dropout, generator=gen,
         )
         update = update * weights_a * angle_mask[:, None]
         partial = plan_segment_sum(update, plan_i)  # [A] -> [E]
@@ -361,6 +381,8 @@ def angle_update_apply_directed(
     resnet: bool = True,
     fused: bool = False,
     und: UndirectedMaps | None = None,
+    dropout: float = 0.0,
+    seed: int | None = None,
 ) -> torch.Tensor:
     """Per-angle gated-MLP update over the dir_i-sorted angle stream (no
     reduction); ``bond_feas`` [E, d] directed, or [U, d] with ``und``."""
@@ -369,12 +391,74 @@ def angle_update_apply_directed(
         plan_j,
     )
     gmlp = params["gated_mlp"]
+    gen = _dropout_generator(dropout, seed, angle_feas)
     if (
         fused
+        and gen is None
         and resnet
         and "norm" not in params
         and gated_mlp_update_fusable(gmlp, activation)
     ):
         return _fused_layer(gmlp, parts, ANGLE_FOLD, resnet=angle_feas)
-    new = gated_mlp_tail(gmlp, _layer_acc(gmlp, parts), activation=activation)
+    new = gated_mlp_tail(
+        gmlp, _layer_acc(gmlp, parts), activation=activation, dropout=dropout,
+        generator=gen,
+    )
     return _finish(params, new, angle_feas, resnet)
+
+
+# ------------------------------------------------------------------ readout
+def attention_readout_init(
+    rng: np.random.Generator,
+    atom_fea_dim: int,
+    *,
+    num_heads: int = 3,
+    hidden_dim: int = 32,
+) -> Params:
+    """Multi-head attention pooling
+    (``chgnet_tpu.models.layers.attention_readout_init`` :726): the same
+    draws in the same order."""
+    return {
+        "key": mlp_init(
+            rng, atom_fea_dim, output_dim=num_heads, hidden_dim=hidden_dim
+        )
+    }
+
+
+def attention_readout_apply(
+    params: Params,
+    atom_feas: torch.Tensor,  # [N, d]
+    atom_owner: torch.Tensor,  # [N] i32 graph of every atom
+    atom_mask: torch.Tensor,  # [N]
+    plan_graph: SegmentPlan,
+    *,
+    average: bool = False,
+    activation: str = "silu",
+) -> torch.Tensor:
+    """Per-graph softmax over atoms for each head, then the heads' weighted
+    sums of the atom features -> ``[B, H * d]``
+    (``chgnet_tpu.models.layers.attention_readout_apply`` :742). The
+    per-graph maximum only shifts the softmax, so it is taken without a
+    gradient (the result and its derivatives do not depend on it); the
+    sums run over ``plan_graph``, one head at a time (rows of ``d``)."""
+    logits = mlp_apply(params["key"], atom_feas, activation=activation)  # [N, H]
+    n_graphs, n_heads = plan_graph.n_out, logits.shape[1]
+    valid = atom_mask[:, None] > 0
+    masked = torch.where(valid, logits, logits.new_full((), -1e30))
+    owner = atom_owner.long()
+    with torch.no_grad():
+        seg_max = masked.new_full((n_graphs, n_heads), -1e30).scatter_reduce(
+            0, owner[:, None].expand(-1, n_heads), masked, "amax"
+        )
+    expv = torch.exp(masked - seg_max[owner]) * atom_mask[:, None]
+    denom = plan_segment_sum(expv, plan_graph)  # [B, H]
+    weight = expv / torch.clamp(plan_gather(denom, atom_owner, plan_graph), min=1e-30)
+    pooled = torch.cat(
+        [plan_segment_sum(atom_feas * weight[:, h: h + 1], plan_graph)
+         for h in range(n_heads)],
+        dim=1,
+    )  # [B, H * d]
+    if average:
+        counts = plan_segment_sum(atom_mask[:, None], plan_graph)
+        pooled = pooled / torch.clamp(counts, min=1.0)
+    return pooled

@@ -1,18 +1,69 @@
-"""Parameter trees to and from one ``.npz`` file, with numpy alone.
+"""Common utilities: device selection, meters, metrics, JSON, parameter trees.
 
-Copy of the numpy half of ``chgnet_tpu.utils.common`` (that module imports
-jax at its top, so the functions are copied, not the module). The file
-layout is the same in both packages: one ``param:<path>`` array per leaf,
-its path the tree's keys and list indices joined by ``/``, and the model's
-config as JSON under ``config:json``. A checkpoint written by either
-package loads in the other.
+Port of ``chgnet_tpu.utils.common`` (that module imports jax at its top, so
+its numpy functions are copied, not imported). :func:`determine_device`
+picks the card unless the caller asks for another device, and never falls
+back to the CPU: ``chgnet_tpu``'s takes whatever JAX finds. Torch is
+imported only by the functions that need it.
+
+Parameter trees go to and from one ``.npz`` file in the same layout in both
+packages: one ``param:<path>`` array per leaf, its path the tree's keys and
+list indices joined by ``/``, and the model's config as JSON under
+``config:json``. A checkpoint written by either package loads in the other.
 """
 
 from __future__ import annotations
 
 import json
+import os
 
 import numpy as np
+
+
+def cuda_devices_sorted_by_free_mem() -> list[int]:
+    """CUDA device ids by increasing free memory (upstream CHGNet's order:
+    the last has the most); empty without CUDA."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return []
+    free = [torch.cuda.mem_get_info(i)[0] for i in range(torch.cuda.device_count())]
+    return sorted(range(len(free)), key=lambda i: free[i])
+
+
+def determine_device(use_device: str | None = None) -> str:
+    """The device to run on: ``use_device``, else the ``CHGNET_DEVICE``
+    environment variable, else ``"cuda"``. Raises when CUDA is asked for
+    and absent: pass ``"cpu"`` to run there."""
+    from chgnet_tpu_torch.device import resolve_device
+
+    use_device = use_device or os.getenv("CHGNET_DEVICE") or "cuda"
+    resolve_device(use_device)
+    return str(use_device)
+
+
+class AverageMeter:
+    """Running average (upstream ``common_utils.py:61-83``)."""
+
+    def __init__(self) -> None:
+        self.reset()
+
+    def reset(self) -> None:
+        self.val = self.avg = self.sum = self.count = 0.0
+
+    def update(self, val: float, n: int = 1) -> None:
+        self.val = val
+        self.sum += val * n
+        self.count += n
+        if self.count != 0:
+            self.avg = self.sum / self.count
+
+
+def mae(prediction, target) -> float:
+    """Mean absolute error over array-likes."""
+    prediction = np.asarray(prediction, dtype=np.float64)
+    target = np.asarray(target, dtype=np.float64)
+    return float(np.mean(np.abs(target - prediction)))
 
 
 def _json_handler(obj):
@@ -23,6 +74,31 @@ def _json_handler(obj):
     if isinstance(obj, np.ndarray):
         return obj.tolist()
     return obj
+
+
+def read_json(filepath: str) -> dict:
+    with open(filepath) as file:
+        return json.load(file)
+
+
+def write_json(dct, filepath: str) -> None:
+    with open(filepath, mode="w") as file:
+        json.dump(dct, file, default=_json_handler)
+
+
+def mkdir(path: str) -> str:
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def count_params(tree) -> int:
+    """Total number of scalars in a nested dict/list tree of arrays or
+    tensors."""
+    if isinstance(tree, dict):
+        return sum(count_params(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(count_params(v) for v in tree)
+    return int(np.prod(tree.shape))
 
 
 def flatten_params(params, prefix: str = "") -> dict[str, np.ndarray]:

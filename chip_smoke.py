@@ -85,7 +85,31 @@ one-kernel pass and under the stream-v2 switch:
    last frame; then SciPyFminCG on one 216-atom supercell, its energy
    falling. The ``kernels`` line's rows gain ``sim_launches`` (the timed MD
    steps' launches) and their ``max_abs_err`` covers the MD step's calls
-   too.
+   too;
+7. training (``chgnet_tpu_torch.trainer``): bench.py's 32 supercells
+   labelled E+F+S+M by ``CHGNet(seed=7)`` on the card (a NaN energy, force
+   block and magmom block among them), ``StructureData`` ->
+   ``get_train_val_test_loader`` (batches of 8, 24 / 4 / 4); (a) the first
+   2 train steps of ``CHGNet(seed=0)`` (Adam, lr 1e-3, CosLR, MSE) on the
+   card against the port's CPU run of the same steps, on a loader cut to 4
+   structures in batches of 2 (full width): losses at rtol 1e-4, parameters
+   at 2 x lr x steps and nearly every element to 1e-5; (b) every kernel call
+   of one train step (forward, force backward, parameter backward) against
+   its plain version, the step's launch set that of the default path, each
+   kernel's time over the step's calls and, for rows 7, 9 and 14, each
+   backward form (with parameter gradients, without) timed and bounded
+   apart; (c) the same under ``CHGNET_TPU_FUSED_PASS=1`` (rows 13 and 14,
+   and row 5, which carries the pass's second order); (d) one step with
+   ``conv_dropout=0.1``: no fused tail launches, a finite loss; (e) one
+   E+F+S+M pass with ``matmul_precision="high"`` against "highest" (TF32
+   tolerance) and both times; (f) one traced train step; (g)
+   ``Trainer.train`` for 2 epochs with checkpoints, each step timed by CUDA
+   events: train steps/s and structures/s over epoch 2, peak device memory,
+   the losses and MAEs per epoch (all finite), the checkpoint files, and a
+   ``Trainer.load`` resume that carries on one more step. The ``kernels``
+   line's rows gain ``train_launches`` (one train step of the row's path;
+   0 where that path is not trained), ``train_ms`` (that step's calls;
+   null where none) and, for rows 7, 9 and 14, ``train_forms``.
 
 ``python3 chip_smoke.py --compare ROOT [ROOT ...]`` times checkouts against
 each other in turns on one card, each ROOT in its own process and by its
@@ -668,16 +692,19 @@ def log_ptxas(name: str, path: str) -> None:
             f"{smem} bytes static shared memory")
 
 
-def bench_graphs(converter):
+def bench_structs(n: int = N_STRUCTS):
+    """The first ``n`` of bench.py's perturbed 216-atom LiMnO2 supercells
+    (seeds 0 .. n - 1)."""
     from chgnet_tpu_torch import ROOT
     from chgnet_tpu_torch.core.structure import Structure
 
-    struct = Structure.from_file(f"{ROOT}/examples/mp-18767-LiMnO2.cif")
-    return [
-        converter(struct.make_supercell(3).perturb(0.05, seed=seed),
-                  graph_id=str(seed))
-        for seed in range(N_STRUCTS)
-    ]
+    base = Structure.from_file(f"{ROOT}/examples/mp-18767-LiMnO2.cif")
+    return [base.make_supercell(3).perturb(0.05, seed=seed) for seed in range(n)]
+
+
+def bench_graphs(converter):
+    return [converter(s, graph_id=str(seed))
+            for seed, s in enumerate(bench_structs())]
 
 
 def run_pass(model, batch):
@@ -1371,12 +1398,7 @@ def phase_sim_md():
 def relax_structs():
     """(c)'s batch: the first ``SIM_RELAX_STRUCTS`` of bench.py's perturbed
     216-atom supercells."""
-    from chgnet_tpu_torch import ROOT
-    from chgnet_tpu_torch.core.structure import Structure
-
-    base = Structure.from_file(f"{ROOT}/examples/mp-18767-LiMnO2.cif")
-    return [base.make_supercell(3).perturb(0.05, seed=seed)
-            for seed in range(SIM_RELAX_STRUCTS)]
+    return bench_structs(SIM_RELAX_STRUCTS)
 
 
 def run_relaxer(model, name, structs, steps) -> float:
@@ -1564,6 +1586,351 @@ def phase_sim_relaxers():
         raise AssertionError("sim relax: SciPyFminCG did not lower the energy")
 
 
+# phase 7: fine-tuning on the card. bench.py's 32 supercells labelled
+# E+F+S+M by a seed-7 teacher on the card (stress in the dataset's VASP
+# convention), a NaN energy, force block and magmom block among them as in
+# tests/test_trainer.py; split 24 / 4 / 4 into batches of 8 (3 train steps an
+# epoch at 1,728 atoms); CHGNet(seed=0) trained on them, Adam, CosLR, MSE
+# the phase's size, model keywords (none: the default, full width) and
+# device; a narrow model, a few structures and the CPU rehearse it off the
+# card, every kernel by its plain version
+TRAIN_STRUCTS = N_STRUCTS
+TRAIN_MODEL: dict = {}
+TRAIN_DEVICE = "cuda"
+TRAIN_BATCH = 8
+TRAIN_RATIOS = (0.75, 0.125)
+TRAIN_EPOCHS = 2
+TRAIN_LR = 1e-3
+TRAIN_TEACHER_SEED = 7
+# the CPU hold: the first train steps on the card against the port's CPU run
+# from the same init, on a loader cut to 4 structures in batches of 2 (the
+# width stays full; a full-width CPU step at 8 x 216 atoms takes minutes)
+TRAIN_HOLD_STRUCTS, TRAIN_HOLD_BATCH = 4, 2
+TRAIN_LOSS_RTOL = 1e-4
+# matmul_precision="high" against "highest": each output's largest error
+# over its largest value. TF32 products keep 10 mantissa bits (a relative
+# rounding of 2^-11, 4.9e-4); forces and stress are sums of per-edge terms
+# tens of times larger than themselves, so their error relative to their
+# largest value is that rounding times the cancellation
+TF32_TOL = 5e-2
+TRAIN_DIR = os.path.join(os.path.dirname(LOG_PATH), "chip_smoke_train")
+# the launch sets of one train step, in the order of KERNELS: the default
+# path's; under the one-kernel pass also row 5, whose gather_sum carries the
+# pass's second order (the plain composition it differentiates,
+# ops/fused_pass.py _FusedPassGrads.backward)
+TRAIN_LAUNCH_SETS = {
+    "default": PATHS["default"][2],
+    "CHGNET_TPU_FUSED_PASS=1": tuple(
+        c or name == "gather_sum_rows"
+        for name, c in zip(KERNELS, PATHS["CHGNET_TPU_FUSED_PASS=1"][2])),
+}
+# the kernels whose backward has a parameter-gradient form, and the index of
+# its need_params flag among their arguments
+PARAM_FORM = {"gated_message_bwd": -1, "gated_update_bwd": -1, "fused_pass_bwd": 9}
+
+
+def train_data():
+    """The phase's dataset and its train / val / test loaders."""
+    from chgnet_tpu_torch.data import StructureData, get_train_val_test_loader
+    from chgnet_tpu_torch.models import CHGNet
+
+    t0 = time.perf_counter()
+    teacher = CHGNet(seed=TRAIN_TEACHER_SEED, device=TRAIN_DEVICE, **TRAIN_MODEL)
+    structs = bench_structs(TRAIN_STRUCTS)
+    preds = teacher.predict_structure(structs, task="efsm", batch_size=TRAIN_BATCH)
+    energies = [float(p["e"]) for p in preds]
+    forces = [np.asarray(p["f"], np.float32) for p in preds]
+    stresses = [np.asarray(p["s"], np.float32) * -10.0 for p in preds]
+    magmoms = [np.asarray(p["m"], np.float32) for p in preds]
+    energies[2] = np.nan
+    forces[4] = np.full_like(forces[4], np.nan)
+    magmoms[6] = np.full_like(magmoms[6], np.nan)
+    data = StructureData(structures=structs, energies=energies, forces=forces,
+                         stresses=stresses, magmoms=magmoms, shuffle=False)
+    loaders = get_train_val_test_loader(
+        data, batch_size=TRAIN_BATCH, train_ratio=TRAIN_RATIOS[0],
+        val_ratio=TRAIN_RATIOS[1])
+    log(f"train data: {len(structs)} x {len(structs[0])} atoms labelled by "
+        f"CHGNet(seed={TRAIN_TEACHER_SEED}) on the card in "
+        f"{time.perf_counter() - t0:.1f} s; splits "
+        + ", ".join(str(len(ld.indices)) for ld in loaders)
+        + f", batches of {TRAIN_BATCH}")
+    return data, loaders
+
+
+def make_trainer(device, cls=None, **model_kw):
+    from chgnet_tpu_torch.models import CHGNet
+    from chgnet_tpu_torch.trainer import Trainer
+
+    cls = cls or Trainer
+    model = CHGNet(seed=0, device=device, **TRAIN_MODEL, **model_kw)
+    return cls(model=model, targets="efsm",
+               optimizer="Adam", scheduler="CosLR", criterion="MSE",
+               learning_rate=TRAIN_LR, epochs=TRAIN_EPOCHS, use_device=device,
+               print_freq=1)
+
+
+def _step(trainer, batch, targets):
+    """One train step; its metrics read back (the step's one host sync)."""
+    return trainer._read_metrics(trainer.train_step(*trainer._on_device(batch, targets)))
+
+
+def train_launches(trainer, batch, targets):
+    """The launches of one train step, by kernel wrapper name."""
+    from chgnet_tpu_torch import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    _step(trainer, batch, targets)
+    torch.cuda.synchronize()
+    return {fn.__name__: fn.launches for fn in ops.KERNELS}
+
+
+def record_train_step(label, trainer, batch, targets, counts):
+    """Every kernel call of one train step (forward, force backward,
+    parameter backward) held against its plain version; the launch set of a
+    second step must be that of ``counts`` (the order of ``KERNELS``), no
+    other. Returns (calls, errors, launches)."""
+    with Recorder() as rec:
+        metrics = _step(trainer, batch, targets)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        errors = phase_kernels(label, rec.calls, counts)
+    launches = train_launches(trainer, batch, targets)
+    log(f"{label}: launches in one train step:", launches)
+    check_launched(label, launches, counts)
+    if not np.isfinite(metrics["loss"]):
+        raise AssertionError(f"{label}: non-finite loss")
+    return rec.calls, errors, launches
+
+
+def train_forms(name, kern, plain, args_list) -> dict:
+    """A backward's calls timed and bounded by form: with parameter
+    gradients and without (``PARAM_FORM``)."""
+    forms = {}
+    flag = PARAM_FORM[name]
+    for form in ("params", "serving"):
+        group = [a for a in args_list if bool(a[flag]) == (form == "params")]
+        if not group:
+            continue
+        ms = cuda_ms(lambda: [kern(*a) for a in group], TIMED_REPEATS)
+        plain_ms = cuda_ms(lambda: [plain(*a) for a in group], 2)
+        bound, nbytes, products, ops, _ = _bounds(name, group)
+        forms[form] = dict(calls=len(group), ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound["bytes"] + bound["operations"],
+                           bound_by=max(bound, key=bound.get), library_ms=None)
+        log(f"time train {name} form {form}: {ms:.4f} ms over {len(group)} calls "
+            f"(plain {plain_ms:.4f}, library none, "
+            f"{_bound_text(bound, nbytes, products, ops)})")
+    return forms
+
+
+def train_timing(label, calls) -> dict:
+    """Per kernel of a recorded train step: its time summed over the step's
+    calls, and the parameter-gradient forms apart (rows 7, 9, 14)."""
+    out = {}
+    for name, (kern, plain) in kernel_versions().items():
+        args_list = calls[name]
+        if not args_list:
+            continue
+        ms = cuda_ms(lambda: [kern(*a) for a in args_list], TIMED_REPEATS)
+        bound, nbytes, products, ops, _ = _bounds(name, args_list)
+        log(f"time {label} {name}: {ms:.4f} ms over {len(args_list)} calls "
+            f"({_bound_text(bound, nbytes, products, ops)})")
+        out[name] = {"ms": ms}
+        if name in PARAM_FORM:
+            out[name]["forms"] = train_forms(name, kern, plain, args_list)
+    return out
+
+
+def phase_train_hold(data, loaders):
+    """The first ``TRAIN_HOLD_STRUCTS // TRAIN_HOLD_BATCH`` train steps on
+    the card against the port's CPU run of the same steps from the same
+    init: losses at ``TRAIN_LOSS_RTOL``, parameters after the last step at
+    2 x lr x steps (Adam moves a weight whose gradient is rounding noise
+    by about lr either way), nearly every element to 1e-5."""
+    from chgnet_tpu_torch.data import GraphLoader
+    from chgnet_tpu_torch.models.convert import params_to_numpy
+    from chgnet_tpu_torch.utils.common import flatten_params
+
+    hold = loaders[0].indices[:TRAIN_HOLD_STRUCTS]
+    log(f"train hold: cut to structures {hold.tolist()} of the train split in "
+        f"batches of {TRAIN_HOLD_BATCH} (full width)")
+    runs = {}
+    for device in ("cpu", TRAIN_DEVICE):
+        t0 = time.perf_counter()
+        trainer = make_trainer(device)
+        trainer._build_optimizer(False)
+        loader = GraphLoader(data, indices=hold, batch_size=TRAIN_HOLD_BATCH,
+                             shuffle=False)
+        losses = [_step(trainer, b, t)["loss"] for b, t in loader]
+        runs[device] = (losses, flatten_params(params_to_numpy(trainer.model.params)))
+        log(f"train hold {device}: losses {losses} ({time.perf_counter() - t0:.1f} s)")
+    (cpu_l, cpu_p), (card_l, card_p) = runs["cpu"], runs[TRAIN_DEVICE]
+    loss_err = max(abs(a / b - 1) for a, b in zip(card_l, cpu_l))
+    diffs = np.concatenate([np.abs(card_p[k] - cpu_p[k]).ravel() for k in cpu_p])
+    bound = 2 * TRAIN_LR * len(cpu_l)
+    frac = float((diffs > 1e-5).mean())
+    log(f"train hold: card vs CPU, {len(cpu_l)} steps: losses relative err "
+        f"{loss_err:.3e} (tol {TRAIN_LOSS_RTOL:g}); parameters max err "
+        f"{diffs.max():.3e} (bound {bound:g}), {frac:.4%} of {diffs.size} over 1e-5 "
+        "(at most 1%)")
+    if not (loss_err <= TRAIN_LOSS_RTOL and diffs.max() <= bound and frac <= 0.01):
+        raise AssertionError("train hold: the card's steps disagree with the CPU's")
+
+
+def phase_train_run(loaders):
+    """``Trainer.train`` for ``TRAIN_EPOCHS`` epochs with checkpoints, each
+    step timed by CUDA events; steps/s and structures/s over the last
+    epoch; peak device memory; a resume from the last checkpoint that
+    carries on one more step."""
+    from chgnet_tpu_torch.trainer import Trainer
+
+    class TimedTrainer(Trainer):
+        def train_step(self, batch, targets):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = super().train_step(batch, targets)
+            end.record()
+            epoch = len(self.training_history["e"]["train"])
+            self.steps.append((epoch, start, end, out[0]))
+            return out
+
+    import shutil
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    trainer = make_trainer(TRAIN_DEVICE, TimedTrainer)
+    trainer.steps = []
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.train(*loaders, save_dir=TRAIN_DIR)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    last = [(s, e) for ep, s, e, _ in trainer.steps if ep == TRAIN_EPOCHS - 1]
+    step_ms = [s.elapsed_time(e) for s, e in last]
+    n_structs = TRAIN_BATCH * len(last)
+    losses = {}
+    for ep, *_, loss in trainer.steps:
+        losses.setdefault(ep, []).append(float(loss))
+    log(f"train run: {TRAIN_EPOCHS} epochs of {len(loaders[0])} steps in {wall:.2f} s "
+        f"(validation, test and checkpoints included); epoch {TRAIN_EPOCHS}: steps "
+        f"{', '.join(f'{ms:.3f}' for ms in step_ms)} ms by CUDA events = "
+        f"{len(last) / sum(step_ms) * 1e3:.4f} train steps/s, "
+        f"{n_structs / sum(step_ms) * 1e3:.4f} structures/s "
+        f"({TRAIN_BATCH} x 216 atoms a step); peak device memory "
+        f"{peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB allocated before "
+        f"({card_line()})")
+    hist = trainer.training_history
+    for ep in range(TRAIN_EPOCHS):
+        log(f"train run: epoch {ep + 1}: step losses {losses.get(ep)}, MAE train "
+            + json.dumps({k: hist[k]["train"][ep] for k in hist})
+            + " val " + json.dumps({k: hist[k]["val"][ep] for k in hist}))
+    log("train run: test MAE " + json.dumps({k: hist[k]["test"] for k in hist}))
+    finite = all(np.isfinite(v) for vals in losses.values() for v in vals) and all(
+        np.isfinite(hist[k][split]).all() for k in hist for split in ("train", "val", "test"))
+    if not finite or len(hist["e"]["train"]) != TRAIN_EPOCHS:
+        raise AssertionError("train run: a non-finite loss or MAE, or an early exit")
+    files = sorted(os.listdir(TRAIN_DIR))
+    log(f"train run: checkpoints {files}")
+    ckpt = os.path.join(TRAIN_DIR, next(f for f in files if f.startswith("epoch")))
+    if not (any(f.startswith("bestE_") for f in files)
+            and any(f.startswith("bestF_") for f in files)):
+        raise AssertionError("train run: bestE_ / bestF_ missing")
+    restored = Trainer.load(ckpt, use_device=TRAIN_DEVICE)
+    batch, targets = next(iter(loaders[0]))
+    metrics = _step(restored, batch, targets)
+    steps = {int(st["step"]) for st in restored.optimizer.state_dict()["state"].values()}
+    log(f"train resume: Trainer.load({os.path.basename(ckpt)}) at epoch "
+        f"{restored.starting_epoch}, scheduler step {restored.scheduler_step}, "
+        f"optimizer steps {steps}; one more step: loss {metrics['loss']:.6f}")
+    if not (restored.starting_epoch == TRAIN_EPOCHS and np.isfinite(metrics["loss"])
+            and steps == {TRAIN_EPOCHS * len(loaders[0]) + 1}):
+        raise AssertionError("train resume: the restored trainer did not carry on")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    return trainer
+
+
+def phase_train():
+    """Phase 7 (``chip_smoke.py`` docstring). Returns (launches of one
+    default train step, per-kernel train times, errors)."""
+    t_start = time.perf_counter()
+    data, loaders = train_data()
+    phase_train_hold(data, loaders)
+    batch, targets = next(iter(loaders[0]))
+
+    trainer = make_trainer(TRAIN_DEVICE)
+    trainer._build_optimizer(False)
+    calls, errors, launches = record_train_step(
+        "train step", trainer, batch, targets, TRAIN_LAUNCH_SETS["default"])
+    times = train_timing("train step", calls)
+    del calls
+
+    with env_switch("CHGNET_TPU_FUSED_PASS"):
+        fp = make_trainer(TRAIN_DEVICE)
+        fp._build_optimizer(False)
+        fp_calls, fp_errors, fp_launches = record_train_step(
+            "train step CHGNET_TPU_FUSED_PASS=1", fp, batch, targets,
+            TRAIN_LAUNCH_SETS["CHGNET_TPU_FUSED_PASS=1"])
+        fp_times = train_timing("train step CHGNET_TPU_FUSED_PASS=1", fp_calls)
+        del fp_calls, fp
+    for name in ("fused_pass_fwd", "fused_pass_bwd"):
+        launches[name] = fp_launches[name]
+        times[name] = fp_times[name]
+    for name, err in fp_errors.items():
+        errors[name] = max(err, errors.get(name, 0.0))
+
+    drop = make_trainer(TRAIN_DEVICE, conv_dropout=0.1)
+    drop._build_optimizer(False)
+    drop_launches = train_launches(drop, batch, targets)
+    drop_loss = _step(drop, batch, targets)["loss"]
+    log(f"train step conv_dropout=0.1: launches {drop_launches}, loss {drop_loss:.6f}")
+    check_launched("train step conv_dropout=0.1", drop_launches,
+                   PATHS["fused_kernels=False"][2])
+    if not np.isfinite(drop_loss):
+        raise AssertionError("train step conv_dropout=0.1: non-finite loss")
+    del drop
+
+    phase_tf32(batch)
+    profile_call("profile train step", "train step",
+                 lambda: _step(trainer, batch, targets),
+                 ("tail_fwd_tc_kernel", "tail_bwd_kernel"))
+    del trainer
+    torch.cuda.empty_cache()
+    phase_train_run(loaders)
+    log(f"train phase: {time.perf_counter() - t_start:.0f} s")
+    return launches, times, errors
+
+
+def phase_tf32(host_batch):
+    """One E+F+S+M pass of a train batch with ``matmul_precision="high"``
+    against "highest": each output within ``TF32_TOL`` of its largest value;
+    the two times side by side."""
+    from chgnet_tpu_torch.models import CHGNet
+
+    batch = host_batch.to(TRAIN_DEVICE)
+    outs, times = {}, {}
+    for precision in ("highest", "high"):
+        model = CHGNet(seed=0, device=TRAIN_DEVICE, matmul_precision=precision,
+                       **TRAIN_MODEL)
+        outs[precision] = run_pass(model, batch)
+        times[precision] = float(np.median(
+            [cuda_ms(lambda: run_pass(model, batch), 1) for _ in range(MODEL_SAMPLES)]))
+    pairs = {k: _errors(outs["high"][k], outs["highest"][k]) for k in "efsm"}
+    errs = {k: rel for k, (_, rel) in pairs.items()}
+    log("matmul_precision high vs highest on a train batch: max abs errors "
+        + json.dumps({k: float(f"{a:.3e}") for k, (a, _) in pairs.items()})
+        + " (eV/atom, eV/A, GPa, mu_B), over each output's largest value "
+        + json.dumps({k: float(f"{v:.3e}") for k, v in errs.items()})
+        + f" (tol {TF32_TOL:g}); E+F+S+M median {times['high']:.3f} ms high, "
+        f"{times['highest']:.3f} ms highest ({card_line()})")
+    if not all(v <= TF32_TOL for v in errs.values()):
+        raise AssertionError("matmul_precision=high: outside TF32 tolerance")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a "
@@ -1636,9 +2003,17 @@ def main() -> int:
     phase_sim_host()
     phase_sim_relaxers()
     log(f"simulation phase: {time.perf_counter() - t0:.0f} s")
+    t_launches, t_times, t_errors = phase_train()
     for row in rows:
-        row["sim_launches"] = sim_launches[kernel_versions()[row["name"]][0].__name__]
-        row["max_abs_err"] = max(row["max_abs_err"], sim_errors.get(row["name"], 0.0))
+        wrapper = kernel_versions()[row["name"]][0].__name__
+        row["sim_launches"] = sim_launches[wrapper]
+        row["train_launches"] = t_launches[wrapper]
+        train = t_times.get(row["name"])
+        row["train_ms"] = train["ms"] if train else None
+        if train and "forms" in train:
+            row["train_forms"] = train["forms"]
+        row["max_abs_err"] = max(row["max_abs_err"], sim_errors.get(row["name"], 0.0),
+                                 t_errors.get(row["name"], 0.0))
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s")
     log(json.dumps({"kernels": rows}))
     log(card_line())

@@ -1221,3 +1221,147 @@ def test_graph_runtime_on_card_builds_with_the_native_builder(cuda):
     rt = GraphRuntime(model.config, [Structure.from_file(LIMNO2)], device=cuda)
     assert rt.converter.algorithm == "fast"
     assert rt.batch.frac_coords.device.type == "cuda"
+
+
+# ------------------------------------------------------------------ training
+TRAIN_LR = 1e-3
+# one train step's parameter gradients on the card against the CPU's, each
+# leaf at 1e-4 of its largest value plus 1e-7: a second derivative through
+# the kernels' 3xTF32 products and fixed-order sums against the plain f32
+# versions
+GRAD_TOL = 1e-4
+
+
+def _train_loader(n=12, batch_size=4, seed=0):
+    """``n`` perturbed LiMnO2 cells labelled E+F+S+M by a seed-7 teacher on
+    the CPU, a NaN energy, force block and magmom block among them, in one
+    loader that keeps their order."""
+    from chgnet_tpu_torch.data import StructureData, get_loader
+
+    teacher = CHGNet(seed=7, device="cpu", **GOLDEN_SMALL)
+    structs = [Structure.from_file(LIMNO2).perturb(0.1, seed=seed + i)
+               for i in range(n)]
+    preds = teacher.predict_structure(structs, task="efsm")
+    energies = [float(p["e"]) for p in preds]
+    forces = [np.asarray(p["f"], np.float32) for p in preds]
+    stresses = [np.asarray(p["s"], np.float32) * -10.0 for p in preds]
+    magmoms = [np.asarray(p["m"], np.float32) for p in preds]
+    energies[1] = np.nan
+    forces[2] = np.full_like(forces[2], np.nan)
+    magmoms[3] = np.full_like(magmoms[3], np.nan)
+    data = StructureData(structures=structs, energies=energies, forces=forces,
+                         stresses=stresses, magmoms=magmoms, shuffle=False)
+    return get_loader(data, batch_size=batch_size, shuffle=False)
+
+
+def _param_grads(model, batch, targets, **kw):
+    from chgnet_tpu_torch.trainer import CombinedLoss
+    from chgnet_tpu_torch.trainer.losses import loss_and_metrics
+    from chgnet_tpu_torch.trainer.trainer import _leaves
+
+    leaves = [leaf.requires_grad_(True) for _, leaf in _leaves(model.params)]
+    dev = model.device
+    t = {k: torch.as_tensor(v).to(dev) for k, v in targets.items()}
+    loss, _ = loss_and_metrics(model.params, batch.to(dev), t, config=model.config,
+                               loss_fn=CombinedLoss(target_str="efsm"),
+                               create_graph=True, **kw)
+    loss.backward()
+    return float(loss.detach()), [  # the last block's angle update feeds nothing
+        np.zeros(tuple(leaf.shape), np.float32) if leaf.grad is None
+        else leaf.grad.cpu().numpy() for leaf in leaves
+    ]
+
+
+@pytest.mark.parametrize(
+    "kw,switch",
+    [({}, None), ({}, "CHGNET_TPU_FUSED_PASS"), (dict(fused_kernels=False), None),
+     (dict(directed_bonds=False), None)],
+    ids=["default", "fused-pass", "plain-tails", "undirected"],
+)
+def test_train_step_parameter_gradients_on_card_match_cpu(cuda, monkeypatch, kw, switch):
+    """``loss.backward()`` of the E+F+S+M loss (NaN labels in the batch)
+    through every autograd op of the path gives the CPU's parameter
+    gradients; the tails' and the one-kernel pass's backwards run in their
+    parameter-gradient form."""
+    if switch:
+        monkeypatch.setenv(switch, "1")
+    batch, targets = next(iter(_train_loader(n=4)))
+    want_loss, want = _param_grads(CHGNet(seed=0, device="cpu", **GOLDEN_SMALL, **kw),
+                                   batch, targets)
+    from chgnet_tpu_torch.ops import fused_pass as tfp
+
+    asked = []
+    for name in ("gated_message_bwd", "gated_update_bwd", "fused_pass_bwd"):
+        mod = tgm if name.startswith("gated") else tfp
+        orig = getattr(mod, name)
+
+        def spy(*args, _orig=orig, _name=name):
+            asked.append((_name, bool(args[-1])))
+            return _orig(*args)
+
+        spy.launches = 0  # the wrapper counts its launches on its module's name
+        monkeypatch.setattr(mod, name, spy)
+    ops.reset_launch_counts()
+    got_loss, got = _param_grads(CHGNet(seed=0, device=cuda, **GOLDEN_SMALL, **kw),
+                                 batch, targets)
+    torch.cuda.synchronize()
+    assert np.isfinite(got_loss) and abs(got_loss - want_loss) <= 1e-5 * abs(want_loss)
+    for g, w in zip(got, want, strict=True):
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g, w, rtol=0,
+                                   atol=GRAD_TOL * float(np.abs(w).max()) + 1e-7)
+    assert ops.segment_sum_csr.launches and ops.gather_rows.launches
+    if kw.get("fused_kernels", True):
+        assert any(params for _, params in asked)  # parameter-gradient form
+
+
+def test_trainer_on_card_matches_cpu(cuda):
+    """A Trainer on the card takes 3 steps (Adam, CosLR, E+F+S+M, NaN
+    labels): each step's loss within 1e-4 relative of the same run on the
+    CPU, the parameters within 2 x lr x steps (Adam's near-zero gradients
+    may step by lr either way), nearly all to 1e-5."""
+    from chgnet_tpu_torch.models.convert import params_to_numpy
+    from chgnet_tpu_torch.trainer import Trainer
+
+    runs = []
+    for device in ("cpu", "cuda"):
+        trainer = Trainer(model=CHGNet(seed=0, device=device, **GOLDEN_SMALL),
+                          targets="efsm", learning_rate=TRAIN_LR, epochs=1,
+                          use_device=device)
+        trainer._build_optimizer(False)
+        losses = [trainer._read_metrics(trainer.train_step(
+            *trainer._on_device(b, t)))["loss"] for b, t in _train_loader()]
+        runs.append((losses, params_to_numpy(trainer.model.params)))
+    assert len(runs[1][0]) == 3 and np.isfinite(runs[1][0]).all()
+    np.testing.assert_allclose(runs[1][0], runs[0][0], rtol=1e-4)
+    from chgnet_tpu_torch.trainer.trainer import _leaves
+
+    diffs = np.concatenate([np.abs(a - b).ravel() for (_, a), (_, b) in zip(
+        _leaves(runs[0][1]), _leaves(runs[1][1]))])
+    assert diffs.max() <= 2 * TRAIN_LR * 3 and (diffs > 1e-5).mean() <= 0.01
+
+
+@pytest.mark.parametrize(
+    "kw", [dict(conv_dropout=0.1, mlp_dropout=0.1), dict(remat="all"),
+           dict(remat="angle")], ids=["dropout", "remat-all", "remat-angle"])
+def test_dropout_and_remat_train_step_on_card(cuda, kw):
+    """One train step on the card with dropout (no fused tail launches, a
+    finite loss) or with remat (the loss and gradients of the step without
+    it, each leaf to 1e-6 of its largest value: the recompute launches the
+    same kernels on the same inputs)."""
+    batch, targets = next(iter(_train_loader(n=4)))
+    gen = torch.Generator().manual_seed(0) if "conv_dropout" in kw else None
+    ops.reset_launch_counts()
+    loss, grads = _param_grads(CHGNet(seed=0, device=cuda, **GOLDEN_SMALL, **kw),
+                               batch, targets, dropout_generator=gen)
+    torch.cuda.synchronize()
+    assert np.isfinite(loss) and all(np.isfinite(g).all() for g in grads)
+    if gen is not None:
+        assert not (ops.gated_message_fwd.launches or ops.gated_update_fwd.launches
+                    or ops.gated_message_bwd.launches or ops.gated_update_bwd.launches)
+        return
+    ref_loss, ref = _param_grads(CHGNet(seed=0, device=cuda, **GOLDEN_SMALL),
+                                 batch, targets)
+    assert abs(loss - ref_loss) <= 1e-6 * abs(ref_loss)
+    for g, w in zip(grads, ref, strict=True):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-6 * float(np.abs(w).max()))
