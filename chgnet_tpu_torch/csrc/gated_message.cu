@@ -37,16 +37,29 @@
 // in a fixed order into a [blocks, n_part] scratch buffer (a fixed number
 // of blocks, kParamBlocks), which a second kernel reduces over the blocks in
 // order: no float atomics, and the result repeats bit for bit.
+// bf16 (compute_dtype="bfloat16", the _bf16 entry points): the forward
+// kernels and the serving backward are instantiated for bf16 acc, weights,
+// mask, cotangent and parameters (T = __nv_bfloat16). Rows are widened to
+// f32 as they are fetched (tc::fetch4 / fetch1: a load now where the f32
+// kernels copy with cp.async, so the next tile's rows no longer arrive in
+// the background), everything inside runs in f32 as before, and each output
+// is rounded once at its store, as chgnet_tpu's kernels do ("streams may be
+// bf16 -- in-kernel math runs in f32", ops/gated_message.py:588-590). The
+// products keep f32 accuracy: their A operands, silu(acc) and d_y, are f32
+// values, but a bf16 W2 is exact in TF32, so of 3xTF32's three passes the
+// two whose terms are not zero remain (lo_a hi_b, hi_a hi_b: tc::mma2_tiles,
+// the same sums). Half the bytes of f32 move. The parameter-gradient
+// backward and the message-reduce take f32 only.
 #include "gated_tail.cuh"
 #include "tf32x3.cuh"
 
 namespace {
 
 // ------------------------------------------------------- update forward
-template <bool kW2>
+template <typename T, bool kW2>
 __global__ void __launch_bounds__(kThreads)
-    tail_fwd_kernel(Tail t, const float* __restrict__ acc,
-                    const float* __restrict__ resnet, float* __restrict__ out,
+    tail_fwd_kernel(TailT<T> t, const T* __restrict__ acc,
+                    const T* __restrict__ resnet, T* __restrict__ out,
                     int n_rows, int d) {
   extern __shared__ float4 smem4[];
   float* w_s = reinterpret_cast<float*>(smem4);  // [2][D][D]
@@ -77,14 +90,17 @@ __global__ void __launch_bounds__(kThreads)
       const int r = warp * kRowsPerWarp + rr;
       const long l = row0 + r;
       if (l >= n_rows) break;  // warp-uniform
-      const float* src_c = kW2 ? half_tile(y_s, 0) + r * d : acc + l * 2 * d;
-      const float* src_g = kW2 ? half_tile(y_s, 1) + r * d : acc + l * 2 * d + d;
       float gate[kPerLane];
-      gate_row(src_c, src_g, lp, d, lane, gate);
+      if (kW2)
+        gate_row(half_tile(y_s, 0) + r * d, half_tile(y_s, 1) + r * d, lp, d, lane,
+                 gate);
+      else
+        gate_row(acc + l * 2 * d, acc + l * 2 * d + d, lp, d, lane, gate);
 #pragma unroll
       for (int i = 0; i < kPerLane; ++i) {
         const int e = lane + 32 * i;
-        if (e < d) out[l * d + e] = gate[i] + resnet[l * d + e];
+        if (e < d)
+          chgnet::store_v(out + l * d + e, gate[i] + chgnet::to_f(resnet[l * d + e]));
       }
     }
   }
@@ -264,7 +280,8 @@ __device__ __forceinline__ int at_row(int r, int c) {
 
 // Copies of the 16 acc rows from row0 into acc_s (zeros from row_end on;
 // the gate half at column kMaxD); the caller commits them.
-__device__ __forceinline__ void fetch_acc(float* acc_s, const float* acc, long row0,
+template <typename T>
+__device__ __forceinline__ void fetch_acc(float* acc_s, const T* acc, long row0,
                                           long row_end, int d, int lane) {
   const int d4 = d / 4;
   for (int i = lane; i < kRows * 2 * d4; i += 32) {
@@ -273,17 +290,53 @@ __device__ __forceinline__ void fetch_acc(float* acc_s, const float* acc, long r
     const long l = row0 + r;
     const bool ok = l < row_end;
     const int half = c >= d4;
-    tc::copy16(acc_s + at_acc(r, half * kMaxD + 4 * (c - half * d4)),
+    tc::fetch4(acc_s + at_acc(r, half * kMaxD + 4 * (c - half * d4)),
                acc + (ok ? l : 0) * 2 * d + 4 * c, ok);
+  }
+}
+
+// A lane's units of a tile's bf16 acc rows (fetch_acc's units, 4 values
+// each), held in registers between hold_acc and land_acc.
+constexpr int kHeldUnits = kRows * 2 * kMaxD / 4 / 32;
+struct HeldAcc {
+  uint2 v[kHeldUnits];
+};
+__device__ __forceinline__ void hold_acc(HeldAcc& h, const chgnet::bf16* acc,
+                                         long row0, long row_end, int d, int lane) {
+  const int d4 = d / 4;
+#pragma unroll
+  for (int j = 0; j < kHeldUnits; ++j) {
+    const int i = lane + 32 * j;
+    const int r = i / (2 * d4);
+    const long l = row0 + r;
+    h.v[j] = make_uint2(0u, 0u);
+    if (i < kRows * 2 * d4 && l < row_end)
+      h.v[j] = *reinterpret_cast<const uint2*>(acc + l * 2 * d + 4 * (i - r * 2 * d4));
+  }
+}
+__device__ __forceinline__ void land_acc(float* acc_s, const HeldAcc& h, int d,
+                                         int lane) {
+  const int d4 = d / 4;
+#pragma unroll
+  for (int j = 0; j < kHeldUnits; ++j) {
+    const int i = lane + 32 * j;
+    if (i >= kRows * 2 * d4) continue;
+    const int r = i / (2 * d4);
+    const int c = i - r * 2 * d4;
+    const int half = c >= d4;
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&h.v[j].x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&h.v[j].y));
+    *reinterpret_cast<float4*>(acc_s + at_acc(r, half * kMaxD + 4 * (c - half * d4))) =
+        make_float4(a.x, a.y, b.x, b.y);
   }
 }
 
 // Copies of tile t's g, weights and mask rows; vec: g and weights are
 // 16-byte aligned. The caller commits them.
-template <bool kMsg>
+template <bool kMsg, typename T>
 __device__ __forceinline__ void fetch_rows(float* g_s, float* w_s, float* m_s,
-                                           const float* g, const float* weights,
-                                           const float* mask, int t, int n_rows,
+                                           const T* g, const T* weights,
+                                           const T* mask, int t, int n_rows,
                                            int d, bool vec, int lane) {
   const long row0 = (long)t * kRows;
   const int unit = vec ? 4 : 1;  // floats a copy
@@ -295,16 +348,16 @@ __device__ __forceinline__ void fetch_rows(float* g_s, float* w_s, float* m_s,
     const bool ok = l < n_rows;
     const long src = (ok ? l : 0) * d + c;
     if (vec) {
-      tc::copy16(g_s + at_row(r, c), g + src, ok);
-      if (kMsg) tc::copy16(w_s + at_row(r, c), weights + src, ok);
+      tc::fetch4(g_s + at_row(r, c), g + src, ok);
+      if (kMsg) tc::fetch4(w_s + at_row(r, c), weights + src, ok);
     } else {
-      tc::copy4(g_s + at_row(r, c), g + src, ok);
-      if (kMsg) tc::copy4(w_s + at_row(r, c), weights + src, ok);
+      tc::fetch1(g_s + at_row(r, c), g + src, ok);
+      if (kMsg) tc::fetch1(w_s + at_row(r, c), weights + src, ok);
     }
   }
   if (kMsg && lane < kRows) {
     const long l = row0 + lane;
-    tc::copy4(m_s + lane, mask + (l < n_rows ? l : 0), l < n_rows);
+    tc::fetch1(m_s + lane, mask + (l < n_rows ? l : 0), l < n_rows);
   }
 }
 
@@ -312,7 +365,9 @@ __device__ __forceinline__ void fetch_rows(float* g_s, float* w_s, float* m_s,
 // all kMaxD columns (W is zero-padded); A_h's row r, column c at
 // a_h[r * width + (c ^ rswz(r))]; act: silu of A first. The step loop
 // stays rolled: a fully unrolled kernel outgrows the instruction cache.
-template <bool kT, bool kAct>
+// kExactW: W holds bf16 values (exact in TF32), so of 3xTF32's three terms
+// the two that are not zero suffice (tc::mma2_tiles, equal sums).
+template <bool kT, bool kAct, bool kExactW>
 __device__ __forceinline__ void product(const float* a0, const float* a1,
                                         int width, const float* w_s, int d8,
                                         int lane, float out[2][8][4]) {
@@ -347,7 +402,10 @@ __device__ __forceinline__ void product(const float* a0, const float* a1,
           b[nt][1] = w[k1 * kMaxD + (n ^ swz(k1))];
         }
       }
-      tc::mma3_tiles<8>(out[h], hi, lo, b);
+      if constexpr (kExactW)
+        tc::mma2_tiles<8>(out[h], hi, lo, b);
+      else
+        tc::mma3_tiles<8>(out[h], hi, lo, b);
     }
   }
 }
@@ -372,13 +430,13 @@ __device__ __forceinline__ void park(float* f_s, const float v[2][8][4], int lan
       for (int j = 0; j < 4; ++j) f_s[((h * 8 + nt) * 4 + j) * 32 + lane] = v[h][nt][j];
 }
 
-template <bool kMsg, bool kW2>
+template <typename T, bool kMsg, bool kW2>
 __global__ void __launch_bounds__(32 * warps(kW2), 1)
-    tail_bwd_tc_kernel(Tail t, const float* __restrict__ acc,
-                       const float* __restrict__ weights,
-                       const float* __restrict__ mask,
-                       const float* __restrict__ g, float* __restrict__ d_acc,
-                       float* __restrict__ d_weights, float* __restrict__ d_mask,
+    tail_bwd_tc_kernel(TailT<T> t, const T* __restrict__ acc,
+                       const T* __restrict__ weights,
+                       const T* __restrict__ mask,
+                       const T* __restrict__ g, T* __restrict__ d_acc,
+                       T* __restrict__ d_weights, T* __restrict__ d_mask,
                        int n_rows, int d, int vec) {
   extern __shared__ float4 smem4[];
   float* w_s = reinterpret_cast<float*>(smem4);  // [2][kMaxD][kMaxD] with W2
@@ -405,18 +463,18 @@ __global__ void __launch_bounds__(32 * warps(kW2), 1)
     const int k = (i / kMaxD) % kMaxD;
     const int n = i % kMaxD;
     float v = 0.f;
-    if (kW2 && k < d && n < d) v = (h ? t.w2g : t.w2c)[k * d + n];
+    if (kW2 && k < d && n < d) v = chgnet::to_f((h ? t.w2g : t.w2c)[k * d + n]);
     w_s[h * kMaxD * kMaxD + k * kMaxD + (n ^ swz(k))] = v;
   }
   for (int i = threadIdx.x; i < 2 * kMaxD; i += blockDim.x) {
     const int h = i / kMaxD;
     const int e = i % kMaxD;
-    b2_s[i] = kW2 && e < d ? t.b2[h * d + e] : 0.f;
+    b2_s[i] = kW2 && e < d ? chgnet::to_f(t.b2[h * d + e]) : 0.f;
     if (h == 0) {
-      ncs_s[e] = e < d ? t.ncs[e] : 0.f;
-      ncb_s[e] = e < d ? t.ncb[e] : 0.f;
-      ngs_s[e] = e < d ? t.ngs[e] : 0.f;
-      ngb_s[e] = e < d ? t.ngb[e] : 0.f;
+      ncs_s[e] = e < d ? chgnet::to_f(t.ncs[e]) : 0.f;
+      ncb_s[e] = e < d ? chgnet::to_f(t.ncb[e]) : 0.f;
+      ngs_s[e] = e < d ? chgnet::to_f(t.ngs[e]) : 0.f;
+      ngb_s[e] = e < d ? chgnet::to_f(t.ngb[e]) : 0.f;
     }
   }
   for (int i = lane; i < warp_floats(kW2); i += 32) mine[i] = 0.f;
@@ -437,11 +495,20 @@ __global__ void __launch_bounds__(32 * warps(kW2), 1)
   if (tile < n_tiles)
     fetch_rows<kMsg>(g_s, wt_s, m_s, g, weights, mask, tile, n_rows, d, vec, lane);
   tc::commit();
+  // bf16 acc rows have no asynchronous copy into the f32 stage: the next
+  // tile's are loaded into registers here and widened into their stage at
+  // the end of this tile, so the loads are in flight while it is computed
+  constexpr bool kHeld = chgnet::is_bf16<T>;
+  HeldAcc held;
   for (int it = 0; tile < n_tiles; ++it, tile += step) {
     const float* acc_s = mine + (it & 1) * kAccFloats;
-    if (tile + step < n_tiles)
-      fetch_acc(mine + ((it + 1) & 1) * kAccFloats, acc, (long)(tile + step) * kRows,
-                n_rows, d, lane);
+    float* acc_next = mine + ((it + 1) & 1) * kAccFloats;
+    const bool ahead = tile + step < n_tiles;
+    if constexpr (kHeld) {
+      if (ahead) hold_acc(held, acc, (long)(tile + step) * kRows, n_rows, d, lane);
+    } else if (ahead) {
+      fetch_acc(acc_next, acc, (long)(tile + step) * kRows, n_rows, d, lane);
+    }
     tc::commit();
     tc::wait_pending<1>();  // all but the next tile's acc have landed
     __syncwarp();
@@ -458,7 +525,8 @@ __global__ void __launch_bounds__(32 * warps(kW2), 1)
 #pragma unroll
           for (int j = 0; j < 4; ++j)
             y[h][nt][j] = b2_s[h * kMaxD + nt * 8 + 2 * q + (j & 1)];
-      product<false, true>(acc_s, acc_s + kMaxD, 2 * kMaxD, w_s, d8, lane, y);
+      product<false, true, chgnet::is_bf16<T>>(acc_s, acc_s + kMaxD, 2 * kMaxD, w_s,
+                                               d8, lane, y);
       park(f_s, y, lane);
     }
     auto y_at = [&](int h, int nt, int j) {
@@ -543,8 +611,7 @@ __global__ void __launch_bounds__(32 * warps(kW2), 1)
         const long l = row0 + r;
         const int e0 = nt * 8 + 2 * q;
         if (kMsg && e0 < d && l < n_rows)
-          *reinterpret_cast<float2*>(d_weights + l * d + e0) =
-              make_float2(dw[0], dw[1]);
+          chgnet::store2(d_weights + l * d + e0, dw[0], dw[1]);
       }
     }
 #pragma unroll
@@ -552,7 +619,7 @@ __global__ void __launch_bounds__(32 * warps(kW2), 1)
       const long l = row0 + gid + 8 * rr;
       if (kMsg && d_mask != nullptr) {
         const float dm = tc::quad_sum(mask_part[rr]);
-        if (q == 0 && l < n_rows) d_mask[l] = dm;
+        if (q == 0 && l < n_rows) chgnet::store_v(d_mask + l, dm);
       }
     }
 #pragma unroll
@@ -585,8 +652,7 @@ __global__ void __launch_bounds__(32 * warps(kW2), 1)
             if (kW2) *p = dy[jj];
           }
           if (!kW2 && e0 < d && l < n_rows)
-            *reinterpret_cast<float2*>(d_acc + l * 2 * d + h * d + e0) =
-                make_float2(dy[0], dy[1]);
+            chgnet::store2(d_acc + l * 2 * d + h * d + e0, dy[0], dy[1]);
         }
 
     if (kW2) {
@@ -594,7 +660,7 @@ __global__ void __launch_bounds__(32 * warps(kW2), 1)
       // d_acc = (d_y @ W2^T) * silu'(acc)
       float dh[2][8][4];
       zero(dh);
-      product<true, false>(g_s, wt_s, kMaxD, w_s, d8, lane, dh);
+      product<true, false, chgnet::is_bf16<T>>(g_s, wt_s, kMaxD, w_s, d8, lane, dh);
       park(f_s, dh, lane);
 #pragma unroll 1
       for (int nt = 0; nt < d8; ++nt)
@@ -608,14 +674,16 @@ __global__ void __launch_bounds__(32 * warps(kW2), 1)
             if (e0 >= d || l >= n_rows) continue;
             const float a0 = acc_s[at_acc(r, h * kMaxD + e0)];
             const float a1 = acc_s[at_acc(r, h * kMaxD + e0 + 1)];
-            *reinterpret_cast<float2*>(d_acc + l * 2 * d + h * d + e0) =
-                make_float2(y_at(h, nt, 2 * rr) * silu_grad_of(a0, sigm_fast(a0)),
-                            y_at(h, nt, 2 * rr + 1) *
-                                silu_grad_of(a1, sigm_fast(a1)));
+            chgnet::store2(d_acc + l * 2 * d + h * d + e0,
+                           y_at(h, nt, 2 * rr) * silu_grad_of(a0, sigm_fast(a0)),
+                           y_at(h, nt, 2 * rr + 1) * silu_grad_of(a1, sigm_fast(a1)));
           }
     }
+    if constexpr (kHeld) {
+      if (ahead) land_acc(acc_next, held, d, lane);
+    }
     __syncwarp();  // this acc stage and the row slots free
-    if (tile + step < n_tiles)
+    if (ahead)
       fetch_rows<kMsg>(g_s, wt_s, m_s, g, weights, mask, tile + step, n_rows, d,
                        vec, lane);
     tc::commit();
@@ -670,25 +738,26 @@ static_assert(fwd_smem_bytes() <= 232448, "over the H100's shared memory a block
 // and the 8-column tile nt of half h (zero past D); b2 (gate half at
 // kMaxD) and the layer-norm vectors, zero past D; the warp's buffers zeroed
 // (the copies never write the columns past D).
-__device__ void stage_fwd(uint4* wf, float* prm, float* mine, const Tail& t, int d,
-                          int lane) {
+template <typename T>
+__device__ void stage_fwd(uint4* wf, float* prm, float* mine, const TailT<T>& t,
+                          int d, int lane) {
   for (int i = threadIdx.x; i < kSplitW; i += blockDim.x) {
     const int n = ((i >> 5) & 7) * 8 + ((i & 31) >> 2);
     const int k0 = ((i >> 8) & 7) * 8 + (i & 3);
     const int k1 = k0 + 4;
-    const float* w = (i >> 11) ? t.w2g : t.w2c;
-    wf[i] = tc::split_pair(k0 < d && n < d ? w[k0 * d + n] : 0.f,
-                           k1 < d && n < d ? w[k1 * d + n] : 0.f);
+    const T* w = (i >> 11) ? t.w2g : t.w2c;
+    wf[i] = tc::split_pair(k0 < d && n < d ? chgnet::to_f(w[k0 * d + n]) : 0.f,
+                           k1 < d && n < d ? chgnet::to_f(w[k1 * d + n]) : 0.f);
   }
   for (int i = threadIdx.x; i < 2 * kMaxD; i += blockDim.x) {
     const int h = i / kMaxD;
     const int e = i % kMaxD;
-    prm[i] = e < d ? t.b2[h * d + e] : 0.f;
+    prm[i] = e < d ? chgnet::to_f(t.b2[h * d + e]) : 0.f;
     if (h == 0) {
-      prm[2 * kMaxD + e] = e < d ? t.ncs[e] : 0.f;
-      prm[3 * kMaxD + e] = e < d ? t.ncb[e] : 0.f;
-      prm[4 * kMaxD + e] = e < d ? t.ngs[e] : 0.f;
-      prm[5 * kMaxD + e] = e < d ? t.ngb[e] : 0.f;
+      prm[2 * kMaxD + e] = e < d ? chgnet::to_f(t.ncs[e]) : 0.f;
+      prm[3 * kMaxD + e] = e < d ? chgnet::to_f(t.ncb[e]) : 0.f;
+      prm[4 * kMaxD + e] = e < d ? chgnet::to_f(t.ngs[e]) : 0.f;
+      prm[5 * kMaxD + e] = e < d ? chgnet::to_f(t.ngb[e]) : 0.f;
     }
   }
   for (int i = lane; i < kFwdWarpFloats; i += 32) mine[i] = 0.f;
@@ -698,9 +767,10 @@ __device__ void stage_fwd(uint4* wf, float* prm, float* mine, const Tail& t, int
 // Copies of the weights rows and mask entries of the 16 rows from row0
 // (zeros from row_end on); vec: weights 16-byte aligned. The caller commits
 // them.
+template <typename T>
 __device__ __forceinline__ void fetch_weights(float* w_s, float* m_s,
-                                              const float* weights,
-                                              const float* mask, long row0,
+                                              const T* weights,
+                                              const T* mask, long row0,
                                               long row_end, int d, bool vec,
                                               int lane) {
   const int unit = vec ? 4 : 1;  // floats a copy
@@ -710,22 +780,24 @@ __device__ __forceinline__ void fetch_weights(float* w_s, float* m_s,
     const int c = (i - r * per_row) * unit;
     const long l = row0 + r;
     const bool ok = l < row_end;
-    const float* src = weights + (ok ? l : 0) * d + c;
+    const T* src = weights + (ok ? l : 0) * d + c;
     if (vec)
-      tc::copy16(w_s + at_row(r, c), src, ok);
+      tc::fetch4(w_s + at_row(r, c), src, ok);
     else
-      tc::copy4(w_s + at_row(r, c), src, ok);
+      tc::fetch1(w_s + at_row(r, c), src, ok);
   }
   if (lane < kRows) {
     const long l = row0 + lane;
-    tc::copy4(m_s + lane, mask + (l < row_end ? l : 0), l < row_end);
+    tc::fetch1(m_s + lane, mask + (l < row_end ? l : 0), l < row_end);
   }
 }
 
 // y[h] += the warp's 16 rows of silu(A_h) @ W_h over all kMaxD columns,
 // A_h the acc stage's half h (row r, column c at at_acc(r, h kMaxD + c)),
 // W_h from the split fragments. The step loop is unrolled twice only, so
-// that one step's loads overlap the other's products.
+// that one step's loads overlap the other's products. kExactW: bf16 W,
+// whose lo parts are zero: two of 3xTF32's terms (tc::mma2_tiles_split).
+template <bool kExactW>
 __device__ __forceinline__ void product_split(const float* acc_s, const uint4* wf,
                                               int d8, int lane, float y[2][8][4]) {
   const int gid = lane >> 2;
@@ -748,7 +820,10 @@ __device__ __forceinline__ void product_split(const float* acc_s, const uint4* w
       uint4 bf[8];
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) bf[nt] = b[nt * 32];
-      tc::mma3_tiles_split<8>(y[h], hi, lo, bf);
+      if constexpr (kExactW)
+        tc::mma2_tiles_split<8>(y[h], hi, lo, bf);
+      else
+        tc::mma3_tiles_split<8>(y[h], hi, lo, bf);
     }
   }
 }
@@ -759,7 +834,7 @@ __device__ __forceinline__ void product_split(const float* acc_s, const uint4* w
 // The caller has committed the copies of acc_s, then of w_s and m_s: the
 // acc rows are waited for before the product, the weights only before the
 // gate, so their copy overlaps the product.
-template <typename Emit>
+template <bool kExactW, typename Emit>
 __device__ __forceinline__ void message_tile(float* acc_s, const float* w_s,
                                              const float* m_s, const uint4* wf,
                                              const float* prm, int d, int lane,
@@ -784,7 +859,7 @@ __device__ __forceinline__ void message_tile(float* acc_s, const float* w_s,
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int j = 0; j < 4; ++j) y[h][nt][j] = prm[h * kMaxD + nt * 8 + 2 * q + (j & 1)];
-  product_split(acc_s, wf, d8, lane, y);
+  product_split<kExactW>(acc_s, wf, d8, lane, y);
 
   // two-pass layer-norm statistics of each half row
   float mean[2][2] = {}, inv[2][2] = {};
@@ -854,10 +929,11 @@ __device__ __forceinline__ void clear_pad(float* acc_s, int d, int lane) {
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(32 * kFwdWarps, 1)
-    tail_fwd_tc_kernel(Tail t, const float* __restrict__ acc,
-                       const float* __restrict__ weights,
-                       const float* __restrict__ mask, float* __restrict__ out,
+    tail_fwd_tc_kernel(TailT<T> t, const T* __restrict__ acc,
+                       const T* __restrict__ weights,
+                       const T* __restrict__ mask, T* __restrict__ out,
                        int n_rows, int d, int vec) {
   extern __shared__ float4 smem4[];
   uint4* wf = reinterpret_cast<uint4*>(smem4);
@@ -881,11 +957,10 @@ __global__ void __launch_bounds__(32 * kFwdWarps, 1)
   tc::commit();
   for (; tile < n_tiles; tile += step) {
     const long row0 = (long)tile * kRows;
-    message_tile(mine, w_s, m_s, wf, prm, d, lane,
+    message_tile<chgnet::is_bf16<T>>(mine, w_s, m_s, wf, prm, d, lane,
                  [&](int r, int e0, float v0, float v1) {
                    const long l = row0 + r;
-                   if (l < n_rows)
-                     *reinterpret_cast<float2*>(out + l * d + e0) = make_float2(v0, v1);
+                   if (l < n_rows) chgnet::store2(out + l * d + e0, v0, v1);
                  });
     __syncwarp();  // parked y and the weights slot read
     clear_pad(mine, d, lane);
@@ -972,7 +1047,7 @@ __global__ void __launch_bounds__(32 * kFwdWarps, 1)
   for (int tile = 0; tile < n_tiles; ++tile) {
     const long row0 = row_begin + (long)tile * kRows;
     const bool more = tile + 1 < n_tiles;
-    message_tile(mine, w_s, m_s, wf, prm, d, lane,
+    message_tile<false>(mine, w_s, m_s, wf, prm, d, lane,
                  [&](int r, int e0, float v0, float v1) {
                    *reinterpret_cast<float2*>(w_s + at_row(r, e0)) = make_float2(v0, v1);
                  });
@@ -1007,16 +1082,18 @@ __global__ void __launch_bounds__(32 * kFwdWarps, 1)
 }  // namespace tcb
 
 
-using FwdFn = void (*)(Tail, const float*, const float*, float*, int, int);
+template <typename T>
+using FwdFn = void (*)(TailT<T>, const T*, const T*, T*, int, int);
 using BwdFn = void (*)(Tail, const float*, const float*, const float*,
                        const float*, float*, float*, float*, float*, int, int);
 // the tensor-core kernels
-using TcFwdFn = void (*)(Tail, const float*, const float*, const float*, float*,
-                         int, int, int);
+template <typename T>
+using TcFwdFn = void (*)(TailT<T>, const T*, const T*, const T*, T*, int, int, int);
 using TcReduceFn = void (*)(Tail, const float*, const float*, const float*,
                             const int*, float*, int, int, int);
-using TcBwdFn = void (*)(Tail, const float*, const float*, const float*,
-                         const float*, float*, float*, float*, int, int, int);
+template <typename T>
+using TcBwdFn = void (*)(TailT<T>, const T*, const T*, const T*, const T*, T*, T*,
+                         T*, int, int, int);
 
 size_t fwd_smem(bool w2) { return w2 ? (kWeights + 4 * kHalf) * sizeof(float) : 0; }
 
@@ -1025,10 +1102,10 @@ size_t bwd_smem(bool w2, bool params) {
   return params ? kWarps * kVecs * kMaxD * sizeof(float) : 0;
 }
 
-template <bool kW2>
-Kernel<FwdFn> fwd_instance() {
+template <typename T, bool kW2>
+Kernel<FwdFn<T>> fwd_instance() {
   static std::atomic<int> waves[kMaxDevices];
-  return {tail_fwd_kernel<kW2>, fwd_smem(kW2), waves};
+  return {tail_fwd_kernel<T, kW2>, fwd_smem(kW2), waves};
 }
 
 template <bool kMsg, bool kW2, bool kParams>
@@ -1038,8 +1115,9 @@ Kernel<BwdFn> bwd_instance() {
 }
 
 // the update forward
-Kernel<FwdFn> fwd_kernel(bool w2) {
-  return w2 ? fwd_instance<true>() : fwd_instance<false>();
+template <typename T>
+Kernel<FwdFn<T>> fwd_kernel(bool w2) {
+  return w2 ? fwd_instance<T, true>() : fwd_instance<T, false>();
 }
 
 // the backward with parameter gradients
@@ -1048,9 +1126,10 @@ Kernel<BwdFn> bwd_kernel(bool msg, bool w2) {
   return w2 ? bwd_instance<false, true, true>() : bwd_instance<false, false, true>();
 }
 
-Kernel<TcFwdFn> tc_fwd_kernel() {
+template <typename T>
+Kernel<TcFwdFn<T>> tc_fwd_kernel() {
   static std::atomic<int> waves[kMaxDevices];
-  return {tcb::tail_fwd_tc_kernel, tcb::fwd_smem_bytes(), waves};
+  return {tcb::tail_fwd_tc_kernel<T>, tcb::fwd_smem_bytes(), waves};
 }
 
 Kernel<TcReduceFn> tc_reduce_kernel() {
@@ -1059,15 +1138,16 @@ Kernel<TcReduceFn> tc_reduce_kernel() {
 }
 
 // the serving backward
-template <bool kMsg, bool kW2>
-Kernel<TcBwdFn> tc_bwd_instance() {
+template <typename T, bool kMsg, bool kW2>
+Kernel<TcBwdFn<T>> tc_bwd_instance() {
   static std::atomic<int> waves[kMaxDevices];
-  return {tcb::tail_bwd_tc_kernel<kMsg, kW2>, tcb::smem_bytes(kW2), waves};
+  return {tcb::tail_bwd_tc_kernel<T, kMsg, kW2>, tcb::smem_bytes(kW2), waves};
 }
 
-Kernel<TcBwdFn> tc_bwd_kernel(bool msg, bool w2) {
-  if (msg) return tc_bwd_instance<true, true>();
-  return w2 ? tc_bwd_instance<false, true>() : tc_bwd_instance<false, false>();
+template <typename T>
+Kernel<TcBwdFn<T>> tc_bwd_kernel(bool msg, bool w2) {
+  if (msg) return tc_bwd_instance<T, true, true>();
+  return w2 ? tc_bwd_instance<T, false, true>() : tc_bwd_instance<T, false, false>();
 }
 
 }  // namespace
@@ -1076,33 +1156,73 @@ Kernel<TcBwdFn> tc_bwd_kernel(bool msg, bool w2) {
 // the first three null for an update without a second layer. msg = 1:
 // out = message(acc, weights, mask) by the tensor-core kernel, 16 rows a
 // warp; msg = 0: out = update(acc) + resnet, one block per 32-row tile.
-// acc [n_rows, 2d] 16-byte aligned; every tensor contiguous f32. At most one
-// wave of blocks.
-extern "C" int gated_fwd_f32(int msg, const void* const* tail, const float* acc,
-                             const float* weights, const float* mask,
-                             const float* resnet, float* out, int n_rows,
-                             int d, void* cuda_stream) {
-  const Tail t = make_tail(tail);
+// acc [n_rows, 2d] 16-byte aligned; every tensor contiguous f32 (the
+// _bf16 entry: bf16, computed in f32 and rounded once at each store). At
+// most one wave of blocks.
+namespace {
+
+template <typename T>
+int gated_fwd(int msg, const void* const* tail, const T* acc, const T* weights,
+              const T* mask, const T* resnet, T* out, int n_rows, int d,
+              void* cuda_stream) {
+  const TailT<T> t = make_tail<T>(tail);
   const bool w2 = t.w2c != nullptr;
   if (bad_shape(msg, w2, d)) return (int)cudaErrorInvalidValue;
   const cudaStream_t stream = static_cast<cudaStream_t>(cuda_stream);
   if (n_rows > 0 && msg) {
-    const Kernel<TcFwdFn> k = tc_fwd_kernel();
+    const Kernel<TcFwdFn<T>> k = tc_fwd_kernel<T>();
     const int wave = wave_blocks(k, 32 * tcb::kFwdWarps);
     if (wave < 0) return -wave;
     const int rows = tcb::kRows * tcb::kFwdWarps;  // of a block's first tiles
     const int want = (n_rows + rows - 1) / rows;
-    const int vec = (uintptr_t)weights % 16 == 0;
+    // weights rows in units of 4 values: 16 bytes of f32, 8 of bf16
+    const int vec = (uintptr_t)weights % (4 * sizeof(T)) == 0;
     k.fn<<<want < wave ? want : wave, 32 * tcb::kFwdWarps, k.smem, stream>>>(
         t, acc, weights, mask, out, n_rows, d, vec);
   } else if (n_rows > 0) {
-    const Kernel<FwdFn> k = fwd_kernel(w2);
+    const Kernel<FwdFn<T>> k = fwd_kernel<T>(w2);
     const int wave = wave_blocks(k);
     if (wave < 0) return -wave;
     const int grid = n_tiles(n_rows) < wave ? n_tiles(n_rows) : wave;
     k.fn<<<grid, kThreads, k.smem, stream>>>(t, acc, resnet, out, n_rows, d);
   }
   return (int)cudaGetLastError();
+}
+
+// the serving backward, by the tensor-core kernel
+template <typename T>
+int gated_bwd_serving(int msg, const TailT<T>& t, const T* acc, const T* weights,
+                      const T* mask, const T* g, T* d_acc, T* d_weights,
+                      T* d_mask, int n_rows, int d, cudaStream_t stream) {
+  const bool w2 = t.w2c != nullptr;
+  const Kernel<TcBwdFn<T>> k = tc_bwd_kernel<T>(msg, w2);
+  const int wave = wave_blocks(k, 32 * tcb::warps(w2));
+  if (wave < 0) return -wave;
+  const int rows = tcb::kRows * tcb::warps(w2);  // of a block's first tiles
+  const int want = (n_rows + rows - 1) / rows;
+  const int vec = ((uintptr_t)g | (uintptr_t)(msg ? weights : g)) % (4 * sizeof(T)) == 0;
+  k.fn<<<want < wave ? want : wave, 32 * tcb::warps(w2), k.smem, stream>>>(
+      t, acc, weights, mask, g, d_acc, d_weights, d_mask, n_rows, d, vec);
+  return (int)cudaSuccess;
+}
+
+}  // namespace
+
+extern "C" int gated_fwd_f32(int msg, const void* const* tail, const float* acc,
+                             const float* weights, const float* mask,
+                             const float* resnet, float* out, int n_rows,
+                             int d, void* cuda_stream) {
+  return gated_fwd(msg, tail, acc, weights, mask, resnet, out, n_rows, d,
+                   cuda_stream);
+}
+
+extern "C" int gated_fwd_bf16(int msg, const void* const* tail,
+                              const chgnet::bf16* acc, const chgnet::bf16* weights,
+                              const chgnet::bf16* mask, const chgnet::bf16* resnet,
+                              chgnet::bf16* out, int n_rows, int d,
+                              void* cuda_stream) {
+  return gated_fwd(msg, tail, acc, weights, mask, resnet, out, n_rows, d,
+                   cuda_stream);
 }
 
 // d_acc [n_rows, 2d] (16-byte aligned, as acc), and for msg = 1 d_weights
@@ -1134,19 +1254,34 @@ extern "C" int gated_bwd_f32(int msg, const void* const* tail, const float* acc,
                                                  d_weights, d_mask, partial,
                                                  n_rows, d);
   } else if (n_rows > 0) {
-    const Kernel<TcBwdFn> k = tc_bwd_kernel(msg, w2);
-    const int wave = wave_blocks(k, 32 * tcb::warps(w2));
-    if (wave < 0) return -wave;
-    const int rows = tcb::kRows * tcb::warps(w2);  // of a block's first tiles
-    const int want = (n_rows + rows - 1) / rows;
-    const int vec = ((uintptr_t)g | (uintptr_t)(msg ? weights : g)) % 16 == 0;
-    k.fn<<<want < wave ? want : wave, 32 * tcb::warps(w2), k.smem, stream>>>(
-        t, acc, weights, mask, g, d_acc, d_weights, d_mask, n_rows, d, vec);
+    const int err = gated_bwd_serving(msg, t, acc, weights, mask, g, d_acc,
+                                      d_weights, d_mask, n_rows, d, stream);
+    if (err) return err;
   }
   if (params) {
     const int n_part = (w2 ? 2 * d * d + 2 * d : 0) + 4 * d;
     sum_blocks_kernel<<<(n_part + 255) / 256, 256, 0, stream>>>(
         partial, n_blocks, n_part, d_params);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The serving backward (no parameter gradients) of bf16 tails: arguments
+// as gated_bwd_f32's without partial, d_params and n_blocks; the
+// parameter-gradient form, which only training reaches, takes f32 only.
+extern "C" int gated_bwd_bf16(int msg, const void* const* tail,
+                              const chgnet::bf16* acc, const chgnet::bf16* weights,
+                              const chgnet::bf16* mask, const chgnet::bf16* g,
+                              chgnet::bf16* d_acc, chgnet::bf16* d_weights,
+                              chgnet::bf16* d_mask, int n_rows, int d,
+                              void* cuda_stream) {
+  const TailT<chgnet::bf16> t = make_tail<chgnet::bf16>(tail);
+  if (bad_shape(msg, t.w2c != nullptr, d)) return (int)cudaErrorInvalidValue;
+  if (n_rows > 0) {
+    const int err =
+        gated_bwd_serving(msg, t, acc, weights, mask, g, d_acc, d_weights, d_mask,
+                          n_rows, d, static_cast<cudaStream_t>(cuda_stream));
+    if (err) return err;
   }
   return (int)cudaGetLastError();
 }
@@ -1181,9 +1316,10 @@ extern "C" int gated_reduce_f32(const void* const* tail, const float* acc,
 // forward (i = 0), the message-reduce (1) and the message backward (2);
 // nothing is launched. For the build report.
 extern "C" int gated_tc_occupancy(int* info) {
-  const int waves[3] = {wave_blocks(tc_fwd_kernel(), 32 * tcb::kFwdWarps),
+  const int waves[3] = {wave_blocks(tc_fwd_kernel<float>(), 32 * tcb::kFwdWarps),
                         wave_blocks(tc_reduce_kernel(), 32 * tcb::kFwdWarps),
-                        wave_blocks(tc_bwd_kernel(true, true), 32 * tcb::warps(true))};
+                        wave_blocks(tc_bwd_kernel<float>(true, true),
+                                    32 * tcb::warps(true))};
   const size_t smem[3] = {tcb::fwd_smem_bytes(), tcb::fwd_smem_bytes(),
                           tcb::smem_bytes(true)};
   const int warps[3] = {tcb::kFwdWarps, tcb::kFwdWarps, tcb::warps(true)};

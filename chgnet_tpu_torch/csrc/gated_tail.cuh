@@ -33,15 +33,20 @@ constexpr float kEps = 1e-5f;
 constexpr int kParamBlocks = 256;
 constexpr int kMaxDevices = 16;
 
-struct Tail {
-  const float* w2c;  // [D, D], null without a second layer
-  const float* w2g;  // [D, D]
-  const float* b2;   // [2D]
-  const float* ncs;  // [D] layer-norm scales and biases
-  const float* ncb;
-  const float* ngs;
-  const float* ngb;
+// A tail's parameters in their storage type T (float, or bf16 under
+// compute_dtype="bfloat16"); every kernel widens them to f32 as it loads
+// them.
+template <typename T>
+struct TailT {
+  const T* w2c;  // [D, D], null without a second layer
+  const T* w2g;  // [D, D]
+  const T* b2;   // [2D]
+  const T* ncs;  // [D] layer-norm scales and biases
+  const T* ncb;
+  const T* ngs;
+  const T* ngb;
 };
+using Tail = TailT<float>;
 
 __device__ __forceinline__ float sigm(float x) { return 1.f / (1.f + expf(-x)); }
 __device__ __forceinline__ float silu(float x) { return x / (1.f + expf(-x)); }
@@ -65,12 +70,13 @@ __device__ __forceinline__ const float* half_tile(const float* buf, int half) {
 }
 
 // A half row's elements e = lane + 32 i (zero past D).
-__device__ __forceinline__ void load_lane(const float* src, int d, int lane,
+template <typename T>
+__device__ __forceinline__ void load_lane(const T* src, int d, int lane,
                                           float v[kPerLane]) {
 #pragma unroll
   for (int i = 0; i < kPerLane; ++i) {
     const int e = lane + 32 * i;
-    v[i] = e < d ? src[e] : 0.f;
+    v[i] = e < d ? chgnet::to_f(src[e]) : 0.f;
   }
 }
 
@@ -84,19 +90,21 @@ __device__ __forceinline__ void store_lane(float* dst, int d, int lane,
 }
 
 // w_s[half][k][c] = W_half[k][c], or W_half[c][k] with transpose
-__device__ void stage_weights(float* w_s, const Tail& t, int d, bool transpose) {
+template <typename T>
+__device__ void stage_weights(float* w_s, const TailT<T>& t, int d, bool transpose) {
   const int dd = d * d;
   for (int i = threadIdx.x; i < 2 * dd; i += kThreads) {
     const int half = i >= dd;
     const int j = i - half * dd;
     const int k = j / d;
     const int c = j - k * d;
-    w_s[half * dd + (transpose ? c * d + k : j)] = (half ? t.w2g : t.w2c)[j];
+    w_s[half * dd + (transpose ? c * d + k : j)] = chgnet::to_f((half ? t.w2g : t.w2c)[j]);
   }
 }
 
 // h_s = silu(acc) of the tile's rows, zero rows past n_rows
-__device__ void load_silu(const float* __restrict__ acc, float* h_s, long row0,
+template <typename T>
+__device__ void load_silu(const T* __restrict__ acc, float* h_s, long row0,
                           int n_rows, int d) {
   const int d4 = d / 4;
   for (int i = threadIdx.x; i < kTile * 2 * d4; i += kThreads) {
@@ -105,7 +113,7 @@ __device__ void load_silu(const float* __restrict__ acc, float* h_s, long row0,
     const long l = row0 + r;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (l < n_rows) {
-      v = reinterpret_cast<const float4*>(acc + l * 2 * d)[c4];
+      chgnet::load_v(v, acc + l * 2 * d + 4 * c4);
       v = make_float4(silu(v.x), silu(v.y), silu(v.z), silu(v.w));
     }
     const int half = c4 >= d4;
@@ -211,7 +219,8 @@ __device__ __forceinline__ void ln_bwd(const float gout[kPerLane],
 
 struct LaneParams {  // the lane's layer-norm parameters, zero past D
   float ncs[kPerLane], ncb[kPerLane], ngs[kPerLane], ngb[kPerLane];
-  __device__ void load(const Tail& t, int d, int lane) {
+  template <typename T>
+  __device__ void load(const TailT<T>& t, int d, int lane) {
     load_lane(t.ncs, d, lane, ncs);
     load_lane(t.ncb, d, lane, ncb);
     load_lane(t.ngs, d, lane, ngs);
@@ -219,16 +228,18 @@ struct LaneParams {  // the lane's layer-norm parameters, zero past D
   }
 };
 
-__device__ __forceinline__ void load_bias(const Tail& t, int d, int lane,
+template <typename T>
+__device__ __forceinline__ void load_bias(const TailT<T>& t, int d, int lane,
                                           float b[4]) {
   const int col = 4 * lane;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) b[j] = col < 2 * d ? t.b2[col + j] : 0.f;
+  for (int j = 0; j < 4; ++j) b[j] = col < 2 * d ? chgnet::to_f(t.b2[col + j]) : 0.f;
 }
 
 // The gate of one row, silu(LN(y_c)) * sigmoid(LN(y_g)), for the lane's
 // elements (unspecified past D); y_c and y_g are the row's two halves.
-__device__ __forceinline__ void gate_row(const float* y_c, const float* y_g,
+template <typename T>
+__device__ __forceinline__ void gate_row(const T* y_c, const T* y_g,
                                          const LaneParams& lp, int d, int lane,
                                          float gate[kPerLane]) {
   float yc[kPerLane], yg[kPerLane], zc[kPerLane], zg[kPerLane];
@@ -424,11 +435,12 @@ int wave_blocks(const Kernel<Fn>& k, int threads = kThreads) {
 
 int n_tiles(int n_rows) { return (n_rows + kTile - 1) / kTile; }
 
-Tail make_tail(const void* const* p) {
-  return Tail{static_cast<const float*>(p[0]), static_cast<const float*>(p[1]),
-              static_cast<const float*>(p[2]), static_cast<const float*>(p[3]),
-              static_cast<const float*>(p[4]), static_cast<const float*>(p[5]),
-              static_cast<const float*>(p[6])};
+template <typename T = float>
+TailT<T> make_tail(const void* const* p) {
+  return TailT<T>{static_cast<const T*>(p[0]), static_cast<const T*>(p[1]),
+                  static_cast<const T*>(p[2]), static_cast<const T*>(p[3]),
+                  static_cast<const T*>(p[4]), static_cast<const T*>(p[5]),
+                  static_cast<const T*>(p[6])};
 }
 
 bool bad_shape(bool msg, bool w2, int d) {

@@ -11,7 +11,8 @@
 // Bound: bytes. It reads L indices and L rows of src and writes L rows,
 // with no arithmetic. Design: one thread per (row, float4 unit), so the
 // threads of a warp read neighbouring 16-byte units of the same or the
-// next source row and write contiguous output.
+// next source row and write contiguous output. The same kernel over integer
+// units copies bf16 rows bit for bit (gather_rows_bf16).
 #include "common.cuh"
 
 namespace {
@@ -26,8 +27,7 @@ __global__ void __launch_bounds__(256)
     const long l = t / units;
     const int u = (int)(t - l * units);
     const int s = idx[l];
-    out[t] = (s >= 0 && s < n_src) ? src[(long)s * units + u]
-                                   : chgnet::vzero<T>();
+    out[t] = (s >= 0 && s < n_src) ? src[(long)s * units + u] : T{};
   }
 }
 
@@ -52,6 +52,32 @@ extern "C" int gather_rows_f32(const float* src, const int* idx, float* out,
     } else {
       gather_rows_kernel<float><<<grid_for(n_rows * d), kThreads, 0, st>>>(
           src, idx, out, n_rows, n_src, d);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// The same gather of bf16 rows: a gather moves bits, so the kernel copies
+// each row's 2 d bytes in the widest unit that divides them and the
+// alignment allows (16, 4 or 2 bytes), exactly.
+extern "C" int gather_rows_bf16(const chgnet::bf16* src, const int* idx,
+                                chgnet::bf16* out, long n_rows, int n_src, int d,
+                                void* stream) {
+  if (n_rows > 0 && d > 0) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const uintptr_t at = reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(out);
+    if (d % 8 == 0 && at % 16 == 0) {
+      gather_rows_kernel<uint4><<<grid_for(n_rows * (d / 8)), kThreads, 0, st>>>(
+          reinterpret_cast<const uint4*>(src), idx,
+          reinterpret_cast<uint4*>(out), n_rows, n_src, d / 8);
+    } else if (d % 2 == 0 && at % 4 == 0) {
+      gather_rows_kernel<unsigned><<<grid_for(n_rows * (d / 2)), kThreads, 0, st>>>(
+          reinterpret_cast<const unsigned*>(src), idx,
+          reinterpret_cast<unsigned*>(out), n_rows, n_src, d / 2);
+    } else {
+      gather_rows_kernel<unsigned short><<<grid_for(n_rows * d), kThreads, 0, st>>>(
+          reinterpret_cast<const unsigned short*>(src), idx,
+          reinterpret_cast<unsigned short*>(out), n_rows, n_src, d);
     }
   }
   return (int)cudaGetLastError();

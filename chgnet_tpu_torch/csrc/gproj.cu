@@ -32,6 +32,16 @@
 // multiplies the fourth; a tile's sums start from its stream rows. A
 // tile's indices are loaded one tile ahead, once per distinct stream. Sums
 // run in a fixed order; out-of-range indices gather a zero row.
+// bf16 (compute_dtype="bfloat16", the _bf16 entries): tables, W, stream and
+// out in bf16, every product and sum in f32, out rounded once. A bf16 value
+// is exact in TF32, so each product of a bf16 row and a bf16 W takes one
+// TF32 pass (tc::mma1_tiles), which equals 3xTF32's result: two thirds of
+// the f32 kernels' products go. The long route widens each gathered row to
+// f32 and rounds nothing before the store, as the TPU kernel
+// (chgnet_tpu/ops/gproj.py:155-159: the gathered sum rounded to bf16 is the
+// gathered row itself). The short route rounds its projected table to bf16,
+// as the plain path does (models/functions.py:407-412 projects in bf16):
+// the two routes differ by that one rounding of each projected row.
 #include "common.cuh"
 #include "tf32x3.cuh"
 
@@ -48,7 +58,7 @@ constexpr int kUnitFloats = kRows * kMaxDt;
 constexpr int kPairWFloats = kMaxDt * kMaxK;
 
 struct Pairs {
-  const float* tab[kMaxPairs];
+  const void* tab[kMaxPairs];  // float or bf16 tables, as the launch's S
   const int* idx[kMaxPairs];
   int same_idx[kMaxPairs];  // first pair with the same index stream
 };
@@ -59,13 +69,15 @@ __device__ __forceinline__ int wswz(int k) { return 8 * (k & 3); }
 __device__ __forceinline__ int aswz(int r) { return 4 * (r & 7); }
 
 // every pair's W, zero-padded to kMaxDt x kMaxK, by the whole block
-__device__ void stage_w(float* w_s, const float* __restrict__ w, int n_pairs,
+template <typename S>
+__device__ void stage_w(float* w_s, const S* __restrict__ w, int n_pairs,
                         int dt, int k_out) {
   for (int i = threadIdx.x; i < n_pairs * kPairWFloats; i += kThreads) {
     const int p = i / kPairWFloats;
     const int k = (i / kMaxK) % kMaxDt;
     const int n = i % kMaxK;
-    const float v = k < dt && n < k_out ? w[((long)p * dt + k) * k_out + n] : 0.f;
+    const float v =
+        k < dt && n < k_out ? chgnet::to_f(w[((long)p * dt + k) * k_out + n]) : 0.f;
     w_s[p * kPairWFloats + k * kMaxK + (n ^ wswz(k))] = v;
   }
 }
@@ -73,8 +85,9 @@ __device__ void stage_w(float* w_s, const float* __restrict__ w, int n_pairs,
 // acc[nt] += A @ W for the warp's 16 rows and all kMaxK columns (W is
 // zero-padded), eight 8-column tiles at a time; load_a(ks, v) gives A's
 // fragment of the 8-deep step ks. The step loop stays rolled: a fully
-// unrolled kernel outgrows the instruction cache.
-template <typename LoadA>
+// unrolled kernel outgrows the instruction cache. kExact: A and W are bf16
+// values, exact in TF32, so one pass gives what 3xTF32 gives.
+template <bool kExact, typename LoadA>
 __device__ __forceinline__ void product(LoadA load_a, const float* w, int dt8,
                                         int lane, float acc[16][4]) {
   const int gid = lane >> 2;
@@ -84,7 +97,7 @@ __device__ __forceinline__ void product(LoadA load_a, const float* w, int dt8,
     float av[4];
     load_a(ks, av);
     uint32_t hi[4], lo[4];
-    tc::split_a(av, hi, lo);
+    if constexpr (!kExact) tc::split_a(av, hi, lo);
     const int k0 = ks * 8 + q;
     const int k1 = k0 + 4;
 #pragma unroll
@@ -96,7 +109,10 @@ __device__ __forceinline__ void product(LoadA load_a, const float* w, int dt8,
         b[j][0] = w[k0 * kMaxK + (n ^ wswz(k0))];
         b[j][1] = w[k1 * kMaxK + (n ^ wswz(k1))];
       }
-      tc::mma3_tiles<8>(acc + 8 * part, hi, lo, b);
+      if constexpr (kExact)
+        tc::mma1_tiles<8>(acc + 8 * part, av, b);
+      else
+        tc::mma3_tiles<8>(acc + 8 * part, hi, lo, b);
     }
   }
 }
@@ -119,9 +135,10 @@ __device__ __forceinline__ void load_idx(const Pairs& pairs, int n_pairs,
   }
 }
 
+template <typename S>
 __global__ void __launch_bounds__(kThreads, 1)
-    gproj_tc_kernel(Pairs pairs, int n_pairs, const float* __restrict__ w,
-                    const float* __restrict__ stream, float* __restrict__ out,
+    gproj_tc_kernel(Pairs pairs, int n_pairs, const S* __restrict__ w,
+                    const S* __restrict__ stream, S* __restrict__ out,
                     int n_rows, int n_src, int dt, int k_out) {
   extern __shared__ float4 smem4[];
   float* w_s = reinterpret_cast<float*>(smem4);  // [n_pairs][kMaxDt][kMaxK]
@@ -143,7 +160,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int n_units = n_mine * n_pairs;
 
   // the copies of unit u = (tile u / n_pairs, pair u % n_pairs): lane
-  // copies 16-byte chunk lane % 16 of rows lane / 16 + 2 i
+  // copies 16-byte chunk lane % 16 of rows lane / 16 + 2 i. bf16 rows have
+  // no asynchronous copy into the f32 ring: fetch loads them into held
+  // (4 values a chunk) and land widens and stores them, after the product
+  // of the unit before, so the loads are in flight during that product.
+  constexpr bool kHeld = chgnet::is_bf16<S>;
+  uint2 held[kRows / 2];
+  float* held_unit = nullptr;
   int ix[kMaxPairs], ix_next[kMaxPairs];
   load_idx(pairs, n_pairs, (long)first * kRows, n_rows, lane, ix);
   load_idx(pairs, n_pairs, (long)(first + step) * kRows, n_rows, lane, ix_next);
@@ -157,7 +180,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       load_idx(pairs, n_pairs, (long)tile * kRows, n_rows, lane, ix_next);
     }
     const int mine = p == 0 ? ix[0] : p == 1 ? ix[1] : ix[2];
-    const float* tab = p == 0 ? pairs.tab[0] : p == 1 ? pairs.tab[1] : pairs.tab[2];
+    const S* tab = static_cast<const S*>(
+        p == 0 ? pairs.tab[0] : p == 1 ? pairs.tab[1] : pairs.tab[2]);
     float* unit = ring + (u % kStages) * kUnitFloats;
 #pragma unroll
     for (int i = 0; i < kRows / 2; ++i) {
@@ -165,8 +189,28 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int s = __shfl_sync(0xffffffffu, mine, r);
       if (chunk < dt4) {
         const bool ok = s >= 0 && s < n_src;
-        tc::copy16(unit + r * kMaxDt + ((4 * chunk) ^ aswz(r)),
-                   tab + (ok ? (long)s * dt + 4 * chunk : 0), ok);
+        const S* src = tab + (ok ? (long)s * dt + 4 * chunk : 0);
+        if constexpr (kHeld)
+          held[i] = ok ? *reinterpret_cast<const uint2*>(src) : make_uint2(0u, 0u);
+        else
+          tc::copy16(unit + r * kMaxDt + ((4 * chunk) ^ aswz(r)), src, ok);
+      }
+    }
+    held_unit = unit;
+  };
+  auto land = [&]() {
+    if constexpr (kHeld) {
+#pragma unroll
+      for (int i = 0; i < kRows / 2; ++i) {
+        const int r = (lane >> 4) + 2 * i;
+        if (chunk < dt4) {
+          const float2 a = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&held[i].x));
+          const float2 b = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&held[i].y));
+          *reinterpret_cast<float4*>(held_unit + r * kMaxDt + ((4 * chunk) ^ aswz(r))) =
+              make_float4(a.x, a.y, b.x, b.y);
+        }
       }
     }
   };
@@ -174,14 +218,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   int next = 0;  // the next unit to fetch
 #pragma unroll 1
   for (int s = 0; s < kStages - 1; ++s) {
-    if (next < n_units) fetch(next++);
+    if (next < n_units) {
+      fetch(next++);
+      land();
+    }
     tc::commit();
   }
   float acc[16][4];
   for (int u = 0; u < n_units; ++u) {
     tc::wait_pending<kStages - 2>();  // unit u has landed
     __syncwarp();  // ... for every lane, and unit u - 1 is consumed
-    if (next < n_units) fetch(next++);
+    const bool fetched = next < n_units;
+    if (fetched) fetch(next++);  // into unit u - 1's slot
     tc::commit();
     const int p = u % n_pairs;
     const long row0 = (long)(first + (u / n_pairs) * step) * kRows;
@@ -194,7 +242,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int c = nt * 8 + 2 * q;
           float2 v = make_float2(0.f, 0.f);
           if (l < n_rows && c < k_out)
-            v = __ldg(reinterpret_cast<const float2*>(stream + l * k_out + c));
+            v = chgnet::ldg2(stream + l * k_out + c);
           acc[nt][2 * rr] = v.x;
           acc[nt][2 * rr + 1] = v.y;
         }
@@ -202,7 +250,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     const float* unit = ring + (u % kStages) * kUnitFloats;
     const int sw = aswz(gid);
-    product(
+    product<chgnet::is_bf16<S>>(
         [&](int ks, float v[4]) {
           const int c0 = (ks * 8 + q) ^ sw;
           const int c1 = (ks * 8 + q + 4) ^ sw;
@@ -212,6 +260,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           v[3] = unit[(gid + 8) * kMaxDt + c1];
         },
         w_s + p * kPairWFloats, dt8, lane, acc);
+    if (fetched) land();  // bf16: unit u + 3's rows, loaded before the product
     if (p == n_pairs - 1) {  // the tile's last pair: store
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
@@ -221,8 +270,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int nt = 0; nt < 16; ++nt) {
           const int c = nt * 8 + 2 * q;
           if (c >= k_out) break;
-          *reinterpret_cast<float2*>(out + l * k_out + c) =
-              make_float2(acc[nt][2 * rr], acc[nt][2 * rr + 1]);
+          chgnet::store2(out + l * k_out + c, acc[nt][2 * rr], acc[nt][2 * rr + 1]);
         }
       }
     }
@@ -230,10 +278,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // -------------------------------------------- short tables: project first
-// proj[p][s] = T_p[s] @ W_p for every row s < n_src, 16 rows a warp
+// proj[p][s] = T_p[s] @ W_p for every row s < n_src, 16 rows a warp; a
+// bf16 proj is rounded to bf16 here, as the plain path rounds its
+// projected tables
+template <typename S>
 __global__ void __launch_bounds__(kThreads, 1)
-    gproj_project_kernel(Pairs pairs, int n_pairs, const float* __restrict__ w,
-                         float* __restrict__ proj, int n_src, int dt, int k_out) {
+    gproj_project_kernel(Pairs pairs, int n_pairs, const S* __restrict__ w,
+                         S* __restrict__ proj, int n_src, int dt, int k_out) {
   extern __shared__ float4 smem4[];
   float* w_s = reinterpret_cast<float*>(smem4);
   stage_w(w_s, w, n_pairs, dt, k_out);
@@ -250,15 +301,16 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll 1
     for (int p = 0; p < n_pairs; ++p) {
       // a table shared with an earlier pair comes from L1 the second time
-      const float* tab = p == 0 ? pairs.tab[0] : p == 1 ? pairs.tab[1] : pairs.tab[2];
+      const S* tab = static_cast<const S*>(
+          p == 0 ? pairs.tab[0] : p == 1 ? pairs.tab[1] : pairs.tab[2]);
       float acc[16][4] = {};
-      product(
+      product<chgnet::is_bf16<S>>(
           [&](int ks, float v[4]) {
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
               const long s = s0 + gid + 8 * (i & 1);
               const int c = ks * 8 + q + 4 * (i >> 1);
-              v[i] = s < n_src && c < dt ? __ldg(tab + s * dt + c) : 0.f;
+              v[i] = s < n_src && c < dt ? chgnet::to_f(__ldg(tab + s * dt + c)) : 0.f;
             }
           },
           w_s + p * kPairWFloats, dt8, lane, acc);
@@ -270,8 +322,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int nt = 0; nt < 16; ++nt) {
           const int c = nt * 8 + 2 * q;
           if (c >= k_out) break;
-          *reinterpret_cast<float2*>(proj + ((long)p * n_src + s) * k_out + c) =
-              make_float2(acc[nt][2 * rr], acc[nt][2 * rr + 1]);
+          chgnet::store2(proj + ((long)p * n_src + s) * k_out + c, acc[nt][2 * rr],
+                         acc[nt][2 * rr + 1]);
         }
       }
     }
@@ -279,11 +331,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // out[l] = stream[l] + proj[0][idx_0[l]] + proj[1][idx_1[l]] + ..., in
-// pair order, a float4 a thread
+// pair order, 4 columns a thread, added in f32 and rounded to S once
+template <typename S>
 __global__ void __launch_bounds__(kThreads)
-    gproj_gather_add_kernel(Pairs pairs, int n_pairs, const float* __restrict__ proj,
-                            const float* __restrict__ stream,
-                            float* __restrict__ out, int n_rows, int n_src,
+    gproj_gather_add_kernel(Pairs pairs, int n_pairs, const S* __restrict__ proj,
+                            const S* __restrict__ stream,
+                            S* __restrict__ out, int n_rows, int n_src,
                             int k_out) {
   const int k4 = k_out / 4;
   const long n = (long)n_rows * k4;
@@ -291,16 +344,19 @@ __global__ void __launch_bounds__(kThreads)
        i += (long)gridDim.x * kThreads) {
     const long l = i / k4;
     const int c = (int)(i - l * k4);
-    float4 v = __ldg(reinterpret_cast<const float4*>(stream) + i);
+    float4 v;
+    chgnet::ldg_v(v, stream + i * 4);
 #pragma unroll
     for (int p = 0; p < kMaxPairs; ++p) {
       if (p >= n_pairs) break;
       const int s = __ldg((p == 0 ? pairs.idx[0] : p == 1 ? pairs.idx[1] : pairs.idx[2]) + l);
-      if (s >= 0 && s < n_src)
-        chgnet::vadd(v, __ldg(reinterpret_cast<const float4*>(
-                            proj + ((long)p * n_src + s) * k_out) + c));
+      if (s >= 0 && s < n_src) {
+        float4 pv;
+        chgnet::ldg_v(pv, proj + ((long)p * n_src + s) * k_out + 4 * c);
+        chgnet::vadd(v, pv);
+      }
     }
-    reinterpret_cast<float4*>(out)[i] = v;
+    chgnet::store_v(out + i * 4, v);
   }
 }
 
@@ -326,7 +382,7 @@ bool bad_shape(int n_pairs, int dt, int k_out) {
 Pairs make_pairs(int n_pairs, const void* const* tabs, const void* const* idxs) {
   Pairs pairs;
   for (int p = 0; p < kMaxPairs; ++p) {
-    pairs.tab[p] = p < n_pairs ? static_cast<const float*>(tabs[p]) : nullptr;
+    pairs.tab[p] = p < n_pairs ? tabs[p] : nullptr;
     pairs.idx[p] = p < n_pairs ? static_cast<const int*>(idxs[p]) : nullptr;
     pairs.same_idx[p] = p;
     for (int e = p - 1; e >= 0; --e)
@@ -343,26 +399,74 @@ extern "C" size_t gproj_smem_bytes(int n_pairs, int dt, int k_out) {
   return w_smem(n_pairs) + (size_t)kWarps * kStages * kUnitFloats * sizeof(float);
 }
 
-// The long-table route (gather first). tabs/idxs: n_pairs pointers each;
-// w: [n_pairs * dt, k_out] row-major; stream: [n_rows, k_out]. Requires
-// 4 <= dt <= 64, 4 <= k_out <= 128, both multiples of 4, 1 <= n_pairs <= 3
-// and 16-byte aligned tables, w, stream and out (checked by the wrapper).
-extern "C" int gproj_f32(int n_pairs, const void* const* tabs,
-                         const void* const* idxs, const float* w,
-                         const float* stream, float* out, int n_rows,
-                         int n_src, int dt, int k_out, void* cuda_stream) {
+namespace {
+
+template <typename S>
+int gproj_long(int n_pairs, const void* const* tabs, const void* const* idxs,
+               const S* w, const S* stream, S* out, int n_rows, int n_src, int dt,
+               int k_out, void* cuda_stream) {
   if (bad_shape(n_pairs, dt, k_out)) return (int)cudaErrorInvalidValue;
   if (n_rows > 0) {
     const Pairs pairs = make_pairs(n_pairs, tabs, idxs);
     const size_t smem = gproj_smem_bytes(n_pairs, dt, k_out);
-    const int cap = wave(gproj_tc_kernel, smem);
+    const int cap = wave(gproj_tc_kernel<S>, smem);
     if (cap < 0) return -cap;
     const int want = (n_rows + kRows * kWarps - 1) / (kRows * kWarps);
-    gproj_tc_kernel<<<want < cap ? want : cap, kThreads, smem,
-                      static_cast<cudaStream_t>(cuda_stream)>>>(
+    gproj_tc_kernel<S><<<want < cap ? want : cap, kThreads, smem,
+                         static_cast<cudaStream_t>(cuda_stream)>>>(
         pairs, n_pairs, w, stream, out, n_rows, n_src, dt, k_out);
   }
   return (int)cudaGetLastError();
+}
+
+template <typename S>
+int gproj_short(int n_pairs, const void* const* tabs, const void* const* idxs,
+                const S* w, const S* stream, S* out, S* proj, int n_rows,
+                int n_src, int dt, int k_out, void* cuda_stream) {
+  if (bad_shape(n_pairs, dt, k_out)) return (int)cudaErrorInvalidValue;
+  if (n_rows <= 0) return (int)cudaGetLastError();
+  const cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
+  const Pairs pairs = make_pairs(n_pairs, tabs, idxs);
+  if (n_src > 0) {
+    const size_t smem = w_smem(n_pairs);
+    const int cap = wave(gproj_project_kernel<S>, smem);
+    if (cap < 0) return -cap;
+    const int want = (n_src + kRows * kWarps - 1) / (kRows * kWarps);
+    gproj_project_kernel<S><<<want < cap ? want : cap, kThreads, smem, st>>>(
+        pairs, n_pairs, w, proj, n_src, dt, k_out);
+  }
+  const int cap = wave(gproj_gather_add_kernel<S>, 0);
+  if (cap < 0) return -cap;
+  const long units = (long)n_rows * (k_out / 4);
+  const long want = (units + kThreads - 1) / kThreads;
+  gproj_gather_add_kernel<S><<<want < cap ? (int)want : cap, kThreads, 0, st>>>(
+      pairs, n_pairs, proj, stream, out, n_rows, n_src, k_out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The long-table route (gather first). tabs/idxs: n_pairs pointers each;
+// w: [n_pairs * dt, k_out] row-major; stream: [n_rows, k_out]. Requires
+// 4 <= dt <= 64, 4 <= k_out <= 128, both multiples of 4, 1 <= n_pairs <= 3
+// and 16-byte aligned tables, w, stream and out (checked by the wrapper).
+// The _bf16 entries take bf16 tables, w, stream, out (and proj): rows are
+// widened to f32 as they are gathered, products and sums run in f32 and
+// out is rounded to bf16 once.
+extern "C" int gproj_f32(int n_pairs, const void* const* tabs,
+                         const void* const* idxs, const float* w,
+                         const float* stream, float* out, int n_rows,
+                         int n_src, int dt, int k_out, void* cuda_stream) {
+  return gproj_long(n_pairs, tabs, idxs, w, stream, out, n_rows, n_src, dt, k_out,
+                    cuda_stream);
+}
+
+extern "C" int gproj_bf16(int n_pairs, const void* const* tabs,
+                          const void* const* idxs, const chgnet::bf16* w,
+                          const chgnet::bf16* stream, chgnet::bf16* out, int n_rows,
+                          int n_src, int dt, int k_out, void* cuda_stream) {
+  return gproj_long(n_pairs, tabs, idxs, w, stream, out, n_rows, n_src, dt, k_out,
+                    cuda_stream);
 }
 
 // The short-table route (project first), two launches: proj [n_pairs,
@@ -374,23 +478,15 @@ extern "C" int gproj_short_f32(int n_pairs, const void* const* tabs,
                                const float* stream, float* out, float* proj,
                                int n_rows, int n_src, int dt, int k_out,
                                void* cuda_stream) {
-  if (bad_shape(n_pairs, dt, k_out)) return (int)cudaErrorInvalidValue;
-  if (n_rows <= 0) return (int)cudaGetLastError();
-  const cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
-  const Pairs pairs = make_pairs(n_pairs, tabs, idxs);
-  if (n_src > 0) {
-    const size_t smem = w_smem(n_pairs);
-    const int cap = wave(gproj_project_kernel, smem);
-    if (cap < 0) return -cap;
-    const int want = (n_src + kRows * kWarps - 1) / (kRows * kWarps);
-    gproj_project_kernel<<<want < cap ? want : cap, kThreads, smem, st>>>(
-        pairs, n_pairs, w, proj, n_src, dt, k_out);
-  }
-  const int cap = wave(gproj_gather_add_kernel, 0);
-  if (cap < 0) return -cap;
-  const long units = (long)n_rows * (k_out / 4);
-  const long want = (units + kThreads - 1) / kThreads;
-  gproj_gather_add_kernel<<<want < cap ? (int)want : cap, kThreads, 0, st>>>(
-      pairs, n_pairs, proj, stream, out, n_rows, n_src, k_out);
-  return (int)cudaGetLastError();
+  return gproj_short(n_pairs, tabs, idxs, w, stream, out, proj, n_rows, n_src, dt,
+                     k_out, cuda_stream);
+}
+
+extern "C" int gproj_short_bf16(int n_pairs, const void* const* tabs,
+                                const void* const* idxs, const chgnet::bf16* w,
+                                const chgnet::bf16* stream, chgnet::bf16* out,
+                                chgnet::bf16* proj, int n_rows, int n_src, int dt,
+                                int k_out, void* cuda_stream) {
+  return gproj_short(n_pairs, tabs, idxs, w, stream, out, proj, n_rows, n_src, dt,
+                     k_out, cuda_stream);
 }

@@ -17,6 +17,10 @@
 // then its K rows, then adds in f32 from zero in part order, the
 // stream last, which is the order of the plain PyTorch version (and of the
 // TPU body at 128 lanes), so kernel and plain version agree bit for bit.
+// bf16 rows (compute_dtype="bfloat16"): units of 4 bf16 (8 bytes) widened
+// to f32, the same f32 adds, one rounding at the store; the plain version
+// widens, adds in the same order and rounds once, so the two still agree
+// bit for bit.
 #include "common.cuh"
 
 namespace {
@@ -25,15 +29,17 @@ constexpr int kThreads = 256;
 constexpr int kMaxParts = 4;
 
 struct Parts {
-  const float4* table[kMaxParts];
+  const void* table[kMaxParts];
   const int* idx[kMaxParts];
   int n_src[kMaxParts];
 };
 
-template <int K, bool kStream>
+// S: the storage type of the tables, stream and out (float or bf16); a
+// thread's unit is 4 elements, summed in f32 and rounded once at the store
+template <typename S, int K, bool kStream>
 __global__ void __launch_bounds__(kThreads)
-    gather_sum_kernel(Parts p, const float4* __restrict__ stream,
-                      float4* __restrict__ out, long n_rows, int units) {
+    gather_sum_kernel(Parts p, const S* __restrict__ stream, S* __restrict__ out,
+                      long n_rows, int units) {
   const long total = n_rows * units;
   for (long t = (long)blockIdx.x * blockDim.x + threadIdx.x; t < total;
        t += (long)gridDim.x * blockDim.x) {
@@ -44,15 +50,21 @@ __global__ void __launch_bounds__(kThreads)
     for (int k = 0; k < K; ++k) s[k] = __ldg(p.idx[k] + l);
     float4 v[K];
 #pragma unroll
-    for (int k = 0; k < K; ++k)
-      v[k] = (s[k] >= 0 && s[k] < p.n_src[k])
-                 ? __ldg(p.table[k] + (long)s[k] * units + u)
-                 : chgnet::vzero<float4>();
+    for (int k = 0; k < K; ++k) {
+      v[k] = chgnet::vzero<float4>();
+      if (s[k] >= 0 && s[k] < p.n_src[k])
+        chgnet::ldg_v(v[k], static_cast<const S*>(p.table[k]) +
+                                 ((long)s[k] * units + u) * 4);
+    }
     float4 acc = chgnet::vzero<float4>();
 #pragma unroll
     for (int k = 0; k < K; ++k) chgnet::vadd(acc, v[k]);
-    if (kStream) chgnet::vadd(acc, stream[t]);
-    out[t] = acc;
+    if (kStream) {
+      float4 sv;
+      chgnet::load_v(sv, stream + t * 4);
+      chgnet::vadd(acc, sv);
+    }
+    chgnet::store_v(out + t * 4, acc);
   }
 }
 
@@ -62,18 +74,45 @@ int grid_for(long total) {
   return (int)(want < cap ? want : cap);
 }
 
-template <int K>
-void launch(const Parts& p, const float* stream, float* out, long n_rows,
-            int units, cudaStream_t st) {
+template <typename S, int K>
+void launch(const Parts& p, const S* stream, S* out, long n_rows, int units,
+            cudaStream_t st) {
   const int grid = grid_for(n_rows * units);
   if (stream != nullptr) {
-    gather_sum_kernel<K, true><<<grid, kThreads, 0, st>>>(
-        p, reinterpret_cast<const float4*>(stream),
-        reinterpret_cast<float4*>(out), n_rows, units);
+    gather_sum_kernel<S, K, true><<<grid, kThreads, 0, st>>>(p, stream, out,
+                                                             n_rows, units);
   } else {
-    gather_sum_kernel<K, false><<<grid, kThreads, 0, st>>>(
-        p, nullptr, reinterpret_cast<float4*>(out), n_rows, units);
+    gather_sum_kernel<S, K, false><<<grid, kThreads, 0, st>>>(p, nullptr, out,
+                                                              n_rows, units);
   }
+}
+
+template <typename S>
+int gather_sum_rows(int n_parts, const void* const* tables,
+                    const void* const* idxs, const int* n_srcs, const S* stream,
+                    S* out, long n_rows, int d, void* cuda_stream) {
+  if (n_parts < 1 || n_parts > kMaxParts || d < 4 || d % 4 ||
+      !chgnet::vec4_ok(out, d) || (stream && !chgnet::vec4_ok(stream, d)))
+    return (int)cudaErrorInvalidValue;
+  Parts p;
+  for (int k = 0; k < kMaxParts; ++k) {
+    const int j = k < n_parts ? k : 0;
+    if (!chgnet::vec4_ok(static_cast<const S*>(tables[j]), d))
+      return (int)cudaErrorInvalidValue;
+    p.table[k] = tables[j];
+    p.idx[k] = static_cast<const int*>(idxs[j]);
+    p.n_src[k] = n_srcs[j];
+  }
+  if (n_rows > 0) {
+    const cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
+    switch (n_parts) {
+      case 1: launch<S, 1>(p, stream, out, n_rows, d / 4, st); break;
+      case 2: launch<S, 2>(p, stream, out, n_rows, d / 4, st); break;
+      case 3: launch<S, 3>(p, stream, out, n_rows, d / 4, st); break;
+      default: launch<S, 4>(p, stream, out, n_rows, d / 4, st); break;
+    }
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -85,25 +124,15 @@ extern "C" int gather_sum_rows_f32(int n_parts, const void* const* tables,
                                    const void* const* idxs, const int* n_srcs,
                                    const float* stream, float* out,
                                    long n_rows, int d, void* cuda_stream) {
-  if (n_parts < 1 || n_parts > kMaxParts || d < 4 || d % 4 ||
-      !chgnet::vec4_ok(out, d) || (stream && !chgnet::vec4_ok(stream, d)))
-    return (int)cudaErrorInvalidValue;
-  Parts p;
-  for (int k = 0; k < kMaxParts; ++k) {
-    const int j = k < n_parts ? k : 0;
-    if (!chgnet::vec4_ok(tables[j], d)) return (int)cudaErrorInvalidValue;
-    p.table[k] = static_cast<const float4*>(tables[j]);
-    p.idx[k] = static_cast<const int*>(idxs[j]);
-    p.n_src[k] = n_srcs[j];
-  }
-  if (n_rows > 0) {
-    const cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
-    switch (n_parts) {
-      case 1: launch<1>(p, stream, out, n_rows, d / 4, st); break;
-      case 2: launch<2>(p, stream, out, n_rows, d / 4, st); break;
-      case 3: launch<3>(p, stream, out, n_rows, d / 4, st); break;
-      default: launch<4>(p, stream, out, n_rows, d / 4, st); break;
-    }
-  }
-  return (int)cudaGetLastError();
+  return gather_sum_rows(n_parts, tables, idxs, n_srcs, stream, out, n_rows, d,
+                         cuda_stream);
+}
+
+// The same with bf16 tables, stream and out (8-byte aligned), summed in f32.
+extern "C" int gather_sum_rows_bf16(int n_parts, const void* const* tables,
+                                    const void* const* idxs, const int* n_srcs,
+                                    const chgnet::bf16* stream, chgnet::bf16* out,
+                                    long n_rows, int d, void* cuda_stream) {
+  return gather_sum_rows(n_parts, tables, idxs, n_srcs, stream, out, n_rows, d,
+                         cuda_stream);
 }

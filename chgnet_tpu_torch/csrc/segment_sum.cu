@@ -19,20 +19,31 @@
 // are summed side by side by lane groups and folded with a fixed shuffle
 // tree, so every sum is deterministic run to run. segment_sum_pair reads x twice (once per key stream, on
 // blockIdx.y); the TPU kernel's one-sweep saving is later work.
+// bf16 rows (compute_dtype="bfloat16"): the same sweep over units of 4
+// bf16 (8 bytes), widened to f32 as they are read, summed in f32 in the same
+// order and rounded once at the store; the TPU kernel also sums bf16
+// streams in f32 (preferred_element_type, stream_ops.py:194,321). Half the
+// bytes of f32, so half the bound.
 #include "common.cuh"
 
 namespace {
 
+using chgnet::load_v;
 using chgnet::shfl_down;
+using chgnet::store_v;
 using chgnet::vadd;
 using chgnet::vzero;
 
-template <typename T>
-__device__ __forceinline__ void segsum_rows(const T* __restrict__ x,
+// S: the storage type of x and out (float or bf16); V: a lane's value of a
+// row, float or float4 (4 elements: 16 bytes of f32, 8 of bf16). Sums are
+// taken in f32 and rounded to S once, at the store.
+template <typename S, typename V>
+__device__ __forceinline__ void segsum_rows(const S* __restrict__ x,
                                             const int* __restrict__ perm,
                                             const int* __restrict__ offsets,
-                                            T* __restrict__ out, int n_out,
+                                            S* __restrict__ out, int n_out,
                                             int units) {
+  constexpr int kW = sizeof(V) / sizeof(float);  // elements of a unit
   const int lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
   const long warp0 = (long)blockIdx.x * warps + (threadIdx.x >> 5);
@@ -45,25 +56,27 @@ __device__ __forceinline__ void segsum_rows(const T* __restrict__ x,
   for (long n = warp0; n < n_out; n += n_warps) {
     const int beg = offsets[n];
     const int end = offsets[n + 1];
-    T acc = vzero<T>();
+    V acc = vzero<V>();
     if (u < units) {
 #pragma unroll 4
       for (int k = beg + g; k < end; k += groups) {
         const long row = perm ? perm[k] : k;
-        vadd(acc, x[row * units + u]);
+        V v;
+        load_v(v, x + (row * units + u) * kW);
+        vadd(acc, v);
       }
     }
     for (int off = 16; off >= lpr; off >>= 1) vadd(acc, shfl_down(acc, off));
-    if (g == 0 && u < units) out[n * units + u] = acc;
+    if (g == 0 && u < units) store_v(out + (n * units + u) * kW, acc);
   }
 }
 
-template <typename T>
+template <typename S, typename V>
 __global__ void __launch_bounds__(256)
-    segment_sum_csr_kernel(const T* __restrict__ x, const int* __restrict__ perm,
-                           const int* __restrict__ offsets, T* __restrict__ out,
+    segment_sum_csr_kernel(const S* __restrict__ x, const int* __restrict__ perm,
+                           const int* __restrict__ offsets, S* __restrict__ out,
                            int n_out, int units) {
-  segsum_rows<T>(x, perm, offsets, out, n_out, units);
+  segsum_rows<S, V>(x, perm, offsets, out, n_out, units);
 }
 
 struct PairStreams {
@@ -72,13 +85,13 @@ struct PairStreams {
   void* out[2];
 };
 
-template <typename T>
+template <typename S, typename V>
 __global__ void __launch_bounds__(256)
-    segment_sum_pair_kernel(const T* __restrict__ x, PairStreams s, int n_out,
+    segment_sum_pair_kernel(const S* __restrict__ x, PairStreams s, int n_out,
                             int units) {
   const int z = blockIdx.y;
-  segsum_rows<T>(x, s.perm[z], s.offsets[z], static_cast<T*>(s.out[z]), n_out,
-                 units);
+  segsum_rows<S, V>(x, s.perm[z], s.offsets[z], static_cast<S*>(s.out[z]),
+                    n_out, units);
 }
 
 constexpr int kThreads = 256;
@@ -90,33 +103,29 @@ int grid_for(int n_out) {
   return (int)(want < cap ? want : cap);
 }
 
-}  // namespace
-
-extern "C" int segment_sum_csr_f32(const float* x, const int* perm,
-                                   const int* offsets, float* out, int n_out,
-                                   int d, void* stream) {
+template <typename S>
+int segment_sum_csr(const S* x, const int* perm, const int* offsets, S* out,
+                    int n_out, int d, void* stream) {
   const bool vec4 = chgnet::vec4_ok(x, d) && chgnet::vec4_ok(out, d);
   if ((vec4 ? d / 4 : d) > kMaxUnits) return (int)cudaErrorInvalidValue;
   if (n_out > 0) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int grid = grid_for(n_out);
     if (vec4) {
-      segment_sum_csr_kernel<float4><<<grid, kThreads, 0, st>>>(
-          reinterpret_cast<const float4*>(x), perm, offsets,
-          reinterpret_cast<float4*>(out), n_out, d / 4);
+      segment_sum_csr_kernel<S, float4><<<grid, kThreads, 0, st>>>(
+          x, perm, offsets, out, n_out, d / 4);
     } else {
-      segment_sum_csr_kernel<float><<<grid, kThreads, 0, st>>>(
+      segment_sum_csr_kernel<S, float><<<grid, kThreads, 0, st>>>(
           x, perm, offsets, out, n_out, d);
     }
   }
   return (int)cudaGetLastError();
 }
 
-extern "C" int segment_sum_pair_f32(const float* x, const int* perm_a,
-                                    const int* offsets_a, float* out_a,
-                                    const int* perm_b, const int* offsets_b,
-                                    float* out_b, int n_out, int d,
-                                    void* stream) {
+template <typename S>
+int segment_sum_pair(const S* x, const int* perm_a, const int* offsets_a,
+                     S* out_a, const int* perm_b, const int* offsets_b, S* out_b,
+                     int n_out, int d, void* stream) {
   const bool vec4 = chgnet::vec4_ok(x, d) && chgnet::vec4_ok(out_a, d) &&
                     chgnet::vec4_ok(out_b, d);
   if ((vec4 ? d / 4 : d) > kMaxUnits) return (int)cudaErrorInvalidValue;
@@ -131,13 +140,48 @@ extern "C" int segment_sum_pair_f32(const float* x, const int* perm_a,
     s.out[1] = out_b;
     const dim3 grid(grid_for(n_out), 2);
     if (vec4) {
-      segment_sum_pair_kernel<float4><<<grid, kThreads, 0, st>>>(
-          reinterpret_cast<const float4*>(x), s, n_out, d / 4);
+      segment_sum_pair_kernel<S, float4><<<grid, kThreads, 0, st>>>(
+          x, s, n_out, d / 4);
     } else {
-      segment_sum_pair_kernel<float><<<grid, kThreads, 0, st>>>(x, s, n_out, d);
+      segment_sum_pair_kernel<S, float><<<grid, kThreads, 0, st>>>(x, s, n_out, d);
     }
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// out [n_out, d] = the segment sums of x [., d] over CSR offsets
+// [n_out + 1]; perm [offsets[n_out]] or null (a sorted stream). The _bf16
+// entry takes bf16 x and out and sums in f32.
+extern "C" int segment_sum_csr_f32(const float* x, const int* perm,
+                                   const int* offsets, float* out, int n_out,
+                                   int d, void* stream) {
+  return segment_sum_csr(x, perm, offsets, out, n_out, d, stream);
+}
+
+extern "C" int segment_sum_csr_bf16(const chgnet::bf16* x, const int* perm,
+                                    const int* offsets, chgnet::bf16* out,
+                                    int n_out, int d, void* stream) {
+  return segment_sum_csr(x, perm, offsets, out, n_out, d, stream);
+}
+
+extern "C" int segment_sum_pair_f32(const float* x, const int* perm_a,
+                                    const int* offsets_a, float* out_a,
+                                    const int* perm_b, const int* offsets_b,
+                                    float* out_b, int n_out, int d,
+                                    void* stream) {
+  return segment_sum_pair(x, perm_a, offsets_a, out_a, perm_b, offsets_b, out_b,
+                          n_out, d, stream);
+}
+
+extern "C" int segment_sum_pair_bf16(const chgnet::bf16* x, const int* perm_a,
+                                     const int* offsets_a, chgnet::bf16* out_a,
+                                     const int* perm_b, const int* offsets_b,
+                                     chgnet::bf16* out_b, int n_out, int d,
+                                     void* stream) {
+  return segment_sum_pair(x, perm_a, offsets_a, out_a, perm_b, offsets_b, out_b,
+                          n_out, d, stream);
 }
 
 // ------------------------------------------------ input-stationary sums

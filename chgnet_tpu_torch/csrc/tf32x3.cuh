@@ -1,6 +1,7 @@
 // Tensor-core building blocks of the port's Hopper kernels: f32 products at
 // f32 accuracy on the TF32 tensor cores (3xTF32), and asynchronous copies
-// from device memory into shared memory (cp.async).
+// from device memory into shared memory (cp.async), and the loads of bf16
+// rows that take the copies' place.
 //
 // 3xTF32: each f32 operand x is split into hi = tf32(x) (round to nearest,
 // ties away) and lo = tf32(x - hi); a * b is then lo_a hi_b + hi_a lo_b +
@@ -21,6 +22,7 @@
 // So each row of C lies on one quad of lanes (the four lanes of one gid).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -92,6 +94,42 @@ __device__ __forceinline__ void mma3_tiles_split(float (*c)[4], const uint32_t a
   for (int j = 0; j < kN; ++j) mma(c[j], a_hi, b[j].x, b[j].y);
 }
 
+// Products whose operands are exact in TF32 (bf16 values widened to f32:
+// 8 significant bits, TF32 keeps 11), whose lo parts are zero. mma1_tiles:
+// both operands exact, one pass (hi·hi) gives the f32-accurate product.
+// mma2_tiles / mma2_tiles_split: B exact, A an f32 value: the two passes
+// of mma3 whose terms are not zero (lo·hi, then hi·hi), so the sums equal
+// mma3's bit for bit. The B fragments are the f32 values' own bits.
+template <int kN>
+__device__ __forceinline__ void mma1_tiles(float (*c)[4], const float a[4],
+                                           const float (*b)[2]) {
+  uint32_t av[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) av[i] = __float_as_uint(a[i]);
+#pragma unroll
+  for (int j = 0; j < kN; ++j)
+    mma(c[j], av, __float_as_uint(b[j][0]), __float_as_uint(b[j][1]));
+}
+template <int kN>
+__device__ __forceinline__ void mma2_tiles(float (*c)[4], const uint32_t a_hi[4],
+                                           const uint32_t a_lo[4],
+                                           const float (*b)[2]) {
+#pragma unroll
+  for (int j = 0; j < kN; ++j)
+    mma(c[j], a_lo, __float_as_uint(b[j][0]), __float_as_uint(b[j][1]));
+#pragma unroll
+  for (int j = 0; j < kN; ++j)
+    mma(c[j], a_hi, __float_as_uint(b[j][0]), __float_as_uint(b[j][1]));
+}
+template <int kN>
+__device__ __forceinline__ void mma2_tiles_split(float (*c)[4], const uint32_t a_hi[4],
+                                                 const uint32_t a_lo[4],
+                                                 const uint4* b) {
+#pragma unroll
+  for (int j = 0; j < kN; ++j) mma(c[j], a_lo, b[j].x, b[j].y);
+#pragma unroll
+  for (int j = 0; j < kN; ++j) mma(c[j], a_hi, b[j].x, b[j].y);
+}
 // the A fragment of 4 f32 values, split
 __device__ __forceinline__ void split_a(const float v[4], uint32_t hi[4],
                                         uint32_t lo[4]) {
@@ -126,6 +164,32 @@ __device__ __forceinline__ void copy4(void* dst, const void* src, bool valid) {
                "l"(src), "r"(valid ? 4 : 0));
 }
 
+// 4 f32 values of a row into dst (16-byte aligned shared memory): from f32
+// rows an asynchronous 16-byte copy; from bf16 rows (8 bytes, 8-byte
+// aligned) a load now, widened to f32 and stored, which the caller's wait
+// and __syncwarp order as they order the copies. Zeros when !valid.
+__device__ __forceinline__ void fetch4(float* dst, const float* src, bool valid) {
+  copy16(dst, src, valid);
+}
+__device__ __forceinline__ void fetch4(float* dst, const __nv_bfloat16* src,
+                                       bool valid) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (valid) {
+    const uint2 u = *reinterpret_cast<const uint2*>(src);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    v = make_float4(a.x, a.y, b.x, b.y);
+  }
+  *reinterpret_cast<float4*>(dst) = v;
+}
+// one value, likewise (cp.async of 4 bytes from f32)
+__device__ __forceinline__ void fetch1(float* dst, const float* src, bool valid) {
+  copy4(dst, src, valid);
+}
+__device__ __forceinline__ void fetch1(float* dst, const __nv_bfloat16* src,
+                                       bool valid) {
+  *dst = valid ? __bfloat162float(*src) : 0.f;
+}
 __device__ __forceinline__ void commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

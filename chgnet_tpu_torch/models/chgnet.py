@@ -24,6 +24,13 @@ layers unfuse while dropout is on, as in ``chgnet_tpu``) and
 parameters; ``remat`` rematerializes layers by ``torch.utils.checkpoint``;
 ``read_out`` "attn" / "weighted" pool by per-graph attention; and
 ``matmul_precision`` sets the precision of the plain GEMMs.
+
+``compute_dtype="bfloat16"`` runs the conv stack in bf16 where
+``chgnet_tpu`` does (``models/chgnet.py:334-348, 435-438, 495-496, 683``):
+the conv parameters, the bases, the edge and angle masks and every feature
+stream are bf16, geometry and readout stay f32, and e, f, s and m come out
+f32. The kernels of rows 1-9 of PERF.md's table take the bf16 streams,
+compute in f32 and round once at each store.
 """
 
 from __future__ import annotations
@@ -44,7 +51,11 @@ import torch.utils.checkpoint
 from chgnet_tpu_torch import PredTask
 from chgnet_tpu_torch.core.structure import Structure
 from chgnet_tpu_torch.device import resolve_device
-from chgnet_tpu_torch.graph.batching import GraphBatch, batch_graphs
+from chgnet_tpu_torch.graph.batching import (
+    GraphBatch,
+    batch_graphs,
+    stream_v2_enabled,
+)
 from chgnet_tpu_torch.graph.converter import CrystalGraphConverter
 from chgnet_tpu_torch.graph.crystalgraph import CrystalGraph
 from chgnet_tpu_torch.models import basis
@@ -75,7 +86,8 @@ from chgnet_tpu_torch.models.layers import (
     bond_conv_apply_directed,
     bond_conv_init,
 )
-from chgnet_tpu_torch.ops.gated_message import TAIL_MAX_D
+from chgnet_tpu_torch.ops.fused_pass import fused_pass_enabled
+from chgnet_tpu_torch.ops.gated_message import TAIL_MAX_D, msg_reduce_enabled
 from chgnet_tpu_torch.ops.gproj import MAX_DT, MAX_K
 from chgnet_tpu_torch.ops.segment import SEGMENT_MAX_D, plan_gather, plan_segment_sum
 from chgnet_tpu_torch.utils.common import load_params, save_params
@@ -86,6 +98,18 @@ EV_A3_TO_GPA = 160.21766208  # eV/A^3 -> GPa
 # tensor cores. The hand-written kernels multiply at f32 accuracy (3xTF32)
 # under every setting.
 TF32_MATMULS = {"highest": False, "high": True, "default": True}
+# the parameter subtrees of the conv stack, cast to the conv dtype
+# (chgnet_tpu.models.chgnet :341-348)
+CONV_KEYS = (
+    "atom_embedding", "bond_embedding", "bond_weights_ag", "bond_weights_bg",
+    "angle_embedding", "atom_convs", "bond_convs", "angle_updates",
+)
+
+
+def conv_dtype(cfg: CHGNetConfig) -> torch.dtype:
+    """The conv stack's dtype: bf16 for ``compute_dtype="bfloat16"``, else
+    f32 (as ``chgnet_tpu`` reads the field)."""
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
 
 def _remat_mode(remat) -> str | None:
@@ -100,13 +124,15 @@ class CHGNetConfig:
     """Model hyperparameters: the fields and defaults of
     ``chgnet_tpu.models.chgnet.CHGNetConfig``.
 
-    The port runs f32 in both bond layouts: ``directed_bonds=True`` (the
-    default) keeps bond features and weights on the directed edge stream
-    [E, d], ``directed_bonds=False`` on the undirected bonds [U, d], as
-    upstream CHGNet does; one parameter tree serves both.
-    :meth:`check_supported` names the fields whose other values the port
-    does not run yet (bf16, ``dense_atom_conv``), and on a CUDA device also
-    the widths its kernels do not take (:meth:`kernel_width_faults`).
+    The port runs f32 and bf16 (``compute_dtype``) in both bond layouts:
+    ``directed_bonds=True`` (the default) keeps bond features and weights
+    on the directed edge stream [E, d], ``directed_bonds=False`` on the
+    undirected bonds [U, d], as upstream CHGNet does; one parameter tree
+    serves both. :meth:`check_supported` names the fields whose other
+    values the port does not run yet (``dense_atom_conv``), and on a CUDA
+    device also the widths its kernels do not take
+    (:meth:`kernel_width_faults`) and the bf16 combinations they do not
+    take yet.
     ``sorted_grads`` has no effect: every backward here is a CSR segment
     sum.
     """
@@ -177,10 +203,13 @@ class CHGNetConfig:
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
 
-    def check_supported(self, device_type: str = "cpu") -> None:
+    def check_supported(self, device_type: str = "cpu", training: bool = False) -> None:
         """Raise for settings the port does not run yet on a device of
         ``device_type`` (``"cpu"`` or ``"cuda"``): on ``"cuda"`` also for
-        widths the kernels do not take, before anything is launched."""
+        widths the kernels do not take and, with bf16, for the environment
+        switches whose kernels take f32 only (read now) and for
+        ``training`` (the parameter-gradient backward), before anything is
+        launched."""
         faults = self.kernel_width_faults() if device_type == "cuda" else []
         if faults:
             raise NotImplementedError(
@@ -188,15 +217,28 @@ class CHGNetConfig:
                 "(the CPU runs them; see ROADMAP.md Queue 1, config "
                 "variants): " + "; ".join(faults)
             )
-        unported = {
-            "compute_dtype": self.compute_dtype != "float32",
-            "dense_atom_conv": self.dense_atom_conv,
-        }
-        bad = sorted(k for k, v in unported.items() if v)
-        if bad:
+        if device_type == "cuda" and self.compute_dtype == "bfloat16":
+            switches = {
+                "CHGNET_TPU_STREAM_V2": stream_v2_enabled(),
+                "CHGNET_TPU_MSG_REDUCE": self.fused_kernels and msg_reduce_enabled(),
+                "CHGNET_TPU_FUSED_PASS": self.fused_kernels and fused_pass_enabled(),
+            }
+            on = sorted(k for k, v in switches.items() if v)
+            if on:
+                raise NotImplementedError(
+                    f"compute_dtype='bfloat16' under {on} on CUDA: those "
+                    "kernels take f32 only (ROADMAP.md Queue 1 item 6d)"
+                )
+            if training:
+                raise NotImplementedError(
+                    "compute_dtype='bfloat16' training on CUDA: the tails' "
+                    "parameter-gradient backward takes f32 only (ROADMAP.md "
+                    "Queue 1 item 6e)"
+                )
+        if self.dense_atom_conv:
             raise NotImplementedError(
-                f"CHGNetConfig fields {bad} are not ported to chgnet_tpu_torch "
-                "yet (see ROADMAP.md Queue 1 item 6b)"
+                "CHGNetConfig field dense_atom_conv is not ported to "
+                "chgnet_tpu_torch yet (see ROADMAP.md Queue 1 item 6b)"
             )
 
     def kernel_width_faults(self) -> list[str]:
@@ -408,6 +450,11 @@ def _energy_core(
     its key (``models/chgnet.py:508-510``)."""
     n_graphs = batch.lattices.shape[0]
     dtype = cart.dtype
+    conv = conv_dtype(cfg)
+    if conv != torch.float32:  # the conv stack in bf16; geometry stays f32
+        params = dict(params) | {
+            k: _cast_tree(params[k], conv) for k in CONV_KEYS if k in params
+        }
     graph_ids = torch.arange(n_graphs, device=cart.device)
     deform = torch.eye(3, dtype=dtype, device=cart.device) + strains
     lat = batch.lattices @ deform  # [B, 3, 3]
@@ -472,6 +519,9 @@ def _energy_core(
         angle_bases = basis.fourier(
             torch.arccos(cos_ij), params["angle_basis"]["freq"]
         )
+        rbf_ag, rbf_bg, angle_bases = (
+            x.to(conv) for x in (rbf_ag, rbf_bg, angle_bases)
+        )
 
         bond_feas = linear_apply(params["bond_embedding"], rbf_ag)
         bond_weights_ag = linear_apply(params["bond_weights_ag"], rbf_ag)
@@ -501,8 +551,8 @@ def _energy_core(
 
     act = cfg.non_linearity
     fused = cfg.fused_kernels
-    edge_mask = batch.edge_mask
-    angle_mask = batch.angle_mask
+    edge_mask = batch.edge_mask.to(conv)
+    angle_mask = batch.angle_mask.to(conv)
     rate = float(cfg.conv_dropout)
     block_seeds = list(seeds) if seeds is not None else [None] * (3 * cfg.n_conv + 1)
 
@@ -560,7 +610,7 @@ def _energy_core(
     atom_feas = atom_step(
         params["atom_convs"][cfg.n_conv - 1], atom_feas, bond_feas,
         block_seeds[3 * (cfg.n_conv - 1)],
-    )
+    ).float()  # the readout stays f32
     if "readout_norm" in params:
         atom_feas = layer_norm_apply(params["readout_norm"], atom_feas)
 
@@ -600,19 +650,35 @@ def _energy_core(
     return energy_ext, aux
 
 
+def _cast_tree(tree, dtype: torch.dtype):
+    """Every tensor of a parameter subtree cast to ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cast_tree(v, dtype) for v in tree)
+    return tree.to(dtype)
+
+
 @contextlib.contextmanager
 def _matmul_precision(precision: str):
-    """The plain f32 GEMMs at ``precision`` for the duration of a call:
-    full f32 for "highest", TF32 for "high" and "default"
-    (``TF32_MATMULS``)."""
+    """The plain GEMMs at ``precision`` for the duration of a call: f32
+    ones in full f32 for "highest", TF32 for "high" and "default"
+    (``TF32_MATMULS``); bf16 ones (``compute_dtype="bfloat16"``) reduce in
+    f32 for "highest" and may reduce in bf16 otherwise."""
     tf32 = TF32_MATMULS[precision]
-    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = tf32
+    matmul = torch.backends.cuda.matmul
+    saved = (
+        matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+        matmul.allow_bf16_reduced_precision_reduction,
+    )
+    matmul.allow_tf32 = tf32
     torch.backends.cudnn.allow_tf32 = tf32
+    matmul.allow_bf16_reduced_precision_reduction = tf32
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+        (matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         matmul.allow_bf16_reduced_precision_reduction) = saved
 
 
 def dropout_seeds(generator: torch.Generator, n_conv: int) -> list[int]:
@@ -654,7 +720,9 @@ def compute_batch(
     """
     cfg = config
     device = batch.frac_coords.device
-    cfg.check_supported(device.type)
+    cfg.check_supported(
+        device.type, training=create_graph or dropout_generator is not None
+    )
     n_graphs = batch.lattices.shape[0]
     want_grad = compute_force or compute_stress
     seeds = (
@@ -711,10 +779,14 @@ def compute_batch(
         prediction["e"] = energy
         prediction["atoms_per_graph"] = atoms_per_graph
         prediction["crystal_fea"] = aux["crystal_fea"]
-        prediction["atom_fea"] = aux["atom_feas_mid"]
+        # read before the last conv block: bf16 under compute_dtype, widened
+        # exactly, so m and atom_fea come out f32 (as jnp's promotion of
+        # bf16 features times f32 site_wise weights)
+        atom_feas_mid = aux["atom_feas_mid"].float()
+        prediction["atom_fea"] = atom_feas_mid
         if compute_magmom:
             magmom = torch.abs(
-                linear_apply(params["site_wise"], aux["atom_feas_mid"])
+                linear_apply(params["site_wise"], atom_feas_mid)
             ).reshape(-1)
             prediction["m"] = magmom * batch.atom_mask
     if create_graph:

@@ -43,9 +43,11 @@ KERNELS = (
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch counts to 0: ``launches``, and
+    ``launches_bf16``, those of them with bf16 arguments (rows 1-9 of
+    PERF.md's table launch in bf16; the others stay 0)."""
     for fn in KERNELS:
-        fn.launches = 0
+        fn.launches = fn.launches_bf16 = 0
 
 
 __all__ = [

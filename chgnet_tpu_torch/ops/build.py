@@ -13,14 +13,17 @@ The kernel wrappers (``ops/segment.py``, ``ops/gproj.py``,
 ``ops/gated_message.py``, ``ops/multi_gather.py``, ``ops/fused_pass.py``)
 share the launch
 plumbing below: :func:`on_cuda` picks the kernel or the plain version by the
-tensor's device, :func:`check_tensors` raises on what a kernel does not take,
+tensor's device, :func:`check_tensors` raises on what a kernel does not take
+and names the storage type of its C entry point (``_f32`` or ``_bf16``),
 :func:`ptr` and :func:`stream` give the C entry points their arguments, and
-:func:`check` raises on the error code they return.
+:func:`check` raises on the error code they return. :func:`plain_in_f32`
+gives a plain version the kernels' rounding for bf16 inputs.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -134,14 +137,35 @@ def on_cuda(x: torch.Tensor, what: str) -> bool:
     raise ValueError(f"{what}: unsupported device {x.device}")
 
 
-def check_tensors(what: str, floats=(), ints=(), aligned=()) -> None:
-    """Raise unless every tensor is a contiguous CUDA tensor of the kernel's
-    type on one device, and every tensor of ``aligned`` starts on a 16-byte
-    boundary (the kernel loads it as ``float4`` only)."""
+# the storage types of the kernels' C entry points, by suffix
+STORAGE = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def check_tensors(
+    what: str, floats=(), ints=(), aligned=(), bf16_item: str = ""
+) -> str:
+    """Raise unless every tensor is a contiguous CUDA tensor on one device,
+    every float tensor of one storage type that the kernel takes, and
+    every tensor of ``aligned`` starts on a 16-byte boundary (the kernel
+    loads it as ``float4`` only). Returns the suffix of the C entry point
+    for that type (``STORAGE``). Without ``bf16_item`` the kernel takes f32
+    and bf16 (rows 1-9 of PERF.md's table); with it, f32 only, and bf16
+    tensors raise ``NotImplementedError`` naming ``bf16_item``, the
+    ROADMAP.md item that ports it."""
     dev = floats[0].device
+    dtype = floats[0].dtype
+    if dtype == torch.bfloat16 and bf16_item:
+        raise NotImplementedError(
+            f"{what}: bf16 is not ported to this kernel yet (ROADMAP.md "
+            f"Queue 1 item {bf16_item})"
+        )
+    dtypes = (torch.float32,) if bf16_item else tuple(STORAGE)
+    if dtype not in dtypes:
+        names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise TypeError(f"{what}: {names} expected, got {dtype}")
     for t in floats:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{what}: float32 expected, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{what}: one float type expected, got {dtype} and {t.dtype}")
     for t in ints:
         if t.dtype != torch.int32:
             raise TypeError(f"{what}: int32 indices expected, got {t.dtype}")
@@ -153,6 +177,48 @@ def check_tensors(what: str, floats=(), ints=(), aligned=()) -> None:
     for t in aligned:
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: 16-byte aligned storage expected")
+    return STORAGE[dtype]
+
+
+def plain_in_f32(fn):
+    """A plain version that computes in f32 and rounds each output once to
+    its inputs' type: for bf16 inputs (``compute_dtype="bfloat16"``) the
+    rounding of the bf16 kernels, which widen their rows to f32, compute
+    in f32 and round once at the store, as the TPU kernels do
+    (``preferred_element_type=float32``). f32 inputs pass through
+    untouched. Differentiable: the widening and the rounding are casts."""
+
+    def widen(x):
+        if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
+            return x.float()
+        if isinstance(x, (list, tuple)):
+            return type(x)(widen(v) for v in x)
+        return x
+
+    def narrow(x, dtype):
+        if isinstance(x, torch.Tensor) and x.is_floating_point():
+            return x.to(dtype)
+        if isinstance(x, (list, tuple)):
+            return type(x)(narrow(v, dtype) for v in x)
+        return x
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        first = next(_float_tensors((*args, *kwargs.values())), None)
+        if first is None or first.dtype != torch.bfloat16:
+            return fn(*args, **kwargs)
+        kw = {k: widen(v) for k, v in kwargs.items()}
+        return narrow(fn(*widen(args), **kw), torch.bfloat16)
+
+    return run
+
+
+def _float_tensors(args):
+    for a in args:
+        if isinstance(a, torch.Tensor) and a.is_floating_point():
+            yield a
+        elif isinstance(a, (list, tuple)):
+            yield from _float_tensors(a)
 
 
 def ptr(t: torch.Tensor) -> int | None:

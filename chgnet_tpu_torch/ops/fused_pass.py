@@ -140,7 +140,8 @@ def _check_parts(what, tables, idxs, aligned, b1, rows, vecs, params, msg):
     _check_shapes(what, (n_rows, d2), rows, vecs, params, msg)
     wide = (*tables, b1, *(() if aligned is None else (aligned,)))
     build.check_tensors(
-        what, (*wide, *rows, *vecs, *params), tuple(idxs), aligned=wide
+        what, (*wide, *rows, *vecs, *params), tuple(idxs), aligned=wide,
+        bf16_item="6d",
     )
     return n_rows, d2 // 2
 

@@ -32,6 +32,18 @@ ng_scale, ng_bias)`` or, without a second layer, the last four
 (:func:`tail_params`). The backward wrappers compute ``d_mask`` and the
 parameter gradients only when asked; serving asks for neither.
 
+bf16 tails (``compute_dtype="bfloat16"``): the forward kernels and the
+serving backward take bf16 ``acc``, weights, mask, cotangent and
+parameters, compute in f32 (the products at f32 accuracy: ``silu(acc)``
+and ``d_y`` are f32 values, and a bf16 W2 needs two of 3xTF32's three
+passes) and round each output once, as ``chgnet_tpu``'s
+kernels do ("streams may be bf16 -- in-kernel math runs in f32",
+``chgnet_tpu/ops/gated_message.py:588-590``); their plain versions widen to
+f32, compute and round once (:func:`~chgnet_tpu_torch.ops.build.plain_in_f32`).
+The backward with parameter gradients (training) and the message-reduce
+take f32 only and raise ``NotImplementedError`` on bf16 (ROADMAP.md Queue 1
+items 6e and 6d).
+
 The autograd functions mirror ``chgnet_tpu``'s ``custom_vjp``: a tail's
 backward is the backward-kernel op, and that op's own backward (second
 order, for force training) differentiates the plain composition, as
@@ -58,9 +70,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "gated_fwd_f32": [_I, ctypes.POINTER(_P), _P, _P, _P, _P, _P, _I, _I, _P],
+    "gated_fwd_bf16": [_I, ctypes.POINTER(_P), _P, _P, _P, _P, _P, _I, _I, _P],
     "gated_bwd_f32": [
         _I, ctypes.POINTER(_P), _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
         _I, _P,
+    ],
+    "gated_bwd_bf16": [
+        _I, ctypes.POINTER(_P), _P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
     ],
     "gated_reduce_f32": [ctypes.POINTER(_P), _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "gated_tc_occupancy": [ctypes.POINTER(_I)],
@@ -71,6 +87,10 @@ TILE = 32  # rows per tile of the update forward and the parameter gradients
 # one per tile: the rows of its scratch buffer
 PARAM_BLOCKS = 256
 W2_KEYS = ("w2c", "w2g", "b2")
+# the ROADMAP.md items that port bf16 to the message-reduce and to the
+# backward with parameter gradients
+BF16_REDUCE_ITEM = "6d"
+BF16_PARAMS_ITEM = "6e"
 LN_KEYS = ("nc_scale", "nc_bias", "ng_scale", "ng_bias")
 
 
@@ -151,6 +171,7 @@ def _w2_grads(h, d_y, d):
     return (h[:, :d].T @ d_y[:, :d], h[:, d:].T @ d_y[:, d:], d_y.sum(0))
 
 
+@build.plain_in_f32
 def gated_message_plain(acc, weights, mask, params):
     """Plain version of :func:`gated_message_fwd` (``_reference`` :120)."""
     w2c, w2g, b2, *ln = params
@@ -158,6 +179,7 @@ def gated_message_plain(acc, weights, mask, params):
     return _gate(y, *ln) * weights * mask[:, None]
 
 
+@build.plain_in_f32
 def gated_message_reduce_plain(acc, weights, mask, params, offsets):
     """Plain version of :func:`gated_message_reduce` (``_reduce_reference``
     :483): the message tail, then the segment sum of its sorted rows."""
@@ -165,6 +187,7 @@ def gated_message_reduce_plain(acc, weights, mask, params, offsets):
     return segment_sum_plain(msg, offsets, offsets.new_zeros(0))
 
 
+@build.plain_in_f32
 def gated_message_bwd_plain(acc, weights, mask, params, g, need_mask, need_params):
     """Plain version of :func:`gated_message_bwd` (``_bwd_math`` :150)."""
     w2c, w2g, b2, *ln = params
@@ -184,11 +207,13 @@ def _update_gate(acc, params):
     return _gate(y, *params[-4:])
 
 
+@build.plain_in_f32
 def gated_update_plain(acc, resnet, params):
     """Plain version of :func:`gated_update_fwd` (``_reference_nw`` :685)."""
     return _update_gate(acc, params) + resnet
 
 
+@build.plain_in_f32
 def gated_update_bwd_plain(acc, params, g, need_params):
     """Plain version of :func:`gated_update_bwd` (``_bwd_math_nw`` :690)."""
     if len(params) == 7:
@@ -232,11 +257,16 @@ def _check_shapes(what, acc_shape, rows, vecs, params, msg):
     return n_rows, d
 
 
-def _check(what, acc, rows, vecs, params, msg):
-    """Raise on what the kernels do not take; returns ``(n_rows, D)``."""
+def _check(what, acc, rows, vecs, params, msg, bf16_item=""):
+    """Raise on what the kernels do not take; returns ``(n_rows, D, the C
+    entry points' storage suffix)``. Without ``bf16_item`` the kernel takes
+    bf16 too; with it, f32 only."""
     n_rows, d = _check_shapes(what, tuple(acc.shape), rows, vecs, params, msg)
-    build.check_tensors(what, (acc, *rows, *vecs, *params), aligned=(acc,))
-    return n_rows, d
+    kind = build.check_tensors(
+        what, (acc, *rows, *vecs, *params), aligned=(acc,),
+        bf16_item=bf16_item,
+    )
+    return n_rows, d, kind
 
 
 def tc_occupancy() -> dict[str, tuple[int, int, int]]:
@@ -274,9 +304,9 @@ def _forward(what, acc, weights, mask, resnet, params):
     the update tail."""
     msg = weights is not None
     rows = (weights,) if msg else (resnet,)
-    n_rows, d = _check(what, acc, rows, (mask,) if msg else (), params, msg)
+    n_rows, d, kind = _check(what, acc, rows, (mask,) if msg else (), params, msg)
     out = acc.new_empty((n_rows, d))
-    err = _lib().gated_fwd_f32(
+    err = getattr(_lib(), f"gated_fwd_{kind}")(
         int(msg), _tail_ptrs(params), *_ptrs(acc, weights, mask, resnet, out),
         n_rows, d, build.stream(),
     )
@@ -290,10 +320,21 @@ def _backward(what, acc, weights, mask, params, g, need_mask, need_params):
     d_mask | None, d_params | None)``."""
     msg = weights is not None
     rows = (weights, g) if msg else (g,)
-    n_rows, d = _check(what, acc, rows, (mask,) if msg else (), params, msg)
+    n_rows, d, kind = _check(
+        what, acc, rows, (mask,) if msg else (), params, msg,
+        BF16_PARAMS_ITEM if need_params else "",
+    )
     d_acc = torch.empty_like(acc)
     d_weights = acc.new_empty((n_rows, d)) if msg else None
     d_mask = acc.new_empty(n_rows) if need_mask else None
+    if kind == "bf16":  # the serving form
+        err = _lib().gated_bwd_bf16(
+            int(msg), _tail_ptrs(params),
+            *_ptrs(acc, weights, mask, g, d_acc, d_weights, d_mask),
+            n_rows, d, build.stream(),
+        )
+        build.check(err, what)
+        return d_acc, d_weights, d_mask, None
     n_blocks, partial, flat = 0, None, None
     if need_params:
         n_blocks = min(-(-n_rows // TILE), PARAM_BLOCKS)
@@ -317,10 +358,11 @@ def gated_message_fwd(acc, weights, mask, params):
         return gated_message_plain(acc, weights, mask, params)
     out = _forward("gated_message_fwd", acc, weights, mask, None, params)
     gated_message_fwd.launches += 1
+    gated_message_fwd.launches_bf16 += acc.dtype == torch.bfloat16
     return out
 
 
-gated_message_fwd.launches = 0
+gated_message_fwd.launches = gated_message_fwd.launches_bf16 = 0
 
 
 def gated_message_reduce(acc, weights, mask, params, offsets):
@@ -331,10 +373,12 @@ def gated_message_reduce(acc, weights, mask, params, offsets):
     if not build.on_cuda(acc, "gated_message_reduce"):
         return gated_message_reduce_plain(acc, weights, mask, params, offsets)
     what = "gated_message_reduce"
-    n_rows, d = _check(what, acc, (weights,), (mask,), params, True)
+    n_rows, d, _ = _check(
+        what, acc, (weights,), (mask,), params, True, BF16_REDUCE_ITEM
+    )
     if offsets.dim() != 1 or offsets.shape[0] < 1:
         raise ValueError(f"{what}: offsets [n_out + 1] expected")
-    build.check_tensors(what, (acc,), (offsets,))
+    build.check_tensors(what, (acc,), (offsets,), bf16_item=BF16_REDUCE_ITEM)
     n_out = offsets.shape[0] - 1
     out = acc.new_empty((n_out, d))
     err = _lib().gated_reduce_f32(
@@ -361,10 +405,11 @@ def gated_message_bwd(acc, weights, mask, params, g, need_mask, need_params):
         need_params,
     )
     gated_message_bwd.launches += 1
+    gated_message_bwd.launches_bf16 += acc.dtype == torch.bfloat16
     return out
 
 
-gated_message_bwd.launches = 0
+gated_message_bwd.launches = gated_message_bwd.launches_bf16 = 0
 
 
 def gated_update_fwd(acc, resnet, params):
@@ -373,10 +418,11 @@ def gated_update_fwd(acc, resnet, params):
         return gated_update_plain(acc, resnet, params)
     out = _forward("gated_update_fwd", acc, None, None, resnet, params)
     gated_update_fwd.launches += 1
+    gated_update_fwd.launches_bf16 += acc.dtype == torch.bfloat16
     return out
 
 
-gated_update_fwd.launches = 0
+gated_update_fwd.launches = gated_update_fwd.launches_bf16 = 0
 
 
 def gated_update_bwd(acc, params, g, need_params):
@@ -388,10 +434,11 @@ def gated_update_bwd(acc, params, g, need_params):
         "gated_update_bwd", acc, None, None, params, g, False, need_params
     )
     gated_update_bwd.launches += 1
+    gated_update_bwd.launches_bf16 += acc.dtype == torch.bfloat16
     return d_acc, d_params
 
 
-gated_update_bwd.launches = 0
+gated_update_bwd.launches = gated_update_bwd.launches_bf16 = 0
 
 
 # --------------------------------------------------------------- autograd
@@ -521,6 +568,17 @@ def fused_gated_message(acc, weights, mask, p2: dict) -> torch.Tensor:
     )
 
 
+def msg_reduce_enabled() -> bool:
+    """The message-reduce switch, read at call time:
+    ``CHGNET_TPU_MSG_REDUCE`` non-empty, ``CHGNET_TPU_NO_MSG_REDUCE`` and
+    ``CHGNET_TPU_FUSED_PASS`` empty."""
+    return (
+        bool(os.environ.get("CHGNET_TPU_MSG_REDUCE"))
+        and not os.environ.get("CHGNET_TPU_FUSED_PASS")
+        and not os.environ.get("CHGNET_TPU_NO_MSG_REDUCE")
+    )
+
+
 def msg_reduce_ok(plan: SegmentPlan) -> bool:
     """Whether a message layer reduces through
     :func:`fused_gated_message_reduce`: the switch of ``chgnet_tpu``'s
@@ -529,12 +587,7 @@ def msg_reduce_ok(plan: SegmentPlan) -> bool:
     its keys (a plan without a permutation). Off while
     ``CHGNET_TPU_FUSED_PASS`` is set: the one-kernel pass keeps the tail and
     its sum apart (``chgnet_tpu.models.layers._msg_reduce_ok`` :62)."""
-    return (
-        bool(os.environ.get("CHGNET_TPU_MSG_REDUCE"))
-        and not os.environ.get("CHGNET_TPU_FUSED_PASS")
-        and not os.environ.get("CHGNET_TPU_NO_MSG_REDUCE")
-        and plan.perm.shape[0] == 0
-    )
+    return msg_reduce_enabled() and plan.perm.shape[0] == 0
 
 
 def fused_gated_message_reduce(

@@ -13,6 +13,15 @@ then projected. Both multiply on the tensor cores at f32 accuracy
 each table first and gathers the projected rows, as ``chgnet_tpu``
 computes the same function off the TPU (``models/functions.py:407-412``).
 
+bf16 tables, weights and stream (``compute_dtype="bfloat16"``): both routes
+compute in f32 and round ``out`` once. The short route also rounds its
+projected tables to bf16, as the plain version does (``chgnet_tpu``'s plain
+path projects in bf16); the long route rounds nothing before the store, as
+the TPU kernel, whose gathered rows are the bf16 rows themselves
+(``chgnet_tpu/ops/gproj.py:155-159``). :func:`gather_project_sum_route_plain`
+gives the plain version each route's rounding; the wrapper's CPU path
+rounds the projected tables, as ``chgnet_tpu`` does off the TPU.
+
 The backward (``chgnet_tpu/ops/gproj.py:290-320``) takes one segment sum of
 the cotangent per distinct index stream, two of them paired into one
 :func:`~chgnet_tpu_torch.ops.segment.segment_sum_pair` sweep, then
@@ -31,41 +40,58 @@ from chgnet_tpu_torch.ops.segment import plan_segment_sum, plan_segment_sum_pair
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LONG = [_I, ctypes.POINTER(_P), ctypes.POINTER(_P), _P, _P, _P, _I, _I, _I, _I, _P]
+_SHORT = [
+    _I, ctypes.POINTER(_P), ctypes.POINTER(_P), _P, _P, _P, _P, _I, _I, _I, _I, _P,
+]
 _SIGNATURES = {
-    "gproj_f32": [
-        _I, ctypes.POINTER(_P), ctypes.POINTER(_P), _P, _P, _P, _I, _I, _I,
-        _I, _P,
-    ],
-    "gproj_short_f32": [
-        _I, ctypes.POINTER(_P), ctypes.POINTER(_P), _P, _P, _P, _P, _I, _I,
-        _I, _I, _P,
-    ],
+    "gproj_f32": _LONG, "gproj_bf16": _LONG,
+    "gproj_short_f32": _SHORT, "gproj_short_bf16": _SHORT,
 }
 MAX_PAIRS = 3  # AtomConv 2, BondConv and AngleUpdate 3 with the atom_e fold
 MAX_DT = 64  # table width the kernels stage (kMaxDt)
 MAX_K = 128  # projected width (kMaxK)
-# Project first while the projected tables, n_pairs x S x K f32, fit in half
-# of the H100's 50 MB L2 (the gathers of the second launch then hit L2):
-# AtomConv's 2 x 7,680 x 128 x 4 = 7.9 MB. Longer tables are gathered first.
+# Project first while the projected tables, n_pairs x S x K elements, fit
+# in half of the H100's 50 MB L2 (the gathers of the second launch then hit
+# L2): AtomConv's 2 x 7,680 x 128 x 4 = 7.9 MB in f32. Longer tables are
+# gathered first.
 SHORT_TABLE_BYTES = 25 << 20
 
 
-def gproj_route(n_pairs: int, n_src: int, k_out: int) -> str:
+def gproj_route(n_pairs: int, n_src: int, k_out: int, elem_bytes: int = 4) -> str:
     """``"short"`` (project first) or ``"long"`` (gather first) for a call
-    with ``n_pairs`` tables of ``n_src`` rows projected to ``k_out``."""
-    return "short" if n_pairs * n_src * k_out * 4 <= SHORT_TABLE_BYTES else "long"
+    with ``n_pairs`` tables of ``n_src`` rows projected to ``k_out``
+    columns of ``elem_bytes`` each."""
+    fits = n_pairs * n_src * k_out * elem_bytes <= SHORT_TABLE_BYTES
+    return "short" if fits else "long"
 
 
-def gather_project_sum_plain(tables, idxs, ws, stream):
+def gather_project_sum_plain(tables, idxs, ws, stream, round_tables=True):
     """Plain version of :func:`gather_project_sum_kernel`: project each
-    pair's table, gather the projected rows, add them to ``stream``."""
-    out = stream.clone()
+    pair's table in f32 (rounded once to the tables' type unless
+    ``round_tables`` is false), gather the projected rows and add them to
+    ``stream`` in f32, rounded once. For f32 tables the rounding is a no-op."""
+    dtype = stream.dtype
+    out = stream.float()
     for table, idx, w in zip(tables, idxs, ws):
         n_src = table.shape[0]
         ok = (idx >= 0) & (idx < n_src)
-        proj = (table @ w)[idx.clamp(0, n_src - 1).long()]
-        out = out + torch.where(ok[:, None], proj, proj.new_zeros(()))
-    return out
+        proj = table.float() @ w.float()
+        if round_tables:
+            proj = proj.to(dtype).float()
+        proj = proj[idx.clamp(0, n_src - 1).long()]
+        out = out + torch.where(ok[:, None], proj, out.new_zeros(()))
+    return out.to(dtype)
+
+
+def gather_project_sum_route_plain(tables, idxs, ws, stream):
+    """:func:`gather_project_sum_plain` with the rounding of the route the
+    kernel takes for this call (:func:`gproj_route`): the short route
+    rounds its projected tables, the long route nothing before the store.
+    The card's holds compare each route with this."""
+    route = gproj_route(len(tables), tables[0].shape[0], stream.shape[1],
+                        stream.element_size())
+    return gather_project_sum_plain(tables, idxs, ws, stream, route == "short")
 
 
 def gather_project_sum_kernel(tables, idxs, ws, stream):
@@ -92,31 +118,32 @@ def gather_project_sum_kernel(tables, idxs, ws, stream):
             raise ValueError("gather_project_sum: mismatched pair shapes")
     w_cat = torch.cat(list(ws), dim=0)  # [n_pairs * dt, K]
     out = torch.empty_like(stream)
-    build.check_tensors(
+    kind = build.check_tensors(
         "gather_project_sum", (stream, *tables, *ws), tuple(idxs),
-        aligned=(stream, *tables, out),
+        aligned=(stream, *tables, out)
     )
     tab_ptrs = (_P * n_pairs)(*(t.data_ptr() for t in tables))
     idx_ptrs = (_P * n_pairs)(*(i.data_ptr() for i in idxs))
     lib = build.load("gproj", _SIGNATURES)
     ptr = build.ptr
-    if gproj_route(n_pairs, n_src, k_out) == "short":
+    if gproj_route(n_pairs, n_src, k_out, stream.element_size()) == "short":
         proj = stream.new_empty((n_pairs, n_src, k_out))
-        err = lib.gproj_short_f32(
+        err = getattr(lib, f"gproj_short_{kind}")(
             n_pairs, tab_ptrs, idx_ptrs, ptr(w_cat), ptr(stream), ptr(out),
             ptr(proj), n_rows, n_src, dt, k_out, build.stream(),
         )
     else:
-        err = lib.gproj_f32(
+        err = getattr(lib, f"gproj_{kind}")(
             n_pairs, tab_ptrs, idx_ptrs, ptr(w_cat), ptr(stream), ptr(out),
             n_rows, n_src, dt, k_out, build.stream(),
         )
     build.check(err, "gather_project_sum")
     gather_project_sum_kernel.launches += 1
+    gather_project_sum_kernel.launches_bf16 += kind == "bf16"
     return out
 
 
-gather_project_sum_kernel.launches = 0
+gather_project_sum_kernel.launches = gather_project_sum_kernel.launches_bf16 = 0
 
 
 class _GatherProjectSum(torch.autograd.Function):

@@ -8,7 +8,9 @@
 optional aligned stream, added in f32 from zero in part order, the stream
 last, so the kernel and :func:`gather_sum_rows_plain` agree bit for bit.
 A row whose index lies outside its table adds zero, as in
-:func:`~chgnet_tpu_torch.ops.segment.gather_rows`.
+:func:`~chgnet_tpu_torch.ops.segment.gather_rows`. bf16 rows
+(``compute_dtype="bfloat16"``) are widened to f32, added in the same order
+and rounded once, by the kernel and the plain version alike.
 
 Two autograd ops sit on it, as in ``chgnet_tpu/ops/scatter.py``:
 
@@ -43,15 +45,15 @@ from chgnet_tpu_torch.ops.segment import (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {
-    "gather_sum_rows_f32": [
-        _I, ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_I), _P,
-        _P, ctypes.c_long, _I, _P,
-    ],
-}
+_ARGS = [
+    _I, ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_I), _P, _P,
+    ctypes.c_long, _I, _P,
+]
+_SIGNATURES = {"gather_sum_rows_f32": _ARGS, "gather_sum_rows_bf16": _ARGS}
 MAX_PARTS = 4  # gathered parts of one launch
 
 
+@build.plain_in_f32
 def gather_sum_rows_plain(tables, idxs, stream=None):
     """Plain version of :func:`gather_sum_rows`: zero, plus each part's
     gathered rows in order, plus the stream."""
@@ -88,11 +90,11 @@ def gather_sum_rows(tables, idxs, stream=None):
         raise ValueError(f"gather_sum_rows: d % 4 == 0 expected (d={d})")
     floats = (*tables, *(() if stream is None else (stream,)))
     out = tables[0].new_empty((n_rows, d))
-    build.check_tensors(
+    kind = build.check_tensors(
         "gather_sum_rows", floats, tuple(idxs), aligned=(*floats, out)
     )
     lib = build.load("multi_gather", _SIGNATURES)
-    err = lib.gather_sum_rows_f32(
+    err = getattr(lib, f"gather_sum_rows_{kind}")(
         n_parts,
         (_P * n_parts)(*(t.data_ptr() for t in tables)),
         (_P * n_parts)(*(i.data_ptr() for i in idxs)),
@@ -102,10 +104,11 @@ def gather_sum_rows(tables, idxs, stream=None):
     )
     build.check(err, "gather_sum_rows")
     gather_sum_rows.launches += 1
+    gather_sum_rows.launches_bf16 += kind == "bf16"
     return out
 
 
-gather_sum_rows.launches = 0
+gather_sum_rows.launches = gather_sum_rows.launches_bf16 = 0
 
 
 # ------------------------------------------------------------ autograd

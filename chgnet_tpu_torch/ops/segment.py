@@ -29,7 +29,11 @@ kernel when the plan carries windows that fit at this width
 
 A wrapper launches its kernel on a CUDA tensor (or raises) and uses the
 plain version only for a tensor on the CPU. Each keeps a count of its
-launches in its ``launches`` attribute.
+launches in its ``launches`` attribute. The first three also take bf16 rows
+(``compute_dtype="bfloat16"``): the sums widen them to f32, add in f32 and
+round once at the store, and the gather copies their bits; the last two
+take f32 only and raise ``NotImplementedError`` on bf16 (ROADMAP.md Queue 1
+item 6d).
 
 The autograd functions pair the ops as ``stream_ops.py:546-603`` does: the
 backward of a planned gather is a segment sum over the plan, and the
@@ -57,12 +61,18 @@ _L = ctypes.c_long
 _SIGNATURES = {
     "segment_sum": {
         "segment_sum_csr_f32": [_P, _P, _P, _P, _I, _I, _P],
+        "segment_sum_csr_bf16": [_P, _P, _P, _P, _I, _I, _P],
         "segment_sum_pair_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+        "segment_sum_pair_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
         "segment_sum_tiles_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
-    "gather_rows": {"gather_rows_f32": [_P, _P, _P, _L, _I, _I, _P]},
+    "gather_rows": {
+        "gather_rows_f32": [_P, _P, _P, _L, _I, _I, _P],
+        "gather_rows_bf16": [_P, _P, _P, _L, _I, _I, _P],
+    },
     "gather_window": {"gather_rows_window_f32": [_P, _P, _P, _P, _L, _I, _I, _P]},
 }
+BF16_ITEM = "6d"  # bf16 on the stream-v2 kernels (rows 11 and 12)
 # widest row of the segment sums: one warp's 32 lanes each hold a float4
 # (a float where the row is not 16-byte aligned)
 SEGMENT_MAX_D = 128
@@ -78,7 +88,8 @@ def segment_sum_plain(
     x: torch.Tensor, offsets: torch.Tensor, perm: torch.Tensor
 ) -> torch.Tensor:
     """Plain version of :func:`segment_sum_csr`: each segment as the
-    difference of two float64 prefix sums of the key-sorted rows."""
+    difference of two float64 prefix sums of the key-sorted rows, rounded
+    once to ``x``'s type."""
     xs = x[perm.long()] if perm.numel() else x
     off = offsets.long()
     n_valid = int(off[-1])
@@ -120,10 +131,11 @@ def gather_rows_window_plain(
 # ------------------------------------------------------------ wrappers
 def _check_width(what: str, x: torch.Tensor) -> None:
     """Raise for rows wider than the segment-sum kernel takes: one warp's
-    32 lanes each hold a float4 of the row (a float where the row is not
-    16-byte aligned)."""
+    32 lanes each hold 4 elements of the row (one where the row is not
+    aligned to 4 elements)."""
     d = x.shape[1]
-    units = d // 4 if d % 4 == 0 and x.data_ptr() % 16 == 0 else d
+    aligned = x.data_ptr() % (4 * x.element_size()) == 0
+    units = d // 4 if d % 4 == 0 and aligned else d
     if units > SEGMENT_MAX_D // 4:
         raise ValueError(
             f"{what}: rows of at most {SEGMENT_MAX_D} aligned or "
@@ -139,21 +151,24 @@ def segment_sum_csr(
     stream is sorted) maps sorted positions to rows of ``x``."""
     if not build.on_cuda(x, "segment_sum_csr"):
         return segment_sum_plain(x, offsets, perm)
-    build.check_tensors("segment_sum_csr", (x,), (offsets, perm))
+    kind = build.check_tensors(
+        "segment_sum_csr", (x,), (offsets, perm)
+    )
     _check_width("segment_sum_csr", x)
     n_out = offsets.shape[0] - 1
     out = torch.empty((n_out, x.shape[1]), dtype=x.dtype, device=x.device)
     ptr = build.ptr
-    err = _lib("segment_sum").segment_sum_csr_f32(
+    err = getattr(_lib("segment_sum"), f"segment_sum_csr_{kind}")(
         ptr(x), ptr(perm), ptr(offsets), ptr(out), n_out, x.shape[1],
         build.stream(),
     )
     build.check(err, "segment_sum_csr")
     segment_sum_csr.launches += 1
+    segment_sum_csr.launches_bf16 += kind == "bf16"
     return out
 
 
-segment_sum_csr.launches = 0
+segment_sum_csr.launches = segment_sum_csr.launches_bf16 = 0
 
 
 def segment_sum_tiles(
@@ -168,7 +183,9 @@ def segment_sum_tiles(
     counterpart: the port has CSR plans and no block-local raw plans."""
     if not build.on_cuda(x, "segment_sum_tiles"):
         return segment_sum_plain(x, offsets, perm)
-    build.check_tensors("segment_sum_tiles", (x,), (offsets, perm))
+    build.check_tensors(
+        "segment_sum_tiles", (x,), (offsets, perm), bf16_item=BF16_ITEM
+    )
     _check_width("segment_sum_tiles", x)
     n_rows, d = x.shape
     n_out = offsets.shape[0] - 1
@@ -194,7 +211,7 @@ def segment_sum_pair(x, offsets_a, perm_a, offsets_b, perm_b):
     ``n_out`` (see :func:`segment_sum_csr`), in one launch."""
     if not build.on_cuda(x, "segment_sum_pair"):
         return segment_sum_pair_plain(x, offsets_a, perm_a, offsets_b, perm_b)
-    build.check_tensors(
+    kind = build.check_tensors(
         "segment_sum_pair", (x,), (offsets_a, perm_a, offsets_b, perm_b)
     )
     _check_width("segment_sum_pair", x)
@@ -204,16 +221,17 @@ def segment_sum_pair(x, offsets_a, perm_a, offsets_b, perm_b):
     out_a = torch.empty((n_out, x.shape[1]), dtype=x.dtype, device=x.device)
     out_b = torch.empty_like(out_a)
     ptr = build.ptr
-    err = _lib("segment_sum").segment_sum_pair_f32(
+    err = getattr(_lib("segment_sum"), f"segment_sum_pair_{kind}")(
         ptr(x), ptr(perm_a), ptr(offsets_a), ptr(out_a), ptr(perm_b),
         ptr(offsets_b), ptr(out_b), n_out, x.shape[1], build.stream(),
     )
     build.check(err, "segment_sum_pair")
     segment_sum_pair.launches += 1
+    segment_sum_pair.launches_bf16 += kind == "bf16"
     return out_a, out_b
 
 
-segment_sum_pair.launches = 0
+segment_sum_pair.launches = segment_sum_pair.launches_bf16 = 0
 
 
 def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -221,21 +239,24 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     ``[0, src.shape[0])``."""
     if not build.on_cuda(src, "gather_rows"):
         return gather_rows_plain(src, idx)
-    build.check_tensors("gather_rows", (src,), (idx,))
+    kind = build.check_tensors(
+        "gather_rows", (src,), (idx,)
+    )
     out = torch.empty(
         (idx.shape[0], src.shape[1]), dtype=src.dtype, device=src.device
     )
     ptr = build.ptr
-    err = _lib("gather_rows").gather_rows_f32(
+    err = getattr(_lib("gather_rows"), f"gather_rows_{kind}")(
         ptr(src), ptr(idx), ptr(out), idx.shape[0], src.shape[0],
         src.shape[1], build.stream(),
     )
     build.check(err, "gather_rows")
     gather_rows.launches += 1
+    gather_rows.launches_bf16 += kind == "bf16"
     return out
 
 
-gather_rows.launches = 0
+gather_rows.launches = gather_rows.launches_bf16 = 0
 
 
 def window_fits(src: torch.Tensor) -> bool:
@@ -257,7 +278,9 @@ def gather_rows_window(
         )
     if not build.on_cuda(src, "gather_rows_window"):
         return gather_rows_window_plain(src, idx, window)
-    build.check_tensors("gather_rows_window", (src,), (idx, window))
+    build.check_tensors(
+        "gather_rows_window", (src,), (idx, window), bf16_item=BF16_ITEM
+    )
     if not window_fits(src):
         raise ValueError(
             "gather_rows_window: 16-byte aligned rows of 4k floats expected "

@@ -44,7 +44,12 @@ import torch
 
 from chgnet_tpu_torch import TrainTask
 from chgnet_tpu_torch.trainer.losses import CombinedLoss, loss_and_metrics
-from chgnet_tpu_torch.utils.common import AverageMeter, determine_device, write_json
+from chgnet_tpu_torch.utils.common import (
+    AverageMeter,
+    determine_device,
+    requested_device,
+    write_json,
+)
 
 try:
     import wandb
@@ -245,6 +250,10 @@ class Trainer:
             for k, v in locals().items()
             if k not in {"self", "__class__", "model", "kwargs", "mesh"}
         } | kwargs
+        config = getattr(model, "config", None)
+        if config is not None:  # before the card is asked for
+            device = torch.device(requested_device(use_device))
+            config.check_supported(device.type, training=True)
         self.device = torch.device(determine_device(use_device))
         self.model = model
         if model is not None and model.device != self.device:

@@ -31,15 +31,20 @@ def cuda_devices_sorted_by_free_mem() -> list[int]:
     return sorted(range(len(free)), key=lambda i: free[i])
 
 
+def requested_device(use_device: str | None = None) -> str:
+    """The device asked for: ``use_device``, else the ``CHGNET_DEVICE``
+    environment variable, else ``"cuda"``, without asking for it."""
+    return str(use_device or os.getenv("CHGNET_DEVICE") or "cuda")
+
+
 def determine_device(use_device: str | None = None) -> str:
-    """The device to run on: ``use_device``, else the ``CHGNET_DEVICE``
-    environment variable, else ``"cuda"``. Raises when CUDA is asked for
-    and absent: pass ``"cpu"`` to run there."""
+    """The device to run on (:func:`requested_device`). Raises when CUDA is
+    asked for and absent: pass ``"cpu"`` to run there."""
     from chgnet_tpu_torch.device import resolve_device
 
-    use_device = use_device or os.getenv("CHGNET_DEVICE") or "cuda"
+    use_device = requested_device(use_device)
     resolve_device(use_device)
-    return str(use_device)
+    return use_device
 
 
 class AverageMeter:

@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``chgnet_tpu_torch/csrc`` and drives
-eight paths of the port, E+F+S+M serving at the default (published 0.3.0)
+ten paths of the port, E+F+S+M serving at the default (published 0.3.0)
 width, on the card (``PATHS``): the default ``CHGNet(seed=0)``
 (``fused_kernels=True``, directed bonds), ``fused_kernels=False``, the
 undirected bond layout ``directed_bonds=False``, the default model with
@@ -11,8 +11,11 @@ one of three environment switches set around its path only: the fused
 message-reduce (``CHGNET_TPU_MSG_REDUCE=1``), the input-stationary segment
 sum and windowed gather (``CHGNET_TPU_STREAM_V2=1``, set around the batch
 build too: the window plans are built under it) and the one-kernel conv
-pass (``CHGNET_TPU_FUSED_PASS=1``), and the undirected layout under the
-one-kernel pass and under the stream-v2 switch:
+pass (``CHGNET_TPU_FUSED_PASS=1``), the undirected layout under the
+one-kernel pass and under the stream-v2 switch, and bench.py's production
+configuration, ``compute_dtype="bfloat16"`` with ``matmul_precision=
+"default"``, in both bond layouts (``bf16``, ``directed_bonds=False bf16``:
+rows 1-9 with bf16 arguments, geometry and readout in f32):
 
 1. card and build: the card's name and power limit, the TF32 flags, the
    kernel build time, each kernel's registers, spills and static shared
@@ -24,8 +27,10 @@ one-kernel pass and under the stream-v2 switch:
    (32 perturbed 216-atom LiMnO2 supercells, ``bench.py``'s workload)
    captures every kernel call of that path with its inputs; each call is
    re-run through the kernel and through its plain PyTorch version on the
-   card and compared, each output's error relative to its largest value,
-   so every kernel is held at every shape any path gives it; each kernel's
+   card and compared, each output's error relative to its largest value
+   (bf16 calls at ``BF16_TOL``: one bf16 rounding, gather_project_sum
+   against the plain version with its route's rounding), so every kernel
+   is held at every shape and type any path gives it; each kernel's
    autograd op is checked forward and backward against the CPU (the fused
    tails as serving runs them, at the edge and angle streams' shapes, and
    also with parameter gradients and in the update's second-layer form,
@@ -34,8 +39,13 @@ one-kernel pass and under the stream-v2 switch:
    ``compute_batch`` on the benchmark batch, whose outputs must be finite,
    with per-graph force sums ~0 and symmetric stress; the launch counts are
    set to 0 just before that pass and read just after it, and must equal
-   the path's launch set (``PATHS``); the five switched paths' outputs must
-   also agree with the default path's; edges/s by CUDA events;
+   the path's launch set (``PATHS``), and the wrappers' counts of launches
+   with bf16 arguments, read from the same pass, must be all of rows
+   4-9's and some of every other launched kernel's on a bf16 path, none on
+   an f32 path; the five switched paths' outputs must
+   also agree with the default path's, and the bf16 paths' with their f32
+   paths' at ``BF16_BARS`` (their LiMnO2 card-vs-CPU check too); edges/s
+   by CUDA events;
 4. a ``{"kernels": [...]}`` line: per kernel, its largest error over the
    calls of all eight paths, the path its times were taken on, its
    launches in one pass of that path and, summed over that pass's calls,
@@ -52,13 +62,18 @@ one-kernel pass and under the stream-v2 switch:
    ``gather_project_sum`` is also timed and bounded per route (short
    tables projected first, long ones gathered first), and the one-kernel
    pass per form (``forms``: the message form with its second layer, the
-   update form);
+   update form); rows 1-9 also in bf16 (``dtype``), over the bf16 calls of
+   a bf16 path's pass, with ``bf16_launches`` (from the counted pass of
+   phase 3) beside ``launches``, the
+   bytes at each tensor's element size and gather_project_sum's bf16
+   products at 989 TFLOP/s;
 5. profile: one pass of the default, the undirected, the message-reduce,
    the stream-v2 and the one-kernel-pass path under ``torch.profiler``, the
    device's busy share of its wall time and the kernels that take the most
    device time; the traced default, message-reduce, stream-v2 and
    one-kernel-pass passes must show their kernels by name (``PROFILED``:
-   the tensor-core tails, the windowed gather), and the stream-v2 and
+   the tensor-core tails, the windowed gather; the bf16 pass their bf16
+   instantiations), and the stream-v2 and
    one-kernel pass's traces none of the kernels they replaced
    (``UNPROFILED``);
 6. simulation (``chgnet_tpu_torch.simulation``): (a) the pinned seed-0 MD
@@ -85,7 +100,11 @@ one-kernel pass and under the stream-v2 switch:
    last frame; then SciPyFminCG on one 216-atom supercell, its energy
    falling. The ``kernels`` line's rows gain ``sim_launches`` (the timed MD
    steps' launches) and their ``max_abs_err`` covers the MD step's calls
-   too;
+   too. (b) and (c) run again with the bf16 model (tools/bench_md.py's
+   configuration for systems over 2,000 atoms), checked at ``BF16_BARS``,
+   MD without a trace, its launches with bf16 arguments checked as in phase
+   3; the bf16 rows' ``sim_launches`` and ``sim_bf16_launches`` are that
+   run's;
 7. training (``chgnet_tpu_torch.trainer``): bench.py's 32 supercells
    labelled E+F+S+M by ``CHGNet(seed=7)`` on the card (a NaN energy, force
    block and magmom block among them), ``StructureData`` ->
@@ -142,6 +161,10 @@ F32_FLOPS = 67e12  # H100 SXM, f32 without tensor cores
 # H100 SXM, f32-accurate products on the TF32 tensor cores (495 TFLOP/s
 # dense): 3xTF32 takes three TF32 products for each f32 one
 F32_TC_FLOPS = 495e12 / 3
+# H100 SXM, bf16 products on the tensor cores (989 TFLOP/s dense): the rate
+# a product of two bf16 inputs (gather_project_sum's tables and weights)
+# could run at; the tails' products have an f32 operand (silu(acc), d_y)
+BF16_TC_FLOPS = 989e12
 N_STRUCTS = 32  # bench.py's workload
 TIMED_REPEATS = 5
 MODEL_SAMPLES = 10
@@ -214,8 +237,28 @@ PATHS = {
     "directed_bonds=False CHGNET_TPU_STREAM_V2=1": (
         dict(directed_bonds=False), "CHGNET_TPU_STREAM_V2",
         (4, 12, 8, 5, 7, 7, 2, 2, 7, 0, 28, 16, 0, 0)),
+    # bench.py's production serving configuration: the conv stack in bf16
+    # (rows 1-9 with bf16 arguments, geometry and readout sums in f32), the
+    # launch sets of the f32 paths
+    "bf16": (
+        dict(compute_dtype="bfloat16", matmul_precision="default"), None,
+        (20, 17, 8, 9, 7, 7, 2, 2, 0, 0, 0, 0, 0, 0)),
+    "directed_bonds=False bf16": (
+        dict(directed_bonds=False, compute_dtype="bfloat16",
+             matmul_precision="default"), None,
+        (32, 28, 8, 5, 7, 7, 2, 2, 7, 0, 0, 0, 0, 0)),
 }
 SWITCHED = [path for path, (_, switch, _) in PATHS.items() if switch]
+# each bf16 path and the f32 path it is held to (BF16_BARS)
+BF16_PATHS = {"bf16": "default", "directed_bonds=False bf16": "directed_bonds=False"}
+BF16_PATHS_KW = PATHS["bf16"][0]
+# the path whose bf16 calls a bf16 row of the kernels line is timed on
+BF16_ROW_PATH = {
+    name: "directed_bonds=False bf16" if name == "gather_sum_rows" else "bf16"
+    for name in ("segment_sum_csr", "gather_rows", "segment_sum_pair",
+                 "gather_project_sum", "gated_message_fwd", "gated_message_bwd",
+                 "gated_update_fwd", "gated_update_bwd", "gather_sum_rows")
+}
 # the paths traced in phase 5, and the CUDA kernels each trace must show
 PROFILED = {
     "default": ("tail_fwd_tc_kernel", "tail_bwd_tc_kernel"),
@@ -223,6 +266,8 @@ PROFILED = {
     "CHGNET_TPU_MSG_REDUCE=1": ("tail_reduce_tc_kernel",),
     "CHGNET_TPU_STREAM_V2=1": ("gather_window_kernel",),
     "CHGNET_TPU_FUSED_PASS=1": ("pass_fwd_tc_kernel", "pass_bwd_tc_kernel"),
+    "bf16": ("tail_fwd_tc_kernel<__nv_bfloat16>", "tail_bwd_tc_kernel<__nv_bfloat16",
+             "gproj_tc_kernel<__nv_bfloat16>", "segment_sum_csr_kernel<__nv_bfloat16"),
 }
 # ... and the kernels it must not show: the CUDA-core one-kernel pass
 # (parameter gradients only) has no place in serving, and the windowed
@@ -232,6 +277,26 @@ UNPROFILED = {
     "CHGNET_TPU_FUSED_PASS=1": ("pass_fwd_kernel<", "pass_bwd_kernel<"),
 }
 MODEL_TOL = {"e": 2e-5, "f": 5e-5, "s": 2e-4, "m": 2e-5}
+# a bf16 path against its f32 path on the card, and its card run against its
+# CPU run: tests/test_model.py's bf16 bars (e eV/atom, f eV/A, m mu_B); stress
+# in GPa at about 5x chgnet_tpu's own bf16 gap on the CPU, 3.8e-3 GPa on 4 of
+# bench.py's supercells at full width
+BF16_BARS = {"e": 2e-3, "f": 2e-2, "s": 2e-2, "m": 2e-2}
+# a bf16 kernel against its plain version: both widen to f32, compute in f32
+# and round each output once, so they differ by at most one rounding, one
+# bf16 ulp (2^-7) of an output's largest value; gathers are exact;
+# gather_project_sum is held to the plain version with its route's rounding
+# (gather_project_sum_route_plain): the long route rounds only the output
+# (one ulp), the short route also each pair's projected table, whose
+# rounding may fall on the other side of a tie from the kernel's f32 sums
+# (one more ulp a pair: bf16_tol)
+BF16_ULP = 2.0**-7
+BF16_TOL = {
+    "segment_sum_csr": BF16_ULP, "gather_rows": 0.0, "segment_sum_pair": BF16_ULP,
+    "gather_project_sum": BF16_ULP, "gated_message_fwd": BF16_ULP,
+    "gated_message_bwd": BF16_ULP, "gated_update_fwd": BF16_ULP,
+    "gated_update_bwd": BF16_ULP, "gather_sum_rows": 0.0,
+}
 
 # the simulation phase's pinned seed-0 traces: a copy of
 # tests/test_golden_traces.py's (that module imports chgnet_tpu; a CPU test
@@ -374,9 +439,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, repeats: int) -> float:
-    """Mean milliseconds of ``fn()`` on the card, after one warm-up."""
-    fn()
+def cuda_ms(fn, repeats: int, warm_up: bool = True) -> float:
+    """Mean milliseconds of ``fn()`` on the card, after one warm-up unless
+    ``warm_up`` is false (a plain version that already ran on the same
+    inputs in its hold: it compiles nothing, and one run of the slowest
+    takes seconds)."""
+    if warm_up:
+        fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -424,7 +493,7 @@ class Recorder:
                 _log.append(args)
                 return _orig(*args)
 
-            rec.launches = 0
+            rec.launches = rec.launches_bf16 = 0  # the wrapper counts here
             setattr(mod, attr, rec)
         return self
 
@@ -442,6 +511,7 @@ def _tail_bound(name, args):
     inputs read once, its outputs written once; the two diagonal blocks'
     FLOPs per product and ``TAIL_OPS`` per row element."""
     acc = args[0]
+    es = acc.element_size()  # every float input and output of a call alike
     n_rows, d = acc.shape[0], acc.shape[1] // 2
     msg = name.startswith("gated_message")
     params = args[3] if msg else args[1 + (name == "gated_update_fwd")]
@@ -450,7 +520,7 @@ def _tail_bound(name, args):
     product = 4 * n_rows * d * d if has_w2 else 0
     n_in = sum(t.numel() for t in _tensors(args))
     if name.endswith("_fwd"):
-        return 4 * (n_in + n_rows * d), product, TAIL_OPS["fwd", form] * n_rows * d
+        return es * (n_in + n_rows * d), product, TAIL_OPS["fwd", form] * n_rows * d
     need_params = args[-1]
     need_mask = msg and args[-2]
     ops = TAIL_OPS["bwd", form] + (D_MASK_OPS if need_mask else 0)
@@ -460,7 +530,7 @@ def _tail_bound(name, args):
         n_out += n_rows * d + (n_rows if need_mask else 0)
     n_out += sum(p.numel() for p in params) if need_params else 0
     products = (3 if need_params else 2) * product
-    return 4 * (n_in + n_out), products, ops * n_rows * d
+    return es * (n_in + n_out), products, ops * n_rows * d
 
 
 def _distinct_rows(tables, idxs):
@@ -485,7 +555,9 @@ def _pass_bound(name, args):
     has_w2 = len(params) == 7
     form = "message" if msg else "update_w2" if has_w2 else "update"
     n_streams = len({i.data_ptr() for i in idxs})
-    n_in = n_streams * n_rows + _distinct_rows(tables, idxs) * 2 * d + 2 * d
+    es = tables[0].element_size()
+    idx_bytes = 4 * n_streams * n_rows
+    n_in = _distinct_rows(tables, idxs) * 2 * d + 2 * d
     n_in += n_rows * 2 * d if aligned is not None else 0
     n_in += sum(p.numel() for p in params)
     n_in += n_rows * (d + 1) if msg else 0
@@ -494,7 +566,7 @@ def _pass_bound(name, args):
     if name == "fused_pass_fwd":
         n_in += 0 if msg else n_rows * d  # resnet
         ops = TAIL_OPS["fwd", form] * n_rows * d + adds
-        return 4 * (n_in + n_rows * d), product, ops
+        return idx_bytes + es * (n_in + n_rows * d), product, ops
     need_mask, need_params = args[8], args[9]
     n_in += n_rows * d  # the cotangent
     ops = TAIL_OPS["bwd", form] + (D_MASK_OPS if need_mask else 0)
@@ -502,7 +574,7 @@ def _pass_bound(name, args):
     n_out = n_rows * 2 * d + (n_rows * d if msg else 0) + (n_rows if need_mask else 0)
     n_out += sum(p.numel() for p in params) + 2 * d if need_params else 0
     products = (3 if need_params else 2) * product
-    return 4 * (n_in + n_out), products, ops * n_rows * d + adds
+    return idx_bytes + es * (n_in + n_out), products, ops * n_rows * d + adds
 
 
 def bound_and_library(name, args):
@@ -518,7 +590,8 @@ def bound_and_library(name, args):
         nv = _rows_valid(offsets)
         n_floats = nv * (3 * d + 1) + sum(p.numel() for p in params) + n_out * d
         ops = (TAIL_OPS["fwd", "message"] + 1) * nv * d
-        return 4 * (n_floats + n_out + 1), 4 * nv * d * d, ops, None
+        nbytes = acc.element_size() * n_floats + 4 * (n_out + 1)
+        return nbytes, 4 * nv * d * d, ops, None
     if name == "gather_sum_rows":
         # every index stream, the distinct rows they name of every distinct
         # table, the stream, the output; one add per part and element
@@ -527,8 +600,8 @@ def bound_and_library(name, args):
         distinct = _distinct_rows(tables, idxs)
         n_streams = len({i.data_ptr() for i in idxs})
         n_adds = len(tables) - (stream is None)
-        nbytes = 4 * (n_streams * n_rows + distinct * d
-                      + (1 + (stream is not None)) * n_rows * d)
+        nbytes = 4 * n_streams * n_rows + tables[0].element_size() * (
+            distinct * d + (1 + (stream is not None)) * n_rows * d)
         longs = [i.clamp(0, t.shape[0] - 1).long() for t, i in zip(tables, idxs)]
 
         def lib():
@@ -544,23 +617,26 @@ def bound_and_library(name, args):
     if name in ("segment_sum_csr", "segment_sum_tiles"):
         x, offsets, perm = args
         n_out, d = offsets.shape[0] - 1, x.shape[1]
+        es = x.element_size()
         nv = _rows_valid(offsets)
-        nbytes = nv * d * 4 + (nv * 4 if perm.numel() else 0)
-        nbytes += (n_out + 1) * 4 + n_out * d * 4
+        nbytes = nv * d * es + (nv * 4 if perm.numel() else 0)
+        nbytes += (n_out + 1) * 4 + n_out * d * es
         key = _segment_ids(offsets, perm, x.shape[0])
-        buf = torch.zeros((n_out + 1, d), device=x.device)
+        buf = torch.zeros((n_out + 1, d), device=x.device, dtype=x.dtype)
         return nbytes, 0, nv * d, lambda: buf.zero_().index_add_(0, key, x)
     if name == "segment_sum_pair":
         x, oa, pa, ob, pb = args
         n_out, d = oa.shape[0] - 1, x.shape[1]
+        es = x.element_size()
         ka = _segment_ids(oa, pa, x.shape[0])
         kb = _segment_ids(ob, pb, x.shape[0])
         rows = int(((ka < n_out) | (kb < n_out)).sum())
         nv = _rows_valid(oa) + _rows_valid(ob)
-        nbytes = rows * d * 4 + (_rows_valid(oa) * 4 if pa.numel() else 0)
+        nbytes = rows * d * es + (_rows_valid(oa) * 4 if pa.numel() else 0)
         nbytes += (_rows_valid(ob) * 4 if pb.numel() else 0)
-        nbytes += 2 * (n_out + 1) * 4 + 2 * n_out * d * 4
-        bufs = [torch.zeros((n_out + 1, d), device=x.device) for _ in range(2)]
+        nbytes += 2 * (n_out + 1) * 4 + 2 * n_out * d * es
+        bufs = [torch.zeros((n_out + 1, d), device=x.device, dtype=x.dtype)
+                for _ in range(2)]
 
         def lib():
             bufs[0].zero_().index_add_(0, ka, x)
@@ -580,7 +656,8 @@ def bound_and_library(name, args):
             ok &= (idx >= window[block, 0]) & (idx <= window[block, 1])
             nbytes = window.numel() * 4
         distinct = int(torch.unique(idx[ok]).numel())
-        nbytes += idx.numel() * 4 + distinct * d * 4 + idx.numel() * d * 4
+        es = src.element_size()
+        nbytes += idx.numel() * 4 + distinct * d * es + idx.numel() * d * es
         safe = idx.clamp(0, src.shape[0] - 1).long()
         return nbytes, 0, 0, lambda: torch.index_select(src, 0, safe)
     if name == "gather_project_sum":
@@ -589,9 +666,10 @@ def bound_and_library(name, args):
         dt = tables[0].shape[1]
         uniq_t = {t.data_ptr(): t for t in tables}
         uniq_i = {i.data_ptr(): i for i in idxs}
-        nbytes = sum(t.numel() * 4 for t in uniq_t.values())
+        es = stream.element_size()
+        nbytes = sum(t.numel() * es for t in uniq_t.values())
         nbytes += sum(i.numel() * 4 for i in uniq_i.values())
-        nbytes += len(ws) * dt * k_out * 4 + 2 * n_rows * k_out * 4
+        nbytes += len(ws) * dt * k_out * es + 2 * n_rows * k_out * es
         # the cheaper of two orders: gather then project every row, or
         # project each distinct (table, W) once and add the gathered rows;
         # (products, adds) of each
@@ -601,7 +679,9 @@ def bound_and_library(name, args):
         }
         project_first = (sum(2 * n * dt * k_out for n in projected.values()),
                          len(ws) * n_rows * k_out)
-        products, adds = min(gather_first, project_first, key=_ops_ms)
+        rate = product_rate(name, args)
+        products, adds = min(gather_first, project_first,
+                             key=lambda f: _ops_ms(f, rate))
         longs = [i.long() for i in idxs]
 
         def lib():
@@ -614,10 +694,25 @@ def bound_and_library(name, args):
     raise KeyError(name)
 
 
-def _ops_ms(flops) -> float:
-    """Least ms of (product FLOPs, elementwise FLOPs) on the card."""
+def _ops_ms(flops, rate=F32_TC_FLOPS) -> float:
+    """Least ms of (product FLOPs, elementwise FLOPs) on the card, products
+    at ``rate``."""
     products, ops = flops
-    return (products / F32_TC_FLOPS + ops / F32_FLOPS) * 1e3
+    return (products / rate + ops / F32_FLOPS) * 1e3
+
+
+def product_rate(name, args) -> float:
+    """The tensor cores' peak for a call's matrix products: bf16 where both
+    operands are bf16 inputs (gather_project_sum's tables and weights), else
+    f32-accurate 3xTF32 (the tails multiply f32 values, silu(acc) and
+    d_y, whatever their inputs' type)."""
+    bf16 = call_dtype(args) == torch.bfloat16
+    return BF16_TC_FLOPS if bf16 and name == "gather_project_sum" else F32_TC_FLOPS
+
+
+def call_dtype(args) -> torch.dtype:
+    """The float type of a recorded call (its first float tensor's)."""
+    return next(t.dtype for t in _tensors(args) if t.is_floating_point())
 
 
 def _segment_ids(offsets, perm, n_rows):
@@ -728,7 +823,7 @@ def kernel_versions() -> dict:
         "segment_sum_pair": (segment.segment_sum_pair,
                              segment.segment_sum_pair_plain),
         "gather_project_sum": (gproj.gather_project_sum_kernel,
-                               gproj.gather_project_sum_plain),
+                               gproj.gather_project_sum_route_plain),
         "gated_message_fwd": (gm.gated_message_fwd, gm.gated_message_plain),
         "gated_message_bwd": (gm.gated_message_bwd, gm.gated_message_bwd_plain),
         "gated_update_fwd": (gm.gated_update_fwd, gm.gated_update_plain),
@@ -757,9 +852,11 @@ def _errors(got, want):
 def phase_kernels(path, calls, counts=None):
     """Every call recorded on one pass of ``path`` through the kernel and
     its plain version, each output's error relative to that output's
-    largest value. Every kernel the path launches (``counts``, in the order
-    of ``KERNELS``; by default the path's launch set in ``PATHS``) must have
-    been recorded."""
+    largest value, at ``KERNELS``' tolerance for f32 calls and
+    ``BF16_TOL`` for bf16 ones. Every kernel the path launches (``counts``,
+    in the order of ``KERNELS``; by default the path's launch set in
+    ``PATHS``) must have been recorded. Returns the largest absolute error
+    by kernel, under ``"<name> bf16"`` for the bf16 calls."""
     errors, failed = {}, []
     expected = dict(zip(KERNELS, counts or PATHS[path][2]))
     for name, (kern, plain) in kernel_versions().items():
@@ -767,30 +864,100 @@ def phase_kernels(path, calls, counts=None):
             continue
         if not calls[name]:
             raise RuntimeError(f"{name}: no call recorded on the {path} path")
-        worst, worst_scaled = 0.0, 0.0
+        by_type = {}
         for args in calls[name]:
-            got, want = list(_tensors([kern(*args)])), list(_tensors([plain(*args)]))
-            if len(got) != len(want):
-                raise AssertionError(f"{name}: kernel and plain outputs differ")
-            for g, w in zip(got, want):
-                err, scaled = _errors(g, w)
-                worst = max(worst, err)
-                worst_scaled = max(worst_scaled, scaled)
-        torch.cuda.synchronize()
-        tol = KERNELS[name]["tol"]
-        shapes = sorted({
-            tuple(a.shape) for args in calls[name] for a in _tensors(args)
-        })
-        log(f"kernel {name} ({path} path): "
-            f"{len(calls[name])} calls, max_abs_err {worst:.3e}, "
-            f"relative {worst_scaled:.3e} (tol {tol:g}); shapes {shapes}")
-        if not worst_scaled <= tol:
-            failed.append(name)
-        errors[name] = worst
+            by_type.setdefault(call_dtype(args), []).append(args)
+        for dtype, group in sorted(by_type.items(), key=str):
+            bf16 = dtype == torch.bfloat16
+            worst, worst_scaled, over, tols = 0.0, 0.0, False, set()
+            for args in group:
+                got = list(_tensors([kern(*args)]))
+                want = list(_tensors([plain(*args)]))
+                if len(got) != len(want) or any(
+                    g.dtype != w.dtype for g, w in zip(got, want)
+                ):
+                    raise AssertionError(f"{name}: kernel and plain outputs differ")
+                tol = bf16_tol(name, args) if bf16 else KERNELS[name]["tol"]
+                tols.add(tol)
+                for g, w in zip(got, want):
+                    err, scaled = _errors(g.float(), w.float())
+                    worst = max(worst, err)
+                    worst_scaled = max(worst_scaled, scaled)
+                    over |= not scaled <= tol
+            torch.cuda.synchronize()
+            shapes = sorted({
+                tuple(a.shape) for args in group for a in _tensors(args)
+            })
+            label = f"{name} bf16" if bf16 else name
+            tol_text = "/".join(f"{t:g}" for t in sorted(tols))
+            log(f"kernel {label} ({path} path): "
+                f"{len(group)} calls, max_abs_err {worst:.3e}, "
+                f"relative {worst_scaled:.3e} (tol {tol_text}); shapes {shapes}")
+            if over:
+                failed.append(label)
+            errors[label] = worst
     if failed:
         raise AssertionError(
             f"{path} path: disagree with their plain versions: {failed}")
     return errors
+
+
+def bf16_tol(name, args) -> float:
+    """``BF16_TOL`` for one bf16 call; gather_project_sum's short route one
+    ulp more a pair (``BF16_TOL``'s comment)."""
+    if name != "gather_project_sum":
+        return BF16_TOL[name]
+    from chgnet_tpu_torch.ops import gproj
+
+    tables, _, _, stream = args
+    route = gproj.gproj_route(len(tables), tables[0].shape[0], stream.shape[1],
+                              stream.element_size())
+    return BF16_ULP * (1 + len(tables) if route == "short" else 1)
+
+
+def bf16_calls_of(path, calls) -> dict:
+    """The recorded calls with bf16 arguments of each kernel in a bf16
+    path's launch set, which its bf16 row is timed on."""
+    expected = dict(zip(KERNELS, PATHS[path][2]))
+    bf16 = {name: [a for a in calls[name] if call_dtype(a) == torch.bfloat16]
+            for name in BF16_TOL if expected[name]}
+    missing = [n for n, c in bf16.items() if not c]
+    if missing:
+        raise AssertionError(f"{path}: no bf16 call recorded of {missing}")
+    return bf16
+
+
+# the wrappers of rows 4-9, which on a bf16 run launch with bf16 arguments
+# only (rows 1-3 also carry the f32 geometry and readout, as in chgnet_tpu)
+CONV_WRAPPERS = (
+    "gather_project_sum_kernel", "gated_message_fwd", "gated_message_bwd",
+    "gated_update_fwd", "gated_update_bwd", "gather_sum_rows",
+)
+
+
+def read_launches() -> tuple[dict, dict]:
+    """Every kernel wrapper's ``launches`` and ``launches_bf16`` since the
+    last ``reset_launch_counts()``, by wrapper name."""
+    from chgnet_tpu_torch import ops
+
+    return ({fn.__name__: fn.launches for fn in ops.KERNELS},
+            {fn.__name__: fn.launches_bf16 for fn in ops.KERNELS})
+
+
+def check_bf16_launches(label, launches, bf16_launches, bf16: bool) -> None:
+    """On a bf16 run every wrapper that launched did so with bf16 arguments
+    at least once, and rows 4-9's only with bf16 (``CONV_WRAPPERS``); on an
+    f32 run none did."""
+    log(f"{label} launches with bf16 arguments:", bf16_launches)
+    if bf16:
+        wrong = [n for n, c in launches.items() if c and (
+            not bf16_launches[n]
+            or (n in CONV_WRAPPERS and bf16_launches[n] != c))]
+    else:
+        wrong = [n for n, c in bf16_launches.items() if c]
+    if wrong:
+        raise AssertionError(
+            f"{label}: launches of the wrong storage type: {wrong}")
 
 
 def _tensors(args):
@@ -1001,7 +1168,10 @@ def phase_model(path, batch, n_edges, graphs):  # batch: the path's own
     """One path of ``PATHS``: LiMnO2 on the card against the CPU, then one
     pass of the benchmark batch between a reset and a read of the launch
     counts, which must equal the path's launch set, its outputs checked,
-    and its edges/s. Returns the launches and the batch's outputs."""
+    and its edges/s. The launches with bf16 arguments, read from the same
+    counts, must be all of rows 4-9's and some of every other launched
+    kernel's on a bf16 path, none on an f32 path. Returns the launches,
+    those with bf16 arguments and the batch's outputs."""
     from chgnet_tpu_torch import ROOT, ops
     from chgnet_tpu_torch.core.structure import Structure
     from chgnet_tpu_torch.models import CHGNet
@@ -1013,7 +1183,8 @@ def phase_model(path, batch, n_edges, graphs):  # batch: the path's own
     with env_switch(switch):
         got = model.predict_structure(struct, task="efsm")
         want = cpu_model.predict_structure(struct, task="efsm")
-    for key, tol in MODEL_TOL.items():
+    bars = BF16_BARS if kwargs.get("compute_dtype") == "bfloat16" else MODEL_TOL
+    for key, tol in bars.items():
         err = float(np.abs(np.asarray(got[key]) - np.asarray(want[key])).max())
         log(f"{path} LiMnO2 {key}: card vs CPU max err {err:.3e} (tol {tol:g})")
         if not err <= tol:
@@ -1024,12 +1195,14 @@ def phase_model(path, batch, n_edges, graphs):  # batch: the path's own
         ops.reset_launch_counts()
         out = run_pass(model, batch)
         torch.cuda.synchronize()
-        launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
+        launches, bf16_launches = read_launches()
     log(f"{path} launches in one E+F+S+M pass:", launches)
     if tuple(launches.values()) != expect:
         raise AssertionError(
             f"wrong launches on the {path} path: {launches}, expected {expect}"
         )
+    check_bf16_launches(path, launches, bf16_launches,
+                        kwargs.get("compute_dtype") == "bfloat16")
 
     n_graphs = len(graphs)
     for key in ("e", "f", "s", "m"):
@@ -1058,12 +1231,12 @@ def phase_model(path, batch, n_edges, graphs):  # batch: the path's own
         f"edges: median {ms:.3f} ms/pass over {MODEL_SAMPLES} passes "
         f"(min {samples[0]:.3f}, max {samples[-1]:.3f}), "
         f"{n_edges / ms * 1e3:.1f} edges/s ({card_line()})")
-    return launches, out
+    return launches, bf16_launches, out
 
 
-def check_same_outputs(path, out, ref_path, ref):
-    """The batch outputs of two paths on the card, at the model's bars."""
-    for key, tol in MODEL_TOL.items():
+def check_same_outputs(path, out, ref_path, ref, bars=MODEL_TOL):
+    """The batch outputs of two paths on the card, at ``bars``."""
+    for key, tol in bars.items():
         err = float((out[key] - ref[key]).abs().max())
         log(f"{path} vs {ref_path} on the batch, {key}: max diff {err:.3e} "
             f"(tol {tol:g})")
@@ -1133,7 +1306,7 @@ def _bounds(name, args_list):
             totals[i] += v
         libs.append(lib)
         t_bytes = b / HBM_BYTES_PER_S * 1e3
-        t_ops = _ops_ms((products, ops))
+        t_ops = _ops_ms((products, ops), product_rate(name, args))
         if t_bytes >= t_ops:
             bound["bytes"] += t_bytes
         else:
@@ -1155,7 +1328,8 @@ def log_gproj_routes(args_list) -> None:
     routes = {}
     for args in args_list:
         tables, _, _, stream = args
-        route = gproj.gproj_route(len(tables), tables[0].shape[0], stream.shape[1])
+        route = gproj.gproj_route(len(tables), tables[0].shape[0], stream.shape[1],
+                                  stream.element_size())
         routes.setdefault(route, []).append(args)
     for route, group in sorted(routes.items()):
         ms = cuda_ms(
@@ -1187,37 +1361,58 @@ def pass_forms(name, kern, args_list) -> dict:
     return forms
 
 
-def phase_timing(calls, launches, errors):
+def timing_row(name, args_list, path, launches, err, dtype="f32") -> dict:
+    """One row of the kernels line: the kernel's time over ``args_list``
+    (the calls of one pass of ``path``), its plain version's and a library
+    call's, its bound, its ``launches`` in that pass and its ``err``."""
+    kern, plain = kernel_versions()[name]
+    bound, nbytes, products, ops, libs = _bounds(name, args_list)
+    label = name if dtype == "f32" else f"{name} {dtype}"
+    row = dict(
+        name=label,
+        route="cuda",
+        dtype=dtype,
+        source=KERNELS[name]["source"],
+        replaces=KERNELS[name]["replaces"],
+        path=path,
+        launches=launches,
+        max_abs_err=err,
+        ms=cuda_ms(lambda: [kern(*a) for a in args_list], TIMED_REPEATS),
+        plain_ms=cuda_ms(lambda: [plain(*a) for a in args_list], 1, warm_up=False),
+        bound_ms=bound["bytes"] + bound["operations"],
+        bound_by=max(bound, key=bound.get),
+        library_ms=None if libs[0] is None else cuda_ms(
+            lambda: [lib() for lib in libs], TIMED_REPEATS
+        ),
+    )
+    lib_ms = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
+    log(f"time {label}: {row['ms']:.4f} ms over {len(args_list)} calls "
+        f"(plain {row['plain_ms']:.4f}, library {lib_ms}, "
+        f"{_bound_text(bound, nbytes, products, ops)})")
+    if name == "gather_project_sum":
+        log_gproj_routes(args_list)
+    if name.startswith("fused_pass"):
+        row["forms"] = pass_forms(name, kern, args_list)
+    return row
+
+
+def phase_timing(calls, launches, bf16_launches, errors, bf16_calls):
     """The kernels line: per kernel, totals over the calls of one pass of
-    its path; ``launches[path]`` are that path's counts."""
+    its path; ``launches[path]`` are that path's counts. Rows 1-9 also in
+    bf16: totals over the bf16 calls of one pass of the path
+    ``bf16_calls[name]`` names (``launches`` is every launch of the
+    wrapper in the counted pass of that path, ``bf16_launches`` those with
+    bf16 arguments, ``bf16_launches[path]``)."""
     rows = []
-    for name, (kern, plain) in kernel_versions().items():
-        args_list = calls[name]
-        bound, nbytes, products, ops, libs = _bounds(name, args_list)
-        row = dict(
-            name=name,
-            route="cuda",
-            source=KERNELS[name]["source"],
-            replaces=KERNELS[name]["replaces"],
-            path=KERNELS[name]["path"],
-            launches=launches[KERNELS[name]["path"]][kern.__name__],
-            max_abs_err=errors[name],
-            ms=cuda_ms(lambda: [kern(*a) for a in args_list], TIMED_REPEATS),
-            plain_ms=cuda_ms(lambda: [plain(*a) for a in args_list], 2),
-            bound_ms=bound["bytes"] + bound["operations"],
-            bound_by=max(bound, key=bound.get),
-            library_ms=None if libs[0] is None else cuda_ms(
-                lambda: [lib() for lib in libs], TIMED_REPEATS
-            ),
-        )
-        lib_ms = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
-        log(f"time {name}: {row['ms']:.4f} ms over {len(args_list)} calls "
-            f"(plain {row['plain_ms']:.4f}, library {lib_ms}, "
-            f"{_bound_text(bound, nbytes, products, ops)})")
-        if name == "gather_project_sum":
-            log_gproj_routes(args_list)
-        if name.startswith("fused_pass"):
-            row["forms"] = pass_forms(name, kern, args_list)
+    for name, (kern, _) in kernel_versions().items():
+        path = KERNELS[name]["path"]
+        rows.append(timing_row(name, calls[name], path,
+                               launches[path][kern.__name__], errors[name]))
+    for name, (path, args_list) in bf16_calls.items():
+        kern = kernel_versions()[name][0]
+        row = timing_row(name, args_list, path, launches[path][kern.__name__],
+                         errors[f"{name} bf16"], "bf16")
+        row["bf16_launches"] = bf16_launches[path][kern.__name__]
         rows.append(row)
     return rows
 
@@ -1299,14 +1494,19 @@ def phase_goldens():
         raise AssertionError(f"golden traces off on the card: {failed}")
 
 
-def phase_sim_md():
+def phase_sim_md(model_kw=None):
     """(b) NVT MD at full width, 10,240 atoms: one chunk to warm up, then
     ``SIM_MD_STEPS`` steps between a reset and a read of the launch counts
     (every kernel of the default path must launch, no other); steps/s, the
     rebuild stats over those steps, peak device memory above what was
     allocated before; the final state against a fresh exact-cutoff
     ``predict_structure``; every kernel call of one MD step against its
-    plain version; one traced step. Returns (launches, errors)."""
+    plain version; one traced step. With ``model_kw`` (``BF16_PATHS_KW``:
+    tools/bench_md.py's configuration for systems over 2,000 atoms, bf16
+    and "default") the same run of that model, its launches with bf16
+    arguments checked as phase_model checks them, the final state at
+    ``BF16_BARS`` and no trace. Returns (launches, those with bf16
+    arguments, errors)."""
     from chgnet_tpu_torch import ROOT, ops
     from chgnet_tpu_torch.core.structure import Structure
     from chgnet_tpu_torch.models import CHGNet
@@ -1316,10 +1516,13 @@ def phase_sim_md():
         apply_dynamic_cutoff, compute_batch_dynamic,
     )
 
+    model_kw = model_kw or {}
+    tag = "sim MD" + (" bf16" if model_kw else "")
+    e_tol, f_tol = (BF16_BARS["e"], BF16_BARS["f"]) if model_kw else (SIM_E_TOL, SIM_F_TOL)
     torch.cuda.synchronize()
     base_bytes = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    model = CHGNet(seed=0, device="cuda")
+    model = CHGNet(seed=0, device="cuda", **model_kw)
     struct = Structure.from_file(
         f"{ROOT}/examples/mp-18767-LiMnO2.cif").make_supercell(SIM_MD_SCALE).spatial_sort()
     n_atoms = len(struct)
@@ -1341,26 +1544,28 @@ def phase_sim_md():
     md.run(SIM_MD_STEPS)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
+    launches, bf16_launches = read_launches()
     peak = torch.cuda.max_memory_allocated() - base_bytes
     stats = {k: rt.stats[k] - stats0[k] for k in rt.stats}
     batch = rt.batch
     live = apply_dynamic_cutoff(
         batch._replace(frac_coords=md.state.frac, lattices=md.state.lat), model.config)
-    log(f"sim MD: {n_atoms} atoms, NVT Berendsen 300 K, 1 fs, skin {SIM_MD_SKIN}, "
+    log(f"{tag}: {n_atoms} atoms, NVT Berendsen 300 K, 1 fs, skin {SIM_MD_SKIN}, "
         f"graphs by the {rt.converter.algorithm!r} builder: "
         f"capacities N={batch.atomic_numbers.shape[0]} E={batch.atom_graph.shape[0]} "
         f"A={batch.bond_graph.shape[0]}; rows valid in the plans E "
         f"{int(batch.edge_mask.sum())} A {int(batch.angle_mask.sum())}, kept by the "
         f"dynamic cutoff E {int(live.edge_mask.sum())} A {int(live.angle_mask.sum())}")
-    log(f"sim MD: set-up {setup_s:.2f} s, warm-up chunk {warm_s:.2f} s; "
+    log(f"{tag}: set-up {setup_s:.2f} s, warm-up chunk {warm_s:.2f} s; "
         f"{SIM_MD_STEPS} steps in {wall_s:.3f} s = {SIM_MD_STEPS / wall_s:.4f} steps/s; "
         f"{rt.n_rebuilds - rebuilds0} rebuilds; stats over the steps "
         + json.dumps({k: round(v, 3) for k, v in stats.items()})
         + f"; peak device memory {peak / 2**30:.3f} GiB above the "
         f"{base_bytes / 2**30:.3f} GiB allocated before ({card_line()})")
-    log(f"sim MD launches over {SIM_MD_STEPS} steps:", launches)
-    check_launched("sim MD", launches, PATHS["default"][2])
+    log(f"{tag}: stall_s {stats['stall_s'] / wall_s:.1%} of the wall")
+    log(f"{tag} launches over {SIM_MD_STEPS} steps:", launches)
+    check_launched(tag, launches, PATHS["default"][2])
+    check_bf16_launches(tag, launches, bf16_launches, bool(model_kw))
 
     final = md.atoms
     pred = model.predict_structure(final, task="ef")
@@ -1369,12 +1574,12 @@ def phase_sim_md():
                * units.AMU_A2_FS2_TO_EV)[:n_atoms].cpu().numpy()
     e_err = abs(pred["e"] - e_state)
     f_err = float(np.abs(pred["f"] - f_state).max())
-    log(f"sim MD final state vs a fresh exact-cutoff predict_structure: e err "
-        f"{e_err:.3e} eV/atom (tol {SIM_E_TOL:g}), f err {f_err:.3e} eV/A "
-        f"(tol {SIM_F_TOL:g}); e = {e_state:.6f} eV/atom, T = "
+    log(f"{tag} final state vs a fresh exact-cutoff predict_structure: e err "
+        f"{e_err:.3e} eV/atom (tol {e_tol:g}), f err {f_err:.3e} eV/A "
+        f"(tol {f_tol:g}); e = {e_state:.6f} eV/atom, T = "
         f"{md.get_temperature():.2f} K")
-    if not (e_err <= SIM_E_TOL and f_err <= SIM_F_TOL):
-        raise AssertionError("sim MD: the skin state disagrees with the exact graph")
+    if not (e_err <= e_tol and f_err <= f_tol):
+        raise AssertionError(f"{tag}: the skin state disagrees with the exact graph")
 
     step_batch = batch._replace(frac_coords=md.state.frac, lattices=md.state.lat)
     with Recorder() as rec:
@@ -1382,8 +1587,10 @@ def phase_sim_md():
                               compute_stress=False, compute_magmom=False)
     torch.cuda.synchronize()
     with torch.no_grad():
-        errors = phase_kernels("MD step", rec.calls, PATHS["default"][2])
+        errors = phase_kernels(tag + " step", rec.calls, PATHS["default"][2])
     del rec
+    if model_kw:
+        return launches, bf16_launches, errors
 
     def one_step():
         md_chunk(model.params, batch, md.state, md.md_params, md.masses, md.dof,
@@ -1392,7 +1599,7 @@ def phase_sim_md():
 
     profile_call(f"profile MD step ({n_atoms} atoms)", "MD step", one_step,
                  PROFILED["default"])
-    return launches, errors
+    return launches, bf16_launches, errors
 
 
 def relax_structs():
@@ -1401,7 +1608,7 @@ def relax_structs():
     return bench_structs(SIM_RELAX_STRUCTS)
 
 
-def run_relaxer(model, name, structs, steps) -> float:
+def run_relaxer(model, name, structs, steps, e_tol=SIM_E_TOL) -> float:
     """Relax ``structs`` in one batch with the cell free; log steps/s, and
     hold each ``final_energy`` (the last evaluated state's, one move before
     ``final_structure``) against a fresh ``predict_structure`` of the
@@ -1418,7 +1625,8 @@ def run_relaxer(model, name, structs, steps) -> float:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     n_steps = len(results[0]["trajectory"])
-    log(f"sim relax: {name}, {len(structs)} x {len(structs[0])} atoms in one batch, "
+    tag = name + (" bf16" if model.config.compute_dtype == "bfloat16" else "")
+    log(f"sim relax: {tag}, {len(structs)} x {len(structs[0])} atoms in one batch, "
         f"relax_cell, fmax {SIM_RELAX_FMAX:g}, {n_steps} steps in {wall_s:.3f} s (first graph build "
         f"included) = {n_steps / wall_s:.4f} steps/s ({card_line()})")
     frames = [
@@ -1431,16 +1639,16 @@ def run_relaxer(model, name, structs, steps) -> float:
     for i, (r, p, s) in enumerate(zip(results, preds, structs)):
         err = abs(p["e"] * len(s) - r["final_energy"])
         worst = max(worst, err / len(s))
-        if not (err <= SIM_E_TOL * len(s)
+        if not (err <= e_tol * len(s)
                 and r["final_energy"] < r["trajectory"].energies[0]):
             failed.append(i)
-    log(f"sim relax: {name}: final_energy vs predict_structure of the last frame: max err "
-        f"{worst:.3e} eV/atom (tol {SIM_E_TOL:g}); energy per atom "
+    log(f"sim relax: {tag}: final_energy vs predict_structure of the last frame: max err "
+        f"{worst:.3e} eV/atom (tol {e_tol:g}); energy per atom "
         + ", ".join(f"{r['trajectory'].energies[0] / len(s):.7f} -> "
                     f"{r['final_energy'] / len(s):.7f}"
                     for r, s in zip(results, structs)))
     if failed:
-        raise AssertionError(f"sim relax: {name}: structures {failed} off or not falling")
+        raise AssertionError(f"sim relax: {tag}: structures {failed} off or not falling")
     return wall_s / n_steps
 
 
@@ -1458,6 +1666,8 @@ def phase_sim_relax():
 
     model = CHGNet(seed=0, device="cuda")
     run_relaxer(model, "FIRE", relax_structs(), SIM_RELAX_STEPS)
+    run_relaxer(CHGNet(seed=0, device="cuda", **BF16_PATHS_KW), "FIRE",
+                relax_structs(), SIM_RELAX_STEPS, BF16_BARS["e"])
 
     base = Structure.from_file(f"{ROOT}/examples/mp-18767-LiMnO2.cif")
     calc = CHGNetCalculator(model)
@@ -1714,7 +1924,7 @@ def train_forms(name, kern, plain, args_list) -> dict:
         if not group:
             continue
         ms = cuda_ms(lambda: [kern(*a) for a in group], TIMED_REPEATS)
-        plain_ms = cuda_ms(lambda: [plain(*a) for a in group], 2)
+        plain_ms = cuda_ms(lambda: [plain(*a) for a in group], 1, warm_up=False)
         bound, nbytes, products, ops, _ = _bounds(name, group)
         forms[form] = dict(calls=len(group), ms=ms, plain_ms=plain_ms,
                            bound_ms=bound["bytes"] + bound["operations"],
@@ -1973,7 +2183,8 @@ def main() -> int:
     # the plain version before the next path is recorded; the calls a
     # kernel's row is timed on are those of its own path (KERNELS), and its
     # error is the largest over all eight paths
-    calls, errors = {}, {}
+    t0 = time.perf_counter()
+    calls, errors, bf16_calls = {}, {}, {}
     for path, (kwargs, switch, _) in PATHS.items():
         with env_switch(switch), Recorder() as rec:
             run_pass(CHGNet(seed=0, device="cuda", **kwargs), batches[path])
@@ -1983,29 +2194,60 @@ def main() -> int:
         for name, err in found.items():
             errors[name] = max(err, errors.get(name, 0.0))
         calls.update({n: c for n, c in rec.calls.items() if KERNELS[n]["path"] == path})
+        if path in BF16_PATHS:
+            bf16_calls.update({
+                n: (path, c) for n, c in bf16_calls_of(path, rec.calls).items()
+                if BF16_ROW_PATH[n] == path
+            })
         del rec
     check_autograd(batch)
-    launches, outs = {}, {}
+    log(f"kernel phase: {time.perf_counter() - t0:.0f} s")
+    t0 = time.perf_counter()
+    launches, bf16_launches, outs = {}, {}, {}
     for path in PATHS:
-        launches[path], outs[path] = phase_model(path, batches[path], n_edges, graphs)
+        launches[path], bf16_launches[path], outs[path] = phase_model(
+            path, batches[path], n_edges, graphs)
     for path in SWITCHED:
         check_same_outputs(path, outs[path], "default", outs["default"])
+    for path, ref in BF16_PATHS.items():
+        check_same_outputs(path, outs[path], ref, outs[ref], BF16_BARS)
+    log(f"model phase: {time.perf_counter() - t0:.0f} s")
+    t0 = time.perf_counter()
     with torch.no_grad():
-        rows = phase_timing(calls, launches, errors)
+        rows = phase_timing(calls, launches, bf16_launches, errors, bf16_calls)
+    log(f"timing phase: {time.perf_counter() - t0:.0f} s")
+    t0 = time.perf_counter()
     for path in PROFILED:
         profile_pass(path, batches[path])
+    log(f"profile phase: {time.perf_counter() - t0:.0f} s")
     del calls, outs, batches, batch, batch_v2
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    phase_goldens()
-    sim_launches, sim_errors = phase_sim_md()
-    phase_sim_relax()
-    phase_sim_host()
-    phase_sim_relaxers()
+
+    def timed(label, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        log(f"{label}: {time.perf_counter() - t:.0f} s")
+        return out
+
+    timed("sim goldens", phase_goldens)
+    sim_launches, _, sim_errors = timed("sim MD f32", phase_sim_md)
+    sim_launches_bf16, sim_bf16_launches, sim_errors_bf16 = timed(
+        "sim MD bf16", phase_sim_md, BF16_PATHS_KW)
+    timed("sim relax", phase_sim_relax)
+    timed("sim host", phase_sim_host)
+    timed("sim relaxers", phase_sim_relaxers)
     log(f"simulation phase: {time.perf_counter() - t0:.0f} s")
     t_launches, t_times, t_errors = phase_train()
     for row in rows:
-        wrapper = kernel_versions()[row["name"]][0].__name__
+        wrapper = kernel_versions()[row["name"].split()[0]][0].__name__
+        if row["dtype"] == "bf16":  # served, never trained (ROADMAP 6e)
+            row["sim_launches"] = sim_launches_bf16[wrapper]
+            row["sim_bf16_launches"] = sim_bf16_launches[wrapper]
+            row["train_launches"], row["train_ms"] = 0, None
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     sim_errors_bf16.get(row["name"], 0.0))
+            continue
         row["sim_launches"] = sim_launches[wrapper]
         row["train_launches"] = t_launches[wrapper]
         train = t_times.get(row["name"])

@@ -1299,7 +1299,7 @@ def test_train_step_parameter_gradients_on_card_match_cpu(cuda, monkeypatch, kw,
             asked.append((_name, bool(args[-1])))
             return _orig(*args)
 
-        spy.launches = 0  # the wrapper counts its launches on its module's name
+        spy.launches = spy.launches_bf16 = 0  # the wrapper counts on its module's name
         monkeypatch.setattr(mod, name, spy)
     ops.reset_launch_counts()
     got_loss, got = _param_grads(CHGNet(seed=0, device=cuda, **GOLDEN_SMALL, **kw),
@@ -1365,3 +1365,134 @@ def test_dropout_and_remat_train_step_on_card(cuda, kw):
     assert abs(loss - ref_loss) <= 1e-6 * abs(ref_loss)
     for g, w in zip(grads, ref, strict=True):
         np.testing.assert_allclose(g, w, rtol=0, atol=1e-6 * float(np.abs(w).max()))
+
+
+# ------------------------------------------------ bf16 (rows 1-9)
+# A bf16 kernel widens its rows to f32, computes in f32 and rounds each
+# output once; so does its plain version. The two then differ by at most one
+# rounding of an output: BF16_ULP (2^-7, one bf16 ulp) of its largest value.
+# Gathers and the multi-gather are exact. gather_project_sum is held to the
+# plain version with its route's rounding: the long route rounds only the
+# output (one ulp); the short route also each pair's projected table, whose
+# rounding may fall on the other side of a tie (one more ulp a pair).
+BF16_ULP = 2.0**-7
+BF16 = torch.bfloat16
+
+
+def _assert_ulps(got, want, ulps=1.0):
+    got = [t for t in _flat(got) if t is not None]
+    want = [t for t in _flat(want) if t is not None]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == BF16
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= ulps * BF16_ULP * float(w.float().abs().max()), err
+
+
+@pytest.mark.parametrize("d", [1, 3, 4, 64, 128])
+@pytest.mark.parametrize("sorted_", [True, False], ids=["sorted", "perm"])
+def test_bf16_segment_kernels_match_plain(cuda, d, sorted_):
+    rng = np.random.default_rng(5)
+    L, S = 1 << 16, 5000
+    plan = _plan(*_stream(rng, L, S, sorted_), S, sorted_, cuda)
+    plan_b = _plan(*_stream(rng, L, S, False), S, False, cuda)
+    x = torch.randn(L, d, device=cuda).to(BF16)
+    ops.reset_launch_counts()
+    _assert_ulps(tsg.segment_sum_csr(x, plan.offsets, plan.perm),
+                 tsg.segment_sum_plain(x, plan.offsets, plan.perm))
+    args = (x, plan.offsets, plan.perm, plan_b.offsets, plan_b.perm)
+    _assert_ulps(tsg.segment_sum_pair(*args), tsg.segment_sum_pair_plain(*args))
+    idx = torch.as_tensor(rng.integers(-2, L + 2, 3 * L).astype(np.int32), device=cuda)
+    _assert_ulps(tsg.gather_rows(x, idx), tsg.gather_rows_plain(x, idx), ulps=0)
+    # an odd start: the gather falls back to 2-byte units
+    _assert_ulps(tsg.gather_rows(x[1:], idx.clamp(max=L - 2)),
+                 tsg.gather_rows_plain(x[1:], idx.clamp(max=L - 2)), ulps=0)
+    assert (ops.segment_sum_csr.launches, ops.segment_sum_pair.launches,
+            ops.gather_rows.launches) == (1, 1, 2)
+    assert (ops.segment_sum_csr.launches_bf16, ops.segment_sum_pair.launches_bf16,
+            ops.gather_rows.launches_bf16) == (1, 1, 2)
+
+
+@pytest.mark.parametrize("route", ["short", "long"])
+@pytest.mark.parametrize("n_pairs", [1, 2, 3])
+def test_bf16_gather_project_sum_matches_plain(cuda, monkeypatch, n_pairs, route):
+    n_src = 7_680 if route == "short" else 120_000
+    assert tgp.gproj_route(n_pairs, n_src, 128, 2) == route
+    tabs, idxs, ws, stream = _gproj_inputs(cuda, n_pairs, n_src, shared=True)
+    args = ([t.to(BF16) for t in tabs], idxs, [w.to(BF16) for w in ws],
+            stream.to(BF16))
+    libs = _record_gproj_calls(monkeypatch)
+    got = tgp.gather_project_sum_kernel(*args)
+    assert libs[0].names == [
+        "gproj_short_bf16" if route == "short" else "gproj_bf16"]
+    _assert_ulps(got, tgp.gather_project_sum_route_plain(*args),
+                 1 + n_pairs if route == "short" else 1)
+
+
+@pytest.mark.parametrize("n_rows", [1, 17, 65_573])
+@pytest.mark.parametrize("d", [16, 64])
+def test_bf16_gated_tails_match_plain(cuda, d, n_rows):
+    """The forward tails and the serving backward of both forms."""
+    x, p = _tail_inputs(cuda, d, n_rows)
+    x = {k: v.to(BF16) for k, v in x.items()}
+    p = {k: v.to(BF16) for k, v in p.items()}
+    args = (x["acc"], x["weights"], x["mask"], _params(p))
+    _assert_ulps(tgm.gated_message_fwd(*args), tgm.gated_message_plain(*args))
+    args += (x["g"], False, False)
+    _assert_ulps(tgm.gated_message_bwd(*args), tgm.gated_message_bwd_plain(*args))
+    for has_w2 in (False, True):
+        params = _params(p, has_w2)
+        args = (x["acc"], x["resnet"], params)
+        _assert_ulps(tgm.gated_update_fwd(*args), tgm.gated_update_plain(*args))
+        args = (x["acc"], params, x["g"], False)
+        _assert_ulps(tgm.gated_update_bwd(*args), tgm.gated_update_bwd_plain(*args))
+
+
+@pytest.mark.parametrize("n_parts", [1, 3])
+@pytest.mark.parametrize("d", [4, 128])
+def test_bf16_gather_sum_rows_is_exact(cuda, d, n_parts):
+    rng = np.random.default_rng(3)
+    L = 70_001
+    sizes = [5_000, 9_000, 5_000][:n_parts]
+    tabs = [torch.randn(s, d, device=cuda).to(BF16) for s in sizes]
+    idxs = [torch.as_tensor(rng.integers(-3, s + 3, L).astype(np.int32), device=cuda)
+            for s in sizes]
+    stream = torch.randn(L, d, device=cuda).to(BF16)
+    _assert_ulps(tmg.gather_sum_rows(tabs, idxs, stream),
+                 tmg.gather_sum_rows_plain(tabs, idxs, stream), ulps=0)
+
+
+def test_bf16_on_f32_only_kernels_raises_before_any_launch(cuda):
+    x, p = _tail_inputs(cuda, 64, 100)
+    x = {k: v.to(BF16) for k, v in x.items()}
+    params = _params({k: v.to(BF16) for k, v in p.items()})
+    offsets = torch.tensor([0, 50, 100], dtype=torch.int32, device=cuda)
+    ops.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="6e"):
+        tgm.gated_message_bwd(x["acc"], x["weights"], x["mask"], params, x["g"],
+                              False, True)
+    with pytest.raises(NotImplementedError, match="6d"):
+        tgm.gated_message_reduce(x["acc"], x["weights"], x["mask"], params, offsets)
+    with pytest.raises(NotImplementedError, match="6d"):
+        tsg.segment_sum_tiles(x["g"], offsets, offsets.new_zeros(0))
+    torch.cuda.synchronize()
+    assert all(fn.launches == 0 for fn in ops.KERNELS)
+
+
+@pytest.mark.parametrize("directed", [True, False], ids=["directed", "undirected"])
+def test_bf16_model_on_card_matches_cpu_and_f32(cuda, directed):
+    """compute_dtype="bfloat16" at full width on LiMnO2: the card against
+    the CPU's bf16 (both round once per kernel output, in other orders) and
+    against the card's f32, at tests/test_model.py's bf16 bars (stress at
+    2e-2 GPa; chip_smoke.py BF16_BARS)."""
+    bars = {"e": 2e-3, "f": 2e-2, "s": 2e-2, "m": 2e-2}
+    kw = dict(graph_converter_algorithm="numpy", directed_bonds=directed)
+    bf16 = dict(compute_dtype="bfloat16", matmul_precision="default")
+    struct = Structure.from_file(LIMNO2).perturb(0.05, seed=1)
+    card = CHGNet(seed=0, device=cuda, **kw, **bf16).predict_structure(struct)
+    cpu = CHGNet(seed=0, device="cpu", **kw, **bf16).predict_structure(struct)
+    f32 = CHGNet(seed=0, device=cuda, **kw).predict_structure(struct)
+    for key, bar in bars.items():
+        for ref in (cpu, f32):
+            err = float(np.abs(np.asarray(card[key]) - np.asarray(ref[key])).max())
+            assert err <= bar, (key, err)

@@ -16,6 +16,7 @@ do (checked). No card, no JAX.
 from __future__ import annotations
 
 import pytest
+import torch
 
 import chip_smoke
 from chgnet_tpu_torch import ROOT
@@ -48,3 +49,14 @@ def test_recorded_calls_are_the_path_launch_set(path):
                           compute_stress=True, compute_magmom=True)
     got = tuple(len(rec.calls[name]) for name in chip_smoke.KERNELS)
     assert got == expect
+    # the storage types chip_smoke.check_bf16_launches holds the card's
+    # counts to: on a bf16 path rows 4-9 take bf16 only, rows 1-3 some
+    versions = chip_smoke.kernel_versions()
+    for name, calls in rec.calls.items():
+        n_bf16 = sum(chip_smoke.call_dtype(a) == torch.bfloat16 for a in calls)
+        if kwargs.get("compute_dtype") != "bfloat16":
+            assert n_bf16 == 0, name
+        elif versions[name][0].__name__ in chip_smoke.CONV_WRAPPERS:
+            assert n_bf16 == len(calls), name
+        elif calls:
+            assert n_bf16, name

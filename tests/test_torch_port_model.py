@@ -217,9 +217,16 @@ def test_physics_invariants_on_batch():
     np.testing.assert_allclose(s, np.swapaxes(s, 1, 2), atol=1e-4)
 
 
-def test_unsupported_config_raises():
+def test_unsupported_config_raises(monkeypatch):
+    """bf16 builds on the CPU; on CUDA it is refused under a switch whose
+    kernels take f32 only, before anything is launched."""
+    model = TCHGNet(seed=0, device="cpu", compute_dtype="bfloat16", **SMALL)
+    model.config.check_supported("cuda")
+    monkeypatch.setenv("CHGNET_TPU_STREAM_V2", "1")
     with pytest.raises(NotImplementedError, match="compute_dtype"):
-        TCHGNet(seed=0, device="cpu", compute_dtype="bfloat16", **SMALL)
+        model.config.check_supported("cuda")
+    with pytest.raises(NotImplementedError, match="dense_atom_conv"):
+        TCHGNet(seed=0, device="cpu", dense_atom_conv=True, **SMALL)
 
 
 def test_undirected_bond_layout_is_supported():

@@ -390,3 +390,34 @@ def test_pass_acc_model_is_the_plain_sum_bit_for_bit(n_parts, with_aligned):
         [torch.from_numpy(t) for t in tables], [torch.from_numpy(i) for i in idxs],
         None if aligned is None else torch.from_numpy(aligned), torch.from_numpy(b1))
     np.testing.assert_array_equal(pass_acc_model(tables, idxs, aligned, b1), want.numpy())
+
+
+def _bf16_values(x: np.ndarray) -> np.ndarray:
+    """f32 values rounded to bf16 (to nearest even), kept as f32."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    return bits.astype(np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("a_bf16", [True, False], ids=["bf16 A", "f32 A"])
+def test_bf16_operands_need_fewer_tf32_passes_for_the_same_sums(a_bf16):
+    """The bf16 kernels' products (``tf32x3.cuh`` ``mma1_tiles`` /
+    ``mma2_tiles``): a bf16 value is exact in TF32, so its lo part is zero.
+    With both operands bf16 one pass (hi hi) gives 3xTF32's sums bit for
+    bit; with a bf16 B only (the tails' W2 against silu(acc) or d_y), the
+    two passes lo_a hi_b, hi_a hi_b do."""
+    rng = np.random.default_rng(7)
+    a = rng.standard_normal((16, 64)).astype(np.float32)
+    b = _bf16_values(rng.standard_normal((64, 128)).astype(np.float32) * 0.1)
+    if a_bf16:
+        a = _bf16_values(a)
+    assert np.array_equal(tf32(b), b) and np.all(tf32(b - tf32(b)) == 0)
+    want = tc_product(a, b, split=True)
+    a_hi, a_lo = tf32(a), tf32(a - tf32(a))
+    terms = [(a_hi, b)] if a_bf16 else [(a_lo, b), (a_hi, b)]
+    acc = np.zeros((16, 128), np.float32)
+    for k in range(0, 64, 8):
+        for x, y in terms:
+            part = x[:, k: k + 8].astype(np.float64) @ y[k: k + 8].astype(np.float64)
+            acc = (acc.astype(np.float64) + part).astype(np.float32)
+    np.testing.assert_array_equal(acc, want)

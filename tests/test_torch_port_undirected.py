@@ -58,6 +58,22 @@ FULL = dict(graph_converter_algorithm="numpy", directed_bonds=False)
 TOL = {"e": 2e-5, "f": 5e-5, "s": 2e-4, "m": 2e-5}
 LIMNO2 = f"{ROOT}/examples/mp-18767-LiMnO2.cif"
 LICOO = f"{ROOT}/examples/mp-1175469-Li9Co7O16.cif"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread while this module runs. With several, the
+    gradient test's cotangent of ``(sin(out) * out).sum()`` came out up to
+    1.5e-4 off in whole 16,384-element chunks (one thread's share) in some
+    processes: ``torch.sin`` itself, on its first multi-threaded calls in a
+    process, with neither this package nor JAX involved. It goes away with
+    one thread or with MKL kept off its AVX-512 paths
+    (``scripts/torch_cpu_sin_first_call.py`` counts it); the op's outputs
+    were equal in every run."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
 FLAGS = dict(compute_force=True, compute_stress=True, compute_magmom=True)
 
 
