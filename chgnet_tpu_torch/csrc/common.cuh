@@ -12,7 +12,7 @@
 
 namespace chgnet {
 
-// Storage types: every kernel of rows 1-9 takes float or bf16 rows and
+// Storage types: every kernel takes float or bf16 rows and
 // computes in f32; a bf16 value widens to f32 exactly, and a result is
 // rounded to bf16 once, when it is stored (round to nearest even).
 using bf16 = __nv_bfloat16;

@@ -56,6 +56,21 @@
 // Parameter gradients, d_b1 = sum of d_total among them, go through the
 // fixed kParamBlocks scratch rows and sum_blocks_kernel: no float atomics,
 // equal bits on every run.
+//
+// bf16 (compute_dtype="bfloat16", the _bf16 entry points): every kernel is
+// instantiated for bf16 tables, aligned rows, b1, side rows, cotangent and
+// parameters. Rows are widened to f32 as they are read (gathered units in
+// registers, the aligned and side rows loaded and stored into shared memory
+// at once where the f32 kernels copy with cp.async), the sums, layer norms
+// and gates run in f32 as before, and each output is rounded once at its
+// store, as chgnet_tpu's kernels widen their bf16 streams and compute in
+// f32 (ops/fused_pass.py:197-207, :452-489). The products keep f32
+// accuracy with the A operand an f32 value (silu(acc), d_y) and a bf16 W2
+// exact in TF32: two of 3xTF32's passes, the same sums. The parameter
+// gradients' per-block partials stay f32 and are summed in f32 in block
+// order, then rounded once to bf16 (ops/fused_pass.py:504-517 cast each
+// tile's f32 sums to the parameters' type and add them there, so the TPU
+// kernel rounds once a tile). Half the bytes of f32 move.
 #include "gated_tail.cuh"
 #include "tf32x3.cuh"
 
@@ -63,25 +78,30 @@ namespace {
 
 constexpr int kMaxParts = 3;  // gathered parts of one launch
 
-struct Parts {
-  const float* table[kMaxParts];  // [n_src, 2D]
-  const int* idx[kMaxParts];      // [L]
+// The parts of a pass in their storage type T (float, or bf16 under
+// compute_dtype="bfloat16"; every kernel widens them to f32 as it reads them)
+template <typename T>
+struct PartsT {
+  const T* table[kMaxParts];  // [n_src, 2D]
+  const int* idx[kMaxParts];  // [L]
   int n_src[kMaxParts];
   int n_parts;
-  const float* aligned;  // [L, 2D] or null
-  const float* b1;       // [2D]
+  const T* aligned;  // [L, 2D] or null
+  const T* b1;       // [2D]
 };
 
 // acc[j] = columns 4 lane .. + 3 of row row0 + 4 warp + j of the first-layer
 // sum; zero past n_rows and past 2D. A row whose index lies outside its
 // table adds zero, as in gather_sum_rows.
-__device__ __forceinline__ void build_acc(const Parts& p, long row0, int n_rows,
+template <typename T>
+__device__ __forceinline__ void build_acc(const PartsT<T>& p, long row0, int n_rows,
                                           int d, int warp, int lane,
                                           float4 acc[kRowsPerWarp]) {
   const int col = 4 * lane;
   const bool live = col < 2 * d;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  const float4 bias = live ? __ldg(reinterpret_cast<const float4*>(p.b1 + col)) : zero;
+  float4 bias = zero;
+  if (live) chgnet::ldg_v(bias, p.b1 + col);
   int s[kRowsPerWarp][kMaxParts];
 #pragma unroll
   for (int j = 0; j < kRowsPerWarp; ++j) {
@@ -95,19 +115,21 @@ __device__ __forceinline__ void build_acc(const Parts& p, long row0, int n_rows,
     const long l = row0 + warp * kRowsPerWarp + j;
     float4 v[kMaxParts];
 #pragma unroll
-    for (int k = 0; k < kMaxParts; ++k)
-      v[k] = (s[j][k] >= 0 && s[j][k] < p.n_src[k])
-                 ? __ldg(reinterpret_cast<const float4*>(
-                       p.table[k] + (long)s[j][k] * 2 * d + col))
-                 : zero;
+    for (int k = 0; k < kMaxParts; ++k) {
+      v[k] = zero;
+      if (s[j][k] >= 0 && s[j][k] < p.n_src[k])
+        chgnet::ldg_v(v[k], p.table[k] + (long)s[j][k] * 2 * d + col);
+    }
     float4 a = zero;
     if (live && l < n_rows) {
 #pragma unroll
       for (int k = 0; k < kMaxParts; ++k)
         if (k < p.n_parts) chgnet::vadd(a, v[k]);
-      if (p.aligned != nullptr)
-        chgnet::vadd(a, __ldg(reinterpret_cast<const float4*>(
-                            p.aligned + l * 2 * d + col)));
+      if (p.aligned != nullptr) {
+        float4 al;
+        chgnet::ldg_v(al, p.aligned + l * 2 * d + col);
+        chgnet::vadd(a, al);
+      }
       chgnet::vadd(a, bias);
     }
     acc[j] = a;
@@ -131,12 +153,12 @@ __device__ __forceinline__ void store_acc(float* buf,
 }
 
 // ------------------------------------ backward with parameter gradients
-template <bool kMsg, bool kW2>
+template <typename T, bool kMsg, bool kW2>
 __global__ void __launch_bounds__(kThreads)
-    pass_bwd_kernel(Tail t, Parts p, const float* __restrict__ weights,
-                    const float* __restrict__ mask, const float* __restrict__ g,
-                    float* __restrict__ d_total, float* __restrict__ d_weights,
-                    float* __restrict__ d_mask, float* __restrict__ partial,
+    pass_bwd_kernel(TailT<T> t, PartsT<T> p, const T* __restrict__ weights,
+                    const T* __restrict__ mask, const T* __restrict__ g,
+                    T* __restrict__ d_total, T* __restrict__ d_weights,
+                    T* __restrict__ d_mask, float* __restrict__ partial,
                     int n_rows, int d) {
   extern __shared__ float4 smem4[];
   float* w_s = reinterpret_cast<float*>(smem4);  // [2][D][D] with W2
@@ -189,13 +211,14 @@ __global__ void __launch_bounds__(kThreads)
         continue;
       }
       RowGrads o;
-      gate_row_bwd<kMsg>(yc_s, yg_s, g + l * d, kMsg ? weights + l * d : nullptr,
-                         kMsg ? mask[l] : 1.f, lp, d, lane, o);
+      const T* w_row = kMsg ? weights + l * d : nullptr;
+      gate_row_bwd<kMsg>(yc_s, yg_s, g + l * d, w_row,
+                         kMsg ? chgnet::to_f(mask[l]) : 1.f, lp, d, lane, o);
       if (kMsg) {
         store_lane(d_weights + l * d, d, lane, o.dw);
         if (d_mask != nullptr) {
           const float dm = warp_sum(o.mask_part);
-          if (lane == 0) d_mask[l] = dm;
+          if (lane == 0) chgnet::store_v(d_mask + l, dm);
         }
       }
       ps.add_row(o);
@@ -220,8 +243,8 @@ __global__ void __launch_bounds__(kThreads)
           const float4 dt = make_float4(
               dh[rr][0] * silu_grad(a.x), dh[rr][1] * silu_grad(a.y),
               dh[rr][2] * silu_grad(a.z), dh[rr][3] * silu_grad(a.w));
-          *reinterpret_cast<float4*>(d_total + l * 2 * d + col) = dt;
-          pb[0] += dt.x;
+          chgnet::store_v(d_total + l * 2 * d + col, dt);
+          pb[0] += dt.x;  // in f32, before the store rounds
           pb[1] += dt.y;
           pb[2] += dt.z;
           pb[3] += dt.w;
@@ -359,18 +382,19 @@ __device__ __forceinline__ void bar_wait(uint64_t* b, uint32_t parity) {
 // b2 and the layer-norm vectors, zero past D; the consumers' buffers zeroed
 // (the copies never write the columns past D); every slot's two barriers,
 // one arrival of each lane of a warp a phase.
-template <bool kBwd, bool kW2>
-__device__ void stage(void* w, float* prm, uint64_t* bars, float* cons, const Tail& t,
-                      int d) {
+template <bool kBwd, bool kW2, typename T>
+__device__ void stage(void* w, float* prm, uint64_t* bars, float* cons,
+                      const TailT<T>& t, int d) {
+  using chgnet::to_f;
   if (kW2 && !kBwd) {
     uint4* wf = static_cast<uint4*>(w);
     for (int i = threadIdx.x; i < kSplitW; i += blockDim.x) {
       const int n = ((i >> 5) & 7) * 8 + ((i & 31) >> 2);
       const int k0 = ((i >> 8) & 7) * 8 + (i & 3);
       const int k1 = k0 + 4;
-      const float* src = (i >> 11) ? t.w2g : t.w2c;
-      wf[i] = tc::split_pair(k0 < d && n < d ? src[k0 * d + n] : 0.f,
-                             k1 < d && n < d ? src[k1 * d + n] : 0.f);
+      const T* src = (i >> 11) ? t.w2g : t.w2c;
+      wf[i] = tc::split_pair(k0 < d && n < d ? to_f(src[k0 * d + n]) : 0.f,
+                             k1 < d && n < d ? to_f(src[k1 * d + n]) : 0.f);
     }
   }
   if (kW2 && kBwd) {
@@ -379,19 +403,19 @@ __device__ void stage(void* w, float* prm, uint64_t* bars, float* cons, const Ta
       const int h = i / (kMaxD * kMaxD);
       const int k = (i / kMaxD) % kMaxD;
       const int n = i % kMaxD;
-      const float v = k < d && n < d ? (h ? t.w2g : t.w2c)[k * d + n] : 0.f;
+      const float v = k < d && n < d ? to_f((h ? t.w2g : t.w2c)[k * d + n]) : 0.f;
       ws[h * kMaxD * kMaxD + k * kMaxD + (n ^ swz(k))] = v;
     }
   }
   for (int i = threadIdx.x; i < 2 * kMaxD; i += blockDim.x) {
     const int h = i / kMaxD;
     const int e = i % kMaxD;
-    prm[i] = kW2 && e < d ? t.b2[h * d + e] : 0.f;
+    prm[i] = kW2 && e < d ? to_f(t.b2[h * d + e]) : 0.f;
     if (h == 0) {
-      prm[2 * kMaxD + e] = e < d ? t.ncs[e] : 0.f;
-      prm[3 * kMaxD + e] = e < d ? t.ncb[e] : 0.f;
-      prm[4 * kMaxD + e] = e < d ? t.ngs[e] : 0.f;
-      prm[5 * kMaxD + e] = e < d ? t.ngb[e] : 0.f;
+      prm[2 * kMaxD + e] = e < d ? to_f(t.ncs[e]) : 0.f;
+      prm[3 * kMaxD + e] = e < d ? to_f(t.ncb[e]) : 0.f;
+      prm[4 * kMaxD + e] = e < d ? to_f(t.ngs[e]) : 0.f;
+      prm[5 * kMaxD + e] = e < d ? to_f(t.ngb[e]) : 0.f;
     }
   }
   for (int i = threadIdx.x; i < kCons * cons_floats(kBwd, kW2); i += blockDim.x)
@@ -408,7 +432,8 @@ __device__ __forceinline__ long job_tile(int j, int pw, int step) {
 }
 
 // lane r < 16: the indices of row r of the tile (-1 past n_rows)
-__device__ __forceinline__ void load_idx(const Parts& p, long tile, int n_rows,
+template <typename T>
+__device__ __forceinline__ void load_idx(const PartsT<T>& p, long tile, int n_rows,
                                          int lane, int s[kMaxParts]) {
   const long l = tile * kRows + lane;
 #pragma unroll
@@ -422,9 +447,11 @@ __device__ __forceinline__ void load_idx(const Parts& p, long tile, int n_rows,
 // into the slot (cp.async) while the kParts gathered parts' 16-byte loads,
 // 8 rows of them, are in flight in registers; then each unit is summed
 // from zero in part order, plus the aligned unit, plus the bias. s: the
-// tile's indices, row r's in lane r.
-template <int kParts>
-__device__ __forceinline__ void build_tile(float* slot, const Parts& p,
+// tile's indices, row r's in lane r. bf16 rows are widened as they are
+// read: the aligned unit is loaded and stored into the slot at once
+// (tc::fetch4), the gathered units widen in registers.
+template <int kParts, typename T>
+__device__ __forceinline__ void build_tile(float* slot, const PartsT<T>& p,
                                            const int s[kMaxParts], long row0,
                                            int n_rows, int d, int lane,
                                            float4 bias) {
@@ -440,8 +467,8 @@ __device__ __forceinline__ void build_tile(float* slot, const Parts& p,
     for (int r = 0; r < kRows; ++r) {
       const long l = row0 + r;
       const bool ok = live && l < n_rows;
-      const float* src = p.aligned + (ok ? l : 0) * 2 * d + col;
-      tc::copy16(slot + at_acc(r, h * kMaxD + cu), src, ok);
+      const T* src = p.aligned + (ok ? l : 0) * 2 * d + col;
+      tc::fetch4(slot + at_acc(r, h * kMaxD + cu), src, ok);
     }
   }
   tc::commit();
@@ -453,10 +480,9 @@ __device__ __forceinline__ void build_tile(float* slot, const Parts& p,
 #pragma unroll
       for (int k = 0; k < kParts; ++k) {
         const int sk = __shfl_sync(0xffffffffu, s[k], r0 + gr);
-        const float* src = p.table[k] + (long)sk * 2 * d + col;
-        v[gr][k] = live && sk >= 0 && sk < p.n_src[k]
-                       ? __ldg(reinterpret_cast<const float4*>(src))
-                       : zero;
+        const T* src = p.table[k] + (long)sk * 2 * d + col;
+        v[gr][k] = zero;
+        if (live && sk >= 0 && sk < p.n_src[k]) chgnet::ldg_v(v[gr][k], src);
       }
     }
     tc::wait_pending<0>();  // this lane's aligned units
@@ -479,15 +505,14 @@ __device__ __forceinline__ void build_tile(float* slot, const Parts& p,
 // A producer warp: its jobs in order, each into the next slot of its ring
 // once the consumer has released that slot's previous tile; the next job's
 // indices load while this one builds.
-template <int kRing>
-__device__ void produce(const Parts& p, float* slots, uint64_t* full,
+template <int kRing, typename T>
+__device__ void produce(const PartsT<T>& p, float* slots, uint64_t* full,
                         uint64_t* empty, int n_rows, int d, int pw, int lane) {
   const int n_tiles = (n_rows + kRows - 1) / kRows;
   const int step = gridDim.x * kCons;
   const int cu = 4 * (lane & 15);
-  const float4 bias =
-      cu < d ? __ldg(reinterpret_cast<const float4*>(p.b1 + (lane >> 4) * d + cu))
-             : make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 bias = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (cu < d) chgnet::ldg_v(bias, p.b1 + (lane >> 4) * d + cu);
   int s[kMaxParts];
   long tile = job_tile(0, pw, step);
   if (tile < n_tiles) load_idx(p, tile, n_rows, lane, s);
@@ -514,10 +539,11 @@ __device__ void produce(const Parts& p, float* slots, uint64_t* full,
 // ---------------------------------------------------- consumer helpers
 // Copies of the side rows (weights or resnet, [L, D]) of the 16 rows from
 // row0, and with kMsg their mask entries (zeros from n_rows on); vec: side
-// 16-byte aligned. The caller commits them.
-template <bool kMsg>
-__device__ __forceinline__ void fetch_side(float* w_s, float* m_s, const float* side,
-                                           const float* mask, long row0, int n_rows,
+// rows in aligned units of 4 values (16 bytes of f32, 8 of bf16). The
+// caller commits them (bf16 rows are loaded and widened at once).
+template <bool kMsg, typename T>
+__device__ __forceinline__ void fetch_side(float* w_s, float* m_s, const T* side,
+                                           const T* mask, long row0, int n_rows,
                                            int d, bool vec, int lane) {
   const int unit = vec ? 4 : 1;  // floats a copy
   const int per_row = d / unit;
@@ -526,32 +552,35 @@ __device__ __forceinline__ void fetch_side(float* w_s, float* m_s, const float* 
     const int c = (i - r * per_row) * unit;
     const long l = row0 + r;
     const bool ok = l < n_rows;
-    const float* src = side + (ok ? l : 0) * d + c;
+    const T* src = side + (ok ? l : 0) * d + c;
     if (vec)
-      tc::copy16(w_s + at_row(r, c), src, ok);
+      tc::fetch4(w_s + at_row(r, c), src, ok);
     else
-      tc::copy4(w_s + at_row(r, c), src, ok);
+      tc::fetch1(w_s + at_row(r, c), src, ok);
   }
   if (kMsg && lane < kRows) {
     const long l = row0 + lane;
-    tc::copy4(m_s + lane, mask + (l < n_rows ? l : 0), l < n_rows);
+    tc::fetch1(m_s + lane, mask + (l < n_rows ? l : 0), l < n_rows);
   }
 }
 
 // Copies of the g, weights and mask rows of the 16 rows from row0; vec: g
 // and weights 16-byte aligned. The caller commits them.
-template <bool kMsg>
+template <bool kMsg, typename T>
 __device__ __forceinline__ void fetch_rows(float* g_s, float* wv_s, float* m_s,
-                                           const float* g, const float* weights,
-                                           const float* mask, long row0, int n_rows,
+                                           const T* g, const T* weights,
+                                           const T* mask, long row0, int n_rows,
                                            int d, bool vec, int lane) {
-  fetch_side<false>(g_s, nullptr, g, nullptr, row0, n_rows, d, vec, lane);
-  if (kMsg) fetch_side<true>(wv_s, m_s, weights, mask, row0, n_rows, d, vec, lane);
+  fetch_side<false, T>(g_s, nullptr, g, nullptr, row0, n_rows, d, vec, lane);
+  if (kMsg) fetch_side<true, T>(wv_s, m_s, weights, mask, row0, n_rows, d, vec, lane);
 }
 
 // y[h] += the warp's 16 rows of silu(A_h) @ W_h over all kMaxD columns,
 // A_h the slot's half h, W_h from the split fragments. The step loop is
 // unrolled twice only, so that one step's loads overlap the other's products.
+// kExactW: bf16 W, whose lo parts are zero: two of 3xTF32's terms
+// (tc::mma2_tiles_split, equal sums).
+template <bool kExactW>
 __device__ __forceinline__ void product_split(const float* acc_s, const uint4* wf,
                                               int d8, int lane, float y[2][8][4]) {
   const int gid = lane >> 2;
@@ -574,7 +603,10 @@ __device__ __forceinline__ void product_split(const float* acc_s, const uint4* w
       uint4 bf[8];
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) bf[nt] = b[nt * 32];
-      tc::mma3_tiles_split<8>(y[h], hi, lo, bf);
+      if constexpr (kExactW)
+        tc::mma2_tiles_split<8>(y[h], hi, lo, bf);
+      else
+        tc::mma3_tiles_split<8>(y[h], hi, lo, bf);
     }
   }
 }
@@ -582,8 +614,9 @@ __device__ __forceinline__ void product_split(const float* acc_s, const uint4* w
 // out[h][nt] += the warp's 16 rows of A_h @ W_h, or @ W_h^T with kT, over
 // all kMaxD columns (W swizzled, zero-padded); A_h's row r, column c at
 // a_h[r * width + (c ^ rswz(r))]; kAct: silu of A first. The step loop is
-// unrolled twice only (2% faster than rolled, PERF.md section 6).
-template <bool kT, bool kAct>
+// unrolled twice only (2% faster than rolled, PERF.md section 6). kExactW as
+// in product_split.
+template <bool kT, bool kAct, bool kExactW>
 __device__ __forceinline__ void product(const float* a0, const float* a1, int width,
                                         const float* w_s, int d8, int lane,
                                         float out[2][8][4]) {
@@ -618,7 +651,10 @@ __device__ __forceinline__ void product(const float* a0, const float* a1, int wi
           b[nt][1] = w[k1 * kMaxD + (n ^ swz(k1))];
         }
       }
-      tc::mma3_tiles<8>(out[h], hi, lo, b);
+      if constexpr (kExactW)
+        tc::mma2_tiles<8>(out[h], hi, lo, b);
+      else
+        tc::mma3_tiles<8>(out[h], hi, lo, b);
     }
   }
 }
@@ -742,10 +778,10 @@ struct Layout {
 // W2g) on the tensor cores (3xTF32), the statistics from the accumulators,
 // y parked over the slot; without, y = acc read from the slot. Then the gate
 // times weights and mask, or plus resnet.
-template <bool kMsg, bool kW2>
+template <typename T, bool kMsg, bool kW2>
 __global__ void __launch_bounds__(32 * kBlockWarps, 1)
-    pass_fwd_tc_kernel(Tail t, Parts p, const float* __restrict__ side,
-                       const float* __restrict__ mask, float* __restrict__ out,
+    pass_fwd_tc_kernel(TailT<T> t, PartsT<T> p, const T* __restrict__ side,
+                       const T* __restrict__ mask, T* __restrict__ out,
                        int n_rows, int d, int vec) {
   constexpr int kRing = ring(false, kW2);
   extern __shared__ float4 smem4[];
@@ -773,7 +809,7 @@ __global__ void __launch_bounds__(32 * kBlockWarps, 1)
   const int step = gridDim.x * kCons;
   int tile = blockIdx.x * kCons + warp;
   if (tile < n_tiles)
-    fetch_side<kMsg>(w_s, m_s, side, mask, (long)tile * kRows, n_rows, d, vec, lane);
+    fetch_side<kMsg, T>(w_s, m_s, side, mask, (long)tile * kRows, n_rows, d, vec, lane);
   tc::commit();
   for (int i = 0; tile < n_tiles; ++i, tile += step) {
     const long row0 = (long)tile * kRows;
@@ -792,7 +828,7 @@ __global__ void __launch_bounds__(32 * kBlockWarps, 1)
 #pragma unroll
           for (int jj = 0; jj < 4; ++jj)
             y[h][nt][jj] = s.prm[h * kMaxD + nt * 8 + 2 * q + (jj & 1)];
-      product_split(acc_s, wf, d8, lane, y);
+      product_split<chgnet::is_bf16<T>>(acc_s, wf, d8, lane, y);
       reg_stats(y, d, q, mean, inv);
       tc::wait_pending<0>();  // the side rows
       __syncwarp();           // every lane's A fragments read: y parks over them
@@ -829,14 +865,13 @@ __global__ void __launch_bounds__(32 * kBlockWarps, 1)
           v[jj] = kMsg ? gate * sv * m_s[r] : gate + sv;
         }
         const long l = row0 + r;
-        if (e0 < d && l < n_rows)
-          *reinterpret_cast<float2*>(out + l * d + e0) = make_float2(v[0], v[1]);
+        if (e0 < d && l < n_rows) chgnet::store2(out + l * d + e0, v[0], v[1]);
       }
     __syncwarp();  // the slot and the side rows read
     bar_arrive(s.empty + k);
     if (tile + step < n_tiles)
-      fetch_side<kMsg>(w_s, m_s, side, mask, row0 + (long)step * kRows, n_rows, d,
-                       vec, lane);
+      fetch_side<kMsg, T>(w_s, m_s, side, mask, row0 + (long)step * kRows, n_rows, d,
+                          vec, lane);
     tc::commit();
   }
 }
@@ -848,12 +883,12 @@ __global__ void __launch_bounds__(32 * kBlockWarps, 1)
 // d_y in place over g and weights (or straight to d_total without W2);
 // silu'(acc) parked over y and the slot released; d_total = (d_y @ W2^T) *
 // silu'(acc), both products on the tensor cores.
-template <bool kMsg, bool kW2>
+template <typename T, bool kMsg, bool kW2>
 __global__ void __launch_bounds__(32 * kBlockWarps, 1)
-    pass_bwd_tc_kernel(Tail t, Parts p, const float* __restrict__ weights,
-                       const float* __restrict__ mask, const float* __restrict__ g,
-                       float* __restrict__ d_total, float* __restrict__ d_weights,
-                       float* __restrict__ d_mask, int n_rows, int d, int vec) {
+    pass_bwd_tc_kernel(TailT<T> t, PartsT<T> p, const T* __restrict__ weights,
+                       const T* __restrict__ mask, const T* __restrict__ g,
+                       T* __restrict__ d_total, T* __restrict__ d_weights,
+                       T* __restrict__ d_mask, int n_rows, int d, int vec) {
   constexpr int kRing = ring(true, kW2);
   extern __shared__ float4 smem4[];
   const Layout<true, kW2> s(smem4);
@@ -887,8 +922,8 @@ __global__ void __launch_bounds__(32 * kBlockWarps, 1)
   const int step = gridDim.x * kCons;
   int tile = blockIdx.x * kCons + warp;
   if (tile < n_tiles)
-    fetch_rows<kMsg>(g_s, wv_s, m_s, g, weights, mask, (long)tile * kRows, n_rows, d,
-                     vec, lane);
+    fetch_rows<kMsg, T>(g_s, wv_s, m_s, g, weights, mask, (long)tile * kRows, n_rows,
+                        d, vec, lane);
   tc::commit();
   for (int i = 0; tile < n_tiles; ++i, tile += step) {
     const long row0 = (long)tile * kRows;
@@ -908,7 +943,8 @@ __global__ void __launch_bounds__(32 * kBlockWarps, 1)
 #pragma unroll
           for (int jj = 0; jj < 4; ++jj)
             y[h][nt][jj] = b2_s[h * kMaxD + nt * 8 + 2 * q + (jj & 1)];
-      product<false, true>(acc_s, acc_s + kMaxD, 2 * kMaxD, w_s, d8, lane, y);
+      product<false, true, chgnet::is_bf16<T>>(acc_s, acc_s + kMaxD, 2 * kMaxD, w_s,
+                                               d8, lane, y);
       park(f_s, y, lane);
     }
     auto y_at = [&](int h, int nt, int jj) {
@@ -968,7 +1004,7 @@ __global__ void __launch_bounds__(32 * kBlockWarps, 1)
         const long l = row0 + r;
         const int e0 = nt * 8 + 2 * q;
         if (kMsg && e0 < d && l < n_rows)
-          *reinterpret_cast<float2*>(d_weights + l * d + e0) = make_float2(dw[0], dw[1]);
+          chgnet::store2(d_weights + l * d + e0, dw[0], dw[1]);
       }
     }
 #pragma unroll
@@ -976,7 +1012,7 @@ __global__ void __launch_bounds__(32 * kBlockWarps, 1)
       const long l = row0 + gid + 8 * rr;
       if (kMsg && d_mask != nullptr) {
         const float dm = tc::quad_sum(mask_part[rr]);
-        if (q == 0 && l < n_rows) d_mask[l] = dm;
+        if (q == 0 && l < n_rows) chgnet::store_v(d_mask + l, dm);
       }
     }
 #pragma unroll
@@ -1009,8 +1045,7 @@ __global__ void __launch_bounds__(32 * kBlockWarps, 1)
             if (kW2) *pv = dy[jj];
           }
           if (!kW2 && e0 < d && l < n_rows)
-            *reinterpret_cast<float2*>(d_total + l * 2 * d + h * d + e0) =
-                make_float2(dy[0], dy[1]);
+            chgnet::store2(d_total + l * 2 * d + h * d + e0, dy[0], dy[1]);
         }
 
     if (kW2) {
@@ -1034,7 +1069,7 @@ __global__ void __launch_bounds__(32 * kBlockWarps, 1)
       // d_total = (d_y @ W2^T) * silu'(acc), from the accumulators
       float dh[2][8][4];
       zero(dh);
-      product<true, false>(g_s, wv_s, kMaxD, w_s, d8, lane, dh);
+      product<true, false, chgnet::is_bf16<T>>(g_s, wv_s, kMaxD, w_s, d8, lane, dh);
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -1045,64 +1080,69 @@ __global__ void __launch_bounds__(32 * kBlockWarps, 1)
             const int e0 = nt * 8 + 2 * q;
             if (e0 >= d || l >= n_rows) continue;
             const float* sg = f_s + ((h * 8 + nt) * 4 + 2 * rr) * 32 + lane;
-            *reinterpret_cast<float2*>(d_total + l * 2 * d + h * d + e0) =
-                make_float2(dh[h][nt][2 * rr] * sg[0], dh[h][nt][2 * rr + 1] * sg[32]);
+            chgnet::store2(d_total + l * 2 * d + h * d + e0, dh[h][nt][2 * rr] * sg[0],
+                           dh[h][nt][2 * rr + 1] * sg[32]);
           }
       __syncwarp();  // d_y read
     }
     if (tile + step < n_tiles)
-      fetch_rows<kMsg>(g_s, wv_s, m_s, g, weights, mask, row0 + (long)step * kRows,
-                       n_rows, d, vec, lane);
+      fetch_rows<kMsg, T>(g_s, wv_s, m_s, g, weights, mask, row0 + (long)step * kRows,
+                          n_rows, d, vec, lane);
     tc::commit();
   }
 }
 
 }  // namespace tcp
 
-using TcFwdFn = void (*)(Tail, Parts, const float*, const float*, float*, int, int,
-                         int);
-using TcBwdFn = void (*)(Tail, Parts, const float*, const float*, const float*,
-                         float*, float*, float*, int, int, int);
-using BwdFn = void (*)(Tail, Parts, const float*, const float*, const float*,
-                       float*, float*, float*, float*, int, int);
+template <typename T>
+using TcFwdFn = void (*)(TailT<T>, PartsT<T>, const T*, const T*, T*, int, int, int);
+template <typename T>
+using TcBwdFn = void (*)(TailT<T>, PartsT<T>, const T*, const T*, const T*, T*, T*, T*,
+                         int, int, int);
+template <typename T>
+using BwdFn = void (*)(TailT<T>, PartsT<T>, const T*, const T*, const T*, T*, T*, T*,
+                       float*, int, int);
 
 size_t bwd_smem(bool w2) {
   return (w2 ? 2 * kWeights + 4 * kHalf : 2 * kHalf) * sizeof(float);
 }
 
-template <bool kMsg, bool kW2>
-Kernel<TcFwdFn> fwd_instance() {
+template <typename T, bool kMsg, bool kW2>
+Kernel<TcFwdFn<T>> fwd_instance() {
   static std::atomic<int> waves[kMaxDevices];
-  return {tcp::pass_fwd_tc_kernel<kMsg, kW2>, tcp::smem_bytes<false, kW2>(), waves};
+  return {tcp::pass_fwd_tc_kernel<T, kMsg, kW2>, tcp::smem_bytes<false, kW2>(), waves};
 }
 
-template <bool kMsg, bool kW2>
-Kernel<TcBwdFn> tc_bwd_instance() {
+template <typename T, bool kMsg, bool kW2>
+Kernel<TcBwdFn<T>> tc_bwd_instance() {
   static std::atomic<int> waves[kMaxDevices];
-  return {tcp::pass_bwd_tc_kernel<kMsg, kW2>, tcp::smem_bytes<true, kW2>(), waves};
+  return {tcp::pass_bwd_tc_kernel<T, kMsg, kW2>, tcp::smem_bytes<true, kW2>(), waves};
 }
 
-template <bool kMsg, bool kW2>
-Kernel<BwdFn> bwd_instance() {
+template <typename T, bool kMsg, bool kW2>
+Kernel<BwdFn<T>> bwd_instance() {
   static std::atomic<int> waves[kMaxDevices];
-  return {pass_bwd_kernel<kMsg, kW2>, bwd_smem(kW2), waves};
+  return {pass_bwd_kernel<T, kMsg, kW2>, bwd_smem(kW2), waves};
 }
 
-Kernel<TcFwdFn> fwd_kernel(bool msg, bool w2) {
-  if (msg) return fwd_instance<true, true>();
-  return w2 ? fwd_instance<false, true>() : fwd_instance<false, false>();
+template <typename T>
+Kernel<TcFwdFn<T>> fwd_kernel(bool msg, bool w2) {
+  if (msg) return fwd_instance<T, true, true>();
+  return w2 ? fwd_instance<T, false, true>() : fwd_instance<T, false, false>();
 }
 
 // the serving backward
-Kernel<TcBwdFn> tc_bwd_kernel(bool msg, bool w2) {
-  if (msg) return tc_bwd_instance<true, true>();
-  return w2 ? tc_bwd_instance<false, true>() : tc_bwd_instance<false, false>();
+template <typename T>
+Kernel<TcBwdFn<T>> tc_bwd_kernel(bool msg, bool w2) {
+  if (msg) return tc_bwd_instance<T, true, true>();
+  return w2 ? tc_bwd_instance<T, false, true>() : tc_bwd_instance<T, false, false>();
 }
 
 // the backward with parameter gradients
-Kernel<BwdFn> bwd_kernel(bool msg, bool w2) {
-  if (msg) return bwd_instance<true, true>();
-  return w2 ? bwd_instance<false, true>() : bwd_instance<false, false>();
+template <typename T>
+Kernel<BwdFn<T>> bwd_kernel(bool msg, bool w2) {
+  if (msg) return bwd_instance<T, true, true>();
+  return w2 ? bwd_instance<T, false, true>() : bwd_instance<T, false, false>();
 }
 
 // blocks of a tensor-core launch: enough for every consumer's first tile,
@@ -1116,17 +1156,20 @@ int tc_grid(const Kernel<Fn>& k, int n_rows) {
   return want < wave ? want : wave;
 }
 
-// false when the parts are not what the kernels take
+// false when the parts are not what the kernels take: rows of 2d values in
+// aligned units of 4 (16 bytes of f32, 8 of bf16)
+template <typename T>
 bool make_parts(int n_parts, const void* const* tables, const void* const* idxs,
-                const int* n_srcs, const float* aligned, const float* b1, int d,
-                Parts* p) {
+                const int* n_srcs, const T* aligned, const T* b1, int d,
+                PartsT<T>* p) {
   if (n_parts < 1 || n_parts > kMaxParts || !chgnet::vec4_ok(b1, 2 * d) ||
       (aligned != nullptr && !chgnet::vec4_ok(aligned, 2 * d)))
     return false;
   for (int k = 0; k < kMaxParts; ++k) {
     const int j = k < n_parts ? k : 0;
-    if (!chgnet::vec4_ok(tables[j], 2 * d)) return false;
-    p->table[k] = static_cast<const float*>(tables[j]);
+    const T* table = static_cast<const T*>(tables[j]);
+    if (!chgnet::vec4_ok(table, 2 * d)) return false;
+    p->table[k] = table;
     p->idx[k] = static_cast<const int*>(idxs[j]);
     p->n_src[k] = n_srcs[j];
   }
@@ -1136,33 +1179,31 @@ bool make_parts(int n_parts, const void* const* tables, const void* const* idxs,
   return true;
 }
 
-}  // namespace
-
 // tail: 7 pointers as in gated_fwd_f32. tables[k] [n_srcs[k], 2d] and idxs[k]
 // [n_rows] int32 for the 1..3 gathered parts, aligned [n_rows, 2d] or null,
 // b1 [2d]; tables, aligned and b1 16-byte aligned, every tensor contiguous
-// f32. msg = 1: out = message(acc, weights, mask); msg = 0: out =
-// update(acc) + resnet. The tensor-core kernel, 16 rows a consumer warp, at
-// most one wave of blocks.
-extern "C" int fused_pass_fwd_f32(int msg, const void* const* tail, int n_parts,
-                                  const void* const* tables,
-                                  const void* const* idxs, const int* n_srcs,
-                                  const float* aligned, const float* b1,
-                                  const float* weights, const float* mask,
-                                  const float* resnet, float* out, int n_rows,
-                                  int d, void* cuda_stream) {
-  const Tail t = make_tail(tail);
+// T (f32, or bf16: widened as read, rounded once at each store). msg = 1:
+// out = message(acc, weights, mask); msg = 0: out = update(acc) + resnet.
+// The tensor-core kernel, 16 rows a consumer warp, at most one wave of
+// blocks.
+template <typename T>
+int fused_pass_fwd(int msg, const void* const* tail, int n_parts,
+                   const void* const* tables, const void* const* idxs,
+                   const int* n_srcs, const T* aligned, const T* b1, const T* weights,
+                   const T* mask, const T* resnet, T* out, int n_rows, int d,
+                   void* cuda_stream) {
+  const TailT<T> t = make_tail<T>(tail);
   const bool w2 = t.w2c != nullptr;
-  Parts p;
+  PartsT<T> p;
   if (bad_shape(msg, w2, d) ||
       !make_parts(n_parts, tables, idxs, n_srcs, aligned, b1, d, &p))
     return (int)cudaErrorInvalidValue;
   if (n_rows > 0) {
-    const Kernel<TcFwdFn> k = fwd_kernel(msg, w2);
+    const Kernel<TcFwdFn<T>> k = fwd_kernel<T>(msg, w2);
     const int grid = tc_grid(k, n_rows);
     if (grid < 0) return -grid;
-    const float* side = msg ? weights : resnet;
-    const int vec = (uintptr_t)side % 16 == 0;
+    const T* side = msg ? weights : resnet;
+    const int vec = (uintptr_t)side % (4 * sizeof(T)) == 0;
     k.fn<<<grid, 32 * tcp::kBlockWarps, k.smem,
            static_cast<cudaStream_t>(cuda_stream)>>>(t, p, side, mask, out, n_rows, d,
                                                      vec);
@@ -1174,23 +1215,22 @@ extern "C" int fused_pass_fwd_f32(int msg, const void* const* tail, int n_parts,
 // [n_rows, d] and, unless null, d_mask [n_rows]. Without d_params: the
 // tensor-core kernel, at most one wave. With d_params non-null the
 // parameter gradients too, by pass_bwd_kernel in exactly n_blocks =
-// min(tiles, kParamBlocks) blocks, one row each of partial [n_blocks,
-// n_part]: d_params [n_part] = dW2c, dW2g, db2 (with w2), d nc_scale, d
-// nc_bias, d ng_scale, d ng_bias, d_b1.
-extern "C" int fused_pass_bwd_f32(int msg, const void* const* tail, int n_parts,
-                                  const void* const* tables,
-                                  const void* const* idxs, const int* n_srcs,
-                                  const float* aligned, const float* b1,
-                                  const float* weights, const float* mask,
-                                  const float* g, float* d_total,
-                                  float* d_weights, float* d_mask,
-                                  float* partial, float* d_params, int n_rows,
-                                  int d, int n_blocks, void* cuda_stream) {
-  const Tail t = make_tail(tail);
+// min(tiles, kParamBlocks) blocks, one f32 row each of partial [n_blocks,
+// n_part], summed in f32 in block order and rounded once to T: d_params
+// [n_part] = dW2c, dW2g, db2 (with w2), d nc_scale, d nc_bias, d ng_scale,
+// d ng_bias, d_b1.
+template <typename T>
+int fused_pass_bwd(int msg, const void* const* tail, int n_parts,
+                   const void* const* tables, const void* const* idxs,
+                   const int* n_srcs, const T* aligned, const T* b1, const T* weights,
+                   const T* mask, const T* g, T* d_total, T* d_weights, T* d_mask,
+                   float* partial, T* d_params, int n_rows, int d, int n_blocks,
+                   void* cuda_stream) {
+  const TailT<T> t = make_tail<T>(tail);
   const bool w2 = t.w2c != nullptr;
   const bool params = d_params != nullptr;
   const int tiles = n_rows > 0 ? n_tiles(n_rows) : 0;
-  Parts p;
+  PartsT<T> p;
   if (bad_shape(msg, w2, d) ||
       !make_parts(n_parts, tables, idxs, n_srcs, aligned, b1, d, &p) ||
       !chgnet::vec4_ok(d_total, 2 * d) ||
@@ -1198,17 +1238,17 @@ extern "C" int fused_pass_bwd_f32(int msg, const void* const* tail, int n_parts,
     return (int)cudaErrorInvalidValue;
   const cudaStream_t stream = static_cast<cudaStream_t>(cuda_stream);
   if (n_rows > 0 && params) {
-    const Kernel<BwdFn> k = bwd_kernel(msg, w2);
+    const Kernel<BwdFn<T>> k = bwd_kernel<T>(msg, w2);
     const int wave = wave_blocks(k);
     if (wave < 0) return -wave;
     k.fn<<<n_blocks, kThreads, k.smem, stream>>>(t, p, weights, mask, g, d_total,
                                                  d_weights, d_mask, partial,
                                                  n_rows, d);
   } else if (n_rows > 0) {
-    const Kernel<TcBwdFn> k = tc_bwd_kernel(msg, w2);
+    const Kernel<TcBwdFn<T>> k = tc_bwd_kernel<T>(msg, w2);
     const int grid = tc_grid(k, n_rows);
     if (grid < 0) return -grid;
-    const int vec = ((uintptr_t)g | (uintptr_t)(msg ? weights : g)) % 16 == 0;
+    const int vec = ((uintptr_t)g | (uintptr_t)(msg ? weights : g)) % (4 * sizeof(T)) == 0;
     k.fn<<<grid, 32 * tcp::kBlockWarps, k.smem, stream>>>(
         t, p, weights, mask, g, d_total, d_weights, d_mask, n_rows, d, vec);
   }
@@ -1220,14 +1260,75 @@ extern "C" int fused_pass_bwd_f32(int msg, const void* const* tail, int n_parts,
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+// The one-kernel pass forward (fused_pass_fwd above), f32 or bf16.
+extern "C" int fused_pass_fwd_f32(int msg, const void* const* tail, int n_parts,
+                                  const void* const* tables,
+                                  const void* const* idxs, const int* n_srcs,
+                                  const float* aligned, const float* b1,
+                                  const float* weights, const float* mask,
+                                  const float* resnet, float* out, int n_rows,
+                                  int d, void* cuda_stream) {
+  return fused_pass_fwd(msg, tail, n_parts, tables, idxs, n_srcs, aligned, b1,
+                        weights, mask, resnet, out, n_rows, d, cuda_stream);
+}
+
+extern "C" int fused_pass_fwd_bf16(int msg, const void* const* tail, int n_parts,
+                                   const void* const* tables,
+                                   const void* const* idxs, const int* n_srcs,
+                                   const chgnet::bf16* aligned,
+                                   const chgnet::bf16* b1,
+                                   const chgnet::bf16* weights,
+                                   const chgnet::bf16* mask,
+                                   const chgnet::bf16* resnet, chgnet::bf16* out,
+                                   int n_rows, int d, void* cuda_stream) {
+  return fused_pass_fwd(msg, tail, n_parts, tables, idxs, n_srcs, aligned, b1,
+                        weights, mask, resnet, out, n_rows, d, cuda_stream);
+}
+
+// The one-kernel pass backward (fused_pass_bwd above), f32 or bf16; the
+// partial buffer stays f32.
+extern "C" int fused_pass_bwd_f32(int msg, const void* const* tail, int n_parts,
+                                  const void* const* tables,
+                                  const void* const* idxs, const int* n_srcs,
+                                  const float* aligned, const float* b1,
+                                  const float* weights, const float* mask,
+                                  const float* g, float* d_total,
+                                  float* d_weights, float* d_mask,
+                                  float* partial, float* d_params, int n_rows,
+                                  int d, int n_blocks, void* cuda_stream) {
+  return fused_pass_bwd(msg, tail, n_parts, tables, idxs, n_srcs, aligned, b1,
+                        weights, mask, g, d_total, d_weights, d_mask, partial,
+                        d_params, n_rows, d, n_blocks, cuda_stream);
+}
+
+extern "C" int fused_pass_bwd_bf16(int msg, const void* const* tail, int n_parts,
+                                   const void* const* tables,
+                                   const void* const* idxs, const int* n_srcs,
+                                   const chgnet::bf16* aligned,
+                                   const chgnet::bf16* b1,
+                                   const chgnet::bf16* weights,
+                                   const chgnet::bf16* mask, const chgnet::bf16* g,
+                                   chgnet::bf16* d_total, chgnet::bf16* d_weights,
+                                   chgnet::bf16* d_mask, float* partial,
+                                   chgnet::bf16* d_params, int n_rows, int d,
+                                   int n_blocks, void* cuda_stream) {
+  return fused_pass_bwd(msg, tail, n_parts, tables, idxs, n_srcs, aligned, b1,
+                        weights, mask, g, d_total, d_weights, d_mask, partial,
+                        d_params, n_rows, d, n_blocks, cuda_stream);
+}
+
 // The dynamic shared memory, warps a block and blocks of one wave on the
 // current device of the serving kernels, info[3 * i ..] for the message
 // forward (i = 0), the update forward without a second layer (1), the
 // message backward (2) and the update backward without a second layer (3);
 // nothing is launched. For the build report.
 extern "C" int fused_tc_occupancy(int* info) {
-  const Kernel<TcFwdFn> fwd[2] = {fwd_kernel(true, true), fwd_kernel(false, false)};
-  const Kernel<TcBwdFn> bwd[2] = {tc_bwd_kernel(true, true), tc_bwd_kernel(false, false)};
+  const Kernel<TcFwdFn<float>> fwd[2] = {fwd_kernel<float>(true, true),
+                                         fwd_kernel<float>(false, false)};
+  const Kernel<TcBwdFn<float>> bwd[2] = {tc_bwd_kernel<float>(true, true),
+                                         tc_bwd_kernel<float>(false, false)};
   for (int i = 0; i < 4; ++i) {
     const int wave = i < 2 ? wave_blocks(fwd[i], 32 * tcp::kBlockWarps)
                            : wave_blocks(bwd[i - 2], 32 * tcp::kBlockWarps);

@@ -48,8 +48,15 @@
 // products keep f32 accuracy: their A operands, silu(acc) and d_y, are f32
 // values, but a bf16 W2 is exact in TF32, so of 3xTF32's three passes the
 // two whose terms are not zero remain (lo_a hi_b, hi_a hi_b: tc::mma2_tiles,
-// the same sums). Half the bytes of f32 move. The parameter-gradient
-// backward and the message-reduce take f32 only.
+// the same sums). Half the bytes of f32 move. The message-reduce
+// (tail_reduce_tc_kernel<bf16>) also keeps each tile's messages in f32 and
+// sums every segment in f32, rounding each output row once. The backward
+// with parameter gradients (tail_bwd_kernel<bf16, ...>, training) widens
+// its rows and parameters the same way; its per-block partials stay f32,
+// sum_blocks_kernel adds them in block order in f32 (no atomics) and rounds
+// each parameter gradient once to bf16 (chgnet_tpu casts each tile's f32
+// sums to the parameters' type and adds them there, ops/gated_message.py:
+// 222-228, so it rounds once a tile).
 #include "gated_tail.cuh"
 #include "tf32x3.cuh"
 
@@ -108,13 +115,13 @@ __global__ void __launch_bounds__(kThreads)
 
 
 // ------------------------------------------------------------ backward
-template <bool kMsg, bool kW2, bool kParams>
+template <typename T, bool kMsg, bool kW2, bool kParams>
 __global__ void __launch_bounds__(kThreads)
-    tail_bwd_kernel(Tail t, const float* __restrict__ acc,
-                    const float* __restrict__ weights,
-                    const float* __restrict__ mask,
-                    const float* __restrict__ g, float* __restrict__ d_acc,
-                    float* __restrict__ d_weights, float* __restrict__ d_mask,
+    tail_bwd_kernel(TailT<T> t, const T* __restrict__ acc,
+                    const T* __restrict__ weights,
+                    const T* __restrict__ mask,
+                    const T* __restrict__ g, T* __restrict__ d_acc,
+                    T* __restrict__ d_weights, T* __restrict__ d_mask,
                     float* __restrict__ partial, int n_rows, int d) {
   extern __shared__ float4 smem4[];
   float* w_s = reinterpret_cast<float*>(smem4);  // [2][D][D]
@@ -160,15 +167,18 @@ __global__ void __launch_bounds__(kThreads)
         continue;
       }
       RowGrads o;
-      gate_row_bwd<kMsg>(kW2 ? yc_s : acc + l * 2 * d,
-                         kW2 ? yg_s : acc + l * 2 * d + d, g + l * d,
-                         kMsg ? weights + l * d : nullptr, kMsg ? mask[l] : 1.f,
-                         lp, d, lane, o);
+      const T* w_row = kMsg ? weights + l * d : nullptr;
+      const float m = kMsg ? chgnet::to_f(mask[l]) : 1.f;
+      if constexpr (kW2)
+        gate_row_bwd<kMsg>(yc_s, yg_s, g + l * d, w_row, m, lp, d, lane, o);
+      else
+        gate_row_bwd<kMsg>(acc + l * 2 * d, acc + l * 2 * d + d, g + l * d, w_row, m,
+                           lp, d, lane, o);
       if (kMsg) {
         store_lane(d_weights + l * d, d, lane, o.dw);
         if (d_mask != nullptr) {
           const float dm = warp_sum(o.mask_part);
-          if (lane == 0) d_mask[l] = dm;
+          if (lane == 0) chgnet::store_v(d_mask + l, dm);
         }
       }
       if (kParams) ps.add_row(o);
@@ -190,10 +200,11 @@ __global__ void __launch_bounds__(kThreads)
         for (int rr = 0; rr < kRowsPerWarp; ++rr) {
           const long l = row0 + warp * kRowsPerWarp + rr;
           if (l >= n_rows) break;
-          const float4 a = *reinterpret_cast<const float4*>(acc + l * 2 * d + col);
-          *reinterpret_cast<float4*>(d_acc + l * 2 * d + col) = make_float4(
-              dh[rr][0] * silu_grad(a.x), dh[rr][1] * silu_grad(a.y),
-              dh[rr][2] * silu_grad(a.z), dh[rr][3] * silu_grad(a.w));
+          float4 a;
+          chgnet::load_v(a, acc + l * 2 * d + col);
+          chgnet::store_v(d_acc + l * 2 * d + col,
+                          make_float4(dh[rr][0] * silu_grad(a.x), dh[rr][1] * silu_grad(a.y),
+                                      dh[rr][2] * silu_grad(a.z), dh[rr][3] * silu_grad(a.w)));
         }
       }
       if (kParams) ps.add_tile(h_s, y_s, d);
@@ -1005,11 +1016,12 @@ __device__ __forceinline__ int cost_lower_bound(const int* __restrict__ offsets,
   return lo;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(32 * kFwdWarps, 1)
-    tail_reduce_tc_kernel(Tail t, const float* __restrict__ acc,
-                          const float* __restrict__ weights,
-                          const float* __restrict__ mask,
-                          const int* __restrict__ offsets, float* __restrict__ out,
+    tail_reduce_tc_kernel(TailT<T> t, const T* __restrict__ acc,
+                          const T* __restrict__ weights,
+                          const T* __restrict__ mask,
+                          const int* __restrict__ offsets, T* __restrict__ out,
                           int n_out, int d, int vec) {
   extern __shared__ float4 smem4[];
   uint4* wf = reinterpret_cast<uint4*>(smem4);
@@ -1035,7 +1047,7 @@ __global__ void __launch_bounds__(32 * kFwdWarps, 1)
   const int n_tiles = (int)((row_end - row_begin + kRows - 1) / kRows);
   // the open segment of the lane's columns 2 lane, 2 lane + 1
   const bool own = 2 * lane < d;
-  float* out_col = out + 2 * lane;
+  T* out_col = out + 2 * lane;
   int n = n0;
   long seg_end = offsets[n0 + 1];
   float2 sum = make_float2(0.f, 0.f);
@@ -1047,7 +1059,7 @@ __global__ void __launch_bounds__(32 * kFwdWarps, 1)
   for (int tile = 0; tile < n_tiles; ++tile) {
     const long row0 = row_begin + (long)tile * kRows;
     const bool more = tile + 1 < n_tiles;
-    message_tile<false>(mine, w_s, m_s, wf, prm, d, lane,
+    message_tile<chgnet::is_bf16<T>>(mine, w_s, m_s, wf, prm, d, lane,
                  [&](int r, int e0, float v0, float v1) {
                    *reinterpret_cast<float2*>(w_s + at_row(r, e0)) = make_float2(v0, v1);
                  });
@@ -1058,7 +1070,7 @@ __global__ void __launch_bounds__(32 * kFwdWarps, 1)
     const int rows = row_end - row0 < kRows ? (int)(row_end - row0) : kRows;
     for (int r = 0; r < rows; ++r) {
       while (row0 + r >= seg_end) {  // close segments, empty ones too
-        if (own) *reinterpret_cast<float2*>(out_col + (long)n * d) = sum;
+        if (own) chgnet::store2(out_col + (long)n * d, sum.x, sum.y);
         sum = make_float2(0.f, 0.f);
         ++n;
         seg_end = offsets[n + 1];
@@ -1074,7 +1086,7 @@ __global__ void __launch_bounds__(32 * kFwdWarps, 1)
     tc::commit();
   }
   for (; n < n1; ++n) {
-    if (own) *reinterpret_cast<float2*>(out_col + (long)n * d) = sum;
+    if (own) chgnet::store2(out_col + (long)n * d, sum.x, sum.y);
     sum = make_float2(0.f, 0.f);
   }
 }
@@ -1084,13 +1096,15 @@ __global__ void __launch_bounds__(32 * kFwdWarps, 1)
 
 template <typename T>
 using FwdFn = void (*)(TailT<T>, const T*, const T*, T*, int, int);
-using BwdFn = void (*)(Tail, const float*, const float*, const float*,
-                       const float*, float*, float*, float*, float*, int, int);
+template <typename T>
+using BwdFn = void (*)(TailT<T>, const T*, const T*, const T*, const T*, T*, T*, T*,
+                       float*, int, int);
 // the tensor-core kernels
 template <typename T>
 using TcFwdFn = void (*)(TailT<T>, const T*, const T*, const T*, T*, int, int, int);
-using TcReduceFn = void (*)(Tail, const float*, const float*, const float*,
-                            const int*, float*, int, int, int);
+template <typename T>
+using TcReduceFn = void (*)(TailT<T>, const T*, const T*, const T*, const int*, T*,
+                            int, int, int);
 template <typename T>
 using TcBwdFn = void (*)(TailT<T>, const T*, const T*, const T*, const T*, T*, T*,
                          T*, int, int, int);
@@ -1108,10 +1122,10 @@ Kernel<FwdFn<T>> fwd_instance() {
   return {tail_fwd_kernel<T, kW2>, fwd_smem(kW2), waves};
 }
 
-template <bool kMsg, bool kW2, bool kParams>
-Kernel<BwdFn> bwd_instance() {
+template <typename T, bool kMsg, bool kW2, bool kParams>
+Kernel<BwdFn<T>> bwd_instance() {
   static std::atomic<int> waves[kMaxDevices];
-  return {tail_bwd_kernel<kMsg, kW2, kParams>, bwd_smem(kW2, kParams), waves};
+  return {tail_bwd_kernel<T, kMsg, kW2, kParams>, bwd_smem(kW2, kParams), waves};
 }
 
 // the update forward
@@ -1121,9 +1135,10 @@ Kernel<FwdFn<T>> fwd_kernel(bool w2) {
 }
 
 // the backward with parameter gradients
-Kernel<BwdFn> bwd_kernel(bool msg, bool w2) {
-  if (msg) return bwd_instance<true, true, true>();
-  return w2 ? bwd_instance<false, true, true>() : bwd_instance<false, false, true>();
+template <typename T>
+Kernel<BwdFn<T>> bwd_kernel(bool msg, bool w2) {
+  if (msg) return bwd_instance<T, true, true, true>();
+  return w2 ? bwd_instance<T, false, true, true>() : bwd_instance<T, false, false, true>();
 }
 
 template <typename T>
@@ -1132,9 +1147,10 @@ Kernel<TcFwdFn<T>> tc_fwd_kernel() {
   return {tcb::tail_fwd_tc_kernel<T>, tcb::fwd_smem_bytes(), waves};
 }
 
-Kernel<TcReduceFn> tc_reduce_kernel() {
+template <typename T>
+Kernel<TcReduceFn<T>> tc_reduce_kernel() {
   static std::atomic<int> waves[kMaxDevices];
-  return {tcb::tail_reduce_tc_kernel, tcb::fwd_smem_bytes(), waves};
+  return {tcb::tail_reduce_tc_kernel<T>, tcb::fwd_smem_bytes(), waves};
 }
 
 // the serving backward
@@ -1206,6 +1222,74 @@ int gated_bwd_serving(int msg, const TailT<T>& t, const T* acc, const T* weights
   return (int)cudaSuccess;
 }
 
+// d_acc [n_rows, 2d] (16-byte aligned, as acc), and for msg = 1 d_weights
+// [n_rows, d] and, unless null, d_mask [n_rows]. Without d_params: the
+// tensor-core kernel, 16 rows a warp, at most one wave of persistent
+// blocks. With d_params non-null the parameter gradients too, by
+// tail_bwd_kernel in exactly n_blocks = min(tiles, kParamBlocks) blocks,
+// one f32 row each of partial [n_blocks, n_part], summed in f32 in block
+// order and rounded once to T: d_params [n_part] = dW2c, dW2g, db2 (with
+// w2), d nc_scale, d nc_bias, d ng_scale, d ng_bias.
+template <typename T>
+int gated_bwd(int msg, const void* const* tail, const T* acc, const T* weights,
+              const T* mask, const T* g, T* d_acc, T* d_weights, T* d_mask,
+              float* partial, T* d_params, int n_rows, int d, int n_blocks,
+              void* cuda_stream) {
+  const TailT<T> t = make_tail<T>(tail);
+  const bool w2 = t.w2c != nullptr;
+  const bool params = d_params != nullptr;
+  const int tiles = n_rows > 0 ? n_tiles(n_rows) : 0;
+  if (bad_shape(msg, w2, d) ||
+      (params && n_blocks != (tiles < kParamBlocks ? tiles : kParamBlocks)))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t stream = static_cast<cudaStream_t>(cuda_stream);
+  if (n_rows > 0 && params) {
+    const Kernel<BwdFn<T>> k = bwd_kernel<T>(msg, w2);
+    const int wave = wave_blocks(k);
+    if (wave < 0) return -wave;
+    k.fn<<<n_blocks, kThreads, k.smem, stream>>>(t, acc, weights, mask, g, d_acc,
+                                                 d_weights, d_mask, partial,
+                                                 n_rows, d);
+  } else if (n_rows > 0) {
+    const int err = gated_bwd_serving(msg, t, acc, weights, mask, g, d_acc,
+                                      d_weights, d_mask, n_rows, d, stream);
+    if (err) return err;
+  }
+  if (params) {
+    const int n_part = (w2 ? 2 * d * d + 2 * d : 0) + 4 * d;
+    sum_blocks_kernel<<<(n_part + 255) / 256, 256, 0, stream>>>(
+        partial, n_blocks, n_part, d_params);
+  }
+  return (int)cudaGetLastError();
+}
+
+// out [n_out, d] = the message tail's rows summed per segment of the sorted
+// stream: offsets [n_out + 1] int32, offsets[n_out] <= n_rows valid rows
+// first. One warp per kRowCost * n_rows + n_out cost units of a 16-row
+// tile, at most one wave of blocks. bf16: each segment summed in f32 and
+// rounded once.
+template <typename T>
+int gated_reduce(const void* const* tail, const T* acc, const T* weights,
+                 const T* mask, const int* offsets, T* out, int n_rows, int n_out,
+                 int d, void* cuda_stream) {
+  const TailT<T> t = make_tail<T>(tail);
+  if (bad_shape(true, t.w2c != nullptr, d)) return (int)cudaErrorInvalidValue;
+  if (n_out > 0) {
+    const Kernel<TcReduceFn<T>> k = tc_reduce_kernel<T>();
+    const int wave = wave_blocks(k, 32 * tcb::kFwdWarps);
+    if (wave < 0) return -wave;
+    const long cost = (long)tcb::kRowCost * n_rows + n_out;
+    const long per_block = (long)tcb::kRowCost * tcb::kRows * tcb::kFwdWarps;
+    const long want = (cost + per_block - 1) / per_block;
+    // weights rows in units of 4 values: 16 bytes of f32, 8 of bf16
+    const int vec = (uintptr_t)weights % (4 * sizeof(T)) == 0;
+    k.fn<<<want < wave ? (int)want : wave, 32 * tcb::kFwdWarps, k.smem,
+           static_cast<cudaStream_t>(cuda_stream)>>>(t, acc, weights, mask,
+                                                     offsets, out, n_out, d, vec);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int gated_fwd_f32(int msg, const void* const* tail, const float* acc,
@@ -1225,90 +1309,45 @@ extern "C" int gated_fwd_bf16(int msg, const void* const* tail,
                    cuda_stream);
 }
 
-// d_acc [n_rows, 2d] (16-byte aligned, as acc), and for msg = 1 d_weights
-// [n_rows, d] and, unless null, d_mask [n_rows]. Without d_params: the
-// tensor-core kernel, 16 rows a warp, at most one wave of persistent
-// blocks. With d_params non-null the parameter gradients too, by
-// tail_bwd_kernel in exactly n_blocks = min(tiles, kParamBlocks) blocks,
-// one row each of partial [n_blocks, n_part]: d_params [n_part] = dW2c,
-// dW2g, db2 (with w2), d nc_scale, d nc_bias, d ng_scale, d ng_bias.
+// The backward (gated_bwd above); the _bf16 entry takes bf16 rows,
+// parameters and outputs, the partial buffer stays f32.
 extern "C" int gated_bwd_f32(int msg, const void* const* tail, const float* acc,
                              const float* weights, const float* mask,
                              const float* g, float* d_acc, float* d_weights,
                              float* d_mask, float* partial, float* d_params,
                              int n_rows, int d, int n_blocks,
                              void* cuda_stream) {
-  const Tail t = make_tail(tail);
-  const bool w2 = t.w2c != nullptr;
-  const bool params = d_params != nullptr;
-  const int tiles = n_rows > 0 ? n_tiles(n_rows) : 0;
-  if (bad_shape(msg, w2, d) ||
-      (params && n_blocks != (tiles < kParamBlocks ? tiles : kParamBlocks)))
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t stream = static_cast<cudaStream_t>(cuda_stream);
-  if (n_rows > 0 && params) {
-    const Kernel<BwdFn> k = bwd_kernel(msg, w2);
-    const int wave = wave_blocks(k);
-    if (wave < 0) return -wave;
-    k.fn<<<n_blocks, kThreads, k.smem, stream>>>(t, acc, weights, mask, g, d_acc,
-                                                 d_weights, d_mask, partial,
-                                                 n_rows, d);
-  } else if (n_rows > 0) {
-    const int err = gated_bwd_serving(msg, t, acc, weights, mask, g, d_acc,
-                                      d_weights, d_mask, n_rows, d, stream);
-    if (err) return err;
-  }
-  if (params) {
-    const int n_part = (w2 ? 2 * d * d + 2 * d : 0) + 4 * d;
-    sum_blocks_kernel<<<(n_part + 255) / 256, 256, 0, stream>>>(
-        partial, n_blocks, n_part, d_params);
-  }
-  return (int)cudaGetLastError();
+  return gated_bwd(msg, tail, acc, weights, mask, g, d_acc, d_weights, d_mask,
+                   partial, d_params, n_rows, d, n_blocks, cuda_stream);
 }
 
-// The serving backward (no parameter gradients) of bf16 tails: arguments
-// as gated_bwd_f32's without partial, d_params and n_blocks; the
-// parameter-gradient form, which only training reaches, takes f32 only.
 extern "C" int gated_bwd_bf16(int msg, const void* const* tail,
                               const chgnet::bf16* acc, const chgnet::bf16* weights,
                               const chgnet::bf16* mask, const chgnet::bf16* g,
                               chgnet::bf16* d_acc, chgnet::bf16* d_weights,
-                              chgnet::bf16* d_mask, int n_rows, int d,
-                              void* cuda_stream) {
-  const TailT<chgnet::bf16> t = make_tail<chgnet::bf16>(tail);
-  if (bad_shape(msg, t.w2c != nullptr, d)) return (int)cudaErrorInvalidValue;
-  if (n_rows > 0) {
-    const int err =
-        gated_bwd_serving(msg, t, acc, weights, mask, g, d_acc, d_weights, d_mask,
-                          n_rows, d, static_cast<cudaStream_t>(cuda_stream));
-    if (err) return err;
-  }
-  return (int)cudaGetLastError();
+                              chgnet::bf16* d_mask, float* partial,
+                              chgnet::bf16* d_params, int n_rows, int d,
+                              int n_blocks, void* cuda_stream) {
+  return gated_bwd(msg, tail, acc, weights, mask, g, d_acc, d_weights, d_mask,
+                   partial, d_params, n_rows, d, n_blocks, cuda_stream);
 }
 
-// out [n_out, d] = the message tail's rows summed per segment of the sorted
-// stream: offsets [n_out + 1] int32, offsets[n_out] <= n_rows valid rows
-// first. One warp per kRowCost * n_rows + n_out cost units of a 16-row
-// tile, at most one wave of blocks.
+// The message-reduce (gated_reduce above), f32 or bf16.
 extern "C" int gated_reduce_f32(const void* const* tail, const float* acc,
                                 const float* weights, const float* mask,
                                 const int* offsets, float* out, int n_rows,
                                 int n_out, int d, void* cuda_stream) {
-  const Tail t = make_tail(tail);
-  if (bad_shape(true, t.w2c != nullptr, d)) return (int)cudaErrorInvalidValue;
-  if (n_out > 0) {
-    const Kernel<TcReduceFn> k = tc_reduce_kernel();
-    const int wave = wave_blocks(k, 32 * tcb::kFwdWarps);
-    if (wave < 0) return -wave;
-    const long cost = (long)tcb::kRowCost * n_rows + n_out;
-    const long per_block = (long)tcb::kRowCost * tcb::kRows * tcb::kFwdWarps;
-    const long want = (cost + per_block - 1) / per_block;
-    const int vec = (uintptr_t)weights % 16 == 0;
-    k.fn<<<want < wave ? (int)want : wave, 32 * tcb::kFwdWarps, k.smem,
-           static_cast<cudaStream_t>(cuda_stream)>>>(t, acc, weights, mask,
-                                                     offsets, out, n_out, d, vec);
-  }
-  return (int)cudaGetLastError();
+  return gated_reduce(tail, acc, weights, mask, offsets, out, n_rows, n_out, d,
+                      cuda_stream);
+}
+
+extern "C" int gated_reduce_bf16(const void* const* tail, const chgnet::bf16* acc,
+                                 const chgnet::bf16* weights,
+                                 const chgnet::bf16* mask, const int* offsets,
+                                 chgnet::bf16* out, int n_rows, int n_out, int d,
+                                 void* cuda_stream) {
+  return gated_reduce(tail, acc, weights, mask, offsets, out, n_rows, n_out, d,
+                      cuda_stream);
 }
 
 // The dynamic shared memory, warps a block and blocks of one wave on the
@@ -1317,7 +1356,7 @@ extern "C" int gated_reduce_f32(const void* const* tail, const float* acc,
 // nothing is launched. For the build report.
 extern "C" int gated_tc_occupancy(int* info) {
   const int waves[3] = {wave_blocks(tc_fwd_kernel<float>(), 32 * tcb::kFwdWarps),
-                        wave_blocks(tc_reduce_kernel(), 32 * tcb::kFwdWarps),
+                        wave_blocks(tc_reduce_kernel<float>(), 32 * tcb::kFwdWarps),
                         wave_blocks(tc_bwd_kernel<float>(true, true),
                                     32 * tcb::warps(true))};
   const size_t smem[3] = {tcb::fwd_smem_bytes(), tcb::fwd_smem_bytes(),

@@ -80,12 +80,14 @@ __device__ __forceinline__ void load_lane(const T* src, int d, int lane,
   }
 }
 
-__device__ __forceinline__ void store_lane(float* dst, int d, int lane,
+// ... and stored, rounded once to T (float, or bf16)
+template <typename T>
+__device__ __forceinline__ void store_lane(T* dst, int d, int lane,
                                            const float v[kPerLane]) {
 #pragma unroll
   for (int i = 0; i < kPerLane; ++i) {
     const int e = lane + 32 * i;
-    if (e < d) dst[e] = v[i];
+    if (e < d) chgnet::store_v(dst + e, v[i]);
   }
 }
 
@@ -257,7 +259,9 @@ __device__ __forceinline__ void gate_row(const T* y_c, const T* y_g,
 // The backward of one row's gate for the cotangent row g (_bwd_math :150,
 // _bwd_math_nw :690): the layer-norm parts of y, the cotangents of the two
 // affine outputs, d_y, and for a message row d_weights and the row's part of
-// d_mask. Everything is zero past D.
+// d_mask. Everything is zero past D. y's halves are read as TY (shared
+// memory, or the rows of acc without a second layer), g and weights as TG
+// (float, or bf16 rows widened as they are read).
 struct RowGrads {
   float zc[kPerLane], zg[kPerLane];      // normalised y halves
   float d_cn[kPerLane], d_gn[kPerLane];  // cotangents of the affine outputs
@@ -266,10 +270,10 @@ struct RowGrads {
   float mask_part;                       // this lane's part of d_mask
 };
 
-template <bool kMsg>
-__device__ __forceinline__ void gate_row_bwd(const float* y_c, const float* y_g,
-                                             const float* g_row,
-                                             const float* w_row, float m,
+template <bool kMsg, typename TY, typename TG>
+__device__ __forceinline__ void gate_row_bwd(const TY* y_c, const TY* y_g,
+                                             const TG* g_row,
+                                             const TG* w_row, float m,
                                              const LaneParams& lp, int d,
                                              int lane, RowGrads& o) {
   float yc[kPerLane], yg[kPerLane];
@@ -389,15 +393,19 @@ struct ParamSums {
   }
 };
 
-// out[j] = sum over blocks b, in order, of partial[b][j]
+// out[j] = sum over blocks b, in order, of partial[b][j]: f32 partials
+// summed in f32, rounded once to the parameters' type T (float, or bf16;
+// chgnet_tpu casts each tile's f32 sums to the parameters' type and adds
+// them there, ops/gated_message.py:222-228, ops/fused_pass.py:504-517)
+template <typename T>
 __global__ void sum_blocks_kernel(const float* __restrict__ partial,
                                   int n_blocks, int n_part,
-                                  float* __restrict__ out) {
+                                  T* __restrict__ out) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n_part) return;
   float s = 0.f;
   for (int b = 0; b < n_blocks; ++b) s += partial[(long)b * n_part + j];
-  out[j] = s;
+  chgnet::store_v(out + j, s);
 }
 
 // One instantiation: its dynamic shared memory and, per device, the blocks

@@ -25,6 +25,9 @@
 // against 0.95 for this schedule (H100 80GB HBM3, 700 W; PERF.md): their bulk
 // stores wrote at most about 2 TB/s, bounded by the bytes that shared memory
 // holds in flight.
+// bf16 rows (compute_dtype="bfloat16", the _bf16 entry): the same copy of
+// 16-byte units, 8 values each, so the rows' bits are copied exactly and a
+// row moves half the bytes of f32.
 #include "common.cuh"
 
 namespace {
@@ -52,25 +55,40 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-}  // namespace
-
-// window [ceil(n_rows / 128), 2] int32: the first and last source row of
-// each block of 128 output rows (lo > hi: no row); src and out 16-byte
-// aligned, d % 4 == 0.
-extern "C" int gather_rows_window_f32(const float* src, const int* idx,
-                                      const int* window, float* out,
-                                      long n_rows, int n_src, int d,
-                                      void* stream) {
-  if (!chgnet::vec4_ok(src, d) || !chgnet::vec4_ok(out, d) || d < 4)
+// the copy of rows of `row_bytes` bytes, a multiple of 16, in 16-byte units
+int gather_window(const void* src, const int* idx, const int* window, void* out,
+                  long n_rows, int n_src, int row_bytes, void* stream) {
+  if ((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(out)) % 16 ||
+      row_bytes % 16 || row_bytes < 16)
     return (int)cudaErrorInvalidValue;
   if (n_rows > 0) {
-    const long total = n_rows * (d / 4);
+    const int units = row_bytes / 16;
+    const long total = n_rows * units;
     const long want = (total + kThreads - 1) / kThreads;
     const long cap = (long)chgnet::sm_count() * 32;
     gather_window_kernel<<<(int)(want < cap ? want : cap), kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
-        reinterpret_cast<const float4*>(src), idx, window,
-        reinterpret_cast<float4*>(out), n_rows, n_src, d / 4);
+        static_cast<const float4*>(src), idx, window, static_cast<float4*>(out),
+        n_rows, n_src, units);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// window [ceil(n_rows / 128), 2] int32: the first and last source row of
+// each block of 128 output rows (lo > hi: no row); src and out 16-byte
+// aligned, d % 4 == 0 (the _bf16 entry: bf16 rows, d % 8 == 0).
+extern "C" int gather_rows_window_f32(const float* src, const int* idx,
+                                      const int* window, float* out,
+                                      long n_rows, int n_src, int d,
+                                      void* stream) {
+  return gather_window(src, idx, window, out, n_rows, n_src, d * 4, stream);
+}
+
+extern "C" int gather_rows_window_bf16(const chgnet::bf16* src, const int* idx,
+                                       const int* window, chgnet::bf16* out,
+                                       long n_rows, int n_src, int d,
+                                       void* stream) {
+  return gather_window(src, idx, window, out, n_rows, n_src, d * 2, stream);
 }

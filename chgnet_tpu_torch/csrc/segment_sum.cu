@@ -205,16 +205,24 @@ extern "C" int segment_sum_pair_bf16(const chgnet::bf16* x, const int* perm_a,
 // atomics: two runs give equal bits. The add order (rows in order inside a
 // tile, then tiles in order) differs from segment_sum_csr's lane-group tree,
 // so the two agree to rounding only.
+// bf16 rows (compute_dtype="bfloat16", the _bf16 entry): x and out bf16, in
+// units of 4 values widened to f32 as they are read; the runs, the carries
+// (f32 scratch) and their sums are f32, and each output row is rounded once,
+// when it is stored, as the TPU kernel sums bf16 streams in f32
+// (preferred_element_type, stream_ops.py:1021). Half the bytes of x and out.
 namespace {
 
 constexpr int kTileRows = 32;
 
-template <typename T>
+// S: the storage type of x and out; V: a lane's value of a row and of the
+// f32 carries, float or float4 (4 elements: 16 bytes of f32, 8 of bf16)
+template <typename S, typename V>
 __global__ void __launch_bounds__(kThreads)
-    segment_sum_tiles_kernel(const T* __restrict__ x, const int* __restrict__ perm,
-                             const int* __restrict__ offsets, T* __restrict__ out,
-                             T* __restrict__ carry, int n_out, int units,
+    segment_sum_tiles_kernel(const S* __restrict__ x, const int* __restrict__ perm,
+                             const int* __restrict__ offsets, S* __restrict__ out,
+                             V* __restrict__ carry, int n_out, int units,
                              int lpr) {
+  constexpr int kW = sizeof(V) / sizeof(float);  // elements of a unit
   const int groups = kThreads / lpr;
   const long t = (long)blockIdx.x * groups + threadIdx.x / lpr;  // the tile
   const int u = threadIdx.x % lpr;
@@ -231,15 +239,15 @@ __global__ void __launch_bounds__(kThreads)
   int n = lo;
   int seg_beg = offsets[n];
   int seg_end = offsets[n + 1];
-  T acc = vzero<T>();
+  V acc = vzero<V>();
   for (int k = (int)b; k <= e; ++k) {
     if (k == e || k >= seg_end) {  // the run of segment n ends before row k
       if (seg_beg >= b && seg_end <= e)
-        out[(long)n * units + u] = acc;
+        store_v(out + ((long)n * units + u) * kW, acc);
       else
         carry[(t * 2 + (seg_beg > b)) * units + u] = acc;
       if (k == e) break;
-      acc = vzero<T>();
+      acc = vzero<V>();
       do {  // the next segment with a row, past the empty ones
         ++n;
         seg_end = offsets[n + 1];
@@ -247,15 +255,18 @@ __global__ void __launch_bounds__(kThreads)
       seg_beg = offsets[n];
     }
     const long row = perm ? perm[k] : k;
-    vadd(acc, x[row * units + u]);
+    V v;
+    load_v(v, x + (row * units + u) * kW);
+    vadd(acc, v);
   }
 }
 
-template <typename T>
+template <typename S, typename V>
 __global__ void __launch_bounds__(kThreads)
     segment_sum_carry_kernel(const int* __restrict__ offsets,
-                             const T* __restrict__ carry, T* __restrict__ out,
+                             const V* __restrict__ carry, S* __restrict__ out,
                              int n_out, int units, int lpr) {
+  constexpr int kW = sizeof(V) / sizeof(float);
   const int groups = kThreads / lpr;
   const int u = threadIdx.x % lpr;
   if (u >= units) return;
@@ -264,60 +275,72 @@ __global__ void __launch_bounds__(kThreads)
     const int beg = offsets[n];
     const int end = offsets[n + 1];
     if (beg == end) {
-      out[n * units + u] = vzero<T>();
+      store_v(out + (n * units + u) * kW, vzero<V>());
       continue;
     }
     const int t0 = beg / kTileRows;
     const int t1 = (end - 1) / kTileRows;
     if (t0 == t1) continue;  // wholly inside a tile: the first kernel wrote it
-    T acc = vzero<T>();
+    V acc = vzero<V>();
     for (long t = t0; t <= t1; ++t) {
       const int slot = t == t0 && beg > t * kTileRows;
       vadd(acc, carry[(t * 2 + slot) * units + u]);
     }
-    out[n * units + u] = acc;
+    store_v(out + (n * units + u) * kW, acc);
   }
 }
 
-template <typename T>
-void launch_tiles(const T* x, const int* perm, const int* offsets, T* out,
-                  T* carry, int n_rows, int n_out, int units, cudaStream_t st) {
+template <typename S, typename V>
+void launch_tiles(const S* x, const int* perm, const int* offsets, S* out,
+                  V* carry, int n_rows, int n_out, int units, cudaStream_t st) {
   int lpr = 1;  // lanes per tile (power of two)
   while (lpr < units) lpr <<= 1;
   const int groups = kThreads / lpr;
   const long tiles = ((long)n_rows + kTileRows - 1) / kTileRows;
   if (tiles > 0)
-    segment_sum_tiles_kernel<T><<<(int)((tiles + groups - 1) / groups), kThreads,
-                                  0, st>>>(x, perm, offsets, out, carry, n_out,
-                                           units, lpr);
+    segment_sum_tiles_kernel<S, V><<<(int)((tiles + groups - 1) / groups), kThreads,
+                                     0, st>>>(x, perm, offsets, out, carry, n_out,
+                                              units, lpr);
   const long want = ((long)n_out + groups - 1) / groups;
   const long cap = (long)chgnet::sm_count() * 16;
-  segment_sum_carry_kernel<T><<<(int)(want < cap ? want : cap), kThreads, 0, st>>>(
+  segment_sum_carry_kernel<S, V><<<(int)(want < cap ? want : cap), kThreads, 0, st>>>(
       offsets, carry, out, n_out, units, lpr);
 }
 
-}  // namespace
-
-// out [n_out, d] as segment_sum_csr_f32; n_rows bounds the valid rows
-// (offsets[n_out] <= n_rows); carry: scratch of 2 d floats per tile of 32
-// rows, ceil(n_rows / 32) tiles, 16-byte aligned.
-extern "C" int segment_sum_tiles_f32(const float* x, const int* perm,
-                                     const int* offsets, float* out,
-                                     float* carry, int n_rows, int n_out, int d,
-                                     void* stream) {
+template <typename S>
+int segment_sum_tiles(const S* x, const int* perm, const int* offsets, S* out,
+                      float* carry, int n_rows, int n_out, int d, void* stream) {
   const bool vec4 = chgnet::vec4_ok(x, d) && chgnet::vec4_ok(out, d) &&
                     chgnet::vec4_ok(carry, d);
   if ((vec4 ? d / 4 : d) > kMaxUnits) return (int)cudaErrorInvalidValue;
   if (n_out > 0) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (vec4) {
-      launch_tiles<float4>(reinterpret_cast<const float4*>(x), perm, offsets,
-                           reinterpret_cast<float4*>(out),
-                           reinterpret_cast<float4*>(carry), n_rows, n_out,
-                           d / 4, st);
+      launch_tiles<S, float4>(x, perm, offsets, out, reinterpret_cast<float4*>(carry),
+                              n_rows, n_out, d / 4, st);
     } else {
-      launch_tiles<float>(x, perm, offsets, out, carry, n_rows, n_out, d, st);
+      launch_tiles<S, float>(x, perm, offsets, out, carry, n_rows, n_out, d, st);
     }
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// out [n_out, d] as segment_sum_csr_f32; n_rows bounds the valid rows
+// (offsets[n_out] <= n_rows); carry: f32 scratch of 2 d floats per tile of
+// 32 rows, ceil(n_rows / 32) tiles, 16-byte aligned. The _bf16 entry takes
+// bf16 x and out (the carry stays f32).
+extern "C" int segment_sum_tiles_f32(const float* x, const int* perm,
+                                     const int* offsets, float* out,
+                                     float* carry, int n_rows, int n_out, int d,
+                                     void* stream) {
+  return segment_sum_tiles(x, perm, offsets, out, carry, n_rows, n_out, d, stream);
+}
+
+extern "C" int segment_sum_tiles_bf16(const chgnet::bf16* x, const int* perm,
+                                      const int* offsets, chgnet::bf16* out,
+                                      float* carry, int n_rows, int n_out, int d,
+                                      void* stream) {
+  return segment_sum_tiles(x, perm, offsets, out, carry, n_rows, n_out, d, stream);
 }

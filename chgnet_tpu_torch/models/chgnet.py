@@ -29,8 +29,10 @@ parameters; ``remat`` rematerializes layers by ``torch.utils.checkpoint``;
 ``chgnet_tpu`` does (``models/chgnet.py:334-348, 435-438, 495-496, 683``):
 the conv parameters, the bases, the edge and angle masks and every feature
 stream are bf16, geometry and readout stay f32, and e, f, s and m come out
-f32. The kernels of rows 1-9 of PERF.md's table take the bf16 streams,
-compute in f32 and round once at each store.
+f32. Every kernel of PERF.md's table (rows 1-14, under every switch, and
+the tails' and the one-kernel pass's parameter-gradient forms that training
+runs) takes the bf16 streams, computes in f32 and rounds once at each
+store.
 """
 
 from __future__ import annotations
@@ -51,11 +53,7 @@ import torch.utils.checkpoint
 from chgnet_tpu_torch import PredTask
 from chgnet_tpu_torch.core.structure import Structure
 from chgnet_tpu_torch.device import resolve_device
-from chgnet_tpu_torch.graph.batching import (
-    GraphBatch,
-    batch_graphs,
-    stream_v2_enabled,
-)
+from chgnet_tpu_torch.graph.batching import GraphBatch, batch_graphs
 from chgnet_tpu_torch.graph.converter import CrystalGraphConverter
 from chgnet_tpu_torch.graph.crystalgraph import CrystalGraph
 from chgnet_tpu_torch.models import basis
@@ -86,8 +84,7 @@ from chgnet_tpu_torch.models.layers import (
     bond_conv_apply_directed,
     bond_conv_init,
 )
-from chgnet_tpu_torch.ops.fused_pass import fused_pass_enabled
-from chgnet_tpu_torch.ops.gated_message import TAIL_MAX_D, msg_reduce_enabled
+from chgnet_tpu_torch.ops.gated_message import TAIL_MAX_D
 from chgnet_tpu_torch.ops.gproj import MAX_DT, MAX_K
 from chgnet_tpu_torch.ops.segment import SEGMENT_MAX_D, plan_gather, plan_segment_sum
 from chgnet_tpu_torch.utils.common import load_params, save_params
@@ -131,8 +128,8 @@ class CHGNetConfig:
     serves both. :meth:`check_supported` names the fields whose other
     values the port does not run yet (``dense_atom_conv``), and on a CUDA
     device also the widths its kernels do not take
-    (:meth:`kernel_width_faults`) and the bf16 combinations they do not
-    take yet.
+    (:meth:`kernel_width_faults`); bf16 runs under every switch and trains
+    on both devices.
     ``sorted_grads`` has no effect: every backward here is a CSR segment
     sum.
     """
@@ -206,10 +203,10 @@ class CHGNetConfig:
     def check_supported(self, device_type: str = "cpu", training: bool = False) -> None:
         """Raise for settings the port does not run yet on a device of
         ``device_type`` (``"cpu"`` or ``"cuda"``): on ``"cuda"`` also for
-        widths the kernels do not take and, with bf16, for the environment
-        switches whose kernels take f32 only (read now) and for
-        ``training`` (the parameter-gradient backward), before anything is
-        launched."""
+        widths the kernels do not take, before anything is launched.
+        ``training`` (the parameter-gradient backward) is taken in both
+        dtypes on both devices; it stays an argument so that callers say
+        what they will run."""
         faults = self.kernel_width_faults() if device_type == "cuda" else []
         if faults:
             raise NotImplementedError(
@@ -217,24 +214,6 @@ class CHGNetConfig:
                 "(the CPU runs them; see ROADMAP.md Queue 1, config "
                 "variants): " + "; ".join(faults)
             )
-        if device_type == "cuda" and self.compute_dtype == "bfloat16":
-            switches = {
-                "CHGNET_TPU_STREAM_V2": stream_v2_enabled(),
-                "CHGNET_TPU_MSG_REDUCE": self.fused_kernels and msg_reduce_enabled(),
-                "CHGNET_TPU_FUSED_PASS": self.fused_kernels and fused_pass_enabled(),
-            }
-            on = sorted(k for k, v in switches.items() if v)
-            if on:
-                raise NotImplementedError(
-                    f"compute_dtype='bfloat16' under {on} on CUDA: those "
-                    "kernels take f32 only (ROADMAP.md Queue 1 item 6d)"
-                )
-            if training:
-                raise NotImplementedError(
-                    "compute_dtype='bfloat16' training on CUDA: the tails' "
-                    "parameter-gradient backward takes f32 only (ROADMAP.md "
-                    "Queue 1 item 6e)"
-                )
         if self.dense_atom_conv:
             raise NotImplementedError(
                 "CHGNetConfig field dense_atom_conv is not ported to "
@@ -505,6 +484,12 @@ def _energy_core(
         bond_dist = dist
         if und is not None:
             bond_dist = plan_gather(geom, und.u2d, batch.plan_u2d)[:, 3]
+            # a padded bond whose edge lies outside its block's gather
+            # window (CHGNET_TPU_STREAM_V2 on a small batch) reads a zero
+            # row: one unit long instead, so that its bases stay finite as
+            # every padded edge's do (a NaN row can reach its neighbours in
+            # a bf16 GEMM on the CPU); a real bond is never 0 long
+            bond_dist = torch.where(bond_dist > 0, bond_dist, torch.ones_like(bond_dist))
         rbf_ag = basis.radial_bessel(
             bond_dist, params["bond_basis"]["freq_ag"], cfg.atom_graph_cutoff,
             cfg.cutoff_coeff,
@@ -720,9 +705,7 @@ def compute_batch(
     """
     cfg = config
     device = batch.frac_coords.device
-    cfg.check_supported(
-        device.type, training=create_graph or dropout_generator is not None
-    )
+    cfg.check_supported(device.type)
     n_graphs = batch.lattices.shape[0]
     want_grad = compute_force or compute_stress
     seeds = (

@@ -44,8 +44,9 @@ KERNELS = (
 
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch counts to 0: ``launches``, and
-    ``launches_bf16``, those of them with bf16 arguments (rows 1-9 of
-    PERF.md's table launch in bf16; the others stay 0)."""
+    ``launches_bf16``, those of them with bf16 arguments (every row, 1-14,
+    of PERF.md's table launches in bf16 through its ``_bf16`` C entry
+    point)."""
     for fn in KERNELS:
         fn.launches = fn.launches_bf16 = 0
 

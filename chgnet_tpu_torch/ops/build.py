@@ -141,28 +141,17 @@ def on_cuda(x: torch.Tensor, what: str) -> bool:
 STORAGE = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
-def check_tensors(
-    what: str, floats=(), ints=(), aligned=(), bf16_item: str = ""
-) -> str:
+def check_tensors(what: str, floats=(), ints=(), aligned=()) -> str:
     """Raise unless every tensor is a contiguous CUDA tensor on one device,
-    every float tensor of one storage type that the kernel takes, and
-    every tensor of ``aligned`` starts on a 16-byte boundary (the kernel
-    loads it as ``float4`` only). Returns the suffix of the C entry point
-    for that type (``STORAGE``). Without ``bf16_item`` the kernel takes f32
-    and bf16 (rows 1-9 of PERF.md's table); with it, f32 only, and bf16
-    tensors raise ``NotImplementedError`` naming ``bf16_item``, the
-    ROADMAP.md item that ports it."""
+    every float tensor of one storage type that the kernels take (f32 or
+    bf16: every row of PERF.md's table has both), and every tensor of
+    ``aligned`` starts on a 16-byte boundary (the kernel loads it as
+    ``float4`` only). Returns the suffix of the C entry point for that type
+    (``STORAGE``)."""
     dev = floats[0].device
     dtype = floats[0].dtype
-    if dtype == torch.bfloat16 and bf16_item:
-        raise NotImplementedError(
-            f"{what}: bf16 is not ported to this kernel yet (ROADMAP.md "
-            f"Queue 1 item {bf16_item})"
-        )
-    dtypes = (torch.float32,) if bf16_item else tuple(STORAGE)
-    if dtype not in dtypes:
-        names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
-        raise TypeError(f"{what}: {names} expected, got {dtype}")
+    if dtype not in STORAGE:
+        raise TypeError(f"{what}: float32 or bfloat16 expected, got {dtype}")
     for t in floats:
         if t.dtype != dtype:
             raise TypeError(f"{what}: one float type expected, got {dtype} and {t.dtype}")

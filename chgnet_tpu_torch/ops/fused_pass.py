@@ -38,6 +38,16 @@ cotangents are segment sums of ``d_total`` over each gathered part's plan
 (two plans of one size in one sweep) and ``d_total`` itself for an aligned
 part; that op's own backward (second order, for force training)
 differentiates the unfused composition.
+
+bf16 (``compute_dtype="bfloat16"``): both kernels take bf16 tables, aligned
+rows, ``b1``, side rows, cotangent and parameters (their ``_bf16`` C entry
+points), keep ``acc`` and everything after it in f32 and round each output
+once, as ``chgnet_tpu``'s kernels do (``fused_pass.py:197-207``,
+``:452-489``); the parameter gradients' per-block partials are summed in f32
+and rounded once to bf16. The plain versions widen, compute in f32 and round
+once (:func:`~chgnet_tpu_torch.ops.build.plain_in_f32`), so ``acc`` is not
+rounded to bf16 between the sum and the tail. The second order
+differentiates the unfused composition in the inputs' type, as for f32.
 """
 
 from __future__ import annotations
@@ -78,7 +88,14 @@ _SIGNATURES = {
     "fused_pass_fwd_f32": [
         _I, ctypes.POINTER(_P), *_PARTS, _P, _P, _P, _P, _I, _I, _P,
     ],
+    "fused_pass_fwd_bf16": [
+        _I, ctypes.POINTER(_P), *_PARTS, _P, _P, _P, _P, _I, _I, _P,
+    ],
     "fused_pass_bwd_f32": [
+        _I, ctypes.POINTER(_P), *_PARTS, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+        _I, _I, _P,
+    ],
+    "fused_pass_bwd_bf16": [
         _I, ctypes.POINTER(_P), *_PARTS, _P, _P, _P, _P, _P, _P, _P, _P, _I,
         _I, _I, _P,
     ],
@@ -92,6 +109,7 @@ def _acc_plain(tables, idxs, aligned, b1):
     return gather_sum_rows_plain(tables, idxs, aligned) + b1
 
 
+@build.plain_in_f32
 def fused_pass_fwd_plain(tables, idxs, aligned, b1, params, weights, mask, resnet):
     """Plain version of :func:`fused_pass_fwd`: the multi-gather's plain
     sum, the bias, then the tail's plain version."""
@@ -101,6 +119,7 @@ def fused_pass_fwd_plain(tables, idxs, aligned, b1, params, weights, mask, resne
     return gated_update_plain(acc, resnet, params)
 
 
+@build.plain_in_f32
 def fused_pass_bwd_plain(
     tables, idxs, aligned, b1, params, weights, mask, g, need_mask, need_params
 ):
@@ -122,7 +141,8 @@ def fused_pass_bwd_plain(
 
 # --------------------------------------------------------------- wrappers
 def _check_parts(what, tables, idxs, aligned, b1, rows, vecs, params, msg):
-    """Raise on what the kernels do not take; returns ``(n_rows, D)``."""
+    """Raise on what the kernels do not take; returns ``(n_rows, D, the C
+    entry points' storage suffix)``."""
     if not 1 <= len(tables) <= MAX_PARTS or len(idxs) != len(tables):
         raise ValueError(
             f"{what}: {len(tables)} tables and {len(idxs)} index streams "
@@ -139,11 +159,10 @@ def _check_parts(what, tables, idxs, aligned, b1, rows, vecs, params, msg):
         raise ValueError(f"{what}: the aligned part is off the stream axis")
     _check_shapes(what, (n_rows, d2), rows, vecs, params, msg)
     wide = (*tables, b1, *(() if aligned is None else (aligned,)))
-    build.check_tensors(
-        what, (*wide, *rows, *vecs, *params), tuple(idxs), aligned=wide,
-        bf16_item="6d",
+    kind = build.check_tensors(
+        what, (*wide, *rows, *vecs, *params), tuple(idxs), aligned=wide
     )
-    return n_rows, d2 // 2
+    return n_rows, d2 // 2, kind
 
 
 def _part_args(tables, idxs, aligned, b1):
@@ -176,7 +195,7 @@ def tc_occupancy() -> dict[str, tuple[int, int, int]]:
 def fused_pass_fwd(tables, idxs, aligned, b1, params, weights, mask, resnet):
     """``tail(sum_k tables[k][idxs[k]] + aligned + b1)`` -> ``[L, D]``: the
     message tail with ``weights [L, D]`` and ``mask [L]``, else the update
-    tail plus ``resnet [L, D]``. ``tables[k]`` [S_k, 2D] f32, ``idxs[k]`` [L]
+    tail plus ``resnet [L, D]``. ``tables[k]`` [S_k, 2D] f32 or bf16, ``idxs[k]`` [L]
     int32 (a zero row where out of range), ``aligned`` [L, 2D] or None,
     ``b1`` [2D], ``params`` as the tail kernels take them."""
     if not build.on_cuda(tables[0], "fused_pass_fwd"):
@@ -186,20 +205,21 @@ def fused_pass_fwd(tables, idxs, aligned, b1, params, weights, mask, resnet):
     what = "fused_pass_fwd"
     msg = weights is not None
     rows = (weights,) if msg else (resnet,)
-    n_rows, d = _check_parts(
+    n_rows, d, kind = _check_parts(
         what, tables, idxs, aligned, b1, rows, (mask,) if msg else (), params, msg
     )
     out = tables[0].new_empty((n_rows, d))
-    err = _lib().fused_pass_fwd_f32(
+    err = getattr(_lib(), f"fused_pass_fwd_{kind}")(
         int(msg), _tail_ptrs(params), *_part_args(tables, idxs, aligned, b1),
         *_ptrs(weights, mask, resnet, out), n_rows, d, build.stream(),
     )
     build.check(err, what)
     fused_pass_fwd.launches += 1
+    fused_pass_fwd.launches_bf16 += kind == "bf16"
     return out
 
 
-fused_pass_fwd.launches = 0
+fused_pass_fwd.launches = fused_pass_fwd.launches_bf16 = 0
 
 
 def fused_pass_bwd(
@@ -216,7 +236,7 @@ def fused_pass_bwd(
     what = "fused_pass_bwd"
     msg = weights is not None
     rows = (weights, g) if msg else (g,)
-    n_rows, d = _check_parts(
+    n_rows, d, kind = _check_parts(
         what, tables, idxs, aligned, b1, rows, (mask,) if msg else (), params, msg
     )
     d_total = tables[0].new_empty((n_rows, 2 * d))
@@ -226,9 +246,9 @@ def fused_pass_bwd(
     if need_params:
         n_blocks = min(-(-n_rows // TILE), PARAM_BLOCKS)
         n_part = (2 * d * d + 2 * d if len(params) == 7 else 0) + 6 * d
-        partial = d_total.new_empty((n_blocks, n_part))
+        partial = d_total.new_empty((n_blocks, n_part), dtype=torch.float32)
         flat = d_total.new_empty(n_part)
-    err = _lib().fused_pass_bwd_f32(
+    err = getattr(_lib(), f"fused_pass_bwd_{kind}")(
         int(msg), _tail_ptrs(params), *_part_args(tables, idxs, aligned, b1),
         *_ptrs(weights, mask, g, d_total, d_weights, d_mask, partial, flat),
         n_rows, d, n_blocks, build.stream(),
@@ -240,10 +260,11 @@ def fused_pass_bwd(
             *_split_params(flat[: -2 * d], d, len(params)), flat[-2 * d:]
         )
     fused_pass_bwd.launches += 1
+    fused_pass_bwd.launches_bf16 += kind == "bf16"
     return d_total, d_weights, d_mask, d_params
 
 
-fused_pass_bwd.launches = 0
+fused_pass_bwd.launches = fused_pass_bwd.launches_bf16 = 0
 
 
 # --------------------------------------------------------------- autograd

@@ -32,17 +32,17 @@ ng_scale, ng_bias)`` or, without a second layer, the last four
 (:func:`tail_params`). The backward wrappers compute ``d_mask`` and the
 parameter gradients only when asked; serving asks for neither.
 
-bf16 tails (``compute_dtype="bfloat16"``): the forward kernels and the
-serving backward take bf16 ``acc``, weights, mask, cotangent and
-parameters, compute in f32 (the products at f32 accuracy: ``silu(acc)``
-and ``d_y`` are f32 values, and a bf16 W2 needs two of 3xTF32's three
-passes) and round each output once, as ``chgnet_tpu``'s
-kernels do ("streams may be bf16 -- in-kernel math runs in f32",
-``chgnet_tpu/ops/gated_message.py:588-590``); their plain versions widen to
-f32, compute and round once (:func:`~chgnet_tpu_torch.ops.build.plain_in_f32`).
-The backward with parameter gradients (training) and the message-reduce
-take f32 only and raise ``NotImplementedError`` on bf16 (ROADMAP.md Queue 1
-items 6e and 6d).
+bf16 tails (``compute_dtype="bfloat16"``): every kernel takes bf16 ``acc``,
+weights, mask, cotangent and parameters (its ``_bf16`` C entry point),
+computes in f32 (the products at f32 accuracy: ``silu(acc)`` and ``d_y``
+are f32 values, and a bf16 W2 needs two of 3xTF32's three passes) and
+rounds each output once, as ``chgnet_tpu``'s kernels do ("streams may be
+bf16 -- in-kernel math runs in f32",
+``chgnet_tpu/ops/gated_message.py:588-590``): the message-reduce sums each
+segment in f32, and the backward with parameter gradients (training) sums
+its per-block partials in f32 and rounds each parameter gradient once to
+bf16. Their plain versions widen to f32, compute and round once
+(:func:`~chgnet_tpu_torch.ops.build.plain_in_f32`).
 
 The autograd functions mirror ``chgnet_tpu``'s ``custom_vjp``: a tail's
 backward is the backward-kernel op, and that op's own backward (second
@@ -76,9 +76,11 @@ _SIGNATURES = {
         _I, _P,
     ],
     "gated_bwd_bf16": [
-        _I, ctypes.POINTER(_P), _P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
+        _I, ctypes.POINTER(_P), _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+        _I, _P,
     ],
     "gated_reduce_f32": [ctypes.POINTER(_P), _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "gated_reduce_bf16": [ctypes.POINTER(_P), _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "gated_tc_occupancy": [ctypes.POINTER(_I)],
 }
 TAIL_MAX_D = 64  # widest tail the kernels take (kMaxD): 2D <= 128
@@ -87,10 +89,6 @@ TILE = 32  # rows per tile of the update forward and the parameter gradients
 # one per tile: the rows of its scratch buffer
 PARAM_BLOCKS = 256
 W2_KEYS = ("w2c", "w2g", "b2")
-# the ROADMAP.md items that port bf16 to the message-reduce and to the
-# backward with parameter gradients
-BF16_REDUCE_ITEM = "6d"
-BF16_PARAMS_ITEM = "6e"
 LN_KEYS = ("nc_scale", "nc_bias", "ng_scale", "ng_bias")
 
 
@@ -257,14 +255,12 @@ def _check_shapes(what, acc_shape, rows, vecs, params, msg):
     return n_rows, d
 
 
-def _check(what, acc, rows, vecs, params, msg, bf16_item=""):
+def _check(what, acc, rows, vecs, params, msg, ints=()):
     """Raise on what the kernels do not take; returns ``(n_rows, D, the C
-    entry points' storage suffix)``. Without ``bf16_item`` the kernel takes
-    bf16 too; with it, f32 only."""
+    entry points' storage suffix)``."""
     n_rows, d = _check_shapes(what, tuple(acc.shape), rows, vecs, params, msg)
     kind = build.check_tensors(
-        what, (acc, *rows, *vecs, *params), aligned=(acc,),
-        bf16_item=bf16_item,
+        what, (acc, *rows, *vecs, *params), ints, aligned=(acc,)
     )
     return n_rows, d, kind
 
@@ -316,32 +312,22 @@ def _forward(what, acc, weights, mask, resnet, params):
 
 def _backward(what, acc, weights, mask, params, g, need_mask, need_params):
     """Launch the backward kernel (and, for the parameter gradients, the
-    kernel that sums its per-block partials): ``(d_acc, d_weights | None,
-    d_mask | None, d_params | None)``."""
+    kernel that sums its per-block f32 partials and rounds them once to the
+    parameters' type): ``(d_acc, d_weights | None, d_mask | None, d_params |
+    None)``."""
     msg = weights is not None
     rows = (weights, g) if msg else (g,)
-    n_rows, d, kind = _check(
-        what, acc, rows, (mask,) if msg else (), params, msg,
-        BF16_PARAMS_ITEM if need_params else "",
-    )
+    n_rows, d, kind = _check(what, acc, rows, (mask,) if msg else (), params, msg)
     d_acc = torch.empty_like(acc)
     d_weights = acc.new_empty((n_rows, d)) if msg else None
     d_mask = acc.new_empty(n_rows) if need_mask else None
-    if kind == "bf16":  # the serving form
-        err = _lib().gated_bwd_bf16(
-            int(msg), _tail_ptrs(params),
-            *_ptrs(acc, weights, mask, g, d_acc, d_weights, d_mask),
-            n_rows, d, build.stream(),
-        )
-        build.check(err, what)
-        return d_acc, d_weights, d_mask, None
     n_blocks, partial, flat = 0, None, None
     if need_params:
         n_blocks = min(-(-n_rows // TILE), PARAM_BLOCKS)
         n_part = (2 * d * d + 2 * d if len(params) == 7 else 0) + 4 * d
-        partial = acc.new_empty((n_blocks, n_part))
+        partial = acc.new_empty((n_blocks, n_part), dtype=torch.float32)
         flat = acc.new_empty(n_part)
-    err = _lib().gated_bwd_f32(
+    err = getattr(_lib(), f"gated_bwd_{kind}")(
         int(msg), _tail_ptrs(params),
         *_ptrs(acc, weights, mask, g, d_acc, d_weights, d_mask, partial, flat),
         n_rows, d, n_blocks, build.stream(),
@@ -373,24 +359,24 @@ def gated_message_reduce(acc, weights, mask, params, offsets):
     if not build.on_cuda(acc, "gated_message_reduce"):
         return gated_message_reduce_plain(acc, weights, mask, params, offsets)
     what = "gated_message_reduce"
-    n_rows, d, _ = _check(
-        what, acc, (weights,), (mask,), params, True, BF16_REDUCE_ITEM
-    )
     if offsets.dim() != 1 or offsets.shape[0] < 1:
         raise ValueError(f"{what}: offsets [n_out + 1] expected")
-    build.check_tensors(what, (acc,), (offsets,), bf16_item=BF16_REDUCE_ITEM)
+    n_rows, d, kind = _check(
+        what, acc, (weights,), (mask,), params, True, ints=(offsets,)
+    )
     n_out = offsets.shape[0] - 1
     out = acc.new_empty((n_out, d))
-    err = _lib().gated_reduce_f32(
+    err = getattr(_lib(), f"gated_reduce_{kind}")(
         _tail_ptrs(params), *_ptrs(acc, weights, mask, offsets, out),
         n_rows, n_out, d, build.stream(),
     )
     build.check(err, what)
     gated_message_reduce.launches += 1
+    gated_message_reduce.launches_bf16 += kind == "bf16"
     return out
 
 
-gated_message_reduce.launches = 0
+gated_message_reduce.launches = gated_message_reduce.launches_bf16 = 0
 
 
 def gated_message_bwd(acc, weights, mask, params, g, need_mask, need_params):

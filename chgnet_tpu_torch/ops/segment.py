@@ -29,11 +29,11 @@ kernel when the plan carries windows that fit at this width
 
 A wrapper launches its kernel on a CUDA tensor (or raises) and uses the
 plain version only for a tensor on the CPU. Each keeps a count of its
-launches in its ``launches`` attribute. The first three also take bf16 rows
-(``compute_dtype="bfloat16"``): the sums widen them to f32, add in f32 and
-round once at the store, and the gather copies their bits; the last two
-take f32 only and raise ``NotImplementedError`` on bf16 (ROADMAP.md Queue 1
-item 6d).
+launches in its ``launches`` attribute, and those with bf16 arguments in
+``launches_bf16``. Each also takes bf16 rows (``compute_dtype="bfloat16"``,
+its ``_bf16`` C entry point): the sums widen them to f32, add in f32 (the
+tile sum's carries too) and round once at the store, and the gathers copy
+their bits.
 
 The autograd functions pair the ops as ``stream_ops.py:546-603`` does: the
 backward of a planned gather is a segment sum over the plan, and the
@@ -65,14 +65,17 @@ _SIGNATURES = {
         "segment_sum_pair_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
         "segment_sum_pair_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
         "segment_sum_tiles_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "segment_sum_tiles_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
     "gather_rows": {
         "gather_rows_f32": [_P, _P, _P, _L, _I, _I, _P],
         "gather_rows_bf16": [_P, _P, _P, _L, _I, _I, _P],
     },
-    "gather_window": {"gather_rows_window_f32": [_P, _P, _P, _P, _L, _I, _I, _P]},
+    "gather_window": {
+        "gather_rows_window_f32": [_P, _P, _P, _P, _L, _I, _I, _P],
+        "gather_rows_window_bf16": [_P, _P, _P, _P, _L, _I, _I, _P],
+    },
 }
-BF16_ITEM = "6d"  # bf16 on the stream-v2 kernels (rows 11 and 12)
 # widest row of the segment sums: one warp's 32 lanes each hold a float4
 # (a float where the row is not 16-byte aligned)
 SEGMENT_MAX_D = 128
@@ -180,30 +183,30 @@ def segment_sum_tiles(
     kernel adds in tile order. It adds in another order than
     :func:`segment_sum_csr`, so the two agree to rounding. The TPU
     dispatch's raw-mode capacity clause (``_segsum_impl`` :462-473) has no
-    counterpart: the port has CSR plans and no block-local raw plans."""
+    counterpart: the port has CSR plans and no block-local raw plans. The
+    carries are f32 for bf16 rows too."""
     if not build.on_cuda(x, "segment_sum_tiles"):
         return segment_sum_plain(x, offsets, perm)
-    build.check_tensors(
-        "segment_sum_tiles", (x,), (offsets, perm), bf16_item=BF16_ITEM
-    )
+    kind = build.check_tensors("segment_sum_tiles", (x,), (offsets, perm))
     _check_width("segment_sum_tiles", x)
     n_rows, d = x.shape
     n_out = offsets.shape[0] - 1
     out = torch.empty((n_out, d), dtype=x.dtype, device=x.device)
     carry = torch.empty(
-        (-(-n_rows // TILE_ROWS), 2, d), dtype=x.dtype, device=x.device
+        (-(-n_rows // TILE_ROWS), 2, d), dtype=torch.float32, device=x.device
     )
     ptr = build.ptr
-    err = _lib("segment_sum").segment_sum_tiles_f32(
+    err = getattr(_lib("segment_sum"), f"segment_sum_tiles_{kind}")(
         ptr(x), ptr(perm), ptr(offsets), ptr(out), ptr(carry), n_rows, n_out,
         d, build.stream(),
     )
     build.check(err, "segment_sum_tiles")
     segment_sum_tiles.launches += 1
+    segment_sum_tiles.launches_bf16 += kind == "bf16"
     return out
 
 
-segment_sum_tiles.launches = 0
+segment_sum_tiles.launches = segment_sum_tiles.launches_bf16 = 0
 
 
 def segment_sum_pair(x, offsets_a, perm_a, offsets_b, perm_b):
@@ -261,8 +264,9 @@ gather_rows.launches = gather_rows.launches_bf16 = 0
 
 def window_fits(src: torch.Tensor) -> bool:
     """Whether :func:`gather_rows_window` takes rows of ``src``'s width:
-    ``float4`` units (rows of 4k floats on 16-byte aligned storage)."""
-    return src.shape[1] % 4 == 0 and src.data_ptr() % 16 == 0
+    16-byte units (rows of 4k f32 or 8k bf16 values on 16-byte aligned
+    storage)."""
+    return (src.shape[1] * src.element_size()) % 16 == 0 and src.data_ptr() % 16 == 0
 
 
 def gather_rows_window(
@@ -278,26 +282,25 @@ def gather_rows_window(
         )
     if not build.on_cuda(src, "gather_rows_window"):
         return gather_rows_window_plain(src, idx, window)
-    build.check_tensors(
-        "gather_rows_window", (src,), (idx, window), bf16_item=BF16_ITEM
-    )
+    kind = build.check_tensors("gather_rows_window", (src,), (idx, window))
     if not window_fits(src):
         raise ValueError(
-            "gather_rows_window: 16-byte aligned rows of 4k floats expected "
-            f"(d={src.shape[1]})"
+            "gather_rows_window: 16-byte aligned rows of 4k floats or 8k "
+            f"bf16 values expected (d={src.shape[1]}, {src.dtype})"
         )
     out = torch.empty((n_rows, src.shape[1]), dtype=src.dtype, device=src.device)
     ptr = build.ptr
-    err = _lib("gather_window").gather_rows_window_f32(
+    err = getattr(_lib("gather_window"), f"gather_rows_window_{kind}")(
         ptr(src), ptr(idx), ptr(window), ptr(out), n_rows, src.shape[0],
         src.shape[1], build.stream(),
     )
     build.check(err, "gather_rows_window")
     gather_rows_window.launches += 1
+    gather_rows_window.launches_bf16 += kind == "bf16"
     return out
 
 
-gather_rows_window.launches = 0
+gather_rows_window.launches = gather_rows_window.launches_bf16 = 0
 
 
 # ------------------------------------------------------------ autograd

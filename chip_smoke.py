@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``chgnet_tpu_torch/csrc`` and drives
-ten paths of the port, E+F+S+M serving at the default (published 0.3.0)
+fifteen paths of the port, E+F+S+M serving at the default (published 0.3.0)
 width, on the card (``PATHS``): the default ``CHGNet(seed=0)``
 (``fused_kernels=True``, directed bonds), ``fused_kernels=False``, the
 undirected bond layout ``directed_bonds=False``, the default model with
@@ -14,8 +14,10 @@ build too: the window plans are built under it) and the one-kernel conv
 pass (``CHGNET_TPU_FUSED_PASS=1``), the undirected layout under the
 one-kernel pass and under the stream-v2 switch, and bench.py's production
 configuration, ``compute_dtype="bfloat16"`` with ``matmul_precision=
-"default"``, in both bond layouts (``bf16``, ``directed_bonds=False bf16``:
-rows 1-9 with bf16 arguments, geometry and readout in f32):
+"default"``, on the default path and each of those six others but
+``fused_kernels=False`` (``bf16``, ``directed_bonds=False bf16``, ``<switched
+path> bf16``: every kernel with bf16 arguments, geometry and readout in
+f32; ``BF16_PATHS``):
 
 1. card and build: the card's name and power limit, the TF32 flags, the
    kernel build time, each kernel's registers, spills and static shared
@@ -30,7 +32,10 @@ rows 1-9 with bf16 arguments, geometry and readout in f32):
    card and compared, each output's error relative to its largest value
    (bf16 calls at ``BF16_TOL``: one bf16 rounding, gather_project_sum
    against the plain version with its route's rounding), so every kernel
-   is held at every shape and type any path gives it; each kernel's
+   is held at every shape and type any path gives it (the switched bf16
+   paths, ``NEW_BF16_PATHS``, hold every bf16 call of rows 10-14 and of the
+   other kernels only the calls of a shape no earlier path held); each
+   kernel's
    autograd op is checked forward and backward against the CPU (the fused
    tails as serving runs them, at the edge and angle streams' shapes, and
    also with parameter gradients and in the update's second-layer form,
@@ -40,14 +45,15 @@ rows 1-9 with bf16 arguments, geometry and readout in f32):
    with per-graph force sums ~0 and symmetric stress; the launch counts are
    set to 0 just before that pass and read just after it, and must equal
    the path's launch set (``PATHS``), and the wrappers' counts of launches
-   with bf16 arguments, read from the same pass, must be all of rows
-   4-9's and some of every other launched kernel's on a bf16 path, none on
-   an f32 path; the five switched paths' outputs must
-   also agree with the default path's, and the bf16 paths' with their f32
-   paths' at ``BF16_BARS`` (their LiMnO2 card-vs-CPU check too); edges/s
-   by CUDA events;
+   with bf16 arguments, read from the same pass, must be all of the conv
+   stack's kernels' (rows 4-10, 13, 14: ``CONV_WRAPPERS``) and some of
+   every other launched kernel's on a bf16 path (none of ``F32_ONLY``'s),
+   none on an f32 path; the five switched f32 paths' outputs must
+   also agree with the default path's, and the seven bf16 paths' with their
+   f32 paths' at ``BF16_BARS`` (their LiMnO2 card-vs-CPU check too);
+   edges/s by CUDA events;
 4. a ``{"kernels": [...]}`` line: per kernel, its largest error over the
-   calls of all eight paths, the path its times were taken on, its
+   calls of all paths, the path its times were taken on, its
    launches in one pass of that path and, summed over that pass's calls,
    its time, its plain version's time, the time of PyTorch library calls
    computing the same function (null where none does: the fused tails), and
@@ -62,19 +68,21 @@ rows 1-9 with bf16 arguments, geometry and readout in f32):
    ``gather_project_sum`` is also timed and bounded per route (short
    tables projected first, long ones gathered first), and the one-kernel
    pass per form (``forms``: the message form with its second layer, the
-   update form); rows 1-9 also in bf16 (``dtype``), over the bf16 calls of
-   a bf16 path's pass, with ``bf16_launches`` (from the counted pass of
-   phase 3) beside ``launches``, the
-   bytes at each tensor's element size and gather_project_sum's bf16
-   products at 989 TFLOP/s;
+   update form); every row also in bf16 (``dtype``), over the bf16 calls of
+   a bf16 path's pass (``BF16_ROW_PATH``), with ``bf16_launches`` (from the
+   counted pass of phase 3) beside ``launches``, the
+   bytes at each tensor's element size, gather_project_sum's bf16
+   products at 989 TFLOP/s and the tails' (f32 by a bf16 W2) at 247.5
+   (two TF32 passes; their dW2, f32 by f32, at 165: ``product_rate``);
 5. profile: one pass of the default, the undirected, the message-reduce,
-   the stream-v2 and the one-kernel-pass path under ``torch.profiler``, the
+   the stream-v2, the one-kernel-pass, the bf16 and the undirected
+   one-kernel-pass bf16 path under ``torch.profiler``, the
    device's busy share of its wall time and the kernels that take the most
    device time; the traced default, message-reduce, stream-v2 and
    one-kernel-pass passes must show their kernels by name (``PROFILED``:
-   the tensor-core tails, the windowed gather; the bf16 pass their bf16
+   the tensor-core tails, the windowed gather; the bf16 passes their bf16
    instantiations), and the stream-v2 and
-   one-kernel pass's traces none of the kernels they replaced
+   one-kernel passes' traces none of the kernels they replaced
    (``UNPROFILED``);
 6. simulation (``chgnet_tpu_torch.simulation``): (a) the pinned seed-0 MD
    traces of every ensemble and the FIRE trace (``GOLDEN_MD``,
@@ -102,9 +110,9 @@ rows 1-9 with bf16 arguments, geometry and readout in f32):
    steps' launches) and their ``max_abs_err`` covers the MD step's calls
    too. (b) and (c) run again with the bf16 model (tools/bench_md.py's
    configuration for systems over 2,000 atoms), checked at ``BF16_BARS``,
-   MD without a trace, its launches with bf16 arguments checked as in phase
-   3; the bf16 rows' ``sim_launches`` and ``sim_bf16_launches`` are that
-   run's;
+   MD over ``SIM_MD_STEPS_BF16`` timed steps and without a trace, its
+   launches with bf16 arguments checked as in phase 3; the bf16 rows'
+   ``sim_launches`` and ``sim_bf16_launches`` are that run's;
 7. training (``chgnet_tpu_torch.trainer``): bench.py's 32 supercells
    labelled E+F+S+M by ``CHGNet(seed=7)`` on the card (a NaN energy, force
    block and magmom block among them), ``StructureData`` ->
@@ -112,23 +120,34 @@ rows 1-9 with bf16 arguments, geometry and readout in f32):
    2 train steps of ``CHGNet(seed=0)`` (Adam, lr 1e-3, CosLR, MSE) on the
    card against the port's CPU run of the same steps, on a loader cut to 4
    structures in batches of 2 (full width): losses at rtol 1e-4, parameters
-   at 2 x lr x steps and nearly every element to 1e-5; (b) every kernel call
+   at 2 x lr x steps and nearly every element to 1e-5, each leaf's Adam
+   first moments within 1e-2 of its largest; then the same in bf16
+   (``BF16_HOLD_KW``: the bf16 kernels, plain GEMMs at "highest" as on the
+   CPU), bf16 on the card against bf16 on the CPU (``TRAIN_HOLD_BARS``:
+   losses 5e-3, elements 1e-4, moments 5e-2); (b) every kernel call
    of one train step (forward, force backward, parameter backward) against
    its plain version, the step's launch set that of the default path, each
    kernel's time over the step's calls and, for rows 7, 9 and 14, each
    backward form (with parameter gradients, without) timed and bounded
    apart; (c) the same under ``CHGNET_TPU_FUSED_PASS=1`` (rows 13 and 14,
-   and row 5, which carries the pass's second order); (d) one step with
+   and row 5, which carries the pass's second order); (b) and (c) again
+   with the bf16 model (``BF16_KW``): the tails' and the one-kernel pass's
+   parameter-gradient forms with bf16 arguments, each call held at
+   ``bf16_tol``, the launches with bf16 arguments checked as phase 3 checks
+   them; (d) one step with
    ``conv_dropout=0.1``: no fused tail launches, a finite loss; (e) one
    E+F+S+M pass with ``matmul_precision="high"`` against "highest" (TF32
    tolerance) and both times; (f) one traced train step; (g)
    ``Trainer.train`` for 2 epochs with checkpoints, each step timed by CUDA
    events: train steps/s and structures/s over epoch 2, peak device memory,
    the losses and MAEs per epoch (all finite), the checkpoint files, and a
-   ``Trainer.load`` resume that carries on one more step. The ``kernels``
-   line's rows gain ``train_launches`` (one train step of the row's path;
-   0 where that path is not trained), ``train_ms`` (that step's calls;
-   null where none) and, for rows 7, 9 and 14, ``train_forms``.
+   ``Trainer.load`` resume that carries on one more step; then (h) the same
+   run of the bf16 model, its first epoch's step losses within
+   ``TRAIN_BF16_LOSS_RTOL`` of the f32 run's. The ``kernels``
+   line's rows gain ``train_launches`` (one train step of the row's path
+   and type; 0 where that path is not trained), ``train_ms`` (that step's
+   calls of the row's type; null where none) and, for rows 7, 9 and 14,
+   ``train_forms``.
 
 ``python3 chip_smoke.py --compare ROOT [ROOT ...]`` times checkouts against
 each other in turns on one card, each ROOT in its own process and by its
@@ -161,9 +180,13 @@ F32_FLOPS = 67e12  # H100 SXM, f32 without tensor cores
 # H100 SXM, f32-accurate products on the TF32 tensor cores (495 TFLOP/s
 # dense): 3xTF32 takes three TF32 products for each f32 one
 F32_TC_FLOPS = 495e12 / 3
+# H100 SXM, products of an f32 value and a bf16 one on the TF32 tensor
+# cores: the bf16 operand is exact in TF32, so two of 3xTF32's three passes
+# keep f32 accuracy (the bf16 tails' silu(acc) or d_y times a bf16 W2)
+F32_BF16_TC_FLOPS = 495e12 / 2
 # H100 SXM, bf16 products on the tensor cores (989 TFLOP/s dense): the rate
 # a product of two bf16 inputs (gather_project_sum's tables and weights)
-# could run at; the tails' products have an f32 operand (silu(acc), d_y)
+# could run at
 BF16_TC_FLOPS = 989e12
 N_STRUCTS = 32  # bench.py's workload
 TIMED_REPEATS = 5
@@ -196,7 +219,7 @@ TAIL_OPS = {
 D_MASK_OPS = 3
 PARAM_OPS = {False: 6, True: 8}  # by has_w2
 
-# the eight paths and the launches of one E+F+S+M pass of each, by kernel in
+# the f32 paths and the launches of one E+F+S+M pass of each, by kernel in
 # the order of KERNELS: the model's keywords, the environment switch set
 # around the path (None: none), and the counts, worked out from the model's
 # code. The undirected layout adds to the default's the d2u expansions (bond
@@ -217,6 +240,10 @@ PARAM_OPS = {False: 6, True: 8}  # by has_w2
 # as the directed one to the window kernel: the d2u, u2d and u2d2 plans carry
 # no windows (a block of them spans more than WINDOW_ROWS source rows in any
 # crystal of a few hundred bonds), so their 11 gathers stay on gather_rows.
+# bench.py's production serving configuration, the conv stack in bf16 (every
+# kernel with bf16 arguments, geometry and readout sums in f32): each bf16
+# path has the launch set of its f32 path
+BF16_KW = dict(compute_dtype="bfloat16", matmul_precision="default")
 PATHS = {
     "default": ({}, None, (20, 17, 8, 9, 7, 7, 2, 2, 0, 0, 0, 0, 0, 0)),
     "fused_kernels=False": (
@@ -237,27 +264,35 @@ PATHS = {
     "directed_bonds=False CHGNET_TPU_STREAM_V2=1": (
         dict(directed_bonds=False), "CHGNET_TPU_STREAM_V2",
         (4, 12, 8, 5, 7, 7, 2, 2, 7, 0, 28, 16, 0, 0)),
-    # bench.py's production serving configuration: the conv stack in bf16
-    # (rows 1-9 with bf16 arguments, geometry and readout sums in f32), the
-    # launch sets of the f32 paths
-    "bf16": (
-        dict(compute_dtype="bfloat16", matmul_precision="default"), None,
-        (20, 17, 8, 9, 7, 7, 2, 2, 0, 0, 0, 0, 0, 0)),
-    "directed_bonds=False bf16": (
-        dict(directed_bonds=False, compute_dtype="bfloat16",
-             matmul_precision="default"), None,
-        (32, 28, 8, 5, 7, 7, 2, 2, 7, 0, 0, 0, 0, 0)),
 }
+# the f32 paths under a switch, held to the default path's outputs
 SWITCHED = [path for path, (_, switch, _) in PATHS.items() if switch]
-# each bf16 path and the f32 path it is held to (BF16_BARS)
+# each bf16 path and the f32 path it is held to (BF16_BARS), in the order
+# they run: the default and the undirected layout (rows 1-9 in bf16), then
+# every switched path (rows 10-14 in bf16 too); each has its f32 path's
+# keywords and switch, the conv stack in bf16 and the same launch set
 BF16_PATHS = {"bf16": "default", "directed_bonds=False bf16": "directed_bonds=False"}
+BF16_PATHS.update({f"{path} bf16": path for path in SWITCHED})
+PATHS.update({
+    path: (dict(PATHS[ref][0], **BF16_KW), *PATHS[ref][1:])
+    for path, ref in BF16_PATHS.items()
+})
+# the switched bf16 paths (rows 10-14 in bf16), which hold against the
+# plain versions only those rows' calls and calls of shapes no earlier path
+# gave (the script's time)
+NEW_BF16_PATHS = [p for p, ref in BF16_PATHS.items() if PATHS[ref][1]]
 BF16_PATHS_KW = PATHS["bf16"][0]
 # the path whose bf16 calls a bf16 row of the kernels line is timed on
 BF16_ROW_PATH = {
-    name: "directed_bonds=False bf16" if name == "gather_sum_rows" else "bf16"
-    for name in ("segment_sum_csr", "gather_rows", "segment_sum_pair",
-                 "gather_project_sum", "gated_message_fwd", "gated_message_bwd",
-                 "gated_update_fwd", "gated_update_bwd", "gather_sum_rows")
+    "segment_sum_csr": "bf16", "gather_rows": "bf16", "segment_sum_pair": "bf16",
+    "gather_project_sum": "bf16", "gated_message_fwd": "bf16",
+    "gated_message_bwd": "bf16", "gated_update_fwd": "bf16",
+    "gated_update_bwd": "bf16", "gather_sum_rows": "directed_bonds=False bf16",
+    "gated_message_reduce": "CHGNET_TPU_MSG_REDUCE=1 bf16",
+    "segment_sum_tiles": "CHGNET_TPU_STREAM_V2=1 bf16",
+    "gather_rows_window": "CHGNET_TPU_STREAM_V2=1 bf16",
+    "fused_pass_fwd": "CHGNET_TPU_FUSED_PASS=1 bf16",
+    "fused_pass_bwd": "CHGNET_TPU_FUSED_PASS=1 bf16",
 }
 # the paths traced in phase 5, and the CUDA kernels each trace must show
 PROFILED = {
@@ -268,6 +303,8 @@ PROFILED = {
     "CHGNET_TPU_FUSED_PASS=1": ("pass_fwd_tc_kernel", "pass_bwd_tc_kernel"),
     "bf16": ("tail_fwd_tc_kernel<__nv_bfloat16>", "tail_bwd_tc_kernel<__nv_bfloat16",
              "gproj_tc_kernel<__nv_bfloat16>", "segment_sum_csr_kernel<__nv_bfloat16"),
+    "directed_bonds=False CHGNET_TPU_FUSED_PASS=1 bf16": (
+        "pass_fwd_tc_kernel<__nv_bfloat16", "pass_bwd_tc_kernel<__nv_bfloat16"),
 }
 # ... and the kernels it must not show: the CUDA-core one-kernel pass
 # (parameter gradients only) has no place in serving, and the windowed
@@ -275,6 +312,8 @@ PROFILED = {
 UNPROFILED = {
     "CHGNET_TPU_STREAM_V2=1": ("gather_rows_window_kernel",),
     "CHGNET_TPU_FUSED_PASS=1": ("pass_fwd_kernel<", "pass_bwd_kernel<"),
+    "directed_bonds=False CHGNET_TPU_FUSED_PASS=1 bf16": (
+        "pass_fwd_kernel<", "pass_bwd_kernel<"),
 }
 MODEL_TOL = {"e": 2e-5, "f": 5e-5, "s": 2e-4, "m": 2e-5}
 # a bf16 path against its f32 path on the card, and its card run against its
@@ -289,14 +328,25 @@ BF16_BARS = {"e": 2e-3, "f": 2e-2, "s": 2e-2, "m": 2e-2}
 # (gather_project_sum_route_plain): the long route rounds only the output
 # (one ulp), the short route also each pair's projected table, whose
 # rounding may fall on the other side of a tie from the kernel's f32 sums
-# (one more ulp a pair: bf16_tol)
+# (one more ulp a pair: bf16_tol); the parameter-gradient forms of rows 7,
+# 9 and 14 round sums over tens of thousands of rows that the kernel and the
+# plain version add in different f32 orders, so one rounding of sums that
+# differ by up to the f32 kernel's own tolerance (bf16_tol)
 BF16_ULP = 2.0**-7
 BF16_TOL = {
     "segment_sum_csr": BF16_ULP, "gather_rows": 0.0, "segment_sum_pair": BF16_ULP,
     "gather_project_sum": BF16_ULP, "gated_message_fwd": BF16_ULP,
     "gated_message_bwd": BF16_ULP, "gated_update_fwd": BF16_ULP,
     "gated_update_bwd": BF16_ULP, "gather_sum_rows": 0.0,
+    "gated_message_reduce": BF16_ULP, "segment_sum_tiles": BF16_ULP,
+    "gather_rows_window": 0.0, "fused_pass_fwd": BF16_ULP,
+    "fused_pass_bwd": BF16_ULP,
 }
+# rows 10-14: on the paths of NEW_BF16_PATHS every bf16 call of
+# theirs is held, of the other kernels only calls of a shape no earlier path
+# gave
+NEW_ROWS = ("gated_message_reduce", "segment_sum_tiles", "gather_rows_window",
+            "fused_pass_fwd", "fused_pass_bwd")
 
 # the simulation phase's pinned seed-0 traces: a copy of
 # tests/test_golden_traces.py's (that module imports chgnet_tpu; a CPU test
@@ -702,12 +752,23 @@ def _ops_ms(flops, rate=F32_TC_FLOPS) -> float:
 
 
 def product_rate(name, args) -> float:
-    """The tensor cores' peak for a call's matrix products: bf16 where both
-    operands are bf16 inputs (gather_project_sum's tables and weights), else
-    f32-accurate 3xTF32 (the tails multiply f32 values, silu(acc) and
-    d_y, whatever their inputs' type)."""
-    bf16 = call_dtype(args) == torch.bfloat16
-    return BF16_TC_FLOPS if bf16 and name == "gather_project_sum" else F32_TC_FLOPS
+    """The tensor cores' peak for a call's matrix products, by their
+    operands' types: f32 calls multiply f32 by f32 (3xTF32); a bf16
+    gather_project_sum multiplies bf16 tables by bf16 weights (the bf16
+    rate); a bf16 tail multiplies an f32 value (silu(acc), d_y) by a bf16 W2
+    (two TF32 passes), and its backward with parameter gradients adds one
+    f32 by f32 product of the same size (dW2 from silu(acc) and d_y), so
+    those calls take the rate of two products at the one and one at the
+    other."""
+    if call_dtype(args) != torch.bfloat16:
+        return F32_TC_FLOPS
+    if name == "gather_project_sum":
+        return BF16_TC_FLOPS
+    need_params = name.endswith("_bwd") and (
+        args[9] if name == "fused_pass_bwd" else args[-1])
+    if need_params:
+        return 3 / (2 / F32_BF16_TC_FLOPS + 1 / F32_TC_FLOPS)
+    return F32_BF16_TC_FLOPS
 
 
 def call_dtype(args) -> torch.dtype:
@@ -849,15 +910,27 @@ def _errors(got, want):
     return err, err / scale if scale else math.inf if err else 0.0
 
 
-def phase_kernels(path, calls, counts=None):
+def _signature(name, args) -> tuple:
+    """What makes two calls of a kernel alike: their float type, every
+    tensor's shape and the flags (the backwards' need_mask, need_params)."""
+    return (name, call_dtype(args), tuple(tuple(t.shape) for t in _tensors(args)),
+            tuple(a for a in args if isinstance(a, bool)))
+
+
+def phase_kernels(path, calls, counts=None, held=None, skip=False):
     """Every call recorded on one pass of ``path`` through the kernel and
     its plain version, each output's error relative to that output's
     largest value, at ``KERNELS``' tolerance for f32 calls and
-    ``BF16_TOL`` for bf16 ones. Every kernel the path launches (``counts``,
+    ``bf16_tol`` for bf16 ones. Every kernel the path launches (``counts``,
     in the order of ``KERNELS``; by default the path's launch set in
-    ``PATHS``) must have been recorded. Returns the largest absolute error
-    by kernel, under ``"<name> bf16"`` for the bf16 calls."""
+    ``PATHS``) must have been recorded. With ``held`` (the signatures of
+    the calls held so far, which this adds to) and ``skip`` (the paths of
+    ``NEW_BF16_PATHS``, the bf16 train steps) it holds only the bf16 calls
+    that ``new_bf16_call`` names and the calls of a signature not held
+    before. Returns the largest absolute error by kernel, under ``"<name>
+    bf16"`` for the bf16 calls."""
     errors, failed = {}, []
+    skip_held = held is not None and skip
     expected = dict(zip(KERNELS, counts or PATHS[path][2]))
     for name, (kern, plain) in kernel_versions().items():
         if not expected[name]:
@@ -870,7 +943,14 @@ def phase_kernels(path, calls, counts=None):
         for dtype, group in sorted(by_type.items(), key=str):
             bf16 = dtype == torch.bfloat16
             worst, worst_scaled, over, tols = 0.0, 0.0, False, set()
+            n_held = 0
             for args in group:
+                sig = _signature(name, args)
+                if skip_held and sig in held and not (bf16 and new_bf16_call(name, args)):
+                    continue
+                if held is not None:
+                    held.add(sig)
+                n_held += 1
                 got = list(_tensors([kern(*args)]))
                 want = list(_tensors([plain(*args)]))
                 if len(got) != len(want) or any(
@@ -890,8 +970,12 @@ def phase_kernels(path, calls, counts=None):
             })
             label = f"{name} bf16" if bf16 else name
             tol_text = "/".join(f"{t:g}" for t in sorted(tols))
+            if not n_held:
+                log(f"kernel {label} ({path} path): {len(group)} calls, each of "
+                    "a shape an earlier path held")
+                continue
             log(f"kernel {label} ({path} path): "
-                f"{len(group)} calls, max_abs_err {worst:.3e}, "
+                f"{len(group)} calls ({n_held} held), max_abs_err {worst:.3e}, "
                 f"relative {worst_scaled:.3e} (tol {tol_text}); shapes {shapes}")
             if over:
                 failed.append(label)
@@ -902,9 +986,18 @@ def phase_kernels(path, calls, counts=None):
     return errors
 
 
+def new_bf16_call(name, args) -> bool:
+    """Whether a call with bf16 arguments is held wherever it runs: rows
+    10-14, or a backward's parameter-gradient form (rows 7, 9, 14)."""
+    return name in NEW_ROWS or (name in PARAM_FORM and bool(args[PARAM_FORM[name]]))
+
+
 def bf16_tol(name, args) -> float:
     """``BF16_TOL`` for one bf16 call; gather_project_sum's short route one
-    ulp more a pair (``BF16_TOL``'s comment)."""
+    ulp more a pair, a backward with parameter gradients the f32 kernel's
+    tolerance more (``BF16_TOL``'s comment)."""
+    if name in PARAM_FORM and args[PARAM_FORM[name]]:
+        return BF16_TOL[name] + KERNELS[name]["tol"]
     if name != "gather_project_sum":
         return BF16_TOL[name]
     from chgnet_tpu_torch.ops import gproj
@@ -916,23 +1009,28 @@ def bf16_tol(name, args) -> float:
 
 
 def bf16_calls_of(path, calls) -> dict:
-    """The recorded calls with bf16 arguments of each kernel in a bf16
-    path's launch set, which its bf16 row is timed on."""
-    expected = dict(zip(KERNELS, PATHS[path][2]))
+    """The recorded calls with bf16 arguments of each kernel whose bf16 row
+    is timed on ``path`` (``BF16_ROW_PATH``)."""
     bf16 = {name: [a for a in calls[name] if call_dtype(a) == torch.bfloat16]
-            for name in BF16_TOL if expected[name]}
+            for name, row_path in BF16_ROW_PATH.items() if row_path == path}
     missing = [n for n, c in bf16.items() if not c]
     if missing:
         raise AssertionError(f"{path}: no bf16 call recorded of {missing}")
     return bf16
 
 
-# the wrappers of rows 4-9, which on a bf16 run launch with bf16 arguments
-# only (rows 1-3 also carry the f32 geometry and readout, as in chgnet_tpu)
+# the wrappers of rows 4-10, 13 and 14, which on a bf16 run launch with bf16
+# arguments only (rows 1-3, 11 and 12 also carry the f32 geometry and
+# readout, as in chgnet_tpu)
 CONV_WRAPPERS = (
     "gather_project_sum_kernel", "gated_message_fwd", "gated_message_bwd",
     "gated_update_fwd", "gated_update_bwd", "gather_sum_rows",
+    "gated_message_reduce", "fused_pass_fwd", "fused_pass_bwd",
 )
+# the stream wrappers that launch with f32 arguments only on a bf16 path: the
+# stream-v2 path's one gather_rows launch is the readout's 1-wide atom ->
+# graph cotangent, f32 on every path (the other 16 gathers take the windows)
+F32_ONLY = {"CHGNET_TPU_STREAM_V2=1 bf16": ("gather_rows",)}
 
 
 def read_launches() -> tuple[dict, dict]:
@@ -946,12 +1044,14 @@ def read_launches() -> tuple[dict, dict]:
 
 def check_bf16_launches(label, launches, bf16_launches, bf16: bool) -> None:
     """On a bf16 run every wrapper that launched did so with bf16 arguments
-    at least once, and rows 4-9's only with bf16 (``CONV_WRAPPERS``); on an
-    f32 run none did."""
+    at least once (none at all for ``F32_ONLY[label]``), and the conv
+    stack's wrappers only with bf16 (``CONV_WRAPPERS``); on an f32 run none
+    did."""
     log(f"{label} launches with bf16 arguments:", bf16_launches)
     if bf16:
+        f32_only = F32_ONLY.get(label, ())
         wrong = [n for n, c in launches.items() if c and (
-            not bf16_launches[n]
+            bool(bf16_launches[n]) == (n in f32_only)
             or (n in CONV_WRAPPERS and bf16_launches[n] != c))]
     else:
         wrong = [n for n, c in bf16_launches.items() if c]
@@ -1424,6 +1524,10 @@ def phase_timing(calls, launches, bf16_launches, errors, bf16_calls):
 SIM_MD_SCALE = (16, 10, 8)
 SIM_MD_SKIN = 0.15
 SIM_MD_STEPS = 50
+# the bf16 run's timed steps, fewer than the f32 run's to keep the script
+# under 450 s with the switched bf16 paths: MD at this size is bound by the
+# host's rebuilds (PERF.md section 5), whose rate 20 steps already show
+SIM_MD_STEPS_BF16 = 20
 SIM_RELAX_STRUCTS = 8
 SIM_RELAX_STEPS = 50
 SIM_RELAX_FMAX = 0.01  # eV/A: the seed-0 model's forces there are ~0.08
@@ -1496,7 +1600,8 @@ def phase_goldens():
 
 def phase_sim_md(model_kw=None):
     """(b) NVT MD at full width, 10,240 atoms: one chunk to warm up, then
-    ``SIM_MD_STEPS`` steps between a reset and a read of the launch counts
+    ``SIM_MD_STEPS`` steps (bf16: ``SIM_MD_STEPS_BF16``) between a reset and
+    a read of the launch counts
     (every kernel of the default path must launch, no other); steps/s, the
     rebuild stats over those steps, peak device memory above what was
     allocated before; the final state against a fresh exact-cutoff
@@ -1518,6 +1623,7 @@ def phase_sim_md(model_kw=None):
 
     model_kw = model_kw or {}
     tag = "sim MD" + (" bf16" if model_kw else "")
+    n_steps = SIM_MD_STEPS_BF16 if model_kw else SIM_MD_STEPS
     e_tol, f_tol = (BF16_BARS["e"], BF16_BARS["f"]) if model_kw else (SIM_E_TOL, SIM_F_TOL)
     torch.cuda.synchronize()
     base_bytes = torch.cuda.memory_allocated()
@@ -1541,7 +1647,7 @@ def phase_sim_md(model_kw=None):
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    md.run(SIM_MD_STEPS)
+    md.run(n_steps)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches, bf16_launches = read_launches()
@@ -1557,13 +1663,13 @@ def phase_sim_md(model_kw=None):
         f"{int(batch.edge_mask.sum())} A {int(batch.angle_mask.sum())}, kept by the "
         f"dynamic cutoff E {int(live.edge_mask.sum())} A {int(live.angle_mask.sum())}")
     log(f"{tag}: set-up {setup_s:.2f} s, warm-up chunk {warm_s:.2f} s; "
-        f"{SIM_MD_STEPS} steps in {wall_s:.3f} s = {SIM_MD_STEPS / wall_s:.4f} steps/s; "
+        f"{n_steps} steps in {wall_s:.3f} s = {n_steps / wall_s:.4f} steps/s; "
         f"{rt.n_rebuilds - rebuilds0} rebuilds; stats over the steps "
         + json.dumps({k: round(v, 3) for k, v in stats.items()})
         + f"; peak device memory {peak / 2**30:.3f} GiB above the "
         f"{base_bytes / 2**30:.3f} GiB allocated before ({card_line()})")
     log(f"{tag}: stall_s {stats['stall_s'] / wall_s:.1%} of the wall")
-    log(f"{tag} launches over {SIM_MD_STEPS} steps:", launches)
+    log(f"{tag} launches over {n_steps} steps:", launches)
     check_launched(tag, launches, PATHS["default"][2])
     check_bf16_launches(tag, launches, bf16_launches, bool(model_kw))
 
@@ -1816,7 +1922,33 @@ TRAIN_TEACHER_SEED = 7
 # from the same init, on a loader cut to 4 structures in batches of 2 (the
 # width stays full; a full-width CPU step at 8 x 216 atoms takes minutes)
 TRAIN_HOLD_STRUCTS, TRAIN_HOLD_BATCH = 4, 2
-TRAIN_LOSS_RTOL = 1e-4
+# the hold's bars by dtype: (losses, relative; the element gap that at most
+# 1% of the parameters may exceed; each leaf's Adam first moments after the
+# steps, relative to the leaf's largest). Adam's step hides a gradient's
+# scale (an element moves by about lr whatever its gradient), its first
+# moments (0.09 g1 + 0.1 g2 after two steps) do not. bf16 on the card
+# against bf16 on the CPU rounds in other orders (kernels against the plain
+# versions, cuBLAS against the CPU's GEMMs), as the port's bf16 steps
+# against chgnet_tpu's do: tests/test_torch_port_bf16_switches.py's bars
+TRAIN_HOLD_BARS = {"f32": (1e-4, 1e-5, 1e-2), "bf16": (5e-3, 1e-4, 5e-2)}
+# the bf16 hold's model: the production bf16 conv stack and kernels with
+# matmul_precision "highest", so that the card's plain GEMMs do what the
+# CPU's do. Under "default" the card's f32 GEMMs take TF32 and its bf16
+# GEMMs reduce in bf16, which the CPU does not: its first step's parameter
+# gradients lay twice as far from f32's as the CPU's bf16 ones (median over
+# leaves 1.4e-2 against 7.6e-3 of each leaf's largest), against 2.6e-3
+# between card and CPU under "highest" (scripts/bf16_train_gradient_gap.py,
+# NVIDIA H100 80GB HBM3, 700.00 W).
+# matmul_precision sets no kernel's arithmetic: the kernels are those of
+# "default"
+BF16_HOLD_KW = dict(compute_dtype="bfloat16", matmul_precision="highest")
+# the bf16 run's step losses over its first epoch against the f32 run's,
+# relative. The MSE loss moves by 2 mean((y - label) dy) for an output gap
+# dy, relatively by about 2 |dy| / |y - label|: the forces carry most of it,
+# their bf16 gap (6.8e-4 eV/A on the benchmark batch, PERF.md) against a
+# residual of a few 1e-2 eV/A before training, 3-7%; a narrow model on the
+# CPU showed 3.6e-2 over its first 3 steps
+TRAIN_BF16_LOSS_RTOL = 0.1
 # matmul_precision="high" against "highest": each output's largest error
 # over its largest value. TF32 products keep 10 mantissa bits (a relative
 # rounding of 2^-11, 4.9e-4); forces and stress are sums of per-edge terms
@@ -1886,32 +2018,39 @@ def _step(trainer, batch, targets):
 
 
 def train_launches(trainer, batch, targets):
-    """The launches of one train step, by kernel wrapper name."""
+    """The launches of one train step, and those with bf16 arguments, by
+    kernel wrapper name."""
     from chgnet_tpu_torch import ops
 
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     _step(trainer, batch, targets)
     torch.cuda.synchronize()
-    return {fn.__name__: fn.launches for fn in ops.KERNELS}
+    return read_launches()
 
 
-def record_train_step(label, trainer, batch, targets, counts):
+def record_train_step(label, trainer, batch, targets, counts, held=None):
     """Every kernel call of one train step (forward, force backward,
     parameter backward) held against its plain version; the launch set of a
     second step must be that of ``counts`` (the order of ``KERNELS``), no
-    other. Returns (calls, errors, launches)."""
+    other, and its launches with bf16 arguments those of a bf16 run for a
+    bf16 model (``check_bf16_launches``), none else. With ``held`` (the bf16
+    steps) only the bf16 calls ``new_bf16_call`` names and calls of a
+    signature not held before are held (``phase_kernels``). Returns (calls,
+    errors, launches, those with bf16 arguments)."""
     with Recorder() as rec:
         metrics = _step(trainer, batch, targets)
     torch.cuda.synchronize()
     with torch.no_grad():
-        errors = phase_kernels(label, rec.calls, counts)
-    launches = train_launches(trainer, batch, targets)
+        errors = phase_kernels(label, rec.calls, counts, held, skip=held is not None)
+    launches, bf16_launches = train_launches(trainer, batch, targets)
     log(f"{label}: launches in one train step:", launches)
     check_launched(label, launches, counts)
+    check_bf16_launches(label, launches, bf16_launches,
+                        trainer.model.config.compute_dtype == "bfloat16")
     if not np.isfinite(metrics["loss"]):
         raise AssertionError(f"{label}: non-finite loss")
-    return rec.calls, errors, launches
+    return rec.calls, errors, launches, bf16_launches
 
 
 def train_forms(name, kern, plain, args_list) -> dict:
@@ -1935,12 +2074,15 @@ def train_forms(name, kern, plain, args_list) -> dict:
     return forms
 
 
-def train_timing(label, calls) -> dict:
-    """Per kernel of a recorded train step: its time summed over the step's
-    calls, and the parameter-gradient forms apart (rows 7, 9, 14)."""
+def train_timing(label, calls, dtype=torch.float32, names=None) -> dict:
+    """Per kernel of a recorded train step (of ``names``, default all): its
+    time summed over the step's calls of float type ``dtype``, and the
+    parameter-gradient forms apart (rows 7, 9, 14)."""
     out = {}
     for name, (kern, plain) in kernel_versions().items():
-        args_list = calls[name]
+        if names is not None and name not in names:
+            continue
+        args_list = [a for a in calls[name] if call_dtype(a) == dtype]
         if not args_list:
             continue
         ms = cuda_ms(lambda: [kern(*a) for a in args_list], TIMED_REPEATS)
@@ -1953,47 +2095,63 @@ def train_timing(label, calls) -> dict:
     return out
 
 
-def phase_train_hold(data, loaders):
+def phase_train_hold(data, loaders, **model_kw):
     """The first ``TRAIN_HOLD_STRUCTS // TRAIN_HOLD_BATCH`` train steps on
     the card against the port's CPU run of the same steps from the same
-    init: losses at ``TRAIN_LOSS_RTOL``, parameters after the last step at
-    2 x lr x steps (Adam moves a weight whose gradient is rounding noise
-    by about lr either way), nearly every element to 1e-5."""
+    init, in f32 or (``model_kw`` ``BF16_HOLD_KW``) bf16, at the dtype's
+    ``TRAIN_HOLD_BARS``: losses; parameters after the last step at 2 x lr x
+    steps (Adam moves a weight whose gradient is rounding noise by about lr
+    either way) and nearly every element to the bar's gap; every leaf's
+    Adam first moments."""
     from chgnet_tpu_torch.data import GraphLoader
     from chgnet_tpu_torch.models.convert import params_to_numpy
+    from chgnet_tpu_torch.trainer.trainer import _leaves
     from chgnet_tpu_torch.utils.common import flatten_params
 
+    tag = "train hold" + (" bf16" if model_kw else "")
+    loss_tol, gap, mu_tol = TRAIN_HOLD_BARS["bf16" if model_kw else "f32"]
     hold = loaders[0].indices[:TRAIN_HOLD_STRUCTS]
-    log(f"train hold: cut to structures {hold.tolist()} of the train split in "
+    log(f"{tag}: cut to structures {hold.tolist()} of the train split in "
         f"batches of {TRAIN_HOLD_BATCH} (full width)")
     runs = {}
     for device in ("cpu", TRAIN_DEVICE):
         t0 = time.perf_counter()
-        trainer = make_trainer(device)
+        trainer = make_trainer(device, **model_kw)
         trainer._build_optimizer(False)
         loader = GraphLoader(data, indices=hold, batch_size=TRAIN_HOLD_BATCH,
                              shuffle=False)
         losses = [_step(trainer, b, t)["loss"] for b, t in loader]
-        runs[device] = (losses, flatten_params(params_to_numpy(trainer.model.params)))
-        log(f"train hold {device}: losses {losses} ({time.perf_counter() - t0:.1f} s)")
-    (cpu_l, cpu_p), (card_l, card_p) = runs["cpu"], runs[TRAIN_DEVICE]
+        moments = {path: trainer.optimizer.state[leaf]["exp_avg"].cpu().numpy()
+                   for path, leaf in _leaves(trainer.model.params)
+                   if leaf in trainer.optimizer.state}
+        runs[device] = (losses, flatten_params(params_to_numpy(trainer.model.params)),
+                        moments)
+        log(f"{tag} {device}: losses {losses} ({time.perf_counter() - t0:.1f} s)")
+    (cpu_l, cpu_p, cpu_m), (card_l, card_p, card_m) = runs["cpu"], runs[TRAIN_DEVICE]
     loss_err = max(abs(a / b - 1) for a, b in zip(card_l, cpu_l))
     diffs = np.concatenate([np.abs(card_p[k] - cpu_p[k]).ravel() for k in cpu_p])
     bound = 2 * TRAIN_LR * len(cpu_l)
-    frac = float((diffs > 1e-5).mean())
-    log(f"train hold: card vs CPU, {len(cpu_l)} steps: losses relative err "
-        f"{loss_err:.3e} (tol {TRAIN_LOSS_RTOL:g}); parameters max err "
-        f"{diffs.max():.3e} (bound {bound:g}), {frac:.4%} of {diffs.size} over 1e-5 "
-        "(at most 1%)")
-    if not (loss_err <= TRAIN_LOSS_RTOL and diffs.max() <= bound and frac <= 0.01):
-        raise AssertionError("train hold: the card's steps disagree with the CPU's")
+    frac = float((diffs > gap).mean())
+    mu_err = {k: float(np.abs(card_m[k] - v).max() / max(np.abs(v).max(), 1e-30))
+              for k, v in cpu_m.items() if np.abs(v).max() > 0 or np.abs(card_m[k]).max() > 0}
+    worst = max(mu_err, key=mu_err.get)
+    log(f"{tag}: card vs CPU, {len(cpu_l)} steps: losses relative err "
+        f"{loss_err:.3e} (tol {loss_tol:g}); parameters max err "
+        f"{diffs.max():.3e} (bound {bound:g}), {frac:.4%} of {diffs.size} over {gap:g} "
+        f"(at most 1%); Adam first moments of {len(mu_err)} leaves moved, largest "
+        f"relative err {mu_err[worst]:.3e} ({worst}; tol {mu_tol:g})")
+    if not (loss_err <= loss_tol and diffs.max() <= bound and frac <= 0.01
+            and set(card_m) == set(cpu_m) and mu_err[worst] <= mu_tol):
+        raise AssertionError(f"{tag}: the card's steps disagree with the CPU's")
 
 
-def phase_train_run(loaders):
+def phase_train_run(loaders, **model_kw):
     """``Trainer.train`` for ``TRAIN_EPOCHS`` epochs with checkpoints, each
     step timed by CUDA events; steps/s and structures/s over the last
     epoch; peak device memory; a resume from the last checkpoint that
-    carries on one more step."""
+    carries on one more step. ``model_kw``: the model's keywords
+    (``BF16_KW`` for the bf16 run). Returns the trainer, whose ``steps``
+    hold (epoch, start event, end event, loss) of every step."""
     from chgnet_tpu_torch.trainer import Trainer
 
     class TimedTrainer(Trainer):
@@ -2009,8 +2167,9 @@ def phase_train_run(loaders):
 
     import shutil
 
+    tag = "train run" + (" bf16" if model_kw else "")
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
-    trainer = make_trainer(TRAIN_DEVICE, TimedTrainer)
+    trainer = make_trainer(TRAIN_DEVICE, TimedTrainer, **model_kw)
     trainer.steps = []
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -2026,7 +2185,7 @@ def phase_train_run(loaders):
     losses = {}
     for ep, *_, loss in trainer.steps:
         losses.setdefault(ep, []).append(float(loss))
-    log(f"train run: {TRAIN_EPOCHS} epochs of {len(loaders[0])} steps in {wall:.2f} s "
+    log(f"{tag}: {TRAIN_EPOCHS} epochs of {len(loaders[0])} steps in {wall:.2f} s "
         f"(validation, test and checkpoints included); epoch {TRAIN_EPOCHS}: steps "
         f"{', '.join(f'{ms:.3f}' for ms in step_ms)} ms by CUDA events = "
         f"{len(last) / sum(step_ms) * 1e3:.4f} train steps/s, "
@@ -2036,66 +2195,82 @@ def phase_train_run(loaders):
         f"({card_line()})")
     hist = trainer.training_history
     for ep in range(TRAIN_EPOCHS):
-        log(f"train run: epoch {ep + 1}: step losses {losses.get(ep)}, MAE train "
+        log(f"{tag}: epoch {ep + 1}: step losses {losses.get(ep)}, MAE train "
             + json.dumps({k: hist[k]["train"][ep] for k in hist})
             + " val " + json.dumps({k: hist[k]["val"][ep] for k in hist}))
-    log("train run: test MAE " + json.dumps({k: hist[k]["test"] for k in hist}))
+    log(f"{tag}: test MAE " + json.dumps({k: hist[k]["test"] for k in hist}))
     finite = all(np.isfinite(v) for vals in losses.values() for v in vals) and all(
         np.isfinite(hist[k][split]).all() for k in hist for split in ("train", "val", "test"))
     if not finite or len(hist["e"]["train"]) != TRAIN_EPOCHS:
-        raise AssertionError("train run: a non-finite loss or MAE, or an early exit")
+        raise AssertionError(f"{tag}: a non-finite loss or MAE, or an early exit")
     files = sorted(os.listdir(TRAIN_DIR))
-    log(f"train run: checkpoints {files}")
+    log(f"{tag}: checkpoints {files}")
     ckpt = os.path.join(TRAIN_DIR, next(f for f in files if f.startswith("epoch")))
     if not (any(f.startswith("bestE_") for f in files)
             and any(f.startswith("bestF_") for f in files)):
-        raise AssertionError("train run: bestE_ / bestF_ missing")
+        raise AssertionError(f"{tag}: bestE_ / bestF_ missing")
     restored = Trainer.load(ckpt, use_device=TRAIN_DEVICE)
     batch, targets = next(iter(loaders[0]))
     metrics = _step(restored, batch, targets)
     steps = {int(st["step"]) for st in restored.optimizer.state_dict()["state"].values()}
-    log(f"train resume: Trainer.load({os.path.basename(ckpt)}) at epoch "
+    log(f"{tag} resume: Trainer.load({os.path.basename(ckpt)}) at epoch "
         f"{restored.starting_epoch}, scheduler step {restored.scheduler_step}, "
         f"optimizer steps {steps}; one more step: loss {metrics['loss']:.6f}")
     if not (restored.starting_epoch == TRAIN_EPOCHS and np.isfinite(metrics["loss"])
-            and steps == {TRAIN_EPOCHS * len(loaders[0]) + 1}):
-        raise AssertionError("train resume: the restored trainer did not carry on")
+            and steps == {TRAIN_EPOCHS * len(loaders[0]) + 1}
+            and restored.model.config == trainer.model.config):
+        raise AssertionError(f"{tag} resume: the restored trainer did not carry on")
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     return trainer
 
 
 def phase_train():
     """Phase 7 (``chip_smoke.py`` docstring). Returns (launches of one
-    default train step, per-kernel train times, errors)."""
+    default train step, per-kernel train times, errors), each for f32 and
+    for bf16: ``{"f32": ..., "bf16": ...}``."""
     t_start = time.perf_counter()
     data, loaders = train_data()
     phase_train_hold(data, loaders)
+    phase_train_hold(data, loaders, **BF16_HOLD_KW)
     batch, targets = next(iter(loaders[0]))
+    launches, times, errors = {}, {}, {}
 
-    trainer = make_trainer(TRAIN_DEVICE)
-    trainer._build_optimizer(False)
-    calls, errors, launches = record_train_step(
-        "train step", trainer, batch, targets, TRAIN_LAUNCH_SETS["default"])
-    times = train_timing("train step", calls)
-    del calls
-
-    with env_switch("CHGNET_TPU_FUSED_PASS"):
-        fp = make_trainer(TRAIN_DEVICE)
-        fp._build_optimizer(False)
-        fp_calls, fp_errors, fp_launches = record_train_step(
-            "train step CHGNET_TPU_FUSED_PASS=1", fp, batch, targets,
-            TRAIN_LAUNCH_SETS["CHGNET_TPU_FUSED_PASS=1"])
-        fp_times = train_timing("train step CHGNET_TPU_FUSED_PASS=1", fp_calls)
-        del fp_calls, fp
-    for name in ("fused_pass_fwd", "fused_pass_bwd"):
-        launches[name] = fp_launches[name]
-        times[name] = fp_times[name]
-    for name, err in fp_errors.items():
-        errors[name] = max(err, errors.get(name, 0.0))
+    # one step of the default path and one under the one-kernel pass, each in
+    # f32 and in bf16 (the tails' and the pass's parameter-gradient forms)
+    passes = ("fused_pass_fwd", "fused_pass_bwd")
+    for dtype, kw in (("f32", {}), ("bf16", BF16_KW)):
+        label = "train step" + ("" if dtype == "f32" else " bf16")
+        torch_dtype = torch.bfloat16 if kw else torch.float32
+        held = set() if kw else None  # the bf16 steps: what is new only
+        trainer = make_trainer(TRAIN_DEVICE, **kw)
+        trainer._build_optimizer(False)
+        calls, errors[dtype], launches[dtype], _ = record_train_step(
+            label, trainer, batch, targets, TRAIN_LAUNCH_SETS["default"], held)
+        times[dtype] = train_timing(label, calls, torch_dtype)
+        del calls
+        with env_switch("CHGNET_TPU_FUSED_PASS"):
+            fp = make_trainer(TRAIN_DEVICE, **kw)
+            fp._build_optimizer(False)
+            fp_label = f"{label} CHGNET_TPU_FUSED_PASS=1"
+            fp_calls, fp_errors, fp_launches, _ = record_train_step(
+                fp_label, fp, batch, targets,
+                TRAIN_LAUNCH_SETS["CHGNET_TPU_FUSED_PASS=1"], held)
+            # the pass's rows are timed on this step, every other row on the
+            # default path's
+            fp_times = train_timing(fp_label, fp_calls, torch_dtype, passes)
+            del fp_calls, fp
+        for name in passes:
+            launches[dtype][name] = fp_launches[name]
+            times[dtype][name] = fp_times[name]
+        for name, err in fp_errors.items():
+            errors[dtype][name] = max(err, errors[dtype].get(name, 0.0))
+        if dtype == "f32":
+            f32_trainer = trainer
+        del trainer
 
     drop = make_trainer(TRAIN_DEVICE, conv_dropout=0.1)
     drop._build_optimizer(False)
-    drop_launches = train_launches(drop, batch, targets)
+    drop_launches, _ = train_launches(drop, batch, targets)
     drop_loss = _step(drop, batch, targets)["loss"]
     log(f"train step conv_dropout=0.1: launches {drop_launches}, loss {drop_loss:.6f}")
     check_launched("train step conv_dropout=0.1", drop_launches,
@@ -2106,11 +2281,24 @@ def phase_train():
 
     phase_tf32(batch)
     profile_call("profile train step", "train step",
-                 lambda: _step(trainer, batch, targets),
+                 lambda: _step(f32_trainer, batch, targets),
                  ("tail_fwd_tc_kernel", "tail_bwd_kernel"))
-    del trainer
+    del f32_trainer
     torch.cuda.empty_cache()
-    phase_train_run(loaders)
+    runs = {"f32": phase_train_run(loaders)}
+    torch.cuda.empty_cache()
+    runs["bf16"] = phase_train_run(loaders, **BF16_KW)
+    # the bf16 run's step losses against the f32 run's, over the first epoch
+    # (both from the same init on the same batches)
+    first = {k: [float(loss) for ep, *_, loss in run.steps if ep == 0]
+             for k, run in runs.items()}
+    rel = max(abs(a / b - 1) for a, b in zip(first["bf16"], first["f32"]))
+    log(f"train run bf16 vs f32: epoch 1 step losses {first['bf16']} against "
+        f"{first['f32']}, largest relative gap {rel:.3e} (bar "
+        f"{TRAIN_BF16_LOSS_RTOL:g})")
+    if not rel <= TRAIN_BF16_LOSS_RTOL:
+        raise AssertionError("train run bf16: its losses stray from f32's")
+    del runs
     log(f"train phase: {time.perf_counter() - t_start:.0f} s")
     return launches, times, errors
 
@@ -2180,26 +2368,28 @@ def main() -> int:
                for path, (_, switch, _) in PATHS.items()}
 
     # every path records every kernel it runs and holds each call against
-    # the plain version before the next path is recorded; the calls a
-    # kernel's row is timed on are those of its own path (KERNELS), and its
-    # error is the largest over all eight paths
+    # the plain version before the next path is recorded (NEW_BF16_PATHS:
+    # only what no earlier path held); the calls a kernel's row is timed on
+    # are those of its own path (KERNELS, BF16_ROW_PATH), and its error is
+    # the largest over all paths
     t0 = time.perf_counter()
-    calls, errors, bf16_calls = {}, {}, {}
+    calls, errors, bf16_calls, held = {}, {}, {}, set()
     for path, (kwargs, switch, _) in PATHS.items():
+        t_path = time.perf_counter()
         with env_switch(switch), Recorder() as rec:
             run_pass(CHGNet(seed=0, device="cuda", **kwargs), batches[path])
         torch.cuda.synchronize()
         with torch.no_grad():
-            found = phase_kernels(path, rec.calls)
+            found = phase_kernels(path, rec.calls, held=held,
+                                  skip=path in NEW_BF16_PATHS)
         for name, err in found.items():
             errors[name] = max(err, errors.get(name, 0.0))
         calls.update({n: c for n, c in rec.calls.items() if KERNELS[n]["path"] == path})
         if path in BF16_PATHS:
             bf16_calls.update({
-                n: (path, c) for n, c in bf16_calls_of(path, rec.calls).items()
-                if BF16_ROW_PATH[n] == path
-            })
+                n: (path, c) for n, c in bf16_calls_of(path, rec.calls).items()})
         del rec
+        log(f"kernel phase {path}: {time.perf_counter() - t_path:.0f} s")
     check_autograd(batch)
     log(f"kernel phase: {time.perf_counter() - t0:.0f} s")
     t0 = time.perf_counter()
@@ -2240,22 +2430,24 @@ def main() -> int:
     log(f"simulation phase: {time.perf_counter() - t0:.0f} s")
     t_launches, t_times, t_errors = phase_train()
     for row in rows:
-        wrapper = kernel_versions()[row["name"].split()[0]][0].__name__
-        if row["dtype"] == "bf16":  # served, never trained (ROADMAP 6e)
+        name = row["name"].split()[0]
+        wrapper = kernel_versions()[name][0].__name__
+        dtype = row["dtype"]
+        if dtype == "bf16":
             row["sim_launches"] = sim_launches_bf16[wrapper]
             row["sim_bf16_launches"] = sim_bf16_launches[wrapper]
-            row["train_launches"], row["train_ms"] = 0, None
-            row["max_abs_err"] = max(row["max_abs_err"],
-                                     sim_errors_bf16.get(row["name"], 0.0))
-            continue
-        row["sim_launches"] = sim_launches[wrapper]
-        row["train_launches"] = t_launches[wrapper]
-        train = t_times.get(row["name"])
+            sim_err = sim_errors_bf16.get(row["name"], 0.0)
+        else:
+            row["sim_launches"] = sim_launches[wrapper]
+            sim_err = sim_errors.get(row["name"], 0.0)
+        # the train step of the row's type (its launches count both types)
+        row["train_launches"] = t_launches[dtype][wrapper]
+        train = t_times[dtype].get(name)
         row["train_ms"] = train["ms"] if train else None
         if train and "forms" in train:
             row["train_forms"] = train["forms"]
-        row["max_abs_err"] = max(row["max_abs_err"], sim_errors.get(row["name"], 0.0),
-                                 t_errors.get(row["name"], 0.0))
+        row["max_abs_err"] = max(row["max_abs_err"], sim_err,
+                                 t_errors[dtype].get(row["name"], 0.0))
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s")
     log(json.dumps({"kernels": rows}))
     log(card_line())

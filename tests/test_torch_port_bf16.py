@@ -54,6 +54,7 @@ from chgnet_tpu_torch.graph.batching import batch_graphs as t_batch_graphs
 from chgnet_tpu_torch.graph.batching import make_plan
 from chgnet_tpu_torch.models.chgnet import CHGNet as TCHGNet
 from chgnet_tpu_torch.models.chgnet import compute_batch as t_compute_batch
+from chgnet_tpu_torch.ops import fused_pass as tfp
 from chgnet_tpu_torch.ops import gated_message as tgm
 from chgnet_tpu_torch.ops import gproj as tgp
 from chgnet_tpu_torch.ops import multi_gather as tmg
@@ -390,18 +391,32 @@ def test_bf16_is_in_effect(outputs):
 
 
 def test_bf16_wrappers_count_and_raise_where_f32_only():
-    """On the CPU a wrapper runs its plain version (no launch counted);
-    the f32-only kernels refuse bf16 CUDA-side checks by name."""
+    """On the CPU a wrapper runs its plain version (no launch counted), and
+    rows 10-14 take bf16 there as rows 1-9 do: each returns bf16; the
+    CUDA-side checks name the ``_bf16`` entry point for bf16 tensors and
+    still refuse a mixture of float types."""
     tops.reset_launch_counts()
     x = torch.randn(8, 4).to(torch.bfloat16)
     offsets = torch.tensor([0, 3, 8], dtype=torch.int32)
-    out = tsg.segment_sum_tiles(x, offsets, offsets.new_zeros(0))
-    assert out.dtype == torch.bfloat16
+    window = torch.tensor([[0, 7]], dtype=torch.int32)
+    idx = torch.arange(8, dtype=torch.int32)
+    assert tsg.segment_sum_tiles(x, offsets, offsets.new_zeros(0)).dtype == torch.bfloat16
+    assert tsg.gather_rows_window(x, idx, window).dtype == torch.bfloat16
+    rng = np.random.default_rng(9)
+    acc, w, g = (_bf16(rng, 8, 2 * D)[1], _bf16(rng, 8, D)[1], _bf16(rng, 8, D)[1])
+    mask = torch.ones(8, dtype=torch.bfloat16)
+    params = _tail(rng)[1]
+    assert tgm.gated_message_reduce(acc, w, mask, params, offsets).dtype == torch.bfloat16
+    grads = tgm.gated_message_bwd(acc, w, mask, params, g, True, True)
+    assert {t.dtype for t in (*grads[:3], *grads[3])} == {torch.bfloat16}
+    fwd = tfp.fused_pass_fwd([acc], [idx], None, acc[0], params, w, mask, None)
+    bwd = tfp.fused_pass_bwd([acc], [idx], None, acc[0], params, w, mask, g, True, True)
+    assert fwd.dtype == torch.bfloat16
+    assert {t.dtype for t in (*bwd[:3], *bwd[3])} == {torch.bfloat16}
     assert all(fn.launches == fn.launches_bf16 == 0 for fn in tops.KERNELS)
     from chgnet_tpu_torch.ops import build
 
-    with pytest.raises(NotImplementedError, match="6d"):
-        build.check_tensors("segment_sum_tiles", (x,), (offsets,), bf16_item="6d")
+    assert build.check_tensors("segment_sum_tiles", (x,), (offsets,)) == "bf16"
     assert build.check_tensors("gather_rows", (x,), (offsets,)) == "bf16"
     with pytest.raises(TypeError, match="one float type"):
         build.check_tensors("gather_rows", (x, x.float()), ())
@@ -434,14 +449,22 @@ def test_bf16_config_is_a_dataclass_field():
     assert dataclasses.asdict(cfg)["compute_dtype"] == "bfloat16"
 
 
-def test_bf16_trainer_on_cuda_is_refused_before_the_card_is_asked_for():
-    """The tails' parameter-gradient backward takes f32 only on the card
-    (ROADMAP.md Queue 1 item 6e): a bf16 Trainer for CUDA raises
-    NotImplementedError, not the missing card's error; on the CPU it
-    builds."""
+def test_bf16_trainer_on_cuda_is_refused_before_the_card_is_asked_for(monkeypatch):
+    """bf16 trains on the card (the tails' and the one-kernel pass's
+    parameter-gradient backwards have bf16 forms): a bf16 Trainer for CUDA
+    passes ``check_supported``, with and without the switches, and without
+    a card fails only on the missing card; on the CPU it builds."""
     from chgnet_tpu_torch.trainer import Trainer
 
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     model = TCHGNet(seed=0, device="cpu", **SMALL, **BF16)
-    with pytest.raises(NotImplementedError, match="6e"):
-        Trainer(model=model, targets="ef", use_device="cuda")
+    for switch in (None, "CHGNET_TPU_MSG_REDUCE", "CHGNET_TPU_STREAM_V2",
+                   "CHGNET_TPU_FUSED_PASS"):
+        with monkeypatch.context() as mp:
+            if switch:
+                mp.setenv(switch, "1")
+            model.config.check_supported("cuda", training=True)
+            with pytest.raises(RuntimeError, match="CUDA") as info:
+                Trainer(model=model, targets="ef", use_device="cuda")
+            assert not isinstance(info.value, NotImplementedError)
     Trainer(model=model, targets="ef", use_device="cpu")

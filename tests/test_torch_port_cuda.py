@@ -1367,7 +1367,7 @@ def test_dropout_and_remat_train_step_on_card(cuda, kw):
         np.testing.assert_allclose(g, w, rtol=0, atol=1e-6 * float(np.abs(w).max()))
 
 
-# ------------------------------------------------ bf16 (rows 1-9)
+# ------------------------------------------ bf16 (rows 1-14, every form)
 # A bf16 kernel widens its rows to f32, computes in f32 and rounds each
 # output once; so does its plain version. The two then differ by at most one
 # rounding of an output: BF16_ULP (2^-7, one bf16 ulp) of its largest value.
@@ -1463,20 +1463,172 @@ def test_bf16_gather_sum_rows_is_exact(cuda, d, n_parts):
 
 
 def test_bf16_on_f32_only_kernels_raises_before_any_launch(cuda):
+    """The parameter-gradient backward, the message-reduce and the tile
+    segment sum launch on bf16 through their _bf16 entry points, each
+    launch counted as a bf16 launch."""
     x, p = _tail_inputs(cuda, 64, 100)
     x = {k: v.to(BF16) for k, v in x.items()}
     params = _params({k: v.to(BF16) for k, v in p.items()})
     offsets = torch.tensor([0, 50, 100], dtype=torch.int32, device=cuda)
     ops.reset_launch_counts()
-    with pytest.raises(NotImplementedError, match="6e"):
-        tgm.gated_message_bwd(x["acc"], x["weights"], x["mask"], params, x["g"],
-                              False, True)
-    with pytest.raises(NotImplementedError, match="6d"):
-        tgm.gated_message_reduce(x["acc"], x["weights"], x["mask"], params, offsets)
-    with pytest.raises(NotImplementedError, match="6d"):
-        tsg.segment_sum_tiles(x["g"], offsets, offsets.new_zeros(0))
+    got = tgm.gated_message_bwd(x["acc"], x["weights"], x["mask"], params, x["g"],
+                                False, True)
+    assert all(t.dtype == BF16 for t in (got[0], got[1], *got[3]))
+    assert tgm.gated_message_reduce(x["acc"], x["weights"], x["mask"], params,
+                                    offsets).dtype == BF16
+    assert tsg.segment_sum_tiles(x["g"], offsets, offsets.new_zeros(0)).dtype == BF16
     torch.cuda.synchronize()
-    assert all(fn.launches == 0 for fn in ops.KERNELS)
+    for fn in (ops.gated_message_bwd, ops.gated_message_reduce, ops.segment_sum_tiles):
+        assert fn.launches == fn.launches_bf16 == 1, fn.__name__
+
+
+# a backward with parameter gradients rounds sums over all rows, which the
+# kernel and the plain version add in different f32 orders: one rounding of
+# sums that differ by up to the f32 kernels' TAIL_BWD_TOL
+PARAM_ULPS = 1 + TAIL_BWD_TOL / BF16_ULP
+
+
+@pytest.mark.parametrize("n_rows", [1, 17, 65_573])
+@pytest.mark.parametrize("d", [16, 64])
+def test_bf16_tail_parameter_gradients_match_plain(cuda, d, n_rows):
+    """Rows 7 and 9 with parameter gradients (training) in bf16: d_acc,
+    d_weights and d_mask within one ulp of the plain version's largest
+    value, the parameter gradients within ``PARAM_ULPS``; f32 partials
+    summed in a fixed order, so two runs give equal bits."""
+    x, p = _tail_inputs(cuda, d, n_rows)
+    x = {k: v.to(BF16) for k, v in x.items()}
+    p = {k: v.to(BF16) for k, v in p.items()}
+    args = (x["acc"], x["weights"], x["mask"], _params(p), x["g"], True, True)
+    got = tgm.gated_message_bwd(*args)
+    want = tgm.gated_message_bwd_plain(*args)
+    _assert_ulps(got[:3], want[:3])
+    _assert_ulps(got[3], want[3], PARAM_ULPS)
+    assert all(torch.equal(a, b) for a, b in zip(_flat(got), _flat(
+        tgm.gated_message_bwd(*args))))
+    for has_w2 in (False, True):
+        args = (x["acc"], _params(p, has_w2), x["g"], True)
+        got = tgm.gated_update_bwd(*args)
+        want = tgm.gated_update_bwd_plain(*args)
+        _assert_ulps(got[0], want[0])
+        _assert_ulps(got[1], want[1], PARAM_ULPS)
+
+
+@pytest.mark.parametrize(
+    "d,n_rows,n_out",
+    [(64, 50_000 + 13, 700), (64, 40_000, 60_000), (16, 5_000, 3), (64, 20, 500)],
+    ids=["long-segments", "short-segments", "narrow", "tiny"],
+)
+def test_bf16_message_reduce_matches_plain(cuda, d, n_rows, n_out):
+    """Row 10 in bf16: each segment summed in f32 and rounded once, within
+    one ulp of the plain version's largest value; equal bits run to run."""
+    x, p, plan = _reduce_inputs(cuda, d, n_rows, n_out)
+    args = (x["acc"].to(BF16), x["weights"].to(BF16), x["mask"].to(BF16),
+            _params({k: v.to(BF16) for k, v in p.items()}), plan.offsets)
+    ops.reset_launch_counts()
+    got = tgm.gated_message_reduce(*args)
+    assert ops.gated_message_reduce.launches_bf16 == 1
+    _assert_ulps(got, tgm.gated_message_reduce_plain(*args))
+    assert torch.equal(got, tgm.gated_message_reduce(*args))
+
+
+def test_bf16_message_reduce_over_empty_and_long_segments_matches_plain(cuda):
+    x, p, plan = _segment_layout(cuda, 64)
+    args = (x["acc"].to(BF16), _misaligned(x["weights"].to(BF16)),
+            x["mask"].to(BF16), _params({k: v.to(BF16) for k, v in p.items()}),
+            plan.offsets)
+    got = tgm.gated_message_reduce(*args)
+    _assert_ulps(got, tgm.gated_message_reduce_plain(*args))
+    counts = (plan.offsets[1:] - plan.offsets[:-1]).cpu()
+    assert not bool(got[counts.to(cuda) == 0].any())
+
+
+@pytest.mark.parametrize("d", [1, 3, 4, 64, 124])
+@pytest.mark.parametrize("sorted_", [True, False], ids=["sorted", "perm"])
+@pytest.mark.parametrize(
+    "L,S", [((1 << 16) + 11, 700), (40_000, 60_000), (100, 7)],
+    ids=["long-segments", "short-segments", "tiny"],
+)
+def test_bf16_segment_sum_tiles_matches_plain(cuda, d, sorted_, L, S):
+    """Row 11 in bf16: f32 runs and carries, one rounding at the store,
+    within one ulp; equal bits run to run."""
+    rng = np.random.default_rng(21)
+    plan = _plan(*_stream(rng, L, S, sorted_), S, sorted_, cuda)
+    x = torch.randn(L, d, device=cuda).to(BF16)
+    got = tsg.segment_sum_tiles(x, plan.offsets, plan.perm)
+    _assert_ulps(got, tsg.segment_sum_plain(x, plan.offsets, plan.perm))
+    assert torch.equal(got, tsg.segment_sum_tiles(x, plan.offsets, plan.perm))
+
+
+@pytest.mark.parametrize("span", [1, 3, 200, 447])
+@pytest.mark.parametrize("d", [8, 64, 128])
+def test_bf16_gather_rows_window_is_exact(cuda, d, span):
+    """Row 12 in bf16: 16-byte units of 8 values, bit for bit; rows of 4
+    bf16 values (8 bytes) are refused."""
+    rng = np.random.default_rng(24)
+    L, S = 70_001, 9_000
+    idx, window = (torch.as_tensor(a, device=cuda) for a in _window_case(rng, L, S, span))
+    src = torch.randn(S, d, device=cuda).to(BF16)
+    ops.reset_launch_counts()
+    got = tsg.gather_rows_window(src, idx, window)
+    assert ops.gather_rows_window.launches_bf16 == 1
+    assert torch.equal(got, tsg.gather_rows_window_plain(src, idx, window))
+    with pytest.raises(ValueError, match="4k floats"):
+        tsg.gather_rows_window(src[:, :4].contiguous(), idx, window)
+
+
+@pytest.mark.parametrize("with_aligned", [False, True], ids=["bare", "aligned"])
+@pytest.mark.parametrize("n_gathered", [1, 3])
+@pytest.mark.parametrize(
+    "form,need_mask,need_params",
+    [("message", False, False), ("message", True, False), ("message", True, True),
+     ("update_w2", False, False), ("update_w2", False, True),
+     ("update", False, False), ("update", False, True)],
+)
+def test_bf16_fused_pass_kernels_match_plain(cuda, form, need_mask, need_params,
+                                             n_gathered, with_aligned):
+    """Rows 13 and 14 in bf16, every form: the forward, d_total, d_weights
+    and d_mask within one ulp of the plain version's largest value, the
+    parameter gradients (with d_b1) within ``PARAM_ULPS``; equal bits run
+    to run."""
+    from chgnet_tpu_torch.ops import fused_pass as tfp
+
+    x, p, tables, idxs, aligned, b1 = _pass_inputs(cuda, n_gathered, with_aligned)
+    x = {k: v.to(BF16) for k, v in x.items()}
+    p = {k: v.to(BF16) for k, v in p.items()}
+    tables = [t.to(BF16) for t in tables]
+    aligned = None if aligned is None else x["acc"]
+    fwd, bwd = _pass_args(x, p, tables, idxs, aligned, b1.to(BF16), form, need_mask,
+                          need_params)
+    ops.reset_launch_counts()
+    got = tfp.fused_pass_fwd(*fwd)
+    _assert_ulps(got, tfp.fused_pass_fwd_plain(*fwd))
+    grads = tfp.fused_pass_bwd(*bwd)
+    want = tfp.fused_pass_bwd_plain(*bwd)
+    assert (ops.fused_pass_fwd.launches_bf16, ops.fused_pass_bwd.launches_bf16) == (1, 1)
+    _assert_ulps(grads[:3], want[:3])
+    if need_params:
+        _assert_ulps(grads[3], want[3], PARAM_ULPS)
+    assert torch.equal(got, tfp.fused_pass_fwd(*fwd))
+    assert all(torch.equal(a, b) for a, b in zip(
+        _flat(grads), _flat(tfp.fused_pass_bwd(*bwd))) if a is not None)
+
+
+@pytest.mark.parametrize("form", ["message", "update_w2", "update"])
+@pytest.mark.parametrize("n_rows", [1, 17, 5_003])
+@pytest.mark.parametrize("d", [16, 36])
+def test_bf16_fused_pass_at_narrow_widths_and_ragged_rows(cuda, d, n_rows, form):
+    """Rows 13 and 14 in bf16 with padded 8-column tiles and fewer rows than
+    a tile, misaligned side rows (4-value units fall back to single
+    values): one ulp."""
+    from chgnet_tpu_torch.ops import fused_pass as tfp
+
+    x, p, tables, idxs, aligned, b1 = _pass_inputs(cuda, 2, True, d=d, n_rows=n_rows)
+    x = {k: v.to(BF16) for k, v in x.items()}
+    p = {k: v.to(BF16) for k, v in p.items()}
+    fwd, bwd = _pass_args(x, p, [t.to(BF16) for t in tables], idxs, x["acc"],
+                          b1.to(BF16), form, True, False, side=_misaligned)
+    _assert_ulps(tfp.fused_pass_fwd(*fwd), tfp.fused_pass_fwd_plain(*fwd))
+    _assert_ulps(tfp.fused_pass_bwd(*bwd)[:3], tfp.fused_pass_bwd_plain(*bwd)[:3])
 
 
 @pytest.mark.parametrize("directed", [True, False], ids=["directed", "undirected"])

@@ -10,7 +10,8 @@ windows under ``CHGNET_TPU_STREAM_V2``. A block of the undirected layout's
 ``d2u`` / ``u2d`` / ``u2d2`` streams spans more than ``WINDOW_ROWS`` source
 rows only in a crystal of a few hundred bonds or more, so the crystal is a
 2x2x2 LiMnO2 supercell, whose plans carry windows as the benchmark batch's
-do (checked). No card, no JAX.
+do (checked). Also the product rates its bounds charge each call at
+(``chip_smoke.product_rate``). No card, no JAX.
 """
 
 from __future__ import annotations
@@ -50,13 +51,51 @@ def test_recorded_calls_are_the_path_launch_set(path):
     got = tuple(len(rec.calls[name]) for name in chip_smoke.KERNELS)
     assert got == expect
     # the storage types chip_smoke.check_bf16_launches holds the card's
-    # counts to: on a bf16 path rows 4-9 take bf16 only, rows 1-3 some
+    # counts to: on a bf16 path the conv stack's kernels (rows 4-10, 13, 14)
+    # take bf16 only, the stream kernels (rows 1-3, 11, 12) some, none for
+    # the path's F32_ONLY
     versions = chip_smoke.kernel_versions()
     for name, calls in rec.calls.items():
         n_bf16 = sum(chip_smoke.call_dtype(a) == torch.bfloat16 for a in calls)
+        wrapper = versions[name][0].__name__
         if kwargs.get("compute_dtype") != "bfloat16":
             assert n_bf16 == 0, name
-        elif versions[name][0].__name__ in chip_smoke.CONV_WRAPPERS:
+        elif wrapper in chip_smoke.CONV_WRAPPERS:
             assert n_bf16 == len(calls), name
+        elif wrapper in chip_smoke.F32_ONLY.get(path, ()):
+            assert calls and not n_bf16, name
         elif calls:
             assert n_bf16, name
+
+
+def _rate_args(name, dtype, need_params):
+    """Arguments of one recorded call, reduced to what the rate reads: the
+    storage type and, for a backward, ``need_params``."""
+    x = torch.zeros(4, 8, dtype=dtype)
+    if name == "gather_project_sum":
+        return ([x], [torch.zeros(4, dtype=torch.int32)], [x], x)
+    if name == "fused_pass_bwd":
+        return ([x], [torch.zeros(4, dtype=torch.int32)], None, x, [x], x, x, x,
+                False, need_params)
+    if name == "gated_update_bwd":
+        return (x, [x], x, need_params)
+    return (x, x, x, [x], x, False, need_params)
+
+
+@pytest.mark.parametrize("name,dtype,need_params,rate", [
+    ("gather_project_sum", torch.float32, False, 495e12 / 3),
+    ("gather_project_sum", torch.bfloat16, False, 989e12),
+    ("gated_message_bwd", torch.float32, True, 495e12 / 3),
+    ("gated_message_bwd", torch.bfloat16, False, 495e12 / 2),
+    ("gated_message_bwd", torch.bfloat16, True, 3 / (2 / (495e12 / 2) + 1 / (495e12 / 3))),
+    ("gated_update_bwd", torch.bfloat16, True, 3 / (2 / (495e12 / 2) + 1 / (495e12 / 3))),
+    ("fused_pass_bwd", torch.bfloat16, False, 495e12 / 2),
+    ("fused_pass_bwd", torch.bfloat16, True, 3 / (2 / (495e12 / 2) + 1 / (495e12 / 3))),
+])
+def test_product_rate_follows_the_operand_types(name, dtype, need_params, rate):
+    """f32 by f32 products at 3xTF32 (495 / 3 TFLOP/s); bf16 by bf16 at the
+    bf16 rate; a bf16 tail's f32 value by its bf16 W2 in two TF32 passes
+    (495 / 2), and with parameter gradients two such products and one f32
+    by f32 (dW2) of the same size."""
+    got = chip_smoke.product_rate(name, _rate_args(name, dtype, need_params))
+    assert got == pytest.approx(rate, rel=1e-12)

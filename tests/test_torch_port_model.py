@@ -218,13 +218,14 @@ def test_physics_invariants_on_batch():
 
 
 def test_unsupported_config_raises(monkeypatch):
-    """bf16 builds on the CPU; on CUDA it is refused under a switch whose
-    kernels take f32 only, before anything is launched."""
+    """bf16 builds on the CPU and passes the CUDA checks under a switch too
+    (every kernel has its bf16 form); ``dense_atom_conv`` is refused before
+    anything is launched."""
     model = TCHGNet(seed=0, device="cpu", compute_dtype="bfloat16", **SMALL)
     model.config.check_supported("cuda")
     monkeypatch.setenv("CHGNET_TPU_STREAM_V2", "1")
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        model.config.check_supported("cuda")
+    model.config.check_supported("cuda")
+    model.config.check_supported("cuda", training=True)
     with pytest.raises(NotImplementedError, match="dense_atom_conv"):
         TCHGNet(seed=0, device="cpu", dense_atom_conv=True, **SMALL)
 
