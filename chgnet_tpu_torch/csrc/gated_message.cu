@@ -23,12 +23,14 @@
 // backward: tail_fwd_tc_kernel, tail_reduce_tc_kernel and
 // tail_bwd_tc_kernel (namespace tcb below), on tensor cores with
 // asynchronous copies and warp-local tiles.
-// Design of the update forward and the backward with parameter gradients:
-// f32 FMAs throughout, no TF32. A block stages W2c and W2g (and their
-// transposes in the backward, 16 KB each at D = 64) in dynamic shared
-// memory once, then walks 32-row tiles: it loads the tile's acc rows as
-// float4, keeps h = silu(acc) in shared memory, and each of 256 threads
-// computes a 4-row x 4-column register tile of the two diagonal blocks
+// Design of the update forward without a second layer: update_fwd_kernel,
+// a row per group of lanes with 16-byte loads.
+// Design of the update forward with a second layer and the backward with
+// parameter gradients: f32 FMAs throughout, no TF32. A block stages W2c
+// and W2g (and their transposes in the backward, 16 KB each at D = 64) in
+// dynamic shared memory once, then walks 32-row tiles: it loads the tile's
+// acc rows as float4, keeps h = silu(acc) in shared memory, and each of 256
+// threads computes a 4-row x 4-column register tile of the two diagonal blocks
 // only (half the FLOPs of the dense 2D x 2D product). The row phase gives
 // each row to one warp: two-pass layer norms (mean, then the centred
 // variance) by warp shuffles, the gating, and in the backward the
@@ -56,14 +58,19 @@
 // sum_blocks_kernel adds them in block order in f32 (no atomics) and rounds
 // each parameter gradient once to bf16 (chgnet_tpu casts each tile's f32
 // sums to the parameters' type and adds them there, ops/gated_message.py:
-// 222-228, so it rounds once a tile).
+// 222-228, so it rounds once a tile). The update forward without a second
+// layer (update_fwd_kernel<bf16, ...>) takes the gate's exponentials and
+// quotients by the fast intrinsics, some 1e-6 relative in f32 before the
+// output's bf16 rounding.
 #include "gated_tail.cuh"
 #include "tf32x3.cuh"
 
 namespace {
 
 // ------------------------------------------------------- update forward
-template <typename T, bool kW2>
+// With a second layer: y = silu(acc) @ blockdiag(W2c, W2g) + b2 by the
+// staged tile product, then one warp per row.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
     tail_fwd_kernel(TailT<T> t, const T* __restrict__ acc,
                     const T* __restrict__ resnet, T* __restrict__ out,
@@ -77,32 +84,25 @@ __global__ void __launch_bounds__(kThreads)
   LaneParams lp;
   lp.load(t, d, lane);
   float b[4];
-  if (kW2) {
-    load_bias(t, d, lane, b);
-    stage_weights(w_s, t, d, false);
-  }
+  load_bias(t, d, lane, b);
+  stage_weights(w_s, t, d, false);
   const int n_tiles = (n_rows + kTile - 1) / kTile;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long row0 = (long)tile * kTile;
-    if (kW2) {
-      __syncthreads();  // weights staged, the previous tile's y_s read
-      load_silu(acc, h_s, row0, n_rows, d);
-      __syncthreads();
-      float y[kRowsPerWarp][4];
-      tile_product(h_s, w_s, d, warp, lane, y);
-      store_y(y_s, y, b, d, warp, lane);
-      __syncthreads();
-    }
+    __syncthreads();  // weights staged, the previous tile's y_s read
+    load_silu(acc, h_s, row0, n_rows, d);
+    __syncthreads();
+    float y[kRowsPerWarp][4];
+    tile_product(h_s, w_s, d, warp, lane, y);
+    store_y(y_s, y, b, d, warp, lane);
+    __syncthreads();
     for (int rr = 0; rr < kRowsPerWarp; ++rr) {
       const int r = warp * kRowsPerWarp + rr;
       const long l = row0 + r;
       if (l >= n_rows) break;  // warp-uniform
       float gate[kPerLane];
-      if (kW2)
-        gate_row(half_tile(y_s, 0) + r * d, half_tile(y_s, 1) + r * d, lp, d, lane,
-                 gate);
-      else
-        gate_row(acc + l * 2 * d, acc + l * 2 * d + d, lp, d, lane, gate);
+      gate_row(half_tile(y_s, 0) + r * d, half_tile(y_s, 1) + r * d, lp, d, lane,
+               gate);
 #pragma unroll
       for (int i = 0; i < kPerLane; ++i) {
         const int e = lane + 32 * i;
@@ -113,6 +113,92 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Without a second layer (y = acc, the default AngleUpdate): replaces
+// _kernel_nw (gated_message.py:620). Bound by bytes: a row reads 2D + D
+// values and writes D against 23 operations an element. A row is held by a
+// group of gl lanes, kN neighbouring elements of each half a lane, loaded 16
+// bytes at a time (8 for bf16 rows whose D is not a multiple of 8), so a
+// warp holds 32 / gl rows (at D = 64: 2 rows in f32, 4 in bf16) and its
+// loads move whole rows; the layer norms sum over the group (ln_norm). The
+// warps are persistent, and each loads its next rows before it reduces and
+// stores these, so a row's loads are in flight while the previous row's
+// shuffles run. resnet is read by elements where it is not aligned to a
+// load. With half the bytes of f32, the bf16 rows leave the gate's accurate
+// exponentials and divisions (about 50 instructions an element) as the
+// limit, so the bf16 instantiation takes gate_value's fast form (on an H100
+// at 700 W, bench.py's two calls: 0.42 -> 0.29 ms against a 0.25 ms bound).
+template <typename T, int kN>
+struct UpdateRows {  // a lane's part of one row, as loaded
+  Pack<T, kN> c, g, res;
+};
+
+template <typename T, int kN>
+__device__ __forceinline__ void load_update_rows(UpdateRows<T, kN>& r, const T* acc,
+                                                 const T* resnet, long l, int d,
+                                                 int e0, bool vec_res) {
+  using P = Pack<T, kN>;
+  r.c = *reinterpret_cast<const P*>(acc + l * 2 * d + e0);
+  r.g = *reinterpret_cast<const P*>(acc + l * 2 * d + d + e0);
+  if (vec_res) {
+    r.res = *reinterpret_cast<const P*>(resnet + l * d + e0);
+  } else {
+    T* e = reinterpret_cast<T*>(&r.res);
+#pragma unroll
+    for (int i = 0; i < kN; ++i) e[i] = resnet[l * d + e0 + i];
+  }
+}
+
+template <typename T, int kN>
+__global__ void __launch_bounds__(kThreads)
+    update_fwd_kernel(TailT<T> t, const T* __restrict__ acc,
+                      const T* __restrict__ resnet, T* __restrict__ out,
+                      int n_rows, int d, int vec_res) {
+  const int lane = threadIdx.x & 31;
+  const int vecs = d / kN;  // lanes a half row fills
+  int gl = 1;               // lanes per row (power of two)
+  while (gl < vecs) gl <<= 1;
+  const int rows_per_warp = 32 / gl;
+  const int u = lane % gl;
+  const int e0 = u * kN;  // the lane's first element of each half
+  const bool lane_in = u < vecs;
+  bool in[kN];
+  float ncs[kN], ncb[kN], ngs[kN], ngb[kN];
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    in[i] = lane_in;
+    ncs[i] = lane_in ? chgnet::to_f(t.ncs[e0 + i]) : 0.f;
+    ncb[i] = lane_in ? chgnet::to_f(t.ncb[e0 + i]) : 0.f;
+    ngs[i] = lane_in ? chgnet::to_f(t.ngs[e0 + i]) : 0.f;
+    ngb[i] = lane_in ? chgnet::to_f(t.ngb[e0 + i]) : 0.f;
+  }
+  const long warp0 = ((long)blockIdx.x * kWarps + (threadIdx.x >> 5)) * rows_per_warp;
+  const long stride = (long)gridDim.x * kWarps * rows_per_warp;
+  const long sub = lane / gl;  // the lane's row of the warp's rows
+  UpdateRows<T, kN> cur;
+  long l = warp0 + sub;
+  if (lane_in && l < n_rows) load_update_rows(cur, acc, resnet, l, d, e0, vec_res);
+  for (long w0 = warp0; w0 < n_rows; w0 += stride) {
+    UpdateRows<T, kN> next;
+    const long ln = l + stride;
+    if (lane_in && ln < n_rows) load_update_rows(next, acc, resnet, ln, d, e0, vec_res);
+    float yc[kN], yg[kN], res[kN], zc[kN], zg[kN];
+    float invc, invg;
+    widen<T, kN>(cur.c, yc);
+    widen<T, kN>(cur.g, yg);
+    widen<T, kN>(cur.res, res);
+    ln_norm<kN>(yc, in, d, gl, zc, invc);
+    ln_norm<kN>(yg, in, d, gl, zg, invg);
+    float o[kN];
+#pragma unroll
+    for (int i = 0; i < kN; ++i)
+      o[i] = gate_value<chgnet::is_bf16<T>>(zc[i], zg[i], ncs[i], ncb[i], ngs[i],
+                                            ngb[i]) + res[i];
+    if (lane_in && l < n_rows)
+      *reinterpret_cast<Pack<T, kN>*>(out + l * d + e0) = narrow<T, kN>(o);
+    cur = next;
+    l = ln;
+  }
+}
 
 // ------------------------------------------------------------ backward
 template <typename T, bool kMsg, bool kW2, bool kParams>
@@ -1109,17 +1195,27 @@ template <typename T>
 using TcBwdFn = void (*)(TailT<T>, const T*, const T*, const T*, const T*, T*, T*,
                          T*, int, int, int);
 
-size_t fwd_smem(bool w2) { return w2 ? (kWeights + 4 * kHalf) * sizeof(float) : 0; }
+template <typename T>
+using UpdateFn = void (*)(TailT<T>, const T*, const T*, T*, int, int, int);
+
+size_t fwd_smem() { return (kWeights + 4 * kHalf) * sizeof(float); }
 
 size_t bwd_smem(bool w2, bool params) {
   if (w2) return (2 * kWeights + 4 * kHalf) * sizeof(float);
   return params ? kWarps * kVecs * kMaxD * sizeof(float) : 0;
 }
 
-template <typename T, bool kW2>
-Kernel<FwdFn<T>> fwd_instance() {
+// the update forward with a second layer
+template <typename T>
+Kernel<FwdFn<T>> fwd_kernel() {
   static std::atomic<int> waves[kMaxDevices];
-  return {tail_fwd_kernel<T, kW2>, fwd_smem(kW2), waves};
+  return {tail_fwd_kernel<T>, fwd_smem(), waves};
+}
+
+template <typename T, int kN>
+Kernel<UpdateFn<T>> update_instance() {
+  static std::atomic<int> waves[kMaxDevices];
+  return {update_fwd_kernel<T, kN>, 0, waves};
 }
 
 template <typename T, bool kMsg, bool kW2, bool kParams>
@@ -1128,10 +1224,28 @@ Kernel<BwdFn<T>> bwd_instance() {
   return {tail_bwd_kernel<T, kMsg, kW2, kParams>, bwd_smem(kW2, kParams), waves};
 }
 
-// the update forward
+// the update forward without a second layer: 16-byte loads, or 8-byte ones
+// for bf16 rows whose D is not a multiple of 8
 template <typename T>
-Kernel<FwdFn<T>> fwd_kernel(bool w2) {
-  return w2 ? fwd_instance<T, true>() : fwd_instance<T, false>();
+int launch_update(const TailT<T>& t, const T* acc, const T* resnet, T* out,
+                  int n_rows, int d, cudaStream_t stream) {
+  constexpr int kWide = 16 / sizeof(T);
+  const bool wide = d % kWide == 0;
+  const int n = wide ? kWide : 4;
+  const Kernel<UpdateFn<T>> k = wide ? update_instance<T, kWide>()
+                                     : update_instance<T, 4>();
+  const int wave = wave_blocks(k);
+  if (wave < 0) return -wave;
+  int gl = 1;
+  while (gl < d / n) gl <<= 1;
+  const long rows = (long)kWarps * (32 / gl);  // a block's rows at a time
+  const long want = (n_rows + rows - 1) / rows;
+  if ((uintptr_t)acc % (n * sizeof(T)) || (uintptr_t)out % (n * sizeof(T)))
+    return (int)cudaErrorInvalidValue;
+  const int vec_res = (uintptr_t)resnet % (n * sizeof(T)) == 0;
+  k.fn<<<want < wave ? (int)want : wave, kThreads, k.smem, stream>>>(
+      t, acc, resnet, out, n_rows, d, vec_res);
+  return (int)cudaSuccess;
 }
 
 // the backward with parameter gradients
@@ -1171,7 +1285,9 @@ Kernel<TcBwdFn<T>> tc_bwd_kernel(bool msg, bool w2) {
 // tail: 7 pointers (w2c, w2g, b2, nc_scale, nc_bias, ng_scale, ng_bias),
 // the first three null for an update without a second layer. msg = 1:
 // out = message(acc, weights, mask) by the tensor-core kernel, 16 rows a
-// warp; msg = 0: out = update(acc) + resnet, one block per 32-row tile.
+// warp; msg = 0: out = update(acc) + resnet, with a second layer one block
+// per 32-row tile, without one a row per group of lanes
+// (update_fwd_kernel).
 // acc [n_rows, 2d] 16-byte aligned; every tensor contiguous f32 (the
 // _bf16 entry: bf16, computed in f32 and rounded once at each store). At
 // most one wave of blocks.
@@ -1195,12 +1311,15 @@ int gated_fwd(int msg, const void* const* tail, const T* acc, const T* weights,
     const int vec = (uintptr_t)weights % (4 * sizeof(T)) == 0;
     k.fn<<<want < wave ? want : wave, 32 * tcb::kFwdWarps, k.smem, stream>>>(
         t, acc, weights, mask, out, n_rows, d, vec);
-  } else if (n_rows > 0) {
-    const Kernel<FwdFn<T>> k = fwd_kernel<T>(w2);
+  } else if (n_rows > 0 && w2) {
+    const Kernel<FwdFn<T>> k = fwd_kernel<T>();
     const int wave = wave_blocks(k);
     if (wave < 0) return -wave;
     const int grid = n_tiles(n_rows) < wave ? n_tiles(n_rows) : wave;
     k.fn<<<grid, kThreads, k.smem, stream>>>(t, acc, resnet, out, n_rows, d);
+  } else if (n_rows > 0) {
+    const int err = launch_update(t, acc, resnet, out, n_rows, d, stream);
+    if (err) return err;
   }
   return (int)cudaGetLastError();
 }

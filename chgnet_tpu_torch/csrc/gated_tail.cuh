@@ -9,6 +9,7 @@
 #pragma once
 
 #include <atomic>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -179,25 +180,61 @@ __device__ __forceinline__ void store_y(float* y_s, const float y[kRowsPerWarp][
         make_float4(y[r][0] + b[0], y[r][1] + b[1], y[r][2] + b[2], y[r][3] + b[3]);
 }
 
-// Two-pass layer norm of one half row: z = (v - mean) * inv.
-__device__ __forceinline__ void ln_parts(const float v[kPerLane], int d, int lane,
-                                         float z[kPerLane], float& inv) {
+// The sum over an aligned group of `width` lanes (a power of two, at most
+// 32), the same in every lane of the group (a + b == b + a at each step);
+// width 32 is warp_sum
+__device__ __forceinline__ float group_sum(float v, int width) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    if (o < width) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Two-pass layer norm of one half row held by a group of `width` lanes,
+// kN elements a lane (in[i]: element i lies inside D): z = (v - mean) * inv,
+// zero outside D.
+template <int kN>
+__device__ __forceinline__ void ln_norm(const float v[kN], const bool in[kN], int d,
+                                        int width, float z[kN], float& inv) {
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < kPerLane; ++i)
-    if (lane + 32 * i < d) s += v[i];
-  const float mean = warp_sum(s) / d;
+  for (int i = 0; i < kN; ++i)
+    if (in[i]) s += v[i];
+  const float mean = group_sum(s, width) / d;
   float q = 0.f;
 #pragma unroll
-  for (int i = 0; i < kPerLane; ++i)
-    if (lane + 32 * i < d) {
+  for (int i = 0; i < kN; ++i)
+    if (in[i]) {
       const float c = v[i] - mean;
       q = fmaf(c, c, q);
     }
-  inv = rsqrtf(warp_sum(q) / d + kEps);
+  inv = rsqrtf(group_sum(q, width) / d + kEps);
 #pragma unroll
-  for (int i = 0; i < kPerLane; ++i)
-    z[i] = lane + 32 * i < d ? (v[i] - mean) * inv : 0.f;
+  for (int i = 0; i < kN; ++i) z[i] = in[i] ? (v[i] - mean) * inv : 0.f;
+}
+
+// ... of a half row held by the whole warp, elements e = lane + 32 i
+__device__ __forceinline__ void ln_parts(const float v[kPerLane], int d, int lane,
+                                         float z[kPerLane], float& inv) {
+  bool in[kPerLane];
+#pragma unroll
+  for (int i = 0; i < kPerLane; ++i) in[i] = lane + 32 * i < d;
+  ln_norm<kPerLane>(v, in, d, 32, z, inv);
+}
+
+// the gate of one element from its normalised halves and the layer norms'
+// scales and biases. kFast: the exponentials and quotients by the fast
+// intrinsics (__expf, __fdividef: a few ulp of f32, some 1e-6 relative),
+// for outputs rounded to bf16 (2^-9 relative at most), where the accurate
+// forms' instructions, not the bytes, bound the update forward.
+template <bool kFast = false>
+__device__ __forceinline__ float gate_value(float zc, float zg, float ncs, float ncb,
+                                            float ngs, float ngb) {
+  const float c = fmaf(zc, ncs, ncb);
+  const float g = fmaf(zg, ngs, ngb);
+  if constexpr (kFast)
+    return __fdividef(c, 1.f + __expf(-c)) * __fdividef(1.f, 1.f + __expf(-g));
+  return silu(c) * sigm(g);
 }
 
 // d x of out = z * scale + bias for the cotangent gout (_ln_bwd :141)
@@ -252,8 +289,34 @@ __device__ __forceinline__ void gate_row(const T* y_c, const T* y_g,
   ln_parts(yg, d, lane, zg, invg);
 #pragma unroll
   for (int i = 0; i < kPerLane; ++i)
-    gate[i] = silu(fmaf(zc[i], lp.ncs[i], lp.ncb[i])) *
-              sigm(fmaf(zg[i], lp.ngs[i], lp.ngb[i]));
+    gate[i] = gate_value(zc[i], zg[i], lp.ncs[i], lp.ncb[i], lp.ngs[i], lp.ngb[i]);
+}
+
+// kN neighbouring elements of T in one load (16 bytes, or 8 for 4 bf16)
+template <typename T, int kN>
+using Pack = std::conditional_t<sizeof(T) * kN == 16, uint4, uint2>;
+
+template <typename T, int kN>
+__device__ __forceinline__ void widen(const Pack<T, kN>& p, float v[kN]) {
+  const T* e = reinterpret_cast<const T*>(&p);
+#pragma unroll
+  for (int i = 0; i < kN; ++i) v[i] = chgnet::to_f(e[i]);
+}
+
+// v rounded once to T and packed
+template <typename T, int kN>
+__device__ __forceinline__ Pack<T, kN> narrow(const float v[kN]) {
+  Pack<T, kN> p;
+  if constexpr (chgnet::is_bf16<T>) {
+    __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&p);
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) e[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  } else {
+    float* e = reinterpret_cast<float*>(&p);
+#pragma unroll
+    for (int i = 0; i < kN; ++i) e[i] = v[i];
+  }
+  return p;
 }
 
 // The backward of one row's gate for the cotangent row g (_bwd_math :150,

@@ -17,13 +17,32 @@
 // row's d floats into float4 units (floats where a row is not 16-byte
 // aligned), at most 32 of them (the wrapper checks), and several input rows
 // are summed side by side by lane groups and folded with a fixed shuffle
-// tree, so every sum is deterministic run to run. segment_sum_pair reads x twice (once per key stream, on
-// blockIdx.y); the TPU kernel's one-sweep saving is later work.
+// tree, so every sum is deterministic run to run.
+// segment_sum_pair sweeps x once for both key streams, as the TPU kernel
+// does (its two streams' rows of one output block "overlap almost
+// completely", stream_ops.py:258-264): a warp owns output row n of both
+// streams and adds the two segments side by side, each in segment_sum_csr's
+// order and shuffle tree, so each output equals segment_sum_csr's over its
+// stream bit for bit. The blocks go over the output rows in order, so the
+// rows of x the second stream reads for the rows in flight are rows the
+// first stream read moments before and come from L2 where that window fits
+// in it: on bench.py's batch 8 output rows of the angle stream (by dir_i,
+// dir_j into edges) read a window of at most 290 rows of x, and the rows in
+// flight on the card at most 11,470 (5.9 MB in f32); 8 atoms of the edge
+// stream (by center, nbr) read their whole crystal, 18,175 rows (9.3 MB),
+// and the atoms in flight all 32 crystals, so there the second stream is
+// read from device memory again. The launch (launch_pair) follows the mean
+// segment length: unrolled persistent warps for long segments, many warps
+// of few registers for short ones (the angle stream: one or two rows an
+// output row, about half of them empty, so a row's offsets, permutation and
+// x loads wait on each other and only more warps hide them).
 // bf16 rows (compute_dtype="bfloat16"): the same sweep over units of 4
 // bf16 (8 bytes), widened to f32 as they are read, summed in f32 in the same
 // order and rounded once at the store; the TPU kernel also sums bf16
 // streams in f32 (preferred_element_type, stream_ops.py:194,321). Half the
 // bytes of f32, so half the bound.
+#include <atomic>
+
 #include "common.cuh"
 
 namespace {
@@ -33,6 +52,19 @@ using chgnet::shfl_down;
 using chgnet::store_v;
 using chgnet::vadd;
 using chgnet::vzero;
+
+// acc += row perm[k] of x (row k of a sorted stream: perm null), the lane's
+// unit u of it
+template <typename S, typename V>
+__device__ __forceinline__ void add_row(V& acc, const S* __restrict__ x,
+                                        const int* __restrict__ perm, int k,
+                                        int units, int u) {
+  constexpr int kW = sizeof(V) / sizeof(float);
+  const long row = perm ? perm[k] : k;
+  V v;
+  load_v(v, x + (row * units + u) * kW);
+  vadd(acc, v);
+}
 
 // S: the storage type of x and out (float or bf16); V: a lane's value of a
 // row, float or float4 (4 elements: 16 bytes of f32, 8 of bf16). Sums are
@@ -59,12 +91,7 @@ __device__ __forceinline__ void segsum_rows(const S* __restrict__ x,
     V acc = vzero<V>();
     if (u < units) {
 #pragma unroll 4
-      for (int k = beg + g; k < end; k += groups) {
-        const long row = perm ? perm[k] : k;
-        V v;
-        load_v(v, x + (row * units + u) * kW);
-        vadd(acc, v);
-      }
+      for (int k = beg + g; k < end; k += groups) add_row<S, V>(acc, x, perm, k, units, u);
     }
     for (int off = 16; off >= lpr; off >>= 1) vadd(acc, shfl_down(acc, off));
     if (g == 0 && u < units) store_v(out + (n * units + u) * kW, acc);
@@ -85,13 +112,103 @@ struct PairStreams {
   void* out[2];
 };
 
-template <typename S, typename V>
+// acc_a += rows g, g + groups, ... of segment a, acc_b likewise, in order
+// (segsum_rows' order), the two side by side while both last, then the
+// longer one's rest; kUnroll of each loop's iterations at a time.
+template <int kUnroll, typename S, typename V>
+__device__ __forceinline__ void add_pair(V& acc_a, V& acc_b, const S* __restrict__ x,
+                                         const int* __restrict__ perm_a, int beg_a,
+                                         int len_a, const int* __restrict__ perm_b,
+                                         int beg_b, int len_b, int g, int groups,
+                                         int units, int u) {
+  const int both = len_a < len_b ? len_a : len_b;
+  int j = g;
+#pragma unroll (kUnroll)
+  for (; j < both; j += groups) {
+    add_row<S, V>(acc_a, x, perm_a, beg_a + j, units, u);
+    add_row<S, V>(acc_b, x, perm_b, beg_b + j, units, u);
+  }
+#pragma unroll (kUnroll)
+  for (int k = j; k < len_a; k += groups) add_row<S, V>(acc_a, x, perm_a, beg_a + k, units, u);
+#pragma unroll (kUnroll)
+  for (int k = j; k < len_b; k += groups) add_row<S, V>(acc_b, x, perm_b, beg_b + k, units, u);
+}
+
+// Output row n of both streams by one warp (add_pair), folded by
+// segsum_rows' shuffle tree; the warp loads the offsets of its next row
+// before it sums this one. kUnroll 4 for long segments (the edge stream's
+// some 80 rows: 8 rows of x in flight a warp), 1 for short ones (the angle
+// stream's one or two: fewer registers, so more warps in flight).
+template <typename S, typename V, int kUnroll>
 __global__ void __launch_bounds__(256)
     segment_sum_pair_kernel(const S* __restrict__ x, PairStreams s, int n_out,
                             int units) {
-  const int z = blockIdx.y;
-  segsum_rows<S, V>(x, s.perm[z], s.offsets[z], static_cast<S*>(s.out[z]),
-                    n_out, units);
+  constexpr int kW = sizeof(V) / sizeof(float);
+  const int* __restrict__ off_a = s.offsets[0];
+  const int* __restrict__ off_b = s.offsets[1];
+  S* __restrict__ out_a = static_cast<S*>(s.out[0]);
+  S* __restrict__ out_b = static_cast<S*>(s.out[1]);
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const long warp0 = (long)blockIdx.x * warps + (threadIdx.x >> 5);
+  const long n_warps = (long)gridDim.x * warps;
+  int lpr = 1;  // lanes per input row (power of two)
+  while (lpr < units) lpr <<= 1;
+  const int groups = 32 / lpr;
+  const int g = lane / lpr;
+  const int u = lane % lpr;
+  int a0 = 0, a1 = 0, b0 = 0, b1 = 0;
+  if (warp0 < n_out) {
+    a0 = off_a[warp0];
+    a1 = off_a[warp0 + 1];
+    b0 = off_b[warp0];
+    b1 = off_b[warp0 + 1];
+  }
+  for (long n = warp0; n < n_out; n += n_warps) {
+    const int beg_a = a0, len_a = a1 - a0;
+    const int beg_b = b0, len_b = b1 - b0;
+    const long next = n + n_warps;
+    if (next < n_out) {
+      a0 = off_a[next];
+      a1 = off_a[next + 1];
+      b0 = off_b[next];
+      b1 = off_b[next + 1];
+    }
+    V acc_a = vzero<V>();
+    V acc_b = vzero<V>();
+    if (u < units)
+      add_pair<kUnroll, S, V>(acc_a, acc_b, x, s.perm[0], beg_a, len_a, s.perm[1],
+                              beg_b, len_b, g, groups, units, u);
+    for (int off = 16; off >= lpr; off >>= 1) {
+      vadd(acc_a, shfl_down(acc_a, off));
+      vadd(acc_b, shfl_down(acc_b, off));
+    }
+    if (g == 0 && u < units) {
+      store_v(out_a + (n * units + u) * kW, acc_a);
+      store_v(out_b + (n * units + u) * kW, acc_b);
+    }
+  }
+}
+
+// Blocks of segment_sum_pair_kernel<S, V, kUnroll> resident on the current
+// device at once (256 threads each, no shared memory), found once per
+// device.
+template <typename S, typename V, int kUnroll>
+int pair_wave() {
+  static std::atomic<int> per_sm[16];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return -(int)err;
+  if (dev >= 16) return -(int)cudaErrorInvalidDevice;
+  int n = per_sm[dev].load(std::memory_order_relaxed);
+  if (n == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, segment_sum_pair_kernel<S, V, kUnroll>, 256, 0);
+    if (err != cudaSuccess) return -(int)err;
+    n = n > 0 ? n : 1;
+    per_sm[dev].store(n, std::memory_order_relaxed);
+  }
+  return n * chgnet::sm_count();
 }
 
 constexpr int kThreads = 256;
@@ -122,10 +239,48 @@ int segment_sum_csr(const S* x, const int* perm, const int* offsets, S* out,
   return (int)cudaGetLastError();
 }
 
+// segment_sum_pair's launch, by the mean rows of x an output row sums. At
+// least kLongRows (the edge stream's ~80): kLongUnroll rows of each segment
+// in flight a warp, one wave of persistent blocks. Fewer (the angle
+// stream's ~1): no unrolling and so few registers, one block per 8 output
+// rows for f32 rows (a finished block makes room for the next at once);
+// for bf16 rows, half the bytes to wait on, kShortWavesBf16 waves of
+// persistent blocks, whose warps load their next row's offsets before they
+// sum this one (on an H100 at 700 W, bench.py's angle-stream calls: 13%
+// faster in bf16 and 6% slower in f32 than one block per 8 rows).
+constexpr int kLongRows = 16;
+constexpr int kLongUnroll = 8;
+constexpr int kShortWavesBf16 = 8;
+
+// waves > 0: at most that many waves of persistent blocks; 0: a block per 8
+// output rows
+template <typename S, typename V, int kUnroll>
+int launch_pair_kernel(const S* x, const PairStreams& s, int n_out, int units,
+                       int waves, cudaStream_t st) {
+  long blocks = ((long)n_out + kThreads / 32 - 1) / (kThreads / 32);
+  if (waves > 0) {
+    const int wave = pair_wave<S, V, kUnroll>();
+    if (wave < 0) return -wave;
+    blocks = blocks < (long)wave * waves ? blocks : (long)wave * waves;
+  }
+  segment_sum_pair_kernel<S, V, kUnroll><<<(int)blocks, kThreads, 0, st>>>(
+      x, s, n_out, units);
+  return (int)cudaSuccess;
+}
+
+template <typename S, typename V>
+int launch_pair(const S* x, const PairStreams& s, int n_rows, int n_out, int units,
+                cudaStream_t st) {
+  if ((long)n_rows >= (long)kLongRows * n_out)
+    return launch_pair_kernel<S, V, kLongUnroll>(x, s, n_out, units, 1, st);
+  return launch_pair_kernel<S, V, 1>(x, s, n_out, units,
+                                     chgnet::is_bf16<S> ? kShortWavesBf16 : 0, st);
+}
+
 template <typename S>
 int segment_sum_pair(const S* x, const int* perm_a, const int* offsets_a,
                      S* out_a, const int* perm_b, const int* offsets_b, S* out_b,
-                     int n_out, int d, void* stream) {
+                     int n_rows, int n_out, int d, void* stream) {
   const bool vec4 = chgnet::vec4_ok(x, d) && chgnet::vec4_ok(out_a, d) &&
                     chgnet::vec4_ok(out_b, d);
   if ((vec4 ? d / 4 : d) > kMaxUnits) return (int)cudaErrorInvalidValue;
@@ -138,13 +293,9 @@ int segment_sum_pair(const S* x, const int* perm_a, const int* offsets_a,
     s.offsets[1] = offsets_b;
     s.out[0] = out_a;
     s.out[1] = out_b;
-    const dim3 grid(grid_for(n_out), 2);
-    if (vec4) {
-      segment_sum_pair_kernel<S, float4><<<grid, kThreads, 0, st>>>(
-          x, s, n_out, d / 4);
-    } else {
-      segment_sum_pair_kernel<S, float><<<grid, kThreads, 0, st>>>(x, s, n_out, d);
-    }
+    const int err = vec4 ? launch_pair<S, float4>(x, s, n_rows, n_out, d / 4, st)
+                         : launch_pair<S, float>(x, s, n_rows, n_out, d, st);
+    if (err) return err;
   }
   return (int)cudaGetLastError();
 }
@@ -166,22 +317,24 @@ extern "C" int segment_sum_csr_bf16(const chgnet::bf16* x, const int* perm,
   return segment_sum_csr(x, perm, offsets, out, n_out, d, stream);
 }
 
+// out_a, out_b as segment_sum_csr_f32's over the two streams (one n_out),
+// in one sweep of x [n_rows, d].
 extern "C" int segment_sum_pair_f32(const float* x, const int* perm_a,
                                     const int* offsets_a, float* out_a,
                                     const int* perm_b, const int* offsets_b,
-                                    float* out_b, int n_out, int d,
+                                    float* out_b, int n_rows, int n_out, int d,
                                     void* stream) {
   return segment_sum_pair(x, perm_a, offsets_a, out_a, perm_b, offsets_b, out_b,
-                          n_out, d, stream);
+                          n_rows, n_out, d, stream);
 }
 
 extern "C" int segment_sum_pair_bf16(const chgnet::bf16* x, const int* perm_a,
                                      const int* offsets_a, chgnet::bf16* out_a,
                                      const int* perm_b, const int* offsets_b,
-                                     chgnet::bf16* out_b, int n_out, int d,
-                                     void* stream) {
+                                     chgnet::bf16* out_b, int n_rows, int n_out,
+                                     int d, void* stream) {
   return segment_sum_pair(x, perm_a, offsets_a, out_a, perm_b, offsets_b, out_b,
-                          n_out, d, stream);
+                          n_rows, n_out, d, stream);
 }
 
 // ------------------------------------------------ input-stationary sums

@@ -200,13 +200,11 @@ class CHGNetConfig:
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
 
-    def check_supported(self, device_type: str = "cpu", training: bool = False) -> None:
+    def check_supported(self, device_type: str = "cpu") -> None:
         """Raise for settings the port does not run yet on a device of
         ``device_type`` (``"cpu"`` or ``"cuda"``): on ``"cuda"`` also for
         widths the kernels do not take, before anything is launched.
-        ``training`` (the parameter-gradient backward) is taken in both
-        dtypes on both devices; it stays an argument so that callers say
-        what they will run."""
+        Serving and training are taken alike, in both dtypes."""
         faults = self.kernel_width_faults() if device_type == "cuda" else []
         if faults:
             raise NotImplementedError(

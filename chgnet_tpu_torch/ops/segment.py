@@ -62,8 +62,8 @@ _SIGNATURES = {
     "segment_sum": {
         "segment_sum_csr_f32": [_P, _P, _P, _P, _I, _I, _P],
         "segment_sum_csr_bf16": [_P, _P, _P, _P, _I, _I, _P],
-        "segment_sum_pair_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
-        "segment_sum_pair_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+        "segment_sum_pair_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "segment_sum_pair_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
         "segment_sum_tiles_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
         "segment_sum_tiles_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
@@ -211,7 +211,9 @@ segment_sum_tiles.launches = segment_sum_tiles.launches_bf16 = 0
 
 def segment_sum_pair(x, offsets_a, perm_a, offsets_b, perm_b):
     """Two segment sums of one ``x`` by two key streams with the same
-    ``n_out`` (see :func:`segment_sum_csr`), in one launch."""
+    ``n_out`` (see :func:`segment_sum_csr`), in one launch and one sweep of
+    ``x``: a warp sums both streams' segments of an output row side by
+    side, each in :func:`segment_sum_csr`'s order."""
     if not build.on_cuda(x, "segment_sum_pair"):
         return segment_sum_pair_plain(x, offsets_a, perm_a, offsets_b, perm_b)
     kind = build.check_tensors(
@@ -226,7 +228,8 @@ def segment_sum_pair(x, offsets_a, perm_a, offsets_b, perm_b):
     ptr = build.ptr
     err = getattr(_lib("segment_sum"), f"segment_sum_pair_{kind}")(
         ptr(x), ptr(perm_a), ptr(offsets_a), ptr(out_a), ptr(perm_b),
-        ptr(offsets_b), ptr(out_b), n_out, x.shape[1], build.stream(),
+        ptr(offsets_b), ptr(out_b), x.shape[0], n_out, x.shape[1],
+        build.stream(),
     )
     build.check(err, "segment_sum_pair")
     segment_sum_pair.launches += 1

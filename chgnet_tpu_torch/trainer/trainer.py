@@ -253,7 +253,7 @@ class Trainer:
         config = getattr(model, "config", None)
         if config is not None:  # before the card is asked for
             device = torch.device(requested_device(use_device))
-            config.check_supported(device.type, training=True)
+            config.check_supported(device.type)
         self.device = torch.device(determine_device(use_device))
         self.model = model
         if model is not None and model.device != self.device:

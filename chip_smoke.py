@@ -790,6 +790,44 @@ def _segment_ids(offsets, perm, n_rows):
     return ids
 
 
+PAIR_BLOCK_ROWS = 8  # output rows of a block of segment_sum_pair_kernel
+
+
+def pair_windows(args, rows: int) -> dict:
+    """The rows of ``x`` that one ``segment_sum_pair`` call (``args``) reads
+    for each range of ``rows`` consecutive output rows (the last range
+    ragged): per range, the span from the lowest to the highest row either
+    stream reads (``union``) and that of the first stream alone (``a``);
+    their median, mean and largest over the ranges that read a row, the
+    union's also in bytes of ``x``."""
+    x, oa, pa, ob, pb = args
+    n_out = oa.shape[0] - 1
+    n_ranges = -(-n_out // rows)
+    spans = {}
+    lo = torch.full((n_ranges,), x.shape[0], dtype=torch.long, device=x.device)
+    hi = torch.full((n_ranges,), -1, dtype=torch.long, device=x.device)
+    for key, offsets, perm in (("a", oa, pa), ("union", ob, pb)):
+        counts = (offsets[1:] - offsets[:-1]).long()
+        out_row = torch.repeat_interleave(
+            torch.arange(n_out, device=x.device), counts)
+        nv = out_row.numel()
+        src = perm[:nv].long() if perm.numel() else torch.arange(nv, device=x.device)
+        lo.scatter_reduce_(0, out_row // rows, src, "amin")
+        hi.scatter_reduce_(0, out_row // rows, src, "amax")
+        read = hi >= 0
+        spans[key] = (hi - lo + 1)[read].double()
+    row_bytes = x.shape[1] * x.element_size()
+    out = {"rows": rows, "ranges": int(spans["union"].numel())}
+    for key, span in spans.items():
+        if not span.numel():
+            out[key] = dict(median=0, mean=0.0, max=0)
+            continue
+        out[key] = dict(median=int(span.median()), mean=float(span.mean()),
+                        max=int(span.max()))
+    out["union"]["max_bytes"] = out["union"]["max"] * row_bytes
+    return out
+
+
 # ------------------------------------------------------------- phases
 def phase_card_and_build():
     from chgnet_tpu_torch.ops import build
@@ -1491,6 +1529,10 @@ def timing_row(name, args_list, path, launches, err, dtype="f32") -> dict:
         f"{_bound_text(bound, nbytes, products, ops)})")
     if name == "gather_project_sum":
         log_gproj_routes(args_list)
+    if name == "segment_sum_pair":  # each pair of streams once
+        for args in {(a[1].data_ptr(), a[3].data_ptr()): a for a in args_list}.values():
+            log(f"window {label} n_out={args[1].shape[0] - 1}: "
+                f"{json.dumps(pair_windows(args, PAIR_BLOCK_ROWS))}")
     if name.startswith("fused_pass"):
         row["forms"] = pass_forms(name, kern, args_list)
     return row

@@ -449,7 +449,7 @@ def test_bf16_config_is_a_dataclass_field():
     assert dataclasses.asdict(cfg)["compute_dtype"] == "bfloat16"
 
 
-def test_bf16_trainer_on_cuda_is_refused_before_the_card_is_asked_for(monkeypatch):
+def test_bf16_trainer_on_cuda_passes_check_supported(monkeypatch):
     """bf16 trains on the card (the tails' and the one-kernel pass's
     parameter-gradient backwards have bf16 forms): a bf16 Trainer for CUDA
     passes ``check_supported``, with and without the switches, and without
@@ -463,7 +463,7 @@ def test_bf16_trainer_on_cuda_is_refused_before_the_card_is_asked_for(monkeypatc
         with monkeypatch.context() as mp:
             if switch:
                 mp.setenv(switch, "1")
-            model.config.check_supported("cuda", training=True)
+            model.config.check_supported("cuda")
             with pytest.raises(RuntimeError, match="CUDA") as info:
                 Trainer(model=model, targets="ef", use_device="cuda")
             assert not isinstance(info.value, NotImplementedError)

@@ -17,7 +17,11 @@ forward and 1e-4 backward, each relative to the output's max |plain|
 (64-term f32 products and layer norms in another order; the parameter
 gradients sum ~50,000 rows); the model at the port's CPU tolerances (e 2e-5 eV/atom,
 f 5e-5 eV/A, s 2e-4 GPa, m 2e-5 mu_B); the relaxers' first 5 energies 1e-5
-relative of the CPU's.
+relative of the CPU's. The one-sweep pair sum equals ``segment_sum_csr`` over
+each stream bit for bit (the same order); the update tail on near-constant
+rows is held against a float64 evaluation of its plain version, within
+twice the f32 plain version's own error (the mean's rounding, amplified by
+1 / sqrt(eps), bounds any f32 order).
 """
 
 from __future__ import annotations
@@ -1462,7 +1466,7 @@ def test_bf16_gather_sum_rows_is_exact(cuda, d, n_parts):
                  tmg.gather_sum_rows_plain(tabs, idxs, stream), ulps=0)
 
 
-def test_bf16_on_f32_only_kernels_raises_before_any_launch(cuda):
+def test_bf16_param_reduce_tiles_launch_bf16(cuda):
     """The parameter-gradient backward, the message-reduce and the tile
     segment sum launch on bf16 through their _bf16 entry points, each
     launch counted as a bf16 launch."""
@@ -1648,3 +1652,141 @@ def test_bf16_model_on_card_matches_cpu_and_f32(cuda, directed):
         for ref in (cpu, f32):
             err = float(np.abs(np.asarray(card[key]) - np.asarray(ref[key])).max())
             assert err <= bar, (key, err)
+
+
+# ------------------------------------- one-sweep pair sum, group-lane update
+def _pair_plans(rng, device, L, n_out, long_):
+    """Stream a sorted, stream b a random permutation of its keys (no
+    locality at all); ~10% of each stream's rows dropped and some keys past
+    n_out. long_: only even keys, so every other segment is empty and the
+    others hold ~75 rows (the kernel's long-segment launch); else ~1.3 rows
+    a segment, about a quarter of them empty."""
+    keys = rng.integers(0, n_out + 50, L)  # keys n_out .. n_out + 49 dropped
+    if long_:
+        keys = keys // 2 * 2
+    a = np.sort(keys).astype(np.int32)
+    b = rng.permutation(a).astype(np.int32)
+    valid_a = np.arange(L) < int(0.9 * L)
+    valid_b = rng.random(L) < 0.9
+    return (_plan(a, valid_a, n_out, True, device),
+            _plan(b, valid_b, n_out, False, device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d,aligned", [(4, True), (64, True), (128, True),
+                                       (4, False), (32, False), (3, True)])
+@pytest.mark.parametrize("L,n_out,long_", [(40_000, 30_011, False),
+                                           (40_000, 1_003, True)],
+                         ids=["short", "long"])
+def test_segment_sum_pair_one_sweep_matches_plain_and_csr(cuda, dtype, d, aligned,
+                                                          L, n_out, long_):
+    """Row 3 sums both streams in one sweep: each output equals
+    segment_sum_csr's over its stream bit for bit (the same order and
+    shuffle tree), and the plain version within SEG_ATOL (f32) or one ulp
+    (bf16); widths 4 to 128 on the float4 route and up to 32 on the
+    single-value route; n_out not a multiple of a block's 8 rows."""
+    rng = np.random.default_rng(11)
+    plan_a, plan_b = _pair_plans(rng, cuda, L, n_out, long_)
+    x = torch.randn(L, d, device=cuda).to(dtype)
+    if not aligned:
+        x = _misaligned(x)
+    args = (x, plan_a.offsets, plan_a.perm, plan_b.offsets, plan_b.perm)
+    got = tsg.segment_sum_pair(*args)
+    csr = (tsg.segment_sum_csr(x, plan_a.offsets, plan_a.perm),
+           tsg.segment_sum_csr(x, plan_b.offsets, plan_b.perm))
+    want = tsg.segment_sum_pair_plain(*args)
+    for g, c, w in zip(got, csr, want):
+        assert g.shape == (n_out, d) and g.dtype == dtype
+        assert torch.equal(g, c)
+        if dtype == BF16:
+            _assert_ulps(g, w)
+        else:
+            torch.testing.assert_close(g, w, atol=SEG_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("long_", [False, True], ids=["short", "long"])
+def test_segment_sum_pair_runs_give_equal_bits(cuda, dtype, long_):
+    rng = np.random.default_rng(12)
+    plan_a, plan_b = _pair_plans(rng, cuda, 1 << 17, 4_099 if long_ else 100_003,
+                                 long_)
+    x = torch.randn(1 << 17, 128, device=cuda).to(dtype)
+    args = (x, plan_a.offsets, plan_a.perm, plan_b.offsets, plan_b.perm)
+    first = tsg.segment_sum_pair(*args)
+    second = tsg.segment_sum_pair(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_segment_sum_pair_with_no_valid_row_is_zero(cuda):
+    offsets = torch.zeros(8_195, dtype=torch.int32, device=cuda)
+    x = torch.randn(100, 64, device=cuda)
+    for out in tsg.segment_sum_pair(x, offsets, offsets.new_zeros(0), offsets,
+                                    offsets.new_zeros(0)):
+        assert out.shape == (8_194, 64) and not out.any()
+
+
+UPDATE_ROWS = [1, 3, 1_001, 65_537]  # a warp's rows at D = 8..64 do not divide
+
+
+@pytest.mark.parametrize("n_rows", UPDATE_ROWS)
+@pytest.mark.parametrize("d", [8, 12, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+def test_update_forward_by_lane_groups_matches_plain(cuda, dtype, d, n_rows):
+    """Row 8 without a second layer: a row per group of lanes, 16-byte
+    loads (8-byte ones for bf16 at D = 12), ragged last group of rows;
+    TAIL_FWD_TOL of the largest output in f32, one ulp in bf16."""
+    x, p = _tail_inputs(cuda, d, n_rows)
+    params = _params({k: v.to(dtype) for k, v in p.items()}, has_w2=False)
+    args = (x["acc"].to(dtype), x["resnet"].to(dtype), params)
+    got, want = tgm.gated_update_fwd(*args), tgm.gated_update_plain(*args)
+    assert got.shape == (n_rows, d) and got.dtype == dtype
+    if dtype == BF16:
+        _assert_ulps(got, want)
+    else:
+        _assert_scaled([got], [want], TAIL_FWD_TOL)
+
+
+@pytest.mark.parametrize("d", [8, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+def test_update_forward_on_near_constant_rows_matches_plain(cuda, dtype, d):
+    """Rows whose halves are almost constant (spread 1e-4 around a level of
+    order 1): the layer norms' variance is about 0 and their inverse near
+    1 / sqrt(eps), so the f32 rounding of the mean, in any order, is
+    amplified some 300 times. f32: against the plain version evaluated in
+    float64, within the larger of TAIL_FWD_TOL of its largest value and
+    twice the f32 plain version's own error against it (no worse than
+    PyTorch's f32 composition); bf16: one ulp of the plain version."""
+    n_rows = 4_099
+    x, p = _tail_inputs(cuda, d, n_rows)
+    level = torch.randn(n_rows, 2, 1, device=cuda)
+    noise = torch.randn(n_rows, 2, d, device=cuda) * 1e-4
+    acc = (level + noise).reshape(n_rows, 2 * d).to(dtype)
+    params = _params({k: v.to(dtype) for k, v in p.items()}, has_w2=False)
+    args = (acc, x["resnet"].to(dtype), params)
+    got, want = tgm.gated_update_fwd(*args), tgm.gated_update_plain(*args)
+    assert torch.isfinite(got).all()
+    if dtype == BF16:
+        _assert_ulps(got, want)
+        return
+    exact = tgm.gated_update_plain(acc.double(), args[1].double(),
+                                   tuple(t.double() for t in params))
+    plain_err = float((want.double() - exact).abs().max())
+    err = float((got.double() - exact).abs().max())
+    assert err <= max(TAIL_FWD_TOL * float(exact.abs().max()), 2 * plain_err), (
+        err, plain_err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+def test_update_forward_with_misaligned_resnet_matches_plain_and_repeats(cuda, dtype):
+    """resnet one element off a 16-byte boundary (read by elements); two
+    runs give equal bits."""
+    x, p = _tail_inputs(cuda, 64, 10_007)
+    params = _params({k: v.to(dtype) for k, v in p.items()}, has_w2=False)
+    resnet = _misaligned(x["resnet"].to(dtype))
+    args = (x["acc"].to(dtype), resnet, params)
+    got, want = tgm.gated_update_fwd(*args), tgm.gated_update_plain(*args)
+    if dtype == BF16:
+        _assert_ulps(got, want)
+    else:
+        _assert_scaled([got], [want], TAIL_FWD_TOL)
+    assert torch.equal(got, tgm.gated_update_fwd(*args))

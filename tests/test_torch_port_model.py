@@ -225,7 +225,6 @@ def test_unsupported_config_raises(monkeypatch):
     model.config.check_supported("cuda")
     monkeypatch.setenv("CHGNET_TPU_STREAM_V2", "1")
     model.config.check_supported("cuda")
-    model.config.check_supported("cuda", training=True)
     with pytest.raises(NotImplementedError, match="dense_atom_conv"):
         TCHGNet(seed=0, device="cpu", dense_atom_conv=True, **SMALL)
 

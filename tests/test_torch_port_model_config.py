@@ -366,8 +366,8 @@ def test_config_refuses_only_bf16_and_dense(monkeypatch):
         TConfig(**fields).check_supported("cpu")
         TConfig(**fields).check_supported("cuda")
     bf16 = TConfig(compute_dtype="bfloat16")
-    bf16.check_supported("cpu", training=True)
-    bf16.check_supported("cuda", training=True)
+    bf16.check_supported("cpu")
+    bf16.check_supported("cuda")
     for switch in ("CHGNET_TPU_MSG_REDUCE", "CHGNET_TPU_STREAM_V2",
                    "CHGNET_TPU_FUSED_PASS"):
         with monkeypatch.context() as mp:
@@ -375,7 +375,6 @@ def test_config_refuses_only_bf16_and_dense(monkeypatch):
             bf16.check_supported("cpu")
             TConfig().check_supported("cuda")
             bf16.check_supported("cuda")
-            bf16.check_supported("cuda", training=True)
     with pytest.raises(NotImplementedError, match="dense_atom_conv"):
         TConfig(dense_atom_conv=True).check_supported("cpu")
     with pytest.raises(NotImplementedError, match="dense_atom_conv"):
