@@ -42,6 +42,7 @@
 // streams in f32 (preferred_element_type, stream_ops.py:194,321). Half the
 // bytes of f32, so half the bound.
 #include <atomic>
+#include <climits>
 
 #include "common.cuh"
 
@@ -340,140 +341,518 @@ extern "C" int segment_sum_pair_bf16(const chgnet::bf16* x, const int* perm_a,
 // ------------------------------------------------ input-stationary sums
 // segment_sum_tiles: the function of segment_sum_csr with the input owned,
 // not the output. Replaces chgnet_tpu/ops/stream_ops.py _segsum_v2_kernel
-// (:1003, wrapper _segsum_v2_pallas :1033), whose grid walks input chunks
-// and flushes each output block once; the dispatch takes it for d < 128
-// under CHGNET_TPU_STREAM_V2 (_segsum_impl :453).
+// (:1003, wrapper _segsum_v2_pallas :1033), whose grid walks input chunks in
+// order and flushes each output block once; the dispatch takes it for d <
+// 128 under CHGNET_TPU_STREAM_V2 (_segsum_impl :453). On the card blocks
+// run in no order, so a segment cut by a block boundary goes through a
+// carry and a second, small kernel.
 //
-// Bound: bytes, as segment_sum_csr. Design: the valid sorted rows are cut
-// into tiles of kTileRows rows, one per group of lanes (a lane per float4
-// unit of a row, so at d = 64 a warp holds two tiles and no lane idles, and
-// the work per group is the same whatever the segment lengths). A group
-// finds the segment of its first row by a binary search over the offsets,
-// then walks its rows in order, adding runs of one segment: a segment that
-// lies wholly inside the tile is written straight to out; the tile's first
-// and last runs, when their segments reach past it, go to two carry slots
-// of the tile (slot 0: the run that holds the tile's first row). A second
-// kernel owns the output rows: it zeroes the empty segments and adds the
-// carries of every segment that spans tiles, in tile order. No float
-// atomics: two runs give equal bits. The add order (rows in order inside a
-// tile, then tiles in order) differs from segment_sum_csr's lane-group tree,
-// so the two agree to rounding only.
-// bf16 rows (compute_dtype="bfloat16", the _bf16 entry): x and out bf16, in
-// units of 4 values widened to f32 as they are read; the runs, the carries
-// (f32 scratch) and their sums are f32, and each output row is rounded once,
-// when it is stored, as the TPU kernel sums bf16 streams in f32
-// (preferred_element_type, stream_ops.py:1021). Half the bytes of x and out.
+// Bound: bytes, as segment_sum_csr: the valid rows of x (and their 4-byte
+// permutation entries) read once, the offsets read once, n_out rows
+// written; one add per element read. Design, each point against what held
+// the first design (a lane group per 32-row tile) back:
+// - Blocks own long parts of the stream, found once. The wrapper launches
+//   `blocks` (tiles_blocks in ops/segment.py: a block per 256 rows and
+//   segments of capacity, at most four an SM). Block b takes an equal part
+//   of the merge path of the valid sorted rows and the segment ends, so a
+//   run of empty segments (bench.py's angle stream ends in ~62,700 padded
+//   bonds without angles) is shared out like rows; split by rows alone, the
+//   last block walked them all and held every call up. Each end of a part
+//   is found by one warp probing 32 offsets a round (path_segment: 4 rounds
+//   of loads over 647,168 segments, where the first design searched 20
+//   deep per 32-row tile). The block walks its segments from slices of
+//   kSlice offsets staged in shared memory by coalesced loads, slice after
+//   slice through runs of empty segments.
+// - Rows are loaded ahead of the adds. The block's rows are copied chunk by
+//   chunk (kStageBytes of rows) into a ring of kStages chunks in shared
+//   memory with cp.async (16-byte copies where the rows allow, else 8 or 4;
+//   bf16 rows of an odd width by plain loads); the permutation entries of
+//   a chunk's 16-byte copies are loaded a chunk before its copies are
+//   issued. The warps then sum staged rows segment by segment: no load
+//   waits on a segment boundary.
+// - Segments go to lane groups by their index: short segments (mean under
+//   kLongSegment rows) a group of lanes each (a lane per unit of a row),
+//   long ones a warp each, whose lane groups take every `split`-th row of
+//   the segment and fold with a fixed shuffle tree (the warp converged
+//   first; an empty segment skips it).
+// - Units of 16 bytes: 4 f32 values, or 8 bf16 values widened to f32 in
+//   registers (a 64-wide bf16 row is 8 lanes); rows of 4k bf16 values on
+//   8-byte aligned storage keep 4-value units, other widths and unaligned
+//   rows single values.
+// - Two carries per block, not per 32 rows. A segment that begins and ends
+//   in the block's part (empty ones too) is written once, by the group that
+//   sums it. The part's first segment, when it began in an earlier part,
+//   goes to carry slot 0 (its index to head[b]); its last, when it has rows
+//   here and ends later, to slot 1. segment_sum_fixup_kernel then sums each
+//   such segment's carries in block order, one lane group a block boundary.
+// No float atomics: the add order is fixed by the plan (the parts' bounds,
+// the split) and two runs give equal bits; it differs from segment_sum_csr's,
+// so the two agree to rounding only. The adds are f32; bf16 rows (the _bf16
+// entry) are widened as they are read from shared memory, their carries are
+// f32, and each output row is rounded once, at its store, as the TPU kernel
+// sums bf16 streams in f32 (preferred_element_type, stream_ops.py:1021).
 namespace {
 
-constexpr int kTileRows = 32;
+using chgnet::bf16;
 
-// S: the storage type of x and out; V: a lane's value of a row and of the
-// f32 carries, float or float4 (4 elements: 16 bytes of f32, 8 of bf16)
-template <typename S, typename V>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kTileThreads = 256;
+constexpr int kStages = 3;          // chunks of rows in flight a block
+constexpr int kStageBytes = 16384;  // bytes of rows a chunk holds
+constexpr int kSlice = 1024;        // segments whose offsets are staged at once
+constexpr int kLongSegment = 16;    // mean rows a segment that takes a warp
+constexpr int kTileSmem = kStages * kStageBytes + (kSlice + 1) * (int)sizeof(int);
+
+// a lane's unit of a row: kW consecutive values, summed in f32
+template <int kW>
+struct Acc {
+  float v[kW];
+};
+
+template <int kW>
+__device__ __forceinline__ void zero(Acc<kW>& a) {
+#pragma unroll
+  for (int e = 0; e < kW; ++e) a.v[e] = 0.f;
+}
+template <int kW>
+__device__ __forceinline__ void add(Acc<kW>& a, const Acc<kW>& b) {
+#pragma unroll
+  for (int e = 0; e < kW; ++e) a.v[e] += b.v[e];
+}
+template <int kW>
+__device__ __forceinline__ Acc<kW> shfl_down(const Acc<kW>& a, int off) {
+  Acc<kW> r;
+#pragma unroll
+  for (int e = 0; e < kW; ++e) r.v[e] = __shfl_down_sync(0xffffffffu, a.v[e], off);
+  return r;
+}
+
+// two bf16 values of a 32-bit word, widened (the first in the low half)
+__device__ __forceinline__ void widen2(float* f, unsigned w) {
+  f[0] = __uint_as_float(w << 16);
+  f[1] = __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ unsigned narrow2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// a unit from p (shared memory, or the f32 carries), widened to f32
+__device__ __forceinline__ void load_unit(Acc<1>& a, const float* p) { a.v[0] = *p; }
+__device__ __forceinline__ void load_unit(Acc<4>& a, const float* p) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  a.v[0] = f.x, a.v[1] = f.y, a.v[2] = f.z, a.v[3] = f.w;
+}
+__device__ __forceinline__ void load_unit(Acc<8>& a, const float* p) {
+  Acc<4> lo, hi;
+  load_unit(lo, p);
+  load_unit(hi, p + 4);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) a.v[e] = lo.v[e], a.v[4 + e] = hi.v[e];
+}
+__device__ __forceinline__ void load_unit(Acc<1>& a, const bf16* p) {
+  a.v[0] = __bfloat162float(*p);
+}
+__device__ __forceinline__ void load_unit(Acc<4>& a, const bf16* p) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  widen2(a.v, w.x);
+  widen2(a.v + 2, w.y);
+}
+__device__ __forceinline__ void load_unit(Acc<8>& a, const bf16* p) {
+  const uint4 w = *reinterpret_cast<const uint4*>(p);
+  widen2(a.v, w.x);
+  widen2(a.v + 2, w.y);
+  widen2(a.v + 4, w.z);
+  widen2(a.v + 6, w.w);
+}
+
+// a unit to p (out, or the f32 carries), rounded once to bf16 for bf16 rows
+__device__ __forceinline__ void store_unit(float* p, const Acc<1>& a) { *p = a.v[0]; }
+__device__ __forceinline__ void store_unit(float* p, const Acc<4>& a) {
+  *reinterpret_cast<float4*>(p) = make_float4(a.v[0], a.v[1], a.v[2], a.v[3]);
+}
+__device__ __forceinline__ void store_unit(float* p, const Acc<8>& a) {
+  *reinterpret_cast<float4*>(p) = make_float4(a.v[0], a.v[1], a.v[2], a.v[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(a.v[4], a.v[5], a.v[6], a.v[7]);
+}
+__device__ __forceinline__ void store_unit(bf16* p, const Acc<1>& a) {
+  *p = __float2bfloat16_rn(a.v[0]);
+}
+__device__ __forceinline__ void store_unit(bf16* p, const Acc<4>& a) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(narrow2(a.v[0], a.v[1]), narrow2(a.v[2], a.v[3]));
+}
+__device__ __forceinline__ void store_unit(bf16* p, const Acc<8>& a) {
+  *reinterpret_cast<uint4*>(p) =
+      make_uint4(narrow2(a.v[0], a.v[1]), narrow2(a.v[2], a.v[3]),
+                 narrow2(a.v[4], a.v[5]), narrow2(a.v[6], a.v[7]));
+}
+
+// kBytes from global src to shared dst: cp.async for 16, 8 and 4 bytes
+// (16: through L2 only), a plain load and store for 2
+template <int kBytes>
+__device__ __forceinline__ void copy_bytes(unsigned char* dst, const unsigned char* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+  } else if constexpr (kBytes == 2) {
+    *reinterpret_cast<unsigned short*>(dst) = *reinterpret_cast<const unsigned short*>(src);
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src),
+                 "n"(kBytes));
+  }
+}
+
+// the launch's shape, fixed by the rows and the plan's size
+struct TilesShape {
+  int n_out;
+  int d;
+  int units;       // units of a row
+  int lpr;         // lanes per row: a power of two >= units
+  int split;       // lane groups (of lpr lanes) that share a segment
+  int row_bytes;   // bytes of a row of x
+  int chunk_rows;  // rows of a chunk: kStageBytes / row_bytes
+  int copy;        // bytes of a copy: 16, 8, 4 or 2
+};
+
+// rows [c0, c0 + rows) of the sorted stream (x's rows perm[k], or k) into
+// dst, kBytes a copy; each thread loads the permutation entries of a batch
+// of its copies before it issues them
+template <int kBytes>
+__device__ __forceinline__ void copy_chunk(unsigned char* dst, const unsigned char* x,
+                                           const int* __restrict__ perm, int c0,
+                                           int rows, int row_bytes) {
+  constexpr int kSteps = kStageBytes / (kBytes * kTileThreads);
+  constexpr int kBatch = kSteps < 4 ? kSteps : 4;
+  const int per_row = row_bytes / kBytes;
+  const int n = rows * per_row;
+#pragma unroll 1
+  for (int m0 = 0; m0 < kSteps && (int)threadIdx.x + m0 * kTileThreads < n; m0 += kBatch) {
+    long src[kBatch];
+    int at[kBatch];
+#pragma unroll
+    for (int m = 0; m < kBatch; ++m) {
+      const int q = threadIdx.x + (m0 + m) * kTileThreads;
+      const int i = q / per_row;
+      const int p = (q - i * per_row) * kBytes;
+      at[m] = i * row_bytes + p;
+      src[m] = q < n ? (long)(perm ? perm[c0 + i] : c0 + i) * row_bytes + p : -1;
+    }
+#pragma unroll
+    for (int m = 0; m < kBatch; ++m)
+      if (src[m] >= 0) copy_bytes<kBytes>(dst + at[m], x + src[m]);
+  }
+}
+
+// 16-byte copies, a thread's kSteps16 of a chunk; their sources (x's row
+// perm[k], or k; -1 past the chunk) are loaded a chunk ahead of the copies
+constexpr int kSteps16 = kStageBytes / (16 * kTileThreads);
+
+__device__ __forceinline__ void chunk_sources16(int (&src)[kSteps16],
+                                                const int* __restrict__ perm, int c0,
+                                                int rows, int row_bytes) {
+  const int per_row = row_bytes / 16;
+#pragma unroll
+  for (int m = 0; m < kSteps16; ++m) {
+    const int i = (threadIdx.x + m * kTileThreads) / per_row;
+    src[m] = i < rows ? (perm ? perm[c0 + i] : c0 + i) : -1;
+  }
+}
+
+__device__ __forceinline__ void copy_chunk16(unsigned char* dst, const unsigned char* x,
+                                             const int (&src)[kSteps16], int row_bytes) {
+  const int per_row = row_bytes / 16;
+#pragma unroll
+  for (int m = 0; m < kSteps16; ++m) {
+    const int q = threadIdx.x + m * kTileThreads;
+    const int i = q / per_row;
+    const int p = (q - i * per_row) * 16;
+    if (src[m] >= 0) copy_bytes<16>(dst + i * row_bytes + p, x + (long)src[m] * row_bytes + p);
+  }
+}
+
+// The merge path of the sorted rows and the segment ends: item p of the
+// path is row k or the end of segment n, in order, the end of segment n at
+// p = offsets[n + 1] + n. The point of the path at diagonal v is (n, v - n),
+// n the first segment with offsets[n + 1] + n >= v (n_out when none): the
+// segments before n have ended, rows before v - n are taken. One warp, 32
+// probes a round.
+__device__ __forceinline__ int path_segment(const int* __restrict__ offsets, int n_out,
+                                            long v) {
+  const int lane = threadIdx.x & 31;
+  int lo = 0, hi = n_out;  // the answer lies in [lo, hi]
+  auto ends_by = [&](int n) { return n == n_out || (long)offsets[n + 1] + n >= v; };
+  while (hi - lo > 31) {
+    const int step = (hi - lo + 31) >> 5;
+    const unsigned ge = __ballot_sync(0xffffffffu, ends_by(min(lo + (lane + 1) * step, hi)));
+    const int f = __ffs(ge) - 1;  // lane 31 probes hi, which holds
+    const int top = min(lo + (f + 1) * step, hi);
+    lo = f == 0 ? lo : lo + f * step + 1;
+    hi = top;
+  }
+  const unsigned ge = __ballot_sync(0xffffffffu, lo + lane <= hi && ends_by(lo + lane));
+  return lo + __ffs(ge) - 1;
+}
+
+// S: the storage type of x and out; kW: values of a lane's unit. carry:
+// 2 rows of d floats a block; head[b]: the segment of carry slot 0 (-1:
+// none).
+template <typename S, int kW>
+__global__ void __launch_bounds__(kTileThreads)
     segment_sum_tiles_kernel(const S* __restrict__ x, const int* __restrict__ perm,
                              const int* __restrict__ offsets, S* __restrict__ out,
-                             V* __restrict__ carry, int n_out, int units,
-                             int lpr) {
-  constexpr int kW = sizeof(V) / sizeof(float);  // elements of a unit
-  const int groups = kThreads / lpr;
-  const long t = (long)blockIdx.x * groups + threadIdx.x / lpr;  // the tile
-  const int u = threadIdx.x % lpr;
-  const int n_valid = offsets[n_out];
-  const long b = t * kTileRows;
-  if (b >= n_valid || u >= units) return;
-  const int e = b + kTileRows < n_valid ? (int)b + kTileRows : n_valid;
-  // the segment of row b: the first n with offsets[n + 1] > b
-  int lo = 0, hi = n_out - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (offsets[mid + 1] > b) hi = mid; else lo = mid + 1;
-  }
-  int n = lo;
-  int seg_beg = offsets[n];
-  int seg_end = offsets[n + 1];
-  V acc = vzero<V>();
-  for (int k = (int)b; k <= e; ++k) {
-    if (k == e || k >= seg_end) {  // the run of segment n ends before row k
-      if (seg_beg >= b && seg_end <= e)
-        store_v(out + ((long)n * units + u) * kW, acc);
-      else
-        carry[(t * 2 + (seg_beg > b)) * units + u] = acc;
-      if (k == e) break;
-      acc = vzero<V>();
-      do {  // the next segment with a row, past the empty ones
-        ++n;
-        seg_end = offsets[n + 1];
-      } while (k >= seg_end);
-      seg_beg = offsets[n];
+                             float* __restrict__ carry, int* __restrict__ head,
+                             TilesShape t) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* soff = reinterpret_cast<int*>(smem + kStages * kStageBytes);
+  // the block's part of the path, items [b per, b per + per) of the n_valid
+  // rows and n_out ends: s_path[3 w .. 3 w + 2] = (n, k, offsets[n] < k) of
+  // its start (w = 0) and of its end (w = 1)
+  __shared__ int s_path[6];
+  const int b = blockIdx.x;
+  if (threadIdx.x < 64) {  // warp 0 finds the start, warp 1 the end
+    const int w = threadIdx.x >> 5;
+    const long items = (long)offsets[t.n_out] + t.n_out;
+    const long per = (items + gridDim.x - 1) / gridDim.x;
+    const long at = (long)(b + w) * per;
+    const long v = at < items ? at : items;
+    const int n = path_segment(offsets, t.n_out, v);
+    if ((threadIdx.x & 31) == 0) {
+      s_path[3 * w] = n;
+      s_path[3 * w + 1] = (int)(v - n);
+      s_path[3 * w + 2] = offsets[n] < v - n;  // segment n has rows before k
     }
-    const long row = perm ? perm[k] : k;
-    V v;
-    load_v(v, x + (row * units + u) * kW);
-    vadd(acc, v);
+  }
+  __syncthreads();
+  // the segments n_first .. n_last - 1 end in this block, and rows r0 .. r1
+  // - 1 are its; n_first began earlier when `cont`, n_last has rows here
+  // (and runs on) when `runs_on`
+  const int n_first = s_path[0], r0 = s_path[1];
+  const bool cont = s_path[2];
+  const int n_last = s_path[3], r1 = s_path[4];
+  const bool runs_on = s_path[5];
+  const int n_end = n_last + runs_on;  // the walk: segments [n_first, n_end)
+  if (threadIdx.x == 0) head[b] = cont ? n_first : -1;
+  const int C = t.chunk_rows;
+  const int n_chunks = max((r1 - r0 + C - 1) / C, 1);
+  const unsigned char* xb = reinterpret_cast<const unsigned char*>(x);
+  int src16[kSteps16];  // the sources of the next chunk's 16-byte copies
+  auto fetch = [&](int j) {
+    const int c0 = r0 + j * C;
+    if (t.copy == 16 && j < n_chunks)
+      chunk_sources16(src16, perm, c0, min(C, r1 - c0), t.row_bytes);
+  };
+  auto issue = [&](int j) {  // chunk j's rows into its stage; 16-byte ones from src16
+    if (j < n_chunks) {
+      const int c0 = r0 + j * C;
+      unsigned char* dst = smem + (j % kStages) * kStageBytes;
+      const int rows = min(C, r1 - c0);
+      switch (t.copy) {
+        case 16: copy_chunk16(dst, xb, src16, t.row_bytes); break;
+        case 8: copy_chunk<8>(dst, xb, perm, c0, rows, t.row_bytes); break;
+        case 4: copy_chunk<4>(dst, xb, perm, c0, rows, t.row_bytes); break;
+        default: copy_chunk<2>(dst, xb, perm, c0, rows, t.row_bytes); break;
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+#pragma unroll 1
+  for (int j = 0; j < kStages - 1; ++j) {
+    fetch(j);
+    issue(j);
+  }
+  fetch(kStages - 1);
+  int n_cur = n_first;  // the first segment not finished
+  int s0 = n_cur;       // soff[i] = offsets[s0 + i]
+  auto stage_offsets = [&]() {
+    for (int i = threadIdx.x; i <= kSlice; i += kTileThreads)
+      soff[i] = offsets[min(s0 + i, t.n_out)];
+  };
+  stage_offsets();
+
+  const int gsize = t.split * t.lpr;  // lanes that sum one segment
+  const int groups = kTileThreads / gsize;
+  const int group = threadIdx.x / gsize;
+  const int sub = (threadIdx.x % gsize) / t.lpr;
+  const int u = threadIdx.x % t.lpr;
+  const bool live = u < t.units;
+  int open = -1;  // this group's segment that runs on past the last chunk
+  Acc<kW> acc;
+  zero(acc);
+#pragma unroll 1
+  for (int j = 0; j < n_chunks; ++j) {
+    issue(j + kStages - 1);
+    fetch(j + kStages);
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1));
+    __syncthreads();
+    const unsigned char* rows = smem + (j % kStages) * kStageBytes;
+    const int c0 = r0 + j * C;
+    const int c1 = min(c0 + C, r1);
+    // segments starting below limit take part in this chunk; in the last
+    // chunk every walked segment (the empty ones at r1 too)
+    const int limit = j == n_chunks - 1 ? INT_MAX : c1;
+    int i_lim;
+#pragma unroll 1
+    while (true) {
+      const int n_seg = min(kSlice, n_end - s0);
+      int lo = 0, hi = n_seg;  // i_lim: the first slice segment at or past limit
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (soff[mid] < limit) lo = mid + 1; else hi = mid;
+      }
+      i_lim = lo;
+      const int i0 = n_cur - s0;
+#pragma unroll 1
+      for (int i = i0 + ((group - (s0 + i0)) & (groups - 1)); i < i_lim; i += groups) {
+        const int n = s0 + i;
+        const int beg = soff[i];
+        const int end = soff[i + 1];
+        if (n != open) zero(acc);
+        if (live) {  // lane group sub takes the rows k = sub mod split
+          const int k0 = max(beg, c0);
+          const int k1 = min(end, c1);
+#pragma unroll 4
+          for (int k = k0 + ((sub - k0) & (t.split - 1)); k < k1; k += t.split) {
+            Acc<kW> v;
+            load_unit(v, reinterpret_cast<const S*>(rows + (long)(k - c0) * t.row_bytes) +
+                             u * kW);
+            add(acc, v);
+          }
+        }
+        if (min(end, r1) > c1) {  // its rows go on past this chunk
+          open = n;
+          continue;
+        }
+        open = -1;
+        // a warp's lane groups fold their sums by a shuffle tree, the
+        // warp converged first; an empty segment's sums are zero as they are
+        if (gsize > t.lpr && beg < end) {
+          __syncwarp();
+          for (int off = gsize >> 1; off >= t.lpr; off >>= 1) add(acc, shfl_down(acc, off));
+        }
+        if (sub == 0 && live) {
+          if (beg < r0)
+            store_unit(carry + ((long)b * 2) * t.d + u * kW, acc);
+          else if (n == n_last)
+            store_unit(carry + ((long)b * 2 + 1) * t.d + u * kW, acc);
+          else
+            store_unit(out + (long)n * t.d + u * kW, acc);
+        }
+      }
+      // every segment of the slice done and more start below limit: the next slice
+      if (i_lim == n_seg && s0 + n_seg < n_end && soff[n_seg] < limit) {
+        __syncthreads();
+        s0 += n_seg;
+        n_cur = s0;
+        stage_offsets();
+        __syncthreads();
+        continue;
+      }
+      break;
+    }
+    // the next chunk starts at the segment left open, else at the first
+    // one not yet walked
+    n_cur = i_lim > 0 && soff[i_lim] > c1 ? s0 + i_lim - 1 : s0 + i_lim;
+    __syncthreads();  // the chunk's stage and soff are read
   }
 }
 
-template <typename S, typename V>
-__global__ void __launch_bounds__(kThreads)
-    segment_sum_carry_kernel(const int* __restrict__ offsets,
-                             const V* __restrict__ carry, S* __restrict__ out,
-                             int n_out, int units, int lpr) {
-  constexpr int kW = sizeof(V) / sizeof(float);
-  const int groups = kThreads / lpr;
-  const int u = threadIdx.x % lpr;
-  if (u >= units) return;
-  for (long n = (long)blockIdx.x * groups + threadIdx.x / lpr; n < n_out;
-       n += (long)gridDim.x * groups) {
-    const int beg = offsets[n];
-    const int end = offsets[n + 1];
-    if (beg == end) {
-      store_v(out + (n * units + u) * kW, vzero<V>());
-      continue;
-    }
-    const int t0 = beg / kTileRows;
-    const int t1 = (end - 1) / kTileRows;
-    if (t0 == t1) continue;  // wholly inside a tile: the first kernel wrote it
-    V acc = vzero<V>();
-    for (long t = t0; t <= t1; ++t) {
-      const int slot = t == t0 && beg > t * kTileRows;
-      vadd(acc, carry[(t * 2 + slot) * units + u]);
-    }
-    store_v(out + (n * units + u) * kW, acc);
+// Each segment that spans blocks, summed from its carries in block order:
+// slot 1 of the block it began in, slot 0 of every later block it reaches.
+// A lane group per block b >= 1 whose first segment began in block b - 1.
+template <typename S, int kW>
+__global__ void __launch_bounds__(kTileThreads)
+    segment_sum_fixup_kernel(const float* __restrict__ carry,
+                             const int* __restrict__ head, S* __restrict__ out,
+                             int blocks, TilesShape t) {
+  const int groups = kTileThreads / t.lpr;
+  const int b = 1 + blockIdx.x * groups + threadIdx.x / t.lpr;
+  const int u = threadIdx.x % t.lpr;
+  if (b >= blocks || u >= t.units) return;
+  const int n = head[b];
+  if (n < 0 || head[b - 1] == n) return;
+  Acc<kW> acc, v;
+  load_unit(acc, carry + ((long)(b - 1) * 2 + 1) * t.d + u * kW);
+  for (long c = b; c < blocks && head[c] == n; ++c) {
+    load_unit(v, carry + (c * 2) * t.d + u * kW);
+    add(acc, v);
   }
+  store_unit(out + (long)n * t.d + u * kW, acc);
 }
 
-template <typename S, typename V>
-void launch_tiles(const S* x, const int* perm, const int* offsets, S* out,
-                  V* carry, int n_rows, int n_out, int units, cudaStream_t st) {
-  int lpr = 1;  // lanes per tile (power of two)
-  while (lpr < units) lpr <<= 1;
-  const int groups = kThreads / lpr;
-  const long tiles = ((long)n_rows + kTileRows - 1) / kTileRows;
-  if (tiles > 0)
-    segment_sum_tiles_kernel<S, V><<<(int)((tiles + groups - 1) / groups), kThreads,
-                                     0, st>>>(x, perm, offsets, out, carry, n_out,
-                                              units, lpr);
-  const long want = ((long)n_out + groups - 1) / groups;
-  const long cap = (long)chgnet::sm_count() * 16;
-  segment_sum_carry_kernel<S, V><<<(int)(want < cap ? want : cap), kThreads, 0, st>>>(
-      offsets, carry, out, n_out, units, lpr);
+// allows kernel its dynamic shared memory, once per device
+template <typename S, int kW>
+cudaError_t allow_tiles_smem() {
+  static std::atomic<unsigned> done{0};  // a bit per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 32) return cudaErrorInvalidDevice;
+  if (done.load(std::memory_order_relaxed) & (1u << dev)) return cudaSuccess;
+  err = cudaFuncSetAttribute(segment_sum_tiles_kernel<S, kW>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kTileSmem);
+  if (err == cudaSuccess) done.fetch_or(1u << dev, std::memory_order_relaxed);
+  return err;
+}
+
+template <typename S, int kW>
+int launch_tiles(const S* x, const int* perm, const int* offsets, S* out, float* carry,
+                 int n_rows, int n_out, int d, int blocks, cudaStream_t st) {
+  TilesShape t;
+  t.n_out = n_out;
+  t.d = d;
+  t.units = d / kW;
+  t.lpr = 1;
+  while (t.lpr < t.units) t.lpr <<= 1;
+  t.row_bytes = d * (int)sizeof(S);
+  t.chunk_rows = kStageBytes / t.row_bytes;
+  t.split = (long)n_rows >= (long)kLongSegment * n_out ? 32 / t.lpr : 1;
+  const uintptr_t a = reinterpret_cast<uintptr_t>(x);
+  t.copy = 2;
+  for (int c = 16; c >= 4; c >>= 1) {
+    if (t.row_bytes % c == 0 && a % c == 0) {
+      t.copy = c;
+      break;
+    }
+  }
+  const cudaError_t err = allow_tiles_smem<S, kW>();
+  if (err != cudaSuccess) return (int)err;
+  int* head = reinterpret_cast<int*>(carry + (long)blocks * 2 * d);
+  segment_sum_tiles_kernel<S, kW><<<blocks, kTileThreads, kTileSmem, st>>>(
+      x, perm, offsets, out, carry, head, t);
+  if (blocks > 1) {
+    const int groups = kTileThreads / t.lpr;
+    segment_sum_fixup_kernel<S, kW><<<(blocks - 1 + groups - 1) / groups, kTileThreads, 0,
+                                      st>>>(carry, head, out, blocks, t);
+  }
+  return (int)cudaSuccess;
+}
+
+inline bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 template <typename S>
 int segment_sum_tiles(const S* x, const int* perm, const int* offsets, S* out,
-                      float* carry, int n_rows, int n_out, int d, void* stream) {
-  const bool vec4 = chgnet::vec4_ok(x, d) && chgnet::vec4_ok(out, d) &&
-                    chgnet::vec4_ok(carry, d);
-  if ((vec4 ? d / 4 : d) > kMaxUnits) return (int)cudaErrorInvalidValue;
+                      float* carry, int n_rows, int n_out, int d, int blocks,
+                      void* stream) {
+  constexpr int es = (int)sizeof(S);
+  // 8 bf16 values a unit where the rows allow, else 4 values, else 1
+  const bool by8 = chgnet::is_bf16<S> && d % 8 == 0 && aligned(x, 16) && aligned(out, 16);
+  const bool by4 = d % 4 == 0 && aligned(x, 4 * es) && aligned(out, 4 * es);
+  const int kw = by8 ? 8 : by4 ? 4 : 1;
+  if (d / kw > kMaxUnits || blocks < 1 || !aligned(carry, 16))
+    return (int)cudaErrorInvalidValue;
   if (n_out > 0) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (vec4) {
-      launch_tiles<S, float4>(x, perm, offsets, out, reinterpret_cast<float4*>(carry),
-                              n_rows, n_out, d / 4, st);
-    } else {
-      launch_tiles<S, float>(x, perm, offsets, out, carry, n_rows, n_out, d, st);
+    int err = 0;
+    if constexpr (chgnet::is_bf16<S>) {  // no 8-value units of f32
+      if (kw == 8)
+        err = launch_tiles<S, 8>(x, perm, offsets, out, carry, n_rows, n_out, d, blocks, st);
     }
+    if (kw == 4)
+      err = launch_tiles<S, 4>(x, perm, offsets, out, carry, n_rows, n_out, d, blocks, st);
+    if (kw == 1)
+      err = launch_tiles<S, 1>(x, perm, offsets, out, carry, n_rows, n_out, d, blocks, st);
+    if (err) return err;
   }
   return (int)cudaGetLastError();
 }
@@ -481,19 +860,22 @@ int segment_sum_tiles(const S* x, const int* perm, const int* offsets, S* out,
 }  // namespace
 
 // out [n_out, d] as segment_sum_csr_f32; n_rows bounds the valid rows
-// (offsets[n_out] <= n_rows); carry: f32 scratch of 2 d floats per tile of
-// 32 rows, ceil(n_rows / 32) tiles, 16-byte aligned. The _bf16 entry takes
-// bf16 x and out (the carry stays f32).
+// (offsets[n_out] <= n_rows, offsets[0] = 0); blocks: the blocks that share
+// the rows (ops/segment.py tiles_blocks); carry: f32 scratch of blocks x
+// (2 d + 1) floats, 16-byte aligned (two carry rows a block, then an int a
+// block). The _bf16 entry takes bf16 x and out (the carries stay f32).
 extern "C" int segment_sum_tiles_f32(const float* x, const int* perm,
                                      const int* offsets, float* out,
                                      float* carry, int n_rows, int n_out, int d,
-                                     void* stream) {
-  return segment_sum_tiles(x, perm, offsets, out, carry, n_rows, n_out, d, stream);
+                                     int blocks, void* stream) {
+  return segment_sum_tiles(x, perm, offsets, out, carry, n_rows, n_out, d, blocks,
+                           stream);
 }
 
 extern "C" int segment_sum_tiles_bf16(const chgnet::bf16* x, const int* perm,
                                       const int* offsets, chgnet::bf16* out,
                                       float* carry, int n_rows, int n_out, int d,
-                                      void* stream) {
-  return segment_sum_tiles(x, perm, offsets, out, carry, n_rows, n_out, d, stream);
+                                      int blocks, void* stream) {
+  return segment_sum_tiles(x, perm, offsets, out, carry, n_rows, n_out, d, blocks,
+                           stream);
 }

@@ -64,8 +64,8 @@ _SIGNATURES = {
         "segment_sum_csr_bf16": [_P, _P, _P, _P, _I, _I, _P],
         "segment_sum_pair_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
         "segment_sum_pair_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-        "segment_sum_tiles_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-        "segment_sum_tiles_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "segment_sum_tiles_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "segment_sum_tiles_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "gather_rows": {
         "gather_rows_f32": [_P, _P, _P, _L, _I, _I, _P],
@@ -79,7 +79,11 @@ _SIGNATURES = {
 # widest row of the segment sums: one warp's 32 lanes each hold a float4
 # (a float where the row is not 16-byte aligned)
 SEGMENT_MAX_D = 128
-TILE_ROWS = 32  # sorted rows per tile of segment_sum_tiles (kTileRows)
+# blocks of segment_sum_tiles: one per TILES_MIN_ITEMS rows and segments of
+# the stream's capacity, at most TILES_MAX_BLOCKS (four an SM of an H100's
+# 132, as many as its shared memory holds at once)
+TILES_MIN_ITEMS = 256
+TILES_MAX_BLOCKS = 528
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -174,17 +178,27 @@ def segment_sum_csr(
 segment_sum_csr.launches = segment_sum_csr.launches_bf16 = 0
 
 
+def tiles_blocks(n_rows: int, n_out: int) -> int:
+    """Blocks that share a :func:`segment_sum_tiles` call over ``n_rows``
+    rows and ``n_out`` segments. Each takes an equal part of the merge path
+    of the valid sorted rows and the segment ends (``csrc/segment_sum.cu``
+    ``path_segment``), so the block boundaries, and with them the add
+    order, follow from the plan and these two sizes alone."""
+    return max(1, min(-(-(n_rows + n_out) // TILES_MIN_ITEMS), TILES_MAX_BLOCKS))
+
+
 def segment_sum_tiles(
     x: torch.Tensor, offsets: torch.Tensor, perm: torch.Tensor
 ) -> torch.Tensor:
-    """:func:`segment_sum_csr`'s function, input-stationary: tiles of
-    ``TILE_ROWS`` sorted rows are summed run by run, segments inside one
-    tile written at once, the others through a carry buffer that a second
-    kernel adds in tile order. It adds in another order than
-    :func:`segment_sum_csr`, so the two agree to rounding. The TPU
-    dispatch's raw-mode capacity clause (``_segsum_impl`` :462-473) has no
-    counterpart: the port has CSR plans and no block-local raw plans. The
-    carries are f32 for bf16 rows too."""
+    """:func:`segment_sum_csr`'s function, input-stationary: each of
+    :func:`tiles_blocks` blocks takes an equal part of the sorted rows and
+    segment ends, stages its rows in shared memory ahead of the adds and
+    writes every segment that lies inside its part; the two segments cut by
+    its part's ends go through f32 carries that a second kernel adds in
+    block order. It adds in another order than :func:`segment_sum_csr`, so
+    the two agree to rounding. The TPU dispatch's raw-mode capacity clause
+    (``_segsum_impl`` :462-473) has no counterpart: the port has CSR plans
+    and no block-local raw plans. The carries are f32 for bf16 rows too."""
     if not build.on_cuda(x, "segment_sum_tiles"):
         return segment_sum_plain(x, offsets, perm)
     kind = build.check_tensors("segment_sum_tiles", (x,), (offsets, perm))
@@ -192,13 +206,13 @@ def segment_sum_tiles(
     n_rows, d = x.shape
     n_out = offsets.shape[0] - 1
     out = torch.empty((n_out, d), dtype=x.dtype, device=x.device)
-    carry = torch.empty(
-        (-(-n_rows // TILE_ROWS), 2, d), dtype=torch.float32, device=x.device
-    )
+    blocks = tiles_blocks(n_rows, n_out)
+    # two carry rows a block, then the segment of each block's first carry
+    carry = torch.empty(blocks * (2 * d + 1), dtype=torch.float32, device=x.device)
     ptr = build.ptr
     err = getattr(_lib("segment_sum"), f"segment_sum_tiles_{kind}")(
         ptr(x), ptr(perm), ptr(offsets), ptr(out), ptr(carry), n_rows, n_out,
-        d, build.stream(),
+        d, blocks, build.stream(),
     )
     build.check(err, "segment_sum_tiles")
     segment_sum_tiles.launches += 1

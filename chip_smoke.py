@@ -299,7 +299,8 @@ PROFILED = {
     "default": ("tail_fwd_tc_kernel", "tail_bwd_tc_kernel"),
     "directed_bonds=False": (),
     "CHGNET_TPU_MSG_REDUCE=1": ("tail_reduce_tc_kernel",),
-    "CHGNET_TPU_STREAM_V2=1": ("gather_window_kernel",),
+    "CHGNET_TPU_STREAM_V2=1": ("gather_window_kernel", "segment_sum_tiles_kernel",
+                               "segment_sum_fixup_kernel"),
     "CHGNET_TPU_FUSED_PASS=1": ("pass_fwd_tc_kernel", "pass_bwd_tc_kernel"),
     "bf16": ("tail_fwd_tc_kernel<__nv_bfloat16>", "tail_bwd_tc_kernel<__nv_bfloat16",
              "gproj_tc_kernel<__nv_bfloat16>", "segment_sum_csr_kernel<__nv_bfloat16"),
@@ -308,9 +309,11 @@ PROFILED = {
 }
 # ... and the kernels it must not show: the CUDA-core one-kernel pass
 # (parameter gradients only) has no place in serving, and the windowed
-# gather's first kernel, which staged every window whole, is gone
+# gather's first kernel, which staged every window whole, and the tile
+# sum's first carry kernel, which read the offsets of every output row,
+# are gone
 UNPROFILED = {
-    "CHGNET_TPU_STREAM_V2=1": ("gather_rows_window_kernel",),
+    "CHGNET_TPU_STREAM_V2=1": ("gather_rows_window_kernel", "segment_sum_carry_kernel"),
     "CHGNET_TPU_FUSED_PASS=1": ("pass_fwd_kernel<", "pass_bwd_kernel<"),
     "directed_bonds=False CHGNET_TPU_FUSED_PASS=1 bf16": (
         "pass_fwd_kernel<", "pass_bwd_kernel<"),
@@ -438,8 +441,9 @@ KERNELS = {
         # row-order adds against the tail's rounding and float64 prefix sums
         ("gated_message_reduce", "gated_message.cu", "gated_message.py:378", 1e-5,
          "CHGNET_TPU_MSG_REDUCE=1"),
-        # rows in order inside a tile, then tiles in order, against float64
-        # prefix sums
+        # rows in order inside a block's part of the stream (a long
+        # segment's rows by a warp's lane groups, folded by a shuffle tree),
+        # then the blocks' carries in block order, against float64 prefix sums
         ("segment_sum_tiles", "segment_sum.cu", "stream_ops.py:1003", 1e-5,
          "CHGNET_TPU_STREAM_V2=1"),
         ("gather_rows_window", "gather_window.cu", "stream_ops.py:1109", 0.0,

@@ -691,6 +691,98 @@ def test_segment_sum_tiles_matches_plain(cuda, d, sorted_, L, S):
         assert torch.equal(got, tsg.segment_sum_tiles(x2, plan.offsets, plan.perm))
 
 
+def _tiles_layout(name: str, rng):
+    """(segment lengths, rows of capacity past the last) at the edges of
+    the tile kernel's schedule: ``tsg.tiles_blocks`` blocks each take an
+    equal part of the merge path of the valid rows and the segment ends,
+    stage offsets in slices of 1,024 segments and hand the segments cut by
+    their parts' ends to carries. The three ``parts-*`` layouts make 528
+    parts of 1,200 items: each part starts at a segment's first row, one
+    item before it (with the end of a segment whose rows all lie in the
+    part before), or one row into it."""
+    if name == "one-segment-over-many-blocks":
+        return np.array([3, 200_000, 5]), 0
+    if name == "one-segment-holds-every-row":
+        return np.array([200_000]), 977
+    if name == "100k-empty-between-rows":  # a run longer than a slice
+        return np.r_[700, np.zeros(100_000, int), 700], 0
+    if name == "parts-on-segment-ends":
+        return np.full(2112, 299), 0
+    if name == "parts-one-item-short":
+        return np.r_[0, np.full(2111, 299), 298], 0
+    if name == "parts-one-row-past":
+        return np.r_[298, np.full(2111, 299), 0], 0
+    return rng.integers(1, 4, 60_000) * (rng.random(60_000) < 0.5), 977  # angles
+
+
+TILES_LAYOUTS = ["one-segment-over-many-blocks", "one-segment-holds-every-row",
+                 "100k-empty-between-rows",
+                 "parts-on-segment-ends", "parts-one-item-short", "parts-one-row-past",
+                 "short-and-empty"]
+
+
+def _tiles_case(cuda, name, sorted_, dtype, d, seed=23):
+    """(x, offsets, perm): a stream over the layout's segments, sorted or
+    permuted, whose rows past offsets[n_out] (the ones perm leaves past the
+    end) are NaN, so a read of any of them shows."""
+    rng = np.random.default_rng(seed)
+    counts, n_dropped = _tiles_layout(name, rng)
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+    n_valid = int(offsets[-1])
+    n_rows = n_valid + n_dropped
+    perm = np.arange(n_rows) if sorted_ else rng.permutation(n_rows)
+    x = torch.randn(n_rows, d, generator=torch.Generator().manual_seed(seed))
+    x[torch.from_numpy(perm[n_valid:])] = float("nan")
+    as_int = lambda a: torch.from_numpy(a.astype(np.int32)).to(cuda)  # noqa: E731
+    return (x.to(dtype).to(cuda), as_int(offsets),
+            as_int(perm) if not sorted_ else as_int(np.zeros(0)))
+
+
+@pytest.mark.parametrize(
+    "dtype,d", [(torch.float32, 3), (torch.float32, 64), (torch.bfloat16, 8),
+                (torch.bfloat16, 64), (torch.bfloat16, 124)],
+    ids=["f32-3", "f32-64", "bf16-8", "bf16-64", "bf16-124"],
+)
+@pytest.mark.parametrize("sorted_", [True, False], ids=["sorted", "perm"])
+@pytest.mark.parametrize("name", TILES_LAYOUTS)
+def test_segment_sum_tiles_schedule_edges_match_plain(cuda, name, sorted_, dtype, d):
+    """Segments over hundreds of blocks, a run of empty segments longer than
+    a staged slice, parts that start on a segment's first row or one item
+    either side, short and empty segments; bf16 by 8-value units (d = 8,
+    64) and 4-value ones (124); rows past the end poisoned. f32 at 1e-5 of
+    the largest output, bf16 within one ulp; equal bits run to run."""
+    x, offsets, perm = _tiles_case(cuda, name, sorted_, dtype, d)
+    got = tsg.segment_sum_tiles(x, offsets, perm)
+    want = tsg.segment_sum_plain(x, offsets, perm)
+    if dtype == torch.bfloat16:
+        _assert_ulps(got, want)
+    else:
+        _assert_scaled([got], [want], 1e-5)
+    counts = (offsets[1:] - offsets[:-1]).long()
+    assert not bool(got[counts == 0].any())
+    assert torch.equal(got, tsg.segment_sum_tiles(x, offsets, perm))
+
+
+@pytest.mark.parametrize(
+    "dtype,d", [(torch.float32, 32), (torch.bfloat16, 32), (torch.bfloat16, 8)],
+    ids=["f32-32", "bf16-32", "bf16-8"],
+)
+@pytest.mark.parametrize("name", ["one-segment-over-many-blocks", "short-and-empty"])
+def test_segment_sum_tiles_unaligned_rows_match_plain(cuda, name, dtype, d):
+    """x one element past a 16-byte boundary (rows of at most 32 values,
+    as ``_check_width`` takes them): single-value units, 4-byte copies
+    (f32) or plain 2-byte loads (bf16); equal bits run to run."""
+    x, offsets, perm = _tiles_case(cuda, name, False, dtype, d)
+    xm = _misaligned(x)
+    got = tsg.segment_sum_tiles(xm, offsets, perm)
+    want = tsg.segment_sum_plain(x, offsets, perm)
+    if dtype == torch.bfloat16:
+        _assert_ulps(got, want)
+    else:
+        _assert_scaled([got], [want], 1e-5)
+    assert torch.equal(got, tsg.segment_sum_tiles(xm, offsets, perm))
+
+
 def test_segment_sum_tiles_with_no_valid_row_is_zero(cuda):
     x = torch.randn(300, 64, device=cuda)
     off = torch.zeros(41, dtype=torch.int32, device=cuda)
