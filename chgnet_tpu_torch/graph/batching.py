@@ -1,8 +1,10 @@
 """Static-shape padded graph batching with CSR segment plans.
 
-Port of ``chgnet_tpu.graph.batching.batch_graphs`` for the default layout
-(no dense slots, no halo tiles, no lean shipping). Capacities, padding and
-every index and mask stream equal ``chgnet_tpu``'s for the same graphs:
+Port of ``chgnet_tpu.graph.batching.batch_graphs`` with its optional
+layouts: the dense per-atom slots (``dense_k``) and the halo-tiled
+neighbour layout (``tile``); lean shipping of a built batch to the device
+is ``graph/leanship.py``. Capacities, padding and every index and mask
+stream equal ``chgnet_tpu``'s for the same graphs:
 
 * padding *gather* indices point at the last valid row (always in range;
   results are masked), and padded edges get image (1, 0, 0), so their bond
@@ -24,9 +26,9 @@ order and without atomics (``chgnet_tpu_torch/ops/segment.py``).
 
 As in ``chgnet_tpu``, the sorts and the angle stream's reorder go through
 the threaded host ops (``utils/native/hostops.py``: a radix argsort equal
-to numpy's stable one, a row gather), and the eight plans are built on a
-pool of four threads; every array equals the one numpy's sort and fancy
-indexing give.
+to numpy's stable one, a row gather), and the plans (eight, ten with the
+halo tiles) are built on a pool of four threads; every array equals the one
+numpy's sort and fancy indexing give.
 
 With ``CHGNET_TPU_STREAM_V2`` set while the batch is built
 (:func:`stream_v2_enabled`), a plan also carries the source window of every
@@ -178,6 +180,9 @@ def make_plan(
                        window_rows=window_span(window))
 
 
+_NO_PLAN = SegmentPlan(_EMPTY, _EMPTY, _EMPTY)
+
+
 class GraphBatch(NamedTuple):
     """A batch of crystal graphs as padded flat arrays.
 
@@ -215,6 +220,28 @@ class GraphBatch(NamedTuple):
     plan_d2u: SegmentPlan  # directed2undirected -> bonds
     plan_u2d: SegmentPlan  # undirected2directed -> edges (sorted)
     plan_u2d2: SegmentPlan  # und_second -> edges
+    # optional dense per-atom edge layout (built with dense_k): AtomConv's
+    # edges as [N, K] slots, so its segment sum becomes a sum over K and
+    # its centre gather a broadcast (CHGNetConfig.dense_atom_conv); the
+    # bond slots index the undirected bonds
+    dense_nbr: np.ndarray = np.zeros((0, 0), np.int32)  # i32 [N, K]
+    dense_bond: np.ndarray = np.zeros((0, 0), np.int32)  # i32 [N, K] bond
+    dense_mask: np.ndarray = np.zeros((0, 0), np.float32)  # f32 [N, K]
+    # optional halo-tiled neighbour layout (built with tile): atoms fall
+    # into index tiles of T rows; the expanded table [tile0 own | tile0
+    # halo | tile1 own | ...] puts each tile's remote neighbours beside it,
+    # so every edge's neighbour row (nbr_x into the expanded axis) lies in
+    # its centre tile's region at any structure size; exp_map[nbr_x] equals
+    # atom_graph[:, 1] on every edge
+    exp_map: np.ndarray = _EMPTY  # i32 [N_x] source atom of each row
+    nbr_x: np.ndarray = _EMPTY  # i32 [E] neighbour row in the expanded table
+    plan_exp: SegmentPlan = _NO_PLAN  # exp_map -> atoms (padded rows dropped)
+    plan_nbr_x: SegmentPlan = _NO_PLAN  # nbr_x -> expanded rows
+
+    @property
+    def tiled(self) -> bool:
+        """Whether the batch carries the halo-tiled neighbour layout."""
+        return self.nbr_x.shape[0] > 0 and self.plan_nbr_x.key.shape[0] > 0
 
     def to(self, device: str | torch.device) -> GraphBatch:
         """This batch as tensors on ``device`` (indices stay int32)."""
@@ -222,6 +249,92 @@ class GraphBatch(NamedTuple):
             f.to(device) if isinstance(f, SegmentPlan) else _on(f, device)
             for f in self
         ))
+
+
+def _build_halo_tiles(
+    atom_graph: np.ndarray,  # i32 [E, 2] padded (centre, neighbour)
+    e_valid: np.ndarray,  # bool [E]
+    cap_n: int,
+    tile: int,
+    min_cap: int = 0,  # monotone N_x capacity (simulation rebuilds)
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """The halo-tiled neighbour layout, as
+    ``chgnet_tpu.graph.batching._build_halo_tiles`` (:116) builds it:
+    (``exp_map``, ``nbr_x``, the valid rows of ``exp_map``, its capacity).
+
+    Tiles are index blocks of ``tile`` rows over the padded atom axis. The
+    expanded table interleaves each tile's own rows with its sorted remote
+    neighbours, so every edge's neighbour row lies inside its centre tile's
+    region. Padded rows at the end point at the last atom row and are
+    dropped from ``plan_exp``; the capacity is rounded up to
+    ``STREAM_CHUNK`` rows and is at least ``min_cap``. Raises when
+    ``exp_map[nbr_x]`` differs from ``atom_graph[:, 1]`` on a valid edge."""
+    centers = atom_graph[:, 0].astype(np.int64)
+    nbrs = atom_graph[:, 1].astype(np.int64)
+    tc = centers // tile
+    tn = nbrs // tile
+    n_tiles = -(-cap_n // tile)
+    remote = (tc != tn) & e_valid
+    # each tile's sorted unique remote neighbours by one packed-key unique
+    keys = np.unique(tc[remote] * cap_n + nbrs[remote])
+    halo_tile = keys // cap_n
+    halo_atom = keys % cap_n
+    halo_counts = np.bincount(halo_tile, minlength=n_tiles)
+    halo_starts = np.concatenate([[0], np.cumsum(halo_counts)])[:-1]
+    region_sizes = tile + halo_counts
+    region_off = np.concatenate([[0], np.cumsum(region_sizes)])[:-1]
+    n_x = int(region_sizes.sum())
+    n_x_cap = max(-(-n_x // STREAM_CHUNK) * STREAM_CHUNK, min_cap)
+
+    exp_map = np.full(n_x_cap, cap_n - 1, np.int32)
+    own_rows = region_off[:, None] + np.arange(tile)[None, :]
+    exp_map[own_rows.ravel()] = np.minimum(np.arange(n_tiles * tile), cap_n - 1)
+    halo_rows = region_off[halo_tile] + tile + (
+        np.arange(len(halo_atom)) - halo_starts[halo_tile]
+    )
+    exp_map[halo_rows] = halo_atom
+
+    local = region_off[tc] + (nbrs - tc * tile)
+    halo_pos = np.searchsorted(keys, tc * cap_n + nbrs)
+    remote_rows = region_off[tc] + tile + (
+        np.clip(halo_pos, 0, max(len(keys) - 1, 0))
+        - halo_starts[np.minimum(tc, n_tiles - 1)]
+    )
+    nbr_x = np.where(remote, remote_rows, local).astype(np.int32)
+    if (e_valid & (exp_map[nbr_x] != atom_graph[:, 1])).any():
+        raise AssertionError("halo tiling broke the neighbour map")
+    return exp_map, nbr_x, np.arange(n_x_cap) < n_x, n_x_cap
+
+
+def _dense_slots(
+    atom_graph: np.ndarray, edge_scatter: np.ndarray, edge_mask: np.ndarray,
+    directed2undirected: np.ndarray, cap_n: int, dense_k: bool | int,
+) -> dict:
+    """The dense per-atom slots ``dense_nbr`` / ``dense_bond`` /
+    ``dense_mask`` [N, K], as ``chgnet_tpu`` builds them
+    (``graph/batching.py:376-404``): K is the most neighbours of any atom
+    (or ``dense_k`` when an int, which must not be fewer), rounded up to a
+    multiple of 8; an edge's slot is its running index within its centre's
+    run of the centre-sorted edges."""
+    counts = np.bincount(edge_scatter[edge_mask > 0], minlength=cap_n)[:cap_n]
+    max_k = int(counts.max()) if counts.size else 1
+    cap_k = max_k if dense_k is True else int(dense_k)
+    if cap_k < max_k:
+        raise ValueError(f"dense_k={cap_k} < max neighbors {max_k}")
+    cap_k = round_up(max(cap_k, 1), base=8)
+    dense_nbr = np.zeros((cap_n, cap_k), np.int32)
+    dense_bond = np.zeros((cap_n, cap_k), np.int32)
+    dense_mask = np.zeros((cap_n, cap_k), np.float32)
+    valid = np.nonzero(edge_mask > 0)[0]
+    v_centers = edge_scatter[valid]
+    v_counts = np.bincount(v_centers, minlength=cap_n)
+    starts = np.concatenate([[0], np.cumsum(v_counts)[:-1]])
+    slots = np.arange(len(valid)) - np.repeat(starts, v_counts)
+    dense_nbr[v_centers, slots] = atom_graph[valid, 1]
+    dense_bond[v_centers, slots] = directed2undirected[valid]
+    dense_mask[v_centers, slots] = 1.0
+    return {"dense_nbr": dense_nbr, "dense_bond": dense_bond,
+            "dense_mask": dense_mask}
 
 
 def round_up(n: int, *, base: int = 32, growth: float = 1.25) -> int:
@@ -238,6 +351,9 @@ def batch_graphs(
     *,
     bucket: bool = True,
     capacities: tuple[int, int, int] | None = None,
+    dense_k: bool | int = False,
+    tile: bool | int = False,
+    tile_cap: int = 0,
 ) -> GraphBatch:
     """Assemble CrystalGraphs into one padded host GraphBatch.
 
@@ -246,6 +362,15 @@ def batch_graphs(
         bucket: round padded capacities up to a geometric grid.
         capacities: optional explicit (n_atoms, n_directed, n_angles)
             capacities; wins over ``bucket``.
+        dense_k: also build the dense per-atom slots ([N, K]; True takes K
+            from the most neighbours of any atom, an int pins it) for
+            ``CHGNetConfig.dense_atom_conv``.
+        tile: build the halo-tiled neighbour layout (``exp_map`` /
+            ``nbr_x`` and their plans) with tiles of ``int(tile)`` atoms
+            (True = 512). Atoms should be spatially sorted
+            (``Structure.spatial_sort``) so that halos stay small.
+        tile_cap: the least capacity of the expanded table (a simulation's
+            rebuilds keep it from shrinking).
     """
     n_graphs = len(graphs)
     if n_graphs == 0:
@@ -382,9 +507,15 @@ def batch_graphs(
         angle_mask > 0, bond_graph[:, 2], cap_e
     ).astype(np.int32)
 
+    dense = {}
+    if dense_k:
+        dense = _dense_slots(atom_graph, edge_scatter, edge_mask,
+                             directed2undirected, cap_n, dense_k)
+
     e_valid = edge_mask > 0
     a_valid = angle_mask > 0
     u_valid = und_mask > 0
+    halo = {}
     # the plans are independent (numpy and the GIL-free native sort)
     plan_args = {
         "plan_center": (atom_graph[:, 0], e_valid, cap_n, True),
@@ -398,6 +529,14 @@ def batch_graphs(
         "plan_u2d": (undirected2directed, u_valid, cap_e, True),
         "plan_u2d2": (und_second, u_valid, cap_e, False),
     }
+    if tile:
+        exp_map, nbr_x, x_valid, n_x_cap = _build_halo_tiles(
+            atom_graph, e_valid, cap_n, 512 if tile is True else int(tile),
+            min_cap=tile_cap,
+        )
+        halo = {"exp_map": exp_map, "nbr_x": nbr_x}
+        plan_args["plan_exp"] = (exp_map, x_valid, cap_n, False)
+        plan_args["plan_nbr_x"] = (nbr_x, e_valid, n_x_cap, False)
     with ThreadPoolExecutor(max_workers=PLAN_WORKERS) as pool:
         futures = {
             name: pool.submit(make_plan, idx, valid, n_out, assume_sorted=srt)
@@ -425,4 +564,6 @@ def batch_graphs(
         angle_scatter_dir=angle_scatter_dir,
         angle_mask=angle_mask,
         **plans,
+        **dense,
+        **halo,
     )

@@ -18,6 +18,13 @@ default) the gated-MLP tails of the conv layers run through the fused tail
 kernels where ``chgnet_tpu`` fuses them; with ``fused_kernels=False`` they
 run as plain PyTorch.
 
+Two optional batch layouts change how AtomConv reads its edges, not what
+it computes: ``dense_atom_conv`` runs it over the batch's ``[N, K]`` slots
+(``batch_graphs(dense_k=...)``; plain PyTorch, as ``chgnet_tpu`` runs it
+without a Pallas kernel), and a halo-tiled batch (``batch_graphs(tile=...)``)
+gathers the neighbour rows, of the positions and of every AtomConv, from
+its expanded table (``exp_map``, then ``nbr_x``).
+
 For training, :func:`compute_batch` takes a dropout generator (the conv
 layers unfuse while dropout is on, as in ``chgnet_tpu``) and
 ``create_graph``, which keeps forces and stress differentiable in the
@@ -78,6 +85,7 @@ from chgnet_tpu_torch.models.layers import (
     angle_update_apply_directed,
     angle_update_init,
     atom_conv_apply,
+    atom_conv_dense_apply,
     atom_conv_init,
     attention_readout_apply,
     attention_readout_init,
@@ -125,9 +133,10 @@ class CHGNetConfig:
     ``directed_bonds=True`` (the default) keeps bond features and weights
     on the directed edge stream [E, d], ``directed_bonds=False`` on the
     undirected bonds [U, d], as upstream CHGNet does; one parameter tree
-    serves both. :meth:`check_supported` names the fields whose other
-    values the port does not run yet (``dense_atom_conv``), and on a CUDA
-    device also the widths its kernels do not take
+    serves both. ``dense_atom_conv`` runs AtomConv over the dense per-atom
+    slots of a batch built with ``dense_k`` (and, as in ``chgnet_tpu``, the
+    bond stack in the undirected layout). :meth:`check_supported` names, on
+    a CUDA device, the widths the kernels do not take
     (:meth:`kernel_width_faults`); bf16 runs under every switch and trains
     on both devices.
     ``sorted_grads`` has no effect: every backward here is a CSR segment
@@ -202,21 +211,23 @@ class CHGNetConfig:
 
     def check_supported(self, device_type: str = "cpu") -> None:
         """Raise for settings the port does not run yet on a device of
-        ``device_type`` (``"cpu"`` or ``"cuda"``): on ``"cuda"`` also for
-        widths the kernels do not take, before anything is launched.
-        Serving and training are taken alike, in both dtypes."""
+        ``device_type`` (``"cpu"`` or ``"cuda"``): on ``"cuda"``, widths the
+        kernels do not take, before anything is launched. Serving and
+        training are taken alike, in both dtypes."""
         faults = self.kernel_width_faults() if device_type == "cuda" else []
         if faults:
             raise NotImplementedError(
                 "CHGNetConfig widths the port's CUDA kernels do not take yet "
-                "(the CPU runs them; see ROADMAP.md Queue 1, config "
-                "variants): " + "; ".join(faults)
+                "(the CPU runs them; see ROADMAP.md Queue 1 item 6b): "
+                + "; ".join(faults)
             )
-        if self.dense_atom_conv:
-            raise NotImplementedError(
-                "CHGNetConfig field dense_atom_conv is not ported to "
-                "chgnet_tpu_torch yet (see ROADMAP.md Queue 1 item 6b)"
-            )
+
+    @property
+    def directed_layout(self) -> bool:
+        """Whether bond features live on the directed edges: the dense
+        slots index the undirected bonds, so ``dense_atom_conv`` takes the
+        undirected layout (``chgnet_tpu.models.chgnet`` :333)."""
+        return self.directed_bonds and not self.dense_atom_conv
 
     def kernel_width_faults(self) -> list[str]:
         """The widths of this config that the CUDA kernels do not take, one
@@ -247,8 +258,11 @@ class CHGNetConfig:
             and self.gMLP_norm == "layer"
         )
         # (output width, hidden width, message layer, first layer by
-        # gather_project_sum: two gathered tables of one shape)
-        layers = [("atom_fea_dim", "atom_conv_hidden_dim", True, self.directed_bonds)]
+        # gather_project_sum: two gathered tables of one shape); the dense
+        # AtomConv runs no kernel of its own
+        directed = self.directed_layout
+        layers = [] if self.dense_atom_conv else [
+            ("atom_fea_dim", "atom_conv_hidden_dim", True, directed)]
         angle_side_gproj = self.atom_fea_dim == self.bond_fea_dim
         if self.update_bond:
             layers.append(
@@ -293,7 +307,7 @@ class CHGNetConfig:
                 need(n_linears == 1 or first == d, fields,
                      "the fused tails take a second layer of D x D blocks "
                      "(hidden width = D)")
-        if not self.directed_bonds and self.update_bond:
+        if not directed and self.update_bond:
             need(self.bond_fea_dim % 4 == 0, f"bond_fea_dim={self.bond_fea_dim}",
                  "twin_reduce (directed_bonds=False) takes rows of a multiple "
                  "of 4 floats")
@@ -453,11 +467,21 @@ def _energy_core(
     # the undirected layout's maps: bond features and weights on the bonds
     # [U], expanded to the directed edges by d2u
     und = None
-    if not cfg.directed_bonds:
+    if not cfg.directed_layout:
         und = UndirectedMaps(
             batch.directed2undirected, batch.plan_d2u,
             batch.undirected2directed, batch.und_second,
         )
+    dense = cfg.dense_atom_conv
+    if dense and batch.dense_mask.shape[1] == 0:
+        raise ValueError(
+            "dense_atom_conv=True requires batches built with "
+            "batch_graphs(..., dense_k=True)"
+        )
+    # the halo-tiled neighbour stream: the neighbour rows are gathered from
+    # the expanded table (exp_map, then nbr_x) in the geometry and in every
+    # AtomConv (chgnet_tpu.models.chgnet :324-331)
+    tiled = batch.tiled
 
     def encode(pos, lat):
         """Geometry, bases, embeddings and the loop-invariant weight
@@ -467,7 +491,12 @@ def _energy_core(
         # positions ride a 4-wide stream (xyz, 0): one 16-byte unit per row
         pos4 = torch.nn.functional.pad(pos, (0, 1))
         center_pos = plan_gather(pos4, center, p_center)[:, :3]
-        nbr_pos = plan_gather(pos4, nbr, p_nbr)[:, :3] + torch.einsum(
+        if tiled:
+            pos_x = plan_gather(pos4, batch.exp_map, batch.plan_exp)
+            nbr_pos = plan_gather(pos_x, batch.nbr_x, batch.plan_nbr_x)
+        else:
+            nbr_pos = plan_gather(pos4, nbr, p_nbr)
+        nbr_pos = nbr_pos[:, :3] + torch.einsum(
             "ei,eij->ej", batch.images, lat_edges
         )
         vec = center_pos - nbr_pos
@@ -511,9 +540,10 @@ def _energy_core(
         bond_weights_bg = linear_apply(params["bond_weights_bg"], rbf_bg)
         angle_feas = linear_apply(params["angle_embedding"], angle_bases)
         # the bond weights on the edge stream and their per-angle product
-        # never change across layers: expanded once here
+        # never change across layers: expanded once here (the dense AtomConv
+        # reads the bonds' own table through its slots)
         weights_e = bond_weights_ag
-        if und is not None:
+        if und is not None and not dense:
             weights_e = plan_gather(bond_weights_ag, und.d2u, und.plan_d2u)
         weights_a = None
         if cfg.update_bond:
@@ -536,14 +566,24 @@ def _energy_core(
     fused = cfg.fused_kernels
     edge_mask = batch.edge_mask.to(conv)
     angle_mask = batch.angle_mask.to(conv)
+    dense_mask = batch.dense_mask.to(conv) if dense else None
     rate = float(cfg.conv_dropout)
     block_seeds = list(seeds) if seeds is not None else [None] * (3 * cfg.n_conv + 1)
 
     def atom_step(atom_p, atom_feas, bond_feas, seed):
+        if dense:
+            return atom_conv_dense_apply(
+                atom_p, atom_feas, bond_feas, weights_e, batch.dense_nbr,
+                batch.dense_bond, dense_mask, activation=act,
+            )
+        nbr_part = None
+        if tiled:
+            atom_x = plan_gather(atom_feas, batch.exp_map, batch.plan_exp)
+            nbr_part = (atom_x, batch.nbr_x, batch.plan_nbr_x)
         return atom_conv_apply(
             atom_p, atom_feas, bond_feas, weights_e, center, nbr,
             edge_mask, p_center, p_nbr, activation=act, fused=fused, und=und,
-            dropout=rate, seed=seed,
+            dropout=rate, seed=seed, nbr_part=nbr_part,
         )
 
     def bond_step(bond_p, atom_e, bond_feas, angle_feas, seed):
@@ -847,7 +887,9 @@ class CHGNet:
         self, graphs: Sequence[CrystalGraph], *, task: PredTask = "e"
     ) -> dict:
         """Batched prediction: 'e' [B] plus per-graph lists for f/s/m."""
-        batch = batch_graphs(graphs).to(self.device)
+        batch = batch_graphs(graphs, dense_k=self.config.dense_atom_conv).to(
+            self.device
+        )
         out = compute_batch(
             self.params,
             batch,

@@ -1,7 +1,9 @@
 """Message-passing layers over the directed edge and angle streams.
 
 Port of ``chgnet_tpu.models.layers``: :func:`atom_conv_apply`
-(``layers.py:164``), :func:`bond_conv_apply_directed` (``:424``) and
+(``layers.py:164``), :func:`atom_conv_dense_apply` (``:259``, the dense
+per-atom slots of ``CHGNetConfig.dense_atom_conv``),
+:func:`bond_conv_apply_directed` (``:424``) and
 :func:`angle_update_apply_directed` (``:576``), in both bond layouts. Angle
 rows are sorted by their directed bond i in both.
 
@@ -201,12 +203,17 @@ def atom_conv_apply(
     und: UndirectedMaps | None = None,
     dropout: float = 0.0,
     seed: int | None = None,
+    nbr_part: tuple | None = None,
 ) -> torch.Tensor:
     """Gated-MLP messages over directed edges, scaled by the bond weights,
     summed into their center atoms. With ``und`` the bond features are
     gathered from the undirected bonds by ``d2u``. ``seed`` turns dropout
     at rate ``dropout`` on (:func:`~chgnet_tpu_torch.models.functions.
-    block_generator`)."""
+    block_generator`). ``nbr_part`` (a halo-tiled batch: the expanded atom
+    table, ``nbr_x`` and ``plan_nbr_x``) takes the place of the neighbour
+    part ``(atom_feas, nbr, plan_nbr)``; its table's length differs from
+    the atoms', so the first-layer sum projects each table first
+    (``chgnet_tpu.models.layers`` :198-204)."""
     bond_part = (
         (bond_feas, None, None) if und is None
         else (bond_feas, und.d2u, und.plan_d2u)
@@ -214,7 +221,7 @@ def atom_conv_apply(
     parts = [
         (atom_feas, center, plan_center),
         bond_part,
-        (atom_feas, nbr, plan_nbr),
+        nbr_part if nbr_part is not None else (atom_feas, nbr, plan_nbr),
     ]
     gmlp = params["gated_mlp"]
     gen = _dropout_generator(dropout, seed, atom_feas)
@@ -230,6 +237,52 @@ def atom_conv_apply(
         messages = messages * weights_e * edge_mask[:, None]
         new_atom_feas = plan_segment_sum(messages, plan_center)
     return _finish(params, new_atom_feas, atom_feas, resnet)
+
+
+def atom_conv_dense_apply(
+    params: Params,
+    atom_feas: torch.Tensor,  # [N, d_atom]
+    bond_feas: torch.Tensor,  # [U, d_bond] undirected bonds
+    bond_weights: torch.Tensor,  # [U, d_atom]
+    dense_nbr: torch.Tensor,  # [N, K] i32
+    dense_bond: torch.Tensor,  # [N, K] i32
+    dense_mask: torch.Tensor,  # [N, K]
+    *,
+    activation: str = "silu",
+    resnet: bool = True,
+) -> torch.Tensor:
+    """AtomConv over the dense per-atom slots
+    (``chgnet_tpu.models.layers.atom_conv_dense_apply`` :259): the centre,
+    neighbour and bond parts of the joint first Linear projected on their
+    tables, the ``[N, K, 2D]`` sum ``p_center[:, None] + p_nbr[dense_nbr] +
+    p_bond[dense_bond]`` (+ b1), the gated MLP's tail, the message times
+    ``bond_weights[dense_bond]`` times the mask, and a sum over K in place
+    of the segment sum. Plain PyTorch, as ``chgnet_tpu`` runs it without a
+    Pallas kernel."""
+    gmlp = params["gated_mlp"]
+    layers_c = gmlp["core"]["layers"]
+    layers_g = gmlp["gate"]["layers"]
+    d_atom = atom_feas.shape[1]
+    d_bond = bond_feas.shape[1]
+    n_atoms, k_slots = dense_nbr.shape
+    first_w = torch.cat([layers_c[0]["w"], layers_g[0]["w"]], dim=1)
+    p_center = atom_feas @ first_w[:d_atom]  # [N, 2D]
+    p_bond = bond_feas @ first_w[d_atom: d_atom + d_bond]  # [U, 2D]
+    p_nbr = atom_feas @ first_w[d_atom + d_bond:]  # [N, 2D]
+    nbr_flat = dense_nbr.reshape(-1)
+    bond_flat = dense_bond.reshape(-1)
+    acc = p_center[:, None, :] + (
+        torch.index_select(p_nbr, 0, nbr_flat)
+        + torch.index_select(p_bond, 0, bond_flat)
+    ).reshape(n_atoms, k_slots, -1)
+    if "b" in layers_c[0]:
+        acc = acc + torch.cat([layers_c[0]["b"], layers_g[0]["b"]])
+    messages = gated_mlp_tail(
+        gmlp, acc.reshape(n_atoms * k_slots, -1), activation=activation
+    )
+    messages = messages * torch.index_select(bond_weights, 0, bond_flat)
+    messages = messages.reshape(n_atoms, k_slots, -1) * dense_mask[..., None]
+    return _finish(params, messages.sum(dim=1), atom_feas, resnet)
 
 
 # ------------------------------------------------------------------ BondConv

@@ -391,8 +391,11 @@ class MolecularDynamics:
     given, 2 GPa if the fit fails), logfile + loginterval, trajectory and
     crystal-feature capture. It runs on the model's device; ``use_device``
     naming another raises. ``mesh`` (graph-partitioned MD over several
-    devices) is not ported yet (ROADMAP.md Queue 1 item 9), nor are
-    ``halo`` and ``lean``.
+    devices) is not ported yet (ROADMAP.md Queue 1 item 9), nor is
+    ``halo``. ``lean=True`` ships each topology rebuild as one packed
+    buffer, and ``CHGNET_TPU_MD_TILE=<T>`` builds it in the halo-tiled
+    neighbour layout (:class:`~chgnet_tpu_torch.simulation.runtime.
+    GraphRuntime`).
     """
 
     def __init__(
@@ -420,7 +423,7 @@ class MolecularDynamics:
         chunk_size: int = 10,
         mesh: int | None = None,
         halo: bool = False,
-        lean: bool | None = None,
+        lean: bool = False,
     ) -> None:
         if mesh is not None:
             raise NotImplementedError(

@@ -18,12 +18,19 @@ valid across rebuilds; edge and angle capacities grow monotonically on the
 bucket grid. ``chgnet_tpu`` also aligns the atom capacity of large systems
 to its TPU stream chunk; the port keeps ``round_up`` only, so padded shapes
 may differ from ``chgnet_tpu``'s while results do not.
+
+Two options of ``chgnet_tpu``'s runtime change how a rebuild reaches the
+device, not what it computes: ``tile`` builds every batch in the
+halo-tiled neighbour layout (``batch_graphs(tile=...)``), and ``lean``
+packs each batch into one buffer in the batch stage and derives the rest
+of it on the device in the ship stage (``graph/leanship.py``).
 """
 
 from __future__ import annotations
 
 import os
 import time
+import warnings
 from collections.abc import Sequence
 from concurrent.futures import ThreadPoolExecutor
 
@@ -40,10 +47,15 @@ from chgnet_tpu_torch.graph.batching import (
     round_up,
 )
 from chgnet_tpu_torch.graph.converter import CrystalGraphConverter
+from chgnet_tpu_torch.graph.leanship import make_lean, ship_lean
 from chgnet_tpu_torch.models.chgnet import CHGNetConfig, compute_batch
 from chgnet_tpu_torch.ops.segment import segment_sum_csr
 
 _TOL = 1e-8  # matches the neighbour search's numerical tolerance
+# the most rows of the halo-tiled expanded table per atom before the first
+# build falls back untiled (chgnet_tpu.simulation.runtime :189): a sorted
+# 10k-atom structure expands about 8x, a site-major supercell much more
+TILE_MAX_EXPANSION = 12
 
 
 def _host(x) -> np.ndarray:
@@ -137,10 +149,17 @@ class GraphRuntime:
         if rt.needs_rebuild(frac, lattices):
             batch = rt.rebuild(frac, lattices)
 
-    ``shard_mesh``, ``halo``, ``lean`` and ``tile`` (the multi-device,
-    lean-shipping and halo-tiled layouts of ``chgnet_tpu``) are not ported
-    yet and raise ``NotImplementedError`` (ROADMAP.md Queue 1 items 6 and
-    9).
+    ``tile`` (an int: atoms a tile, True: 512; ``CHGNET_TPU_MD_TILE=<T>``
+    overrides it) builds every batch in the halo-tiled neighbour layout;
+    the first build falls back untiled, with a warning, when the expanded
+    table exceeds ``TILE_MAX_EXPANSION`` rows an atom (an atom order that
+    is not spatially local: sort with ``Structure.spatial_sort``).
+    ``lean=True`` ships each rebuild as one packed buffer
+    (``graph/leanship.py``); it is off by default, as ``chgnet_tpu`` leaves
+    it off a TPU. ``shard_mesh`` and ``halo``
+    (``chgnet_tpu``'s multi-device layouts) are not ported yet and raise
+    ``NotImplementedError`` (ROADMAP.md Queue 1 item 9), and so does a
+    ``dense_atom_conv`` config, as in ``chgnet_tpu``.
     """
 
     def __init__(
@@ -153,21 +172,15 @@ class GraphRuntime:
         device: str | torch.device = "cuda",
         shard_mesh=None,
         halo: bool = False,
-        lean: bool | None = None,
+        lean: bool = False,
         tile: bool | int = False,
     ) -> None:
-        unported = {
-            "shard_mesh": shard_mesh is not None,
-            "halo": bool(halo),
-            "lean": bool(lean),
-            "tile": bool(tile) or bool(os.environ.get("CHGNET_TPU_MD_TILE")),
-        }
+        unported = {"shard_mesh": shard_mesh is not None, "halo": bool(halo)}
         bad = sorted(k for k, v in unported.items() if v)
         if bad:
             raise NotImplementedError(
                 f"GraphRuntime options {bad} are not ported to chgnet_tpu_torch "
-                "yet (ROADMAP.md Queue 1: item 9 for shard_mesh/halo, item 6 "
-                "for lean/tile)"
+                "yet (ROADMAP.md Queue 1 item 9)"
             )
         if config.dense_atom_conv:
             raise NotImplementedError(
@@ -192,6 +205,11 @@ class GraphRuntime:
         self.cap_n = round_up(int(self.offsets[-1]))
         self._cap_e = 0
         self._cap_a = 0
+        env_tile = os.environ.get("CHGNET_TPU_MD_TILE", "")
+        self.tile = int(env_tile) if env_tile else (tile or False)
+        self._tile_probe = bool(self.tile)  # judged on the first build
+        self._cap_nx = 0  # the expanded table's capacity, monotone
+        self.lean = bool(lean)
         self.n_rebuilds = -1  # the first build is not a rebuild
         # phase timings (seconds, cumulative): graphs_s = host graph
         # builds, batch_s = padding + plans, put_s = host -> device copy,
@@ -236,9 +254,27 @@ class GraphRuntime:
         cap_a = max(self._cap_a, round_up(max(tot_a, 1)))
         self._cap_e, self._cap_a = cap_e, cap_a
         # bucket=False: the pinned atom capacity is taken verbatim
+        caps = (self.cap_n, cap_e, cap_a)
         batch = batch_graphs(
-            graphs, bucket=False, capacities=(self.cap_n, cap_e, cap_a)
+            graphs, bucket=False, capacities=caps, tile=self.tile,
+            tile_cap=self._cap_nx,
         )
+        if self._tile_probe:
+            self._tile_probe = False
+            expansion = batch.exp_map.shape[0] / max(self.cap_n, 1)
+            if expansion > TILE_MAX_EXPANSION:
+                warnings.warn(
+                    f"tiling disabled: halo expansion {expansion:.1f}x exceeds "
+                    f"{TILE_MAX_EXPANSION}x; the atom order is not spatially "
+                    "local. Sort with Structure.spatial_sort() before "
+                    "constructing the simulation to keep the tiled neighbor "
+                    "stream.",
+                    stacklevel=2,
+                )
+                self.tile = False
+                batch = batch_graphs(graphs, bucket=False, capacities=caps)
+        if self.tile:
+            self._cap_nx = max(self._cap_nx, batch.exp_map.shape[0])
         built = {
             "ref_frac": batch.frac_coords.copy(),
             "ref_lat": batch.lattices.copy(),
@@ -247,16 +283,26 @@ class GraphRuntime:
             "cap_a": cap_a,
             "batch": batch,
         }
+        if self.lean:
+            built["lean"] = make_lean(batch, pin=self.device.type == "cuda")
         self.stats["batch_s"] += time.perf_counter() - t1
         return built
 
     def _ship_stage(self, built: dict) -> dict:
         """Device half of a rebuild: the batch's arrays and plans copied to
-        the device (a blocking copy on the default stream, so the batch is
-        whole when the future completes). One executor, so batches land in
-        launch order."""
+        the device, or with ``lean`` its packed buffer copied and expanded
+        there; in both the ship thread waits on the default stream, so the
+        batch is whole when the future completes and ``put_s`` times the
+        whole copy. One executor, so batches land in launch order."""
         t2 = time.perf_counter()
-        built["batch"] = built["batch"].to(self.device)
+        if "lean" in built:
+            built["batch"] = ship_lean(built.pop("lean"), self.device)
+            if self.device.type == "cuda":
+                done = torch.cuda.Event()
+                done.record()
+                done.synchronize()
+        else:
+            built["batch"] = built["batch"].to(self.device)
         self.stats["put_s"] += time.perf_counter() - t2
         return built
 

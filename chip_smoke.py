@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``chgnet_tpu_torch/csrc`` and drives
-fifteen paths of the port, E+F+S+M serving at the default (published 0.3.0)
+eighteen paths of the port, E+F+S+M serving at the default (published 0.3.0)
 width, on the card (``PATHS``): the default ``CHGNet(seed=0)``
 (``fused_kernels=True``, directed bonds), ``fused_kernels=False``, the
 undirected bond layout ``directed_bonds=False``, the default model with
@@ -17,7 +17,9 @@ configuration, ``compute_dtype="bfloat16"`` with ``matmul_precision=
 "default"``, on the default path and each of those six others but
 ``fused_kernels=False`` (``bf16``, ``directed_bonds=False bf16``, ``<switched
 path> bf16``: every kernel with bf16 arguments, geometry and readout in
-f32; ``BF16_PATHS``):
+f32; ``BF16_PATHS``), and two optional batch layouts, each on a batch built
+in it (``PATH_BATCH``): ``dense_atom_conv`` (AtomConv over [N, K] slots, in
+f32 and bf16) and ``tile=512`` (the halo-tiled neighbour layout):
 
 1. card and build: the card's name and power limit, the TF32 flags, the
    kernel build time, each kernel's registers, spills and static shared
@@ -48,9 +50,11 @@ f32; ``BF16_PATHS``):
    with bf16 arguments, read from the same pass, must be all of the conv
    stack's kernels' (rows 4-10, 13, 14: ``CONV_WRAPPERS``) and some of
    every other launched kernel's on a bf16 path (none of ``F32_ONLY``'s),
-   none on an f32 path; the five switched f32 paths' outputs must
-   also agree with the default path's, and the seven bf16 paths' with their
-   f32 paths' at ``BF16_BARS`` (their LiMnO2 card-vs-CPU check too);
+   none on an f32 path; the five switched f32 paths' and the two layout
+   paths' outputs must also agree with the default path's, and the eight
+   bf16 paths' with their f32 paths' at ``BF16_BARS`` (their LiMnO2
+   card-vs-CPU check too); the layout paths log their batches' shape (the
+   slots' K, the tiled table's expansion N_x / N);
    edges/s by CUDA events;
 4. a ``{"kernels": [...]}`` line: per kernel, its largest error over the
    calls of all paths, the path its times were taken on, its
@@ -112,7 +116,15 @@ f32; ``BF16_PATHS``):
    configuration for systems over 2,000 atoms), checked at ``BF16_BARS``,
    MD over ``SIM_MD_STEPS_BF16`` timed steps and without a trace, its
    launches with bf16 arguments checked as in phase 3; the bf16 rows'
-   ``sim_launches`` and ``sim_bf16_launches`` are that run's;
+   ``sim_launches`` and ``sim_bf16_launches`` are that run's. Then (b)
+   again in f32 for ``SIM_LAYOUT_STEPS`` steps in each rebuild layout of
+   ``SIM_LAYOUTS``: ``CHGNET_TPU_MD_TILE=512`` (the expansion logged, the
+   tile path's launch set) and ``lean=True`` (``check_lean_ship``: the
+   runtime's own stages at the final state give a host batch and its
+   packed buffer, whose lean copy must equal the direct copy bit for bit,
+   plans included, and so must E/F/S/M over the two; both copies timed
+   beside their bytes); their steps' kernel calls of a signature the f32
+   run's step did not hold are held and join the rows' errors;
 7. training (``chgnet_tpu_torch.trainer``): bench.py's 32 supercells
    labelled E+F+S+M by ``CHGNet(seed=7)`` on the card (a NaN energy, force
    block and magmom block among them), ``StructureData`` ->
@@ -164,6 +176,7 @@ exits non-zero without one.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -265,14 +278,38 @@ PATHS = {
         dict(directed_bonds=False), "CHGNET_TPU_STREAM_V2",
         (4, 12, 8, 5, 7, 7, 2, 2, 7, 0, 28, 16, 0, 0)),
 }
-# the f32 paths under a switch, held to the default path's outputs
+# the paths of two optional batch layouts, each with the keywords its batch
+# is built with (PATH_BATCH, batch_graphs). AtomConv over the dense per-atom
+# slots runs no kernel of its own (its gathers and K-sums are plain
+# index_select and sum, as chgnet_tpu runs them without a Pallas kernel) and
+# takes the undirected bond stack: the undirected path's set less the 4
+# AtomConv layers' first-layer multi-gathers, message tails and their
+# gather_project_sum / segment sums. The halo-tiled layout (tiles of 512
+# atoms) gathers the neighbour rows from the expanded table: AtomConv's first
+# layer reads two tables of different lengths (atoms, expanded rows), so it
+# goes through the multi-gather instead of gather_project_sum, its backward
+# sums unpaired, and the exp_map / nbr_x gathers of the positions and of each
+# AtomConv add their gathers and backward sums
+PATHS.update({
+    "dense_atom_conv": (
+        dict(dense_atom_conv=True), None,
+        (23, 23, 5, 5, 3, 3, 2, 2, 3, 0, 0, 0, 0, 0)),
+    "tile=512": (
+        {}, None, (30, 22, 5, 5, 7, 7, 2, 2, 4, 0, 0, 0, 0, 0)),
+})
+PATH_BATCH = {"dense_atom_conv": dict(dense_k=True), "tile=512": dict(tile=512)}
+# the f32 paths under a switch or in another layout, held to the default
+# path's outputs
 SWITCHED = [path for path, (_, switch, _) in PATHS.items() if switch]
+HELD_TO_DEFAULT = SWITCHED + list(PATH_BATCH)
 # each bf16 path and the f32 path it is held to (BF16_BARS), in the order
 # they run: the default and the undirected layout (rows 1-9 in bf16), then
 # every switched path (rows 10-14 in bf16 too); each has its f32 path's
 # keywords and switch, the conv stack in bf16 and the same launch set
 BF16_PATHS = {"bf16": "default", "directed_bonds=False bf16": "directed_bonds=False"}
 BF16_PATHS.update({f"{path} bf16": path for path in SWITCHED})
+BF16_PATHS["dense_atom_conv bf16"] = "dense_atom_conv"
+PATH_BATCH["dense_atom_conv bf16"] = PATH_BATCH["dense_atom_conv"]
 PATHS.update({
     path: (dict(PATHS[ref][0], **BF16_KW), *PATHS[ref][1:])
     for path, ref in BF16_PATHS.items()
@@ -457,12 +494,12 @@ KERNELS = {
 
 
 @contextlib.contextmanager
-def env_switch(name: str | None):
-    """The environment variable ``name`` set to 1 for the duration (nothing
-    for None); it is restored afterwards."""
+def env_switch(name: str | None, value: str = "1"):
+    """The environment variable ``name`` set to ``value`` for the duration
+    (nothing for None); it is restored afterwards."""
     saved = os.environ.get(name) if name else None
     if name:
-        os.environ[name] = "1"
+        os.environ[name] = value
     try:
         yield
     finally:
@@ -905,6 +942,24 @@ def bench_graphs(converter):
             for seed, s in enumerate(bench_structs())]
 
 
+def log_layout(path, batch, host_s) -> None:
+    """The shape of a layout path's batch: the dense slots' K and their
+    share of valid slots, or the halo-tiled table's rows over the atoms'
+    (its expansion N_x / N) and the valid rows among them."""
+    n_atoms = batch.atomic_numbers.shape[0]
+    if batch.dense_nbr.shape[0]:
+        k = batch.dense_nbr.shape[1]
+        log(f"{path} batch: dense slots [N, K] = [{n_atoms}, {k}], "
+            f"{float(batch.dense_mask.mean()):.3f} of the slots valid "
+            f"(host build {host_s:.1f} s)")
+    if batch.tiled:
+        n_x = batch.exp_map.shape[0]
+        n_valid = int((batch.plan_exp.key < n_atoms).sum())
+        log(f"{path} batch: expanded table N_x = {n_x} rows ({n_valid} valid) "
+            f"over N = {n_atoms} atoms: expansion {n_x / n_atoms:.3f} "
+            f"({n_valid / n_atoms:.3f} valid) (host build {host_s:.1f} s)")
+
+
 def run_pass(model, batch):
     from chgnet_tpu_torch.models.chgnet import compute_batch
 
@@ -967,7 +1022,8 @@ def phase_kernels(path, calls, counts=None, held=None, skip=False):
     in the order of ``KERNELS``; by default the path's launch set in
     ``PATHS``) must have been recorded. With ``held`` (the signatures of
     the calls held so far, which this adds to) and ``skip`` (the paths of
-    ``NEW_BF16_PATHS``, the bf16 train steps) it holds only the bf16 calls
+    ``NEW_BF16_PATHS``, the bf16 train steps, the layout MD runs' steps) it
+    holds only the bf16 calls
     that ``new_bf16_call`` names and the calls of a signature not held
     before. Returns the largest absolute error by kernel, under ``"<name>
     bf16"`` for the bf16 calls."""
@@ -1309,8 +1365,8 @@ def check_autograd(batch):
 def phase_model(path, batch, n_edges, graphs):  # batch: the path's own
     """One path of ``PATHS``: LiMnO2 on the card against the CPU, then one
     pass of the benchmark batch between a reset and a read of the launch
-    counts, which must equal the path's launch set, its outputs checked,
-    and its edges/s. The launches with bf16 arguments, read from the same
+    counts, which must equal the path's launch set, its outputs checked and
+    its peak device memory logged, and its edges/s. The launches with bf16 arguments, read from the same
     counts, must be all of rows 4-9's and some of every other launched
     kernel's on a bf16 path, none on an f32 path. Returns the launches,
     those with bf16 arguments and the batch's outputs."""
@@ -1334,10 +1390,14 @@ def phase_model(path, batch, n_edges, graphs):  # batch: the path's own
     log(f"{path} LiMnO2 e = {got['e']:.6f} eV/atom")
 
     with env_switch(switch):
+        torch.cuda.synchronize()
+        base_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         out = run_pass(model, batch)
         torch.cuda.synchronize()
         launches, bf16_launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() - base_bytes
     log(f"{path} launches in one E+F+S+M pass:", launches)
     if tuple(launches.values()) != expect:
         raise AssertionError(
@@ -1372,7 +1432,9 @@ def phase_model(path, batch, n_edges, graphs):  # batch: the path's own
     log(f"{path} E+F+S+M on {n_graphs} graphs, {n_atoms} atoms, {n_edges} directed "
         f"edges: median {ms:.3f} ms/pass over {MODEL_SAMPLES} passes "
         f"(min {samples[0]:.3f}, max {samples[-1]:.3f}), "
-        f"{n_edges / ms * 1e3:.1f} edges/s ({card_line()})")
+        f"{n_edges / ms * 1e3:.1f} edges/s; peak device memory of the counted "
+        f"pass {peak / 2**30:.3f} GiB above the {base_bytes / 2**30:.3f} GiB "
+        f"allocated before ({card_line()})")
     return launches, bf16_launches, out
 
 
@@ -1574,6 +1636,16 @@ SIM_MD_STEPS = 50
 # under 450 s with the switched bf16 paths: MD at this size is bound by the
 # host's rebuilds (PERF.md section 5), whose rate 20 steps already show
 SIM_MD_STEPS_BF16 = 20
+# the same MD run in the two optional rebuild layouts of GraphRuntime: the
+# halo-tiled neighbour layout (CHGNET_TPU_MD_TILE=512, set around the run)
+# and lean shipping (lean=True); each the path whose launch set its steps
+# have, and its keywords to MolecularDynamics
+SIM_LAYOUTS = {
+    "tile=512": ("tile=512", {}),
+    "lean=True": ("default", dict(lean=True)),
+}
+SIM_LAYOUT_STEPS = 20
+SHIP_REPEATS = 3
 SIM_RELAX_STRUCTS = 8
 SIM_RELAX_STEPS = 50
 SIM_RELAX_FMAX = 0.01  # eV/A: the seed-0 model's forces there are ~0.08
@@ -1644,7 +1716,7 @@ def phase_goldens():
         raise AssertionError(f"golden traces off on the card: {failed}")
 
 
-def phase_sim_md(model_kw=None):
+def phase_sim_md(model_kw=None, layout=None, held=None):
     """(b) NVT MD at full width, 10,240 atoms: one chunk to warm up, then
     ``SIM_MD_STEPS`` steps (bf16: ``SIM_MD_STEPS_BF16``) between a reset and
     a read of the launch counts
@@ -1656,8 +1728,16 @@ def phase_sim_md(model_kw=None):
     tools/bench_md.py's configuration for systems over 2,000 atoms, bf16
     and "default") the same run of that model, its launches with bf16
     arguments checked as phase_model checks them, the final state at
-    ``BF16_BARS`` and no trace. Returns (launches, those with bf16
-    arguments, errors)."""
+    ``BF16_BARS`` and no trace. With ``layout`` (``SIM_LAYOUTS``) the f32
+    run over ``SIM_LAYOUT_STEPS`` steps in that rebuild layout, its steps'
+    launches those of the layout's path, no trace; the tiled run logs its
+    table's expansion, the lean run holds one lean copy of the final
+    state's batch against the direct copy (``check_lean_ship``). ``held``
+    (a set shared by the runs) collects the signatures of the step's calls
+    held against their plain versions; a layout run holds only calls of a
+    signature no earlier run held (the lean run's step, on a batch equal to
+    the direct copy's, none). Returns (launches, those with bf16 arguments,
+    errors)."""
     from chgnet_tpu_torch import ROOT, ops
     from chgnet_tpu_torch.core.structure import Structure
     from chgnet_tpu_torch.models import CHGNet
@@ -1668,8 +1748,11 @@ def phase_sim_md(model_kw=None):
     )
 
     model_kw = model_kw or {}
-    tag = "sim MD" + (" bf16" if model_kw else "")
+    tag = "sim MD" + (" bf16" if model_kw else "") + (f" {layout}" if layout else "")
     n_steps = SIM_MD_STEPS_BF16 if model_kw else SIM_MD_STEPS
+    launch_path, md_kw = SIM_LAYOUTS[layout] if layout else ("default", {})
+    if layout:
+        n_steps = SIM_LAYOUT_STEPS
     e_tol, f_tol = (BF16_BARS["e"], BF16_BARS["f"]) if model_kw else (SIM_E_TOL, SIM_F_TOL)
     torch.cuda.synchronize()
     base_bytes = torch.cuda.memory_allocated()
@@ -1679,12 +1762,15 @@ def phase_sim_md(model_kw=None):
         f"{ROOT}/examples/mp-18767-LiMnO2.cif").make_supercell(SIM_MD_SCALE).spatial_sort()
     n_atoms = len(struct)
     t0 = time.perf_counter()
-    md = MolecularDynamics(
-        struct, model=model, ensemble="nvt", thermostat="Berendsen",
-        temperature=300.0, starting_temperature=300.0, timestep=1.0, seed=0,
-        skin=SIM_MD_SKIN,
-    )
+    with env_switch("CHGNET_TPU_MD_TILE" if layout == "tile=512" else None, "512"):
+        md = MolecularDynamics(
+            struct, model=model, ensemble="nvt", thermostat="Berendsen",
+            temperature=300.0, starting_temperature=300.0, timestep=1.0, seed=0,
+            skin=SIM_MD_SKIN, **md_kw,
+        )
     setup_s = time.perf_counter() - t0
+    if layout == "tile=512" and not md.runtime.batch.tiled:
+        raise AssertionError(f"{tag}: the runtime fell back untiled")
     t0 = time.perf_counter()
     md.run(1)  # one chunk: the Verlet budget caps a chunk at 1 step here
     warm_s = time.perf_counter() - t0
@@ -1715,8 +1801,12 @@ def phase_sim_md(model_kw=None):
         + f"; peak device memory {peak / 2**30:.3f} GiB above the "
         f"{base_bytes / 2**30:.3f} GiB allocated before ({card_line()})")
     log(f"{tag}: stall_s {stats['stall_s'] / wall_s:.1%} of the wall")
+    if batch.tiled:
+        log(f"{tag}: expanded table N_x = {batch.exp_map.shape[0]} rows over N = "
+            f"{batch.atomic_numbers.shape[0]} atoms "
+            f"({batch.exp_map.shape[0] / batch.atomic_numbers.shape[0]:.3f})")
     log(f"{tag} launches over {n_steps} steps:", launches)
-    check_launched(tag, launches, PATHS["default"][2])
+    check_launched(tag, launches, PATHS[launch_path][2])
     check_bf16_launches(tag, launches, bf16_launches, bool(model_kw))
 
     final = md.atoms
@@ -1739,9 +1829,12 @@ def phase_sim_md(model_kw=None):
                               compute_stress=False, compute_magmom=False)
     torch.cuda.synchronize()
     with torch.no_grad():
-        errors = phase_kernels(tag + " step", rec.calls, PATHS["default"][2])
+        errors = phase_kernels(tag + " step", rec.calls, PATHS[launch_path][2],
+                               held=held, skip=bool(layout))
     del rec
-    if model_kw:
+    if layout == "lean=True":
+        check_lean_ship(tag, model, rt, md)
+    if model_kw or layout:
         return launches, bf16_launches, errors
 
     def one_step():
@@ -1752,6 +1845,63 @@ def phase_sim_md(model_kw=None):
     profile_call(f"profile MD step ({n_atoms} atoms)", "MD step", one_step,
                  PROFILED["default"])
     return launches, bf16_launches, errors
+
+
+def check_lean_ship(tag, model, rt, md) -> None:
+    """The lean run's last check: the runtime's own graph and batch stages
+    at the final state give one host batch and its packed buffer; the
+    buffer's copy expanded on the card must equal the batch's direct copy
+    bit for bit, plans included, and so must E/F/S/M over the two. Both
+    copies are timed (median of ``SHIP_REPEATS``, each synchronized) beside
+    their bytes."""
+    from chgnet_tpu_torch.graph.batching import SegmentPlan
+    from chgnet_tpu_torch.graph.leanship import batch_mismatches, ship_lean
+    from chgnet_tpu_torch.simulation.runtime import compute_batch_dynamic
+
+    frac = md.state.frac.cpu().numpy().astype(np.float64)
+    lat = md.state.lat.cpu().numpy().astype(np.float64)
+    built = rt._batch_stage(rt._graph_stage(rt._split(frac), lat))
+    host, packed = built["batch"], built["lean"]
+    blob = packed[0]
+    if not blob.is_pinned():
+        raise AssertionError(f"{tag}: the packed buffer is not in pinned memory")
+
+    def direct():
+        out = host.to("cuda")
+        torch.cuda.synchronize()
+        return out
+
+    def lean():
+        out = ship_lean(packed, "cuda")
+        torch.cuda.synchronize()
+        return out
+
+    times = {}
+    for name, fn in (("direct", direct), ("lean", lean)):
+        fn()
+        samples = []
+        for _ in range(SHIP_REPEATS):
+            t0 = time.perf_counter()
+            fn()
+            samples.append(time.perf_counter() - t0)
+        times[name] = float(np.median(samples)) * 1e3
+    want, got = direct(), lean()
+    differ = batch_mismatches(got, want)
+    if differ:
+        raise AssertionError(f"{tag}: the lean batch differs in {differ}")
+    host_bytes = sum(
+        sum(p.nbytes for p in f[:4]) if isinstance(f, SegmentPlan) else f.nbytes
+        for f in host)
+    ref = compute_batch_dynamic(model.params, want, config=model.config)
+    out = compute_batch_dynamic(model.params, got, config=model.config)
+    same = all(torch.equal(ref[k], out[k]) for k in ("e", "f", "s", "m"))
+    log(f"{tag}: one rebuild's copy at the final state: direct {host_bytes / 1e6:.1f} "
+        f"MB in {times['direct']:.3f} ms, lean {blob.numel() * 4 / 1e6:.1f} MB in "
+        f"{times['lean']:.3f} ms with the expansion (median of {SHIP_REPEATS}); "
+        f"batches equal bit for bit, E/F/S/M equal bit for bit: {same} "
+        f"({card_line()})")
+    if not same:
+        raise AssertionError(f"{tag}: E/F/S/M over the lean batch differ")
 
 
 def relax_structs():
@@ -2412,6 +2562,14 @@ def main() -> int:
         "window's rows; (0,) and None absent):", windows)
     batches = {path: batch_v2 if switch == "CHGNET_TPU_STREAM_V2" else batch
                for path, (_, switch, _) in PATHS.items()}
+    layouts = {}
+    for path, kw in PATH_BATCH.items():
+        key = tuple(sorted(kw.items()))
+        if key not in layouts:
+            t0 = time.perf_counter()
+            layouts[key] = batch_graphs(graphs, **kw).to("cuda")
+            log_layout(path, layouts[key], time.perf_counter() - t0)
+        batches[path] = layouts[key]
 
     # every path records every kernel it runs and holds each call against
     # the plain version before the next path is recorded (NEW_BF16_PATHS:
@@ -2443,7 +2601,7 @@ def main() -> int:
     for path in PATHS:
         launches[path], bf16_launches[path], outs[path] = phase_model(
             path, batches[path], n_edges, graphs)
-    for path in SWITCHED:
+    for path in HELD_TO_DEFAULT:
         check_same_outputs(path, outs[path], "default", outs["default"])
     for path, ref in BF16_PATHS.items():
         check_same_outputs(path, outs[path], ref, outs[ref], BF16_BARS)
@@ -2456,20 +2614,30 @@ def main() -> int:
     for path in PROFILED:
         profile_pass(path, batches[path])
     log(f"profile phase: {time.perf_counter() - t0:.0f} s")
-    del calls, outs, batches, batch, batch_v2
+    del calls, outs, batches, batch, batch_v2, layouts, bf16_calls
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
 
     def timed(label, fn, *args):
+        """``fn(*args)``, its seconds logged; then what it left on the card
+        is collected, so that each 10,240-atom run starts from the same
+        memory."""
         t = time.perf_counter()
         out = fn(*args)
         log(f"{label}: {time.perf_counter() - t:.0f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
         return out
 
     timed("sim goldens", phase_goldens)
-    sim_launches, _, sim_errors = timed("sim MD f32", phase_sim_md)
+    sim_held = set()
+    sim_launches, _, sim_errors = timed("sim MD f32", phase_sim_md, None, None, sim_held)
     sim_launches_bf16, sim_bf16_launches, sim_errors_bf16 = timed(
         "sim MD bf16", phase_sim_md, BF16_PATHS_KW)
+    for layout in SIM_LAYOUTS:
+        _, _, found = timed(f"sim MD {layout}", phase_sim_md, None, layout, sim_held)
+        for name, err in found.items():
+            sim_errors[name] = max(err, sim_errors.get(name, 0.0))
     timed("sim relax", phase_sim_relax)
     timed("sim host", phase_sim_host)
     timed("sim relaxers", phase_sim_relaxers)
@@ -2525,7 +2693,11 @@ with cs.env_switch("CHGNET_TPU_STREAM_V2"):
     batch_v2 = batch_graphs(graphs).to("cuda")
 for path, (_, switch, _) in cs.PATHS.items():
     own = batch_v2 if switch == "CHGNET_TPU_STREAM_V2" else batch
+    layout = getattr(cs, "PATH_BATCH", {}).get(path)
+    if layout:
+        own = batch_graphs(graphs, **layout).to("cuda")
     cs.phase_model(path, own, n_edges, graphs)
+    del own
 del batch, batch_v2
 cs.phase_sim_md()
 """

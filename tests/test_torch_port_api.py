@@ -186,7 +186,7 @@ def test_every_optimizer_runs(name, tstruct):
         StructOptimizer(model, optimizer_class="Newton")
 
 
-@pytest.mark.parametrize("what", ["md mesh", "relax mesh", "lean", "tile", "halo"])
+@pytest.mark.parametrize("what", ["md mesh", "relax mesh", "halo"])
 def test_unported_layouts_raise(what, tstruct):
     model = TCHGNet(seed=0, device="cpu", **SAVED)
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -6,7 +6,9 @@ plain version, and a pass calls each wrapper exactly where the card
 launches its kernel, so recording the wrappers' calls
 (``chip_smoke.Recorder``) over one pass of a small crystal gives the same
 counts: the layers fix them, and the data only in which plans carry gather
-windows under ``CHGNET_TPU_STREAM_V2``. A block of the undirected layout's
+windows under ``CHGNET_TPU_STREAM_V2``. A path of another batch layout
+(``chip_smoke.PATH_BATCH``: the dense slots, the halo tiles) builds its
+batch in that layout. A block of the undirected layout's
 ``d2u`` / ``u2d`` / ``u2d2`` streams spans more than ``WINDOW_ROWS`` source
 rows only in a crystal of a few hundred bonds or more, so the crystal is a
 2x2x2 LiMnO2 supercell, whose plans carry windows as the benchmark batch's
@@ -34,13 +36,26 @@ BENCH_WINDOWED = ("plan_center", "plan_nbr", "plan_ang_vi", "plan_ang_vj")
 UNWINDOWED = ("plan_d2u", "plan_u2d", "plan_u2d2")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread while this module runs: a full-width pass of a
+    small crystal is many small ops, which several test processes on one
+    machine's cores slow down many times over when each op spreads over
+    every core."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 @pytest.mark.parametrize("path", list(chip_smoke.PATHS))
 def test_recorded_calls_are_the_path_launch_set(path):
     kwargs, switch, expect = chip_smoke.PATHS[path]
     model = CHGNet(seed=0, device="cpu", graph_converter_algorithm="numpy", **kwargs)
     struct = Structure.from_file(f"{ROOT}/examples/mp-18767-LiMnO2.cif")
     with chip_smoke.env_switch(switch):
-        batch = batch_graphs([model.graph_converter(struct.make_supercell(2))])
+        batch = batch_graphs([model.graph_converter(struct.make_supercell(2))],
+                             **chip_smoke.PATH_BATCH.get(path, {}))
         windowed = {name for name in BENCH_WINDOWED + UNWINDOWED
                     if getattr(batch, name).window.shape[0]}
         assert windowed == (set(BENCH_WINDOWED) if switch == V2 else set())

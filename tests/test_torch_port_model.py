@@ -219,14 +219,17 @@ def test_physics_invariants_on_batch():
 
 def test_unsupported_config_raises(monkeypatch):
     """bf16 builds on the CPU and passes the CUDA checks under a switch too
-    (every kernel has its bf16 form); ``dense_atom_conv`` is refused before
-    anything is launched."""
+    (every kernel has its bf16 form); ``dense_atom_conv`` builds and passes
+    them too, and only ``conv_dropout`` with it is refused before anything
+    is launched, as in ``chgnet_tpu``."""
     model = TCHGNet(seed=0, device="cpu", compute_dtype="bfloat16", **SMALL)
     model.config.check_supported("cuda")
     monkeypatch.setenv("CHGNET_TPU_STREAM_V2", "1")
     model.config.check_supported("cuda")
+    dense = TCHGNet(seed=0, device="cpu", dense_atom_conv=True, **SMALL)
+    dense.config.check_supported("cuda")
     with pytest.raises(NotImplementedError, match="dense_atom_conv"):
-        TCHGNet(seed=0, device="cpu", dense_atom_conv=True, **SMALL)
+        TCHGNet(seed=0, device="cpu", dense_atom_conv=True, conv_dropout=0.1, **SMALL)
 
 
 def test_undirected_bond_layout_is_supported():

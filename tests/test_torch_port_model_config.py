@@ -353,11 +353,11 @@ def test_matmul_precision_accepted_and_exact_on_the_cpu(precision, structs):
 
 
 def test_config_refuses_only_bf16_and_dense(monkeypatch):
-    """``check_supported`` refuses ``dense_atom_conv`` only: bf16 passes on
-    both devices, for serving and training, under every switch (every
-    kernel has its bf16 form); ``conv_dropout`` with ``dense_atom_conv``
-    raises at construction as in chgnet_tpu; bad remat and precision values
-    raise."""
+    """``check_supported`` refuses none of these at the default widths: bf16
+    passes on both devices, for serving and training, under every switch
+    (every kernel has its bf16 form), and so does ``dense_atom_conv``;
+    ``conv_dropout`` with ``dense_atom_conv`` raises at construction as in
+    chgnet_tpu; bad remat and precision values raise."""
     for fields in (
         dict(conv_dropout=0.1, mlp_dropout=0.1), dict(remat="angle"),
         dict(mlp_first=False, read_out="attn"), dict(matmul_precision="high"),
@@ -375,8 +375,8 @@ def test_config_refuses_only_bf16_and_dense(monkeypatch):
             bf16.check_supported("cpu")
             TConfig().check_supported("cuda")
             bf16.check_supported("cuda")
-    with pytest.raises(NotImplementedError, match="dense_atom_conv"):
-        TConfig(dense_atom_conv=True).check_supported("cpu")
+    TConfig(dense_atom_conv=True).check_supported("cpu")
+    TConfig(dense_atom_conv=True).check_supported("cuda")
     with pytest.raises(NotImplementedError, match="dense_atom_conv"):
         TConfig(conv_dropout=0.1, dense_atom_conv=True)
     with pytest.raises(ValueError, match="remat"):
