@@ -71,8 +71,14 @@
 // order, then rounded once to bf16 (ops/fused_pass.py:504-517 cast each
 // tile's f32 sums to the parameters' type and add them there, so the TPU
 // kernel rounds once a tile). Half the bytes of f32 move.
+//
+// D over 64 (up to 128): every form runs on wide_tail.cuh's kernels, which
+// build each row's first-layer sum in registers (PassSrc, the lane's
+// columns in the same part order) and run the tail on it in the same
+// kernel, so the accumulator still never reaches device memory.
 #include "gated_tail.cuh"
 #include "tf32x3.cuh"
+#include "wide_tail.cuh"
 
 namespace {
 
@@ -135,6 +141,36 @@ __device__ __forceinline__ void build_acc(const PartsT<T>& p, long row0, int n_r
     acc[j] = a;
   }
 }
+
+// The first-layer sum of a row as wide_tail.cuh's kernels read their
+// accumulator: the lane's columns (element lane + 32 j of each half), from
+// zero, each gathered part in order, the aligned part, then the bias, as
+// build_acc adds them.
+template <typename T>
+struct PassSrc {
+  PartsT<T> p;
+  __device__ __forceinline__ void load(long l, int d, int lane,
+                                       float v[wide::kC]) const {
+    int s[kMaxParts];
+#pragma unroll
+    for (int k = 0; k < kMaxParts; ++k) s[k] = k < p.n_parts ? __ldg(p.idx[k] + l) : -1;
+#pragma unroll
+    for (int i = 0; i < wide::kC; ++i) {
+      const int e = wide::elem_of(i, lane);
+      const int col = wide::half_of(i) * d + e;
+      float a = 0.f;
+      if (e < d) {
+#pragma unroll
+        for (int k = 0; k < kMaxParts; ++k)
+          if (s[k] >= 0 && s[k] < p.n_src[k])
+            a += chgnet::to_f(p.table[k][(long)s[k] * 2 * d + col]);
+        if (p.aligned != nullptr) a += chgnet::to_f(p.aligned[l * 2 * d + col]);
+        a += chgnet::to_f(p.b1[col]);
+      }
+      v[i] = a;
+    }
+  }
+};
 
 // the warp's rows of buf (two half tiles) = acc, or silu(acc) with act
 __device__ __forceinline__ void store_acc(float* buf,
@@ -1185,7 +1221,7 @@ bool make_parts(int n_parts, const void* const* tables, const void* const* idxs,
 // T (f32, or bf16: widened as read, rounded once at each store). msg = 1:
 // out = message(acc, weights, mask); msg = 0: out = update(acc) + resnet.
 // The tensor-core kernel, 16 rows a consumer warp, at most one wave of
-// blocks.
+// blocks; d over 64 (up to 128): wide_tail.cuh's forward.
 template <typename T>
 int fused_pass_fwd(int msg, const void* const* tail, int n_parts,
                    const void* const* tables, const void* const* idxs,
@@ -1195,10 +1231,15 @@ int fused_pass_fwd(int msg, const void* const* tail, int n_parts,
   const TailT<T> t = make_tail<T>(tail);
   const bool w2 = t.w2c != nullptr;
   PartsT<T> p;
-  if (bad_shape(msg, w2, d) ||
+  if (bad_width(msg, w2, d) ||
       !make_parts(n_parts, tables, idxs, n_srcs, aligned, b1, d, &p))
     return (int)cudaErrorInvalidValue;
-  if (n_rows > 0) {
+  if (n_rows > 0 && d > kMaxD) {
+    const int err = wide::launch_fwd(msg, w2, t, PassSrc<T>{p}, msg ? weights : resnet,
+                                     mask, out, n_rows, d,
+                                     static_cast<cudaStream_t>(cuda_stream));
+    if (err) return err;
+  } else if (n_rows > 0) {
     const Kernel<TcFwdFn<T>> k = fwd_kernel<T>(msg, w2);
     const int grid = tc_grid(k, n_rows);
     if (grid < 0) return -grid;
@@ -1231,13 +1272,18 @@ int fused_pass_bwd(int msg, const void* const* tail, int n_parts,
   const bool params = d_params != nullptr;
   const int tiles = n_rows > 0 ? n_tiles(n_rows) : 0;
   PartsT<T> p;
-  if (bad_shape(msg, w2, d) ||
+  if (bad_width(msg, w2, d) ||
       !make_parts(n_parts, tables, idxs, n_srcs, aligned, b1, d, &p) ||
       !chgnet::vec4_ok(d_total, 2 * d) ||
       (params && n_blocks != (tiles < kParamBlocks ? tiles : kParamBlocks)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t stream = static_cast<cudaStream_t>(cuda_stream);
-  if (n_rows > 0 && params) {
+  if (n_rows > 0 && d > kMaxD) {
+    const int err = wide::launch_bwd<T, PassSrc<T>, true>(
+        msg, w2, t, PassSrc<T>{p}, weights, mask, g, d_total, d_weights, d_mask,
+        params ? partial : nullptr, n_rows, d, n_blocks, stream);
+    if (err) return err;
+  } else if (n_rows > 0 && params) {
     const Kernel<BwdFn<T>> k = bwd_kernel<T>(msg, w2);
     const int wave = wave_blocks(k);
     if (wave < 0) return -wave;

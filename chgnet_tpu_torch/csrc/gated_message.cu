@@ -62,8 +62,12 @@
 // layer (update_fwd_kernel<bf16, ...>) takes the gate's exponentials and
 // quotients by the fast intrinsics, some 1e-6 relative in f32 before the
 // output's bf16 rounding.
+// D over 64 (up to 128): every form but the update forward without a second
+// layer (update_fwd_kernel, which takes rows up to 128 wide as they are)
+// runs on wide_tail.cuh's kernels, launched by the same entry points.
 #include "gated_tail.cuh"
 #include "tf32x3.cuh"
+#include "wide_tail.cuh"
 
 namespace {
 
@@ -1089,19 +1093,6 @@ __global__ void __launch_bounds__(32 * kFwdWarps, 1)
 // segments as zeros. No segment crosses a warp, so two runs give equal
 // bits. The add order differs from segment_sum_csr's lane-group tree, so
 // the two agree only to rounding.
-constexpr int kRowCost = 8;
-
-// first n in [0, n_out] with kRowCost * offsets[n] + n >= x (n_out if none)
-__device__ __forceinline__ int cost_lower_bound(const int* __restrict__ offsets,
-                                                int n_out, long x) {
-  int lo = 0, hi = n_out;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if ((long)kRowCost * offsets[mid] + mid >= x) hi = mid; else lo = mid + 1;
-  }
-  return lo;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(32 * kFwdWarps, 1)
     tail_reduce_tc_kernel(TailT<T> t, const T* __restrict__ acc,
@@ -1287,7 +1278,8 @@ Kernel<TcBwdFn<T>> tc_bwd_kernel(bool msg, bool w2) {
 // out = message(acc, weights, mask) by the tensor-core kernel, 16 rows a
 // warp; msg = 0: out = update(acc) + resnet, with a second layer one block
 // per 32-row tile, without one a row per group of lanes
-// (update_fwd_kernel).
+// (update_fwd_kernel). d <= 128, a multiple of 4; over 64 with a second
+// layer wide_tail.cuh's forward, 4 rows a warp.
 // acc [n_rows, 2d] 16-byte aligned; every tensor contiguous f32 (the
 // _bf16 entry: bf16, computed in f32 and rounded once at each store). At
 // most one wave of blocks.
@@ -1299,9 +1291,13 @@ int gated_fwd(int msg, const void* const* tail, const T* acc, const T* weights,
               void* cuda_stream) {
   const TailT<T> t = make_tail<T>(tail);
   const bool w2 = t.w2c != nullptr;
-  if (bad_shape(msg, w2, d)) return (int)cudaErrorInvalidValue;
+  if (bad_width(msg, w2, d)) return (int)cudaErrorInvalidValue;
   const cudaStream_t stream = static_cast<cudaStream_t>(cuda_stream);
-  if (n_rows > 0 && msg) {
+  if (n_rows > 0 && d > kMaxD && w2) {
+    const int err = wide::launch_fwd(msg, w2, t, wide::AccRows<T>{acc},
+                                     msg ? weights : resnet, mask, out, n_rows, d, stream);
+    if (err) return err;
+  } else if (n_rows > 0 && msg) {
     const Kernel<TcFwdFn<T>> k = tc_fwd_kernel<T>();
     const int wave = wave_blocks(k, 32 * tcb::kFwdWarps);
     if (wave < 0) return -wave;
@@ -1344,7 +1340,7 @@ int gated_bwd_serving(int msg, const TailT<T>& t, const T* acc, const T* weights
 // d_acc [n_rows, 2d] (16-byte aligned, as acc), and for msg = 1 d_weights
 // [n_rows, d] and, unless null, d_mask [n_rows]. Without d_params: the
 // tensor-core kernel, 16 rows a warp, at most one wave of persistent
-// blocks. With d_params non-null the parameter gradients too, by
+// blocks (d over 64: wide_tail.cuh's backward, in both modes). With d_params non-null the parameter gradients too, by
 // tail_bwd_kernel in exactly n_blocks = min(tiles, kParamBlocks) blocks,
 // one f32 row each of partial [n_blocks, n_part], summed in f32 in block
 // order and rounded once to T: d_params [n_part] = dW2c, dW2g, db2 (with
@@ -1358,11 +1354,16 @@ int gated_bwd(int msg, const void* const* tail, const T* acc, const T* weights,
   const bool w2 = t.w2c != nullptr;
   const bool params = d_params != nullptr;
   const int tiles = n_rows > 0 ? n_tiles(n_rows) : 0;
-  if (bad_shape(msg, w2, d) ||
+  if (bad_width(msg, w2, d) ||
       (params && n_blocks != (tiles < kParamBlocks ? tiles : kParamBlocks)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t stream = static_cast<cudaStream_t>(cuda_stream);
-  if (n_rows > 0 && params) {
+  if (n_rows > 0 && d > kMaxD) {
+    const int err = wide::launch_bwd<T, wide::AccRows<T>, false>(
+        msg, w2, t, wide::AccRows<T>{acc}, weights, mask, g, d_acc, d_weights, d_mask,
+        params ? partial : nullptr, n_rows, d, n_blocks, stream);
+    if (err) return err;
+  } else if (n_rows > 0 && params) {
     const Kernel<BwdFn<T>> k = bwd_kernel<T>(msg, w2);
     const int wave = wave_blocks(k);
     if (wave < 0) return -wave;
@@ -1392,13 +1393,17 @@ int gated_reduce(const void* const* tail, const T* acc, const T* weights,
                  const T* mask, const int* offsets, T* out, int n_rows, int n_out,
                  int d, void* cuda_stream) {
   const TailT<T> t = make_tail<T>(tail);
-  if (bad_shape(true, t.w2c != nullptr, d)) return (int)cudaErrorInvalidValue;
-  if (n_out > 0) {
+  if (bad_width(true, t.w2c != nullptr, d)) return (int)cudaErrorInvalidValue;
+  if (n_out > 0 && d > kMaxD) {
+    const int err = wide::launch_reduce(t, acc, weights, mask, offsets, out, n_rows,
+                                        n_out, d, static_cast<cudaStream_t>(cuda_stream));
+    if (err) return err;
+  } else if (n_out > 0) {
     const Kernel<TcReduceFn<T>> k = tc_reduce_kernel<T>();
     const int wave = wave_blocks(k, 32 * tcb::kFwdWarps);
     if (wave < 0) return -wave;
-    const long cost = (long)tcb::kRowCost * n_rows + n_out;
-    const long per_block = (long)tcb::kRowCost * tcb::kRows * tcb::kFwdWarps;
+    const long cost = (long)kRowCost * n_rows + n_out;
+    const long per_block = (long)kRowCost * tcb::kRows * tcb::kFwdWarps;
     const long want = (cost + per_block - 1) / per_block;
     // weights rows in units of 4 values: 16 bytes of f32, 8 of bf16
     const int vec = (uintptr_t)weights % (4 * sizeof(T)) == 0;

@@ -237,15 +237,16 @@ __device__ __forceinline__ float gate_value(float zc, float zg, float ncs, float
   return silu(c) * sigm(g);
 }
 
-// d x of out = z * scale + bias for the cotangent gout (_ln_bwd :141)
-__device__ __forceinline__ void ln_bwd(const float gout[kPerLane],
-                                       const float z[kPerLane], float inv,
-                                       const float scale[kPerLane], int d,
-                                       int lane, float dx[kPerLane]) {
-  float gz[kPerLane];
+// d x of out = z * scale + bias for the cotangent gout (_ln_bwd :141), kN
+// elements a lane of a half row held by the whole warp
+template <int kN = kPerLane>
+__device__ __forceinline__ void ln_bwd(const float gout[kN], const float z[kN],
+                                       float inv, const float scale[kN], int d,
+                                       int lane, float dx[kN]) {
+  float gz[kN];
   float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-  for (int i = 0; i < kPerLane; ++i) {
+  for (int i = 0; i < kN; ++i) {
     gz[i] = gout[i] * scale[i];  // zero past D, as gout and scale are
     s1 += gz[i];
     s2 = fmaf(gz[i], z[i], s2);
@@ -253,7 +254,7 @@ __device__ __forceinline__ void ln_bwd(const float gout[kPerLane],
   const float m1 = warp_sum(s1) / d;
   const float m2 = warp_sum(s2) / d;
 #pragma unroll
-  for (int i = 0; i < kPerLane; ++i) dx[i] = (gz[i] - m1 - z[i] * m2) * inv;
+  for (int i = 0; i < kN; ++i) dx[i] = (gz[i] - m1 - z[i] * m2) * inv;
 }
 
 struct LaneParams {  // the lane's layer-norm parameters, zero past D
@@ -506,16 +507,26 @@ int wave_blocks(const Kernel<Fn>& k, int threads = kThreads) {
 
 int n_tiles(int n_rows) { return (n_rows + kTile - 1) / kTile; }
 
+// The message-reduce's balance (gated_message.cu): input rows weigh
+// kRowCost output rows. The first n in [0, n_out] with kRowCost * offsets[n]
+// + n >= x (n_out if none).
+constexpr int kRowCost = 8;
+__device__ __forceinline__ int cost_lower_bound(const int* __restrict__ offsets,
+                                                int n_out, long x) {
+  int lo = 0, hi = n_out;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if ((long)kRowCost * offsets[mid] + mid >= x) hi = mid; else lo = mid + 1;
+  }
+  return lo;
+}
+
 template <typename T = float>
 TailT<T> make_tail(const void* const* p) {
   return TailT<T>{static_cast<const T*>(p[0]), static_cast<const T*>(p[1]),
                   static_cast<const T*>(p[2]), static_cast<const T*>(p[3]),
                   static_cast<const T*>(p[4]), static_cast<const T*>(p[5]),
                   static_cast<const T*>(p[6])};
-}
-
-bool bad_shape(bool msg, bool w2, int d) {
-  return d < 4 || d > kMaxD || d % 4 || (msg && !w2);
 }
 
 }  // namespace

@@ -42,6 +42,14 @@
 // gathered row itself). The short route rounds its projected table to bf16,
 // as the plain path does (models/functions.py:407-412 projects in bf16):
 // the two routes differ by that one rounding of each projected row.
+// Wider calls (tables up to kWideDt = 128 wide, K up to kWideK = 256: a
+// 128-wide model's first layers) take the short route only: one pair's W is
+// then 128 KB, so no launch can stage every pair's W at once, and
+// gproj_project_wide_kernel stages one pair's W at a time (the block
+// projects its tiles of that table, then the next pair's) and runs K in
+// chunks of 128 columns on the short route's product. The long route's
+// tables, gathered and projected at once, stay at dt <= 64 and K <= 128
+// (the wrapper, ops/gproj.py gproj_route, sends wider calls short).
 #include "common.cuh"
 #include "tf32x3.cuh"
 
@@ -56,6 +64,10 @@ constexpr int kRows = 16;     // stream (or table) rows of a warp's tile
 constexpr int kStages = 4;    // (tile, pair) units in a warp's ring
 constexpr int kUnitFloats = kRows * kMaxDt;
 constexpr int kPairWFloats = kMaxDt * kMaxK;
+// the short route's widest call, one pair's W staged at a time (128 KB)
+constexpr int kWideDt = 128;
+constexpr int kWideK = 256;
+constexpr int kWidePairWFloats = kWideDt * kWideK;
 
 struct Pairs {
   const void* tab[kMaxPairs];  // float or bf16 tables, as the launch's S
@@ -82,12 +94,13 @@ __device__ void stage_w(float* w_s, const S* __restrict__ w, int n_pairs,
   }
 }
 
-// acc[nt] += A @ W for the warp's 16 rows and all kMaxK columns (W is
-// zero-padded), eight 8-column tiles at a time; load_a(ks, v) gives A's
-// fragment of the 8-deep step ks. The step loop stays rolled: a fully
-// unrolled kernel outgrows the instruction cache. kExact: A and W are bf16
-// values, exact in TF32, so one pass gives what 3xTF32 gives.
-template <bool kExact, typename LoadA>
+// acc[nt] += A @ W for the warp's 16 rows and 128 columns of W from w
+// (rows kStride floats apart; W is zero-padded), eight 8-column tiles at a
+// time; load_a(ks, v) gives A's fragment of the 8-deep step ks. The step
+// loop stays rolled: a fully unrolled kernel outgrows the instruction cache.
+// kExact: A and W are bf16 values, exact in TF32, so one pass gives what
+// 3xTF32 gives.
+template <bool kExact, int kStride = kMaxK, typename LoadA>
 __device__ __forceinline__ void product(LoadA load_a, const float* w, int dt8,
                                         int lane, float acc[16][4]) {
   const int gid = lane >> 2;
@@ -106,8 +119,8 @@ __device__ __forceinline__ void product(LoadA load_a, const float* w, int dt8,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int n = (8 * part + j) * 8 + gid;
-        b[j][0] = w[k0 * kMaxK + (n ^ wswz(k0))];
-        b[j][1] = w[k1 * kMaxK + (n ^ wswz(k1))];
+        b[j][0] = w[k0 * kStride + (n ^ wswz(k0))];
+        b[j][1] = w[k1 * kStride + (n ^ wswz(k1))];
       }
       if constexpr (kExact)
         tc::mma1_tiles<8>(acc + 8 * part, av, b);
@@ -330,6 +343,69 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// gproj_project_kernel for tables up to kWideDt wide and K up to kWideK:
+// the block stages one pair's W (its rows kWideK floats apart, swizzled as
+// stage_w's), projects every tile of its own of that pair's table in chunks
+// of 128 columns, then stages the next pair's W. A chunk's products are the
+// short route's, so each projected value is the same sum in the same order.
+template <typename S>
+__global__ void __launch_bounds__(kThreads, 1)
+    gproj_project_wide_kernel(Pairs pairs, int n_pairs, const S* __restrict__ w,
+                              S* __restrict__ proj, int n_src, int dt, int k_out) {
+  extern __shared__ float4 smem4[];
+  float* w_s = reinterpret_cast<float*>(smem4);  // [kWideDt][kWideK]
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gid = lane >> 2;
+  const int q = lane & 3;
+  const int dt8 = (dt + 7) / 8;
+  const int n_tiles = (n_src + kRows - 1) / kRows;
+#pragma unroll 1
+  for (int p = 0; p < n_pairs; ++p) {
+    __syncthreads();  // the previous pair's W read by every warp
+    for (int i = threadIdx.x; i < kWidePairWFloats; i += kThreads) {
+      const int k = i / kWideK;
+      const int n = i % kWideK;
+      const float v =
+          k < dt && n < k_out ? chgnet::to_f(w[((long)p * dt + k) * k_out + n]) : 0.f;
+      w_s[k * kWideK + (n ^ wswz(k))] = v;
+    }
+    __syncthreads();
+    const S* tab = static_cast<const S*>(
+        p == 0 ? pairs.tab[0] : p == 1 ? pairs.tab[1] : pairs.tab[2]);
+    for (int tile = blockIdx.x * kWarps + warp; tile < n_tiles;
+         tile += gridDim.x * kWarps) {
+      const long s0 = (long)tile * kRows;
+#pragma unroll 1
+      for (int c0 = 0; c0 < k_out; c0 += 128) {
+        float acc[16][4] = {};
+        product<chgnet::is_bf16<S>, kWideK>(
+            [&](int ks, float v[4]) {
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const long s = s0 + gid + 8 * (i & 1);
+                const int c = ks * 8 + q + 4 * (i >> 1);
+                v[i] = s < n_src && c < dt ? chgnet::to_f(__ldg(tab + s * dt + c)) : 0.f;
+              }
+            },
+            w_s + c0, dt8, lane, acc);
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const long s = s0 + gid + 8 * rr;
+          if (s >= n_src) continue;
+#pragma unroll
+          for (int nt = 0; nt < 16; ++nt) {
+            const int c = c0 + nt * 8 + 2 * q;
+            if (c >= k_out) break;
+            chgnet::store2(proj + ((long)p * n_src + s) * k_out + c, acc[nt][2 * rr],
+                           acc[nt][2 * rr + 1]);
+          }
+        }
+      }
+    }
+  }
+}
+
 // out[l] = stream[l] + proj[0][idx_0[l]] + proj[1][idx_1[l]] + ..., in
 // pair order, 4 columns a thread, added in f32 and rounded to S once
 template <typename S>
@@ -374,9 +450,13 @@ int wave(Fn fn, size_t smem) {
   return err == cudaSuccess ? chgnet::sm_count() * per_sm : -(int)err;
 }
 
-bool bad_shape(int n_pairs, int dt, int k_out) {
-  return n_pairs < 1 || n_pairs > kMaxPairs || dt < 4 || dt > kMaxDt || dt % 4 ||
-         k_out < 4 || k_out > kMaxK || k_out % 4;
+// a call the long route does not take; wide: nor the short route (tables
+// up to kWideDt, K up to kWideK)
+bool bad_shape(int n_pairs, int dt, int k_out, bool wide = false) {
+  const int max_dt = wide ? kWideDt : kMaxDt;
+  const int max_k = wide ? kWideK : kMaxK;
+  return n_pairs < 1 || n_pairs > kMaxPairs || dt < 4 || dt > max_dt || dt % 4 ||
+         k_out < 4 || k_out > max_k || k_out % 4;
 }
 
 Pairs make_pairs(int n_pairs, const void* const* tabs, const void* const* idxs) {
@@ -423,11 +503,18 @@ template <typename S>
 int gproj_short(int n_pairs, const void* const* tabs, const void* const* idxs,
                 const S* w, const S* stream, S* out, S* proj, int n_rows,
                 int n_src, int dt, int k_out, void* cuda_stream) {
-  if (bad_shape(n_pairs, dt, k_out)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(n_pairs, dt, k_out, true)) return (int)cudaErrorInvalidValue;
   if (n_rows <= 0) return (int)cudaGetLastError();
   const cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
   const Pairs pairs = make_pairs(n_pairs, tabs, idxs);
-  if (n_src > 0) {
+  if (n_src > 0 && bad_shape(n_pairs, dt, k_out)) {  // one pair's W at a time
+    const size_t smem = kWidePairWFloats * sizeof(float);
+    const int cap = wave(gproj_project_wide_kernel<S>, smem);
+    if (cap < 0) return -cap;
+    const int want = (n_src + kRows * kWarps - 1) / (kRows * kWarps);
+    gproj_project_wide_kernel<S><<<want < cap ? want : cap, kThreads, smem, st>>>(
+        pairs, n_pairs, w, proj, n_src, dt, k_out);
+  } else if (n_src > 0) {
     const size_t smem = w_smem(n_pairs);
     const int cap = wave(gproj_project_kernel<S>, smem);
     if (cap < 0) return -cap;
@@ -472,7 +559,8 @@ extern "C" int gproj_bf16(int n_pairs, const void* const* tabs,
 // The short-table route (project first), two launches: proj [n_pairs,
 // n_src, k_out] (16-byte aligned scratch from the caller) = each pair's
 // table @ W, then out = stream + the gathered rows of proj in pair order.
-// Arguments and requirements otherwise as gproj_f32's.
+// Arguments and requirements otherwise as gproj_f32's, but dt <= 128 and
+// k_out <= 256 (over 64 or 128: one pair's W staged at a time).
 extern "C" int gproj_short_f32(int n_pairs, const void* const* tabs,
                                const void* const* idxs, const float* w,
                                const float* stream, float* out, float* proj,

@@ -15,9 +15,13 @@
 // 4-byte permutation entry) and writes n_out rows; it does 1 add per
 // element read. Design: a warp owns one output row; its lanes split the
 // row's d floats into float4 units (floats where a row is not 16-byte
-// aligned), at most 32 of them (the wrapper checks), and several input rows
-// are summed side by side by lane groups and folded with a fixed shuffle
-// tree, so every sum is deterministic run to run.
+// aligned), and several input rows are summed side by side by lane groups
+// and folded with a fixed shuffle tree, so every sum is deterministic run to
+// run. A row of at most 32 units takes one lane a unit; a wider one (up to
+// kMaxUnits: 256 aligned floats, the first layer's cotangent of a 128-wide
+// model) is summed in chunks of 32 units, one after the other, each by the
+// whole warp in the same way (the kChunked instantiations; the others are
+// the code of rows up to 32 units as it was).
 // segment_sum_pair sweeps x once for both key streams, as the TPU kernel
 // does (its two streams' rows of one output block "overlap almost
 // completely", stream_ops.py:258-264): a warp owns output row n of both
@@ -69,8 +73,9 @@ __device__ __forceinline__ void add_row(V& acc, const S* __restrict__ x,
 
 // S: the storage type of x and out (float or bf16); V: a lane's value of a
 // row, float or float4 (4 elements: 16 bytes of f32, 8 of bf16). Sums are
-// taken in f32 and rounded to S once, at the store.
-template <typename S, typename V>
+// taken in f32 and rounded to S once, at the store. kChunked: rows of more
+// than 32 units, in chunks of 32.
+template <typename S, typename V, bool kChunked>
 __device__ __forceinline__ void segsum_rows(const S* __restrict__ x,
                                             const int* __restrict__ perm,
                                             const int* __restrict__ offsets,
@@ -81,6 +86,30 @@ __device__ __forceinline__ void segsum_rows(const S* __restrict__ x,
   const int warps = blockDim.x >> 5;
   const long warp0 = (long)blockIdx.x * warps + (threadIdx.x >> 5);
   const long n_warps = (long)gridDim.x * warps;
+  if constexpr (kChunked) {
+    for (long n = warp0; n < n_out; n += n_warps) {
+      const int beg = offsets[n];
+      const int end = offsets[n + 1];
+      // units c0 .. c0 + cu - 1 of the row
+      for (int c0 = 0; c0 < units; c0 += 32) {
+        const int cu = units - c0 < 32 ? units - c0 : 32;
+        int lpr = 1;  // lanes per input row (power of two)
+        while (lpr < cu) lpr <<= 1;
+        const int groups = 32 / lpr;
+        const int g = lane / lpr;
+        const int u = lane % lpr;
+        V acc = vzero<V>();
+        if (u < cu) {
+#pragma unroll 4
+          for (int k = beg + g; k < end; k += groups)
+            add_row<S, V>(acc, x, perm, k, units, c0 + u);
+        }
+        for (int off = 16; off >= lpr; off >>= 1) vadd(acc, shfl_down(acc, off));
+        if (g == 0 && u < cu) store_v(out + (n * units + c0 + u) * kW, acc);
+      }
+    }
+    return;
+  }
   int lpr = 1;  // lanes per input row (power of two)
   while (lpr < units) lpr <<= 1;
   const int groups = 32 / lpr;
@@ -99,12 +128,12 @@ __device__ __forceinline__ void segsum_rows(const S* __restrict__ x,
   }
 }
 
-template <typename S, typename V>
+template <typename S, typename V, bool kChunked>
 __global__ void __launch_bounds__(256)
     segment_sum_csr_kernel(const S* __restrict__ x, const int* __restrict__ perm,
                            const int* __restrict__ offsets, S* __restrict__ out,
                            int n_out, int units) {
-  segsum_rows<S, V>(x, perm, offsets, out, n_out, units);
+  segsum_rows<S, V, kChunked>(x, perm, offsets, out, n_out, units);
 }
 
 struct PairStreams {
@@ -140,7 +169,8 @@ __device__ __forceinline__ void add_pair(V& acc_a, V& acc_b, const S* __restrict
 // before it sums this one. kUnroll 4 for long segments (the edge stream's
 // some 80 rows: 8 rows of x in flight a warp), 1 for short ones (the angle
 // stream's one or two: fewer registers, so more warps in flight).
-template <typename S, typename V, int kUnroll>
+// kChunked: rows of more than 32 units, in chunks of 32 as in segsum_rows.
+template <typename S, typename V, int kUnroll, bool kChunked>
 __global__ void __launch_bounds__(256)
     segment_sum_pair_kernel(const S* __restrict__ x, PairStreams s, int n_out,
                             int units) {
@@ -175,6 +205,30 @@ __global__ void __launch_bounds__(256)
       b0 = off_b[next];
       b1 = off_b[next + 1];
     }
+    if constexpr (kChunked) {
+      for (int c0 = 0; c0 < units; c0 += 32) {
+        const int cu = units - c0 < 32 ? units - c0 : 32;
+        int lp = 1;  // lanes per input row of this chunk
+        while (lp < cu) lp <<= 1;
+        const int gs = 32 / lp;
+        const int gc = lane / lp;
+        const int uc = lane % lp;
+        V acc_a = vzero<V>();
+        V acc_b = vzero<V>();
+        if (uc < cu)
+          add_pair<kUnroll, S, V>(acc_a, acc_b, x, s.perm[0], beg_a, len_a, s.perm[1],
+                                  beg_b, len_b, gc, gs, units, c0 + uc);
+        for (int off = 16; off >= lp; off >>= 1) {
+          vadd(acc_a, shfl_down(acc_a, off));
+          vadd(acc_b, shfl_down(acc_b, off));
+        }
+        if (gc == 0 && uc < cu) {
+          store_v(out_a + (n * units + c0 + uc) * kW, acc_a);
+          store_v(out_b + (n * units + c0 + uc) * kW, acc_b);
+        }
+      }
+      continue;
+    }
     V acc_a = vzero<V>();
     V acc_b = vzero<V>();
     if (u < units)
@@ -191,10 +245,10 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// Blocks of segment_sum_pair_kernel<S, V, kUnroll> resident on the current
-// device at once (256 threads each, no shared memory), found once per
-// device.
-template <typename S, typename V, int kUnroll>
+// Blocks of segment_sum_pair_kernel<S, V, kUnroll, kChunked> resident on
+// the current device at once (256 threads each, no shared memory), found
+// once per device.
+template <typename S, typename V, int kUnroll, bool kChunked>
 int pair_wave() {
   static std::atomic<int> per_sm[16];
   int dev = 0;
@@ -204,7 +258,7 @@ int pair_wave() {
   int n = per_sm[dev].load(std::memory_order_relaxed);
   if (n == 0) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, segment_sum_pair_kernel<S, V, kUnroll>, 256, 0);
+        &n, segment_sum_pair_kernel<S, V, kUnroll, kChunked>, 256, 0);
     if (err != cudaSuccess) return -(int)err;
     n = n > 0 ? n : 1;
     per_sm[dev].store(n, std::memory_order_relaxed);
@@ -213,7 +267,9 @@ int pair_wave() {
 }
 
 constexpr int kThreads = 256;
-constexpr int kMaxUnits = 32;  // one lane per unit of a row
+// units of the widest row: a 128-wide model's first-layer cotangent, K =
+// 256 floats, in float4 units (64 floats where the row is not aligned)
+constexpr int kMaxUnits = 64;
 
 int grid_for(int n_out) {
   const long want = ((long)n_out + kThreads / 32 - 1) / (kThreads / 32);
@@ -229,11 +285,18 @@ int segment_sum_csr(const S* x, const int* perm, const int* offsets, S* out,
   if (n_out > 0) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int grid = grid_for(n_out);
-    if (vec4) {
-      segment_sum_csr_kernel<S, float4><<<grid, kThreads, 0, st>>>(
+    const bool chunked = (vec4 ? d / 4 : d) > 32;
+    if (vec4 && chunked) {
+      segment_sum_csr_kernel<S, float4, true><<<grid, kThreads, 0, st>>>(
           x, perm, offsets, out, n_out, d / 4);
+    } else if (vec4) {
+      segment_sum_csr_kernel<S, float4, false><<<grid, kThreads, 0, st>>>(
+          x, perm, offsets, out, n_out, d / 4);
+    } else if (chunked) {
+      segment_sum_csr_kernel<S, float, true><<<grid, kThreads, 0, st>>>(
+          x, perm, offsets, out, n_out, d);
     } else {
-      segment_sum_csr_kernel<S, float><<<grid, kThreads, 0, st>>>(
+      segment_sum_csr_kernel<S, float, false><<<grid, kThreads, 0, st>>>(
           x, perm, offsets, out, n_out, d);
     }
   }
@@ -255,27 +318,27 @@ constexpr int kShortWavesBf16 = 8;
 
 // waves > 0: at most that many waves of persistent blocks; 0: a block per 8
 // output rows
-template <typename S, typename V, int kUnroll>
+template <typename S, typename V, int kUnroll, bool kChunked>
 int launch_pair_kernel(const S* x, const PairStreams& s, int n_out, int units,
                        int waves, cudaStream_t st) {
   long blocks = ((long)n_out + kThreads / 32 - 1) / (kThreads / 32);
   if (waves > 0) {
-    const int wave = pair_wave<S, V, kUnroll>();
+    const int wave = pair_wave<S, V, kUnroll, kChunked>();
     if (wave < 0) return -wave;
     blocks = blocks < (long)wave * waves ? blocks : (long)wave * waves;
   }
-  segment_sum_pair_kernel<S, V, kUnroll><<<(int)blocks, kThreads, 0, st>>>(
+  segment_sum_pair_kernel<S, V, kUnroll, kChunked><<<(int)blocks, kThreads, 0, st>>>(
       x, s, n_out, units);
   return (int)cudaSuccess;
 }
 
-template <typename S, typename V>
+template <typename S, typename V, bool kChunked>
 int launch_pair(const S* x, const PairStreams& s, int n_rows, int n_out, int units,
                 cudaStream_t st) {
   if ((long)n_rows >= (long)kLongRows * n_out)
-    return launch_pair_kernel<S, V, kLongUnroll>(x, s, n_out, units, 1, st);
-  return launch_pair_kernel<S, V, 1>(x, s, n_out, units,
-                                     chgnet::is_bf16<S> ? kShortWavesBf16 : 0, st);
+    return launch_pair_kernel<S, V, kLongUnroll, kChunked>(x, s, n_out, units, 1, st);
+  return launch_pair_kernel<S, V, 1, kChunked>(
+      x, s, n_out, units, chgnet::is_bf16<S> ? kShortWavesBf16 : 0, st);
 }
 
 template <typename S>
@@ -294,8 +357,14 @@ int segment_sum_pair(const S* x, const int* perm_a, const int* offsets_a,
     s.offsets[1] = offsets_b;
     s.out[0] = out_a;
     s.out[1] = out_b;
-    const int err = vec4 ? launch_pair<S, float4>(x, s, n_rows, n_out, d / 4, st)
-                         : launch_pair<S, float>(x, s, n_rows, n_out, d, st);
+    const int units = vec4 ? d / 4 : d;
+    int err;
+    if (units > 32)
+      err = vec4 ? launch_pair<S, float4, true>(x, s, n_rows, n_out, units, st)
+                 : launch_pair<S, float, true>(x, s, n_rows, n_out, units, st);
+    else
+      err = vec4 ? launch_pair<S, float4, false>(x, s, n_rows, n_out, units, st)
+                 : launch_pair<S, float, false>(x, s, n_rows, n_out, units, st);
     if (err) return err;
   }
   return (int)cudaGetLastError();
@@ -374,7 +443,9 @@ extern "C" int segment_sum_pair_bf16(const chgnet::bf16* x, const int* perm_a,
 //   kLongSegment rows) a group of lanes each (a lane per unit of a row),
 //   long ones a warp each, whose lane groups take every `split`-th row of
 //   the segment and fold with a fixed shuffle tree (the warp converged
-//   first; an empty segment skips it).
+//   first; an empty segment skips it). A row of more than 32 units (up to
+//   kMaxUnits) takes a group of 64 lanes, two warps, and its segments are
+//   summed row after row by that group (split 1, no shuffles).
 // - Units of 16 bytes: 4 f32 values, or 8 bf16 values widened to f32 in
 //   registers (a 64-wide bf16 row is 8 lanes); rows of 4k bf16 values on
 //   8-byte aligned storage keep 4-value units, other widths and unaligned
@@ -804,7 +875,7 @@ int launch_tiles(const S* x, const int* perm, const int* offsets, S* out, float*
   while (t.lpr < t.units) t.lpr <<= 1;
   t.row_bytes = d * (int)sizeof(S);
   t.chunk_rows = kStageBytes / t.row_bytes;
-  t.split = (long)n_rows >= (long)kLongSegment * n_out ? 32 / t.lpr : 1;
+  t.split = t.lpr <= 32 && (long)n_rows >= (long)kLongSegment * n_out ? 32 / t.lpr : 1;
   const uintptr_t a = reinterpret_cast<uintptr_t>(x);
   t.copy = 2;
   for (int c = 16; c >= 4; c >>= 1) {

@@ -83,7 +83,9 @@ _SIGNATURES = {
     "gated_reduce_bf16": [ctypes.POINTER(_P), _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "gated_tc_occupancy": [ctypes.POINTER(_I)],
 }
-TAIL_MAX_D = 64  # widest tail the kernels take (kMaxD): 2D <= 128
+# widest tail the kernels take (wide_tail.cuh kD): 2D <= 256; up to 64 the
+# kernels of gated_message.cu, past it those of wide_tail.cuh
+TAIL_MAX_D = 128
 TILE = 32  # rows per tile of the update forward and the parameter gradients
 # blocks of the backward with parameter gradients (kParamBlocks), at most
 # one per tile: the rows of its scratch buffer

@@ -9,7 +9,10 @@ takes one of two routes by the tables' length (:func:`gproj_route`):
 short tables are projected first and their rows gathered and added (two
 launches of ``csrc/gproj.cu``'s own kernels); long ones are gathered and
 then projected. Both multiply on the tensor cores at f32 accuracy
-(3xTF32). The plain version (:func:`gather_project_sum_plain`) projects
+(3xTF32). Tables over 64 wide or projections over 128 (up to 128 and 256,
+a 128-wide model's first layers) take the short route whatever the tables'
+length: the long route stages every pair's W at once, which at those widths
+does not fit a block's shared memory. The plain version (:func:`gather_project_sum_plain`) projects
 each table first and gathers the projected rows, as ``chgnet_tpu``
 computes the same function off the TPU (``models/functions.py:407-412``).
 
@@ -49,21 +52,34 @@ _SIGNATURES = {
     "gproj_short_f32": _SHORT, "gproj_short_bf16": _SHORT,
 }
 MAX_PAIRS = 3  # AtomConv 2, BondConv and AngleUpdate 3 with the atom_e fold
-MAX_DT = 64  # table width the kernels stage (kMaxDt)
-MAX_K = 128  # projected width (kMaxK)
+MAX_DT = 128  # table width the kernels take (kWideDt)
+MAX_K = 256  # projected width (kWideK)
+# the long route's widest call (kMaxDt, kMaxK: every pair's W staged at
+# once); wider calls take the short route, one pair's W at a time
+LONG_MAX_DT = 64
+LONG_MAX_K = 128
 # Project first while the projected tables, n_pairs x S x K elements, fit
 # in half of the H100's 50 MB L2 (the gathers of the second launch then hit
 # L2): AtomConv's 2 x 7,680 x 128 x 4 = 7.9 MB in f32. Longer tables are
-# gathered first.
+# gathered first, where the long route takes their widths.
 SHORT_TABLE_BYTES = 25 << 20
 
 
-def gproj_route(n_pairs: int, n_src: int, k_out: int, elem_bytes: int = 4) -> str:
+def gproj_route(
+    n_pairs: int, n_src: int, k_out: int, elem_bytes: int = 4, dt: int = LONG_MAX_DT
+) -> str:
     """``"short"`` (project first) or ``"long"`` (gather first) for a call
-    with ``n_pairs`` tables of ``n_src`` rows projected to ``k_out``
-    columns of ``elem_bytes`` each."""
+    with ``n_pairs`` tables of ``n_src`` rows, ``dt`` wide, projected to
+    ``k_out`` columns of ``elem_bytes`` each."""
     fits = n_pairs * n_src * k_out * elem_bytes <= SHORT_TABLE_BYTES
-    return "short" if fits else "long"
+    long_ok = dt <= LONG_MAX_DT and k_out <= LONG_MAX_K
+    return "short" if fits or not long_ok else "long"
+
+
+def call_route(tables, stream) -> str:
+    """:func:`gproj_route` of one call's tables and stream."""
+    return gproj_route(len(tables), tables[0].shape[0], stream.shape[1],
+                       stream.element_size(), tables[0].shape[1])
 
 
 def gather_project_sum_plain(tables, idxs, ws, stream, round_tables=True):
@@ -89,9 +105,8 @@ def gather_project_sum_route_plain(tables, idxs, ws, stream):
     kernel takes for this call (:func:`gproj_route`): the short route
     rounds its projected tables, the long route nothing before the store.
     The card's holds compare each route with this."""
-    route = gproj_route(len(tables), tables[0].shape[0], stream.shape[1],
-                        stream.element_size())
-    return gather_project_sum_plain(tables, idxs, ws, stream, route == "short")
+    return gather_project_sum_plain(
+        tables, idxs, ws, stream, call_route(tables, stream) == "short")
 
 
 def gather_project_sum_kernel(tables, idxs, ws, stream):
@@ -126,7 +141,7 @@ def gather_project_sum_kernel(tables, idxs, ws, stream):
     idx_ptrs = (_P * n_pairs)(*(i.data_ptr() for i in idxs))
     lib = build.load("gproj", _SIGNATURES)
     ptr = build.ptr
-    if gproj_route(n_pairs, n_src, k_out, stream.element_size()) == "short":
+    if call_route(tables, stream) == "short":
         proj = stream.new_empty((n_pairs, n_src, k_out))
         err = getattr(lib, f"gproj_short_{kind}")(
             n_pairs, tab_ptrs, idx_ptrs, ptr(w_cat), ptr(stream), ptr(out),

@@ -76,9 +76,10 @@ _SIGNATURES = {
         "gather_rows_window_bf16": [_P, _P, _P, _P, _L, _I, _I, _P],
     },
 }
-# widest row of the segment sums: one warp's 32 lanes each hold a float4
-# (a float where the row is not 16-byte aligned)
-SEGMENT_MAX_D = 128
+# widest row of the segment sums, the first-layer cotangent of a 128-wide
+# model (K = 2 x 128): 64 units of 4 floats (64 floats where the row is not
+# aligned to 4 elements), summed by a warp in chunks of 32 units
+SEGMENT_MAX_D = 256
 # blocks of segment_sum_tiles: one per TILES_MIN_ITEMS rows and segments of
 # the stream's capacity, at most TILES_MAX_BLOCKS (four an SM of an H100's
 # 132, as many as its shared memory holds at once)
@@ -137,9 +138,8 @@ def gather_rows_window_plain(
 
 # ------------------------------------------------------------ wrappers
 def _check_width(what: str, x: torch.Tensor) -> None:
-    """Raise for rows wider than the segment-sum kernel takes: one warp's
-    32 lanes each hold 4 elements of the row (one where the row is not
-    aligned to 4 elements)."""
+    """Raise for rows wider than the segment-sum kernels take: 64 units of
+    4 elements (of one where the row is not aligned to 4 elements)."""
     d = x.shape[1]
     aligned = x.data_ptr() % (4 * x.element_size()) == 0
     units = d // 4 if d % 4 == 0 and aligned else d

@@ -4,7 +4,8 @@
 
 Builds the port's CUDA kernels from ``chgnet_tpu_torch/csrc`` and drives
 eighteen paths of the port, E+F+S+M serving at the default (published 0.3.0)
-width, on the card (``PATHS``): the default ``CHGNet(seed=0)``
+width, on the card (``PATHS``), and twelve at twice that width (phase 8,
+``WIDE_PATHS``): the default ``CHGNet(seed=0)``
 (``fused_kernels=True``, directed bonds), ``fused_kernels=False``, the
 undirected bond layout ``directed_bonds=False``, the default model with
 one of three environment switches set around its path only: the fused
@@ -159,7 +160,26 @@ f32 and bf16) and ``tile=512`` (the halo-tiled neighbour layout):
    line's rows gain ``train_launches`` (one train step of the row's path
    and type; 0 where that path is not trained), ``train_ms`` (that step's
    calls of the row's type; null where none) and, for rows 7, 9 and 14,
-   ``train_forms``.
+   ``train_forms``;
+8. width 128 (``phase_wide``, ``phase_wide_train``): ``WIDE128``, the
+   published architecture with every feature and hidden width doubled, on
+   the kernels' 128-wide forms. LiMnO2 on the card against the CPU in f32
+   and bf16; then each path of ``WIDE_PATHS`` (the default and bf16 on the
+   benchmark batch, the undirected layout and the message-reduce,
+   stream-v2, one-kernel-pass and undirected one-kernel-pass switches in
+   f32 and bf16 on its first ``WIDE_SWITCH_STRUCTS`` supercells): every
+   kernel call of one recorded pass held against its plain version as in
+   phase 2, then a counted pass (its launch set ``wide_launch_set``, the
+   storage types as in phase 3, finite outputs, force sums and stress
+   symmetry, peak device memory) and the median of ``MODEL_SAMPLES``
+   passes; the default's outputs against the same model with
+   ``fused_kernels=False``, the other f32 paths' against the wide default
+   on their batch, each bf16 path's against its f32 path at
+   ``BF16_BARS``; one train step on phase 7's first batch in f32, in bf16
+   and in f32 under ``CHGNET_TPU_FUSED_PASS=1``, each call held (the
+   parameter-gradient forms 7p, 9p, 14p among them). The ``kernels`` line
+   gains each kernel's ``<name> w128`` rows (f32, bf16; ``width`` 128),
+   timed on its ``WIDE_ROW_PATH``.
 
 ``python3 chip_smoke.py --compare ROOT [ROOT ...]`` times checkouts against
 each other in turns on one card, each ROOT in its own process and by its
@@ -1101,8 +1121,7 @@ def bf16_tol(name, args) -> float:
     from chgnet_tpu_torch.ops import gproj
 
     tables, _, _, stream = args
-    route = gproj.gproj_route(len(tables), tables[0].shape[0], stream.shape[1],
-                              stream.element_size())
+    route = gproj.call_route(tables, stream)
     return BF16_ULP * (1 + len(tables) if route == "short" else 1)
 
 
@@ -1368,26 +1387,46 @@ def phase_model(path, batch, n_edges, graphs):  # batch: the path's own
     counts, which must equal the path's launch set, its outputs checked and
     its peak device memory logged, and its edges/s. The launches with bf16 arguments, read from the same
     counts, must be all of rows 4-9's and some of every other launched
-    kernel's on a bf16 path, none on an f32 path. Returns the launches,
-    those with bf16 arguments and the batch's outputs."""
-    from chgnet_tpu_torch import ROOT, ops
-    from chgnet_tpu_torch.core.structure import Structure
+    kernel's on a bf16 path, none on an f32 path (``counted_pass``).
+    Returns the launches, those with bf16 arguments and the batch's
+    outputs."""
     from chgnet_tpu_torch.models import CHGNet
 
     kwargs, switch, expect = PATHS[path]
     model = CHGNet(seed=0, device="cuda", **kwargs)
-    cpu_model = CHGNet(seed=0, device="cpu", **kwargs)
+    check_limno2(path, model, CHGNet(seed=0, device="cpu", **kwargs), switch)
+    return counted_pass(path, model, switch, expect, batch, n_edges, graphs)
+
+
+def check_limno2(path, model, cpu_model, switch):
+    """LiMnO2's E/F/S/M by ``model`` on the card against ``cpu_model`` (the
+    same keywords on the CPU) under ``switch``, at ``MODEL_TOL`` (bf16 at
+    ``BF16_BARS``)."""
+    from chgnet_tpu_torch import ROOT
+    from chgnet_tpu_torch.core.structure import Structure
+
     struct = Structure.from_file(f"{ROOT}/examples/mp-18767-LiMnO2.cif")
     with env_switch(switch):
         got = model.predict_structure(struct, task="efsm")
         want = cpu_model.predict_structure(struct, task="efsm")
-    bars = BF16_BARS if kwargs.get("compute_dtype") == "bfloat16" else MODEL_TOL
-    for key, tol in bars.items():
+    bf16 = model.config.compute_dtype == "bfloat16"
+    for key, tol in (BF16_BARS if bf16 else MODEL_TOL).items():
         err = float(np.abs(np.asarray(got[key]) - np.asarray(want[key])).max())
         log(f"{path} LiMnO2 {key}: card vs CPU max err {err:.3e} (tol {tol:g})")
         if not err <= tol:
             raise AssertionError(f"{path} LiMnO2 {key}: card disagrees with the CPU")
     log(f"{path} LiMnO2 e = {got['e']:.6f} eV/atom")
+
+
+def counted_pass(path, model, switch, expect, batch, n_edges, graphs):
+    """One pass of ``model`` on ``batch`` under ``switch`` between a reset
+    and a read of the launch counts, which must equal ``expect`` (the order
+    of ``KERNELS``), and its launches with bf16 arguments those of a bf16
+    model (``check_bf16_launches``); its outputs finite, each graph's forces
+    summing to ~0 and its stress symmetric; its peak device memory; then
+    the median of ``MODEL_SAMPLES`` passes and its edges/s. Returns (the
+    launches, those with bf16 arguments, the outputs)."""
+    from chgnet_tpu_torch import ops
 
     with env_switch(switch):
         torch.cuda.synchronize()
@@ -1404,7 +1443,7 @@ def phase_model(path, batch, n_edges, graphs):  # batch: the path's own
             f"wrong launches on the {path} path: {launches}, expected {expect}"
         )
     check_bf16_launches(path, launches, bf16_launches,
-                        kwargs.get("compute_dtype") == "bfloat16")
+                        model.config.compute_dtype == "bfloat16")
 
     n_graphs = len(graphs)
     for key in ("e", "f", "s", "m"):
@@ -1532,9 +1571,7 @@ def log_gproj_routes(args_list) -> None:
     routes = {}
     for args in args_list:
         tables, _, _, stream = args
-        route = gproj.gproj_route(len(tables), tables[0].shape[0], stream.shape[1],
-                                  stream.element_size())
-        routes.setdefault(route, []).append(args)
+        routes.setdefault(gproj.call_route(tables, stream), []).append(args)
     for route, group in sorted(routes.items()):
         ms = cuda_ms(
             lambda: [gproj.gather_project_sum_kernel(*a) for a in group],
@@ -1565,17 +1602,20 @@ def pass_forms(name, kern, args_list) -> dict:
     return forms
 
 
-def timing_row(name, args_list, path, launches, err, dtype="f32") -> dict:
+def timing_row(name, args_list, path, launches, err, dtype="f32", width=64) -> dict:
     """One row of the kernels line: the kernel's time over ``args_list``
     (the calls of one pass of ``path``), its plain version's and a library
-    call's, its bound, its ``launches`` in that pass and its ``err``."""
+    call's, its bound, its ``launches`` in that pass and its ``err``; a row
+    of the 128-wide phase is named ``<kernel> w128`` (``width``)."""
     kern, plain = kernel_versions()[name]
     bound, nbytes, products, ops, libs = _bounds(name, args_list)
-    label = name if dtype == "f32" else f"{name} {dtype}"
+    label = name + ("" if width == 64 else f" w{width}")
+    label += "" if dtype == "f32" else f" {dtype}"
     row = dict(
         name=label,
         route="cuda",
         dtype=dtype,
+        width=width,
         source=KERNELS[name]["source"],
         replaces=KERNELS[name]["replaces"],
         path=path,
@@ -2423,7 +2463,8 @@ def phase_train_run(loaders, **model_kw):
 def phase_train():
     """Phase 7 (``chip_smoke.py`` docstring). Returns (launches of one
     default train step, per-kernel train times, errors), each for f32 and
-    for bf16: ``{"f32": ..., "bf16": ...}``."""
+    for bf16: ``{"f32": ..., "bf16": ...}``, and the first train batch with
+    its targets (phase 8's train steps take it)."""
     t_start = time.perf_counter()
     data, loaders = train_data()
     phase_train_hold(data, loaders)
@@ -2496,7 +2537,7 @@ def phase_train():
         raise AssertionError("train run bf16: its losses stray from f32's")
     del runs
     log(f"train phase: {time.perf_counter() - t_start:.0f} s")
-    return launches, times, errors
+    return launches, times, errors, (batch, targets)
 
 
 def phase_tf32(host_batch):
@@ -2523,6 +2564,190 @@ def phase_tf32(host_batch):
         f"{times['highest']:.3f} ms highest ({card_line()})")
     if not all(v <= TF32_TOL for v in errs.values()):
         raise AssertionError("matmul_precision=high: outside TF32 tolerance")
+
+
+# ------------------------------------------------------------ width 128
+# phase 8: WIDE128, the published 0.3.0 architecture with every feature and
+# hidden width doubled (4 conv blocks, 31 + 31 bases, the default readout),
+# on the kernels' 128-wide forms: the segment sums' rows in chunks of 32
+# units, gather_project_sum's short route with one pair's W staged at a
+# time, and csrc/wide_tail.cuh's tails and one-kernel pass
+WIDE128 = dict(atom_fea_dim=128, bond_fea_dim=128, angle_fea_dim=128,
+               atom_conv_hidden_dim=128, bond_conv_hidden_dim=128)
+# the supercells of the switched wide paths' batch (the script's time)
+WIDE_SWITCH_STRUCTS = 8
+# a wide path's launch set is its 64-wide path's, but under
+# CHGNET_TPU_STREAM_V2: the 13 sums of rows 128 or 256 wide stay on
+# segment_sum_csr (the tile kernel takes rows under 128, as chgnet_tpu's
+# dispatch does), the 7 narrower ones take the tile kernel
+# (tests/test_torch_port_launch_sets.py works the sets out on the CPU)
+WIDE_V2_SET = (13, 1, 8, 9, 7, 7, 2, 2, 0, 0, 7, 16, 0, 0)
+WIDE_SWITCHED = ("directed_bonds=False", "CHGNET_TPU_MSG_REDUCE=1",
+                 "CHGNET_TPU_STREAM_V2=1", "CHGNET_TPU_FUSED_PASS=1",
+                 "directed_bonds=False CHGNET_TPU_FUSED_PASS=1")
+# each wide path: (the path of PATHS whose keywords and switch it takes,
+# the supercells of its batch)
+WIDE_PATHS = {"w128": ("default", N_STRUCTS), "w128 bf16": ("bf16", N_STRUCTS)}
+WIDE_PATHS.update({
+    f"w128 {base}{suffix}": (base + suffix, WIDE_SWITCH_STRUCTS)
+    for base in WIDE_SWITCHED for suffix in ("", " bf16")
+})
+# the wide path each kernel's w128 rows are timed on (its f32 row; the bf16
+# row on the same path in bf16)
+WIDE_ROW_PATH = {
+    name: "w128" if KERNELS[name]["path"] == "default" else f"w128 {KERNELS[name]['path']}"
+    for name in KERNELS
+}
+
+
+# on the wide stream-v2 bf16 path the tile kernel takes only the 7 sums
+# narrower than 128 floats, the geometry's and the readout's, which are f32
+# on every path (the bf16 sums of rows 128 and 256 wide take segment_sum_csr)
+F32_ONLY["w128 CHGNET_TPU_STREAM_V2=1 bf16"] = ("gather_rows", "segment_sum_tiles")
+
+
+def wide_launch_set(base: str) -> tuple:
+    """The launch set of one pass of a wide path over ``base``'s path."""
+    return WIDE_V2_SET if PATHS[base][1] == "CHGNET_TPU_STREAM_V2" else PATHS[base][2]
+
+
+def wide_model(base: str):
+    from chgnet_tpu_torch.models import CHGNet
+
+    return CHGNet(seed=0, device="cuda", **PATHS[base][0], **WIDE128)
+
+
+def _outputs(out) -> dict:
+    return {k: out[k].detach().clone() for k in "efsm"}
+
+
+def phase_wide(graphs) -> list:
+    """Phase 8 (``chip_smoke.py`` docstring): every wide path of
+    ``WIDE_PATHS`` recorded, each kernel call held against its plain
+    version, its counted and timed pass (``counted_pass``) and its outputs
+    held: the f32 path against the same model with ``fused_kernels=False``
+    (and LiMnO2 against the CPU), every other f32 path against the wide
+    default on its batch at ``MODEL_TOL``, each bf16 path against its f32
+    path at ``BF16_BARS``. Returns the kernels line's w128 rows: per kernel
+    and type, its calls on its ``WIDE_ROW_PATH`` timed and bounded, its
+    launches there, its largest error over every wide path."""
+    from chgnet_tpu_torch.graph.batching import batch_graphs
+    from chgnet_tpu_torch.models import CHGNet
+
+    t_start = time.perf_counter()
+    log(f"width 128: {wide_model('default').n_params:,} parameters ({WIDE128})")
+    for path, base in (("w128", "default"), ("w128 bf16", "bf16")):
+        check_limno2(path, wide_model(base),
+                     CHGNet(seed=0, device="cpu", **PATHS[base][0], **WIDE128), None)
+    batches = {}
+
+    def batch_of(n, switch):
+        key = (n, switch == "CHGNET_TPU_STREAM_V2")
+        if key not in batches:
+            with env_switch("CHGNET_TPU_STREAM_V2" if key[1] else None):
+                batches[key] = batch_graphs(graphs[:n]).to("cuda")
+        return batches[key]
+
+    rows, errors, outs = [], {}, {}
+    for path, (base, n) in WIDE_PATHS.items():
+        t_path = time.perf_counter()
+        _, switch, _ = PATHS[base]
+        batch = batch_of(n, switch)
+        with env_switch(switch), Recorder() as rec:
+            run_pass(wide_model(base), batch)
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            found = phase_kernels(path, rec.calls, wide_launch_set(base))
+        for name, err in found.items():
+            errors[name] = max(err, errors.get(name, 0.0))
+        n_edges = sum(g.n_directed for g in graphs[:n])
+        launches, bf16_launches, out = counted_pass(
+            path, wide_model(base), switch, wide_launch_set(base), batch, n_edges,
+            graphs[:n])
+        outs[path] = _outputs(out)
+        del out
+        bf16 = path.endswith(" bf16")
+        f32_path = path[: -len(" bf16")] if bf16 else path
+        with torch.no_grad():
+            for name in KERNELS:
+                if WIDE_ROW_PATH[name] != f32_path:
+                    continue
+                dtype = torch.bfloat16 if bf16 else torch.float32
+                args_list = [a for a in rec.calls[name] if call_dtype(a) == dtype]
+                if not args_list:
+                    log(f"w128 {name}: no {'bf16' if bf16 else 'f32'} call on the "
+                        f"{path} path")
+                    continue
+                wrapper = kernel_versions()[name][0].__name__
+                row = timing_row(name, args_list, path, launches[wrapper], 0.0,
+                                 "bf16" if bf16 else "f32", width=128)
+                if bf16:
+                    row["bf16_launches"] = bf16_launches[wrapper]
+                rows.append(row)
+        del rec
+        log(f"width 128 {path}: {time.perf_counter() - t_path:.0f} s")
+    # the outputs: the full batch against fused_kernels=False, the switched
+    # paths against the wide default on their batch, bf16 against f32
+    with env_switch(None):
+        plain = _outputs(run_pass(wide_model("fused_kernels=False"),
+                                  batch_of(N_STRUCTS, None)))
+        small = _outputs(run_pass(wide_model("default"),
+                                  batch_of(WIDE_SWITCH_STRUCTS, None)))
+    check_same_outputs("w128", outs["w128"], "w128 fused_kernels=False", plain)
+    for path, (base, n) in WIDE_PATHS.items():
+        if path.endswith(" bf16"):
+            ref = path[: -len(" bf16")]
+            check_same_outputs(path, outs[path], ref, outs[ref], BF16_BARS)
+        elif path != "w128":
+            check_same_outputs(path, outs[path], "w128 on its batch", small)
+    for row in rows:
+        row["max_abs_err"] = errors.get(
+            row["name"].replace(" w128", ""), 0.0)
+    del batches, outs
+    torch.cuda.empty_cache()
+    log(f"width 128 phase: {time.perf_counter() - t_start:.0f} s")
+    return rows
+
+
+def phase_wide_train(batch, targets, rows) -> None:
+    """Phase 8's train steps: one ``WIDE128`` train step on phase 7's first
+    train batch (8 x 216 atoms) in f32 and in bf16, and one in f32 under
+    ``CHGNET_TPU_FUSED_PASS``, each kernel call held against its plain
+    version (the tails' and the pass's parameter-gradient forms, 7p, 9p,
+    14p, among them) and its launch set phase 7's; the w128 rows gain
+    ``train_launches``, ``train_ms`` and, for rows 7, 9 and 14,
+    ``train_forms``, and their errors the step's."""
+    t_start = time.perf_counter()
+    steps = (("f32", {}, None), ("bf16", BF16_KW, None),
+             ("f32", {}, "CHGNET_TPU_FUSED_PASS"))
+    by_row = {(r["name"].split()[0], r["dtype"]): r for r in rows}
+    for dtype, kw, switch in steps:
+        label = "w128 train step" + ("" if dtype == "f32" else " bf16")
+        label += f" {switch}=1" if switch else ""
+        torch_dtype = torch.bfloat16 if kw else torch.float32
+        counts = TRAIN_LAUNCH_SETS["CHGNET_TPU_FUSED_PASS=1" if switch else "default"]
+        with env_switch(switch):
+            trainer = make_trainer(TRAIN_DEVICE, **WIDE128, **kw)
+            trainer._build_optimizer(False)
+            calls, errors, launches, _ = record_train_step(
+                label, trainer, batch, targets, counts)
+            names = ("fused_pass_fwd", "fused_pass_bwd") if switch else None
+            times = train_timing(label, calls, torch_dtype, names)
+        del calls, trainer
+        for name in times if switch else KERNELS:
+            row = by_row.get((name, dtype))
+            if row is None:
+                continue
+            wrapper = kernel_versions()[name][0].__name__
+            row["train_launches"] = launches[wrapper]
+            train = times.get(name)
+            row["train_ms"] = train["ms"] if train else None
+            if train and "forms" in train:
+                row["train_forms"] = train["forms"]
+            label_err = f"{name} bf16" if dtype == "bf16" else name
+            row["max_abs_err"] = max(row["max_abs_err"], errors.get(label_err, 0.0))
+        torch.cuda.empty_cache()
+    log(f"width 128 train steps: {time.perf_counter() - t_start:.0f} s")
 
 
 def main() -> int:
@@ -2642,7 +2867,7 @@ def main() -> int:
     timed("sim host", phase_sim_host)
     timed("sim relaxers", phase_sim_relaxers)
     log(f"simulation phase: {time.perf_counter() - t0:.0f} s")
-    t_launches, t_times, t_errors = phase_train()
+    t_launches, t_times, t_errors, t_batch = phase_train()
     for row in rows:
         name = row["name"].split()[0]
         wrapper = kernel_versions()[name][0].__name__
@@ -2662,6 +2887,11 @@ def main() -> int:
             row["train_forms"] = train["forms"]
         row["max_abs_err"] = max(row["max_abs_err"], sim_err,
                                  t_errors[dtype].get(row["name"], 0.0))
+    gc.collect()
+    torch.cuda.empty_cache()
+    wide_rows = phase_wide(graphs)
+    phase_wide_train(*t_batch, wide_rows)
+    rows += wide_rows
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s")
     log(json.dumps({"kernels": rows}))
     log(card_line())

@@ -194,10 +194,10 @@ def test_wrappers_raise_on_what_kernels_do_not_take(cuda):
         tsg.gather_rows(x.float(), off.long())
     t = torch.randn(10, 64, device=cuda)
     i = torch.zeros(5, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="K <= 128"):
+    with pytest.raises(ValueError, match="K <= 256"):
         tgp.gather_project_sum_kernel(
-            [t], [i], [torch.randn(64, 256, device=cuda)],
-            torch.randn(5, 256, device=cuda),
+            [t], [i], [torch.randn(64, 512, device=cuda)],
+            torch.randn(5, 512, device=cuda),
         )
     w = torch.randn(64, 128, device=cuda)
     st = torch.randn(5, 128, device=cuda)
@@ -207,12 +207,13 @@ def test_wrappers_raise_on_what_kernels_do_not_take(cuda):
     shifted = torch.randn(10 * 64 + 1, device=cuda)[1:].view(10, 64)
     with pytest.raises(ValueError, match="16-byte aligned"):
         tgp.gather_project_sum_kernel([shifted], [i], [w], st)
-    # one warp sums a row: at most 32 float4 (or float) units
-    wide = torch.randn(100, 132, device=cuda)
-    with pytest.raises(ValueError, match="at most 128"):
+    # a warp sums a row in chunks of 32 units: at most 64 float4 (or float)
+    # units
+    wide = torch.randn(100, 260, device=cuda)
+    with pytest.raises(ValueError, match="at most 256"):
         tsg.segment_sum_csr(wide, off, empty)
-    narrow = torch.randn(100 * 36 + 1, device=cuda)[1:].view(100, 36)
-    with pytest.raises(ValueError, match="at most 128"):
+    narrow = torch.randn(100 * 68 + 1, device=cuda)[1:].view(100, 68)
+    with pytest.raises(ValueError, match="at most 256"):
         tsg.segment_sum_pair(narrow, off, empty, off, empty)
 
 
@@ -417,9 +418,9 @@ def test_gated_wrappers_raise_on_what_kernels_do_not_take(cuda):
         tgm.gated_update_fwd(acc.double(), x["resnet"], params)
     with pytest.raises(ValueError, match="tensors on"):
         tgm.gated_update_fwd(acc, x["resnet"].cpu(), params)
-    with pytest.raises(ValueError, match="2D <= 128"):
-        wide = torch.randn(100, 256, device=cuda)
-        tgm.gated_update_fwd(wide, torch.randn(100, 128, device=cuda), params)
+    with pytest.raises(ValueError, match="2D <= 256"):
+        wide = torch.randn(100, 512, device=cuda)
+        tgm.gated_update_fwd(wide, torch.randn(100, 256, device=cuda), params)
     with pytest.raises(ValueError, match="D % 4 == 0"):
         odd = torch.randn(100, 2 * 62, device=cuda)
         tgm.gated_update_fwd(odd, torch.randn(100, 62, device=cuda), params)
@@ -631,16 +632,16 @@ def test_width_guard_refuses_a_wide_cuda_model_before_any_launch(cuda):
     """A model wider than the kernels take raises NotImplementedError on
     the card, at construction and, for a CUDA batch, in compute_batch
     before any kernel launches; the same model serves on the CPU."""
-    wide = dict(atom_fea_dim=128, atom_conv_hidden_dim=128,
+    wide = dict(atom_fea_dim=160, atom_conv_hidden_dim=160,
                 graph_converter_algorithm="numpy")
     ops.reset_launch_counts()
-    with pytest.raises(NotImplementedError, match="atom_fea_dim=128"):
+    with pytest.raises(NotImplementedError, match="atom_fea_dim=160"):
         CHGNet(device=cuda, **wide)
     cpu_model = CHGNet(device="cpu", **wide)
     graph = cpu_model.graph_converter(Structure.from_file(LIMNO2))
     batch = batch_graphs([graph]).to(cuda)
     params = params_from_jax(init_params(cpu_model.config), cuda)
-    with pytest.raises(NotImplementedError, match="dt <= 64"):
+    with pytest.raises(NotImplementedError, match="dt <= 128"):
         compute_batch(params, batch, config=cpu_model.config, compute_force=True)
     torch.cuda.synchronize()
     assert all(fn.launches == 0 for fn in ops.KERNELS)
@@ -769,7 +770,7 @@ def test_segment_sum_tiles_schedule_edges_match_plain(cuda, name, sorted_, dtype
 )
 @pytest.mark.parametrize("name", ["one-segment-over-many-blocks", "short-and-empty"])
 def test_segment_sum_tiles_unaligned_rows_match_plain(cuda, name, dtype, d):
-    """x one element past a 16-byte boundary (rows of at most 32 values,
+    """x one element past a 16-byte boundary (rows of at most 64 values,
     as ``_check_width`` takes them): single-value units, 4-byte copies
     (f32) or plain 2-byte loads (bf16); equal bits run to run."""
     x, offsets, perm = _tiles_case(cuda, name, False, dtype, d)
@@ -789,8 +790,8 @@ def test_segment_sum_tiles_with_no_valid_row_is_zero(cuda):
     empty = torch.zeros(0, dtype=torch.int32, device=cuda)
     out = tsg.segment_sum_tiles(x, off, empty)
     assert out.shape == (40, 64) and not bool(out.any())
-    with pytest.raises(ValueError, match="at most 128"):
-        tsg.segment_sum_tiles(torch.randn(8, 256, device=cuda), off, empty)
+    with pytest.raises(ValueError, match="at most 256"):
+        tsg.segment_sum_tiles(torch.randn(8, 512, device=cuda), off, empty)
 
 
 def _window_stream(rng, L, S, span):
@@ -1155,8 +1156,8 @@ def test_fused_pass_raises_on_what_the_kernels_do_not_take(cuda, monkeypatch):
         tfp.fused_layer_pass([part] * 4, b1, p, **args)
     with pytest.raises(ValueError, match="aligned"):
         tfp.fused_layer_pass([part, (aligned, None, None)] * 2, b1, p, **args)
-    wide = torch.randn(10, 256, device=cuda)
-    with pytest.raises(ValueError, match="2D <= 128"):
+    wide = torch.randn(10, 512, device=cuda)
+    with pytest.raises(ValueError, match="2D <= 256"):
         tfp.fused_layer_pass([(wide, idxs[0], plan)], None, p, **args)
     with pytest.raises(ValueError, match="gathered parts"):
         tfp.fused_pass_fwd(tables * 2, idxs * 2, aligned, b1, params,
@@ -1882,3 +1883,149 @@ def test_update_forward_with_misaligned_resnet_matches_plain_and_repeats(cuda, d
     else:
         _assert_scaled([got], [want], TAIL_FWD_TOL)
     assert torch.equal(got, tgm.gated_update_fwd(*args))
+
+
+# ------------------------------------------------------ widths up to 128
+# Each kernel whose width limit the 128-wide instantiations lift, at D = 16,
+# 64, 96 and 128 (rows d and 2 d wide for the sums, tables d wide projected
+# to K = 2 d), in f32 at chip_smoke.py's bars (1e-5 forward, 1e-4 backward,
+# gather_project_sum 2e-5, each over the output's largest value) and in bf16
+# at one bf16 rounding (the short route one more a pair, the parameter
+# gradients the f32 tolerance more).
+WIDTHS = [16, 64, 96, 128]
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _held(got, want, dtype, f32_tol, ulps=1.0, extra=0.0):
+    """``got`` against ``want`` at ``f32_tol`` in f32, else ``ulps`` bf16
+    roundings plus ``extra`` of each output's largest value."""
+    tol = f32_tol if dtype == torch.float32 else ulps * BF16_ULP + extra
+    _assert_scaled([t.float() for t in _flat(got) if t is not None],
+                   [t.float() for t in _flat(want) if t is not None], tol)
+
+
+def _wide_tail(cuda, d, dtype, n_rows=5_003, seed=61):
+    x, p = _tail_inputs(cuda, d, n_rows, seed)
+    return ({k: v.to(dtype) for k, v in x.items()},
+            {k: v.to(dtype) for k, v in p.items()})
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("d", WIDTHS)
+def test_segment_sums_at_widths_up_to_128(cuda, d, dtype):
+    """Rows d and 2 d wide (the first layer's cotangent: 256 floats at d =
+    128) through segment_sum_csr, segment_sum_pair and segment_sum_tiles,
+    and rows 64 wide off a 16-byte boundary (single-value units)."""
+    dt = DTYPES[dtype]
+    rng = np.random.default_rng(62)
+    L, S = 40_000, 3_000
+    plan = _plan(*_stream(rng, L, S, False), S, False, cuda)
+    plan_b = _plan(*_stream(rng, L, S, True), S, True, cuda)
+    rows = [torch.randn(L, w, device=cuda).to(dt) for w in (d, 2 * d)]
+    if d == 64:
+        rows.append(_misaligned(torch.randn(L, 64, device=cuda).to(dt)))
+    for x in rows:
+        want = tsg.segment_sum_plain(x, plan.offsets, plan.perm)
+        for kern in (tsg.segment_sum_csr, tsg.segment_sum_tiles):
+            _held(kern(x, plan.offsets, plan.perm), want, dt, 1e-5)
+        args = (x, plan.offsets, plan.perm, plan_b.offsets, plan_b.perm)
+        _held(tsg.segment_sum_pair(*args), tsg.segment_sum_pair_plain(*args), dt, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("n_src", [3_000, 200_000], ids=["short", "long"])
+def test_gather_project_sum_at_widths_up_to_128(cuda, d, dtype, n_src):
+    """Tables d wide projected to K = 2 d, 3 pairs; the long tables take
+    the long route up to dt 64 and K 128, the short route past it."""
+    dt = DTYPES[dtype]
+    rng = np.random.default_rng(63)
+    n_rows = 20_011
+    tabs = [torch.randn(n_src, d, device=cuda).to(dt) for _ in range(3)]
+    idxs = [torch.as_tensor(rng.integers(-2, n_src + 2, n_rows).astype(np.int32),
+                            device=cuda) for _ in range(3)]
+    ws = [(torch.randn(d, 2 * d, device=cuda) * 0.1).to(dt) for _ in range(3)]
+    stream = torch.randn(n_rows, 2 * d, device=cuda).to(dt)
+    route = tgp.call_route(tabs, stream)
+    assert route == ("long" if n_src > 10_000 and d <= 64 else "short")
+    got = tgp.gather_project_sum_kernel(tabs, idxs, ws, stream)
+    want = tgp.gather_project_sum_route_plain(tabs, idxs, ws, stream)
+    _held(got, want, dt, 2e-5, ulps=1 + 3 * (route == "short"))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("need_params", [False, True], ids=["serving", "params"])
+def test_gated_tails_at_widths_up_to_128(cuda, d, dtype, need_params):
+    """The message and update tails (with and without a second layer),
+    forward and backward, and the message-reduce."""
+    dt = DTYPES[dtype]
+    x, p = _wide_tail(cuda, d, dt)
+    extra = TAIL_BWD_TOL if need_params else 0.0
+    args = (x["acc"], x["weights"], x["mask"], _params(p))
+    _held(tgm.gated_message_fwd(*args), tgm.gated_message_plain(*args), dt, TAIL_FWD_TOL)
+    bwd = args + (x["g"], need_params, need_params)
+    _held(tgm.gated_message_bwd(*bwd), tgm.gated_message_bwd_plain(*bwd), dt,
+          TAIL_BWD_TOL, extra=extra)
+    for has_w2 in (False, True):
+        params = _params(p, has_w2)
+        args = (x["acc"], x["resnet"], params)
+        _held(tgm.gated_update_fwd(*args), tgm.gated_update_plain(*args), dt,
+              TAIL_FWD_TOL)
+        bwd = (x["acc"], params, x["g"], need_params)
+        _held(tgm.gated_update_bwd(*bwd), tgm.gated_update_bwd_plain(*bwd), dt,
+              TAIL_BWD_TOL, extra=extra)
+    rng = np.random.default_rng(64)
+    n_rows = x["acc"].shape[0]
+    key = np.sort(rng.integers(0, 300, n_rows)).astype(np.int32)
+    plan = _plan(key, np.arange(n_rows) < n_rows - 40, 300, True, cuda)
+    args = (x["acc"], x["weights"], x["mask"], _params(p), plan.offsets)
+    got = tgm.gated_message_reduce(*args)
+    _held(got, tgm.gated_message_reduce_plain(*args), dt, REDUCE_TOL)
+    assert torch.equal(got, tgm.gated_message_reduce(*args))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("form", ["message", "update_w2", "update"])
+def test_fused_pass_at_widths_up_to_128(cuda, d, dtype, form):
+    """The one-kernel pass forward and backward, serving and with parameter
+    gradients, 3 gathered parts (indices out of range among them) and the
+    aligned stream; each kernel's second run gives equal bits."""
+    from chgnet_tpu_torch.ops import fused_pass as tfp
+
+    dt = DTYPES[dtype]
+    x, p, tables, idxs, aligned, b1 = _pass_inputs(cuda, 3, True, d=d, n_rows=5_003)
+    x = {k: v.to(dt) for k, v in x.items()}
+    p = {k: v.to(dt) for k, v in p.items()}
+    tables = [t.to(dt) for t in tables]
+    for need_params in (False, True):
+        fwd, bwd = _pass_args(x, p, tables, idxs, x["acc"], b1.to(dt), form,
+                              need_params, need_params)
+        got = tfp.fused_pass_fwd(*fwd)
+        _held(got, tfp.fused_pass_fwd_plain(*fwd), dt, TAIL_FWD_TOL)
+        assert torch.equal(got, tfp.fused_pass_fwd(*fwd))
+        grads = tfp.fused_pass_bwd(*bwd)
+        _held(grads, tfp.fused_pass_bwd_plain(*bwd), dt, TAIL_BWD_TOL,
+              extra=TAIL_BWD_TOL if need_params else 0.0)
+        again = tfp.fused_pass_bwd(*bwd)
+        assert all(torch.equal(a, b) for a, b in zip(_flat(grads), _flat(again))
+                   if a is not None)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_wide128_model_on_card_matches_cpu(cuda, dtype):
+    """The 128-wide model serves E+F+S+M of LiMnO2 on the card as on the
+    CPU (bf16 at tests/test_model.py's bf16 bars)."""
+    kw = dict(atom_fea_dim=128, bond_fea_dim=128, angle_fea_dim=128,
+              atom_conv_hidden_dim=128, bond_conv_hidden_dim=128,
+              graph_converter_algorithm="numpy")
+    if dtype == "bf16":
+        kw.update(compute_dtype="bfloat16", matmul_precision="default")
+    struct = Structure.from_file(LIMNO2)
+    got = CHGNet(seed=0, device=cuda, **kw).predict_structure(struct, task="efsm")
+    want = CHGNet(seed=0, device="cpu", **kw).predict_structure(struct, task="efsm")
+    bars = TOL if dtype == "f32" else {"e": 2e-3, "f": 2e-2, "s": 2e-2, "m": 2e-2}
+    for key, tol in bars.items():
+        np.testing.assert_allclose(np.asarray(got[key]), np.asarray(want[key]),
+                                   atol=tol, err_msg=key)

@@ -351,9 +351,9 @@ def test_fused_layer_pass_raises_beyond_what_the_kernels_take(monkeypatch):
         tfp.fused_layer_pass([gathered] * 4, b1, p2, **kw)
     with pytest.raises(ValueError, match="2 aligned"):
         tfp.fused_layer_pass([gathered, aligned, aligned], b1, p2, **kw)
-    wide = [(torch.cat([t, t], dim=1), i, p) for t, i, p in (gathered, aligned)]
-    with pytest.raises(ValueError, match="2D <= 128"):
-        tfp.fused_layer_pass(wide, torch.cat([b1, b1]), p2, **kw)
+    wide = [(torch.cat([t] * 5, dim=1), i, p) for t, i, p in (gathered, aligned)]
+    with pytest.raises(ValueError, match="2D <= 256"):
+        tfp.fused_layer_pass(wide, torch.cat([b1] * 5), p2, **kw)
     odd = [(t[:, :12].contiguous(), i, p) for t, i, p in (gathered, aligned)]
     with pytest.raises(ValueError, match="D % 4"):
         tfp.fused_layer_pass(odd, b1[:12], p2, **kw)

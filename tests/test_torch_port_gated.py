@@ -10,7 +10,9 @@ multiple of any tile, and about 10% of mask zeros.
 
 Tolerances, as tests/test_ops.py: forward 1e-5 absolute; gradients, first
 and second order, 1e-4 absolute and 1e-5 relative (64-term f32 products
-and 2,500-row parameter sums taken in different orders).
+and 2,500-row parameter sums taken in different orders). The kernel-level
+tests also run at D = 128 (``WIDTHS``, the widest tail the port's kernels
+take), at the same bars.
 
 The fifth, ``_reduce_pallas`` behind ``fused_gated_message_reduce`` (the
 tail fused with its sorted segment sum), runs in interpret mode with
@@ -41,12 +43,13 @@ from chgnet_tpu_torch.models.convert import params_from_jax
 from chgnet_tpu_torch.ops import gated_message as tgm
 
 L, D = 2500, 64
+WIDTHS = [D, 128]
 FWD_ATOL = 1e-5
 GRAD_TOL = dict(atol=1e-4, rtol=1e-5)
 LN = tgm.LN_KEYS
 
 
-def _data(seed=0):
+def _data(seed=0, D=D):
     rng = np.random.default_rng(seed)
 
     def normal(*shape, scale=1.0):
@@ -71,6 +74,7 @@ def _data(seed=0):
 def _jp2(x, has_w2=True):
     """chgnet_tpu's lane-packed p2: block-diagonal w2."""
     p2 = {k: x[k] for k in LN}
+    D = x["nc_scale"].shape[0]
     if has_w2:
         w2 = np.zeros((2 * D, 2 * D), np.float32)
         w2[:D, :D], w2[D:, D:] = x["w2c"], x["w2g"]
@@ -86,6 +90,7 @@ def _tp2(x, has_w2=True, requires_grad=False):
 def _jparams_like_port(jp2, has_w2=True):
     """chgnet_tpu's parameter pytree (or its gradient) in the port's order,
     w2 cut to its two diagonal blocks."""
+    D = np.shape(jp2["nc_scale"])[0]
     out = []
     if has_w2:
         out += [jp2["w2"][:D, :D], jp2["w2"][D:, D:], jp2["b2"]]
@@ -97,8 +102,9 @@ def _close(got, want, **tol):
     np.testing.assert_allclose(got, np.asarray(want), **tol)
 
 
-def test_message_forward_matches_pallas_interpret():
-    x = _data()
+@pytest.mark.parametrize("d", WIDTHS)
+def test_message_forward_matches_pallas_interpret(d):
+    x = _data(0, d)
     want = jgm._forward(
         x["acc"], x["weights"], x["mask"], _jp2(x), interpret=True
     )
@@ -106,7 +112,7 @@ def test_message_forward_matches_pallas_interpret():
         torch.tensor(x["acc"]), torch.tensor(x["weights"]),
         torch.tensor(x["mask"]), tgm.tail_params(_tp2(x)),
     )
-    assert got.shape == (L, D)
+    assert got.shape == (L, d)
     _close(got, want, atol=FWD_ATOL, rtol=0)
 
 
@@ -114,8 +120,9 @@ def test_message_forward_matches_pallas_interpret():
     "need_mask,need_params", [(True, True), (False, False)],
     ids=["all", "serving"],
 )
-def test_message_backward_matches_pallas_interpret(need_mask, need_params):
-    x = _data(1)
+@pytest.mark.parametrize("d", WIDTHS)
+def test_message_backward_matches_pallas_interpret(need_mask, need_params, d):
+    x = _data(1, d)
     j_acc, j_w, j_mask, j_p = jgm._backward(
         x["acc"], x["weights"], x["mask"], _jp2(x), x["g"], interpret=True
     )
@@ -134,9 +141,10 @@ def test_message_backward_matches_pallas_interpret(need_mask, need_params):
         _close(got, want, **GRAD_TOL)
 
 
+@pytest.mark.parametrize("d", WIDTHS)
 @pytest.mark.parametrize("has_w2", [False, True], ids=["y=acc", "w2"])
-def test_update_forward_matches_pallas_interpret(has_w2):
-    x = _data(2)
+def test_update_forward_matches_pallas_interpret(has_w2, d):
+    x = _data(2, d)
     want = jgm._forward_nw(
         x["acc"], x["resnet"], _jp2(x, has_w2), interpret=True
     )
@@ -148,9 +156,10 @@ def test_update_forward_matches_pallas_interpret(has_w2):
 
 
 @pytest.mark.parametrize("need_params", [True, False], ids=["params", "serving"])
+@pytest.mark.parametrize("d", WIDTHS)
 @pytest.mark.parametrize("has_w2", [False, True], ids=["y=acc", "w2"])
-def test_update_backward_matches_pallas_interpret(has_w2, need_params):
-    x = _data(3)
+def test_update_backward_matches_pallas_interpret(has_w2, need_params, d):
+    x = _data(3, d)
     j_acc, j_p = jgm._backward_nw(
         x["acc"], _jp2(x, has_w2), x["g"], interpret=True
     )
@@ -315,7 +324,7 @@ def reduce_gates(monkeypatch):
     jax.clear_caches()
 
 
-def _reduce_case(n_rows=2048, n_out=1024, seed=0):
+def _reduce_case(n_rows=2048, n_out=1024, seed=0, D=D):
     """``_setup`` of tests/test_msg_reduce.py: a sorted key stream with
     dropped rows at the tail and rows whose mask is zero while their key
     stays in range."""
@@ -342,8 +351,9 @@ def _reduce_case(n_rows=2048, n_out=1024, seed=0):
     return x, jplan, tplan, n_out
 
 
-def test_message_reduce_forward_matches_pallas_interpret(reduce_gates):
-    x, jplan, tplan, n_out = _reduce_case()
+@pytest.mark.parametrize("d", WIDTHS)
+def test_message_reduce_forward_matches_pallas_interpret(reduce_gates, d):
+    x, jplan, tplan, n_out = _reduce_case(D=d)
     assert jgm.msg_reduce_ok(jnp.asarray(x["acc"]), jplan, n_out)
     want = jgm.fused_gated_message_reduce(
         jnp.asarray(x["acc"]), jnp.asarray(x["weights"]), jnp.asarray(x["mask"]),
@@ -353,7 +363,7 @@ def test_message_reduce_forward_matches_pallas_interpret(reduce_gates):
         torch.tensor(x["acc"]), torch.tensor(x["weights"]),
         torch.tensor(x["mask"]), tgm.tail_params(_tp2(x)), tplan.offsets,
     )
-    assert got.shape == (n_out, D)
+    assert got.shape == (n_out, d)
     _close(got, want, atol=3e-5, rtol=3e-5)
     # the mask multiplies inside the sum: what a masked row holds is ignored
     acc = torch.tensor(x["acc"])

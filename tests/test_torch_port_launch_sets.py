@@ -83,6 +83,42 @@ def test_recorded_calls_are_the_path_launch_set(path):
             assert n_bf16, name
 
 
+@pytest.mark.parametrize("path", list(chip_smoke.WIDE_PATHS))
+def test_recorded_calls_are_the_wide_path_launch_set(path):
+    """The launch sets of phase 8's paths at ``WIDE128``
+    (``chip_smoke.wide_launch_set``): the 64-wide path's, but the
+    stream-v2 switch keeps the sums of rows 128 or 256 wide on
+    ``segment_sum_csr``."""
+    base, _ = chip_smoke.WIDE_PATHS[path]
+    kwargs, switch, _ = chip_smoke.PATHS[base]
+    model = CHGNet(seed=0, device="cpu", graph_converter_algorithm="numpy",
+                   **kwargs, **chip_smoke.WIDE128)
+    model.config.check_supported("cuda")
+    struct = Structure.from_file(f"{ROOT}/examples/mp-18767-LiMnO2.cif")
+    with chip_smoke.env_switch(switch):
+        batch = batch_graphs([model.graph_converter(struct.make_supercell(2))])
+        with chip_smoke.Recorder() as rec:
+            compute_batch(model.params, batch.to("cpu"), config=model.config,
+                          compute_force=True, compute_stress=True,
+                          compute_magmom=True)
+    got = tuple(len(rec.calls[name]) for name in chip_smoke.KERNELS)
+    assert got == chip_smoke.wide_launch_set(base)
+    # the storage types of chip_smoke.check_bf16_launches, as above
+    bf16 = kwargs.get("compute_dtype") == "bfloat16"
+    versions = chip_smoke.kernel_versions()
+    for name, calls in rec.calls.items():
+        n_bf16 = sum(chip_smoke.call_dtype(a) == torch.bfloat16 for a in calls)
+        wrapper = versions[name][0].__name__
+        if not bf16:
+            assert n_bf16 == 0, name
+        elif wrapper in chip_smoke.CONV_WRAPPERS:
+            assert n_bf16 == len(calls), name
+        elif wrapper in chip_smoke.F32_ONLY.get(path, ()):
+            assert calls and not n_bf16, name
+        elif calls:
+            assert n_bf16, name
+
+
 def _rate_args(name, dtype, need_params):
     """Arguments of one recorded call, reduced to what the rate reads: the
     storage type and, for a backward, ``need_params``."""

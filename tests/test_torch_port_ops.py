@@ -9,7 +9,10 @@ must agree, and the plain pair must also give the right grad-of-grad.
 Tolerance: 2e-5 absolute on O(1) values for the segment sums and gathers
 (f32 sums of up to ~40 terms in different orders; the port's plain sum is
 taken in float64), 1e-4 for gather-project-sum (64-term f32 dot products,
-projected before the gather here and after it in the kernel).
+projected before the gather here and after it in the kernel; the
+gradients' scaled by their largest value, at least 1). The segment sums
+also run on rows of 256 floats and gather-project-sum on tables 128 wide
+projected to K = 256, a 128-wide model's widths.
 
 The kernels themselves are held against these plain versions on the card
 in tests/test_torch_port_cuda.py.
@@ -78,10 +81,11 @@ def _t(x, requires_grad=False):
     return torch.tensor(np.asarray(x), requires_grad=requires_grad)
 
 
+@pytest.mark.parametrize("d", [64, 256])
 @pytest.mark.parametrize("sorted_", [True, False], ids=["sorted", "perm"])
-def test_segment_sum_matches_jax_kernel(interp, sorted_):
+def test_segment_sum_matches_jax_kernel(interp, sorted_, d):
     rng = np.random.default_rng(0)
-    L, S, d = 2048, 1024, 64
+    L, S = 2048, 1024
     idx, valid = _stream(L, S, rng, sorted_)
     x = rng.standard_normal((L, d)).astype(np.float32)
     ct = rng.standard_normal((S, d)).astype(np.float32)
@@ -134,9 +138,10 @@ def test_gather_rows_zeroes_out_of_range_rows():
     )
 
 
-def test_segment_sum_pair_matches_jax_kernel(interp):
+@pytest.mark.parametrize("d", [128, 256])
+def test_segment_sum_pair_matches_jax_kernel(interp, d):
     rng = np.random.default_rng(2)
-    L, S, d = 2048, 1024, 128
+    L, S = 2048, 1024
     ia, va = _stream(L, S, rng, True)
     ib, vb = _stream(L, S, rng, False)
     x = rng.standard_normal((L, d)).astype(np.float32)
@@ -183,11 +188,12 @@ def _gproj_inputs(seed=3, L=2048, S=1024, dt=64, K=128):
     return ia, ib, valid, t1, t2, ws, stream, ct
 
 
-def test_gather_project_sum_matches_jax_kernel(interp):
+@pytest.mark.parametrize("dt,K", [(64, 128), (128, 256)])
+def test_gather_project_sum_matches_jax_kernel(interp, dt, K):
     """Three pairs over two tables and two index streams: the angle-side
     layout (bond table by dir_i and dir_j, atoms on the edge stream by
     dir_i)."""
-    ia, ib, valid, t1, t2, ws, stream, ct = _gproj_inputs()
+    ia, ib, valid, t1, t2, ws, stream, ct = _gproj_inputs(dt=dt, K=K)
     S = t1.shape[0]
     pa = jsc.make_plan(ia, valid, S, assume_sorted=True)
     pb = jsc.make_plan(ib, valid, S)
