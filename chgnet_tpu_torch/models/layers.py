@@ -5,7 +5,11 @@ Port of ``chgnet_tpu.models.layers``: :func:`atom_conv_apply`
 per-atom slots of ``CHGNetConfig.dense_atom_conv``),
 :func:`bond_conv_apply_directed` (``:424``) and
 :func:`angle_update_apply_directed` (``:576``), in both bond layouts. Angle
-rows are sorted by their directed bond i in both.
+rows are sorted by their directed bond i in both. The forms over
+undirected bond tables, :func:`bond_conv_apply` (``:362``) and
+:func:`angle_update_apply` (``:668``), gather every part from an atom or
+bond table by its own index stream; only the graph-sharded core
+(``parallel/graph_sharded.py``) calls them, on its exchanged tables.
 
 * Directed (``CHGNetConfig.directed_bonds``, the default): bond features
   and weights live on the directed edge stream ([E, d], twin-duplicated).
@@ -394,6 +398,59 @@ def bond_conv_apply_directed(
     return _finish(params, new_bond_feas, bond_feas, resnet)
 
 
+def _table_parts(atom_feas, bond_feas, angle_feas, center, bond_i, bond_j, plans):
+    """First-layer blocks of the angle-side layers over undirected bond
+    tables, in the upstream input order [bond_i, bond_j, angle, center
+    atom]; ``plans`` = (bond_i, bond_j, center) plans of the tables."""
+    p_bi, p_bj, p_c = plans
+    return [
+        (bond_feas, bond_i, p_bi),
+        (bond_feas, bond_j, p_bj),
+        (angle_feas, None, None),
+        (atom_feas, center, p_c),
+    ]
+
+
+def bond_conv_apply(
+    params: Params,
+    atom_feas: torch.Tensor,  # [N, d_atom] atom table
+    bond_feas: torch.Tensor,  # [U, d_bond] undirected bond table
+    weights_a: torch.Tensor,  # [A, d_bond] w[bond_i] * w[bond_j]
+    angle_feas: torch.Tensor,  # [A, d_angle]
+    center: torch.Tensor,  # [A] i32 center atom of each angle row
+    bond_i: torch.Tensor,  # [A] i32 undirected bond i
+    bond_j: torch.Tensor,  # [A] i32 undirected bond j
+    angle_mask: torch.Tensor,  # [A]
+    plans: tuple,  # (bond_i, bond_j, center) SegmentPlans
+    *,
+    activation: str = "silu",
+    resnet: bool = True,
+    fused: bool = False,
+    dropout: float = 0.0,
+    seed: int | None = None,
+) -> torch.Tensor:
+    """BondConv over undirected bond tables
+    (``chgnet_tpu.models.layers.bond_conv_apply`` :362), the form the
+    graph-sharded core runs on its exchanged tables: per-angle updates,
+    scaled by ``weights_a`` and the mask, summed into their bond i over
+    ``plans[0]`` (``[plans[0].n_out, d]``, the bond table's rows). The
+    fused tail never fuses with its sum here, as in ``chgnet_tpu``."""
+    parts = _table_parts(
+        atom_feas, bond_feas, angle_feas, center, bond_i, bond_j, plans
+    )
+    gmlp = params["gated_mlp"]
+    gen = _dropout_generator(dropout, seed, angle_feas)
+    if fused and gen is None and gated_mlp_fusable(gmlp, activation):
+        update = _fused_layer(gmlp, parts, weights=weights_a, mask=angle_mask)
+    else:
+        update = gated_mlp_tail(
+            gmlp, _layer_acc(gmlp, parts), activation=activation,
+            dropout=dropout, generator=gen,
+        )
+        update = update * weights_a * angle_mask[:, None]
+    return _finish(params, plan_segment_sum(update, plans[0]), bond_feas, resnet)
+
+
 # --------------------------------------------------------------- AngleUpdate
 def angle_update_init(
     rng: np.random.Generator,
@@ -453,6 +510,44 @@ def angle_update_apply_directed(
         and gated_mlp_update_fusable(gmlp, activation)
     ):
         return _fused_layer(gmlp, parts, ANGLE_FOLD, resnet=angle_feas)
+    new = gated_mlp_tail(
+        gmlp, _layer_acc(gmlp, parts), activation=activation, dropout=dropout,
+        generator=gen,
+    )
+    return _finish(params, new, angle_feas, resnet)
+
+
+def angle_update_apply(
+    params: Params,
+    atom_feas: torch.Tensor,  # [N, d_atom] atom table
+    bond_feas: torch.Tensor,  # [U, d_bond] undirected bond table
+    angle_feas: torch.Tensor,  # [A, d_angle]
+    center: torch.Tensor,
+    bond_i: torch.Tensor,
+    bond_j: torch.Tensor,
+    plans: tuple,  # (bond_i, bond_j, center) SegmentPlans
+    *,
+    activation: str = "silu",
+    resnet: bool = True,
+    fused: bool = False,
+    dropout: float = 0.0,
+    seed: int | None = None,
+) -> torch.Tensor:
+    """Per-angle gated-MLP update over undirected bond tables, no
+    reduction (``chgnet_tpu.models.layers.angle_update_apply`` :668)."""
+    parts = _table_parts(
+        atom_feas, bond_feas, angle_feas, center, bond_i, bond_j, plans
+    )
+    gmlp = params["gated_mlp"]
+    gen = _dropout_generator(dropout, seed, angle_feas)
+    if (
+        fused
+        and gen is None
+        and resnet
+        and "norm" not in params
+        and gated_mlp_update_fusable(gmlp, activation)
+    ):
+        return _fused_layer(gmlp, parts, resnet=angle_feas)
     new = gated_mlp_tail(
         gmlp, _layer_acc(gmlp, parts), activation=activation, dropout=dropout,
         generator=gen,

@@ -37,6 +37,7 @@ from chgnet_tpu_torch.simulation.observers import (
 )
 from chgnet_tpu_torch.simulation.runtime import (
     GraphRuntime,
+    _host,
     compute_batch_dynamic,
     graph_sum,
 )
@@ -378,7 +379,22 @@ def maxwell_boltzmann_velocities(
 
 
 def _f32(x, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
     return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
+
+
+def _pad_rows(x, n: int, fill=0):
+    """A per-atom array (or tensor) extended to ``n`` rows by ``fill``
+    (mesh mode's block layout); itself when it has ``n`` already."""
+    if x.shape[0] == n:
+        return x
+    if isinstance(x, torch.Tensor):
+        tail = x.new_full((n - x.shape[0], *x.shape[1:]), fill)
+        return torch.cat([x, tail])
+    out = np.full((n, *x.shape[1:]), fill, dtype=x.dtype)
+    out[: x.shape[0]] = x
+    return out
 
 
 class MolecularDynamics:
@@ -390,12 +406,20 @@ class MolecularDynamics:
     constants [fs], bulk_modulus [GPa] (fitted by EOS for NPT when not
     given, 2 GPa if the fit fails), logfile + loginterval, trajectory and
     crystal-feature capture. It runs on the model's device; ``use_device``
-    naming another raises. ``mesh`` (graph-partitioned MD over several
-    devices) is not ported yet (ROADMAP.md Queue 1 item 9), nor is
-    ``halo``. ``lean=True`` ships each topology rebuild as one packed
-    buffer, and ``CHGNET_TPU_MD_TILE=<T>`` builds it in the halo-tiled
-    neighbour layout (:class:`~chgnet_tpu_torch.simulation.runtime.
-    GraphRuntime`).
+    naming another raises. ``lean=True`` ships each topology rebuild as one
+    packed buffer, and ``CHGNET_TPU_MD_TILE=<T>`` builds it in the
+    halo-tiled neighbour layout (:class:`~chgnet_tpu_torch.simulation.
+    runtime.GraphRuntime`).
+
+    ``mesh`` (an int, the size of the initialised process group, or a
+    :class:`~chgnet_tpu_torch.parallel.mesh.Mesh`) runs graph-partitioned
+    MD over the ranks of a ``torch.distributed`` group, each rank on the
+    model's device and all calling with the same arguments
+    (``parallel/md_sharded.py``; ``halo=True``: the boundary exchange
+    instead of all-gathers). The integrator and the rebuild policy are the
+    single device's; per-atom state lives in the global block layout
+    ``[D * N_loc]`` (the padded order and a zero tail), the same on every
+    rank. Without an initialised process group a mesh raises.
     """
 
     def __init__(
@@ -425,12 +449,12 @@ class MolecularDynamics:
         halo: bool = False,
         lean: bool = False,
     ) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (graph-partitioned MD over several devices) is not "
-                "ported to chgnet_tpu_torch yet (ROADMAP.md Queue 1 item 9)"
-            )
         self.model = model = resolve_model(model, use_device)
+        self._mesh = None
+        if mesh is not None:
+            from chgnet_tpu_torch.parallel.mesh import resolve_mesh
+
+            self._mesh = resolve_mesh(mesh, "graph", model.device)
         self.ensemble = ensemble.lower()
         self.thermostat = thermostat
         if self.ensemble not in {"nve", "nvt", "npt"}:
@@ -463,12 +487,18 @@ class MolecularDynamics:
             skin=skin,
             on_isolated_atoms=on_isolated_atoms,
             device=model.device,
+            shard_mesh=self._mesh,
             halo=halo,
             lean=lean,
         )
         batch = self.runtime.batch
         dev = model.device
-        n_state = batch.atomic_numbers.shape[0]
+        # mesh mode: per-atom state in the global block layout, a zero tail
+        # past the padded order (the pinned atom capacity keeps it fixed)
+        self._n_pad = batch.atomic_numbers.shape[0]
+        n_state = self._n_pad
+        if self._mesh is not None:
+            n_state = self._mesh.size * self.runtime.sbatch.atomic_numbers.shape[0]
         masses = np.ones(n_state)
         vel = np.zeros((n_state, 3))
         for idx, struct in enumerate(self.structures):
@@ -489,12 +519,15 @@ class MolecularDynamics:
             ))
         )
         n_graphs = len(self.structures)
+        self._atom_mask_state = _f32(_pad_rows(batch.atom_mask, n_state), dev)
+        frac0 = _f32(_pad_rows(batch.frac_coords, n_state), dev)
+        lat0 = _f32(batch.lattices, dev)
 
         # prime accel/epot/stress with one evaluation
-        epot0, accel0, stress0 = self._evaluate_full(batch.frac_coords, batch.lattices)
+        epot0, accel0, stress0 = self._evaluate_full(frac0, lat0)
         self.state = MDState(
-            frac=batch.frac_coords,
-            lat=batch.lattices,
+            frac=frac0,
+            lat=lat0,
             vel=_f32(vel, dev),
             accel=accel0,
             epot=epot0,
@@ -523,20 +556,40 @@ class MolecularDynamics:
                 )
 
     def _evaluate_full(self, frac, lat):
-        """(epot [B] eV, accel [N, 3], stress [B, 3, 3] GPa) at the given
-        positions."""
+        """(epot [B] eV, accel [N_state, 3], stress [B, 3, 3] GPa) at the
+        given positions, on one device or over the mesh."""
         cfg = self.model.config
-        batch = self.runtime.batch
-        out = compute_batch_dynamic(
-            self.model.params,
-            batch._replace(frac_coords=frac, lattices=lat),
-            config=cfg,
-            compute_magmom=False,
-        )
+        if self._mesh is not None:
+            from chgnet_tpu_torch.parallel.graph_sharded import compute_batch_sharded
+            from chgnet_tpu_torch.parallel.md_sharded import own_block
+
+            sb = self.runtime.sbatch
+            out = compute_batch_sharded(
+                self.model.params,
+                sb._replace(
+                    frac_coords=own_block(frac, self._mesh, sb.atomic_numbers.shape[0]),
+                    lattices=lat,
+                ),
+                self.runtime.hbatch,
+                config=cfg,
+                mesh=self._mesh,
+                compute_force=True,
+                compute_stress=True,
+                dynamic_cutoff=True,
+            )
+            forces = out["f"].reshape(-1, 3)
+        else:
+            out = compute_batch_dynamic(
+                self.model.params,
+                self.runtime.batch._replace(frac_coords=frac, lattices=lat),
+                config=cfg,
+                compute_magmom=False,
+            )
+            forces = out["f"]
         n_atoms = torch.clamp(out["atoms_per_graph"], min=1.0)
         epot = out["e"] * (n_atoms if cfg.is_intensive else 1.0)
         accel = (
-            out["f"] * batch.atom_mask[:, None] / self.masses[:, None]
+            forces * self._atom_mask_state[:, None] / self.masses[:, None]
             * units.EV_PER_AMU_A_TO_A_FS2
         )
         return epot, accel, out["s"]
@@ -577,7 +630,9 @@ class MolecularDynamics:
         """Advance the dynamics by ``steps`` timesteps."""
         record = self.observers is not None or self.crystal_feas_observer is not None
         done = 0
-        drift = self.runtime.drift_fraction(self.state.frac, self.state.lat)
+        drift = self.runtime.drift_fraction(
+            self.state.frac[: self._n_pad], self.state.lat
+        )
         while done < steps:
             n_steps = min(self.chunk_size, steps - done, self._safe_steps(drift))
             if n_steps < min(self.chunk_size, steps - done):
@@ -585,19 +640,23 @@ class MolecularDynamics:
                 # adaptive scan lengths: the chunk boundaries, and so the
                 # rebuild checks, fall where chgnet_tpu's do
                 n_steps = 1 << (n_steps.bit_length() - 1)
-            self.state, ys = md_chunk(
-                self.model.params,
-                self.runtime.batch,
-                self.state,
-                self.md_params,
-                self.masses,
-                self.dof,
-                config=self.model.config,
-                ensemble=self.ensemble,
-                thermostat=self.thermostat,
-                n_steps=n_steps,
-                record=record,
+            chunk = dict(
+                config=self.model.config, ensemble=self.ensemble,
+                thermostat=self.thermostat, n_steps=n_steps, record=record,
             )
+            if self._mesh is not None:
+                from chgnet_tpu_torch.parallel.md_sharded import md_chunk_sharded
+
+                self.state, ys = md_chunk_sharded(
+                    self.model.params, self.runtime.sbatch, self.state,
+                    self.md_params, self.masses, self.dof, self.runtime.hbatch,
+                    mesh=self._mesh, **chunk,
+                )
+            else:
+                self.state, ys = md_chunk(
+                    self.model.params, self.runtime.batch, self.state,
+                    self.md_params, self.masses, self.dof, **chunk,
+                )
             ys = {k: v.cpu().numpy() for k, v in ys.items()}
             self._log_chunk(ys, n_steps)
             done += n_steps
@@ -605,8 +664,10 @@ class MolecularDynamics:
             # async-rebuild policy (GraphRuntime.step_rebuild): a background
             # build launched at the trigger hides the host build; stepping
             # blocks only when the Verlet budget is spent
+            # the drift and rebuild bookkeeping read the padded order (mesh
+            # mode's state carries a zero tail past it)
             drift = self.runtime.step_rebuild(
-                self.state.frac.cpu().numpy(),
+                self.state.frac[: self._n_pad].cpu().numpy(),
                 self.state.lat.cpu().numpy(),
                 trigger=self._rebuild_trigger,
             )
@@ -657,10 +718,11 @@ class MolecularDynamics:
         return structs[0] if self._single else structs
 
     def get_temperature(self) -> float | np.ndarray:
+        n_pad = self._n_pad
         ke = kinetic_energy(
-            self.state.vel,
-            self.masses,
-            self.runtime.batch.atom_owner,
+            self.state.vel[:n_pad],
+            self.masses[:n_pad],
+            torch.as_tensor(self.runtime.batch.atom_owner, device=self.masses.device),
             len(self.structures),
         )
         temp = (2.0 * ke / (self.dof * units.KB)).cpu().numpy()
@@ -706,11 +768,11 @@ class MolecularDynamics:
         if not changed:
             return
         dev = self.model.device
-        owner = self.runtime.batch.atom_owner.cpu().numpy()
+        owner = _pad_rows(_host(self.runtime.batch.atom_owner), self.state.vel.shape[0])
         vel = torch.einsum("ni,nij->nj", self.state.vel, _f32(rotate[owner], dev))
         self.state = self.state._replace(lat=_f32(new_lats, dev), vel=vel)
         # refresh the skin topology's reference frame and derived state
-        self.runtime.rebuild(self.state.frac, self.state.lat)
+        self.runtime.rebuild(self.state.frac[: self._n_pad], self.state.lat)
         epot, accel, stress = self._evaluate_full(self.state.frac, self.state.lat)
         self.state = self.state._replace(accel=accel, epot=epot, stress=stress)
         if verbose:
@@ -726,4 +788,8 @@ class MolecularDynamics:
             np.stack([s.lattice.matrix for s in structures]),
         )
         batch = self.runtime.batch
-        self.state = self.state._replace(frac=batch.frac_coords, lat=batch.lattices)
+        dev = self.model.device
+        self.state = self.state._replace(
+            frac=_f32(_pad_rows(_host(batch.frac_coords), self.state.frac.shape[0]), dev),
+            lat=_f32(_host(batch.lattices), dev),
+        )

@@ -82,19 +82,25 @@ class FireState(NamedTuple):
     converged: torch.Tensor  # [B] bool
 
 
-def _init_state(batch: GraphBatch, fire: FIRE) -> FireState:
-    """The state at the batch's positions, on the batch's device."""
+def _init_state(
+    batch: GraphBatch, fire: FIRE, n_state: int | None = None, device=None
+) -> FireState:
+    """The state at the batch's positions, on ``device`` (the batch's);
+    ``n_state`` extends the per-atom leaves past the padded batch with a
+    zero tail (the mesh's global block layout)."""
     n_graphs = batch.lattices.shape[0]
-    n_pad = batch.frac_coords.shape[0]
-    dev = batch.frac_coords.device
+    dev = batch.frac_coords.device if device is None else device
+    frac = torch.as_tensor(batch.frac_coords, device=dev)
+    if n_state is not None and n_state > frac.shape[0]:
+        frac = torch.cat([frac, frac.new_zeros((n_state - frac.shape[0], 3))])
 
     def full(shape, value, dtype=torch.float32):
         return torch.full(shape, value, dtype=dtype, device=dev)
 
     return FireState(
-        frac=batch.frac_coords,
-        lat=batch.lattices,
-        vel=full((n_pad, 3), 0.0),
+        frac=frac,
+        lat=torch.as_tensor(batch.lattices, device=dev),
+        vel=full((frac.shape[0], 3), 0.0),
         vel_cell=full((n_graphs, 3, 3), 0.0),
         dt=full((n_graphs,), fire.dt0),
         alpha=full((n_graphs,), fire.alpha_start),
@@ -747,8 +753,13 @@ class StructOptimizer:
     forms relax all of them in ONE padded batch; ``final_energy`` is the
     energy of the last evaluated state, one move before ``final_structure``
     (as in ``chgnet_tpu``). SciPyFminCG and SciPyFminBFGS minimise one
-    structure at a time on the host. ``mesh`` / ``halo`` (relaxation over
-    several devices) raise ``NotImplementedError``.
+    structure at a time on the host. ``mesh`` (an int, the size of the
+    initialised process group, or a :class:`~chgnet_tpu_torch.parallel.
+    mesh.Mesh`) relaxes with FIRE or MDMin over the ranks of a
+    ``torch.distributed`` group, every rank calling with the same arguments
+    (``parallel/relax_sharded.py``; ``halo=True``: the boundary exchange);
+    other optimizers raise with a mesh, and ``halo`` without one is
+    ignored, as in ``chgnet_tpu``.
     """
 
     def __init__(
@@ -770,14 +781,18 @@ class StructOptimizer:
             raise NotImplementedError(
                 f"{optimizer_class=}: the relaxer implements {sorted(SUPPORTED)}"
             )
-        if mesh is not None or halo:
+        if mesh is not None and optimizer_class not in {"FIRE", "MDMin"}:
             raise NotImplementedError(
-                "mesh= / halo= (graph-partitioned relaxation over several "
-                "devices) is not ported to chgnet_tpu_torch yet (ROADMAP.md "
-                "Queue 1 item 9)"
+                f"mesh relaxation supports FIRE/MDMin, not {optimizer_class}"
             )
         self.optimizer_class = optimizer_class
         self.model = resolve_model(model, use_device)
+        self._mesh = None
+        if mesh is not None:
+            from chgnet_tpu_torch.parallel.mesh import resolve_mesh
+
+            self._mesh = resolve_mesh(mesh, "graph", self.model.device)
+        self._halo = bool(halo)
         self.fire = fire_params or FIRE()
         self.lbfgs = lbfgs_params or LBFGS()
         self.bfgs = bfgs_params or BFGS()
@@ -838,7 +853,10 @@ class StructOptimizer:
             skin=skin,
             on_isolated_atoms=self.on_isolated_atoms,
             device=self.model.device,
+            shard_mesh=self._mesh,
+            halo=self._halo,
         )
+        n_pad = runtime.batch.atomic_numbers.shape[0]
         cell_factor = torch.as_tensor(
             [max(len(s), 1) for s in structures], dtype=torch.float32,
             device=self.model.device,
@@ -870,6 +888,21 @@ class StructOptimizer:
                     self.model.params, batch, state, lbfgs=self.lbfgs,
                     n_steps=n_steps,
                     line_search=self.optimizer_class == "LBFGSLineSearch", **chunk,
+                )
+        elif self._mesh is not None:
+            from chgnet_tpu_torch.parallel.relax_sharded import fire_chunk_sharded
+
+            mesh = self._mesh
+            state = _init_state(
+                runtime.batch, self.fire,
+                mesh.size * runtime.sbatch.atomic_numbers.shape[0], self.model.device,
+            )
+
+            def run(batch, state, n_steps):
+                return fire_chunk_sharded(
+                    self.model.params, runtime.sbatch, state, runtime.hbatch,
+                    mesh=mesh, fire=self.fire, n_steps=n_steps,
+                    method=self.optimizer_class, **chunk,
                 )
         else:
             state = _init_state(runtime.batch, self.fire)
@@ -906,8 +939,11 @@ class StructOptimizer:
             if bool(state.converged.all()):
                 break
             # async rebuild: launched in the background at 40% skin drift;
-            # stepping blocks only when the Verlet budget is spent
-            runtime.step_rebuild(state.frac.cpu().numpy(), state.lat.cpu().numpy())
+            # stepping blocks only when the Verlet budget is spent (mesh
+            # mode's state carries a zero tail past the padded order)
+            runtime.step_rebuild(
+                state.frac[:n_pad].cpu().numpy(), state.lat.cpu().numpy()
+            )
 
         final_structures = runtime.structures(state.frac, state.lat)
         if assign_magmoms:

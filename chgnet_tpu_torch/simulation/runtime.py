@@ -24,6 +24,16 @@ device, not what it computes: ``tile`` builds every batch in the
 halo-tiled neighbour layout (``batch_graphs(tile=...)``), and ``lean``
 packs each batch into one buffer in the batch stage and derives the rest
 of it on the device in the ship stage (``graph/leanship.py``).
+
+``shard_mesh`` (a :class:`~chgnet_tpu_torch.parallel.mesh.Mesh`) keeps the
+batch for a graph-partitioned loop: every rank builds the whole graph and
+re-lays it out over the mesh in the ship stage
+(``parallel.graph_sharded.shard_batch``, with ``halo`` also the boundary
+exchange's lists), keeping only its own shard on its device; the host
+batch stays on the host. Ranks must swap in the same build at the same
+tick, so in that mode a finished background build is taken only once it
+has finished on every rank, and a new topology is checked to have the
+same shapes on every rank.
 """
 
 from __future__ import annotations
@@ -156,10 +166,11 @@ class GraphRuntime:
     is not spatially local: sort with ``Structure.spatial_sort``).
     ``lean=True`` ships each rebuild as one packed buffer
     (``graph/leanship.py``); it is off by default, as ``chgnet_tpu`` leaves
-    it off a TPU. ``shard_mesh`` and ``halo``
-    (``chgnet_tpu``'s multi-device layouts) are not ported yet and raise
-    ``NotImplementedError`` (ROADMAP.md Queue 1 item 9), and so does a
-    ``dense_atom_conv`` config, as in ``chgnet_tpu``.
+    it off a TPU. ``shard_mesh`` keeps this rank's shard of every build in
+    ``sbatch`` (and with ``halo`` its boundary exchange in ``hbatch``;
+    ``halo`` without ``shard_mesh`` is ignored, and so is ``lean``, as in
+    ``chgnet_tpu``); ``batch`` is then the host batch. A ``dense_atom_conv``
+    config raises, as in ``chgnet_tpu``.
     """
 
     def __init__(
@@ -175,13 +186,6 @@ class GraphRuntime:
         lean: bool = False,
         tile: bool | int = False,
     ) -> None:
-        unported = {"shard_mesh": shard_mesh is not None, "halo": bool(halo)}
-        bad = sorted(k for k, v in unported.items() if v)
-        if bad:
-            raise NotImplementedError(
-                f"GraphRuntime options {bad} are not ported to chgnet_tpu_torch "
-                "yet (ROADMAP.md Queue 1 item 9)"
-            )
         if config.dense_atom_conv:
             raise NotImplementedError(
                 "dense_atom_conv is a batching mode for inference/training "
@@ -209,7 +213,17 @@ class GraphRuntime:
         self.tile = int(env_tile) if env_tile else (tile or False)
         self._tile_probe = bool(self.tile)  # judged on the first build
         self._cap_nx = 0  # the expanded table's capacity, monotone
-        self.lean = bool(lean)
+        # multi-device mode: every build is also re-laid out over the mesh
+        # in the ship stage; per-rank capacities grow monotonically in
+        # build order (the ship stage's own running maxima, so that every
+        # rank floors a build by the same builds before it)
+        self.shard_mesh = shard_mesh
+        self.shard_halo = bool(halo) and shard_mesh is not None
+        self.sbatch = None
+        self.hbatch = None
+        self._shard_caps: tuple[int, int, int] | None = None
+        self._halo_caps: tuple[int, int] | None = None
+        self.lean = bool(lean) and shard_mesh is None
         self.n_rebuilds = -1  # the first build is not a rebuild
         # phase timings (seconds, cumulative): graphs_s = host graph
         # builds, batch_s = padding + plans, put_s = host -> device copy,
@@ -295,7 +309,9 @@ class GraphRuntime:
         batch is whole when the future completes and ``put_s`` times the
         whole copy. One executor, so batches land in launch order."""
         t2 = time.perf_counter()
-        if "lean" in built:
+        if self.shard_mesh is not None:
+            self._ship_shard(built)
+        elif "lean" in built:
             built["batch"] = ship_lean(built.pop("lean"), self.device)
             if self.device.type == "cuda":
                 done = torch.cuda.Event()
@@ -305,6 +321,40 @@ class GraphRuntime:
             built["batch"] = built["batch"].to(self.device)
         self.stats["put_s"] += time.perf_counter() - t2
         return built
+
+    def _ship_shard(self, built: dict) -> None:
+        """The ship stage of the multi-device mode: the host batch sharded
+        over the mesh, only this rank's plans built, and this rank's shard
+        copied to its device; the host batch stays on the host."""
+        from chgnet_tpu_torch.parallel.graph_sharded import (
+            local_shard,
+            shard_batch,
+            shard_batch_halo,
+        )
+
+        mesh = self.shard_mesh
+        batch = built["batch"]
+        hbatch = None
+        if self.shard_halo:
+            sbatch, hbatch = shard_batch_halo(
+                batch, mesh.size, min_caps=self._shard_caps,
+                min_halo=self._halo_caps, ranks=(mesh.rank,),
+            )
+            self._halo_caps = (hbatch.atom_send.shape[2], hbatch.bond_send.shape[2])
+        else:
+            sbatch = shard_batch(
+                batch, mesh.size, min_caps=self._shard_caps, ranks=(mesh.rank,)
+            )
+        self._shard_caps = (
+            sbatch.edge_center.shape[1], sbatch.und_center.shape[1],
+            sbatch.ang_center.shape[1],
+        )
+        built["sbatch"], built["hbatch"] = local_shard(sbatch, hbatch, mesh)
+        built["shapes"] = self._shard_caps + (self._halo_caps or (0, 0))
+        if mesh.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()
 
     def _build_worker(self, frac_list: list[np.ndarray], lattices: np.ndarray) -> dict:
         """All rebuild stages back to back (the synchronous path)."""
@@ -321,7 +371,31 @@ class GraphRuntime:
         self._atom_owner_np = built["atom_owner"]
         self.n_rebuilds += 1
         self.batch = built["batch"]
+        if "sbatch" in built:
+            self._check_shapes(built["shapes"])
+            self.sbatch, self.hbatch = built["sbatch"], built["hbatch"]
         return self.batch
+
+    def _check_shapes(self, shapes: tuple) -> None:
+        """Raise unless every rank built a topology of these shapes (a
+        mismatch would hang or corrupt the exchanges)."""
+        from chgnet_tpu_torch.parallel.collectives import gather_blocks
+
+        mine = torch.tensor([shapes], dtype=torch.int64, device=self.shard_mesh.device)
+        every = gather_blocks(mine, self.shard_mesh)
+        if bool((every != mine).any()):
+            raise RuntimeError(
+                f"ranks built topologies of different shapes: {every.tolist()}"
+            )
+
+    def _all_ranks(self, flag: bool) -> bool:
+        """Whether ``flag`` holds on every rank (itself where no mesh)."""
+        if self.shard_mesh is None:
+            return flag
+        from chgnet_tpu_torch.parallel.collectives import gather_blocks
+
+        mine = torch.tensor([float(flag)], device=self.shard_mesh.device)
+        return bool(gather_blocks(mine, self.shard_mesh).min() > 0)
 
     def _build(self, frac_list: list[np.ndarray], lattices: np.ndarray) -> GraphBatch:
         return self._apply_build(self._build_worker(frac_list, lattices))
@@ -386,7 +460,7 @@ class GraphRuntime:
         """Swap in finished background rebuilds (in launch order); False if
         none was ready."""
         applied = False
-        while self._pipeline and self._pipeline[0].done():
+        while self._all_ranks(bool(self._pipeline) and self._pipeline[0].done()):
             self._apply_build(self._pipeline.pop(0).result())
             applied = True
         if not self._pipeline:
@@ -408,7 +482,10 @@ class GraphRuntime:
     def _drain_pipeline(self) -> None:
         while self._pipeline:
             fut = self._pipeline.pop(0)
-            fut.cancel()
+            # on a mesh every launched build runs to its end, so that every
+            # rank's capacity floors see the same builds
+            if self.shard_mesh is None:
+                fut.cancel()
             if not fut.cancelled():
                 fut.result()
         self._launch_ref = None

@@ -22,7 +22,18 @@ stress keep their graph to the parameters), ``loss.backward()`` and
 ``optimizer.step()``; the step's metrics come to the host in one read.
 Dropout draws from a CPU generator seeded with the global step (the
 counterpart of ``jax.random.fold_in(key(0), step)``), so a resumed run
-draws as an unbroken one. A checkpoint's ``"model"`` half has
+draws as an unbroken one.
+
+``mesh`` trains data-parallel over the ranks of a ``torch.distributed``
+group (``parallel/dp.py``), every rank running the same ``train`` call on
+the same loaders: rank r takes batch r of each group of ``mesh`` loader
+batches (a trailing incomplete group is dropped, so an epoch is ``len(loader)
+// mesh`` steps), the gradients are averaged over ranks after each
+backward, and every rank takes the same step; validation runs whole on
+every rank, and rank 0 alone writes checkpoints. The loaders must yield the
+same batches in the same order on every rank (seed their shuffle).
+
+A checkpoint's ``"model"`` half has
 ``chgnet_tpu``'s layout (``{"params": numpy tree, "model_args": config}``)
 and loads in either package's ``CHGNet.from_dict``; its optimizer state is
 the ``torch.optim`` ``state_dict`` with numpy arrays.
@@ -41,6 +52,7 @@ from typing import Literal
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from chgnet_tpu_torch import TrainTask
 from chgnet_tpu_torch.trainer.losses import CombinedLoss, loss_and_metrics
@@ -210,7 +222,9 @@ class Trainer:
 
     ``use_device`` defaults to the card (``determine_device``): without one
     it raises unless ``"cpu"`` is asked for. The model is moved to that
-    device. ``mesh`` (data parallelism) is not ported yet and raises.
+    device. ``mesh`` (an int, the size of the initialised process group, or
+    a :class:`~chgnet_tpu_torch.parallel.mesh.Mesh`) trains data-parallel
+    (see the module's docstring); without a process group it raises.
     """
 
     def __init__(
@@ -240,11 +254,6 @@ class Trainer:
         mesh=None,
         **kwargs,
     ) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=...): data-parallel training is not ported to "
-                "chgnet_tpu_torch yet (ROADMAP.md Queue 1 item 9)"
-            )
         self.trainer_args = {
             k: v
             for k, v in locals().items()
@@ -255,6 +264,12 @@ class Trainer:
             device = torch.device(requested_device(use_device))
             config.check_supported(device.type)
         self.device = torch.device(determine_device(use_device))
+        self.mesh = None
+        if mesh is not None:
+            from chgnet_tpu_torch.parallel.mesh import resolve_mesh
+
+            self.mesh = resolve_mesh(mesh, "data", self.device)
+        self._dp = None  # (optimizer, its data-parallel step)
         self.model = model
         if model is not None and model.device != self.device:
             model.to(self.device)
@@ -372,6 +387,12 @@ class Trainer:
         device; returns the step's metrics as one device tensor
         (:meth:`_read_metrics` reads it)."""
         cfg = self.model.config
+        if self.mesh is not None:
+            metrics = self._dp_step()(
+                self.model.params, batch, targets, self._global_step
+            )
+            self._global_step += 1
+            return self._metric_vector(metrics)
         dropout = float(cfg.conv_dropout) > 0 or float(cfg.mlp_dropout) > 0
         gen = torch.Generator().manual_seed(self._global_step) if dropout else None
         loss, metrics = loss_and_metrics(
@@ -388,6 +409,39 @@ class Trainer:
         self.optimizer.step()
         self._global_step += 1
         return self._metric_vector(metrics)
+
+    def _dp_step(self):
+        """The data-parallel step over ``self.mesh`` for the current
+        optimizer (``parallel.dp.make_dp_train_step``)."""
+        from chgnet_tpu_torch.parallel.dp import make_dp_train_step
+
+        if self._dp is None or self._dp[0] is not self.optimizer:
+            self._dp = (self.optimizer, make_dp_train_step(
+                config=self.model.config, loss_fn=self.criterion,
+                optimizer=self.optimizer, mesh=self.mesh,
+            ))
+        return self._dp[1]
+
+    def _iter_train_batches(self, train_loader):
+        """(batch, targets, graphs of the step) for each train step: under a
+        mesh, batch r of each group of D loader batches on rank r (a
+        trailing incomplete group dropped) and the group's graphs."""
+        if self.mesh is None:
+            for batch, targets in train_loader:
+                yield batch, targets, int(np.sum(targets["graph_mask"]))
+            return
+        group: list = []
+        for item in train_loader:
+            group.append(item)
+            if len(group) == self.mesh.size:
+                batch, targets = group[self.mesh.rank]
+                yield batch, targets, int(sum(np.sum(t["graph_mask"]) for _, t in group))
+                group = []
+
+    @property
+    def _writes(self) -> bool:
+        """Whether this process writes checkpoints (rank 0 of a mesh)."""
+        return self.mesh is None or self.mesh.rank == 0
 
     def eval_step(self, batch, targets) -> torch.Tensor:
         """Metrics of a batch on the device without an update."""
@@ -445,7 +499,10 @@ class Trainer:
                 # a snapshot: the live model keeps training
                 self.best_model_params = _to_numpy(self.model.params)
             if save_dir:
-                self.save_checkpoint(epoch, val_mae, save_dir=save_dir)
+                if self._writes:
+                    self.save_checkpoint(epoch, val_mae, save_dir=save_dir)
+                if self.mesh is not None:
+                    dist.barrier(group=self.mesh.group)
             if (
                 wandb is not None
                 and wandb_log_freq == "epoch"
@@ -474,7 +531,7 @@ class Trainer:
             )
             for key in self.targets:
                 self.training_history[key]["test"] = test_mae[key]
-            if best_file is not None:
+            if best_file is not None and self._writes:
                 self.save(filename=best_file)
             if wandb is not None and self.trainer_args.get("wandb_path"):
                 wandb.log({f"test_{k}_mae": v for k, v in test_mae.items()})
@@ -498,13 +555,14 @@ class Trainer:
         batch_time, data_time = AverageMeter(), AverageMeter()
         losses = AverageMeter()
         mae_errors = {t: AverageMeter() for t in self.targets}
-        n_batches = len(train_loader)
+        n_batches = len(train_loader) // (self.mesh.size if self.mesh else 1)
         lr_marks = set(np.arange(1, 11) * n_batches // 10)
 
         start = time.perf_counter()
-        for idx, (batch, targets) in enumerate(train_loader):
+        for idx, (batch, targets, n_graphs) in enumerate(
+            self._iter_train_batches(train_loader)
+        ):
             data_time.update(time.perf_counter() - start)
-            n_graphs = int(np.sum(targets["graph_mask"]))
             metrics = self._read_metrics(
                 self.train_step(*self._on_device(batch, targets))
             )

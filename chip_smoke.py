@@ -179,8 +179,28 @@ f32 and bf16) and ``tile=512`` (the halo-tiled neighbour layout):
    and in f32 under ``CHGNET_TPU_FUSED_PASS=1``, each call held (the
    parameter-gradient forms 7p, 9p, 14p among them). The ``kernels`` line
    gains each kernel's ``<name> w128`` rows (f32, bf16; ``width`` 128),
-   timed on its ``WIDE_ROW_PATH``.
+   timed on its ``WIDE_ROW_PATH``;
+9. mesh (``phase_mesh``, ``chgnet_tpu_torch.parallel``): ``MESH_WORLD`` = 2
+   ranks spawned on the one card, gloo between them (NCCL takes one rank
+   a card), each with ``CHGNet(seed=0)`` in f32 on (b)'s 10,240-atom
+   supercell as one graph split in two (every rank builds the whole graph
+   and shards it): ``compute_batch_sharded`` with all-gathers and with the
+   halo exchange, E+F+S+M against the single-device pass at
+   ``MODEL_TOL``, each pass's launches between a reset and a read equal to
+   ``MESH_LAUNCH_SETS`` on both ranks (rank 0's are the rows'
+   ``mesh_launches`` / ``mesh_halo_launches``), rank 0's recorded calls of
+   a shape not held before held against their plain versions, wall ms a
+   pass and the bytes an exchange puts on the wire; NVT
+   ``MolecularDynamics(mesh=2)`` for ``MESH_MD_STEPS`` steps with each
+   exchange against the single-device run; ``StructOptimizer(mesh=2)``
+   FIRE on (c)'s batch against one device; one ``make_dp_train_step`` on
+   phase 7's first two batches (8 x 216 atoms a rank), its averaged
+   gradient against the mean of the two single-device gradients; and
+   ``Trainer(mesh=2)`` for one epoch. Then one sharded pass on an NCCL
+   group of world size 1. Times are wall times of two ranks sharing one
+   card: no scaling and no NCCL bandwidth across cards is measured.
 
+``python3 chip_smoke.py --mesh`` runs the build and phase 9 alone.
 ``python3 chip_smoke.py --compare ROOT [ROOT ...]`` times checkouts against
 each other in turns on one card, each ROOT in its own process and by its
 own ``chip_smoke.py`` (so a parent is timed by its own code): the kernel
@@ -1034,7 +1054,25 @@ def _signature(name, args) -> tuple:
             tuple(a for a in args if isinstance(a, bool)))
 
 
-def phase_kernels(path, calls, counts=None, held=None, skip=False):
+# the segment sums, held by abs_scale against the sum of |x| per segment
+SEGMENT_SUMS = ("segment_sum_csr", "segment_sum_pair", "segment_sum_tiles")
+
+
+F32_UNIT = 2.0**-24  # f32's unit roundoff
+
+
+def _sum_bound(plain, args) -> float:
+    """The recursive-summation bound of a segment-sum call: (L - 1) u times
+    the largest per-segment sum of ``|x|`` (its plain version on ``|x|``),
+    L the longest segment, u f32's unit roundoff. Any f32 order of the
+    adds stays within it."""
+    offsets = args[1::2]  # (x, offsets, perm) or (x, offsets_a, perm_a, offsets_b, perm_b)
+    longest = max(int((o[1:] - o[:-1]).max()) for o in offsets if o.shape[0] > 1)
+    abs_sum = max(float(t.abs().max()) for t in _tensors([plain(args[0].abs(), *args[1:])]))
+    return max(longest - 1, 0) * F32_UNIT * abs_sum
+
+
+def phase_kernels(path, calls, counts=None, held=None, skip=False, abs_scale=False):
     """Every call recorded on one pass of ``path`` through the kernel and
     its plain version, each output's error relative to that output's
     largest value, at ``KERNELS``' tolerance for f32 calls and
@@ -1045,8 +1083,14 @@ def phase_kernels(path, calls, counts=None, held=None, skip=False):
     ``NEW_BF16_PATHS``, the bf16 train steps, the layout MD runs' steps) it
     holds only the bf16 calls
     that ``new_bf16_call`` names and the calls of a signature not held
-    before. Returns the largest absolute error by kernel, under ``"<name>
-    bf16"`` for the bf16 calls."""
+    before. With ``abs_scale`` (phase 9) an f32 segment sum passes within
+    the larger of its tolerance and the recursive-summation bound of its
+    call (``_sum_bound``): the mesh path sums one graph's crystal features
+    over a rank's 5,120 atoms of an unperturbed crystal, the same few values
+    thousands of times, where the kernel's sequential f32 adds and the
+    float64 plain version part by more than 1e-5 of the output and by far
+    less than that bound. Returns the largest absolute error by kernel,
+    under ``"<name> bf16"`` for the bf16 calls."""
     errors, failed = {}, []
     skip_held = held is not None and skip
     expected = dict(zip(KERNELS, counts or PATHS[path][2]))
@@ -1060,7 +1104,7 @@ def phase_kernels(path, calls, counts=None, held=None, skip=False):
             by_type.setdefault(call_dtype(args), []).append(args)
         for dtype, group in sorted(by_type.items(), key=str):
             bf16 = dtype == torch.bfloat16
-            worst, worst_scaled, over, tols = 0.0, 0.0, False, set()
+            worst, worst_scaled, over, tols, bounds = 0.0, 0.0, False, set(), [0.0]
             n_held = 0
             for args in group:
                 sig = _signature(name, args)
@@ -1077,11 +1121,14 @@ def phase_kernels(path, calls, counts=None, held=None, skip=False):
                     raise AssertionError(f"{name}: kernel and plain outputs differ")
                 tol = bf16_tol(name, args) if bf16 else KERNELS[name]["tol"]
                 tols.add(tol)
+                bound = (_sum_bound(plain, args)
+                         if abs_scale and not bf16 and name in SEGMENT_SUMS else 0.0)
+                bounds.append(bound)
                 for g, w in zip(got, want):
                     err, scaled = _errors(g.float(), w.float())
                     worst = max(worst, err)
                     worst_scaled = max(worst_scaled, scaled)
-                    over |= not scaled <= tol
+                    over |= not (scaled <= tol or err <= bound)
             torch.cuda.synchronize()
             shapes = sorted({
                 tuple(a.shape) for args in group for a in _tensors(args)
@@ -1094,7 +1141,10 @@ def phase_kernels(path, calls, counts=None, held=None, skip=False):
                 continue
             log(f"kernel {label} ({path} path): "
                 f"{len(group)} calls ({n_held} held), max_abs_err {worst:.3e}, "
-                f"relative {worst_scaled:.3e} (tol {tol_text}); shapes {shapes}")
+                f"relative {worst_scaled:.3e} (tol {tol_text}"
+                + (f", or a call's summation bound, at most {max(bounds):.3e}"
+                   if max(bounds) else "")
+                + f"); shapes {shapes}")
             if over:
                 failed.append(label)
             errors[label] = worst
@@ -2750,6 +2800,440 @@ def phase_wide_train(batch, targets, rows) -> None:
     log(f"width 128 train steps: {time.perf_counter() - t_start:.0f} s")
 
 
+# phase 9: the mesh paths (chgnet_tpu_torch.parallel). Two ranks spawned
+# on the one card, gloo between them (NCCL refuses two ranks on one GPU), at
+# the published width in f32 on the simulation phase's 10,240-atom
+# supercell as one graph split in two; then one sharded pass on an NCCL
+# group of world size 1. Two ranks sharing one card measure no scaling and
+# no NCCL bandwidth across cards.
+MESH_WORLD = 2
+# one sharded E+F+S+M pass's launches on a rank, in the order of KERNELS:
+# the undirected bond tables of the sharded core take AtomConv's first
+# layer (atom and bond tables of different lengths) through the
+# multi-gather, the angle side's too (its atom and bond tables differ in
+# length), so no gather_project_sum; the halo exchange adds each table's
+# send gather and its backward sum (tests/test_torch_port_launch_sets.py)
+MESH_LAUNCH_SETS = {
+    "all-gather": (29, 17, 8, 0, 7, 7, 2, 2, 9, 0, 0, 0, 0, 0),
+    "halo": (39, 28, 8, 0, 7, 7, 2, 2, 9, 0, 0, 0, 0, 0),
+}
+MESH_MD_STEPS = 20
+MESH_MD_SKIN = 0.3
+MESH_RELAX_STEPS = 20
+MESH_TIMED_PASSES = 3
+# mesh MD against one device after MESH_MD_STEPS steps: positions
+# (fractional) and velocities (A/fs) as tests/test_md_sharded.py holds them
+# at 1e-6, here over 30,720 coordinates; energies per atom at MODEL_TOL
+MESH_MD_ATOL = 1e-5
+MESH_T_ATOL = 0.1  # K
+# the DP step's averaged gradient against the mean of the two single-device
+# gradients, each leaf relative to its largest value: the same kernels on
+# the same batches, summed over ranks in another order
+MESH_GRAD_RTOL = 1e-4
+MESH_TRAIN_RATIOS = (0.875, 0.0625)  # 28 train structures: 4 batches, 2 steps
+MESH_TIMEOUT_S = 600  # a gloo collective waits this long for its peer
+MESH_JOIN_S = 900
+
+
+def _mesh_rank(rank, world, init, out_dir):
+    """One rank of phase 9 (spawned): rank 0 logs, records and holds, and
+    saves what the parent adds to the kernels line."""
+    import torch.distributed as dist
+
+    from chgnet_tpu_torch.parallel import initialize
+
+    torch.cuda.set_device(0)
+    initialize(init, world, rank, backend="gloo", timeout=MESH_TIMEOUT_S)
+    try:
+        result = _mesh_work(rank, world, "cuda:0")
+        torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _wire_bytes(sb, halo, width: int, itemsize: int = 4) -> dict:
+    """Bytes one exchange of a ``width``-wide atom (bond) table puts on the
+    wire, summed over ranks (each rank sends D - 1 peers their slots), for
+    the halo layout and for the all-gather (each rank receives D - 1
+    blocks)."""
+    d, n_loc = sb.atomic_numbers.shape
+    row = width * itemsize
+    return {
+        "halo_atoms": d * (d - 1) * halo.atom_send.shape[2] * row,
+        "halo_bonds": d * (d - 1) * halo.bond_send.shape[2] * row,
+        "all_gather_atoms": d * (d - 1) * n_loc * row,
+        "all_gather_bonds": d * (d - 1) * sb.und_mask.shape[1] * row,
+    }
+
+
+def _gap(got, want) -> float:
+    return float(np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64)).max())
+
+
+def _mesh_outputs(out, n) -> dict:
+    from chgnet_tpu_torch.parallel import unshard_atoms
+
+    return {k: unshard_atoms(v)[:n] if k in "fm" else v.cpu().numpy()
+            for k, v in out.items() if k in MODEL_TOL}
+
+
+def _mesh_work(rank, world, device) -> dict:
+    """Phase 9's work on one rank of ``world``, on ``device`` (the card; the
+    CPU runs it at a small size with the plain versions, whose calls launch
+    nothing)."""
+    import torch.distributed as dist
+
+    from chgnet_tpu_torch import ROOT, ops
+    from chgnet_tpu_torch.core.structure import Structure
+    from chgnet_tpu_torch.graph.batching import batch_graphs
+    from chgnet_tpu_torch.models import CHGNet
+    from chgnet_tpu_torch.models.chgnet import compute_batch
+    from chgnet_tpu_torch.parallel import (
+        compute_batch_sharded, local_shard, make_mesh, shard_batch, shard_batch_halo,
+    )
+    from chgnet_tpu_torch.simulation import MolecularDynamics, StructOptimizer
+
+    lead = rank == 0
+    card = card_line() if lead else ""
+    say = log if lead else (lambda *args: None)
+    mesh = make_mesh(world, "graph", device=device)
+    say(f"mesh: {world} ranks on {device} under gloo (two ranks sharing one card: "
+        f"not a scaling result); card: {card}")
+    model = CHGNet(seed=0, device=device)
+    struct = Structure.from_file(
+        f"{ROOT}/examples/mp-18767-LiMnO2.cif").make_supercell(SIM_MD_SCALE).spatial_sort()
+    n = len(struct)
+    t0 = time.perf_counter()
+    batch = batch_graphs([model.graph_converter(struct)])
+    graph_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shards = {
+        "all-gather": (shard_batch(batch, world, ranks=(rank,)), None),
+        "halo": shard_batch_halo(batch, world, ranks=(rank,)),
+    }
+    shard_s = time.perf_counter() - t0
+    sb_h, hb_h = shards["halo"]
+    say(f"mesh batch: {n} atoms, {int(batch.edge_mask.sum())} directed edges, "
+        f"{int(batch.angle_mask.sum())} angles; per rank n_loc "
+        f"{sb_h.atomic_numbers.shape[1]}, E_loc {sb_h.edge_center.shape[1]}, U_loc "
+        f"{sb_h.und_center.shape[1]}, A_loc {sb_h.ang_center.shape[1]}, halo slots "
+        f"{hb_h.atom_send.shape[2]} atoms / {hb_h.bond_send.shape[2]} bonds a peer; "
+        f"host: graph + batch {graph_s:.2f} s, both shardings {shard_s:.2f} s "
+        "(on every rank)")
+    wire = _wire_bytes(sb_h, hb_h, width=model.config.atom_fea_dim)
+    say("mesh bytes one exchange of a 64-wide f32 table puts on the wire "
+        "(summed over ranks):", wire)
+    local = {name: local_shard(sb, hb, mesh) for name, (sb, hb) in shards.items()}
+    kw = dict(config=model.config, mesh=mesh, compute_force=True,
+              compute_stress=True, compute_magmom=True)
+    ref = None
+    if lead:
+        out = compute_batch(model.params, batch.to(device), config=model.config,
+                            compute_force=True, compute_stress=True, compute_magmom=True)
+        ref = {k: (v[:n] if k in "fm" else v).cpu().numpy()
+               for k, v in out.items() if k in MODEL_TOL}
+        del out
+    result = {"launches": {}, "errors": {}}
+    held: set = set()
+    for name, (sb_l, hb_l) in local.items():
+        dist.barrier()
+        _sync(device)
+        ops.reset_launch_counts()
+        out = compute_batch_sharded(model.params, sb_l, hb_l, **kw)
+        _sync(device)
+        launches, _ = read_launches()
+        want = dict(zip((fn.__name__ for fn in ops.KERNELS), MESH_LAUNCH_SETS[name]))
+        if launches != want:
+            raise AssertionError(f"mesh {name} rank {rank}: launches {launches}, "
+                                 f"expected {want}")
+        got = _mesh_outputs(out, n)
+        del out
+        if lead:
+            gaps = {k: _gap(got[k], ref[k]) for k in MODEL_TOL}
+            bad = [k for k in MODEL_TOL if not gaps[k] <= MODEL_TOL[k]]
+            if bad or not all(np.isfinite(v).all() for v in got.values()):
+                raise AssertionError(f"mesh {name}: against one device {gaps}")
+            say(f"mesh {name} E+F+S+M against the single-device pass: {gaps} "
+                f"(bars {MODEL_TOL}); launches {launches}")
+            result["launches"][name] = launches
+        dist.barrier()
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(MESH_TIMED_PASSES):
+            compute_batch_sharded(model.params, sb_l, hb_l, **kw)
+        _sync(device)
+        ms = (time.perf_counter() - t0) / MESH_TIMED_PASSES * 1e3
+        say(f"mesh {name} forward: {ms:.1f} ms a pass, wall, rank 0 of 2 ranks "
+            f"sharing one card (not a scaling result; {card})")
+        if lead:
+            with Recorder() as rec:
+                compute_batch_sharded(model.params, sb_l, hb_l, **kw)
+            _sync(device)
+            with torch.no_grad():
+                errors = phase_kernels(f"mesh {name}", rec.calls,
+                                       MESH_LAUNCH_SETS[name], held, skip=True,
+                                       abs_scale=True)
+            del rec
+            for key, err in errors.items():
+                result["errors"][key] = max(err, result["errors"].get(key, 0.0))
+        else:
+            compute_batch_sharded(model.params, sb_l, hb_l, **kw)
+        dist.barrier()
+    del local, shards
+    torch.cuda.empty_cache()
+
+    md_kw = dict(ensemble="nvt", thermostat="Berendsen", temperature=300.0,
+                 starting_temperature=300.0, timestep=1.0, seed=0, skin=MESH_MD_SKIN)
+    single = None
+    if lead:
+        md = MolecularDynamics(struct, model=model, **md_kw)
+        t0 = time.perf_counter()
+        md.run(MESH_MD_STEPS)
+        _sync(device)
+        single = (md.state.frac.cpu().numpy(), md.state.vel.cpu().numpy(),
+                  md.state.epot.cpu().numpy(), md.get_temperature())
+        say(f"mesh MD reference, one device: {MESH_MD_STEPS / (time.perf_counter() - t0):.3f}"
+            f" steps/s, {md.runtime.n_rebuilds} rebuilds ({card})")
+        del md
+    for halo in (False, True):
+        tag = "halo" if halo else "all-gather"
+        dist.barrier()
+        md = MolecularDynamics(struct, model=model, mesh=mesh, halo=halo, **md_kw)
+        t0 = time.perf_counter()
+        md.run(MESH_MD_STEPS)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        n_pad = md.runtime.batch.atomic_numbers.shape[0]
+        frac = md.state.frac[:n_pad].cpu().numpy()
+        if lead:
+            gaps = (_gap(frac, single[0]), _gap(md.state.vel[:n_pad].cpu().numpy(), single[1]),
+                    _gap(md.state.epot.cpu().numpy(), single[2]),
+                    abs(md.get_temperature() - single[3]))
+            if not (gaps[0] <= MESH_MD_ATOL and gaps[1] <= MESH_MD_ATOL
+                    and gaps[2] <= MODEL_TOL["e"] * n and gaps[3] <= MESH_T_ATOL):
+                raise AssertionError(f"mesh MD {tag} against one device: {gaps}")
+            rt = md.runtime
+            say(f"mesh MD {tag}: {MESH_MD_STEPS} NVT steps at {MESH_MD_STEPS / wall:.3f} "
+                f"steps/s (wall, 2 ranks sharing one card), {rt.n_rebuilds} rebuilds, "
+                f"stall {rt.stats['stall_s']:.2f} s; against one device: frac "
+                f"{gaps[0]:.2e}, vel {gaps[1]:.2e} A/fs, epot {gaps[2]:.2e} eV, T "
+                f"{gaps[3]:.2e} K ({card})")
+        del md
+    torch.cuda.empty_cache()
+
+    structs = relax_structs()
+    relax_kw = dict(fmax=SIM_RELAX_FMAX, steps=MESH_RELAX_STEPS, relax_cell=True,
+                    assign_magmoms=False, loginterval=None)
+    if lead:
+        single = StructOptimizer(model).relax(structs, **relax_kw)
+    dist.barrier()
+    t0 = time.perf_counter()
+    sharded = StructOptimizer(model, mesh=mesh).relax(structs, **relax_kw)
+    wall = time.perf_counter() - t0
+    if lead:
+        e_gap = max(abs(a["final_energy"] - b["final_energy"])
+                    for a, b in zip(sharded, single))
+        x_gap = max(_gap(a["final_structure"].frac_coords, b["final_structure"].frac_coords)
+                    for a, b in zip(sharded, single))
+        n_atoms = len(structs[0])
+        if not (e_gap <= MODEL_TOL["e"] * n_atoms and x_gap <= MESH_MD_ATOL):
+            raise AssertionError(f"mesh FIRE against one device: energy {e_gap}, frac {x_gap}")
+        say(f"mesh FIRE: {len(structs)} x {n_atoms} atoms, {MESH_RELAX_STEPS} steps at "
+            f"{MESH_RELAX_STEPS / wall:.3f} steps/s (wall, 2 ranks sharing one card, "
+            f"{card}); against one device: energy {e_gap:.2e} eV, frac {x_gap:.2e}")
+    del sharded, single
+    torch.cuda.empty_cache()
+    _mesh_train(mesh, lead, say, device, card)
+    return result
+
+
+def _mesh_train(mesh, lead, say, device, card) -> None:
+    """The DP step's averaged gradient against the mean of the two
+    single-device gradients, then ``Trainer(mesh=2)`` for one epoch."""
+    from chgnet_tpu_torch.data import get_train_val_test_loader
+    from chgnet_tpu_torch.models import CHGNet
+    from chgnet_tpu_torch.parallel import collectives as coll
+    from chgnet_tpu_torch.parallel.dp import make_dp_train_step
+    from chgnet_tpu_torch.trainer import CombinedLoss, Trainer
+    from chgnet_tpu_torch.trainer.losses import loss_and_metrics
+    from chgnet_tpu_torch.trainer.trainer import _leaves
+
+    data, _ = train_data()
+    loaders = get_train_val_test_loader(
+        data, batch_size=TRAIN_BATCH, train_ratio=MESH_TRAIN_RATIOS[0],
+        val_ratio=MESH_TRAIN_RATIOS[1])
+    first = list(loaders[0])[: mesh.size]
+    loss_fn = CombinedLoss(target_str="efsm", criterion="MSE")
+
+    def on_card(batch, targets):
+        return batch.to(device), {k: torch.as_tensor(v).to(device)
+                                  for k, v in targets.items()}
+
+    model = CHGNet(seed=0, device=device)
+    leaves = [leaf for _, leaf in _leaves(model.params)]
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    step = make_dp_train_step(config=model.config, loss_fn=loss_fn,
+                              optimizer=torch.optim.SGD(leaves, lr=1.0), mesh=mesh)
+    _sync(device)
+    t0 = time.perf_counter()
+    metrics = step(model.params, *on_card(*first[mesh.rank]), 0)
+    _sync(device)
+    step_s = time.perf_counter() - t0
+    if lead:
+        ref = CHGNet(seed=0, device=device)
+        ref_leaves = [leaf for _, leaf in _leaves(ref.params)]
+        for leaf in ref_leaves:
+            leaf.requires_grad_(True)
+        mean = [torch.zeros_like(leaf) for leaf in ref_leaves]
+        for batch, targets in first:
+            loss, _ = loss_and_metrics(ref.params, *on_card(batch, targets),
+                                       config=ref.config, loss_fn=loss_fn,
+                                       create_graph=True)
+            grads = torch.autograd.grad(loss, ref_leaves, allow_unused=True)
+            for acc, g in zip(mean, grads):
+                if g is not None:
+                    acc += g / len(first)
+        # the step leaves the averaged gradient in each leaf's .grad
+        worst = max(float((leaf.grad - g).abs().max() / max(float(g.abs().max()), 1e-30))
+                    for leaf, g in zip(leaves, mean) if g.abs().max() > 0)
+        if not worst <= MESH_GRAD_RTOL:
+            raise AssertionError(f"mesh DP step against the mean gradient: {worst}")
+        say(f"mesh DP step: {TRAIN_BATCH} x 216 atoms a rank, {step_s:.3f} s "
+            f"(wall, {card}), loss {float(metrics['loss']):.5f}; averaged gradient against "
+            f"the mean of the two single-device gradients: {worst:.2e} of each "
+            f"leaf's largest (bar {MESH_GRAD_RTOL})")
+    trainer = Trainer(model=CHGNet(seed=0, device=device), targets="efsm",
+                      learning_rate=TRAIN_LR, epochs=1, use_device=str(device),
+                      mesh=mesh, print_freq=1)
+    _sync(device)
+    t0 = time.perf_counter()
+    trainer.train(*loaders[:2], save_dir=None)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    total = torch.stack([leaf.detach().double().sum() for _, leaf in _leaves(
+        trainer.model.params)]).sum()[None]
+    sums = coll.gather_blocks(total, mesh)
+    history = trainer.training_history
+    if lead:
+        if not (trainer._global_step == len(loaders[0]) // mesh.size
+                and bool((sums == sums[0]).all())
+                and all(np.isfinite(history[k]["train"][0]) for k in "efsm")):
+            raise AssertionError(
+                f"mesh Trainer: {trainer._global_step} steps, parameter sums "
+                f"{sums.tolist()}, history {history}")
+        say(f"mesh Trainer(mesh=2): 1 epoch, {trainer._global_step} steps of "
+            f"{TRAIN_BATCH} x 216 atoms a rank in {wall:.2f} s (wall, with "
+            f"validation, {card}); train MAEs "
+            + ", ".join(f"{k} {history[k]['train'][0]:.4f}" for k in "efsm")
+            + "; both ranks' parameters equal")
+
+
+def phase_mesh(rows) -> None:
+    """Phase 9: ``MESH_WORLD`` ranks spawned on the card under gloo
+    (``_mesh_work``), then one sharded pass on an NCCL group of world size
+    1. The 64-wide f32 rows gain ``mesh_launches`` and
+    ``mesh_halo_launches`` (rank 0's launches in one sharded E+F+S+M pass)
+    and their errors the mesh calls' holds."""
+    import shutil
+    import torch.multiprocessing as mp
+
+    t_start = time.perf_counter()
+    out_dir = os.path.join(os.path.dirname(LOG_PATH), "chip_smoke_mesh")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    ctx = mp.spawn(_mesh_rank, args=(MESH_WORLD, f"file://{out_dir}/store", out_dir),
+                   nprocs=MESH_WORLD, join=False)
+    deadline = time.monotonic() + MESH_JOIN_S
+    while not ctx.join(timeout=max(deadline - time.monotonic(), 1.0)):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+            raise TimeoutError(f"mesh phase: ranks outlived {MESH_JOIN_S} s")
+    result = torch.load(os.path.join(out_dir, "rank0.pt"), weights_only=False)
+    log(f"mesh phase, {MESH_WORLD} ranks: {time.perf_counter() - t_start:.0f} s")
+    phase_mesh_nccl()
+    versions = kernel_versions()
+    for row in rows:
+        name = row["name"]
+        plain = row["dtype"] == "f32" and " " not in name
+        wrapper = versions[name.split()[0]][0].__name__
+        row["mesh_launches"] = result["launches"]["all-gather"][wrapper] if plain else 0
+        row["mesh_halo_launches"] = result["launches"]["halo"][wrapper] if plain else 0
+        if plain:
+            row["max_abs_err"] = max(row["max_abs_err"], result["errors"].get(name, 0.0))
+    log(f"mesh phase: {time.perf_counter() - t_start:.0f} s")
+
+
+def phase_mesh_nccl() -> None:
+    """One sharded E+F+S+M pass of the 10,240-atom supercell on an NCCL
+    group of world size 1 on the card (NCCL takes one rank a card, so this
+    is the only NCCL group one card holds): against the single-device pass
+    at ``MODEL_TOL``, nothing staged through the host."""
+    import socket
+
+    import torch.distributed as dist
+
+    from chgnet_tpu_torch import ROOT
+    from chgnet_tpu_torch.core.structure import Structure
+    from chgnet_tpu_torch.graph.batching import batch_graphs
+    from chgnet_tpu_torch.models import CHGNet
+    from chgnet_tpu_torch.models.chgnet import compute_batch
+    from chgnet_tpu_torch.parallel import (
+        compute_batch_sharded, initialize, make_mesh, shard_batch,
+    )
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    initialize(f"tcp://localhost:{port}", 1, 0, backend="nccl",
+               timeout=MESH_TIMEOUT_S)
+    try:
+        mesh = make_mesh(1, "graph", device="cuda:0")
+        model = CHGNet(seed=0, device="cuda")
+        struct = Structure.from_file(
+            f"{ROOT}/examples/mp-18767-LiMnO2.cif").make_supercell(SIM_MD_SCALE).spatial_sort()
+        n = len(struct)
+        batch = batch_graphs([model.graph_converter(struct)])
+        kw = dict(compute_force=True, compute_stress=True, compute_magmom=True)
+        on_card = batch.to("cuda")
+        out = compute_batch(model.params, on_card, config=model.config, **kw)
+        ref = {k: (v[:n] if k in "fm" else v).cpu().numpy()
+               for k, v in out.items() if k in MODEL_TOL}
+        del out
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MESH_TIMED_PASSES):
+            compute_batch(model.params, on_card, config=model.config, **kw)
+        torch.cuda.synchronize()
+        single_ms = (time.perf_counter() - t0) / MESH_TIMED_PASSES * 1e3
+        del on_card
+        sb = shard_batch(batch, 1)
+        got = _mesh_outputs(compute_batch_sharded(
+            model.params, sb, config=model.config, mesh=mesh, **kw), n)
+        gaps = {k: _gap(got[k], ref[k]) for k in MODEL_TOL}
+        if any(not gaps[k] <= MODEL_TOL[k] for k in MODEL_TOL):
+            raise AssertionError(f"mesh NCCL: {gaps}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MESH_TIMED_PASSES):
+            compute_batch_sharded(model.params, sb, config=model.config, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / MESH_TIMED_PASSES * 1e3
+        log(f"mesh NCCL, world size 1 ({mesh.backend}): E+F+S+M against one device "
+            f"{gaps}; {ms:.1f} ms a pass against the single-device pass's "
+            f"{single_ms:.1f} (wall; one rank, no exchange crosses a link; "
+            f"{card_line()})")
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a "
@@ -2892,6 +3376,9 @@ def main() -> int:
     wide_rows = phase_wide(graphs)
     phase_wide_train(*t_batch, wide_rows)
     rows += wide_rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_mesh(rows)
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s")
     log(json.dumps({"kernels": rows}))
     log(card_line())
@@ -2953,7 +3440,24 @@ def compare(roots) -> int:
     return 0
 
 
+def mesh_only() -> int:
+    """``--mesh``: the kernel build and phase 9 alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this needs a "
+              "CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    os.makedirs(os.path.dirname(LOG_PATH), exist_ok=True)
+    open(LOG_PATH, "w").close()
+    phase_card_and_build()
+    phase_mesh([])
+    log(card_line())
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--compare"] and sys.argv[2:]:
         sys.exit(compare(sys.argv[2:]))
+    if sys.argv[1:] == ["--mesh"]:
+        sys.exit(mesh_only())
     sys.exit(main())

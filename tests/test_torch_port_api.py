@@ -188,14 +188,20 @@ def test_every_optimizer_runs(name, tstruct):
 
 @pytest.mark.parametrize("what", ["md mesh", "relax mesh", "halo"])
 def test_unported_layouts_raise(what, tstruct):
+    """The multi-device layouts need a torch.distributed process group:
+    without one they raise and name chgnet_tpu_torch.parallel.initialize;
+    ``halo`` without a mesh is ignored, as in chgnet_tpu."""
     model = TCHGNet(seed=0, device="cpu", **SAVED)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(RuntimeError, match="chgnet_tpu_torch.parallel.initialize"):
         if what == "md mesh":
             MolecularDynamics(tstruct, model=model, mesh=2)
         elif what == "relax mesh":
             StructOptimizer(model, mesh=2)
         else:
-            GraphRuntime(model.config, [tstruct], device="cpu", **{what: True})
+            MolecularDynamics(tstruct, model=model, mesh=2, halo=True)
+    if what == "halo":
+        runtime = GraphRuntime(model.config, [tstruct], device="cpu", halo=True)
+        assert runtime.hbatch is None
 
 
 def test_entry_points_never_move_the_model():

@@ -2029,3 +2029,41 @@ def test_wide128_model_on_card_matches_cpu(cuda, dtype):
     for key, tol in bars.items():
         np.testing.assert_allclose(np.asarray(got[key]), np.asarray(want[key]),
                                    atol=tol, err_msg=key)
+
+
+# ------------------------------------------------------------------ mesh
+def test_collectives_on_cuda_tensors_under_gloo(cuda, tmp_path):
+    """Two gloo ranks sharing cuda:0 (NCCL takes one rank a card): all-gather,
+    reduce-scatter, all-to-all and the sum over ranks on CUDA tensors, which
+    gloo copies through host memory itself, to second order against the
+    same composite in one process (float64, as on the CPU:
+    tests/test_torch_port_parallel_forward.py)."""
+    import _torch_parallel_work as work
+    from _torch_spawn import spawn
+
+    ranks = spawn(work.collective_grads, 2, tmp_path, device="cuda:0")
+    for res in ranks:
+        assert res["value"] <= 1e-12 * max(1.0, abs(res["same on every rank"]))
+        assert res["grad"] <= 1e-12
+        assert res["grad of grad"] <= 1e-10
+    assert ranks[0]["same on every rank"] == ranks[1]["same on every rank"]
+
+
+def test_sharded_forward_on_two_cuda_ranks_matches_cpu(cuda, tmp_path):
+    """The sharded forward on two gloo ranks sharing cuda:0 in every form of
+    the CPU tests (all-gathers, halo, three graphs, remat, plans built on
+    the rank, dynamic cutoffs) against the port's single-device forward on
+    the CPU, at this file's model tolerances; both ranks alike."""
+    import _torch_parallel_work as work
+    from _torch_spawn import spawn
+
+    ranks = spawn(work.forward_runs, 2, tmp_path, device="cuda:0")
+    single = work.single_device_runs()
+    refs = {"3 graphs": single["3 graphs"], "dynamic all-gather": single["dynamic"],
+            "dynamic halo": single["dynamic"]}
+    for form, out in ranks[0].items():
+        want = refs.get(form, single["one"])
+        for key, tol in TOL.items():
+            np.testing.assert_allclose(out[key], want[key][: len(out[key])], rtol=0,
+                                       atol=tol, err_msg=f"{form} {key}")
+            np.testing.assert_array_equal(ranks[1][form][key], out[key])

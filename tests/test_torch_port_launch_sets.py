@@ -150,3 +150,33 @@ def test_product_rate_follows_the_operand_types(name, dtype, need_params, rate):
     by f32 (dW2) of the same size."""
     got = chip_smoke.product_rate(name, _rate_args(name, dtype, need_params))
     assert got == pytest.approx(rate, rel=1e-12)
+
+
+@pytest.mark.parametrize("exchange", list(chip_smoke.MESH_LAUNCH_SETS))
+def test_sharded_forward_launch_set(exchange, tmp_path):
+    """Phase 9's sets (``chip_smoke.MESH_LAUNCH_SETS``): one sharded
+    E+F+S+M pass of the full-width model with each exchange, on a one-rank
+    gloo group. A rank runs the same layers at any world size, so its
+    launches are these on the card's two ranks too."""
+    import torch.distributed as dist
+
+    from chgnet_tpu_torch.parallel import (
+        compute_batch_sharded, initialize, make_mesh, shard_batch, shard_batch_halo,
+    )
+
+    model = CHGNet(seed=0, device="cpu", graph_converter_algorithm="numpy")
+    struct = Structure.from_file(f"{ROOT}/examples/mp-18767-LiMnO2.cif")
+    batch = batch_graphs([model.graph_converter(struct.make_supercell(2))])
+    assert initialize(f"file://{tmp_path}/store", 1, 0, backend="gloo")
+    try:
+        mesh = make_mesh(1, "graph", device="cpu")
+        sb, hb = (shard_batch_halo(batch, 1) if exchange == "halo"
+                  else (shard_batch(batch, 1), None))
+        with chip_smoke.Recorder() as rec:
+            compute_batch_sharded(model.params, sb, hb, config=model.config, mesh=mesh,
+                                  compute_force=True, compute_stress=True,
+                                  compute_magmom=True)
+    finally:
+        dist.destroy_process_group()
+    got = tuple(len(rec.calls[name]) for name in chip_smoke.KERNELS)
+    assert got == chip_smoke.MESH_LAUNCH_SETS[exchange]

@@ -360,14 +360,15 @@ def test_dropout_and_remat_training(labelled):
 
 def test_device_selection_and_unported_mesh(monkeypatch):
     """Without a card, Trainer() raises unless the CPU is asked for; a
-    model on another device is moved to the trainer's; ``mesh`` raises."""
+    model on another device is moved to the trainer's; ``mesh`` raises
+    without a torch.distributed process group."""
     monkeypatch.delenv("CHGNET_DEVICE", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     model = CHGNet(seed=0, device="cpu", **SMALL)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Trainer(model=model)
     assert Trainer(model=model, use_device="cpu").device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(RuntimeError, match="chgnet_tpu_torch.parallel.initialize"):
         Trainer(model=model, use_device="cpu", mesh=2)
     with pytest.raises(NotImplementedError, match="optimizer"):
         Trainer(model=model, use_device="cpu", optimizer="Lion")
