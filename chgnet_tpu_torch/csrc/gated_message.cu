@@ -22,7 +22,9 @@
 // Design of the message forward, the message-reduce and the serving
 // backward: tail_fwd_tc_kernel, tail_reduce_tc_kernel and
 // tail_bwd_tc_kernel (namespace tcb below), on tensor cores with
-// asynchronous copies and warp-local tiles.
+// asynchronous copies and warp-local tiles; in bf16 the serving backward
+// is tail_bwd_bf16_kernel (namespace tcb16), the same warp-local tile on
+// bf16 stages and the bf16 tensor cores.
 // Design of the update forward without a second layer: update_fwd_kernel,
 // a row per group of lanes with 16-byte loads.
 // Design of the update forward with a second layer and the backward with
@@ -40,31 +42,37 @@
 // of blocks, kParamBlocks), which a second kernel reduces over the blocks in
 // order: no float atomics, and the result repeats bit for bit.
 // bf16 (compute_dtype="bfloat16", the _bf16 entry points): the forward
-// kernels and the serving backward are instantiated for bf16 acc, weights,
-// mask, cotangent and parameters (T = __nv_bfloat16). Rows are widened to
-// f32 as they are fetched (tc::fetch4 / fetch1: a load now where the f32
-// kernels copy with cp.async, so the next tile's rows no longer arrive in
-// the background), everything inside runs in f32 as before, and each output
-// is rounded once at its store, as chgnet_tpu's kernels do ("streams may be
-// bf16 -- in-kernel math runs in f32", ops/gated_message.py:588-590). The
-// products keep f32 accuracy: their A operands, silu(acc) and d_y, are f32
-// values, but a bf16 W2 is exact in TF32, so of 3xTF32's three passes the
-// two whose terms are not zero remain (lo_a hi_b, hi_a hi_b: tc::mma2_tiles,
-// the same sums). Half the bytes of f32 move. The message-reduce
-// (tail_reduce_tc_kernel<bf16>) also keeps each tile's messages in f32 and
-// sums every segment in f32, rounding each output row once. The backward
-// with parameter gradients (tail_bwd_kernel<bf16, ...>, training) widens
-// its rows and parameters the same way; its per-block partials stay f32,
-// sum_blocks_kernel adds them in block order in f32 (no atomics) and rounds
-// each parameter gradient once to bf16 (chgnet_tpu casts each tile's f32
-// sums to the parameters' type and adds them there, ops/gated_message.py:
-// 222-228, so it rounds once a tile). The update forward without a second
-// layer (update_fwd_kernel<bf16, ...>) takes the gate's exponentials and
-// quotients by the fast intrinsics, some 1e-6 relative in f32 before the
-// output's bf16 rounding.
+// kernels are instantiated for bf16 acc, weights, mask, cotangent and
+// parameters (T = __nv_bfloat16). Rows are widened to f32 as they are
+// fetched (tc::fetch4 / fetch1: a load now where the f32 kernels copy with
+// cp.async), everything inside runs in f32 as before, and each output is
+// rounded once at its store, as chgnet_tpu's kernels do ("streams may be
+// bf16 -- in-kernel math runs in f32", ops/gated_message.py:588-590). Their
+// products keep f32 accuracy: the A operand silu(acc) is an f32 value, but
+// a bf16 W2 is exact in TF32, so of 3xTF32's three passes the two whose
+// terms are not zero remain (lo_a hi_b, hi_a hi_b: tc::mma2_tiles, the same
+// sums). The message-reduce (tail_reduce_tc_kernel<bf16>) also keeps each
+// tile's messages in f32 and sums every segment in f32, rounding each
+// output row once. The serving backward in bf16 has a kernel of its own,
+// tcb16::tail_bwd_bf16_kernel (below tcb): its rows stay bf16 in shared
+// memory, copied by cp.async, W2 is staged once in bf16 and read by
+// ldmatrix in both orientations, and both products run on the bf16 tensor
+// cores (mma.sync.m16n8k16) in two passes, the f32 A operand split into a
+// bf16 hi and lo (bf16_tile.cuh), so they keep f32 accuracy as well; the
+// row phase is tcb's f32 arithmetic, and each output is rounded once. The
+// backward with parameter gradients (tail_bwd_kernel<bf16, ...>, training)
+// widens its rows and parameters as the forward kernels do; its per-block
+// partials stay f32, sum_blocks_kernel adds them in block order in f32 (no
+// atomics) and rounds each parameter gradient once to bf16 (chgnet_tpu
+// casts each tile's f32 sums to the parameters' type and adds them there,
+// ops/gated_message.py:222-228, so it rounds once a tile). The update
+// forward without a second layer (update_fwd_kernel<bf16, ...>) takes the
+// gate's exponentials and quotients by the fast intrinsics, some 1e-6
+// relative in f32 before the output's bf16 rounding.
 // D over 64 (up to 128): every form but the update forward without a second
 // layer (update_fwd_kernel, which takes rows up to 128 wide as they are)
 // runs on wide_tail.cuh's kernels, launched by the same entry points.
+#include "bf16_tile.cuh"
 #include "gated_tail.cuh"
 #include "tf32x3.cuh"
 #include "wide_tail.cuh"
@@ -396,42 +404,6 @@ __device__ __forceinline__ void fetch_acc(float* acc_s, const T* acc, long row0,
   }
 }
 
-// A lane's units of a tile's bf16 acc rows (fetch_acc's units, 4 values
-// each), held in registers between hold_acc and land_acc.
-constexpr int kHeldUnits = kRows * 2 * kMaxD / 4 / 32;
-struct HeldAcc {
-  uint2 v[kHeldUnits];
-};
-__device__ __forceinline__ void hold_acc(HeldAcc& h, const chgnet::bf16* acc,
-                                         long row0, long row_end, int d, int lane) {
-  const int d4 = d / 4;
-#pragma unroll
-  for (int j = 0; j < kHeldUnits; ++j) {
-    const int i = lane + 32 * j;
-    const int r = i / (2 * d4);
-    const long l = row0 + r;
-    h.v[j] = make_uint2(0u, 0u);
-    if (i < kRows * 2 * d4 && l < row_end)
-      h.v[j] = *reinterpret_cast<const uint2*>(acc + l * 2 * d + 4 * (i - r * 2 * d4));
-  }
-}
-__device__ __forceinline__ void land_acc(float* acc_s, const HeldAcc& h, int d,
-                                         int lane) {
-  const int d4 = d / 4;
-#pragma unroll
-  for (int j = 0; j < kHeldUnits; ++j) {
-    const int i = lane + 32 * j;
-    if (i >= kRows * 2 * d4) continue;
-    const int r = i / (2 * d4);
-    const int c = i - r * 2 * d4;
-    const int half = c >= d4;
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&h.v[j].x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&h.v[j].y));
-    *reinterpret_cast<float4*>(acc_s + at_acc(r, half * kMaxD + 4 * (c - half * d4))) =
-        make_float4(a.x, a.y, b.x, b.y);
-  }
-}
-
 // Copies of tile t's g, weights and mask rows; vec: g and weights are
 // 16-byte aligned. The caller commits them.
 template <bool kMsg, typename T>
@@ -466,9 +438,7 @@ __device__ __forceinline__ void fetch_rows(float* g_s, float* w_s, float* m_s,
 // all kMaxD columns (W is zero-padded); A_h's row r, column c at
 // a_h[r * width + (c ^ rswz(r))]; act: silu of A first. The step loop
 // stays rolled: a fully unrolled kernel outgrows the instruction cache.
-// kExactW: W holds bf16 values (exact in TF32), so of 3xTF32's three terms
-// the two that are not zero suffice (tc::mma2_tiles, equal sums).
-template <bool kT, bool kAct, bool kExactW>
+template <bool kT, bool kAct>
 __device__ __forceinline__ void product(const float* a0, const float* a1,
                                         int width, const float* w_s, int d8,
                                         int lane, float out[2][8][4]) {
@@ -503,10 +473,7 @@ __device__ __forceinline__ void product(const float* a0, const float* a1,
           b[nt][1] = w[k1 * kMaxD + (n ^ swz(k1))];
         }
       }
-      if constexpr (kExactW)
-        tc::mma2_tiles<8>(out[h], hi, lo, b);
-      else
-        tc::mma3_tiles<8>(out[h], hi, lo, b);
+      tc::mma3_tiles<8>(out[h], hi, lo, b);
     }
   }
 }
@@ -596,20 +563,11 @@ __global__ void __launch_bounds__(32 * warps(kW2), 1)
   if (tile < n_tiles)
     fetch_rows<kMsg>(g_s, wt_s, m_s, g, weights, mask, tile, n_rows, d, vec, lane);
   tc::commit();
-  // bf16 acc rows have no asynchronous copy into the f32 stage: the next
-  // tile's are loaded into registers here and widened into their stage at
-  // the end of this tile, so the loads are in flight while it is computed
-  constexpr bool kHeld = chgnet::is_bf16<T>;
-  HeldAcc held;
   for (int it = 0; tile < n_tiles; ++it, tile += step) {
     const float* acc_s = mine + (it & 1) * kAccFloats;
     float* acc_next = mine + ((it + 1) & 1) * kAccFloats;
     const bool ahead = tile + step < n_tiles;
-    if constexpr (kHeld) {
-      if (ahead) hold_acc(held, acc, (long)(tile + step) * kRows, n_rows, d, lane);
-    } else if (ahead) {
-      fetch_acc(acc_next, acc, (long)(tile + step) * kRows, n_rows, d, lane);
-    }
+    if (ahead) fetch_acc(acc_next, acc, (long)(tile + step) * kRows, n_rows, d, lane);
     tc::commit();
     tc::wait_pending<1>();  // all but the next tile's acc have landed
     __syncwarp();
@@ -626,8 +584,7 @@ __global__ void __launch_bounds__(32 * warps(kW2), 1)
 #pragma unroll
           for (int j = 0; j < 4; ++j)
             y[h][nt][j] = b2_s[h * kMaxD + nt * 8 + 2 * q + (j & 1)];
-      product<false, true, chgnet::is_bf16<T>>(acc_s, acc_s + kMaxD, 2 * kMaxD, w_s,
-                                               d8, lane, y);
+      product<false, true>(acc_s, acc_s + kMaxD, 2 * kMaxD, w_s, d8, lane, y);
       park(f_s, y, lane);
     }
     auto y_at = [&](int h, int nt, int j) {
@@ -761,7 +718,7 @@ __global__ void __launch_bounds__(32 * warps(kW2), 1)
       // d_acc = (d_y @ W2^T) * silu'(acc)
       float dh[2][8][4];
       zero(dh);
-      product<true, false, chgnet::is_bf16<T>>(g_s, wt_s, kMaxD, w_s, d8, lane, dh);
+      product<true, false>(g_s, wt_s, kMaxD, w_s, d8, lane, dh);
       park(f_s, dh, lane);
 #pragma unroll 1
       for (int nt = 0; nt < d8; ++nt)
@@ -779,9 +736,6 @@ __global__ void __launch_bounds__(32 * warps(kW2), 1)
                            y_at(h, nt, 2 * rr) * silu_grad_of(a0, sigm_fast(a0)),
                            y_at(h, nt, 2 * rr + 1) * silu_grad_of(a1, sigm_fast(a1)));
           }
-    }
-    if constexpr (kHeld) {
-      if (ahead) land_acc(acc_next, held, d, lane);
     }
     __syncwarp();  // this acc stage and the row slots free
     if (ahead)
@@ -1171,6 +1125,549 @@ __global__ void __launch_bounds__(32 * kFwdWarps, 1)
 }  // namespace tcb
 
 
+// ------------------------------- serving backward on bf16 tensor cores
+// The serving backward in bf16 (rows 7 and 9 without parameter gradients,
+// D <= 64): the function of tcb::tail_bwd_tc_kernel, redesigned for bf16
+// rows and Hopper's bf16 tensor cores.
+//
+// Bound: at D = 64 a bf16 message row moves 898 bytes (acc, g, weights,
+// mask in, d_acc and d_weights out) against 8 D^2 FLOPs of products; the
+// default bf16 pass's 7 calls: 1.345 ms by bytes. What holds the tile is
+// its instructions and their latency, so the design cuts instructions and
+// buys warps.
+// Design: every warp owns 16 rows through every phase, with no block
+// barrier in its loop (as tcb's). Its rows stay bf16 in shared memory:
+// acc in two stages (cp.async, 16-byte units, 8-byte ones where D % 8 != 0),
+// g, weights and mask in one slot, refilled as soon as the gate has read
+// it; the stages take the bt::at swizzle, so ldmatrix and the C-fragment
+// reads are free of bank conflicts. The block stages W2c and W2g once in
+// bf16 (exact): ldmatrix.trans reads W for y = silu(acc) @ W2, ldmatrix W^T
+// for d_h = d_y @ W2^T. Both products run as mma.sync.m16n8k16 in two bf16
+// passes (bf16_tile.cuh: A = hi + lo of the f32 silu(acc) or d_y), so
+// they keep f32 accuracy, and a 16-deep step costs 4 MMAs a tile pair and
+// one ldmatrix for each of A and B. silu(acc) is taken on the A fragment
+// as it leaves ldmatrix. y stays in registers: the layer-norm statistics
+// (two passes) and z come from there, z is parked (a float4 a lane and
+// 8-column tile) for the gate's loop, which stays rolled (the instruction
+// cache: see tcb) and writes gz over it, d_weights over the weights it has
+// read. d_y is computed in registers from gz and z and passes to d_y @ W2^T
+// as its A fragments with no parking (bf16_tile.cuh). d_h is parked, and
+// d_acc = d_h * silu'(acc) is written over the acc stage it came from;
+// d_acc and d_weights leave by whole-row 16-byte stores. f32 throughout
+// the row phase: bf16 values are widened as they are read, each output is
+// rounded once as it is written to its stage. A warp takes 20 KB of shared
+// memory for a message tile (18 KB for an update), so a block holds 10 warps
+// for the message, 11 for an update with W2, 12 without (one block an SM).
+// The copy loops walk their units without a division (Walk). Each choice
+// won a same-call A/B on an H100 (tools/time_tail_bwd.py; PERF.md §6):
+// d_y parked for a rolled d_y @ W2^T, the product's 16-deep steps unrolled
+// (spills), and g, weights and mask double-buffered at 8 warps were slower.
+namespace tcb16 {
+
+using chgnet::bf16;
+constexpr int kRows = 16;                             // rows of a warp's tile
+constexpr int kAccBytes = kRows * 2 * kMaxD * 2;      // one acc stage
+constexpr int kRowBytes = kRows * kMaxD * 2;          // g or weights
+constexpr int kParkBytes = kRows * 2 * kMaxD * 4;     // z, gz, d_h in f32
+constexpr int kMaskBytes = kRows * 2;
+constexpr int kWBytes = 2 * kMaxD * kMaxD * 2;        // W2c, W2g
+constexpr int kParamBytes = 6 * kMaxD * 4;            // b2, ncs, ncb, ngs, ngb
+constexpr int kSmemPerBlock = 232448;                 // sm_90's opt-in limit
+__host__ __device__ constexpr int warp_bytes(bool msg) {
+  return 2 * kAccBytes + (msg ? 2 : 1) * kRowBytes + kParkBytes + (msg ? kMaskBytes : 0);
+}
+__host__ __device__ constexpr int fixed_bytes(bool w2) {
+  return (w2 ? kWBytes : 0) + kParamBytes;
+}
+// A block's warps: as many as shared memory holds
+__host__ __device__ constexpr int warps(bool msg, bool w2) {
+  return (kSmemPerBlock - fixed_bytes(w2)) / warp_bytes(msg);
+}
+__host__ __device__ constexpr size_t smem_bytes(bool msg, bool w2) {
+  return (size_t)fixed_bytes(w2) + (size_t)warps(msg, w2) * warp_bytes(msg);
+}
+
+// vec, as the launch passes it: bits 0-1 the unit of the g and weights
+// copies (2: 16 bytes, 1: 8 bytes, 0: one value, loaded now), bit 2 the
+// mask 16-byte aligned
+inline int vec_of(const bf16* g, const bf16* weights, const bf16* mask, int d) {
+  const uintptr_t a = (uintptr_t)g | (uintptr_t)weights;
+  const int unit = d % 8 == 0 && a % 16 == 0 ? 2 : a % 8 == 0 ? 1 : 0;
+  return unit | (mask != nullptr && (uintptr_t)mask % 16 == 0 ? 4 : 0);
+}
+
+// A lane's walk over the units of a tile's rows, per units a row: units
+// lane, lane + 32, ... as (row r, unit c), with no division in the loop
+struct Walk {
+  int r, c, dr, dc, per;
+  __device__ __forceinline__ Walk(int lane, int per_row) : per(per_row) {
+    dr = 32 / per_row;
+    dc = 32 - dr * per_row;
+    r = lane / per_row;
+    c = lane - r * per_row;
+  }
+  __device__ __forceinline__ void next() {
+    r += dr;
+    c += dc;
+    if (c >= per) {
+      c -= per;
+      ++r;
+    }
+  }
+};
+
+// Copies of the 16 acc rows from row0 into the stage st (zeros from n_rows
+// on; the gate half at column kMaxD), n values a copy (w: units of n, 2D / n
+// a row); the caller commits them.
+__device__ __forceinline__ void fetch_acc(char* st, const bf16* acc, long row0,
+                                          int n_rows, int d, int n, Walk w) {
+  const int u = n == 8 ? d >> 3 : d >> 2;  // copies a half row
+  for (; w.r < kRows; w.next()) {
+    const int r = w.r;
+    const int c = w.c;
+    const int half = c >= u;
+    const long l = row0 + r;
+    const bool ok = l < n_rows;
+    const bf16* src = acc + (ok ? l : 0) * 2 * d + n * c;
+    char* dst = st + bt::at<16>(r, half * kMaxD + n * (c - half * u));
+    if (n == 8)
+      tc::copy16(dst, src, ok);
+    else
+      bt::copy8(dst, src, ok);
+  }
+}
+
+// Copies of the g, weights and mask rows from row0 (vec: vec_of; w: units
+// of the copies, one value each for a unit 0, which are loaded now). The
+// caller commits them.
+template <bool kMsg>
+__device__ __forceinline__ void fetch_rows(char* g_s, char* w_s, bf16* m_s,
+                                           const bf16* g, const bf16* weights,
+                                           const bf16* mask, long row0, int n_rows,
+                                           int d, int vec, Walk w, int lane) {
+  const int unit = vec & 3;
+  if (unit) {
+    const int n = unit == 2 ? 8 : 4;
+    for (; w.r < kRows; w.next()) {
+      const int r = w.r;
+      const int c = w.c * n;
+      const long l = row0 + r;
+      const bool ok = l < n_rows;
+      const long src = (ok ? l : 0) * d + c;
+      const int at = bt::at<8>(r, c);
+      if (unit == 2) {
+        tc::copy16(g_s + at, g + src, ok);
+        if (kMsg) tc::copy16(w_s + at, weights + src, ok);
+      } else {
+        bt::copy8(g_s + at, g + src, ok);
+        if (kMsg) bt::copy8(w_s + at, weights + src, ok);
+      }
+    }
+  } else {
+    const bf16 zero = __float2bfloat16(0.f);
+    for (; w.r < kRows; w.next()) {
+      const int r = w.r;
+      const int c = w.c;
+      const long l = row0 + r;
+      const int at = bt::at<8>(r, c);
+      *reinterpret_cast<bf16*>(g_s + at) = l < n_rows ? g[l * d + c] : zero;
+      if (kMsg) *reinterpret_cast<bf16*>(w_s + at) = l < n_rows ? weights[l * d + c] : zero;
+    }
+  }
+  if (!kMsg) return;
+  if (vec & 4) {
+    if (lane < 2) {  // 8 rows a lane
+      const long first = row0 + 8 * lane;
+      const long left = n_rows - first;
+      const int bytes = left <= 0 ? 0 : left >= 8 ? 16 : 2 * (int)left;
+      bt::copy16_n(m_s + 8 * lane, mask + (bytes ? first : 0), bytes);
+    }
+  } else if (lane < kRows) {
+    const long l = row0 + lane;
+    m_s[lane] = l < n_rows ? mask[l] : __float2bfloat16(0.f);
+  }
+}
+
+// The rows of a stage from row0 up to n_rows, out to rows of width D (g
+// layout, kChunks 8) or 2D (acc layout, kChunks 16: the gate half at
+// column kMaxD), n values a store (16 bytes, 8 where D % 8 != 0; w: units
+// of n)
+template <int kChunks>
+__device__ __forceinline__ void store_rows(const char* st, bf16* out, long row0,
+                                           int n_rows, int d, int n, Walk w) {
+  constexpr bool kAcc = kChunks == 16;
+  const int u = n == 8 ? d >> 3 : d >> 2;
+  const int per_row = kAcc ? 2 * u : u;
+  const long left = n_rows - row0;
+  const int rows = left < kRows ? (int)left : kRows;
+  for (; w.r < rows; w.next()) {
+    const int r = w.r;
+    const int c = w.c;
+    const int half = kAcc && c >= u;
+    const char* src = st + bt::at<kChunks>(r, half * kMaxD + n * (c - half * u));
+    bf16* dst = out + (row0 + r) * per_row * n + n * c;
+    if (n == 8)
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    else
+      *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+  }
+}
+
+// y[h] += silu(acc_h) @ W_h over the 16-deep steps below D and the tile
+// pairs that hold a column below D (everything past D is zero-padded)
+__device__ __forceinline__ void product_y(const char* acc_s, const char* w_s, int d8,
+                                          int d16, int lane, float y[2][8][4]) {
+  const int lr = lane & 7;
+  const int lm = lane >> 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const char* w = w_s + h * kMaxD * kMaxD * 2;
+#pragma unroll 1
+    for (int ks = 0; ks < d16; ++ks) {
+      uint32_t a[4], hi[4], lo[4];
+      bt::ldsm4(a, acc_s + bt::at<16>(lr + 8 * (lm & 1), h * kMaxD + 16 * ks + 8 * (lm >> 1)));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float x0 = bt::lo_f(a[i]);
+        const float x1 = bt::hi_f(a[i]);
+        bt::split(x0 * tcb::sigm_fast(x0), x1 * tcb::sigm_fast(x1), hi[i], lo[i]);
+      }
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        if (2 * jp >= d8) break;
+        uint32_t b[4];
+        bt::ldsm4_t(b, w + bt::at<8>(16 * ks + lr + 8 * (lm & 1), 16 * jp + 8 * (lm >> 1)));
+        bt::mma2_pair(y[h][2 * jp], y[h][2 * jp + 1], hi, lo, b);
+      }
+    }
+  }
+}
+
+// d_h = d_y_h @ W_h^T, d_y's fragments (v[h], the C layout) taken as A
+__device__ __forceinline__ void product_dh(const float v[8][4], const char* w, int d8,
+                                           int d16, int lane, float dh[8][4]) {
+  const int lr = lane & 7;
+  const int lm = lane >> 3;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dh[nt][j] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    if (ks >= d16) break;
+    uint32_t hi[4], lo[4];
+    bt::split(v[2 * ks][0], v[2 * ks][1], hi[0], lo[0]);
+    bt::split(v[2 * ks][2], v[2 * ks][3], hi[1], lo[1]);
+    bt::split(v[2 * ks + 1][0], v[2 * ks + 1][1], hi[2], lo[2]);
+    bt::split(v[2 * ks + 1][2], v[2 * ks + 1][3], hi[3], lo[3]);
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {
+      if (2 * jp >= d8) break;
+      uint32_t b[4];
+      bt::ldsm4(b, w + bt::at<8>(16 * jp + lr + 8 * (lm >> 1), 16 * ks + 8 * (lm & 1)));
+      bt::mma2_pair(dh[2 * jp], dh[2 * jp + 1], hi, lo, b);
+    }
+  }
+}
+
+template <bool kMsg, bool kW2>
+__global__ void __launch_bounds__(32 * warps(kMsg, kW2), 1)
+    tail_bwd_bf16_kernel(TailT<bf16> t, const bf16* __restrict__ acc,
+                         const bf16* __restrict__ weights,
+                         const bf16* __restrict__ mask, const bf16* __restrict__ g,
+                         bf16* __restrict__ d_acc, bf16* __restrict__ d_weights,
+                         bf16* __restrict__ d_mask, int n_rows, int d, int vec) {
+  constexpr int kWarps = warps(kMsg, kW2);
+  extern __shared__ float4 smem4[];
+  char* w_s = reinterpret_cast<char*>(smem4);  // [2][kMaxD][kMaxD] bf16 with W2
+  float* b2_s = reinterpret_cast<float*>(w_s + (kW2 ? kWBytes : 0));  // gate at kMaxD
+  float* ncs_s = b2_s + 2 * kMaxD;
+  float* ncb_s = ncs_s + kMaxD;
+  float* ngs_s = ncb_s + kMaxD;
+  float* ngb_s = ngs_s + kMaxD;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  // this warp's buffers: two acc stages; g and weights (d_weights once
+  // read); the parked f32 fragments (z, then gz, then d_h); the mask
+  char* mine = w_s + fixed_bytes(kW2) + warp * warp_bytes(kMsg);
+  char* g_s = mine + 2 * kAccBytes;
+  char* wt_s = g_s + kRowBytes;  // with kMsg
+  float4* f_s = reinterpret_cast<float4*>(g_s + (kMsg ? 2 : 1) * kRowBytes);
+  bf16* m_s = reinterpret_cast<bf16*>(f_s + kParkBytes / 16);  // with kMsg
+
+  // weights and parameters zero-padded to kMaxD; this warp's buffers zeroed
+  // (the copies never write the pad columns)
+  for (int i = threadIdx.x; kW2 && i < 2 * kMaxD * kMaxD; i += blockDim.x) {
+    const int h = i / (kMaxD * kMaxD);
+    const int k = (i / kMaxD) % kMaxD;
+    const int n = i % kMaxD;
+    bf16 v = __float2bfloat16(0.f);
+    if (k < d && n < d) v = (h ? t.w2g : t.w2c)[k * d + n];
+    *reinterpret_cast<bf16*>(w_s + h * kMaxD * kMaxD * 2 + bt::at<8>(k, n)) = v;
+  }
+  for (int i = threadIdx.x; i < 2 * kMaxD; i += blockDim.x) {
+    const int h = i / kMaxD;
+    const int e = i % kMaxD;
+    b2_s[i] = kW2 && e < d ? chgnet::to_f(t.b2[h * d + e]) : 0.f;
+    if (h == 0) {
+      ncs_s[e] = e < d ? chgnet::to_f(t.ncs[e]) : 0.f;
+      ncb_s[e] = e < d ? chgnet::to_f(t.ncb[e]) : 0.f;
+      ngs_s[e] = e < d ? chgnet::to_f(t.ngs[e]) : 0.f;
+      ngb_s[e] = e < d ? chgnet::to_f(t.ngb[e]) : 0.f;
+    }
+  }
+  for (int i = lane; i < warp_bytes(kMsg) / 16; i += 32)
+    reinterpret_cast<float4*>(mine)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();  // the only block barrier
+
+  const int gid = lane >> 2;
+  const int q = lane & 3;
+  const int d8 = (d + 7) / 8;
+  const int d16 = (d + 15) / 16;
+  const float inv_d = 1.f / d;
+  const int n_tiles = (n_rows + kRows - 1) / kRows;
+  const int step = gridDim.x * kWarps;
+  int tile = blockIdx.x * kWarps + warp;
+  // the copies' units: acc and d_acc by n values (16 bytes, or 8), g and
+  // weights by vec's unit, d_weights by n
+  const int n = d % 8 == 0 ? 8 : 4;
+  const Walk acc_walk(lane, 2 * d / n);
+  const Walk row_walk(lane, d / ((vec & 3) == 2 ? 8 : (vec & 3) == 1 ? 4 : 1));
+  const Walk out_walk(lane, d / n);
+  // acc runs one tile ahead through the two stages; g, weights and mask
+  // for the next tile are copied as soon as the gate has read this tile's
+  if (tile < n_tiles) fetch_acc(mine, acc, (long)tile * kRows, n_rows, d, n, acc_walk);
+  tc::commit();
+  if (tile < n_tiles)
+    fetch_rows<kMsg>(g_s, wt_s, m_s, g, weights, mask, (long)tile * kRows, n_rows, d,
+                     vec, row_walk, lane);
+  tc::commit();
+  for (int it = 0; tile < n_tiles; ++it, tile += step) {
+    char* acc_s = mine + (it & 1) * kAccBytes;
+    const bool ahead = tile + step < n_tiles;
+    if (ahead)
+      fetch_acc(mine + ((it + 1) & 1) * kAccBytes, acc, (long)(tile + step) * kRows,
+                n_rows, d, n, acc_walk);
+    tc::commit();
+    tc::wait_pending<1>();  // all but the next tile's acc have landed
+    __syncwarp();
+    const long row0 = (long)tile * kRows;
+
+    // v: y = silu(acc) @ blockdiag(W2c, W2g) + b2, or acc; then z; then d_y.
+    // Element (h, nt, j): row gid + 8 (j >> 1), column 8 nt + 2 q + (j & 1)
+    // of half h; every element past D is zero.
+    float v[2][8][4];
+    if constexpr (kW2) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) v[h][nt][j] = b2_s[h * kMaxD + nt * 8 + 2 * q + (j & 1)];
+      product_y(acc_s, w_s, d8, d16, lane, v);
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const uint32_t p =
+                nt < d8 ? *reinterpret_cast<const uint32_t*>(
+                              acc_s + bt::at<16>(gid + 8 * rr, h * kMaxD + nt * 8 + 2 * q))
+                        : 0u;
+            v[h][nt][2 * rr] = bt::lo_f(p);
+            v[h][nt][2 * rr + 1] = bt::hi_f(p);
+          }
+    }
+
+    // two-pass layer-norm statistics of each half row, then z (zero past D),
+    // parked for the gate's loop
+    float mean[2][2] = {}, inv[2][2] = {};
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mean[h][j >> 1] += v[h][nt][j];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) mean[h][rr] = tc::quad_sum(mean[h][rr]) * inv_d;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (nt * 8 + 2 * q + (j & 1) < d) {
+            const float c = v[h][nt][j] - mean[h][j >> 1];
+            inv[h][j >> 1] = fmaf(c, c, inv[h][j >> 1]);
+          }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+        inv[h][rr] = rsqrtf(tc::quad_sum(inv[h][rr]) * inv_d + kEps);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          v[h][nt][j] = nt * 8 + 2 * q + (j & 1) < d
+                            ? (v[h][nt][j] - mean[h][j >> 1]) * inv[h][j >> 1]
+                            : 0.f;
+        if (nt < d8)
+          f_s[(h * 8 + nt) * 32 + lane] =
+              make_float4(v[h][nt][0], v[h][nt][1], v[h][nt][2], v[h][nt][3]);
+      }
+
+    // the gate's backward (gate_row_bwd's arithmetic): d_weights, d_mask,
+    // and the layer norms' gz = d_out * scale with their sums; gz goes over
+    // the z it came from, d_weights over the weights just read
+    float s1[2][2] = {}, s2[2][2] = {}, mask_part[2] = {};
+    float m[2] = {1.f, 1.f};
+    if (kMsg) {
+      m[0] = __bfloat162float(m_s[gid]);
+      m[1] = __bfloat162float(m_s[gid + 8]);
+    }
+#pragma unroll 1
+    for (int nt = 0; nt < d8; ++nt) {
+      const float4 zc4 = f_s[nt * 32 + lane];
+      const float4 zg4 = f_s[(8 + nt) * 32 + lane];
+      const float zc[4] = {zc4.x, zc4.y, zc4.z, zc4.w};
+      const float zg[4] = {zg4.x, zg4.y, zg4.z, zg4.w};
+      const int e = nt * 8 + 2 * q;
+      const float2 ncs = *reinterpret_cast<const float2*>(ncs_s + e);
+      const float2 ncb = *reinterpret_cast<const float2*>(ncb_s + e);
+      const float2 ngs = *reinterpret_cast<const float2*>(ngs_s + e);
+      const float2 ngb = *reinterpret_cast<const float2*>(ngb_s + e);
+      float gzc[4], gzg[4];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int at = bt::at<8>(gid + 8 * rr, e);
+        const uint32_t gp = *reinterpret_cast<const uint32_t*>(g_s + at);
+        const uint32_t wp = kMsg ? *reinterpret_cast<const uint32_t*>(wt_s + at) : 0u;
+        float dw[2] = {};
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int j = 2 * rr + jj;
+          const float sc = jj ? ncs.y : ncs.x;
+          const float sg = jj ? ngs.y : ngs.x;
+          const float cn = fmaf(zc[j], sc, jj ? ncb.y : ncb.x);
+          const float gn = fmaf(zg[j], sg, jj ? ngb.y : ngb.x);
+          const float sig_cn = tcb::sigm_fast(cn);
+          const float silu_cn = cn * sig_cn;
+          const float sig_gn = tcb::sigm_fast(gn);
+          const float gv = jj ? bt::hi_f(gp) : bt::lo_f(gp);  // zero past D
+          float up = gv;
+          if (kMsg) {
+            const float wv = jj ? bt::hi_f(wp) : bt::lo_f(wp);
+            mask_part[rr] = fmaf(gv, silu_cn * sig_gn * wv, mask_part[rr]);
+            up = gv * wv * m[rr];
+            dw[jj] = gv * silu_cn * sig_gn * m[rr];
+          }
+          gzc[j] = up * sig_gn * tcb::silu_grad_of(cn, sig_cn) * sc;
+          gzg[j] = up * silu_cn * sig_gn * (1.f - sig_gn) * sg;
+          s1[0][rr] += gzc[j];
+          s2[0][rr] = fmaf(gzc[j], zc[j], s2[0][rr]);
+          s1[1][rr] += gzg[j];
+          s2[1][rr] = fmaf(gzg[j], zg[j], s2[1][rr]);
+        }
+        if (kMsg) *reinterpret_cast<uint32_t*>(wt_s + at) = bt::pack(dw[0], dw[1]);
+      }
+      f_s[nt * 32 + lane] = make_float4(gzc[0], gzc[1], gzc[2], gzc[3]);
+      f_s[(8 + nt) * 32 + lane] = make_float4(gzg[0], gzg[1], gzg[2], gzg[3]);
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const long l = row0 + gid + 8 * rr;
+      if (kMsg && d_mask != nullptr) {
+        const float dm = tc::quad_sum(mask_part[rr]);
+        if (q == 0 && l < n_rows) chgnet::store_v(d_mask + l, dm);
+      }
+    }
+    __syncwarp();  // d_weights in its slot; g, weights and mask read
+    if (kMsg) store_rows<8>(wt_s, d_weights, row0, n_rows, d, n, out_walk);
+    __syncwarp();  // the slots free
+    if (ahead)
+      fetch_rows<kMsg>(g_s, wt_s, m_s, g, weights, mask, (long)(tile + step) * kRows,
+                       n_rows, d, vec, row_walk, lane);
+    tc::commit();
+
+    // d_y = (gz - mean(gz) - z mean(gz z)) * inv, zero past D, over z
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        s1[h][rr] = tc::quad_sum(s1[h][rr]) * inv_d;
+        s2[h][rr] = tc::quad_sum(s2[h][rr]) * inv_d;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float4 gz4 = nt < d8 ? f_s[(h * 8 + nt) * 32 + lane]
+                                   : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float gz[4] = {gz4.x, gz4.y, gz4.z, gz4.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int rr = j >> 1;
+          v[h][nt][j] = nt * 8 + 2 * q + (j & 1) < d
+                            ? (gz[j] - s1[h][rr] - v[h][nt][j] * s2[h][rr]) * inv[h][rr]
+                            : 0.f;
+        }
+      }
+
+    if constexpr (kW2) {
+      // d_h = d_y @ W2^T, parked; d_acc = d_h * silu'(acc) over the acc stage
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float dh[8][4];
+        product_dh(v[h], w_s + h * kMaxD * kMaxD * 2, d8, d16, lane, dh);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+          if (nt < d8)
+            f_s[(h * 8 + nt) * 32 + lane] =
+                make_float4(dh[nt][0], dh[nt][1], dh[nt][2], dh[nt][3]);
+      }
+#pragma unroll 1
+      for (int nt = 0; nt < d8; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float4 dh = f_s[(h * 8 + nt) * 32 + lane];
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            uint32_t* p = reinterpret_cast<uint32_t*>(
+                acc_s + bt::at<16>(gid + 8 * rr, h * kMaxD + nt * 8 + 2 * q));
+            const float a0 = bt::lo_f(*p);
+            const float a1 = bt::hi_f(*p);
+            *p = bt::pack((rr ? dh.z : dh.x) * tcb::silu_grad_of(a0, tcb::sigm_fast(a0)),
+                          (rr ? dh.w : dh.y) * tcb::silu_grad_of(a1, tcb::sigm_fast(a1)));
+          }
+        }
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr)
+            if (nt < d8)
+              *reinterpret_cast<uint32_t*>(
+                  acc_s + bt::at<16>(gid + 8 * rr, h * kMaxD + nt * 8 + 2 * q)) =
+                  bt::pack(v[h][nt][2 * rr], v[h][nt][2 * rr + 1]);
+    }
+    __syncwarp();  // d_acc in the stage
+    store_rows<16>(acc_s, d_acc, row0, n_rows, d, n, acc_walk);
+    __syncwarp();  // the stage free for the tile after next
+  }
+}
+
+}  // namespace tcb16
+
+
 template <typename T>
 using FwdFn = void (*)(TailT<T>, const T*, const T*, T*, int, int);
 template <typename T>
@@ -1271,6 +1768,18 @@ Kernel<TcBwdFn<T>> tc_bwd_kernel(bool msg, bool w2) {
   return w2 ? tc_bwd_instance<T, false, true>() : tc_bwd_instance<T, false, false>();
 }
 
+// the serving backward in bf16
+template <bool kMsg, bool kW2>
+Kernel<TcBwdFn<chgnet::bf16>> bf16_bwd_instance() {
+  static std::atomic<int> waves[kMaxDevices];
+  return {tcb16::tail_bwd_bf16_kernel<kMsg, kW2>, tcb16::smem_bytes(kMsg, kW2), waves};
+}
+
+Kernel<TcBwdFn<chgnet::bf16>> bf16_bwd_kernel(bool msg, bool w2) {
+  if (msg) return bf16_bwd_instance<true, true>();
+  return w2 ? bf16_bwd_instance<false, true>() : bf16_bwd_instance<false, false>();
+}
+
 }  // namespace
 
 // tail: 7 pointers (w2c, w2g, b2, nc_scale, nc_bias, ng_scale, ng_bias),
@@ -1333,6 +1842,30 @@ int gated_bwd_serving(int msg, const TailT<T>& t, const T* acc, const T* weights
   const int want = (n_rows + rows - 1) / rows;
   const int vec = ((uintptr_t)g | (uintptr_t)(msg ? weights : g)) % (4 * sizeof(T)) == 0;
   k.fn<<<want < wave ? want : wave, 32 * tcb::warps(w2), k.smem, stream>>>(
+      t, acc, weights, mask, g, d_acc, d_weights, d_mask, n_rows, d, vec);
+  return (int)cudaSuccess;
+}
+
+// ... and in bf16, by tcb16's kernel; d_acc and d_weights are stored by
+// whole 16-byte units (8-byte where D % 8 != 0), so they must be aligned
+int gated_bwd_serving(int msg, const TailT<chgnet::bf16>& t, const chgnet::bf16* acc,
+                      const chgnet::bf16* weights, const chgnet::bf16* mask,
+                      const chgnet::bf16* g, chgnet::bf16* d_acc,
+                      chgnet::bf16* d_weights, chgnet::bf16* d_mask, int n_rows, int d,
+                      cudaStream_t stream) {
+  const bool w2 = t.w2c != nullptr;
+  const uintptr_t unit = d % 8 == 0 ? 16 : 8;
+  if ((uintptr_t)acc % 16 || (uintptr_t)d_acc % unit ||
+      (msg && (uintptr_t)d_weights % unit))
+    return (int)cudaErrorInvalidValue;
+  const Kernel<TcBwdFn<chgnet::bf16>> k = bf16_bwd_kernel(msg, w2);
+  const int warps = tcb16::warps(msg, w2);
+  const int wave = wave_blocks(k, 32 * warps);
+  if (wave < 0) return -wave;
+  const int rows = tcb16::kRows * warps;  // of a block's first tiles
+  const int want = (n_rows + rows - 1) / rows;
+  const int vec = tcb16::vec_of(g, msg ? weights : g, msg ? mask : nullptr, d);
+  k.fn<<<want < wave ? want : wave, 32 * warps, k.smem, stream>>>(
       t, acc, weights, mask, g, d_acc, d_weights, d_mask, n_rows, d, vec);
   return (int)cudaSuccess;
 }
@@ -1476,17 +2009,26 @@ extern "C" int gated_reduce_bf16(const void* const* tail, const chgnet::bf16* ac
 
 // The dynamic shared memory, warps a block and blocks of one wave on the
 // current device of the tensor-core kernels, info[3 * i ..] for the message
-// forward (i = 0), the message-reduce (1) and the message backward (2);
+// forward (i = 0), the message-reduce (1), the message backward (2) and the
+// bf16 serving backwards: message (3), update with W2 (4), without (5);
 // nothing is launched. For the build report.
 extern "C" int gated_tc_occupancy(int* info) {
-  const int waves[3] = {wave_blocks(tc_fwd_kernel<float>(), 32 * tcb::kFwdWarps),
-                        wave_blocks(tc_reduce_kernel<float>(), 32 * tcb::kFwdWarps),
-                        wave_blocks(tc_bwd_kernel<float>(true, true),
-                                    32 * tcb::warps(true))};
-  const size_t smem[3] = {tcb::fwd_smem_bytes(), tcb::fwd_smem_bytes(),
-                          tcb::smem_bytes(true)};
-  const int warps[3] = {tcb::kFwdWarps, tcb::kFwdWarps, tcb::warps(true)};
-  for (int i = 0; i < 3; ++i) {
+  constexpr int kN = 6;
+  const int waves[kN] = {
+      wave_blocks(tc_fwd_kernel<float>(), 32 * tcb::kFwdWarps),
+      wave_blocks(tc_reduce_kernel<float>(), 32 * tcb::kFwdWarps),
+      wave_blocks(tc_bwd_kernel<float>(true, true), 32 * tcb::warps(true)),
+      wave_blocks(bf16_bwd_kernel(true, true), 32 * tcb16::warps(true, true)),
+      wave_blocks(bf16_bwd_kernel(false, true), 32 * tcb16::warps(false, true)),
+      wave_blocks(bf16_bwd_kernel(false, false), 32 * tcb16::warps(false, false))};
+  const size_t smem[kN] = {tcb::fwd_smem_bytes(), tcb::fwd_smem_bytes(),
+                           tcb::smem_bytes(true), tcb16::smem_bytes(true, true),
+                           tcb16::smem_bytes(false, true),
+                           tcb16::smem_bytes(false, false)};
+  const int warps[kN] = {tcb::kFwdWarps, tcb::kFwdWarps, tcb::warps(true),
+                         tcb16::warps(true, true), tcb16::warps(false, true),
+                         tcb16::warps(false, false)};
+  for (int i = 0; i < kN; ++i) {
     if (waves[i] < 0) return -waves[i];
     info[3 * i] = (int)smem[i];
     info[3 * i + 1] = warps[i];

@@ -176,7 +176,7 @@ f32 and bf16) and ``tile=512`` (the halo-tiled neighbour layout):
    ``fused_kernels=False``, the other f32 paths' against the wide default
    on their batch, each bf16 path's against its f32 path at
    ``BF16_BARS``; one train step on phase 7's first batch in f32, in bf16
-   and in f32 under ``CHGNET_TPU_FUSED_PASS=1``, each call held (the
+   and in each under ``CHGNET_TPU_FUSED_PASS=1``, each call held (the
    parameter-gradient forms 7p, 9p, 14p among them). The ``kernels`` line
    gains each kernel's ``<name> w128`` rows (f32, bf16; ``width`` 128),
    timed on its ``WIDE_ROW_PATH``;
@@ -379,17 +379,18 @@ PROFILED = {
     "CHGNET_TPU_STREAM_V2=1": ("gather_window_kernel", "segment_sum_tiles_kernel",
                                "segment_sum_fixup_kernel"),
     "CHGNET_TPU_FUSED_PASS=1": ("pass_fwd_tc_kernel", "pass_bwd_tc_kernel"),
-    "bf16": ("tail_fwd_tc_kernel<__nv_bfloat16>", "tail_bwd_tc_kernel<__nv_bfloat16",
+    "bf16": ("tail_fwd_tc_kernel<__nv_bfloat16>", "tail_bwd_bf16_kernel<",
              "gproj_tc_kernel<__nv_bfloat16>", "segment_sum_csr_kernel<__nv_bfloat16"),
     "directed_bonds=False CHGNET_TPU_FUSED_PASS=1 bf16": (
         "pass_fwd_tc_kernel<__nv_bfloat16", "pass_bwd_tc_kernel<__nv_bfloat16"),
 }
 # ... and the kernels it must not show: the CUDA-core one-kernel pass
 # (parameter gradients only) has no place in serving, and the windowed
-# gather's first kernel, which staged every window whole, and the tile
-# sum's first carry kernel, which read the offsets of every output row,
-# are gone
+# gather's first kernel, which staged every window whole, the tile sum's
+# first carry kernel, which read the offsets of every output row, and the
+# serving backward's bf16 instantiation of the f32 tile are gone
 UNPROFILED = {
+    "bf16": ("tail_bwd_tc_kernel<__nv_bfloat16",),
     "CHGNET_TPU_STREAM_V2=1": ("gather_rows_window_kernel", "segment_sum_carry_kernel"),
     "CHGNET_TPU_FUSED_PASS=1": ("pass_fwd_kernel<", "pass_bwd_kernel<"),
     "directed_bonds=False CHGNET_TPU_FUSED_PASS=1 bf16": (
@@ -2761,7 +2762,7 @@ def phase_wide(graphs) -> list:
 
 def phase_wide_train(batch, targets, rows) -> None:
     """Phase 8's train steps: one ``WIDE128`` train step on phase 7's first
-    train batch (8 x 216 atoms) in f32 and in bf16, and one in f32 under
+    train batch (8 x 216 atoms) in f32 and in bf16, and one in each under
     ``CHGNET_TPU_FUSED_PASS``, each kernel call held against its plain
     version (the tails' and the pass's parameter-gradient forms, 7p, 9p,
     14p, among them) and its launch set phase 7's; the w128 rows gain
@@ -2769,7 +2770,8 @@ def phase_wide_train(batch, targets, rows) -> None:
     ``train_forms``, and their errors the step's."""
     t_start = time.perf_counter()
     steps = (("f32", {}, None), ("bf16", BF16_KW, None),
-             ("f32", {}, "CHGNET_TPU_FUSED_PASS"))
+             ("f32", {}, "CHGNET_TPU_FUSED_PASS"),
+             ("bf16", BF16_KW, "CHGNET_TPU_FUSED_PASS"))
     by_row = {(r["name"].split()[0], r["dtype"]): r for r in rows}
     for dtype, kw, switch in steps:
         label = "w128 train step" + ("" if dtype == "f32" else " bf16")

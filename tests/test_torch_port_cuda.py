@@ -571,11 +571,11 @@ def test_gated_message_reduce_autograd_matches_cpu(cuda, serving):
     _assert_scaled(res[0], res[1], TAIL_BWD_TOL)
 
 
-def _misaligned(x: torch.Tensor) -> torch.Tensor:
-    """A contiguous copy of ``x`` whose storage starts 4 bytes past a
-    16-byte boundary."""
-    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
-    out = buf[1:].view(x.shape)
+def _misaligned(x: torch.Tensor, values: int = 1) -> torch.Tensor:
+    """A contiguous copy of ``x`` whose storage starts ``values`` elements
+    (4 bytes of f32, 2 of bf16, by default) past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + values, dtype=x.dtype, device=x.device)
+    out = buf[values:].view(x.shape)
     out.copy_(x)
     assert out.data_ptr() % 16
     return out
@@ -1582,6 +1582,92 @@ def test_bf16_param_reduce_tiles_launch_bf16(cuda):
 # a backward with parameter gradients rounds sums over all rows, which the
 # kernel and the plain version add in different f32 orders: one rounding of
 # sums that differ by up to the f32 kernels' TAIL_BWD_TOL
+# The serving backward of rows 7 and 9 in bf16 (tcb16::tail_bwd_bf16_kernel):
+# bf16 rows staged by cp.async, both products in two bf16 passes on the
+# tensor cores (f32 accuracy), so within one rounding of each output.
+BF16_BWD_D = [4, 12, 16, 36, 64]  # not multiples of 8 or 16; the published width
+BF16_BWD_ROWS = [1, 15, 17, 65_573]  # the last: several waves, a ragged last tile
+BF16_BWD_FORMS = ["message", "message-d_mask", "update-w2", "update"]
+
+
+def _bf16_bwd_inputs(cuda, d, n_rows, near_constant=False, seed=9):
+    """``_tail_inputs`` in bf16 with a run of zero-mask rows (whole tiles);
+    ``near_constant``: a third of the acc rows a few bf16 ulps around 0.75,
+    a fifth exactly constant, and b2 near-constant, so that y has rows of
+    (nearly) zero variance with and without W2."""
+    x, p = _tail_inputs(cuda, d, n_rows, seed=seed)
+    x["mask"][: min(n_rows, 40)] = 0.0
+    if near_constant:
+        gen = torch.Generator().manual_seed(seed)
+        acc = x["acc"]
+        k = torch.randint(-1, 2, tuple(acc[::3].shape), generator=gen)
+        acc[::3] = 0.75 + k.to(acc.device) * 2.0**-7
+        acc[::5] = 0.75
+        acc[1::7] = 0.0  # y = b2 with W2
+        k = torch.randint(-1, 2, (2 * d,), generator=gen)
+        p["b2"] = 0.5 + k.to(acc.device) * 2.0**-7
+    return ({k: v.to(BF16) for k, v in x.items()},
+            {k: v.to(BF16) for k, v in p.items()})
+
+
+def _bf16_bwd_check(form, x, p, **layout):
+    """One form of the serving backward on the card against its plain
+    version: within one ulp of each output's largest value, finite, counted
+    as a bf16 launch, and equal bits from a second run. ``layout`` replaces
+    g, weights or mask by a copy that starts elsewhere."""
+    rows = {k: layout.get(k, x[k]) for k in ("g", "weights", "mask")}
+    if form.startswith("message"):
+        fn, plain = tgm.gated_message_bwd, tgm.gated_message_bwd_plain
+        args = (x["acc"], rows["weights"], rows["mask"], _params(p), rows["g"],
+                form == "message-d_mask", False)
+    else:
+        fn, plain = tgm.gated_update_bwd, tgm.gated_update_bwd_plain
+        args = (x["acc"], _params(p, form == "update-w2"), rows["g"], False)
+    before = fn.launches_bf16
+    got = fn(*args)
+    assert fn.launches_bf16 == before + 1
+    _assert_ulps(got, plain(*args))
+    assert all(bool(t.float().isfinite().all()) for t in _flat(got) if t is not None)
+    again = fn(*args)
+    assert all(torch.equal(a, b) for a, b in zip(_flat(got), _flat(again))
+               if a is not None)
+
+
+@pytest.mark.parametrize("form", BF16_BWD_FORMS)
+@pytest.mark.parametrize("n_rows", BF16_BWD_ROWS)
+@pytest.mark.parametrize("d", BF16_BWD_D)
+def test_bf16_serving_backward_matches_plain(cuda, d, n_rows, form):
+    """Rows 7 and 9 without parameter gradients in bf16, with and without
+    W2 and d_mask, at narrow and ragged shapes."""
+    x, p = _bf16_bwd_inputs(cuda, d, n_rows)
+    _bf16_bwd_check(form, x, p)
+
+
+@pytest.mark.parametrize(
+    "moved,values",
+    [("g", 1), ("weights", 1), ("weights", 4), ("g", 4), ("mask", 1)],
+    ids=["g+2B", "weights+2B", "weights+8B", "g+8B", "mask+2B"],
+)
+@pytest.mark.parametrize("n_rows", [17, 2_500])
+@pytest.mark.parametrize("d", [12, 64])
+def test_bf16_serving_backward_with_misaligned_rows_matches_plain(cuda, d, n_rows,
+                                                                  moved, values):
+    """g or weights 2 bytes off 16 (copied value by value), 8 bytes off
+    (8-byte copies), the mask 2 bytes off (loaded value by value)."""
+    x, p = _bf16_bwd_inputs(cuda, d, n_rows)
+    layout = {moved: _misaligned(x[moved], values)}
+    forms = ["message-d_mask"] if moved in ("weights", "mask") else BF16_BWD_FORMS
+    for form in forms:
+        _bf16_bwd_check(form, x, p, **layout)
+
+
+@pytest.mark.parametrize("form", BF16_BWD_FORMS)
+@pytest.mark.parametrize("d", [4, 36, 64])
+def test_bf16_serving_backward_on_near_constant_rows_matches_plain(cuda, d, form):
+    x, p = _bf16_bwd_inputs(cuda, d, 2_500 + 3, near_constant=True)
+    _bf16_bwd_check(form, x, p)
+
+
 PARAM_ULPS = 1 + TAIL_BWD_TOL / BF16_ULP
 
 
