@@ -1,9 +1,13 @@
 // bf16 tensor-core building blocks of the port's Hopper kernels: rows kept
-// in shared memory as bf16 (asynchronous copies of 8 or 16 bytes, an XOR
-// swizzle of 16-byte chunks), ldmatrix fragments, and f32 products at f32
-// accuracy on the bf16 tensor cores when B holds bf16 values.
+// in shared memory as bf16 (asynchronous copies of 8 or 16 bytes, gathers
+// of indexed rows, an XOR swizzle of 16-byte chunks), ldmatrix fragments,
+// and f32 products at f32 accuracy on the bf16 tensor cores when B holds
+// bf16 values.
 //
-// Products: A is an f32 value a, B a bf16 value (exact in bf16). a splits
+// Products of two bf16 operands (mma_pair): every product of two bf16
+// values is exact in f32, so one pass of mma.sync.m16n8k16 with f32
+// accumulation gives the f32 product up to the order of its f32 adds.
+// Products of an f32 A and a bf16 B: A is an f32 value a. a splits
 // into hi = bf16(a) (round to nearest even) and lo = bf16(a - hi); a * b is
 // then lo b + hi b, two passes of mma.sync.m16n8k16 with f32 accumulation,
 // the small term first. hi b and lo b are exact in f32, and a - hi - lo is
@@ -69,6 +73,14 @@ __device__ __forceinline__ void mma(float c[4], const uint32_t a[4], uint32_t b0
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// c0 += a @ B, c1 += a @ B' for the two 8-column tiles of b = {b0, b1 of
+// tile 0, b0, b1 of tile 1}, a of bf16 values: one pass
+__device__ __forceinline__ void mma_pair(float c0[4], float c1[4], const uint32_t a[4],
+                                         const uint32_t b[4]) {
+  mma(c0, a, b[0], b[1]);
+  mma(c1, a, b[2], b[3]);
+}
+
 // c0 += a @ B for the two 8-column tiles of b = {b0, b1 of tile 0, b0, b1 of
 // tile 1}, a split into hi and lo: lo first, then hi, in each tile
 __device__ __forceinline__ void mma2_pair(float c0[4], float c1[4], const uint32_t hi[4],
@@ -108,6 +120,69 @@ __device__ __forceinline__ void copy16_n(void* dst, const void* src, int n) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    tc::smem_addr(dst)),
                "l"(src), "r"(n));
+}
+
+
+// A lane's walk over the units of a tile's rows, per_row units a row: units
+// lane, lane + 32, ... as (row r, unit c), with no division in the loop
+struct Walk {
+  int r, c, dr, dc, per;
+  __device__ __forceinline__ Walk(int lane, int per_row) : per(per_row) {
+    dr = 32 / per_row;
+    dc = 32 - dr * per_row;
+    r = lane / per_row;
+    c = lane - r * per_row;
+  }
+  __device__ __forceinline__ void next() {
+    r += dr;
+    c += dc;
+    if (c >= per) {
+      c -= per;
+      ++r;
+    }
+  }
+};
+
+// One unit of n values (8: 16 bytes, src 16-byte aligned; 4: 8 bytes, src
+// 8-byte aligned) to dst, or zeros when !valid (src must still be a valid
+// address)
+__device__ __forceinline__ void copy_unit(void* dst, const void* src, bool valid, int n) {
+  if (n == 8)
+    tc::copy16(dst, src, valid);
+  else
+    copy8(dst, src, valid);
+}
+
+// Copies of the kRows rows from row0 of a [n_rows, width] bf16 array into
+// a [kRows][kChunks * 8] slot (at()), units of n values (w walks width / n
+// a row); zeros from n_rows on. The caller commits them.
+template <int kChunks, int kRows = 16>
+__device__ __forceinline__ void copy_rows(char* slot, const __nv_bfloat16* src, long row0,
+                                          long n_rows, int width, int n, Walk w) {
+  for (; w.r < kRows; w.next()) {
+    const long l = row0 + w.r;
+    const bool ok = l < n_rows;
+    copy_unit(slot + at<kChunks>(w.r, n * w.c), src + (ok ? l : 0) * width + n * w.c, ok, n);
+  }
+}
+
+// Copies of kRows gathered rows into a [kRows][kChunks * 8] slot (at()):
+// slot row r takes row s_r of tab [n_src, width], where lane r of the
+// warp holds s_r in ix, a zero row for s_r outside [0, n_src); units of n
+// values (w walks width / n a row). Every lane runs n_it =
+// ceil(kRows * width / n / 32) steps: the row's index comes by a shuffle
+// of the whole warp. The caller commits them.
+template <int kChunks, int kRows = 16>
+__device__ __forceinline__ void gather_rows(char* slot, const __nv_bfloat16* tab, int ix,
+                                            int n_src, int width, int n, int n_it, Walk w) {
+  for (int it = 0; it < n_it; ++it, w.next()) {
+    const int s = __shfl_sync(0xffffffffu, ix, w.r & 31);
+    if (w.r < kRows) {
+      const bool ok = s >= 0 && s < n_src;
+      copy_unit(slot + at<kChunks>(w.r, n * w.c), tab + (ok ? (long)s * width + n * w.c : 0),
+                ok, n);
+    }
+  }
 }
 
 }  // namespace bt

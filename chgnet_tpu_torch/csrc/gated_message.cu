@@ -22,8 +22,9 @@
 // Design of the message forward, the message-reduce and the serving
 // backward: tail_fwd_tc_kernel, tail_reduce_tc_kernel and
 // tail_bwd_tc_kernel (namespace tcb below), on tensor cores with
-// asynchronous copies and warp-local tiles; in bf16 the serving backward
-// is tail_bwd_bf16_kernel (namespace tcb16), the same warp-local tile on
+// asynchronous copies and warp-local tiles; in bf16 the message forward
+// and the serving backward are tail_fwd_bf16_kernel and
+// tail_bwd_bf16_kernel (namespace tcb16), the same warp-local tiles on
 // bf16 stages and the bf16 tensor cores.
 // Design of the update forward without a second layer: update_fwd_kernel,
 // a row per group of lanes with 16-byte loads.
@@ -41,31 +42,33 @@
 // in a fixed order into a [blocks, n_part] scratch buffer (a fixed number
 // of blocks, kParamBlocks), which a second kernel reduces over the blocks in
 // order: no float atomics, and the result repeats bit for bit.
-// bf16 (compute_dtype="bfloat16", the _bf16 entry points): the forward
-// kernels are instantiated for bf16 acc, weights, mask, cotangent and
-// parameters (T = __nv_bfloat16). Rows are widened to f32 as they are
-// fetched (tc::fetch4 / fetch1: a load now where the f32 kernels copy with
-// cp.async), everything inside runs in f32 as before, and each output is
-// rounded once at its store, as chgnet_tpu's kernels do ("streams may be
-// bf16 -- in-kernel math runs in f32", ops/gated_message.py:588-590). Their
-// products keep f32 accuracy: the A operand silu(acc) is an f32 value, but
-// a bf16 W2 is exact in TF32, so of 3xTF32's three passes the two whose
-// terms are not zero remain (lo_a hi_b, hi_a hi_b: tc::mma2_tiles, the same
-// sums). The message-reduce (tail_reduce_tc_kernel<bf16>) also keeps each
-// tile's messages in f32 and sums every segment in f32, rounding each
-// output row once. The serving backward in bf16 has a kernel of its own,
-// tcb16::tail_bwd_bf16_kernel (below tcb): its rows stay bf16 in shared
+// bf16 (compute_dtype="bfloat16", the _bf16 entry points): every kernel
+// takes bf16 acc, weights, mask, cotangent and parameters, computes in f32
+// and rounds each output once at its store, as chgnet_tpu's kernels do
+// ("streams may be bf16 -- in-kernel math runs in f32",
+// ops/gated_message.py:588-590). The message forward and the serving
+// backward have kernels of their own, tcb16::tail_fwd_bf16_kernel and
+// tcb16::tail_bwd_bf16_kernel (below tcb): their rows stay bf16 in shared
 // memory, copied by cp.async, W2 is staged once in bf16 and read by
-// ldmatrix in both orientations, and both products run on the bf16 tensor
-// cores (mma.sync.m16n8k16) in two passes, the f32 A operand split into a
-// bf16 hi and lo (bf16_tile.cuh), so they keep f32 accuracy as well; the
-// row phase is tcb's f32 arithmetic, and each output is rounded once. The
-// backward with parameter gradients (tail_bwd_kernel<bf16, ...>, training)
-// widens its rows and parameters as the forward kernels do; its per-block
-// partials stay f32, sum_blocks_kernel adds them in block order in f32 (no
-// atomics) and rounds each parameter gradient once to bf16 (chgnet_tpu
-// casts each tile's f32 sums to the parameters' type and adds them there,
-// ops/gated_message.py:222-228, so it rounds once a tile). The update
+// ldmatrix (transposed for y = silu(acc) @ W2, as it is for d_h = d_y @
+// W2^T), and every product runs on the bf16 tensor cores
+// (mma.sync.m16n8k16) in two passes, the f32 A operand (silu(acc), d_y)
+// split into a bf16 hi and lo (bf16_tile.cuh), so they keep f32 accuracy;
+// y stays in registers, the row phase is tcb's f32 arithmetic, and each
+// output is rounded once. The other forms are the f32 kernels instantiated
+// for bf16: their rows are widened to f32 as they are fetched (tc::fetch4
+// / fetch1: a load now where the f32 kernels copy with cp.async) and their
+// products keep f32 accuracy as two of 3xTF32's passes, those whose terms
+// are not zero for a bf16 W2 (lo_a hi_b, hi_a hi_b: tc::mma2_tiles, the
+// same sums). The message-reduce (tail_reduce_tc_kernel<bf16>) keeps each
+// tile's messages in f32 and sums every segment in f32, rounding each
+// output row once. The backward with parameter gradients
+// (tail_bwd_kernel<bf16, ...>, training) widens its rows and parameters
+// likewise; its per-block partials stay f32, sum_blocks_kernel adds them
+// in block order in f32 (no atomics) and rounds each parameter gradient
+// once to bf16 (chgnet_tpu casts each tile's f32 sums to the parameters'
+// type and adds them there, ops/gated_message.py:222-228, so it rounds
+// once a tile). The update
 // forward without a second layer (update_fwd_kernel<bf16, ...>) takes the
 // gate's exponentials and quotients by the fast intrinsics, some 1e-6
 // relative in f32 before the output's bf16 rounding.
@@ -1196,25 +1199,8 @@ inline int vec_of(const bf16* g, const bf16* weights, const bf16* mask, int d) {
   return unit | (mask != nullptr && (uintptr_t)mask % 16 == 0 ? 4 : 0);
 }
 
-// A lane's walk over the units of a tile's rows, per units a row: units
-// lane, lane + 32, ... as (row r, unit c), with no division in the loop
-struct Walk {
-  int r, c, dr, dc, per;
-  __device__ __forceinline__ Walk(int lane, int per_row) : per(per_row) {
-    dr = 32 / per_row;
-    dc = 32 - dr * per_row;
-    r = lane / per_row;
-    c = lane - r * per_row;
-  }
-  __device__ __forceinline__ void next() {
-    r += dr;
-    c += dc;
-    if (c >= per) {
-      c -= per;
-      ++r;
-    }
-  }
-};
+// the copy loops walk their units with no division (bf16_tile.cuh)
+using bt::Walk;
 
 // Copies of the 16 acc rows from row0 into the stage st (zeros from n_rows
 // on; the gate half at column kMaxD), n values a copy (w: units of n, 2D / n
@@ -1238,9 +1224,9 @@ __device__ __forceinline__ void fetch_acc(char* st, const bf16* acc, long row0,
 }
 
 // Copies of the g, weights and mask rows from row0 (vec: vec_of; w: units
-// of the copies, one value each for a unit 0, which are loaded now). The
-// caller commits them.
-template <bool kMsg>
+// of the copies, one value each for a unit 0, which are loaded now); kG:
+// g too (the message forward has none). The caller commits them.
+template <bool kMsg, bool kG = true>
 __device__ __forceinline__ void fetch_rows(char* g_s, char* w_s, bf16* m_s,
                                            const bf16* g, const bf16* weights,
                                            const bf16* mask, long row0, int n_rows,
@@ -1256,10 +1242,10 @@ __device__ __forceinline__ void fetch_rows(char* g_s, char* w_s, bf16* m_s,
       const long src = (ok ? l : 0) * d + c;
       const int at = bt::at<8>(r, c);
       if (unit == 2) {
-        tc::copy16(g_s + at, g + src, ok);
+        if (kG) tc::copy16(g_s + at, g + src, ok);
         if (kMsg) tc::copy16(w_s + at, weights + src, ok);
       } else {
-        bt::copy8(g_s + at, g + src, ok);
+        if (kG) bt::copy8(g_s + at, g + src, ok);
         if (kMsg) bt::copy8(w_s + at, weights + src, ok);
       }
     }
@@ -1270,7 +1256,7 @@ __device__ __forceinline__ void fetch_rows(char* g_s, char* w_s, bf16* m_s,
       const int c = w.c;
       const long l = row0 + r;
       const int at = bt::at<8>(r, c);
-      *reinterpret_cast<bf16*>(g_s + at) = l < n_rows ? g[l * d + c] : zero;
+      if (kG) *reinterpret_cast<bf16*>(g_s + at) = l < n_rows ? g[l * d + c] : zero;
       if (kMsg) *reinterpret_cast<bf16*>(w_s + at) = l < n_rows ? weights[l * d + c] : zero;
     }
   }
@@ -1370,6 +1356,38 @@ __device__ __forceinline__ void product_dh(const float v[8][4], const char* w, i
   }
 }
 
+// The block's W2c and W2g (with kW2) in bf16 at w_s, zero-padded to kMaxD
+// (bt::at<8>), and at b2_s b2 (the gate half at kMaxD; zero without kW2),
+// then nc_scale, nc_bias, ng_scale, ng_bias in f32, each kMaxD long and
+// zero past D
+template <bool kW2>
+__device__ __forceinline__ void stage_tail(char* w_s, float* b2_s, const TailT<bf16>& t,
+                                           int d) {
+  for (int i = threadIdx.x; kW2 && i < 2 * kMaxD * kMaxD; i += blockDim.x) {
+    const int h = i / (kMaxD * kMaxD);
+    const int k = (i / kMaxD) % kMaxD;
+    const int n = i % kMaxD;
+    bf16 v = __float2bfloat16(0.f);
+    if (k < d && n < d) v = (h ? t.w2g : t.w2c)[k * d + n];
+    *reinterpret_cast<bf16*>(w_s + h * kMaxD * kMaxD * 2 + bt::at<8>(k, n)) = v;
+  }
+  float* ncs_s = b2_s + 2 * kMaxD;
+  float* ncb_s = ncs_s + kMaxD;
+  float* ngs_s = ncb_s + kMaxD;
+  float* ngb_s = ngs_s + kMaxD;
+  for (int i = threadIdx.x; i < 2 * kMaxD; i += blockDim.x) {
+    const int h = i / kMaxD;
+    const int e = i % kMaxD;
+    b2_s[i] = kW2 && e < d ? chgnet::to_f(t.b2[h * d + e]) : 0.f;
+    if (h == 0) {
+      ncs_s[e] = e < d ? chgnet::to_f(t.ncs[e]) : 0.f;
+      ncb_s[e] = e < d ? chgnet::to_f(t.ncb[e]) : 0.f;
+      ngs_s[e] = e < d ? chgnet::to_f(t.ngs[e]) : 0.f;
+      ngb_s[e] = e < d ? chgnet::to_f(t.ngb[e]) : 0.f;
+    }
+  }
+}
+
 template <bool kMsg, bool kW2>
 __global__ void __launch_bounds__(32 * warps(kMsg, kW2), 1)
     tail_bwd_bf16_kernel(TailT<bf16> t, const bf16* __restrict__ acc,
@@ -1397,25 +1415,7 @@ __global__ void __launch_bounds__(32 * warps(kMsg, kW2), 1)
 
   // weights and parameters zero-padded to kMaxD; this warp's buffers zeroed
   // (the copies never write the pad columns)
-  for (int i = threadIdx.x; kW2 && i < 2 * kMaxD * kMaxD; i += blockDim.x) {
-    const int h = i / (kMaxD * kMaxD);
-    const int k = (i / kMaxD) % kMaxD;
-    const int n = i % kMaxD;
-    bf16 v = __float2bfloat16(0.f);
-    if (k < d && n < d) v = (h ? t.w2g : t.w2c)[k * d + n];
-    *reinterpret_cast<bf16*>(w_s + h * kMaxD * kMaxD * 2 + bt::at<8>(k, n)) = v;
-  }
-  for (int i = threadIdx.x; i < 2 * kMaxD; i += blockDim.x) {
-    const int h = i / kMaxD;
-    const int e = i % kMaxD;
-    b2_s[i] = kW2 && e < d ? chgnet::to_f(t.b2[h * d + e]) : 0.f;
-    if (h == 0) {
-      ncs_s[e] = e < d ? chgnet::to_f(t.ncs[e]) : 0.f;
-      ncb_s[e] = e < d ? chgnet::to_f(t.ncb[e]) : 0.f;
-      ngs_s[e] = e < d ? chgnet::to_f(t.ngs[e]) : 0.f;
-      ngb_s[e] = e < d ? chgnet::to_f(t.ngb[e]) : 0.f;
-    }
-  }
+  stage_tail<kW2>(w_s, b2_s, t, d);
   for (int i = lane; i < warp_bytes(kMsg) / 16; i += 32)
     reinterpret_cast<float4*>(mine)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();  // the only block barrier
@@ -1665,6 +1665,163 @@ __global__ void __launch_bounds__(32 * warps(kMsg, kW2), 1)
   }
 }
 
+// ------------------------------------------- message forward on bf16 tiles
+// The message forward in bf16 (row 6, D <= 64): tcb::tail_fwd_tc_kernel's
+// function and schedule (a warp owns 16 rows through every phase, no block
+// barrier in its loop) on bf16 stages and the bf16 tensor cores. acc runs
+// one tile ahead through two bf16 stages (cp.async, 16-byte units, 8-byte
+// ones where D % 8 != 0); the weights rows and mask entries take their own
+// slot, copied once the previous tile's messages have left it and waited
+// for only before the gate. y = b2 + silu(acc) @ blockdiag(W2c, W2g) is
+// product_y's: W2c and W2g staged once a block in bf16 (16 KB, exact) and
+// read by ldmatrix.trans, each A fragment by ldmatrix, silu in f32, split
+// into a bf16 hi and lo, two mma.sync.m16n8k16 passes (f32 accuracy). y
+// stays in its C fragments: the layer-norm statistics (two passes, quad
+// shuffles) and the gate (message_tile's arithmetic: sigm_fast, the same
+// order of products) read it from registers. The messages, rounded once to
+// bf16, go over the weights they were made from and leave by whole-row
+// 16-byte stores (8-byte where D % 8 != 0). Nothing is parked in an acc
+// stage, so its columns past D, which the copies never write, stay zero.
+// A warp takes 10 KB of shared memory; registers set the warps a block:
+// 16 at up to 128 registers, which beat 12 side by side (PERF.md §6).
+constexpr int kFwdWarps = 16;
+constexpr int kFwdWarpBytes = 2 * kAccBytes + kRowBytes + kMaskBytes;
+__host__ __device__ constexpr size_t fwd_smem_bytes() {
+  return (size_t)fixed_bytes(true) + (size_t)kFwdWarps * kFwdWarpBytes;
+}
+static_assert(fwd_smem_bytes() <= kSmemPerBlock, "over the H100's shared memory a block");
+
+__global__ void __launch_bounds__(32 * kFwdWarps, 1)
+    tail_fwd_bf16_kernel(TailT<bf16> t, const bf16* __restrict__ acc,
+                         const bf16* __restrict__ weights, const bf16* __restrict__ mask,
+                         bf16* __restrict__ out, int n_rows, int d, int vec) {
+  extern __shared__ float4 smem4[];
+  char* w_s = reinterpret_cast<char*>(smem4);  // [2][kMaxD][kMaxD] bf16
+  float* b2_s = reinterpret_cast<float*>(w_s + kWBytes);  // gate at kMaxD
+  const float* ncs_s = b2_s + 2 * kMaxD;
+  const float* ncb_s = ncs_s + kMaxD;
+  const float* ngs_s = ncb_s + kMaxD;
+  const float* ngb_s = ngs_s + kMaxD;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  // this warp's buffers: two acc stages; weights (the messages once read);
+  // the mask
+  char* mine = w_s + fixed_bytes(true) + warp * kFwdWarpBytes;
+  char* wt_s = mine + 2 * kAccBytes;
+  bf16* m_s = reinterpret_cast<bf16*>(wt_s + kRowBytes);
+  stage_tail<true>(w_s, b2_s, t, d);
+  for (int i = lane; i < kFwdWarpBytes / 16; i += 32)
+    reinterpret_cast<float4*>(mine)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();  // the only block barrier
+
+  const int gid = lane >> 2;
+  const int q = lane & 3;
+  const int d8 = (d + 7) / 8;
+  const int d16 = (d + 15) / 16;
+  const float inv_d = 1.f / d;
+  const int n_tiles = (n_rows + kRows - 1) / kRows;
+  const int step = gridDim.x * kFwdWarps;
+  int tile = blockIdx.x * kFwdWarps + warp;
+  // the copies' units: acc and out by n values (16 bytes, or 8), weights
+  // by vec's unit
+  const int n = d % 8 == 0 ? 8 : 4;
+  const Walk acc_walk(lane, 2 * d / n);
+  const Walk row_walk(lane, d / ((vec & 3) == 2 ? 8 : (vec & 3) == 1 ? 4 : 1));
+  const Walk out_walk(lane, d / n);
+  if (tile < n_tiles) fetch_acc(mine, acc, (long)tile * kRows, n_rows, d, n, acc_walk);
+  tc::commit();
+  if (tile < n_tiles)
+    fetch_rows<true, false>(nullptr, wt_s, m_s, nullptr, weights, mask,
+                            (long)tile * kRows, n_rows, d, vec, row_walk, lane);
+  tc::commit();
+  for (int it = 0; tile < n_tiles; ++it, tile += step) {
+    const char* acc_s = mine + (it & 1) * kAccBytes;
+    const bool ahead = tile + step < n_tiles;
+    if (ahead)
+      fetch_acc(mine + ((it + 1) & 1) * kAccBytes, acc, (long)(tile + step) * kRows,
+                n_rows, d, n, acc_walk);
+    tc::commit();
+    tc::wait_pending<2>();  // this tile's acc; its weights may still be in flight
+    __syncwarp();
+    const long row0 = (long)tile * kRows;
+
+    // y = b2 + silu(acc) @ blockdiag(W2c, W2g). Element (h, nt, j): row
+    // gid + 8 (j >> 1), column 8 nt + 2 q + (j & 1) of half h; exactly 0
+    // past D (zero weights and b2)
+    float y[2][8][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) y[h][nt][j] = b2_s[h * kMaxD + nt * 8 + 2 * q + (j & 1)];
+    product_y(acc_s, w_s, d8, d16, lane, y);
+
+    // two-pass layer-norm statistics of each half row
+    float mean[2][2] = {}, inv[2][2] = {};
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mean[h][j >> 1] += y[h][nt][j];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) mean[h][rr] = tc::quad_sum(mean[h][rr]) * inv_d;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (nt * 8 + 2 * q + (j & 1) < d) {
+            const float c = y[h][nt][j] - mean[h][j >> 1];
+            inv[h][j >> 1] = fmaf(c, c, inv[h][j >> 1]);
+          }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+        inv[h][rr] = rsqrtf(tc::quad_sum(inv[h][rr]) * inv_d + kEps);
+    tc::wait_pending<1>();  // the weights and mask too
+    __syncwarp();
+
+    // the gate times weights and mask (message_tile's arithmetic), over
+    // the weights a lane has just read
+    const float m[2] = {__bfloat162float(m_s[gid]), __bfloat162float(m_s[gid + 8])};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int e0 = nt * 8 + 2 * q;
+      if (e0 >= d) break;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        uint32_t* wp = reinterpret_cast<uint32_t*>(wt_s + bt::at<8>(gid + 8 * rr, e0));
+        const uint32_t wv = *wp;
+        float v[2];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int j = 2 * rr + jj;
+          const int e = e0 + jj;
+          const float zc = (y[0][nt][j] - mean[0][rr]) * inv[0][rr];
+          const float zg = (y[1][nt][j] - mean[1][rr]) * inv[1][rr];
+          const float cn = fmaf(zc, ncs_s[e], ncb_s[e]);
+          v[jj] = cn * tcb::sigm_fast(cn) * tcb::sigm_fast(fmaf(zg, ngs_s[e], ngb_s[e])) *
+                  (jj ? bt::hi_f(wv) : bt::lo_f(wv)) * m[rr];
+        }
+        *wp = bt::pack(v[0], v[1]);
+      }
+    }
+    __syncwarp();  // the messages in their slot
+    store_rows<8>(wt_s, out, row0, n_rows, d, n, out_walk);
+    __syncwarp();  // the slot free
+    if (ahead)
+      fetch_rows<true, false>(nullptr, wt_s, m_s, nullptr, weights, mask,
+                              (long)(tile + step) * kRows, n_rows, d, vec, row_walk, lane);
+    tc::commit();
+  }
+}
+
 }  // namespace tcb16
 
 
@@ -1780,6 +1937,12 @@ Kernel<TcBwdFn<chgnet::bf16>> bf16_bwd_kernel(bool msg, bool w2) {
   return w2 ? bf16_bwd_instance<false, true>() : bf16_bwd_instance<false, false>();
 }
 
+// the message forward in bf16
+Kernel<TcFwdFn<chgnet::bf16>> bf16_fwd_kernel() {
+  static std::atomic<int> waves[kMaxDevices];
+  return {tcb16::tail_fwd_bf16_kernel, tcb16::fwd_smem_bytes(), waves};
+}
+
 }  // namespace
 
 // tail: 7 pointers (w2c, w2g, b2, nc_scale, nc_bias, ng_scale, ng_bias),
@@ -1794,6 +1957,40 @@ Kernel<TcBwdFn<chgnet::bf16>> bf16_bwd_kernel(bool msg, bool w2) {
 // most one wave of blocks.
 namespace {
 
+// the message forward, by the tensor-core kernel
+template <typename T>
+int launch_msg_fwd(const TailT<T>& t, const T* acc, const T* weights, const T* mask,
+                   T* out, int n_rows, int d, cudaStream_t stream) {
+  const Kernel<TcFwdFn<T>> k = tc_fwd_kernel<T>();
+  const int wave = wave_blocks(k, 32 * tcb::kFwdWarps);
+  if (wave < 0) return -wave;
+  const int rows = tcb::kRows * tcb::kFwdWarps;  // of a block's first tiles
+  const int want = (n_rows + rows - 1) / rows;
+  // weights rows in units of 4 values: 16 bytes of f32, 8 of bf16
+  const int vec = (uintptr_t)weights % (4 * sizeof(T)) == 0;
+  k.fn<<<want < wave ? want : wave, 32 * tcb::kFwdWarps, k.smem, stream>>>(
+      t, acc, weights, mask, out, n_rows, d, vec);
+  return (int)cudaSuccess;
+}
+
+// ... and in bf16, by tcb16's kernel; out is stored by whole 16-byte units
+// (8-byte where D % 8 != 0), so it must be aligned
+int launch_msg_fwd(const TailT<chgnet::bf16>& t, const chgnet::bf16* acc,
+                   const chgnet::bf16* weights, const chgnet::bf16* mask,
+                   chgnet::bf16* out, int n_rows, int d, cudaStream_t stream) {
+  if ((uintptr_t)acc % 16 || (uintptr_t)out % (d % 8 == 0 ? 16 : 8))
+    return (int)cudaErrorInvalidValue;
+  const Kernel<TcFwdFn<chgnet::bf16>> k = bf16_fwd_kernel();
+  const int wave = wave_blocks(k, 32 * tcb16::kFwdWarps);
+  if (wave < 0) return -wave;
+  const int rows = tcb16::kRows * tcb16::kFwdWarps;  // of a block's first tiles
+  const int want = (n_rows + rows - 1) / rows;
+  const int vec = tcb16::vec_of(weights, weights, mask, d);
+  k.fn<<<want < wave ? want : wave, 32 * tcb16::kFwdWarps, k.smem, stream>>>(
+      t, acc, weights, mask, out, n_rows, d, vec);
+  return (int)cudaSuccess;
+}
+
 template <typename T>
 int gated_fwd(int msg, const void* const* tail, const T* acc, const T* weights,
               const T* mask, const T* resnet, T* out, int n_rows, int d,
@@ -1807,15 +2004,8 @@ int gated_fwd(int msg, const void* const* tail, const T* acc, const T* weights,
                                      msg ? weights : resnet, mask, out, n_rows, d, stream);
     if (err) return err;
   } else if (n_rows > 0 && msg) {
-    const Kernel<TcFwdFn<T>> k = tc_fwd_kernel<T>();
-    const int wave = wave_blocks(k, 32 * tcb::kFwdWarps);
-    if (wave < 0) return -wave;
-    const int rows = tcb::kRows * tcb::kFwdWarps;  // of a block's first tiles
-    const int want = (n_rows + rows - 1) / rows;
-    // weights rows in units of 4 values: 16 bytes of f32, 8 of bf16
-    const int vec = (uintptr_t)weights % (4 * sizeof(T)) == 0;
-    k.fn<<<want < wave ? want : wave, 32 * tcb::kFwdWarps, k.smem, stream>>>(
-        t, acc, weights, mask, out, n_rows, d, vec);
+    const int err = launch_msg_fwd(t, acc, weights, mask, out, n_rows, d, stream);
+    if (err) return err;
   } else if (n_rows > 0 && w2) {
     const Kernel<FwdFn<T>> k = fwd_kernel<T>();
     const int wave = wave_blocks(k);
@@ -2009,25 +2199,27 @@ extern "C" int gated_reduce_bf16(const void* const* tail, const chgnet::bf16* ac
 
 // The dynamic shared memory, warps a block and blocks of one wave on the
 // current device of the tensor-core kernels, info[3 * i ..] for the message
-// forward (i = 0), the message-reduce (1), the message backward (2) and the
-// bf16 serving backwards: message (3), update with W2 (4), without (5);
-// nothing is launched. For the build report.
+// forward (i = 0), the message-reduce (1), the message backward (2), the
+// bf16 serving backwards: message (3), update with W2 (4), without (5),
+// and the bf16 message forward (6); nothing is launched. For the build
+// report.
 extern "C" int gated_tc_occupancy(int* info) {
-  constexpr int kN = 6;
+  constexpr int kN = 7;
   const int waves[kN] = {
       wave_blocks(tc_fwd_kernel<float>(), 32 * tcb::kFwdWarps),
       wave_blocks(tc_reduce_kernel<float>(), 32 * tcb::kFwdWarps),
       wave_blocks(tc_bwd_kernel<float>(true, true), 32 * tcb::warps(true)),
       wave_blocks(bf16_bwd_kernel(true, true), 32 * tcb16::warps(true, true)),
       wave_blocks(bf16_bwd_kernel(false, true), 32 * tcb16::warps(false, true)),
-      wave_blocks(bf16_bwd_kernel(false, false), 32 * tcb16::warps(false, false))};
+      wave_blocks(bf16_bwd_kernel(false, false), 32 * tcb16::warps(false, false)),
+      wave_blocks(bf16_fwd_kernel(), 32 * tcb16::kFwdWarps)};
   const size_t smem[kN] = {tcb::fwd_smem_bytes(), tcb::fwd_smem_bytes(),
                            tcb::smem_bytes(true), tcb16::smem_bytes(true, true),
                            tcb16::smem_bytes(false, true),
-                           tcb16::smem_bytes(false, false)};
+                           tcb16::smem_bytes(false, false), tcb16::fwd_smem_bytes()};
   const int warps[kN] = {tcb::kFwdWarps, tcb::kFwdWarps, tcb::warps(true),
                          tcb16::warps(true, true), tcb16::warps(false, true),
-                         tcb16::warps(false, false)};
+                         tcb16::warps(false, false), tcb16::kFwdWarps};
   for (int i = 0; i < kN; ++i) {
     if (waves[i] < 0) return -waves[i];
     info[3 * i] = (int)smem[i];

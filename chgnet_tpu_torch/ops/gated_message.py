@@ -36,8 +36,8 @@ bf16 tails (``compute_dtype="bfloat16"``): every kernel takes bf16 ``acc``,
 weights, mask, cotangent and parameters (its ``_bf16`` C entry point),
 computes in f32 (the products at f32 accuracy: ``silu(acc)`` and ``d_y``
 are f32 values, and a bf16 W2 needs two of 3xTF32's three passes; the
-serving backward splits the f32 value into a bf16 hi and lo and takes two
-passes on the bf16 tensor cores) and
+message forward and the serving backward split the f32 value into a bf16
+hi and lo and take two passes on the bf16 tensor cores) and
 rounds each output once, as ``chgnet_tpu``'s kernels do ("streams may be
 bf16 -- in-kernel math runs in f32",
 ``chgnet_tpu/ops/gated_message.py:588-590``): the message-reduce sums each
@@ -275,7 +275,8 @@ def tc_occupancy() -> dict[str, tuple[int, int, int]]:
     launched."""
     names = ("tail_fwd_tc_kernel", "tail_reduce_tc_kernel",
              "tail_bwd_tc_kernel<true, true>", "tail_bwd_bf16_kernel<true, true>",
-             "tail_bwd_bf16_kernel<false, true>", "tail_bwd_bf16_kernel<false, false>")
+             "tail_bwd_bf16_kernel<false, true>", "tail_bwd_bf16_kernel<false, false>",
+             "tail_fwd_bf16_kernel")
     info = (_I * (3 * len(names)))()
     build.check(_lib().gated_tc_occupancy(info), "gated_tc_occupancy")
     return {name: tuple(info[3 * i: 3 * i + 3]) for i, name in enumerate(names)}

@@ -21,7 +21,9 @@ compute in f32 and round ``out`` once. The short route also rounds its
 projected tables to bf16, as the plain version does (``chgnet_tpu``'s plain
 path projects in bf16); the long route rounds nothing before the store, as
 the TPU kernel, whose gathered rows are the bf16 rows themselves
-(``chgnet_tpu/ops/gproj.py:155-159``). :func:`gather_project_sum_route_plain`
+(``chgnet_tpu/ops/gproj.py:155-159``). The long route in bf16 has a kernel
+of its own (``gproj_bf16_tc_kernel``): bf16 rows gathered by ``cp.async``,
+every product one pass on the bf16 tensor cores, exact in f32. :func:`gather_project_sum_route_plain`
 gives the plain version each route's rounding; the wrapper's CPU path
 rounds the projected tables, as ``chgnet_tpu`` does off the TPU.
 
@@ -50,6 +52,7 @@ _SHORT = [
 _SIGNATURES = {
     "gproj_f32": _LONG, "gproj_bf16": _LONG,
     "gproj_short_f32": _SHORT, "gproj_short_bf16": _SHORT,
+    "gproj_tc_occupancy": [ctypes.POINTER(_I)],
 }
 MAX_PAIRS = 3  # AtomConv 2, BondConv and AngleUpdate 3 with the atom_e fold
 MAX_DT = 128  # table width the kernels take (kWideDt)
@@ -80,6 +83,17 @@ def call_route(tables, stream) -> str:
     """:func:`gproj_route` of one call's tables and stream."""
     return gproj_route(len(tables), tables[0].shape[0], stream.shape[1],
                        stream.element_size(), tables[0].shape[1])
+
+
+def tc_occupancy() -> dict[str, tuple[int, int, int]]:
+    """``(shared memory bytes, warps a block, blocks of one wave)`` on the
+    current card of the long route's kernels at 3 pairs, by kernel name;
+    nothing is launched."""
+    names = ("gproj_tc_kernel<float>", "gproj_bf16_tc_kernel")
+    info = (_I * (3 * len(names)))()
+    build.check(build.load("gproj", _SIGNATURES).gproj_tc_occupancy(info),
+                "gproj_tc_occupancy")
+    return {name: tuple(info[3 * i: 3 * i + 3]) for i, name in enumerate(names)}
 
 
 def gather_project_sum_plain(tables, idxs, ws, stream, round_tables=True):

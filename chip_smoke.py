@@ -25,8 +25,9 @@ f32 and bf16) and ``tile=512`` (the halo-tiled neighbour layout):
 1. card and build: the card's name and power limit, the TF32 flags, the
    kernel build time, each kernel's registers, spills and static shared
    memory (``ptxas``'s report, names demangled by ``cu++filt``), and the
-   tensor-core tails' and the one-kernel pass's serving kernels' dynamic
-   shared memory, warps a block and blocks an SM
+   tensor-core tails', the one-kernel pass's serving kernels' and
+   gather_project_sum's long route's dynamic shared memory, warps a block
+   and blocks an SM
    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
 2. kernels: one recorded E+F+S+M pass of each path on the benchmark batch
    (32 perturbed 216-atom LiMnO2 supercells, ``bench.py``'s workload)
@@ -86,8 +87,8 @@ f32 and bf16) and ``tile=512`` (the halo-tiled neighbour layout):
    device time; the traced default, message-reduce, stream-v2 and
    one-kernel-pass passes must show their kernels by name (``PROFILED``:
    the tensor-core tails, the windowed gather; the bf16 passes their bf16
-   instantiations), and the stream-v2 and
-   one-kernel passes' traces none of the kernels they replaced
+   kernels), and the stream-v2, one-kernel and bf16
+   passes' traces none of the kernels they replaced
    (``UNPROFILED``);
 6. simulation (``chgnet_tpu_torch.simulation``): (a) the pinned seed-0 MD
    traces of every ensemble and the FIRE trace (``GOLDEN_MD``,
@@ -379,8 +380,8 @@ PROFILED = {
     "CHGNET_TPU_STREAM_V2=1": ("gather_window_kernel", "segment_sum_tiles_kernel",
                                "segment_sum_fixup_kernel"),
     "CHGNET_TPU_FUSED_PASS=1": ("pass_fwd_tc_kernel", "pass_bwd_tc_kernel"),
-    "bf16": ("tail_fwd_tc_kernel<__nv_bfloat16>", "tail_bwd_bf16_kernel<",
-             "gproj_tc_kernel<__nv_bfloat16>", "segment_sum_csr_kernel<__nv_bfloat16"),
+    "bf16": ("tail_fwd_bf16_kernel", "tail_bwd_bf16_kernel<",
+             "gproj_bf16_tc_kernel", "segment_sum_csr_kernel<__nv_bfloat16"),
     "directed_bonds=False CHGNET_TPU_FUSED_PASS=1 bf16": (
         "pass_fwd_tc_kernel<__nv_bfloat16", "pass_bwd_tc_kernel<__nv_bfloat16"),
 }
@@ -388,9 +389,11 @@ PROFILED = {
 # (parameter gradients only) has no place in serving, and the windowed
 # gather's first kernel, which staged every window whole, the tile sum's
 # first carry kernel, which read the offsets of every output row, and the
-# serving backward's bf16 instantiation of the f32 tile are gone
+# bf16 instantiations of the f32 tiles of the serving backward, the message
+# forward and gather_project_sum's long route are gone
 UNPROFILED = {
-    "bf16": ("tail_bwd_tc_kernel<__nv_bfloat16",),
+    "bf16": ("tail_bwd_tc_kernel<__nv_bfloat16", "gproj_tc_kernel<__nv_bfloat16",
+             "tail_fwd_tc_kernel<__nv_bfloat16"),
     "CHGNET_TPU_STREAM_V2=1": ("gather_rows_window_kernel", "segment_sum_carry_kernel"),
     "CHGNET_TPU_FUSED_PASS=1": ("pass_fwd_kernel<", "pass_bwd_kernel<"),
     "directed_bonds=False CHGNET_TPU_FUSED_PASS=1 bf16": (
@@ -926,10 +929,11 @@ def phase_card_and_build():
     log(f"kernel build: {time.perf_counter() - t0:.2f} s (compiled {built})")
     for name in build.SOURCES:
         log_ptxas(name, f"{build.lib_path(name)}.log")
-    from chgnet_tpu_torch.ops import fused_pass, gated_message
+    from chgnet_tpu_torch.ops import fused_pass, gated_message, gproj
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    for lib, mod in (("gated_message", gated_message), ("fused_pass", fused_pass)):
+    for lib, mod in (("gated_message", gated_message), ("fused_pass", fused_pass),
+                     ("gproj", gproj)):
         for kernel, (smem, warps, wave) in mod.tc_occupancy().items():
             log(f"occupancy {lib}: {kernel}: {smem} bytes dynamic shared "
                 f"memory, {warps} warps a block, {wave / n_sm:g} blocks "
@@ -938,12 +942,20 @@ def phase_card_and_build():
 
 def log_ptxas(name: str, path: str) -> None:
     """Registers, spills and static shared memory per kernel from nvcc's
-    ``-Xptxas -v`` report, the kernel names demangled by the toolkit's
-    ``cu++filt``."""
+    ``-Xptxas -v`` report (``ptxas_rows``)."""
+    for kernel, regs, spills, smem in ptxas_rows(path):
+        log(f"ptxas {name}: {kernel}: {regs} registers, {spills} bytes spilled, "
+            f"{smem} bytes static shared memory")
+
+
+def ptxas_rows(path: str) -> list:
+    """``(kernel, registers, bytes spilled, bytes of static shared memory)``
+    of each kernel in nvcc's ``-Xptxas -v`` report at ``path`` (none if it
+    is missing), the names demangled by the toolkit's ``cu++filt``."""
     from chgnet_tpu_torch.ops import build
 
     if not os.path.exists(path):
-        return
+        return []
     rows, kernel, spills = [], None, 0
     with open(path) as fh:
         for line in fh:
@@ -958,14 +970,15 @@ def log_ptxas(name: str, path: str) -> None:
                 smem = re.search(r"(\d+) bytes smem", line)
                 rows.append((kernel, m.group(1), spills, smem.group(1) if smem else "0"))
                 kernel, spills = None, 0
+    if not rows:
+        return []
     filt = os.path.join(os.path.dirname(build.nvcc()), "cu++filt")
     names = subprocess.run(
         [filt, "-p", *(r[0] for r in rows)], check=True, capture_output=True,
         text=True, timeout=60,
     ).stdout.splitlines()
-    for kernel, (_, regs, spills, smem) in zip(names, rows):
-        log(f"ptxas {name}: {kernel}: {regs} registers, {spills} bytes spilled, "
-            f"{smem} bytes static shared memory")
+    return [(kernel, int(regs), spills, int(smem))
+            for kernel, (_, regs, spills, smem) in zip(names, rows)]
 
 
 def bench_structs(n: int = N_STRUCTS):

@@ -1668,6 +1668,116 @@ def test_bf16_serving_backward_on_near_constant_rows_matches_plain(cuda, d, form
     _bf16_bwd_check(form, x, p)
 
 
+# The message forward of row 6 in bf16 (tcb16::tail_fwd_bf16_kernel): bf16
+# rows by cp.async, y = b2 + silu(acc) @ W2 in two bf16 passes (f32
+# accuracy) kept in registers, each message rounded once: within one
+# rounding of each output, as the plain version.
+BF16_FWD_D = [8, 16, 32, 60, 64]  # one 16-deep step; not a multiple of 8; the published width
+BF16_FWD_ROWS = [1, 15, 17, 65_573]  # single and ragged tiles; several tiles a warp
+
+
+def _bf16_fwd_check(x, p, **layout):
+    """The message forward on the card against its plain version: within
+    one ulp of its largest value, finite, counted as a bf16 launch, and
+    equal bits from a second run. ``layout`` replaces weights or mask by a
+    copy that starts elsewhere."""
+    rows = {k: layout.get(k, x[k]) for k in ("weights", "mask")}
+    args = (x["acc"], rows["weights"], rows["mask"], _params(p))
+    before = tgm.gated_message_fwd.launches_bf16
+    got = tgm.gated_message_fwd(*args)
+    assert tgm.gated_message_fwd.launches_bf16 == before + 1
+    _assert_ulps(got, tgm.gated_message_plain(*args))
+    assert bool(got.float().isfinite().all())
+    assert torch.equal(got, tgm.gated_message_fwd(*args))
+
+
+@pytest.mark.parametrize("n_rows", BF16_FWD_ROWS)
+@pytest.mark.parametrize("d", BF16_FWD_D)
+def test_bf16_message_forward_matches_plain(cuda, d, n_rows):
+    """Row 6 in bf16; the first 40 rows masked (whole tiles)."""
+    x, p = _bf16_bwd_inputs(cuda, d, n_rows)
+    _bf16_fwd_check(x, p)
+
+
+@pytest.mark.parametrize(
+    "moved,values", [("weights", 1), ("weights", 4), ("mask", 1)],
+    ids=["weights+2B", "weights+8B", "mask+2B"],
+)
+@pytest.mark.parametrize("d", [12, 60, 64])
+def test_bf16_message_forward_with_misaligned_rows_matches_plain(cuda, d, moved, values):
+    """weights 2 bytes off 16 (copied value by value), 8 bytes off (8-byte
+    copies), the mask 2 bytes off (loaded value by value)."""
+    x, p = _bf16_bwd_inputs(cuda, d, 2_500 + 3)
+    _bf16_fwd_check(x, p, **{moved: _misaligned(x[moved], values)})
+
+
+@pytest.mark.parametrize("d", [8, 36, 64])
+def test_bf16_message_forward_on_near_constant_rows_matches_plain(cuda, d):
+    x, p = _bf16_bwd_inputs(cuda, d, 2_500 + 3, near_constant=True)
+    _bf16_fwd_check(x, p)
+
+
+@pytest.mark.parametrize("d", [60, 64])
+def test_bf16_message_forward_keeps_a_non_finite_row_to_itself(cuda, d):
+    """An infinite acc value gives row 5 a non-finite y. Its warp then takes
+    further tiles (65,573 rows: several a warp) through the same stages,
+    whose columns past D the copies never write: every other row stays
+    finite and within one ulp of the plain version."""
+    x, p = _bf16_bwd_inputs(cuda, d, 65_573)
+    x["acc"][5, 0] = float("inf")
+    args = (x["acc"], x["weights"], x["mask"], _params(p))
+    got = tgm.gated_message_fwd(*args)
+    want = tgm.gated_message_plain(*args)
+    finite = want.float().isfinite().all(1)
+    assert not bool(finite[5]) and int((~finite).sum()) == 1
+    assert bool(got[finite].float().isfinite().all())
+    _assert_ulps(got[finite], want[finite])
+
+
+# The long route of row 4 in bf16 (gproj_bf16_tc_kernel): bf16 rows
+# gathered by cp.async, one bf16 pass a product, summed in f32 from the
+# stream rows and rounded once: one ulp of the plain version with the long
+# route's rounding.
+def _gproj_bf16_inputs(device, n_pairs, dt, k_out, n_rows, n_src=5_000, seed=7):
+    """bf16 tables, indices out of range on both sides (padding -1 and -2,
+    n_src and past it); pairs 0 and 1 share an index stream, pairs 0 and 2
+    a table."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(device, BF16)
+
+    tabs = [rand(n_src, dt) for _ in range(n_pairs)]
+    idxs = [torch.randint(-2, n_src + 2, (n_rows,), generator=gen,
+                          dtype=torch.int32).to(device) for _ in range(n_pairs)]
+    if n_pairs >= 2:
+        idxs[1] = idxs[0]
+    if n_pairs == 3:
+        tabs[2] = tabs[0]
+    ws = [rand(dt, k_out, scale=0.1) for _ in range(n_pairs)]
+    return tabs, idxs, ws, rand(n_rows, k_out)
+
+
+@pytest.mark.parametrize("n_rows", [1, 17, 65_573])
+@pytest.mark.parametrize("dt,k_out", [(8, 16), (12, 60), (36, 128), (64, 12), (64, 128)])
+@pytest.mark.parametrize("n_pairs", [1, 2, 3])
+def test_bf16_long_route_matches_plain(cuda, monkeypatch, n_pairs, dt, k_out, n_rows):
+    """Every call on the long route (the short route's table budget set to
+    0): table rows of 16-byte and 8-byte copies (dt % 8), stream rows
+    likewise (K % 8), ragged last tiles, several tiles a warp."""
+    monkeypatch.setattr(tgp, "SHORT_TABLE_BYTES", 0)
+    args = _gproj_bf16_inputs(cuda, n_pairs, dt, k_out, n_rows)
+    assert tgp.call_route(args[0], args[3]) == "long"
+    libs = _record_gproj_calls(monkeypatch)
+    before = tgp.gather_project_sum_kernel.launches_bf16
+    got = tgp.gather_project_sum_kernel(*args)
+    assert libs[0].names == ["gproj_bf16"]
+    assert tgp.gather_project_sum_kernel.launches_bf16 == before + 1
+    _assert_ulps(got, tgp.gather_project_sum_route_plain(*args))
+    assert bool(got.float().isfinite().all())
+    assert torch.equal(got, tgp.gather_project_sum_kernel(*args))
+
+
 PARAM_ULPS = 1 + TAIL_BWD_TOL / BF16_ULP
 
 
