@@ -12,7 +12,8 @@
 // Replaces chgnet_tpu/ops/fused_pass.py _kernel (:157, wrapper
 // _fused_pass_pallas :219) -> pass_fwd_tc_kernel, and _bwd_kernel (:393,
 // wrapper _pass_bwd_pallas :526) -> pass_bwd_tc_kernel (serving) and
-// pass_bwd_kernel (with parameter gradients). The TPU kernels DMA a source
+// pass_bwd_kernel (with parameter gradients); in bf16 the serving forms
+// are pass_fwd_bf16_kernel and pass_bwd_bf16_kernel. The TPU kernels DMA a source
 // window per part and output block and reduce it with one-hot MXU matmuls;
 // here each gathered row is read whole, 16 bytes a lane.
 //
@@ -24,8 +25,9 @@
 // backward gathers the same rows again, reads the cotangent and writes
 // d_total [L, 2D] and d_weights: bytes too.
 //
-// Design of the serving kernels (pass_fwd_tc_kernel, pass_bwd_tc_kernel;
-// namespace tcp below): warp-specialised. Producer warps gather: each builds
+// Design of the f32 serving kernels (pass_fwd_tc_kernel, pass_bwd_tc_kernel;
+// namespace tcp below, instantiated for f32 only): warp-specialised.
+// Producer warps gather: each builds
 // 16-row acc tiles in part order (from zero, each gathered part, the aligned
 // part, then the bias: the plain version's order) in a ring of acc slots in
 // shared memory: the aligned rows copied into the slot (cp.async) while the
@@ -57,25 +59,26 @@
 // fixed kParamBlocks scratch rows and sum_blocks_kernel: no float atomics,
 // equal bits on every run.
 //
-// bf16 (compute_dtype="bfloat16", the _bf16 entry points): every kernel is
-// instantiated for bf16 tables, aligned rows, b1, side rows, cotangent and
-// parameters. Rows are widened to f32 as they are read (gathered units in
-// registers, the aligned and side rows loaded and stored into shared memory
-// at once where the f32 kernels copy with cp.async), the sums, layer norms
-// and gates run in f32 as before, and each output is rounded once at its
+// bf16 (compute_dtype="bfloat16", the _bf16 entry points): the serving
+// forms are kernels of their own, tcp16::pass_fwd_bf16_kernel and
+// tcp16::pass_bwd_bf16_kernel (below tcp): warp-local tiles that copy the
+// gathered and aligned rows raw, as bf16, and run both products on the
+// bf16 tensor cores. The backward with parameter gradients is instantiated
+// for bf16 tables, aligned rows, b1, side rows, cotangent and parameters:
+// rows are widened to f32 as they are read. Every bf16 form sums, takes
+// the layer norms and gates in f32 and rounds each output once at its
 // store, as chgnet_tpu's kernels widen their bf16 streams and compute in
-// f32 (ops/fused_pass.py:197-207, :452-489). The products keep f32
-// accuracy with the A operand an f32 value (silu(acc), d_y) and a bf16 W2
-// exact in TF32: two of 3xTF32's passes, the same sums. The parameter
-// gradients' per-block partials stay f32 and are summed in f32 in block
-// order, then rounded once to bf16 (ops/fused_pass.py:504-517 cast each
-// tile's f32 sums to the parameters' type and add them there, so the TPU
-// kernel rounds once a tile). Half the bytes of f32 move.
+// f32 (ops/fused_pass.py:197-207, :452-489). The parameter gradients'
+// per-block partials stay f32 and are summed in f32 in block order, then
+// rounded once to bf16 (ops/fused_pass.py:504-517 cast each tile's f32
+// sums to the parameters' type and add them there, so the TPU kernel
+// rounds once a tile). Half the bytes of f32 move.
 //
 // D over 64 (up to 128): every form runs on wide_tail.cuh's kernels, which
 // build each row's first-layer sum in registers (PassSrc, the lane's
 // columns in the same part order) and run the tail on it in the same
 // kernel, so the accumulator still never reaches device memory.
+#include "bf16_tail.cuh"
 #include "gated_tail.cuh"
 #include "tf32x3.cuh"
 #include "wide_tail.cuh"
@@ -483,9 +486,7 @@ __device__ __forceinline__ void load_idx(const PartsT<T>& p, long tile, int n_ro
 // into the slot (cp.async) while the kParts gathered parts' 16-byte loads,
 // 8 rows of them, are in flight in registers; then each unit is summed
 // from zero in part order, plus the aligned unit, plus the bias. s: the
-// tile's indices, row r's in lane r. bf16 rows are widened as they are
-// read: the aligned unit is loaded and stored into the slot at once
-// (tc::fetch4), the gathered units widen in registers.
+// tile's indices, row r's in lane r.
 template <int kParts, typename T>
 __device__ __forceinline__ void build_tile(float* slot, const PartsT<T>& p,
                                            const int s[kMaxParts], long row0,
@@ -575,8 +576,7 @@ __device__ void produce(const PartsT<T>& p, float* slots, uint64_t* full,
 // ---------------------------------------------------- consumer helpers
 // Copies of the side rows (weights or resnet, [L, D]) of the 16 rows from
 // row0, and with kMsg their mask entries (zeros from n_rows on); vec: side
-// rows in aligned units of 4 values (16 bytes of f32, 8 of bf16). The
-// caller commits them (bf16 rows are loaded and widened at once).
+// rows in aligned units of 4 values. The caller commits them.
 template <bool kMsg, typename T>
 __device__ __forceinline__ void fetch_side(float* w_s, float* m_s, const T* side,
                                            const T* mask, long row0, int n_rows,
@@ -614,9 +614,6 @@ __device__ __forceinline__ void fetch_rows(float* g_s, float* wv_s, float* m_s,
 // y[h] += the warp's 16 rows of silu(A_h) @ W_h over all kMaxD columns,
 // A_h the slot's half h, W_h from the split fragments. The step loop is
 // unrolled twice only, so that one step's loads overlap the other's products.
-// kExactW: bf16 W, whose lo parts are zero: two of 3xTF32's terms
-// (tc::mma2_tiles_split, equal sums).
-template <bool kExactW>
 __device__ __forceinline__ void product_split(const float* acc_s, const uint4* wf,
                                               int d8, int lane, float y[2][8][4]) {
   const int gid = lane >> 2;
@@ -639,10 +636,7 @@ __device__ __forceinline__ void product_split(const float* acc_s, const uint4* w
       uint4 bf[8];
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) bf[nt] = b[nt * 32];
-      if constexpr (kExactW)
-        tc::mma2_tiles_split<8>(y[h], hi, lo, bf);
-      else
-        tc::mma3_tiles_split<8>(y[h], hi, lo, bf);
+      tc::mma3_tiles_split<8>(y[h], hi, lo, bf);
     }
   }
 }
@@ -650,9 +644,8 @@ __device__ __forceinline__ void product_split(const float* acc_s, const uint4* w
 // out[h][nt] += the warp's 16 rows of A_h @ W_h, or @ W_h^T with kT, over
 // all kMaxD columns (W swizzled, zero-padded); A_h's row r, column c at
 // a_h[r * width + (c ^ rswz(r))]; kAct: silu of A first. The step loop is
-// unrolled twice only (2% faster than rolled, PERF.md section 6). kExactW as
-// in product_split.
-template <bool kT, bool kAct, bool kExactW>
+// unrolled twice only (2% faster than rolled, PERF.md section 6).
+template <bool kT, bool kAct>
 __device__ __forceinline__ void product(const float* a0, const float* a1, int width,
                                         const float* w_s, int d8, int lane,
                                         float out[2][8][4]) {
@@ -687,10 +680,7 @@ __device__ __forceinline__ void product(const float* a0, const float* a1, int wi
           b[nt][1] = w[k1 * kMaxD + (n ^ swz(k1))];
         }
       }
-      if constexpr (kExactW)
-        tc::mma2_tiles<8>(out[h], hi, lo, b);
-      else
-        tc::mma3_tiles<8>(out[h], hi, lo, b);
+      tc::mma3_tiles<8>(out[h], hi, lo, b);
     }
   }
 }
@@ -864,7 +854,7 @@ __global__ void __launch_bounds__(32 * kBlockWarps, 1)
 #pragma unroll
           for (int jj = 0; jj < 4; ++jj)
             y[h][nt][jj] = s.prm[h * kMaxD + nt * 8 + 2 * q + (jj & 1)];
-      product_split<chgnet::is_bf16<T>>(acc_s, wf, d8, lane, y);
+      product_split(acc_s, wf, d8, lane, y);
       reg_stats(y, d, q, mean, inv);
       tc::wait_pending<0>();  // the side rows
       __syncwarp();           // every lane's A fragments read: y parks over them
@@ -979,8 +969,7 @@ __global__ void __launch_bounds__(32 * kBlockWarps, 1)
 #pragma unroll
           for (int jj = 0; jj < 4; ++jj)
             y[h][nt][jj] = b2_s[h * kMaxD + nt * 8 + 2 * q + (jj & 1)];
-      product<false, true, chgnet::is_bf16<T>>(acc_s, acc_s + kMaxD, 2 * kMaxD, w_s,
-                                               d8, lane, y);
+      product<false, true>(acc_s, acc_s + kMaxD, 2 * kMaxD, w_s, d8, lane, y);
       park(f_s, y, lane);
     }
     auto y_at = [&](int h, int nt, int jj) {
@@ -1105,7 +1094,7 @@ __global__ void __launch_bounds__(32 * kBlockWarps, 1)
       // d_total = (d_y @ W2^T) * silu'(acc), from the accumulators
       float dh[2][8][4];
       zero(dh);
-      product<true, false, chgnet::is_bf16<T>>(g_s, wv_s, kMaxD, w_s, d8, lane, dh);
+      product<true, false>(g_s, wv_s, kMaxD, w_s, d8, lane, dh);
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -1129,6 +1118,619 @@ __global__ void __launch_bounds__(32 * kBlockWarps, 1)
 }
 
 }  // namespace tcp
+
+// ---------------------------------- serving kernels on bf16 tensor cores
+// The one-kernel pass in bf16 (rows 13 and 14 without parameter gradients,
+// D <= 64): the function of tcp::pass_fwd_tc_kernel and
+// tcp::pass_bwd_tc_kernel, redesigned for bf16 rows and Hopper's bf16
+// tensor cores on the tiles of rows 6 and 7's bf16 kernels (bf16_tail.cuh).
+//
+// Bound: at D = 64 a message row reads K index entries, K gathered rows and
+// the aligned row of 2D bf16 values, D weights and the mask, and writes D
+// values, against 4 D^2 FLOPs of products: bytes (P bf16's 9 forward calls
+// 1.091 ms, its 9 backward calls 1.727). What holds the tile is its
+// instructions and their latency, as in rows 6 and 7.
+// Design: every warp owns 16 rows through every phase, with no block
+// barrier in its loop and no warp feeding another. It copies its tile's
+// parts raw, as bf16, by cp.async: each gathered part's 16 rows (the row's
+// index passed by a warp shuffle, so every lane runs the same number of
+// copy steps) and the aligned rows, one bf16 tile each (the bt::at swizzle,
+// the gate half at column kMaxD), into a stage of up to 4 tiles. acc is
+// never stored: each A fragment of y = silu(acc) @ blockdiag(W2c, W2g) is
+// summed in f32 from the tiles' ldmatrix fragments in the plain version's
+// order (from zero, each gathered part, the aligned part, then b1), so acc
+// is never rounded to bf16; silu is taken on it, it is split into a bf16 hi
+// and lo, and both products run as two passes of mma.sync.m16n8k16
+// (bf16_tile.cuh) on W2 staged once a block in bf16 (16 KB). Without a
+// second layer y = acc, summed the same way in the C layout. From y on,
+// the phases are rows 6 and 7's bf16 tiles: y in registers, the layer-norm
+// statistics by quad shuffles, the gate; in the backward z and gz parked,
+// d_y in registers as the A fragments of d_y @ W2^T, d_h parked, and
+// d_total = d_h * silu'(acc), acc summed again from the stage, written over
+// the first part's tile and stored by whole rows. f32 throughout; every
+// output is rounded once to bf16. A warp has one stage: the forward's takes
+// the next tile's parts as soon as the product has read it, the
+// backward's once d_total has left it. The side rows (weights or resnet,
+// g), the mask and the outputs other than d_total go between registers
+// and device memory by pairs of values, with no shared memory of their
+// own; g and weights one 8-column tile ahead of the gate's loop. Shared
+// memory sets the warps a block: a warp's is its stage and, in the
+// backward, 8 KB of parked fragments, so it depends on the launch's parts
+// (one block an SM). Each choice won a same-call A/B on an H100 (PERF.md
+// section 6): two stages a warp (8 and 5 warps at 3 parts) and side rows
+// staged by cp.async lost to more warps.
+namespace tcp16 {
+
+using chgnet::bf16;
+using bt::Walk;
+using tcb16::kRows;
+constexpr int kPartBytes = tcb16::kAccBytes;  // a part's 16 rows of 2 kMaxD
+// the most warps a block: 16 at 128 registers a thread (the backward's
+// tile spills 68-88 bytes there; with its side rows staged in shared
+// memory, 8 warps at up to 184 registers ran no faster: PERF.md section 6)
+constexpr int kMaxFwdWarps = 16;
+constexpr int kMaxBwdWarps = 16;
+constexpr int kPrmBytes = 8 * kMaxD * 4;  // b2, ncs, ncb, ngs, ngb, then b1
+
+__host__ __device__ constexpr int max_warps(bool bwd) { return bwd ? kMaxBwdWarps : kMaxFwdWarps; }
+__host__ __device__ constexpr int fixed_bytes(bool w2) {
+  return (w2 ? tcb16::kWBytes : 0) + kPrmBytes;
+}
+// A warp's stage of n_set part tiles, and the backward's parked fragments
+__host__ __device__ constexpr int warp_bytes(bool bwd, int n_set) {
+  return n_set * kPartBytes + (bwd ? tcb16::kParkBytes : 0);
+}
+__host__ __device__ constexpr int warps(bool bwd, bool w2, int n_set) {
+  const int w = (tcb16::kSmemPerBlock - fixed_bytes(w2)) / warp_bytes(bwd, n_set);
+  return w < max_warps(bwd) ? w : max_warps(bwd);
+}
+__host__ __device__ constexpr size_t smem_bytes(bool bwd, bool w2, int n_set) {
+  return (size_t)fixed_bytes(w2) + (size_t)warps(bwd, w2, n_set) * warp_bytes(bwd, n_set);
+}
+static_assert(warps(true, true, kMaxParts + 1) >= 1, "a warp over the shared memory");
+
+// the parts' copy unit: 8 values (16 bytes) where every table and the
+// aligned part allow it, else 4 (make_parts holds rows to 8 bytes)
+inline int unit_of(const PartsT<bf16>& p, int d) {
+  uintptr_t a = p.aligned != nullptr ? (uintptr_t)p.aligned : 0;
+  for (int k = 0; k < p.n_parts; ++k) a |= (uintptr_t)p.table[k];
+  return d % 8 == 0 && a % 16 == 0 ? 8 : 4;
+}
+
+// Copies of one part's 16 rows into a tile (bt::at<16>, the gate half at
+// column kMaxD): with kIndexed row r is row s_r of tab [n_src, 2D], s_r in
+// lane r's ix (a shuffle of the whole warp, so every lane runs n_it
+// steps), else row row0 + r; zeros for a row outside [0, n_src). n values
+// a copy (w: units of n, 2D / n a row). The caller commits them.
+template <bool kIndexed>
+__device__ __forceinline__ void copy_part(char* st, const bf16* tab, int ix, long n_src,
+                                          long row0, int d, int n, int n_it, Walk w) {
+  const int u = d / n;  // copies a half row
+  for (int it = 0; it < n_it; ++it, w.next()) {
+    long s = row0 + w.r;
+    if (kIndexed) s = __shfl_sync(0xffffffffu, ix, w.r & 31);
+    if (w.r < kRows) {
+      const int half = w.c >= u;
+      const bool ok = s >= 0 && s < n_src;
+      bt::copy_unit(st + bt::at<16>(w.r, half * kMaxD + n * (w.c - half * u)),
+                    tab + (ok ? s * 2 * d + n * w.c : 0), ok, n);
+    }
+  }
+}
+
+// Copies of a tile's parts into a stage: gathered part k into tile k (lane
+// r < 16 holds row r's index of each part in ix), the aligned rows into
+// tile n_parts. The caller commits them.
+__device__ __forceinline__ void fetch_parts(char* st, const PartsT<bf16>& p,
+                                            const int ix[kMaxParts], long row0, int n_rows,
+                                            int d, int n, int n_it, Walk w) {
+#pragma unroll
+  for (int k = 0; k < kMaxParts; ++k)
+    if (k < p.n_parts)
+      copy_part<true>(st + k * kPartBytes, p.table[k], ix[k], p.n_src[k], row0, d, n, n_it,
+                      w);
+  if (p.aligned != nullptr)
+    copy_part<false>(st + p.n_parts * kPartBytes, p.aligned, 0, n_rows, row0, d, n, n_it, w);
+}
+
+// y[h] += silu(acc_h) @ W_h over the 16-deep steps below D and the tile
+// pairs that hold a column below D; each A fragment of acc summed in f32
+// from the stage's n_set tiles in order, plus b1 (b1_s, zero past D)
+__device__ __forceinline__ void product_y(const char* st, int n_set, const float* b1_s,
+                                          const char* w_s, int d8, int d16, int lane,
+                                          float y[2][8][4]) {
+  const int lr = lane & 7;
+  const int lm = lane >> 3;
+  const int q = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const char* w = w_s + h * kMaxD * kMaxD * 2;
+#pragma unroll 1
+    for (int ks = 0; ks < d16; ++ks) {
+      const int col = h * kMaxD + 16 * ks;
+      float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int k = 0; k <= kMaxParts; ++k) {
+        if (k >= n_set) break;
+        uint32_t a[4];
+        bt::ldsm4(a, st + k * kPartBytes + bt::at<16>(lr + 8 * (lm & 1), col + 8 * (lm >> 1)));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          x[2 * i] += bt::lo_f(a[i]);
+          x[2 * i + 1] += bt::hi_f(a[i]);
+        }
+      }
+      // register i: row gid + 8 (i & 1), columns col + 8 (i >> 1) + 2q, + 1
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 b = *reinterpret_cast<const float2*>(b1_s + col + 8 * (i >> 1) + 2 * q);
+        const float x0 = x[2 * i] + b.x;
+        const float x1 = x[2 * i + 1] + b.y;
+        bt::split(x0 * tcb16::sigm_fast(x0), x1 * tcb16::sigm_fast(x1), hi[i], lo[i]);
+      }
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        if (2 * jp >= d8) break;
+        uint32_t b[4];
+        bt::ldsm4_t(b, w + bt::at<8>(16 * ks + lr + 8 * (lm & 1), 16 * jp + 8 * (lm >> 1)));
+        bt::mma2_pair(y[h][2 * jp], y[h][2 * jp + 1], hi, lo, b);
+      }
+    }
+  }
+}
+
+// acc at row r, columns c and c + 1 (c = h kMaxD + e, e even): summed in
+// f32 from the stage's n_set tiles in order, plus b1 (zero past D)
+__device__ __forceinline__ float2 acc_at(const char* st, int n_set, const float* b1_s, int r,
+                                         int c) {
+  float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+  for (int k = 0; k <= kMaxParts; ++k) {
+    if (k >= n_set) break;
+    const uint32_t v = *reinterpret_cast<const uint32_t*>(st + k * kPartBytes + bt::at<16>(r, c));
+    a0 += bt::lo_f(v);
+    a1 += bt::hi_f(v);
+  }
+  const float2 b = *reinterpret_cast<const float2*>(b1_s + c);
+  return make_float2(a0 + b.x, a1 + b.y);
+}
+
+// y = acc (no second layer) in the C layout: element (h, nt, j) is row
+// gid + 8 (j >> 1), column 8 nt + 2 q + (j & 1) of half h; zero past D
+__device__ __forceinline__ void acc_tile(const char* st, int n_set, const float* b1_s, int d8,
+                                         int lane, float y[2][8][4]) {
+  const int gid = lane >> 2;
+  const int q = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const float2 a = nt < d8 ? acc_at(st, n_set, b1_s, gid + 8 * rr, h * kMaxD + nt * 8 + 2 * q)
+                                 : make_float2(0.f, 0.f);
+        y[h][nt][2 * rr] = a.x;
+        y[h][nt][2 * rr + 1] = a.y;
+      }
+}
+
+// The two-pass layer-norm statistics of each half row of y (exactly 0 past
+// D): every lane of a quad ends with its rows' values
+__device__ __forceinline__ void row_stats(const float y[2][8][4], int d, int q,
+                                          float mean[2][2], float inv[2][2]) {
+  const float inv_d = 1.f / d;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) mean[h][0] = mean[h][1] = inv[h][0] = inv[h][1] = 0.f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mean[h][j >> 1] += y[h][nt][j];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) mean[h][rr] = tc::quad_sum(mean[h][rr]) * inv_d;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (nt * 8 + 2 * q + (j & 1) < d) {
+          const float c = y[h][nt][j] - mean[h][j >> 1];
+          inv[h][j >> 1] = fmaf(c, c, inv[h][j >> 1]);
+        }
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+      inv[h][rr] = rsqrtf(tc::quad_sum(inv[h][rr]) * inv_d + kEps);
+}
+
+// The block's W2 (with kW2), b2, the layer-norm vectors and b1 (f32, zero
+// past D) staged, this warp's buffers zeroed (the copies never write the
+// pad columns), then the only block barrier
+template <bool kW2>
+__device__ __forceinline__ void set_up(char* w_s, float* prm, char* mine, int bytes,
+                                       const TailT<bf16>& t, const bf16* b1, int d) {
+  tcb16::stage_tail<kW2>(w_s, prm, t, d);
+  float* b1_s = prm + 6 * kMaxD;
+  for (int i = threadIdx.x; i < 2 * kMaxD; i += blockDim.x) {
+    const int e = i % kMaxD;
+    b1_s[i] = e < d ? chgnet::to_f(b1[(i / kMaxD) * d + e]) : 0.f;
+  }
+  for (int i = threadIdx.x & 31; i < bytes / 16; i += 32)
+    reinterpret_cast<float4*>(mine)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+}
+
+// The side rows' pair at row l, columns e and e + 1 of a [n_rows, d] bf16
+// array, as the gate reads it (zeros from n_rows on and past d): a4, the
+// array 4-byte aligned: one 4-byte load, else two 2-byte ones
+__device__ __forceinline__ uint32_t load_pair(const bf16* x, long l, int n_rows, int d,
+                                              int e, bool a4) {
+  if (l >= n_rows || e >= d) return 0u;
+  const bf16* p = x + l * d + e;
+  if (a4) return __ldg(reinterpret_cast<const unsigned int*>(p));
+  return (uint32_t)__bfloat16_as_ushort(p[0]) | ((uint32_t)__bfloat16_as_ushort(p[1]) << 16);
+}
+
+// a pair rounded once to bf16 at row l, columns e and e + 1 (none from
+// n_rows on and past d)
+__device__ __forceinline__ void store_pair(bf16* x, long l, int n_rows, int d, int e,
+                                           float v0, float v1) {
+  if (l < n_rows && e < d) *reinterpret_cast<uint32_t*>(x + l * d + e) = bt::pack(v0, v1);
+}
+
+// the mask entries of rows gid and gid + 8 of the tile from row0
+__device__ __forceinline__ void load_mask(const bf16* mask, long row0, int n_rows, int gid,
+                                          float m[2]) {
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const long l = row0 + gid + 8 * rr;
+    m[rr] = l < n_rows ? __bfloat162float(mask[l]) : 0.f;
+  }
+}
+
+// ------------------------------------------------------------ forward
+template <bool kMsg, bool kW2>
+__global__ void __launch_bounds__(32 * kMaxFwdWarps, 1)
+    pass_fwd_bf16_kernel(TailT<bf16> t, PartsT<bf16> p, const bf16* __restrict__ side,
+                         const bf16* __restrict__ mask, bf16* __restrict__ out, int n_rows,
+                         int d, int unit, int a4) {
+  extern __shared__ float4 smem4[];
+  char* w_s = reinterpret_cast<char*>(smem4);  // [2][kMaxD][kMaxD] bf16 with W2
+  float* prm = reinterpret_cast<float*>(w_s + (kW2 ? tcb16::kWBytes : 0));
+  const float* ncs_s = prm + 2 * kMaxD;
+  const float* ncb_s = ncs_s + kMaxD;
+  const float* ngs_s = ncb_s + kMaxD;
+  const float* ngb_s = ngs_s + kMaxD;
+  const float* b1_s = ngb_s + kMaxD;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int n_set = p.n_parts + (p.aligned != nullptr);
+  char* st = w_s + fixed_bytes(kW2) + warp * warp_bytes(false, n_set);  // the stage
+  set_up<kW2>(w_s, prm, st, warp_bytes(false, n_set), t, p.b1, d);
+
+  const int gid = lane >> 2;
+  const int q = lane & 3;
+  const int d8 = (d + 7) / 8;
+  const int d16 = (d + 15) / 16;
+  const int n_tiles = (n_rows + kRows - 1) / kRows;
+  const int step = gridDim.x * n_warps;
+  int tile = blockIdx.x * n_warps + warp;
+  const Walk part_walk(lane, 2 * d / unit);
+  const int part_it = (kRows * (2 * d / unit) + 31) / 32;
+  // the indices of this warp's next tile to fetch, one tile ahead
+  int ix[kMaxParts], nx[kMaxParts];
+  tcp::load_idx(p, tile, n_rows, lane, ix);
+  tcp::load_idx(p, tile + step, n_rows, lane, nx);
+  if (tile < n_tiles)
+    fetch_parts(st, p, ix, (long)tile * kRows, n_rows, d, unit, part_it, part_walk);
+  tc::commit();
+  for (; tile < n_tiles; tile += step) {
+    const bool ahead = tile + step < n_tiles;
+    const long row0 = (long)tile * kRows;
+    tc::wait_pending<0>();  // this tile's parts
+    __syncwarp();
+
+    // y = b2 + silu(acc) @ blockdiag(W2c, W2g), or acc. Element (h, nt, j):
+    // row gid + 8 (j >> 1), column 8 nt + 2 q + (j & 1) of half h; exactly
+    // 0 past D (zero weights, b2 and b1)
+    float y[2][8][4];
+    if constexpr (kW2) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) y[h][nt][j] = prm[h * kMaxD + nt * 8 + 2 * q + (j & 1)];
+      product_y(st, n_set, b1_s, w_s, d8, d16, lane, y);
+    } else {
+      acc_tile(st, n_set, b1_s, d8, lane, y);
+    }
+    __syncwarp();  // the stage read: it takes the next tile's parts
+    if (ahead)
+      fetch_parts(st, p, nx, row0 + (long)step * kRows, n_rows, d, unit, part_it, part_walk);
+    tc::commit();
+    if (ahead) tcp::load_idx(p, tile + 2 * step, n_rows, lane, nx);
+
+    // the side rows (weights or resnet) and the mask as the gate reads
+    // them, loaded while the statistics are taken
+    uint32_t sv[8][2];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+        sv[nt][rr] = load_pair(side, row0 + gid + 8 * rr, n_rows, d, nt * 8 + 2 * q, a4);
+    float m[2] = {1.f, 1.f};
+    if (kMsg) load_mask(mask, row0, n_rows, gid, m);
+    float mean[2][2], inv[2][2];
+    row_stats(y, d, q, mean, inv);
+
+    // the gate, times weights and mask or plus resnet
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int e0 = nt * 8 + 2 * q;
+      if (e0 >= d) break;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        float v[2];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int j = 2 * rr + jj;
+          const int e = e0 + jj;
+          const float zc = (y[0][nt][j] - mean[0][rr]) * inv[0][rr];
+          const float zg = (y[1][nt][j] - mean[1][rr]) * inv[1][rr];
+          const float cn = fmaf(zc, ncs_s[e], ncb_s[e]);
+          const float gate =
+              cn * tcb16::sigm_fast(cn) * tcb16::sigm_fast(fmaf(zg, ngs_s[e], ngb_s[e]));
+          const float s = jj ? bt::hi_f(sv[nt][rr]) : bt::lo_f(sv[nt][rr]);
+          v[jj] = kMsg ? gate * s * m[rr] : gate + s;
+        }
+        store_pair(out, row0 + gid + 8 * rr, n_rows, d, e0, v[0], v[1]);
+      }
+    }
+  }
+}
+
+// ----------------------------------------------------------- backward
+template <bool kMsg, bool kW2>
+__global__ void __launch_bounds__(32 * kMaxBwdWarps, 1)
+    pass_bwd_bf16_kernel(TailT<bf16> t, PartsT<bf16> p, const bf16* __restrict__ weights,
+                         const bf16* __restrict__ mask, const bf16* __restrict__ g,
+                         bf16* __restrict__ d_total, bf16* __restrict__ d_weights,
+                         bf16* __restrict__ d_mask, int n_rows, int d, int unit, int a4) {
+  extern __shared__ float4 smem4[];
+  char* w_s = reinterpret_cast<char*>(smem4);  // [2][kMaxD][kMaxD] bf16 with W2
+  float* prm = reinterpret_cast<float*>(w_s + (kW2 ? tcb16::kWBytes : 0));
+  const float* ncs_s = prm + 2 * kMaxD;
+  const float* ncb_s = ncs_s + kMaxD;
+  const float* ngs_s = ncb_s + kMaxD;
+  const float* ngb_s = ngs_s + kMaxD;
+  const float* b1_s = ngb_s + kMaxD;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int n_set = p.n_parts + (p.aligned != nullptr);
+  // this warp's buffers: the stage (d_total over its first tile); the
+  // parked f32 fragments (z, then gz, then d_h)
+  char* st = w_s + fixed_bytes(kW2) + warp * warp_bytes(true, n_set);
+  float4* f_s = reinterpret_cast<float4*>(st + n_set * kPartBytes);
+  set_up<kW2>(w_s, prm, st, warp_bytes(true, n_set), t, p.b1, d);
+
+  const int gid = lane >> 2;
+  const int q = lane & 3;
+  const int d8 = (d + 7) / 8;
+  const int d16 = (d + 15) / 16;
+  const float inv_d = 1.f / d;
+  const int n_tiles = (n_rows + kRows - 1) / kRows;
+  const int step = gridDim.x * n_warps;
+  int tile = blockIdx.x * n_warps + warp;
+  // the copies' units: the parts by unit values, d_total by n (16 bytes,
+  // or 8 where D % 8 != 0)
+  const int n = d % 8 == 0 ? 8 : 4;
+  const Walk part_walk(lane, 2 * d / unit);
+  const int part_it = (kRows * (2 * d / unit) + 31) / 32;
+  const Walk total_walk(lane, 2 * d / n);
+  int ix[kMaxParts], nx[kMaxParts];
+  tcp::load_idx(p, tile, n_rows, lane, ix);
+  tcp::load_idx(p, tile + step, n_rows, lane, nx);
+  if (tile < n_tiles)
+    fetch_parts(st, p, ix, (long)tile * kRows, n_rows, d, unit, part_it, part_walk);
+  tc::commit();
+  for (; tile < n_tiles; tile += step) {
+    const bool ahead = tile + step < n_tiles;
+    const long row0 = (long)tile * kRows;
+    tc::wait_pending<0>();  // this tile's parts
+    __syncwarp();
+
+    // v: y = silu(acc) @ blockdiag(W2c, W2g) + b2, or acc; then z; then d_y.
+    // Element (h, nt, j): row gid + 8 (j >> 1), column 8 nt + 2 q + (j & 1)
+    // of half h; every element past D is zero.
+    float v[2][8][4];
+    if constexpr (kW2) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) v[h][nt][j] = prm[h * kMaxD + nt * 8 + 2 * q + (j & 1)];
+      product_y(st, n_set, b1_s, w_s, d8, d16, lane, v);
+    } else {
+      acc_tile(st, n_set, b1_s, d8, lane, v);
+    }
+
+    // the statistics, then z (zero past D), parked for the gate's loop
+    float mean[2][2], inv[2][2];
+    row_stats(v, d, q, mean, inv);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          v[h][nt][j] = nt * 8 + 2 * q + (j & 1) < d
+                            ? (v[h][nt][j] - mean[h][j >> 1]) * inv[h][j >> 1]
+                            : 0.f;
+        if (nt < d8)
+          f_s[(h * 8 + nt) * 32 + lane] =
+              make_float4(v[h][nt][0], v[h][nt][1], v[h][nt][2], v[h][nt][3]);
+      }
+
+    // the gate's backward (gate_row_bwd's arithmetic): d_weights, d_mask,
+    // and the layer norms' gz = d_out * scale with their sums; gz goes over
+    // the z it came from. g and weights are loaded one 8-column tile ahead.
+    float s1[2][2] = {}, s2[2][2] = {}, mask_part[2] = {};
+    float m[2] = {1.f, 1.f};
+    if (kMsg) load_mask(mask, row0, n_rows, gid, m);
+    uint32_t gp[2], wp[2] = {0u, 0u};
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      gp[rr] = load_pair(g, row0 + gid + 8 * rr, n_rows, d, 2 * q, a4);
+      if (kMsg) wp[rr] = load_pair(weights, row0 + gid + 8 * rr, n_rows, d, 2 * q, a4);
+    }
+#pragma unroll 1
+    for (int nt = 0; nt < d8; ++nt) {
+      const int e = nt * 8 + 2 * q;
+      uint32_t gn[2], wn[2] = {0u, 0u};
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        gn[rr] = load_pair(g, row0 + gid + 8 * rr, n_rows, d, e + 8, a4);
+        if (kMsg) wn[rr] = load_pair(weights, row0 + gid + 8 * rr, n_rows, d, e + 8, a4);
+      }
+      const float4 zc4 = f_s[nt * 32 + lane];
+      const float4 zg4 = f_s[(8 + nt) * 32 + lane];
+      const float zc[4] = {zc4.x, zc4.y, zc4.z, zc4.w};
+      const float zg[4] = {zg4.x, zg4.y, zg4.z, zg4.w};
+      const float2 ncs = *reinterpret_cast<const float2*>(ncs_s + e);
+      const float2 ncb = *reinterpret_cast<const float2*>(ncb_s + e);
+      const float2 ngs = *reinterpret_cast<const float2*>(ngs_s + e);
+      const float2 ngb = *reinterpret_cast<const float2*>(ngb_s + e);
+      float gzc[4], gzg[4];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        float dw[2] = {};
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int j = 2 * rr + jj;
+          const float sc = jj ? ncs.y : ncs.x;
+          const float sg = jj ? ngs.y : ngs.x;
+          const float cn = fmaf(zc[j], sc, jj ? ncb.y : ncb.x);
+          const float gn_ = fmaf(zg[j], sg, jj ? ngb.y : ngb.x);
+          const float sig_cn = tcb16::sigm_fast(cn);
+          const float silu_cn = cn * sig_cn;
+          const float sig_gn = tcb16::sigm_fast(gn_);
+          const float gv = jj ? bt::hi_f(gp[rr]) : bt::lo_f(gp[rr]);  // zero past D
+          float up = gv;
+          if (kMsg) {
+            const float wv = jj ? bt::hi_f(wp[rr]) : bt::lo_f(wp[rr]);
+            mask_part[rr] = fmaf(gv, silu_cn * sig_gn * wv, mask_part[rr]);
+            up = gv * wv * m[rr];
+            dw[jj] = gv * silu_cn * sig_gn * m[rr];
+          }
+          gzc[j] = up * sig_gn * tcb16::silu_grad_of(cn, sig_cn) * sc;
+          gzg[j] = up * silu_cn * sig_gn * (1.f - sig_gn) * sg;
+          s1[0][rr] += gzc[j];
+          s2[0][rr] = fmaf(gzc[j], zc[j], s2[0][rr]);
+          s1[1][rr] += gzg[j];
+          s2[1][rr] = fmaf(gzg[j], zg[j], s2[1][rr]);
+        }
+        if (kMsg) store_pair(d_weights, row0 + gid + 8 * rr, n_rows, d, e, dw[0], dw[1]);
+        gp[rr] = gn[rr];
+        wp[rr] = wn[rr];
+      }
+      f_s[nt * 32 + lane] = make_float4(gzc[0], gzc[1], gzc[2], gzc[3]);
+      f_s[(8 + nt) * 32 + lane] = make_float4(gzg[0], gzg[1], gzg[2], gzg[3]);
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const long l = row0 + gid + 8 * rr;
+      if (kMsg && d_mask != nullptr) {
+        const float dm = tc::quad_sum(mask_part[rr]);
+        if (q == 0 && l < n_rows) chgnet::store_v(d_mask + l, dm);
+      }
+    }
+
+    // d_y = (gz - mean(gz) - z mean(gz z)) * inv, zero past D, over z
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        s1[h][rr] = tc::quad_sum(s1[h][rr]) * inv_d;
+        s2[h][rr] = tc::quad_sum(s2[h][rr]) * inv_d;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float4 gz4 = nt < d8 ? f_s[(h * 8 + nt) * 32 + lane]
+                                   : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float gz[4] = {gz4.x, gz4.y, gz4.z, gz4.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int rr = j >> 1;
+          v[h][nt][j] = nt * 8 + 2 * q + (j & 1) < d
+                            ? (gz[j] - s1[h][rr] - v[h][nt][j] * s2[h][rr]) * inv[h][rr]
+                            : 0.f;
+        }
+      }
+
+    // d_total over the first part's tile, each lane over the elements whose
+    // acc it has just summed: with W2 d_h = d_y @ W2^T, parked, times
+    // silu'(acc); without, d_y
+    if constexpr (kW2) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float dh[8][4];
+        tcb16::product_dh(v[h], w_s + h * kMaxD * kMaxD * 2, d8, d16, lane, dh);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+          if (nt < d8)
+            f_s[(h * 8 + nt) * 32 + lane] =
+                make_float4(dh[nt][0], dh[nt][1], dh[nt][2], dh[nt][3]);
+      }
+#pragma unroll 1
+      for (int nt = 0; nt < d8; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float4 dh = f_s[(h * 8 + nt) * 32 + lane];
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int r = gid + 8 * rr;
+            const int c = h * kMaxD + nt * 8 + 2 * q;
+            const float2 a = acc_at(st, n_set, b1_s, r, c);
+            *reinterpret_cast<uint32_t*>(st + bt::at<16>(r, c)) = bt::pack(
+                (rr ? dh.z : dh.x) * tcb16::silu_grad_of(a.x, tcb16::sigm_fast(a.x)),
+                (rr ? dh.w : dh.y) * tcb16::silu_grad_of(a.y, tcb16::sigm_fast(a.y)));
+          }
+        }
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr)
+            if (nt < d8)
+              *reinterpret_cast<uint32_t*>(
+                  st + bt::at<16>(gid + 8 * rr, h * kMaxD + nt * 8 + 2 * q)) =
+                  bt::pack(v[h][nt][2 * rr], v[h][nt][2 * rr + 1]);
+    }
+    __syncwarp();  // d_total in the first tile
+    tcb16::store_rows<16>(st, d_total, row0, n_rows, d, n, total_walk);
+    __syncwarp();  // the stage free
+    if (ahead)
+      fetch_parts(st, p, nx, row0 + (long)step * kRows, n_rows, d, unit, part_it, part_walk);
+    tc::commit();
+    if (ahead) tcp::load_idx(p, tile + 2 * step, n_rows, lane, nx);
+  }
+}
+
+}  // namespace tcp16
 
 template <typename T>
 using TcFwdFn = void (*)(TailT<T>, PartsT<T>, const T*, const T*, T*, int, int, int);
@@ -1192,6 +1794,88 @@ int tc_grid(const Kernel<Fn>& k, int n_rows) {
   return want < wave ? want : wave;
 }
 
+// the serving kernels in bf16 (tcp16): one block an SM at most (the wave
+// is found at the largest shared memory), each with the warps its parts'
+// stages leave room for
+template <typename Fn>
+int bf16_launch_shape(const Kernel<Fn>& k, bool bwd, bool w2,
+                      const PartsT<chgnet::bf16>& p, int n_rows, int* warps, size_t* smem) {
+  const int wave = wave_blocks(k, 32 * tcp16::max_warps(bwd));
+  if (wave < 0) return wave;
+  const int n_set = p.n_parts + (p.aligned != nullptr);
+  *warps = tcp16::warps(bwd, w2, n_set);
+  *smem = tcp16::smem_bytes(bwd, w2, n_set);
+  const int rows = tcp16::kRows * *warps;  // of a block's first tiles
+  const int want = (n_rows + rows - 1) / rows;
+  return want < wave ? want : wave;
+}
+
+template <typename T>
+using Bf16FwdFn = void (*)(TailT<T>, PartsT<T>, const T*, const T*, T*, int, int, int, int);
+template <typename T>
+using Bf16BwdFn = void (*)(TailT<T>, PartsT<T>, const T*, const T*, const T*, T*, T*, T*,
+                           int, int, int, int);
+
+template <bool kMsg, bool kW2>
+Kernel<Bf16FwdFn<chgnet::bf16>> bf16_fwd_instance() {
+  static std::atomic<int> waves[kMaxDevices];
+  return {tcp16::pass_fwd_bf16_kernel<kMsg, kW2>, (size_t)tcb16::kSmemPerBlock, waves};
+}
+
+template <bool kMsg, bool kW2>
+Kernel<Bf16BwdFn<chgnet::bf16>> bf16_bwd_instance() {
+  static std::atomic<int> waves[kMaxDevices];
+  return {tcp16::pass_bwd_bf16_kernel<kMsg, kW2>, (size_t)tcb16::kSmemPerBlock, waves};
+}
+
+Kernel<Bf16FwdFn<chgnet::bf16>> bf16_fwd_kernel(bool msg, bool w2) {
+  if (msg) return bf16_fwd_instance<true, true>();
+  return w2 ? bf16_fwd_instance<false, true>() : bf16_fwd_instance<false, false>();
+}
+
+Kernel<Bf16BwdFn<chgnet::bf16>> bf16_bwd_kernel(bool msg, bool w2) {
+  if (msg) return bf16_bwd_instance<true, true>();
+  return w2 ? bf16_bwd_instance<false, true>() : bf16_bwd_instance<false, false>();
+}
+
+// the forward in bf16; out is stored by pairs of values, so it must be
+// 4-byte aligned
+int launch_bf16_fwd(bool msg, const TailT<chgnet::bf16>& t, const PartsT<chgnet::bf16>& p,
+                    const chgnet::bf16* side, const chgnet::bf16* mask, chgnet::bf16* out,
+                    int n_rows, int d, cudaStream_t stream) {
+  if ((uintptr_t)out % 4) return (int)cudaErrorInvalidValue;
+  const bool w2 = t.w2c != nullptr;
+  const Kernel<Bf16FwdFn<chgnet::bf16>> k = bf16_fwd_kernel(msg, w2);
+  int warps = 0;
+  size_t smem = 0;
+  const int grid = bf16_launch_shape(k, false, w2, p, n_rows, &warps, &smem);
+  if (grid < 0) return -grid;
+  k.fn<<<grid, 32 * warps, smem, stream>>>(t, p, side, mask, out, n_rows, d,
+                                           tcp16::unit_of(p, d), (uintptr_t)side % 4 == 0);
+  return (int)cudaSuccess;
+}
+
+// the serving backward in bf16; d_total is stored by whole 16-byte units
+// (8-byte where D % 8 != 0) and d_weights by pairs, so they must be aligned
+int launch_bf16_bwd(bool msg, const TailT<chgnet::bf16>& t, const PartsT<chgnet::bf16>& p,
+                    const chgnet::bf16* weights, const chgnet::bf16* mask,
+                    const chgnet::bf16* g, chgnet::bf16* d_total, chgnet::bf16* d_weights,
+                    chgnet::bf16* d_mask, int n_rows, int d, cudaStream_t stream) {
+  const uintptr_t unit = d % 8 == 0 ? 16 : 8;
+  if ((uintptr_t)d_total % unit || (msg && (uintptr_t)d_weights % 4))
+    return (int)cudaErrorInvalidValue;
+  const bool w2 = t.w2c != nullptr;
+  const Kernel<Bf16BwdFn<chgnet::bf16>> k = bf16_bwd_kernel(msg, w2);
+  int warps = 0;
+  size_t smem = 0;
+  const int grid = bf16_launch_shape(k, true, w2, p, n_rows, &warps, &smem);
+  if (grid < 0) return -grid;
+  k.fn<<<grid, 32 * warps, smem, stream>>>(
+      t, p, weights, mask, g, d_total, d_weights, d_mask, n_rows, d, tcp16::unit_of(p, d),
+      ((uintptr_t)g | (uintptr_t)(msg ? weights : g)) % 4 == 0);
+  return (int)cudaSuccess;
+}
+
 // false when the parts are not what the kernels take: rows of 2d values in
 // aligned units of 4 (16 bytes of f32, 8 of bf16)
 template <typename T>
@@ -1240,14 +1924,20 @@ int fused_pass_fwd(int msg, const void* const* tail, int n_parts,
                                      static_cast<cudaStream_t>(cuda_stream));
     if (err) return err;
   } else if (n_rows > 0) {
-    const Kernel<TcFwdFn<T>> k = fwd_kernel<T>(msg, w2);
-    const int grid = tc_grid(k, n_rows);
-    if (grid < 0) return -grid;
     const T* side = msg ? weights : resnet;
-    const int vec = (uintptr_t)side % (4 * sizeof(T)) == 0;
-    k.fn<<<grid, 32 * tcp::kBlockWarps, k.smem,
-           static_cast<cudaStream_t>(cuda_stream)>>>(t, p, side, mask, out, n_rows, d,
-                                                     vec);
+    if constexpr (chgnet::is_bf16<T>) {
+      const int err = launch_bf16_fwd(msg, t, p, side, mask, out, n_rows, d,
+                                      static_cast<cudaStream_t>(cuda_stream));
+      if (err) return err;
+    } else {
+      const Kernel<TcFwdFn<T>> k = fwd_kernel<T>(msg, w2);
+      const int grid = tc_grid(k, n_rows);
+      if (grid < 0) return -grid;
+      const int vec = (uintptr_t)side % (4 * sizeof(T)) == 0;
+      k.fn<<<grid, 32 * tcp::kBlockWarps, k.smem,
+             static_cast<cudaStream_t>(cuda_stream)>>>(t, p, side, mask, out, n_rows, d,
+                                                       vec);
+    }
   }
   return (int)cudaGetLastError();
 }
@@ -1291,12 +1981,18 @@ int fused_pass_bwd(int msg, const void* const* tail, int n_parts,
                                                  d_weights, d_mask, partial,
                                                  n_rows, d);
   } else if (n_rows > 0) {
-    const Kernel<TcBwdFn<T>> k = tc_bwd_kernel<T>(msg, w2);
-    const int grid = tc_grid(k, n_rows);
-    if (grid < 0) return -grid;
-    const int vec = ((uintptr_t)g | (uintptr_t)(msg ? weights : g)) % (4 * sizeof(T)) == 0;
-    k.fn<<<grid, 32 * tcp::kBlockWarps, k.smem, stream>>>(
-        t, p, weights, mask, g, d_total, d_weights, d_mask, n_rows, d, vec);
+    if constexpr (chgnet::is_bf16<T>) {
+      const int err = launch_bf16_bwd(msg, t, p, weights, mask, g, d_total, d_weights, d_mask,
+                                      n_rows, d, stream);
+      if (err) return err;
+    } else {
+      const Kernel<TcBwdFn<T>> k = tc_bwd_kernel<T>(msg, w2);
+      const int grid = tc_grid(k, n_rows);
+      if (grid < 0) return -grid;
+      const int vec = ((uintptr_t)g | (uintptr_t)(msg ? weights : g)) % (4 * sizeof(T)) == 0;
+      k.fn<<<grid, 32 * tcp::kBlockWarps, k.smem, stream>>>(
+          t, p, weights, mask, g, d_total, d_weights, d_mask, n_rows, d, vec);
+    }
   }
   if (params) {
     const int n_part = (w2 ? 2 * d * d + 2 * d : 0) + 6 * d;
@@ -1382,6 +2078,32 @@ extern "C" int fused_tc_occupancy(int* info) {
     info[3 * i] = (int)(i < 2 ? fwd[i].smem : bwd[i - 2].smem);
     info[3 * i + 1] = tcp::kBlockWarps;
     info[3 * i + 2] = wave;
+  }
+  return (int)cudaSuccess;
+}
+
+// The dynamic shared memory, warps a block and blocks of one wave on the
+// current device of the bf16 serving kernels, info[3 * (4 i + n - 1) ..]
+// for the message forward (i = 0), the update forward without a second
+// layer (1), the message backward (2) and the update backward without a
+// second layer (3), each at n = 1..4 part tiles a stage; nothing is
+// launched. For the build report.
+extern "C" int fused_bf16_occupancy(int* info) {
+  const int wave[4] = {
+      wave_blocks(bf16_fwd_kernel(true, true), 32 * tcp16::kMaxFwdWarps),
+      wave_blocks(bf16_fwd_kernel(false, false), 32 * tcp16::kMaxFwdWarps),
+      wave_blocks(bf16_bwd_kernel(true, true), 32 * tcp16::kMaxBwdWarps),
+      wave_blocks(bf16_bwd_kernel(false, false), 32 * tcp16::kMaxBwdWarps)};
+  for (int i = 0; i < 4; ++i) {
+    if (wave[i] < 0) return -wave[i];
+    const bool bwd = i >= 2;
+    const bool msg = i % 2 == 0;
+    for (int n = 1; n <= kMaxParts + 1; ++n) {
+      int* out = info + 3 * (4 * i + n - 1);
+      out[0] = (int)tcp16::smem_bytes(bwd, msg, n);
+      out[1] = tcp16::warps(bwd, msg, n);
+      out[2] = wave[i];
+    }
   }
   return (int)cudaSuccess;
 }

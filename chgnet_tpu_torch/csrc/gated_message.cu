@@ -59,8 +59,8 @@
 // for bf16: their rows are widened to f32 as they are fetched (tc::fetch4
 // / fetch1: a load now where the f32 kernels copy with cp.async) and their
 // products keep f32 accuracy as two of 3xTF32's passes, those whose terms
-// are not zero for a bf16 W2 (lo_a hi_b, hi_a hi_b: tc::mma2_tiles, the
-// same sums). The message-reduce (tail_reduce_tc_kernel<bf16>) keeps each
+// are not zero for a bf16 W2 (lo_a hi_b, hi_a hi_b: tc::mma2_tiles_split,
+// the same sums). The message-reduce (tail_reduce_tc_kernel<bf16>) keeps each
 // tile's messages in f32 and sums every segment in f32, rounding each
 // output row once. The backward with parameter gradients
 // (tail_bwd_kernel<bf16, ...>, training) widens its rows and parameters
@@ -75,6 +75,7 @@
 // D over 64 (up to 128): every form but the update forward without a second
 // layer (update_fwd_kernel, which takes rows up to 128 wide as they are)
 // runs on wide_tail.cuh's kernels, launched by the same entry points.
+#include "bf16_tail.cuh"
 #include "bf16_tile.cuh"
 #include "gated_tail.cuh"
 #include "tf32x3.cuh"
@@ -1167,15 +1168,6 @@ __global__ void __launch_bounds__(32 * kFwdWarps, 1)
 // (spills), and g, weights and mask double-buffered at 8 warps were slower.
 namespace tcb16 {
 
-using chgnet::bf16;
-constexpr int kRows = 16;                             // rows of a warp's tile
-constexpr int kAccBytes = kRows * 2 * kMaxD * 2;      // one acc stage
-constexpr int kRowBytes = kRows * kMaxD * 2;          // g or weights
-constexpr int kParkBytes = kRows * 2 * kMaxD * 4;     // z, gz, d_h in f32
-constexpr int kMaskBytes = kRows * 2;
-constexpr int kWBytes = 2 * kMaxD * kMaxD * 2;        // W2c, W2g
-constexpr int kParamBytes = 6 * kMaxD * 4;            // b2, ncs, ncb, ngs, ngb
-constexpr int kSmemPerBlock = 232448;                 // sm_90's opt-in limit
 __host__ __device__ constexpr int warp_bytes(bool msg) {
   return 2 * kAccBytes + (msg ? 2 : 1) * kRowBytes + kParkBytes + (msg ? kMaskBytes : 0);
 }
@@ -1197,30 +1189,6 @@ inline int vec_of(const bf16* g, const bf16* weights, const bf16* mask, int d) {
   const uintptr_t a = (uintptr_t)g | (uintptr_t)weights;
   const int unit = d % 8 == 0 && a % 16 == 0 ? 2 : a % 8 == 0 ? 1 : 0;
   return unit | (mask != nullptr && (uintptr_t)mask % 16 == 0 ? 4 : 0);
-}
-
-// the copy loops walk their units with no division (bf16_tile.cuh)
-using bt::Walk;
-
-// Copies of the 16 acc rows from row0 into the stage st (zeros from n_rows
-// on; the gate half at column kMaxD), n values a copy (w: units of n, 2D / n
-// a row); the caller commits them.
-__device__ __forceinline__ void fetch_acc(char* st, const bf16* acc, long row0,
-                                          int n_rows, int d, int n, Walk w) {
-  const int u = n == 8 ? d >> 3 : d >> 2;  // copies a half row
-  for (; w.r < kRows; w.next()) {
-    const int r = w.r;
-    const int c = w.c;
-    const int half = c >= u;
-    const long l = row0 + r;
-    const bool ok = l < n_rows;
-    const bf16* src = acc + (ok ? l : 0) * 2 * d + n * c;
-    char* dst = st + bt::at<16>(r, half * kMaxD + n * (c - half * u));
-    if (n == 8)
-      tc::copy16(dst, src, ok);
-    else
-      bt::copy8(dst, src, ok);
-  }
 }
 
 // Copies of the g, weights and mask rows from row0 (vec: vec_of; w: units
@@ -1274,28 +1242,24 @@ __device__ __forceinline__ void fetch_rows(char* g_s, char* w_s, bf16* m_s,
   }
 }
 
-// The rows of a stage from row0 up to n_rows, out to rows of width D (g
-// layout, kChunks 8) or 2D (acc layout, kChunks 16: the gate half at
-// column kMaxD), n values a store (16 bytes, 8 where D % 8 != 0; w: units
-// of n)
-template <int kChunks>
-__device__ __forceinline__ void store_rows(const char* st, bf16* out, long row0,
-                                           int n_rows, int d, int n, Walk w) {
-  constexpr bool kAcc = kChunks == 16;
-  const int u = n == 8 ? d >> 3 : d >> 2;
-  const int per_row = kAcc ? 2 * u : u;
-  const long left = n_rows - row0;
-  const int rows = left < kRows ? (int)left : kRows;
-  for (; w.r < rows; w.next()) {
+// Copies of the 16 acc rows from row0 into the stage st (zeros from n_rows
+// on; the gate half at column kMaxD), n values a copy (w: units of n, 2D / n
+// a row); the caller commits them.
+__device__ __forceinline__ void fetch_acc(char* st, const bf16* acc, long row0,
+                                          int n_rows, int d, int n, Walk w) {
+  const int u = n == 8 ? d >> 3 : d >> 2;  // copies a half row
+  for (; w.r < kRows; w.next()) {
     const int r = w.r;
     const int c = w.c;
-    const int half = kAcc && c >= u;
-    const char* src = st + bt::at<kChunks>(r, half * kMaxD + n * (c - half * u));
-    bf16* dst = out + (row0 + r) * per_row * n + n * c;
+    const int half = c >= u;
+    const long l = row0 + r;
+    const bool ok = l < n_rows;
+    const bf16* src = acc + (ok ? l : 0) * 2 * d + n * c;
+    char* dst = st + bt::at<16>(r, half * kMaxD + n * (c - half * u));
     if (n == 8)
-      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      tc::copy16(dst, src, ok);
     else
-      *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+      bt::copy8(dst, src, ok);
   }
 }
 
@@ -1325,65 +1289,6 @@ __device__ __forceinline__ void product_y(const char* acc_s, const char* w_s, in
         bt::ldsm4_t(b, w + bt::at<8>(16 * ks + lr + 8 * (lm & 1), 16 * jp + 8 * (lm >> 1)));
         bt::mma2_pair(y[h][2 * jp], y[h][2 * jp + 1], hi, lo, b);
       }
-    }
-  }
-}
-
-// d_h = d_y_h @ W_h^T, d_y's fragments (v[h], the C layout) taken as A
-__device__ __forceinline__ void product_dh(const float v[8][4], const char* w, int d8,
-                                           int d16, int lane, float dh[8][4]) {
-  const int lr = lane & 7;
-  const int lm = lane >> 3;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dh[nt][j] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    if (ks >= d16) break;
-    uint32_t hi[4], lo[4];
-    bt::split(v[2 * ks][0], v[2 * ks][1], hi[0], lo[0]);
-    bt::split(v[2 * ks][2], v[2 * ks][3], hi[1], lo[1]);
-    bt::split(v[2 * ks + 1][0], v[2 * ks + 1][1], hi[2], lo[2]);
-    bt::split(v[2 * ks + 1][2], v[2 * ks + 1][3], hi[3], lo[3]);
-#pragma unroll
-    for (int jp = 0; jp < 4; ++jp) {
-      if (2 * jp >= d8) break;
-      uint32_t b[4];
-      bt::ldsm4(b, w + bt::at<8>(16 * jp + lr + 8 * (lm >> 1), 16 * ks + 8 * (lm & 1)));
-      bt::mma2_pair(dh[2 * jp], dh[2 * jp + 1], hi, lo, b);
-    }
-  }
-}
-
-// The block's W2c and W2g (with kW2) in bf16 at w_s, zero-padded to kMaxD
-// (bt::at<8>), and at b2_s b2 (the gate half at kMaxD; zero without kW2),
-// then nc_scale, nc_bias, ng_scale, ng_bias in f32, each kMaxD long and
-// zero past D
-template <bool kW2>
-__device__ __forceinline__ void stage_tail(char* w_s, float* b2_s, const TailT<bf16>& t,
-                                           int d) {
-  for (int i = threadIdx.x; kW2 && i < 2 * kMaxD * kMaxD; i += blockDim.x) {
-    const int h = i / (kMaxD * kMaxD);
-    const int k = (i / kMaxD) % kMaxD;
-    const int n = i % kMaxD;
-    bf16 v = __float2bfloat16(0.f);
-    if (k < d && n < d) v = (h ? t.w2g : t.w2c)[k * d + n];
-    *reinterpret_cast<bf16*>(w_s + h * kMaxD * kMaxD * 2 + bt::at<8>(k, n)) = v;
-  }
-  float* ncs_s = b2_s + 2 * kMaxD;
-  float* ncb_s = ncs_s + kMaxD;
-  float* ngs_s = ncb_s + kMaxD;
-  float* ngb_s = ngs_s + kMaxD;
-  for (int i = threadIdx.x; i < 2 * kMaxD; i += blockDim.x) {
-    const int h = i / kMaxD;
-    const int e = i % kMaxD;
-    b2_s[i] = kW2 && e < d ? chgnet::to_f(t.b2[h * d + e]) : 0.f;
-    if (h == 0) {
-      ncs_s[e] = e < d ? chgnet::to_f(t.ncs[e]) : 0.f;
-      ncb_s[e] = e < d ? chgnet::to_f(t.ncb[e]) : 0.f;
-      ngs_s[e] = e < d ? chgnet::to_f(t.ngs[e]) : 0.f;
-      ngb_s[e] = e < d ? chgnet::to_f(t.ngb[e]) : 0.f;
     }
   }
 }

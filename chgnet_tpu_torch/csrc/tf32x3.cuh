@@ -97,9 +97,9 @@ __device__ __forceinline__ void mma3_tiles_split(float (*c)[4], const uint32_t a
 // Products whose operands are exact in TF32 (bf16 values widened to f32:
 // 8 significant bits, TF32 keeps 11), whose lo parts are zero. mma1_tiles:
 // both operands exact, one pass (hi·hi) gives the f32-accurate product.
-// mma2_tiles / mma2_tiles_split: B exact, A an f32 value: the two passes
-// of mma3 whose terms are not zero (lo·hi, then hi·hi), so the sums equal
-// mma3's bit for bit. The B fragments are the f32 values' own bits.
+// mma2_tiles_split: B exact, A an f32 value: the two passes of mma3 whose
+// terms are not zero (lo·hi, then hi·hi), so the sums equal mma3's bit for
+// bit. The B fragments are the f32 values' own bits.
 template <int kN>
 __device__ __forceinline__ void mma1_tiles(float (*c)[4], const float a[4],
                                            const float (*b)[2]) {
@@ -109,17 +109,6 @@ __device__ __forceinline__ void mma1_tiles(float (*c)[4], const float a[4],
 #pragma unroll
   for (int j = 0; j < kN; ++j)
     mma(c[j], av, __float_as_uint(b[j][0]), __float_as_uint(b[j][1]));
-}
-template <int kN>
-__device__ __forceinline__ void mma2_tiles(float (*c)[4], const uint32_t a_hi[4],
-                                           const uint32_t a_lo[4],
-                                           const float (*b)[2]) {
-#pragma unroll
-  for (int j = 0; j < kN; ++j)
-    mma(c[j], a_lo, __float_as_uint(b[j][0]), __float_as_uint(b[j][1]));
-#pragma unroll
-  for (int j = 0; j < kN; ++j)
-    mma(c[j], a_hi, __float_as_uint(b[j][0]), __float_as_uint(b[j][1]));
 }
 template <int kN>
 __device__ __forceinline__ void mma2_tiles_split(float (*c)[4], const uint32_t a_hi[4],

@@ -26,9 +26,12 @@ order and without atomics (``chgnet_tpu_torch/ops/segment.py``).
 
 As in ``chgnet_tpu``, the sorts and the angle stream's reorder go through
 the threaded host ops (``utils/native/hostops.py``: a radix argsort equal
-to numpy's stable one, a row gather), and the plans (eight, ten with the
-halo tiles) are built on a pool of four threads; every array equals the one
-numpy's sort and fancy indexing give.
+to numpy's stable one, a row gather), and the plans (eight, two more with the
+halo tiles, three more with the dense slots) are built on a pool of four
+threads; every array equals the one numpy's sort and fancy indexing give.
+The dense slots' plans have no counterpart in ``chgnet_tpu``: there the
+slots' gathers are XLA's, here they are the port's gather kernel, whose
+backward sums over a plan.
 
 With ``CHGNET_TPU_STREAM_V2`` set while the batch is built
 (:func:`stream_v2_enabled`), a plan also carries the source window of every
@@ -227,6 +230,12 @@ class GraphBatch(NamedTuple):
     dense_nbr: np.ndarray = np.zeros((0, 0), np.int32)  # i32 [N, K]
     dense_bond: np.ndarray = np.zeros((0, 0), np.int32)  # i32 [N, K] bond
     dense_mask: np.ndarray = np.zeros((0, 0), np.float32)  # f32 [N, K]
+    # the slots' gathers through plans of their flattened [N * K] streams
+    # (padded slots dropped), so that their backward is a planned segment
+    # sum with no atomics
+    plan_dense_center: SegmentPlan = _NO_PLAN  # each slot's own atom -> atoms
+    plan_dense_nbr: SegmentPlan = _NO_PLAN  # dense_nbr -> atoms
+    plan_dense_bond: SegmentPlan = _NO_PLAN  # dense_bond -> undirected bonds
     # optional halo-tiled neighbour layout (built with tile): atoms fall
     # into index tiles of T rows; the expanded table [tile0 own | tile0
     # halo | tile1 own | ...] puts each tile's remote neighbours beside it,
@@ -315,7 +324,9 @@ def _dense_slots(
     (``graph/batching.py:376-404``): K is the most neighbours of any atom
     (or ``dense_k`` when an int, which must not be fewer), rounded up to a
     multiple of 8; an edge's slot is its running index within its centre's
-    run of the centre-sorted edges."""
+    run of the centre-sorted edges. ``batch_graphs`` also plans the
+    flattened slots (``plan_dense_center``, ``plan_dense_nbr``,
+    ``plan_dense_bond``)."""
     counts = np.bincount(edge_scatter[edge_mask > 0], minlength=cap_n)[:cap_n]
     max_k = int(counts.max()) if counts.size else 1
     cap_k = max_k if dense_k is True else int(dense_k)
@@ -363,7 +374,8 @@ def batch_graphs(
         capacities: optional explicit (n_atoms, n_directed, n_angles)
             capacities; wins over ``bucket``.
         dense_k: also build the dense per-atom slots ([N, K]; True takes K
-            from the most neighbours of any atom, an int pins it) for
+            from the most neighbours of any atom, an int pins it) and the
+            plans of their flattened streams for
             ``CHGNetConfig.dense_atom_conv``.
         tile: build the halo-tiled neighbour layout (``exp_map`` /
             ``nbr_x`` and their plans) with tiles of ``int(tile)`` atoms
@@ -529,6 +541,15 @@ def batch_graphs(
         "plan_u2d": (undirected2directed, u_valid, cap_e, True),
         "plan_u2d2": (und_second, u_valid, cap_e, False),
     }
+    if dense:
+        slot_valid = dense["dense_mask"].reshape(-1) > 0
+        cap_k = dense["dense_mask"].shape[1]
+        plan_args["plan_dense_center"] = (
+            np.repeat(np.arange(cap_n, dtype=np.int32), cap_k), slot_valid, cap_n, False)
+        plan_args["plan_dense_nbr"] = (
+            dense["dense_nbr"].reshape(-1), slot_valid, cap_n, False)
+        plan_args["plan_dense_bond"] = (
+            dense["dense_bond"].reshape(-1), slot_valid, cap_u, False)
     if tile:
         exp_map, nbr_x, x_valid, n_x_cap = _build_halo_tiles(
             atom_graph, e_valid, cap_n, 512 if tile is True else int(tile),

@@ -237,10 +237,11 @@ def expand_lean(blob: torch.Tensor, meta: LeanMeta) -> GraphBatch:
         plans[f"plan_{name}"] = SegmentPlan(
             key, perm, offsets, lean.get(f"{name}.window", empty), rows
         )
+    # the empty fields, as batch.to(device) gives them
+    no_plan = SegmentPlan(empty, empty, empty, empty)
     if tiled:
         tiled_kw = {"exp_map": lean["exp_map"], "nbr_x": lean["nbr_x"]}
-    else:  # the empty fields, as batch.to(device) gives them
-        no_plan = SegmentPlan(empty, empty, empty, empty)
+    else:
         tiled_kw = {"exp_map": empty, "nbr_x": empty, "plan_exp": no_plan,
                     "plan_nbr_x": no_plan}
     no_slots = torch.zeros((0, 0), dtype=torch.int32, device=dev)
@@ -248,6 +249,9 @@ def expand_lean(blob: torch.Tensor, meta: LeanMeta) -> GraphBatch:
         dense_nbr=no_slots,
         dense_bond=no_slots,
         dense_mask=no_slots.float(),
+        plan_dense_center=no_plan,
+        plan_dense_nbr=no_plan,
+        plan_dense_bond=no_plan,
         atomic_numbers=lean["atomic_numbers"],
         frac_coords=lean["frac_coords"],
         lattices=lean["lattices"],

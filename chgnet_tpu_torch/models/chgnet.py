@@ -21,9 +21,10 @@ run as plain PyTorch.
 Two optional batch layouts change how AtomConv reads its edges, not what
 it computes: ``dense_atom_conv`` runs it over the batch's ``[N, K]`` slots
 (``batch_graphs(dense_k=...)``; plain PyTorch, as ``chgnet_tpu`` runs it
-without a Pallas kernel), and a halo-tiled batch (``batch_graphs(tile=...)``)
-gathers the neighbour rows, of the positions and of every AtomConv, from
-its expanded table (``exp_map``, then ``nbr_x``).
+without a Pallas kernel, its gathers through the slots' plans), and a
+halo-tiled batch (``batch_graphs(tile=...)``) gathers the neighbour rows, of
+the positions and of every AtomConv, from its expanded table (``exp_map``,
+then ``nbr_x``).
 
 For training, :func:`compute_batch` takes a dropout generator (the conv
 layers unfuse while dropout is on, as in ``chgnet_tpu``) and
@@ -574,7 +575,8 @@ def _energy_core(
         if dense:
             return atom_conv_dense_apply(
                 atom_p, atom_feas, bond_feas, weights_e, batch.dense_nbr,
-                batch.dense_bond, dense_mask, activation=act,
+                batch.dense_bond, dense_mask, batch.plan_dense_center,
+                batch.plan_dense_nbr, batch.plan_dense_bond, activation=act,
             )
         nbr_part = None
         if tiled:

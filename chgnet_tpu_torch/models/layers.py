@@ -251,6 +251,9 @@ def atom_conv_dense_apply(
     dense_nbr: torch.Tensor,  # [N, K] i32
     dense_bond: torch.Tensor,  # [N, K] i32
     dense_mask: torch.Tensor,  # [N, K]
+    plan_center: SegmentPlan,  # each slot's own atom -> atoms
+    plan_nbr: SegmentPlan,  # dense_nbr flattened -> atoms
+    plan_bond: SegmentPlan,  # dense_bond flattened -> bonds
     *,
     activation: str = "silu",
     resnet: bool = True,
@@ -262,7 +265,14 @@ def atom_conv_dense_apply(
     p_bond[dense_bond]`` (+ b1), the gated MLP's tail, the message times
     ``bond_weights[dense_bond]`` times the mask, and a sum over K in place
     of the segment sum. Plain PyTorch, as ``chgnet_tpu`` runs it without a
-    Pallas kernel."""
+    Pallas kernel, but for the gathers: the neighbour, bond and weight rows,
+    and the centre rows in place of the broadcast, go through the slots'
+    plans (:func:`plan_gather`: the gather kernel, whose backward is a
+    planned segment sum), so that the backward adds in a fixed order where
+    ``index_select``'s sums with float atomics on the card, and every sum
+    over a table's slots is the planned one the CSR layout takes. The
+    gathers copy rows, so the forward is ``chgnet_tpu``'s value for
+    value."""
     gmlp = params["gated_mlp"]
     layers_c = gmlp["core"]["layers"]
     layers_g = gmlp["gate"]["layers"]
@@ -275,16 +285,20 @@ def atom_conv_dense_apply(
     p_nbr = atom_feas @ first_w[d_atom + d_bond:]  # [N, 2D]
     nbr_flat = dense_nbr.reshape(-1)
     bond_flat = dense_bond.reshape(-1)
-    acc = p_center[:, None, :] + (
-        torch.index_select(p_nbr, 0, nbr_flat)
-        + torch.index_select(p_bond, 0, bond_flat)
+    center_flat = torch.arange(
+        n_atoms, dtype=torch.int32, device=dense_nbr.device
+    ).repeat_interleave(k_slots)
+    acc = (
+        plan_gather(p_center, center_flat, plan_center)
+        + plan_gather(p_nbr, nbr_flat, plan_nbr)
+        + plan_gather(p_bond, bond_flat, plan_bond)
     ).reshape(n_atoms, k_slots, -1)
     if "b" in layers_c[0]:
         acc = acc + torch.cat([layers_c[0]["b"], layers_g[0]["b"]])
     messages = gated_mlp_tail(
         gmlp, acc.reshape(n_atoms * k_slots, -1), activation=activation
     )
-    messages = messages * torch.index_select(bond_weights, 0, bond_flat)
+    messages = messages * plan_gather(bond_weights, bond_flat, plan_bond)
     messages = messages.reshape(n_atoms, k_slots, -1) * dense_mask[..., None]
     return _finish(params, messages.sum(dim=1), atom_feas, resnet)
 

@@ -4,9 +4,9 @@
     out = tail(acc) * weights * mask   (message)  |  tail(acc) + resnet (update)
 
 Port of ``chgnet_tpu/ops/fused_pass.py``. Two kernel wrappers
-(``csrc/fused_pass.cu``: warp-specialised tensor-core kernels, the backward
-with parameter gradients on CUDA-core FMAs), each beside its plain PyTorch
-version:
+(``csrc/fused_pass.cu``: in f32 warp-specialised tensor-core kernels, in
+bf16 warp-local tiles on the bf16 tensor cores, the backward with parameter
+gradients on CUDA-core FMAs), each beside its plain PyTorch version:
 
 * :func:`fused_pass_fwd` replaces ``_kernel`` (:157, ``_fused_pass_pallas``
   :219): K = 1..3 gathered, already projected tables ``[S_k, 2D]``, at most
@@ -44,7 +44,12 @@ rows, ``b1``, side rows, cotangent and parameters (their ``_bf16`` C entry
 points), keep ``acc`` and everything after it in f32 and round each output
 once, as ``chgnet_tpu``'s kernels do (``fused_pass.py:197-207``,
 ``:452-489``); the parameter gradients' per-block partials are summed in f32
-and rounded once to bf16. The plain versions widen, compute in f32 and round
+and rounded once to bf16. The serving forms are kernels of their own
+(``tcp16::pass_fwd_bf16_kernel``, ``tcp16::pass_bwd_bf16_kernel``): each
+warp copies its tile's gathered and aligned rows raw, as bf16, sums ``acc``
+in f32 as it builds each product's A fragments and runs both products as
+two bf16 passes (hi and lo of the f32 operand) on the bf16 tensor cores.
+The plain versions widen, compute in f32 and round
 once (:func:`~chgnet_tpu_torch.ops.build.plain_in_f32`), so ``acc`` is not
 rounded to bf16 between the sum and the tail. The second order
 differentiates the unfused composition in the inputs' type, as for f32.
@@ -100,6 +105,7 @@ _SIGNATURES = {
         _I, _I, _P,
     ],
     "fused_tc_occupancy": [ctypes.POINTER(_I)],
+    "fused_bf16_occupancy": [ctypes.POINTER(_I)],
 }
 MAX_PARTS = 3  # gathered parts of one launch
 
@@ -183,13 +189,23 @@ def _lib() -> ctypes.CDLL:
 
 def tc_occupancy() -> dict[str, tuple[int, int, int]]:
     """``(shared memory bytes, warps a block, blocks of one wave)`` on the
-    current card of the serving kernels, by kernel and form; nothing is
-    launched."""
+    current card of the serving kernels, by kernel and form, the bf16 ones
+    also by the part tiles of a stage (gathered parts plus the aligned
+    one); nothing is launched."""
     info = (_I * 12)()
     build.check(_lib().fused_tc_occupancy(info), "fused_tc_occupancy")
     names = ("pass_fwd_tc_kernel<true, true>", "pass_fwd_tc_kernel<false, false>",
              "pass_bwd_tc_kernel<true, true>", "pass_bwd_tc_kernel<false, false>")
-    return {name: tuple(info[3 * i: 3 * i + 3]) for i, name in enumerate(names)}
+    out = {name: tuple(info[3 * i: 3 * i + 3]) for i, name in enumerate(names)}
+    info = (_I * 48)()
+    build.check(_lib().fused_bf16_occupancy(info), "fused_bf16_occupancy")
+    forms = ("pass_fwd_bf16_kernel<true, true>", "pass_fwd_bf16_kernel<false, false>",
+             "pass_bwd_bf16_kernel<true, true>", "pass_bwd_bf16_kernel<false, false>")
+    for i, form in enumerate(forms):
+        for n in range(1, MAX_PARTS + 2):
+            j = 3 * (4 * i + n - 1)
+            out[f"{form} {n} tiles"] = tuple(info[j: j + 3])
+    return out
 
 
 def fused_pass_fwd(tables, idxs, aligned, b1, params, weights, mask, resnet):

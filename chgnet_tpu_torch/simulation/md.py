@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from chgnet_tpu_torch.core.structure import Structure
+from chgnet_tpu_torch.graph.batching import SegmentPlan
 from chgnet_tpu_torch.models.chgnet import CHGNetConfig
 from chgnet_tpu_torch.simulation import units
 from chgnet_tpu_torch.simulation.calculator import resolve_model, voigt_6
@@ -70,12 +71,13 @@ class MDParams(NamedTuple):
 
 
 def kinetic_energy(
-    vel: torch.Tensor, masses: torch.Tensor, owner: torch.Tensor, n_graphs: int
+    vel: torch.Tensor, masses: torch.Tensor, plan: SegmentPlan
 ) -> torch.Tensor:
-    """Per-graph kinetic energy [B] in eV (vel A/fs, masses amu)."""
+    """Per-graph kinetic energy [B] in eV (vel A/fs, masses amu), summed
+    over the batch's atom -> graph plan (``plan_graph``) in a fixed order
+    (:func:`graph_sum`), where ``chgnet_tpu`` takes a sorted segment sum."""
     ke_atom = 0.5 * masses * (vel**2).sum(dim=1) * units.AMU_A2_FS2_TO_EV
-    out = torch.zeros(n_graphs, dtype=ke_atom.dtype, device=ke_atom.device)
-    return out.index_add_(0, owner.long(), ke_atom)
+    return graph_sum(ke_atom, plan)
 
 
 def inverse_3x3(lat: torch.Tensor) -> torch.Tensor:
@@ -722,8 +724,7 @@ class MolecularDynamics:
         ke = kinetic_energy(
             self.state.vel[:n_pad],
             self.masses[:n_pad],
-            torch.as_tensor(self.runtime.batch.atom_owner, device=self.masses.device),
-            len(self.structures),
+            self.runtime.batch.plan_graph.to(self.masses.device),
         )
         temp = (2.0 * ke / (self.dof * units.KB)).cpu().numpy()
         return float(temp[0]) if self._single else temp

@@ -56,8 +56,9 @@ f32 and bf16) and ``tile=512`` (the halo-tiled neighbour layout):
    paths' outputs must also agree with the default path's, and the eight
    bf16 paths' with their f32 paths' at ``BF16_BARS`` (their LiMnO2
    card-vs-CPU check too); the layout paths log their batches' shape (the
-   slots' K, the tiled table's expansion N_x / N);
-   edges/s by CUDA events;
+   slots' K, the tiled table's expansion N_x / N); the dense layout's
+   paths (``REPEATED``, f32 and bf16) run their counted pass twice, and
+   the two passes' E/F/S/M bits must be equal; edges/s by CUDA events;
 4. a ``{"kernels": [...]}`` line: per kernel, its largest error over the
    calls of all paths, the path its times were taken on, its
    launches in one pass of that path and, summed over that pass's calls,
@@ -81,8 +82,8 @@ f32 and bf16) and ``tile=512`` (the halo-tiled neighbour layout):
    products at 989 TFLOP/s and the tails' (f32 by a bf16 W2) at 247.5
    (two TF32 passes; their dW2, f32 by f32, at 165: ``product_rate``);
 5. profile: one pass of the default, the undirected, the message-reduce,
-   the stream-v2, the one-kernel-pass, the bf16 and the undirected
-   one-kernel-pass bf16 path under ``torch.profiler``, the
+   the stream-v2, the one-kernel-pass, the bf16, the one-kernel-pass bf16
+   and the undirected one-kernel-pass bf16 path under ``torch.profiler``, the
    device's busy share of its wall time and the kernels that take the most
    device time; the traced default, message-reduce, stream-v2 and
    one-kernel-pass passes must show their kernels by name (``PROFILED``:
@@ -321,11 +322,14 @@ PATHS = {
 }
 # the paths of two optional batch layouts, each with the keywords its batch
 # is built with (PATH_BATCH, batch_graphs). AtomConv over the dense per-atom
-# slots runs no kernel of its own (its gathers and K-sums are plain
-# index_select and sum, as chgnet_tpu runs them without a Pallas kernel) and
-# takes the undirected bond stack: the undirected path's set less the 4
-# AtomConv layers' first-layer multi-gathers, message tails and their
-# gather_project_sum / segment sums. The halo-tiled layout (tiles of 512
+# slots runs no kernel of its own (its K-sums are plain sums, as chgnet_tpu
+# runs them without a Pallas kernel) and takes the undirected bond stack:
+# the undirected path's set less the 4 AtomConv layers' first-layer
+# multi-gathers, message tails and their gather_project_sum / segment sums,
+# plus the slots' four planned gathers a layer (centre, neighbour, bond and
+# weight rows: 16) and their backward segment sums (14: the first layer's
+# centre and neighbour tables, projected from the embeddings alone, take no
+# gradient in a serving pass). The halo-tiled layout (tiles of 512
 # atoms) gathers the neighbour rows from the expanded table: AtomConv's first
 # layer reads two tables of different lengths (atoms, expanded rows), so it
 # goes through the multi-gather instead of gather_project_sum, its backward
@@ -334,7 +338,7 @@ PATHS = {
 PATHS.update({
     "dense_atom_conv": (
         dict(dense_atom_conv=True), None,
-        (23, 23, 5, 5, 3, 3, 2, 2, 3, 0, 0, 0, 0, 0)),
+        (37, 39, 5, 5, 3, 3, 2, 2, 3, 0, 0, 0, 0, 0)),
     "tile=512": (
         {}, None, (30, 22, 5, 5, 7, 7, 2, 2, 4, 0, 0, 0, 0, 0)),
 })
@@ -382,23 +386,30 @@ PROFILED = {
     "CHGNET_TPU_FUSED_PASS=1": ("pass_fwd_tc_kernel", "pass_bwd_tc_kernel"),
     "bf16": ("tail_fwd_bf16_kernel", "tail_bwd_bf16_kernel<",
              "gproj_bf16_tc_kernel", "segment_sum_csr_kernel<__nv_bfloat16"),
+    "CHGNET_TPU_FUSED_PASS=1 bf16": ("pass_fwd_bf16_kernel", "pass_bwd_bf16_kernel"),
     "directed_bonds=False CHGNET_TPU_FUSED_PASS=1 bf16": (
-        "pass_fwd_tc_kernel<__nv_bfloat16", "pass_bwd_tc_kernel<__nv_bfloat16"),
+        "pass_fwd_bf16_kernel", "pass_bwd_bf16_kernel"),
 }
 # ... and the kernels it must not show: the CUDA-core one-kernel pass
 # (parameter gradients only) has no place in serving, and the windowed
 # gather's first kernel, which staged every window whole, the tile sum's
 # first carry kernel, which read the offsets of every output row, and the
 # bf16 instantiations of the f32 tiles of the serving backward, the message
-# forward and gather_project_sum's long route are gone
+# forward, gather_project_sum's long route and the one-kernel pass are gone
+PASS_BF16_GONE = ("pass_fwd_kernel<", "pass_bwd_kernel<",
+                  "pass_fwd_tc_kernel<__nv_bfloat16", "pass_bwd_tc_kernel<__nv_bfloat16")
 UNPROFILED = {
     "bf16": ("tail_bwd_tc_kernel<__nv_bfloat16", "gproj_tc_kernel<__nv_bfloat16",
              "tail_fwd_tc_kernel<__nv_bfloat16"),
     "CHGNET_TPU_STREAM_V2=1": ("gather_rows_window_kernel", "segment_sum_carry_kernel"),
     "CHGNET_TPU_FUSED_PASS=1": ("pass_fwd_kernel<", "pass_bwd_kernel<"),
-    "directed_bonds=False CHGNET_TPU_FUSED_PASS=1 bf16": (
-        "pass_fwd_kernel<", "pass_bwd_kernel<"),
+    "CHGNET_TPU_FUSED_PASS=1 bf16": PASS_BF16_GONE,
+    "directed_bonds=False CHGNET_TPU_FUSED_PASS=1 bf16": PASS_BF16_GONE,
 }
+# the paths whose counted pass runs twice and must give equal E/F/S/M bits:
+# the dense layout's slots gather through plans, whose backward is a
+# planned segment sum (no float atomics)
+REPEATED = ("dense_atom_conv", "dense_atom_conv bf16")
 MODEL_TOL = {"e": 2e-5, "f": 5e-5, "s": 2e-4, "m": 2e-5}
 # a bf16 path against its f32 path on the card, and its card run against its
 # CPU run: tests/test_model.py's bf16 bars (e eV/atom, f eV/A, m mu_B); stress
@@ -1508,6 +1519,9 @@ def counted_pass(path, model, switch, expect, batch, n_edges, graphs):
         )
     check_bf16_launches(path, launches, bf16_launches,
                         model.config.compute_dtype == "bfloat16")
+    if path in REPEATED:
+        with env_switch(switch):
+            check_repeats(path, out, run_pass(model, batch))
 
     n_graphs = len(graphs)
     for key in ("e", "f", "s", "m"):
@@ -1539,6 +1553,26 @@ def counted_pass(path, model, switch, expect, batch, n_edges, graphs):
         f"pass {peak / 2**30:.3f} GiB above the {base_bytes / 2**30:.3f} GiB "
         f"allocated before ({card_line()})")
     return launches, bf16_launches, out
+
+
+def digest(out) -> str:
+    """SHA-1 of the bits of a pass's e, f, s and m, in that order."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for key in "efsm":
+        h.update(out[key].detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def check_repeats(path, out, again) -> None:
+    """Two passes of one model on one batch: equal E/F/S/M bits (their
+    digests and each output's largest difference logged)."""
+    diffs = {key: float((out[key] - again[key]).abs().max()) for key in "efsm"}
+    first, second = digest(out), digest(again)
+    log(f"{path} run to run: sha1 {first} and {second}, max abs diff {diffs}")
+    if first != second:
+        raise AssertionError(f"{path}: two passes differ in their bits ({diffs})")
 
 
 def check_same_outputs(path, out, ref_path, ref, bars=MODEL_TOL):

@@ -1924,6 +1924,144 @@ def test_bf16_fused_pass_at_narrow_widths_and_ragged_rows(cuda, d, n_rows, form)
     _assert_ulps(tfp.fused_pass_bwd(*bwd)[:3], tfp.fused_pass_bwd_plain(*bwd)[:3])
 
 
+# the bf16 serving kernels of rows 13 and 14 (tcp16): the parts copy 16
+# bytes at a time (8 where D % 8 != 0: the widths test), the side rows by
+# their own alignment
+BF16_PASS_LAYOUTS = ["16-byte", "misaligned-side"]
+BF16_PASS_ROWS = 70_001  # past one wave: 132 blocks of at most 16 warps of 16 rows
+
+
+def _bf16_pass_case(cuda, n_gathered, with_aligned, d, n_rows, seed=33):
+    """bf16 inputs of the pass: tables, their indices (a few out of range),
+    the aligned part or None, b1, the side rows and parameters."""
+    x, p, tables, idxs, aligned, b1 = _pass_inputs(
+        cuda, n_gathered, with_aligned, d=d, n_rows=n_rows, seed=seed)
+    x = {k: v.to(BF16) for k, v in x.items()}
+    p = {k: v.to(BF16) for k, v in p.items()}
+    tables = [t.to(BF16) for t in tables]
+    aligned = x["acc"] if with_aligned else None
+    return x, p, tables, idxs, aligned, b1.to(BF16)
+
+
+@pytest.mark.parametrize("layout", BF16_PASS_LAYOUTS)
+@pytest.mark.parametrize("form", ["message", "update_w2", "update"])
+@pytest.mark.parametrize("with_aligned", [False, True], ids=["bare", "aligned"])
+@pytest.mark.parametrize("n_gathered", [1, 2, 3])
+def test_bf16_pass_serving_kernels_match_plain(cuda, n_gathered, with_aligned, form,
+                                                layout):
+    """The bf16 serving kernels of rows 13 and 14 (pass_fwd_bf16_kernel,
+    pass_bwd_bf16_kernel) over K = 1-3 gathered parts, with and without an
+    aligned part, every form, aligned and misaligned side rows, on
+    more rows than one wave takes: within one ulp of the plain version's
+    largest value, equal bits on a second run, one bf16 launch each."""
+    from chgnet_tpu_torch.ops import fused_pass as tfp
+
+    x, p, tables, idxs, aligned, b1 = _bf16_pass_case(
+        cuda, n_gathered, with_aligned, 64, BF16_PASS_ROWS)
+    side = _misaligned if layout == "misaligned-side" else (lambda t: t)
+    fwd, bwd = _pass_args(x, p, tables, idxs, aligned, b1, form, True, False, side=side)
+    ops.reset_launch_counts()
+    got = tfp.fused_pass_fwd(*fwd)
+    grads = tfp.fused_pass_bwd(*bwd)
+    assert (ops.fused_pass_fwd.launches_bf16, ops.fused_pass_bwd.launches_bf16) == (1, 1)
+    _assert_ulps(got, tfp.fused_pass_fwd_plain(*fwd))
+    _assert_ulps(grads[:3], tfp.fused_pass_bwd_plain(*bwd)[:3])
+    assert torch.equal(got, tfp.fused_pass_fwd(*fwd))
+    assert all(torch.equal(a, b) for a, b in zip(
+        _flat(grads), _flat(tfp.fused_pass_bwd(*bwd))) if a is not None)
+
+
+@pytest.mark.parametrize("form", ["message", "update_w2", "update"])
+@pytest.mark.parametrize("n_rows", [1, 15, 17, 4_099])
+@pytest.mark.parametrize("d", [8, 12, 60, 64])
+def test_bf16_pass_serving_kernels_at_ragged_rows_and_widths(cuda, d, n_rows, form):
+    """The bf16 serving kernels with fewer rows than a warp's tile, ragged
+    last tiles, widths whose halves split a 16-byte unit (D % 8 != 0: copies
+    of 8 bytes) and three gathered parts beside an aligned one: one ulp."""
+    from chgnet_tpu_torch.ops import fused_pass as tfp
+
+    x, p, tables, idxs, aligned, b1 = _bf16_pass_case(cuda, 3, True, d, n_rows)
+    fwd, bwd = _pass_args(x, p, tables, idxs, aligned, b1, form, True, False)
+    _assert_ulps(tfp.fused_pass_fwd(*fwd), tfp.fused_pass_fwd_plain(*fwd))
+    _assert_ulps(tfp.fused_pass_bwd(*bwd)[:3], tfp.fused_pass_bwd_plain(*bwd)[:3])
+
+
+def test_bf16_pass_serving_kernels_sum_acc_in_f32(cuda):
+    """acc is summed in f32 and never rounded to bf16 between its parts: a
+    large part, a small one, and an aligned part that cancels the large one
+    leave the small part whole, as in the plain version (a bf16 sum of the
+    first two would lose the small part's low bits, errors of 2^-3 of it)."""
+    from chgnet_tpu_torch.ops import fused_pass as tfp
+
+    d, n_rows = 64, 2_048
+    x, p, tables, idxs, _, b1 = _bf16_pass_case(cuda, 2, True, d, n_rows)
+    big = (torch.randn(4000, 2 * d, device=cuda) * 64).to(BF16)
+    small = torch.randn(4000, 2 * d, device=cuda).to(BF16)
+    same = idxs[0].clamp(0, 3999)
+    aligned = (-big[same.long()]).contiguous()
+    fwd, bwd = _pass_args(x, p, [big, small], [same, same], aligned, b1, "message",
+                          False, False)
+    _assert_ulps(tfp.fused_pass_fwd(*fwd), tfp.fused_pass_fwd_plain(*fwd))
+    _assert_ulps(tfp.fused_pass_bwd(*bwd)[:3], tfp.fused_pass_bwd_plain(*bwd)[:3])
+
+
+def _dense_digests(cuda, dtype):
+    """SHA-1 of E/F/S/M of two passes of the dense layout (dense_k) on a
+    batch of two supercells, by one model."""
+    import hashlib
+
+    kw = dict(graph_converter_algorithm="numpy", dense_atom_conv=True)
+    if dtype == "bf16":
+        kw.update(compute_dtype="bfloat16", matmul_precision="default")
+    model = CHGNet(seed=0, device=cuda, **kw)
+    structs = [Structure.from_file(LIMNO2).make_supercell(3).perturb(0.05, seed=i)
+               for i in range(2)]
+    batch = batch_graphs([model.graph_converter(s) for s in structs], dense_k=True).to(cuda)
+    out = []
+    for _ in range(2):
+        res = compute_batch(model.params, batch, config=model.config, compute_force=True,
+                            compute_stress=True, compute_magmom=True)
+        h = hashlib.sha1()
+        for key in "efsm":
+            h.update(res[key].detach().cpu().numpy().tobytes())
+        out.append(h.hexdigest())
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_dense_layout_repeats_bit_for_bit(cuda, dtype):
+    """The dense slots gather through plans, whose backward is a planned
+    segment sum: two passes give equal E/F/S/M bits, and the slots' gathers
+    and sums launch the port's kernels."""
+    ops.reset_launch_counts()
+    first, second = _dense_digests(cuda, dtype)
+    assert first == second
+    assert ops.gather_rows.launches > 0 and ops.segment_sum_csr.launches > 0
+
+
+def test_nvt_temperature_repeats_bit_for_bit(cuda):
+    """get_temperature sums over the batch's graph plan: two seeded NVT runs
+    read the same temperatures, bit for bit."""
+    from chgnet_tpu_torch.simulation import MolecularDynamics
+
+    runs = []
+    for _ in range(2):
+        model = CHGNet(seed=0, device=cuda, **GOLDEN_SMALL)
+        md = MolecularDynamics(
+            [Structure.from_file(LIMNO2).make_supercell(2).perturb(0.05, seed=i)
+             for i in range(3)],
+            model=model, ensemble="nvt", thermostat="Berendsen", temperature=300.0,
+            starting_temperature=300.0, timestep=2.0, seed=0,
+        )
+        temps = []
+        for _ in range(3):
+            md.run(3)
+            temps.append(np.asarray(md.get_temperature()))
+        runs.append(np.stack(temps))
+    assert runs[0].shape == (3, 3)
+    assert np.array_equal(runs[0].view(np.uint32), runs[1].view(np.uint32))
+
+
 @pytest.mark.parametrize("directed", [True, False], ids=["directed", "undirected"])
 def test_bf16_model_on_card_matches_cpu_and_f32(cuda, directed):
     """compute_dtype="bfloat16" at full width on LiMnO2: the card against

@@ -1,6 +1,7 @@
 """SHA-1 of each chip_smoke.py path's E/F/S/M on the benchmark batch.
 
     python3 tools/hash_paths.py [--root DIR] [--out FILE] [--against FILE]
+                                [--paths PATH ...] [--twice]
 
 Builds ``chip_smoke.py``'s benchmark batch (``bench.py``'s workload: 32
 perturbed 216-atom LiMnO2 supercells) and runs one E+F+S+M pass of every
@@ -11,7 +12,11 @@ its own code. Prints one JSON line per path with a SHA-1 of the bits of
 e, f, s and m, then the card's name and power limit; with ``--out`` the
 digests go to FILE as JSON, and with ``--against`` (another run's
 ``--out``) every path the two share must have equal digests (``equal``),
-or the script exits 1. Needs one CUDA card.
+or the script exits 1. ``--paths`` runs only the paths named. With
+``--twice`` each path's pass runs again, by the same model on the same
+batch, and its line also gives the second pass's SHA-1 and the largest
+difference of each of e, f, s and m between the two passes (``repeat``):
+how far apart two runs of the same code are. Needs one CUDA card.
 
 To hold a change against its parent: unpack the parent with ``git
 archive`` into ``build/parent`` and run ``--root build/parent --out P``,
@@ -55,6 +60,8 @@ def main() -> int:
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--out")
     ap.add_argument("--against")
+    ap.add_argument("--paths", nargs="+", help="only these paths")
+    ap.add_argument("--twice", action="store_true", help="run each pass twice")
     args = ap.parse_args()
     import torch
 
@@ -71,14 +78,22 @@ def main() -> int:
     layouts = getattr(cs, "PATH_BATCH", {})
     digests = {}
     for path, (kwargs, switch, _) in cs.PATHS.items():
+        if args.paths and path not in args.paths:
+            continue
+        line = {"root": args.root, "path": path}
         with cs.env_switch(switch):
             batch = batch_graphs(graphs, **layouts.get(path, {})).to("cuda")
-            out = cs.run_pass(CHGNet(seed=0, device="cuda", **kwargs), batch)
+            model = CHGNet(seed=0, device="cuda", **kwargs)
+            out = cs.run_pass(model, batch)
+            again = cs.run_pass(model, batch) if args.twice else None
             torch.cuda.synchronize()
-        digests[path] = _digest(out)
-        print(json.dumps({"root": args.root, "path": path, "sha1": digests[path]}),
-              flush=True)
-        del batch, out
+        digests[path] = line["sha1"] = _digest(out)
+        if again is not None:
+            line["sha1_again"] = _digest(again)
+            line["repeat"] = {key: float((out[key] - again[key]).abs().max())
+                              for key in "efsm"}
+        print(json.dumps(line), flush=True)
+        del batch, out, again, model
     print(cs.card_line(), flush=True)
     if args.out:
         with open(args.out, "w") as fh:
