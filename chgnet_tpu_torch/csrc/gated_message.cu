@@ -28,20 +28,22 @@
 // bf16 stages and the bf16 tensor cores.
 // Design of the update forward without a second layer: update_fwd_kernel,
 // a row per group of lanes with 16-byte loads.
-// Design of the update forward with a second layer and the backward with
-// parameter gradients: f32 FMAs throughout, no TF32. A block stages W2c
-// and W2g (and their transposes in the backward, 16 KB each at D = 64) in
-// dynamic shared memory once, then walks 32-row tiles: it loads the tile's
-// acc rows as float4, keeps h = silu(acc) in shared memory, and each of 256
-// threads computes a 4-row x 4-column register tile of the two diagonal blocks
-// only (half the FLOPs of the dense 2D x 2D product). The row phase gives
-// each row to one warp: two-pass layer norms (mean, then the centred
-// variance) by warp shuffles, the gating, and in the backward the
-// layer-norm backward; the ragged last tile is masked, nothing is padded.
-// Parameter gradients (the backward's optional mode) are summed per block
-// in a fixed order into a [blocks, n_part] scratch buffer (a fixed number
-// of blocks, kParamBlocks), which a second kernel reduces over the blocks in
-// order: no float atomics, and the result repeats bit for bit.
+// Design of the update forward with a second layer: f32 FMAs throughout,
+// no TF32. A block stages W2c and W2g (16 KB each at D = 64) in dynamic
+// shared memory once, then walks 32-row tiles: it loads the tile's acc rows
+// as float4, keeps h = silu(acc) in shared memory, and each of 256 threads
+// computes a 4-row x 4-column register tile of the two diagonal blocks only
+// (half the FLOPs of the dense 2D x 2D product). The row phase gives each
+// row to one warp: two-pass layer norms (mean, then the centred variance)
+// by warp shuffles and the gating; the ragged last tile is masked, nothing
+// is padded.
+// Design of the backward with parameter gradients (training):
+// tail_bwd_param_tc_kernel and tail_bwd_param_bf16_kernel (below tcb16),
+// the serving tiles with dW2 on the tensor cores, each of a block's 8
+// warps the owner of an eighth of it. Parameter gradients are summed per
+// block in a fixed order into a [blocks, n_part] scratch buffer (a fixed
+// number of blocks, kParamBlocks), which a second kernel reduces over the
+// blocks in order: no float atomics, and the result repeats bit for bit.
 // bf16 (compute_dtype="bfloat16", the _bf16 entry points): every kernel
 // takes bf16 acc, weights, mask, cotangent and parameters, computes in f32
 // and rounds each output once at its store, as chgnet_tpu's kernels do
@@ -55,20 +57,20 @@
 // (mma.sync.m16n8k16) in two passes, the f32 A operand (silu(acc), d_y)
 // split into a bf16 hi and lo (bf16_tile.cuh), so they keep f32 accuracy;
 // y stays in registers, the row phase is tcb's f32 arithmetic, and each
-// output is rounded once. The other forms are the f32 kernels instantiated
-// for bf16: their rows are widened to f32 as they are fetched (tc::fetch4
-// / fetch1: a load now where the f32 kernels copy with cp.async) and their
-// products keep f32 accuracy as two of 3xTF32's passes, those whose terms
-// are not zero for a bf16 W2 (lo_a hi_b, hi_a hi_b: tc::mma2_tiles_split,
-// the same sums). The message-reduce (tail_reduce_tc_kernel<bf16>) keeps each
+// output is rounded once. The backward with parameter gradients has its
+// own bf16 kernel, tcb16::tail_bwd_param_bf16_kernel, on the same bf16
+// stages; its per-block partials stay f32, sum_blocks_kernel adds them in
+// block order in f32 (no atomics) and rounds each parameter gradient once
+// to bf16 (chgnet_tpu casts each tile's f32 sums to the parameters' type
+// and adds them there, ops/gated_message.py:222-228, so it rounds once a
+// tile). The other forms are the f32 kernels instantiated for bf16: their
+// rows are widened to f32 as they are fetched (tc::fetch4 / fetch1: a load
+// now where the f32 kernels copy with cp.async) and their products keep
+// f32 accuracy as two of 3xTF32's passes, those whose terms are not zero
+// for a bf16 W2 (lo_a hi_b, hi_a hi_b: tc::mma2_tiles_split, the same
+// sums). The message-reduce (tail_reduce_tc_kernel<bf16>) keeps each
 // tile's messages in f32 and sums every segment in f32, rounding each
-// output row once. The backward with parameter gradients
-// (tail_bwd_kernel<bf16, ...>, training) widens its rows and parameters
-// likewise; its per-block partials stay f32, sum_blocks_kernel adds them
-// in block order in f32 (no atomics) and rounds each parameter gradient
-// once to bf16 (chgnet_tpu casts each tile's f32 sums to the parameters'
-// type and adds them there, ops/gated_message.py:222-228, so it rounds
-// once a tile). The update
+// output row once. The update
 // forward without a second layer (update_fwd_kernel<bf16, ...>) takes the
 // gate's exponentials and quotients by the fast intrinsics, some 1e-6
 // relative in f32 before the output's bf16 rounding.
@@ -216,116 +218,131 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ------------------------------------------------------------ backward
-template <typename T, bool kMsg, bool kW2, bool kParams>
-__global__ void __launch_bounds__(kThreads)
-    tail_bwd_kernel(TailT<T> t, const T* __restrict__ acc,
-                    const T* __restrict__ weights,
-                    const T* __restrict__ mask,
-                    const T* __restrict__ g, T* __restrict__ d_acc,
-                    T* __restrict__ d_weights, T* __restrict__ d_mask,
-                    float* __restrict__ partial, int n_rows, int d) {
-  extern __shared__ float4 smem4[];
-  float* w_s = reinterpret_cast<float*>(smem4);  // [2][D][D]
-  float* wt_s = w_s + (kW2 ? kWeights : 0);      // [2][D][D] transposed
-  float* h_s = wt_s + (kW2 ? kWeights : 0);      // 2 half tiles
-  float* y_s = h_s + 2 * kHalf;                  // y, then d_y in place
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  LaneParams lp;
-  lp.load(t, d, lane);
-  float b[4];
-  if (kW2) {
-    load_bias(t, d, lane, b);
-    stage_weights(w_s, t, d, false);
-    stage_weights(wt_s, t, d, true);
-  }
-  ParamSums ps;  // this block's parameter gradients
-  if (kParams) ps.clear();
-  const int n_tiles = (n_rows + kTile - 1) / kTile;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long row0 = (long)tile * kTile;
-    if (kW2) {
-      __syncthreads();  // weights staged, the previous tile consumed
-      load_silu(acc, h_s, row0, n_rows, d);
-      __syncthreads();
-      float y[kRowsPerWarp][4];
-      tile_product(h_s, w_s, d, warp, lane, y);
-      store_y(y_s, y, b, d, warp, lane);
-      __syncthreads();
-    }
-    // row phase, one warp per row (_bwd_math :150, _bwd_math_nw :690)
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const int r = warp * kRowsPerWarp + rr;
-      const long l = row0 + r;
-      float* yc_s = half_tile(y_s, 0) + r * d;
-      float* yg_s = half_tile(y_s, 1) + r * d;
-      if (l >= n_rows) {  // warp-uniform; a zero d_y adds nothing to dW2
-        if (kW2) {
-          const float zero[kPerLane] = {};
-          store_lane(yc_s, d, lane, zero);
-          store_lane(yg_s, d, lane, zero);
-        }
-        continue;
-      }
-      RowGrads o;
-      const T* w_row = kMsg ? weights + l * d : nullptr;
-      const float m = kMsg ? chgnet::to_f(mask[l]) : 1.f;
-      if constexpr (kW2)
-        gate_row_bwd<kMsg>(yc_s, yg_s, g + l * d, w_row, m, lp, d, lane, o);
-      else
-        gate_row_bwd<kMsg>(acc + l * 2 * d, acc + l * 2 * d + d, g + l * d, w_row, m,
-                           lp, d, lane, o);
-      if (kMsg) {
-        store_lane(d_weights + l * d, d, lane, o.dw);
-        if (d_mask != nullptr) {
-          const float dm = warp_sum(o.mask_part);
-          if (lane == 0) chgnet::store_v(d_mask + l, dm);
-        }
-      }
-      if (kParams) ps.add_row(o);
-      if (kW2) {
-        store_lane(yc_s, d, lane, o.dyc);
-        store_lane(yg_s, d, lane, o.dyg);
-      } else {
-        store_lane(d_acc + l * 2 * d, d, lane, o.dyc);
-        store_lane(d_acc + l * 2 * d + d, d, lane, o.dyg);
-      }
-    }
-    if (kW2) {
-      __syncthreads();  // d_y of every row in y_s
-      float dh[kRowsPerWarp][4];
-      tile_product(y_s, wt_s, d, warp, lane, dh);  // d_h = d_y @ W2^T
-      const int col = 4 * lane;
-      if (col < 2 * d) {
-#pragma unroll
-        for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-          const long l = row0 + warp * kRowsPerWarp + rr;
-          if (l >= n_rows) break;
-          float4 a;
-          chgnet::load_v(a, acc + l * 2 * d + col);
-          chgnet::store_v(d_acc + l * 2 * d + col,
-                          make_float4(dh[rr][0] * silu_grad(a.x), dh[rr][1] * silu_grad(a.y),
-                                      dh[rr][2] * silu_grad(a.z), dh[rr][3] * silu_grad(a.w)));
-        }
-      }
-      if (kParams) ps.add_tile(h_s, y_s, d);
-    }
-  }
-  if (!kParams) return;
-  // this block's row of partial: [dW2c, dW2g (D x D each), db2 (2D)] with
-  // w2, then ncs, ncb, ngs, ngb
-  __syncthreads();  // the last tile consumed: h_s is free
-  const int n_w = kW2 ? 2 * d * d : 0;
-  const int n_part = (kW2 ? n_w + 2 * d : 0) + 4 * d;
-  ps.store<kW2>(h_s, partial + (long)blockIdx.x * n_part, n_part - 4 * d,
-                kW2 ? n_w : -1, d, warp, lane);
+// A lane's place in its warp's 16-row tiles and the width's constants, the
+// same for every tile a kernel takes: made once, before the tile loop
+struct Geom {
+  int d, lane, gid, q, d8, d16;
+  float inv_d;
+  __device__ __forceinline__ Geom(int d_, int lane_)
+      : d(d_), lane(lane_), gid(lane_ >> 2), q(lane_ & 3), d8((d_ + 7) / 8),
+        d16((d_ + 15) / 16), inv_d(1.f / d_) {}
+};
+
+// Helpers of the backwards below: the tile's row phase sums the
+// layer-norm vectors' gradients with these when it takes parameter
+// gradients (see tail_bwd_param_tc_kernel's notes, below tcb16).
+namespace prm {
+
+// The warps of a block, met at barrier 1 (the block's own barrier stays free)
+__device__ __forceinline__ void group_sync(int threads) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
 }
 
+// The block's 16-row tiles [first, last): the n_tiles split evenly over the
+// grid, in order
+struct Share {
+  int first, last;
+};
+__device__ __forceinline__ Share block_share(int n_tiles) {
+  return {(int)((long)n_tiles * blockIdx.x / gridDim.x),
+          (int)((long)n_tiles * (blockIdx.x + 1) / gridDim.x)};
+}
+
+// The sum of v[gid] over the 8 lanes of one quad position q (lanes q, q + 4,
+// ..., q + 28), returned to the lane whose gid = lane / 4: halves, quarters
+// and pairs exchanged in a fixed tree of 7 shuffles
+__device__ __forceinline__ float scatter8(const float v[8], int lane) {
+  const bool b = lane & 16, c = lane & 8, e = lane & 4;
+  float w[4], x[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float send = b ? v[i] : v[i + 4];
+    w[i] = (b ? v[i + 4] : v[i]) + __shfl_xor_sync(0xffffffffu, send, 16);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float send = c ? w[i] : w[i + 2];
+    x[i] = (c ? w[i + 2] : w[i]) + __shfl_xor_sync(0xffffffffu, send, 8);
+  }
+  const float send = e ? x[0] : x[1];
+  return (e ? x[1] : x[0]) + __shfl_xor_sync(0xffffffffu, send, 4);
+}
+
+// A lane's sums of the 8-column tiles nt of a rolled loop: add_next(x) adds
+// x to the current tile's sum and moves on to the next; after 8 moves the
+// sums stand in place again, s[nt]
+struct Rot8 {
+  float s[8];
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s[i] = 0.f;
+  }
+  __device__ __forceinline__ void add_next(float x) {
+    const float t = s[0] + x;
+#pragma unroll
+    for (int i = 0; i < 7; ++i) s[i] = s[i + 1];
+    s[7] = t;
+  }
+};
+
+// The gate's loop, a lane's terms of one 8-column tile: the four vectors'
+// terms of its column 8 nt + 2 q + jj over its two rows, at 2 vector + jj
+__device__ __forceinline__ void vec_terms(float lv[8], int jj, float dcn, float zc,
+                                          float dgn, float zg) {
+  lv[jj] = fmaf(dcn, zc, lv[jj]);
+  lv[2 + jj] += dcn;
+  lv[4 + jj] = fmaf(dgn, zg, lv[4 + jj]);
+  lv[6 + jj] += dgn;
+}
+
+// A warp's vector sums into red (vector v, column e at v kMaxD + e): lane
+// (gid, q) holds vector gid / 2, column 8 nt + 2 q + gid % 2 in s[nt]
+__device__ __forceinline__ void park_vectors(float* red, const Rot8& ln, int lane) {
+  const int gid = lane >> 2;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+    red[(gid >> 1) * kMaxD + 8 * nt + 2 * (lane & 3) + (gid & 1)] = ln.s[nt];
+}
+
+// The block's four vectors, [nc_scale, nc_bias, ng_scale, ng_bias] x D, into
+// out: the warps' parked sums (warp w's at red + w * stride) added in warp
+// order, by every thread of the block
+__device__ __forceinline__ void store_vectors(const float* red, int stride, int n_warps,
+                                              float* out, int d) {
+  for (int j = threadIdx.x; j < 4 * d; j += blockDim.x) {
+    const int v = j / d;
+    const int e = j - v * d;
+    float s = 0.f;
+    for (int w = 0; w < n_warps; ++w) s += red[w * stride + v * kMaxD + e];
+    out[j] = s;
+  }
+}
+
+// The owner's part of the block's dW2 (2 m-tiles from mt0, 4 n-tiles from
+// nt0 of half oh; element e of tile (i, j): W row 16 (mt0 + i) + gid + 8 (e
+// / 2), column 8 (nt0 + j) + 2 q + e % 2) into out (dW2c, then dW2g)
+__device__ __forceinline__ void store_dw(float* out, const float c[2][4][4], int oh,
+                                         int mt0, int nt0, int d, int lane) {
+  const int gid = lane >> 2;
+  const int q = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = 16 * (mt0 + i) + gid + 8 * (e >> 1);
+        const int n = 8 * (nt0 + j) + 2 * q + (e & 1);
+        if (m < d && n < d) out[oh * d * d + m * d + n] = c[i][j][e];
+      }
+}
+
+}  // namespace prm
 
 // -------------------------------------- backward on tensor cores (serving)
 // The backward without parameter gradients, which serving runs: the
-// function of tail_bwd_kernel, redesigned for Hopper.
+// function of _bwd_kernel (:190) and _bwd_kernel_nw (:734) without their
+// parameter sums, redesigned for Hopper.
 //
 // Bound: at D = 64 a message row moves 1,796 bytes against 2 x 4 D^2 FLOPs
 // of products (1.0 ms for the default pass's 7 calls at 3xTF32) and 70
@@ -344,7 +361,8 @@ __global__ void __launch_bounds__(kThreads)
 // the 8-column tiles: fully unrolled over its 64 values a lane, the kernel
 // outgrew the instruction cache and ran 2.5x slower. gz, then d_y, take the
 // g and weights slots a lane has just read, and d_y is the A operand of
-// d_y @ W2^T from there.
+// d_y @ W2^T from there. The tile's row phase (row_phase) is shared with
+// the backward with parameter gradients (tail_bwd_param_tc_kernel).
 namespace tcb {
 
 constexpr int kRows = 16;                      // rows of a warp's tile
@@ -502,6 +520,231 @@ __device__ __forceinline__ void park(float* f_s, const float v[2][8][4], int lan
       for (int j = 0; j < 4; ++j) f_s[((h * 8 + nt) * 4 + j) * 32 + lane] = v[h][nt][j];
 }
 
+// A warp's buffers for one 16-row tile of the backward kernels below: the
+// acc stage; the g and weights slots (gz, then d_y's core and gate halves);
+// with W2 the fragment slots (y, then d_h); the mask
+struct TileBufs {
+  const float* acc_s;
+  float* g_s;
+  float* wt_s;
+  float* f_s;
+  const float* m_s;
+};
+
+// One warp's tile of the backward from acc to d_acc (_bwd_math :150,
+// _bwd_math_nw :690), the serving kernel's and the one with parameter
+// gradients' alike: y = silu(acc) @ blockdiag(W2c, W2g) + b2 (or acc), the
+// two-pass layer-norm statistics, the gate's backward, d_y, and with W2
+// d_acc = (d_y @ W2^T) * silu'(acc), d_y left in the g and weights slots.
+// w_s: the staged W2; p_s: b2 (2 kMaxD), then ncs, ncb, ngs, ngb (kMaxD
+// each). kParams: the four layer-norm vectors' terms of each 8-column tile
+// summed into ln, and with W2 h = silu(acc) over d_h in the fragment slots
+// (zero past D and n_rows, as acc is).
+template <typename T, bool kMsg, bool kW2, bool kParams>
+__device__ __forceinline__ void row_phase(const float* w_s, const float* p_s,
+                                          const TileBufs& b, long row0, int n_rows,
+                                          const Geom& geo, T* d_acc, T* d_weights,
+                                          T* d_mask, prm::Rot8& ln) {
+  const float* b2_s = p_s;
+  const float* ncs_s = p_s + 2 * kMaxD;
+  const float* ncb_s = ncs_s + kMaxD;
+  const float* ngs_s = ncb_s + kMaxD;
+  const float* ngb_s = ngs_s + kMaxD;
+  const float* acc_s = b.acc_s;
+  float* g_s = b.g_s;
+  float* wt_s = b.wt_s;
+  float* f_s = b.f_s;
+  const float* m_s = b.m_s;
+  const int d = geo.d;
+  const int lane = geo.lane;
+  const int gid = geo.gid;
+  const int q = geo.q;
+  const int d8 = geo.d8;
+  const float inv_d = geo.inv_d;
+
+  // y = silu(acc) @ blockdiag(W2c, W2g) + b2, or acc. Element (h, nt, j):
+  // row gid + 8 (j >> 1), column 8 nt + 2 q + (j & 1) of half h.
+  if (kW2) {
+    float y[2][8][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          y[h][nt][j] = b2_s[h * kMaxD + nt * 8 + 2 * q + (j & 1)];
+    product<false, true>(acc_s, acc_s + kMaxD, 2 * kMaxD, w_s, d8, lane, y);
+    park(f_s, y, lane);
+  }
+  auto y_at = [&](int h, int nt, int j) {
+    return kW2 ? f_s[((h * 8 + nt) * 4 + j) * 32 + lane]
+               : acc_s[at_acc(gid + 8 * (j >> 1), h * kMaxD + nt * 8 + 2 * q + (j & 1))];
+  };
+
+  // two-pass layer-norm statistics of each half row
+  float mean[2][2] = {}, inv[2][2] = {};
+#pragma unroll 1
+  for (int nt = 0; nt < d8; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (nt * 8 + 2 * q + (j & 1) < d) mean[h][j >> 1] += y_at(h, nt, j);
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) mean[h][rr] = tc::quad_sum(mean[h][rr]) * inv_d;
+#pragma unroll 1
+  for (int nt = 0; nt < d8; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (nt * 8 + 2 * q + (j & 1) < d) {
+          const float c = y_at(h, nt, j) - mean[h][j >> 1];
+          inv[h][j >> 1] = fmaf(c, c, inv[h][j >> 1]);
+        }
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+      inv[h][rr] = rsqrtf(tc::quad_sum(inv[h][rr]) * inv_d + kEps);
+  // z of element (h, nt, j), zero past D
+  auto z_at = [&](int h, int nt, int j) {
+    return nt * 8 + 2 * q + (j & 1) < d
+               ? (y_at(h, nt, j) - mean[h][j >> 1]) * inv[h][j >> 1]
+               : 0.f;
+  };
+
+  // the gate's backward (gate_row_bwd's arithmetic): d_weights, d_mask,
+  // and the layer norms' gz = d_out * scale with their sums, where d_out is
+  // d_cn or d_gn, the cotangent of an affine output; a lane writes gz over
+  // the g and weights slots it has just read
+  float s1[2][2] = {}, s2[2][2] = {}, mask_part[2] = {};
+#pragma unroll 1
+  for (int nt = 0; nt < d8; ++nt) {
+    float lv[8] = {};  // kParams: this tile's vector terms
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = gid + 8 * rr;
+      const float m = kMsg ? m_s[r] : 1.f;
+      float dw[2];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int e = nt * 8 + 2 * q + jj;
+        const int at = at_row(r, e);
+        const float zc = z_at(0, nt, 2 * rr + jj);
+        const float zg = z_at(1, nt, 2 * rr + jj);
+        const float cn = fmaf(zc, ncs_s[e], ncb_s[e]);
+        const float gn = fmaf(zg, ngs_s[e], ngb_s[e]);
+        const float sig_cn = sigm_fast(cn);
+        const float silu_cn = cn * sig_cn;
+        const float sig_gn = sigm_fast(gn);
+        const float gv = g_s[at];  // zero past D
+        float up = gv;
+        if (kMsg) {
+          const float wv = wt_s[at];
+          mask_part[rr] = fmaf(gv, silu_cn * sig_gn * wv, mask_part[rr]);
+          up = gv * wv * m;
+          dw[jj] = gv * silu_cn * sig_gn * m;
+        }
+        const float dcn = up * sig_gn * silu_grad_of(cn, sig_cn);
+        const float dgn = up * silu_cn * sig_gn * (1.f - sig_gn);
+        const float gzc = dcn * ncs_s[e];
+        const float gzg = dgn * ngs_s[e];
+        s1[0][rr] += gzc;
+        s2[0][rr] = fmaf(gzc, zc, s2[0][rr]);
+        s1[1][rr] += gzg;
+        s2[1][rr] = fmaf(gzg, zg, s2[1][rr]);
+        if constexpr (kParams) prm::vec_terms(lv, jj, dcn, zc, dgn, zg);
+        g_s[at] = gzc;
+        wt_s[at] = gzg;
+      }
+      const long l = row0 + r;
+      const int e0 = nt * 8 + 2 * q;
+      if (kMsg && e0 < d && l < n_rows)
+        chgnet::store2(d_weights + l * d + e0, dw[0], dw[1]);
+    }
+    if constexpr (kParams) ln.add_next(prm::scatter8(lv, lane));
+  }
+  if constexpr (kParams)
+    for (int nt = d8; nt < 8; ++nt) ln.add_next(0.f);  // the sums back in place
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const long l = row0 + gid + 8 * rr;
+    if (kMsg && d_mask != nullptr) {
+      const float dm = tc::quad_sum(mask_part[rr]);
+      if (q == 0 && l < n_rows) chgnet::store_v(d_mask + l, dm);
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      s1[h][rr] = tc::quad_sum(s1[h][rr]) * inv_d;
+      s2[h][rr] = tc::quad_sum(s2[h][rr]) * inv_d;
+    }
+  // d_y = (gz - mean(gz) - z mean(gz z)) * inv, zero past D: in place
+  // with W2, else straight to d_acc
+#pragma unroll 1
+  for (int nt = 0; nt < d8; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int r = gid + 8 * rr;
+        const long l = row0 + r;
+        const int e0 = nt * 8 + 2 * q;
+        float* half = h ? wt_s : g_s;
+        float dy[2];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          float* p = half + at_row(r, e0 + jj);
+          dy[jj] = e0 + jj < d ? (*p - s1[h][rr] - z_at(h, nt, 2 * rr + jj) *
+                                                       s2[h][rr]) *
+                                     inv[h][rr]
+                               : 0.f;
+          if (kW2) *p = dy[jj];
+        }
+        if (!kW2 && e0 < d && l < n_rows)
+          chgnet::store2(d_acc + l * 2 * d + h * d + e0, dy[0], dy[1]);
+      }
+
+  if (kW2) {
+    __syncwarp();  // the warp's d_y rows in g_s and wt_s
+    // d_acc = (d_y @ W2^T) * silu'(acc); kParams: h = silu(acc) over d_h
+    float dh[2][8][4];
+    zero(dh);
+    product<true, false>(g_s, wt_s, kMaxD, w_s, d8, lane, dh);
+    park(f_s, dh, lane);
+#pragma unroll 1
+    for (int nt = 0; nt < d8; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int r = gid + 8 * rr;
+          const long l = row0 + r;
+          const int e0 = nt * 8 + 2 * q;
+          const bool in = e0 < d && l < n_rows;
+          if (!kParams && !in) continue;
+          const float a0 = acc_s[at_acc(r, h * kMaxD + e0)];
+          const float a1 = acc_s[at_acc(r, h * kMaxD + e0 + 1)];
+          const float sg0 = sigm_fast(a0);
+          const float sg1 = sigm_fast(a1);
+          float* f0 = f_s + ((h * 8 + nt) * 4 + 2 * rr) * 32 + lane;
+          float* f1 = f0 + 32;
+          if (in)
+            chgnet::store2(d_acc + l * 2 * d + h * d + e0, *f0 * silu_grad_of(a0, sg0),
+                           *f1 * silu_grad_of(a1, sg1));
+          if constexpr (kParams) {
+            *f0 = a0 * sg0;
+            *f1 = a1 * sg1;
+          }
+        }
+  }
+}
+
 template <typename T, bool kMsg, bool kW2>
 __global__ void __launch_bounds__(32 * warps(kW2), 1)
     tail_bwd_tc_kernel(TailT<T> t, const T* __restrict__ acc,
@@ -552,10 +795,6 @@ __global__ void __launch_bounds__(32 * warps(kW2), 1)
   for (int i = lane; i < warp_floats(kW2); i += 32) mine[i] = 0.f;
   __syncthreads();  // the only block barrier
 
-  const int gid = lane >> 2;
-  const int q = lane & 3;
-  const int d8 = (d + 7) / 8;
-  const float inv_d = 1.f / d;
   const int n_tiles = (n_rows + kRows - 1) / kRows;
   const int step = gridDim.x * warps(kW2);
   int tile = blockIdx.x * warps(kW2) + warp;
@@ -567,6 +806,8 @@ __global__ void __launch_bounds__(32 * warps(kW2), 1)
   if (tile < n_tiles)
     fetch_rows<kMsg>(g_s, wt_s, m_s, g, weights, mask, tile, n_rows, d, vec, lane);
   tc::commit();
+  prm::Rot8 no_sums;  // serving takes no parameter gradients
+  const Geom geo(d, lane);
   for (int it = 0; tile < n_tiles; ++it, tile += step) {
     const float* acc_s = mine + (it & 1) * kAccFloats;
     float* acc_next = mine + ((it + 1) & 1) * kAccFloats;
@@ -576,171 +817,8 @@ __global__ void __launch_bounds__(32 * warps(kW2), 1)
     tc::wait_pending<1>();  // all but the next tile's acc have landed
     __syncwarp();
     const long row0 = (long)tile * kRows;
-
-    // y = silu(acc) @ blockdiag(W2c, W2g) + b2, or acc. Element (h, nt, j):
-    // row gid + 8 (j >> 1), column 8 nt + 2 q + (j & 1) of half h.
-    if (kW2) {
-      float y[2][8][4];
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            y[h][nt][j] = b2_s[h * kMaxD + nt * 8 + 2 * q + (j & 1)];
-      product<false, true>(acc_s, acc_s + kMaxD, 2 * kMaxD, w_s, d8, lane, y);
-      park(f_s, y, lane);
-    }
-    auto y_at = [&](int h, int nt, int j) {
-      return kW2 ? f_s[((h * 8 + nt) * 4 + j) * 32 + lane]
-                 : acc_s[at_acc(gid + 8 * (j >> 1), h * kMaxD + nt * 8 + 2 * q + (j & 1))];
-    };
-
-    // two-pass layer-norm statistics of each half row
-    float mean[2][2] = {}, inv[2][2] = {};
-#pragma unroll 1
-    for (int nt = 0; nt < d8; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (nt * 8 + 2 * q + (j & 1) < d) mean[h][j >> 1] += y_at(h, nt, j);
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) mean[h][rr] = tc::quad_sum(mean[h][rr]) * inv_d;
-#pragma unroll 1
-    for (int nt = 0; nt < d8; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (nt * 8 + 2 * q + (j & 1) < d) {
-            const float c = y_at(h, nt, j) - mean[h][j >> 1];
-            inv[h][j >> 1] = fmaf(c, c, inv[h][j >> 1]);
-          }
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr)
-        inv[h][rr] = rsqrtf(tc::quad_sum(inv[h][rr]) * inv_d + kEps);
-    // z of element (h, nt, j), zero past D
-    auto z_at = [&](int h, int nt, int j) {
-      return nt * 8 + 2 * q + (j & 1) < d
-                 ? (y_at(h, nt, j) - mean[h][j >> 1]) * inv[h][j >> 1]
-                 : 0.f;
-    };
-
-    // the gate's backward (gate_row_bwd's arithmetic): d_weights, d_mask,
-    // and the layer norms' gz = d_out * scale with their sums; a lane
-    // writes gz over the g and weights slots it has just read
-    float s1[2][2] = {}, s2[2][2] = {}, mask_part[2] = {};
-#pragma unroll 1
-    for (int nt = 0; nt < d8; ++nt) {
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const int r = gid + 8 * rr;
-        const float m = kMsg ? m_s[r] : 1.f;
-        float dw[2];
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const int e = nt * 8 + 2 * q + jj;
-          const int at = at_row(r, e);
-          const float zc = z_at(0, nt, 2 * rr + jj);
-          const float zg = z_at(1, nt, 2 * rr + jj);
-          const float cn = fmaf(zc, ncs_s[e], ncb_s[e]);
-          const float gn = fmaf(zg, ngs_s[e], ngb_s[e]);
-          const float sig_cn = sigm_fast(cn);
-          const float silu_cn = cn * sig_cn;
-          const float sig_gn = sigm_fast(gn);
-          const float gv = g_s[at];  // zero past D
-          float up = gv;
-          if (kMsg) {
-            const float wv = wt_s[at];
-            mask_part[rr] = fmaf(gv, silu_cn * sig_gn * wv, mask_part[rr]);
-            up = gv * wv * m;
-            dw[jj] = gv * silu_cn * sig_gn * m;
-          }
-          const float gzc = up * sig_gn * silu_grad_of(cn, sig_cn) * ncs_s[e];
-          const float gzg = up * silu_cn * sig_gn * (1.f - sig_gn) * ngs_s[e];
-          s1[0][rr] += gzc;
-          s2[0][rr] = fmaf(gzc, zc, s2[0][rr]);
-          s1[1][rr] += gzg;
-          s2[1][rr] = fmaf(gzg, zg, s2[1][rr]);
-          g_s[at] = gzc;
-          wt_s[at] = gzg;
-        }
-        const long l = row0 + r;
-        const int e0 = nt * 8 + 2 * q;
-        if (kMsg && e0 < d && l < n_rows)
-          chgnet::store2(d_weights + l * d + e0, dw[0], dw[1]);
-      }
-    }
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const long l = row0 + gid + 8 * rr;
-      if (kMsg && d_mask != nullptr) {
-        const float dm = tc::quad_sum(mask_part[rr]);
-        if (q == 0 && l < n_rows) chgnet::store_v(d_mask + l, dm);
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        s1[h][rr] = tc::quad_sum(s1[h][rr]) * inv_d;
-        s2[h][rr] = tc::quad_sum(s2[h][rr]) * inv_d;
-      }
-    // d_y = (gz - mean(gz) - z mean(gz z)) * inv, zero past D: in place
-    // with W2, else straight to d_acc
-#pragma unroll 1
-    for (int nt = 0; nt < d8; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int rr = 0; rr < 2; ++rr) {
-          const int r = gid + 8 * rr;
-          const long l = row0 + r;
-          const int e0 = nt * 8 + 2 * q;
-          float* half = h ? wt_s : g_s;
-          float dy[2];
-#pragma unroll
-          for (int jj = 0; jj < 2; ++jj) {
-            float* p = half + at_row(r, e0 + jj);
-            dy[jj] = e0 + jj < d ? (*p - s1[h][rr] - z_at(h, nt, 2 * rr + jj) *
-                                                         s2[h][rr]) *
-                                       inv[h][rr]
-                                 : 0.f;
-            if (kW2) *p = dy[jj];
-          }
-          if (!kW2 && e0 < d && l < n_rows)
-            chgnet::store2(d_acc + l * 2 * d + h * d + e0, dy[0], dy[1]);
-        }
-
-    if (kW2) {
-      __syncwarp();  // the warp's d_y rows in g_s and wt_s
-      // d_acc = (d_y @ W2^T) * silu'(acc)
-      float dh[2][8][4];
-      zero(dh);
-      product<true, false>(g_s, wt_s, kMaxD, w_s, d8, lane, dh);
-      park(f_s, dh, lane);
-#pragma unroll 1
-      for (int nt = 0; nt < d8; ++nt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int rr = 0; rr < 2; ++rr) {
-            const int r = gid + 8 * rr;
-            const long l = row0 + r;
-            const int e0 = nt * 8 + 2 * q;
-            if (e0 >= d || l >= n_rows) continue;
-            const float a0 = acc_s[at_acc(r, h * kMaxD + e0)];
-            const float a1 = acc_s[at_acc(r, h * kMaxD + e0 + 1)];
-            chgnet::store2(d_acc + l * 2 * d + h * d + e0,
-                           y_at(h, nt, 2 * rr) * silu_grad_of(a0, sigm_fast(a0)),
-                           y_at(h, nt, 2 * rr + 1) * silu_grad_of(a1, sigm_fast(a1)));
-          }
-    }
+    row_phase<T, kMsg, kW2, false>(w_s, b2_s, {acc_s, g_s, wt_s, f_s, m_s}, row0, n_rows,
+                                   geo, d_acc, d_weights, d_mask, no_sums);
     __syncwarp();  // this acc stage and the row slots free
     if (ahead)
       fetch_rows<kMsg>(g_s, wt_s, m_s, g, weights, mask, tile + step, n_rows, d,
@@ -1166,6 +1244,8 @@ __global__ void __launch_bounds__(32 * kFwdWarps, 1)
 // won a same-call A/B on an H100 (tools/time_tail_bwd.py; PERF.md §6):
 // d_y parked for a rolled d_y @ W2^T, the product's 16-deep steps unrolled
 // (spills), and g, weights and mask double-buffered at 8 warps were slower.
+// The tile's row phase (row_phase) is shared with the backward with
+// parameter gradients (tail_bwd_param_bf16_kernel).
 namespace tcb16 {
 
 __host__ __device__ constexpr int warp_bytes(bool msg) {
@@ -1293,6 +1373,296 @@ __device__ __forceinline__ void product_y(const char* acc_s, const char* w_s, in
   }
 }
 
+constexpr int kPlane = kAccBytes;  // [kRows][2 kMaxD] bf16: h's or d_y's hi or lo
+
+// A warp's buffers for one 16-row tile of the bf16 backward kernels: the acc
+// stage (d_acc once written); g and weights (d_weights once read); the
+// parked f32 fragments (z, then gz, then d_h; with parameter gradients and
+// W2 then d_y's hi and lo planes); with parameter gradients and W2 h's hi
+// and lo planes; the mask
+struct TileBufs {
+  char* acc_s;
+  char* g_s;
+  char* wt_s;
+  float4* f_s;
+  char* h_s;
+  const bf16* m_s;
+};
+
+// One warp's tile of the bf16 backward from acc to d_acc, the serving
+// kernel's and the one with parameter gradients' alike: v = y, then z, then
+// d_y in registers; the gate's backward, d_weights over the weights it has
+// read and stored; refill() once g, weights and mask have been read (the
+// caller's copies into their slots, committed); with W2 d_h = d_y @ W2^T
+// parked and d_acc = d_h * silu'(acc) over the acc stage; d_acc stored. w_s:
+// the staged W2; p_s: b2 (2 kMaxD), then ncs, ncb, ngs, ngb (kMaxD each).
+// kParams: the four layer-norm vectors' terms of each 8-column tile summed
+// into ln, and with W2 h = silu(acc) and d_y parked as bf16 hi and lo planes
+// (zero past D and n_rows, as acc is).
+template <bool kMsg, bool kW2, bool kParams, typename Refill>
+__device__ __forceinline__ void row_phase(const char* w_s, const float* p_s,
+                                          const TileBufs& b, long row0, int n_rows,
+                                          const Geom& geo, int n, Walk acc_walk,
+                                          Walk out_walk, bf16* d_acc, bf16* d_weights,
+                                          bf16* d_mask, prm::Rot8& ln, Refill&& refill) {
+  const float* b2_s = p_s;
+  const float* ncs_s = p_s + 2 * kMaxD;
+  const float* ncb_s = ncs_s + kMaxD;
+  const float* ngs_s = ncb_s + kMaxD;
+  const float* ngb_s = ngs_s + kMaxD;
+  char* acc_s = b.acc_s;
+  char* g_s = b.g_s;
+  char* wt_s = b.wt_s;
+  float4* f_s = b.f_s;
+  const bf16* m_s = b.m_s;
+  const int d = geo.d;
+  const int lane = geo.lane;
+  const int gid = geo.gid;
+  const int q = geo.q;
+  const int d8 = geo.d8;
+  const int d16 = geo.d16;
+  const float inv_d = geo.inv_d;
+
+  // v: y = silu(acc) @ blockdiag(W2c, W2g) + b2, or acc; then z; then d_y.
+  // Element (h, nt, j): row gid + 8 (j >> 1), column 8 nt + 2 q + (j & 1)
+  // of half h; every element past D is zero.
+  float v[2][8][4];
+  if constexpr (kW2) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[h][nt][j] = b2_s[h * kMaxD + nt * 8 + 2 * q + (j & 1)];
+    product_y(acc_s, w_s, d8, d16, lane, v);
+  } else {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const uint32_t p =
+              nt < d8 ? *reinterpret_cast<const uint32_t*>(
+                            acc_s + bt::at<16>(gid + 8 * rr, h * kMaxD + nt * 8 + 2 * q))
+                      : 0u;
+          v[h][nt][2 * rr] = bt::lo_f(p);
+          v[h][nt][2 * rr + 1] = bt::hi_f(p);
+        }
+  }
+
+  // two-pass layer-norm statistics of each half row, then z (zero past D),
+  // parked for the gate's loop
+  float mean[2][2] = {}, inv[2][2] = {};
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mean[h][j >> 1] += v[h][nt][j];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) mean[h][rr] = tc::quad_sum(mean[h][rr]) * inv_d;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (nt * 8 + 2 * q + (j & 1) < d) {
+          const float c = v[h][nt][j] - mean[h][j >> 1];
+          inv[h][j >> 1] = fmaf(c, c, inv[h][j >> 1]);
+        }
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+      inv[h][rr] = rsqrtf(tc::quad_sum(inv[h][rr]) * inv_d + kEps);
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[h][nt][j] = nt * 8 + 2 * q + (j & 1) < d
+                          ? (v[h][nt][j] - mean[h][j >> 1]) * inv[h][j >> 1]
+                          : 0.f;
+      if (nt < d8)
+        f_s[(h * 8 + nt) * 32 + lane] =
+            make_float4(v[h][nt][0], v[h][nt][1], v[h][nt][2], v[h][nt][3]);
+    }
+
+  // the gate's backward (gate_row_bwd's arithmetic): d_weights, d_mask,
+  // and the layer norms' gz = d_out * scale with their sums, where d_out is
+  // d_cn or d_gn, the cotangent of an affine output; gz goes over the z it
+  // came from, d_weights over the weights just read
+  float s1[2][2] = {}, s2[2][2] = {}, mask_part[2] = {};
+  float m[2] = {1.f, 1.f};
+  if (kMsg) {
+    m[0] = __bfloat162float(m_s[gid]);
+    m[1] = __bfloat162float(m_s[gid + 8]);
+  }
+#pragma unroll 1
+  for (int nt = 0; nt < d8; ++nt) {
+    const float4 zc4 = f_s[nt * 32 + lane];
+    const float4 zg4 = f_s[(8 + nt) * 32 + lane];
+    const float zc[4] = {zc4.x, zc4.y, zc4.z, zc4.w};
+    const float zg[4] = {zg4.x, zg4.y, zg4.z, zg4.w};
+    const int e = nt * 8 + 2 * q;
+    const float2 ncs = *reinterpret_cast<const float2*>(ncs_s + e);
+    const float2 ncb = *reinterpret_cast<const float2*>(ncb_s + e);
+    const float2 ngs = *reinterpret_cast<const float2*>(ngs_s + e);
+    const float2 ngb = *reinterpret_cast<const float2*>(ngb_s + e);
+    float gzc[4], gzg[4], lv[8] = {};  // lv: kParams, this tile's vector terms
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int at = bt::at<8>(gid + 8 * rr, e);
+      const uint32_t gp = *reinterpret_cast<const uint32_t*>(g_s + at);
+      const uint32_t wp = kMsg ? *reinterpret_cast<const uint32_t*>(wt_s + at) : 0u;
+      float dw[2] = {};
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = 2 * rr + jj;
+        const float sc = jj ? ncs.y : ncs.x;
+        const float sg = jj ? ngs.y : ngs.x;
+        const float cn = fmaf(zc[j], sc, jj ? ncb.y : ncb.x);
+        const float gn = fmaf(zg[j], sg, jj ? ngb.y : ngb.x);
+        const float sig_cn = sigm_fast(cn);
+        const float silu_cn = cn * sig_cn;
+        const float sig_gn = sigm_fast(gn);
+        const float gv = jj ? bt::hi_f(gp) : bt::lo_f(gp);  // zero past D
+        float up = gv;
+        if (kMsg) {
+          const float wv = jj ? bt::hi_f(wp) : bt::lo_f(wp);
+          mask_part[rr] = fmaf(gv, silu_cn * sig_gn * wv, mask_part[rr]);
+          up = gv * wv * m[rr];
+          dw[jj] = gv * silu_cn * sig_gn * m[rr];
+        }
+        const float dcn = up * sig_gn * silu_grad_of(cn, sig_cn);
+        const float dgn = up * silu_cn * sig_gn * (1.f - sig_gn);
+        gzc[j] = dcn * sc;
+        gzg[j] = dgn * sg;
+        s1[0][rr] += gzc[j];
+        s2[0][rr] = fmaf(gzc[j], zc[j], s2[0][rr]);
+        s1[1][rr] += gzg[j];
+        s2[1][rr] = fmaf(gzg[j], zg[j], s2[1][rr]);
+        if constexpr (kParams) prm::vec_terms(lv, jj, dcn, zc[j], dgn, zg[j]);
+      }
+      if (kMsg) *reinterpret_cast<uint32_t*>(wt_s + at) = bt::pack(dw[0], dw[1]);
+    }
+    f_s[nt * 32 + lane] = make_float4(gzc[0], gzc[1], gzc[2], gzc[3]);
+    f_s[(8 + nt) * 32 + lane] = make_float4(gzg[0], gzg[1], gzg[2], gzg[3]);
+    if constexpr (kParams) ln.add_next(prm::scatter8(lv, lane));
+  }
+  if constexpr (kParams)
+    for (int nt = d8; nt < 8; ++nt) ln.add_next(0.f);  // the sums back in place
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const long l = row0 + gid + 8 * rr;
+    if (kMsg && d_mask != nullptr) {
+      const float dm = tc::quad_sum(mask_part[rr]);
+      if (q == 0 && l < n_rows) chgnet::store_v(d_mask + l, dm);
+    }
+  }
+  __syncwarp();  // d_weights in its slot; g, weights and mask read
+  if (kMsg) store_rows<8>(wt_s, d_weights, row0, n_rows, d, n, out_walk);
+  __syncwarp();  // the slots free
+  refill();
+
+  // d_y = (gz - mean(gz) - z mean(gz z)) * inv, zero past D, over z
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      s1[h][rr] = tc::quad_sum(s1[h][rr]) * inv_d;
+      s2[h][rr] = tc::quad_sum(s2[h][rr]) * inv_d;
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const float4 gz4 = nt < d8 ? f_s[(h * 8 + nt) * 32 + lane]
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float gz[4] = {gz4.x, gz4.y, gz4.z, gz4.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int rr = j >> 1;
+        v[h][nt][j] = nt * 8 + 2 * q + (j & 1) < d
+                          ? (gz[j] - s1[h][rr] - v[h][nt][j] * s2[h][rr]) * inv[h][rr]
+                          : 0.f;
+      }
+    }
+
+  if constexpr (kW2) {
+    // d_h = d_y @ W2^T, parked; d_acc = d_h * silu'(acc) over the acc stage;
+    // kParams: h = silu(acc) into its planes
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float dh[8][4];
+      product_dh(v[h], w_s + h * kMaxD * kMaxD * 2, d8, d16, lane, dh);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        if (nt < d8)
+          f_s[(h * 8 + nt) * 32 + lane] =
+              make_float4(dh[nt][0], dh[nt][1], dh[nt][2], dh[nt][3]);
+    }
+#pragma unroll 1
+    for (int nt = 0; nt < d8; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 dh = f_s[(h * 8 + nt) * 32 + lane];
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int at = bt::at<16>(gid + 8 * rr, h * kMaxD + nt * 8 + 2 * q);
+          uint32_t* p = reinterpret_cast<uint32_t*>(acc_s + at);
+          const float a0 = bt::lo_f(*p);
+          const float a1 = bt::hi_f(*p);
+          const float sg0 = sigm_fast(a0);
+          const float sg1 = sigm_fast(a1);
+          *p = bt::pack((rr ? dh.z : dh.x) * silu_grad_of(a0, sg0),
+                        (rr ? dh.w : dh.y) * silu_grad_of(a1, sg1));
+          if constexpr (kParams) {
+            uint32_t hi, lo;
+            bt::split(a0 * sg0, a1 * sg1, hi, lo);
+            *reinterpret_cast<uint32_t*>(b.h_s + at) = hi;
+            *reinterpret_cast<uint32_t*>(b.h_s + kPlane + at) = lo;
+          }
+        }
+      }
+    if constexpr (kParams) {
+      __syncwarp();  // d_h read: its slots take d_y's planes
+      char* dy_s = reinterpret_cast<char*>(f_s);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int at = bt::at<16>(gid + 8 * rr, h * kMaxD + nt * 8 + 2 * q);
+            uint32_t hi, lo;
+            bt::split(v[h][nt][2 * rr], v[h][nt][2 * rr + 1], hi, lo);
+            *reinterpret_cast<uint32_t*>(dy_s + at) = hi;
+            *reinterpret_cast<uint32_t*>(dy_s + kPlane + at) = lo;
+          }
+    }
+  } else {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr)
+          if (nt < d8)
+            *reinterpret_cast<uint32_t*>(
+                acc_s + bt::at<16>(gid + 8 * rr, h * kMaxD + nt * 8 + 2 * q)) =
+                bt::pack(v[h][nt][2 * rr], v[h][nt][2 * rr + 1]);
+  }
+  __syncwarp();  // d_acc in the stage
+  store_rows<16>(acc_s, d_acc, row0, n_rows, d, n, acc_walk);
+  __syncwarp();  // the stage free
+}
+
 template <bool kMsg, bool kW2>
 __global__ void __launch_bounds__(32 * warps(kMsg, kW2), 1)
     tail_bwd_bf16_kernel(TailT<bf16> t, const bf16* __restrict__ acc,
@@ -1303,11 +1673,8 @@ __global__ void __launch_bounds__(32 * warps(kMsg, kW2), 1)
   constexpr int kWarps = warps(kMsg, kW2);
   extern __shared__ float4 smem4[];
   char* w_s = reinterpret_cast<char*>(smem4);  // [2][kMaxD][kMaxD] bf16 with W2
-  float* b2_s = reinterpret_cast<float*>(w_s + (kW2 ? kWBytes : 0));  // gate at kMaxD
-  float* ncs_s = b2_s + 2 * kMaxD;
-  float* ncb_s = ncs_s + kMaxD;
-  float* ngs_s = ncb_s + kMaxD;
-  float* ngb_s = ngs_s + kMaxD;
+  // b2 (gate at kMaxD), then ncs, ncb, ngs, ngb
+  float* b2_s = reinterpret_cast<float*>(w_s + (kW2 ? kWBytes : 0));
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   // this warp's buffers: two acc stages; g and weights (d_weights once
@@ -1325,11 +1692,6 @@ __global__ void __launch_bounds__(32 * warps(kMsg, kW2), 1)
     reinterpret_cast<float4*>(mine)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();  // the only block barrier
 
-  const int gid = lane >> 2;
-  const int q = lane & 3;
-  const int d8 = (d + 7) / 8;
-  const int d16 = (d + 15) / 16;
-  const float inv_d = 1.f / d;
   const int n_tiles = (n_rows + kRows - 1) / kRows;
   const int step = gridDim.x * kWarps;
   int tile = blockIdx.x * kWarps + warp;
@@ -1347,6 +1709,8 @@ __global__ void __launch_bounds__(32 * warps(kMsg, kW2), 1)
     fetch_rows<kMsg>(g_s, wt_s, m_s, g, weights, mask, (long)tile * kRows, n_rows, d,
                      vec, row_walk, lane);
   tc::commit();
+  prm::Rot8 no_sums;  // serving takes no parameter gradients
+  const Geom geo(d, lane);
   for (int it = 0; tile < n_tiles; ++it, tile += step) {
     char* acc_s = mine + (it & 1) * kAccBytes;
     const bool ahead = tile + step < n_tiles;
@@ -1357,216 +1721,14 @@ __global__ void __launch_bounds__(32 * warps(kMsg, kW2), 1)
     tc::wait_pending<1>();  // all but the next tile's acc have landed
     __syncwarp();
     const long row0 = (long)tile * kRows;
-
-    // v: y = silu(acc) @ blockdiag(W2c, W2g) + b2, or acc; then z; then d_y.
-    // Element (h, nt, j): row gid + 8 (j >> 1), column 8 nt + 2 q + (j & 1)
-    // of half h; every element past D is zero.
-    float v[2][8][4];
-    if constexpr (kW2) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) v[h][nt][j] = b2_s[h * kMaxD + nt * 8 + 2 * q + (j & 1)];
-      product_y(acc_s, w_s, d8, d16, lane, v);
-    } else {
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-          for (int rr = 0; rr < 2; ++rr) {
-            const uint32_t p =
-                nt < d8 ? *reinterpret_cast<const uint32_t*>(
-                              acc_s + bt::at<16>(gid + 8 * rr, h * kMaxD + nt * 8 + 2 * q))
-                        : 0u;
-            v[h][nt][2 * rr] = bt::lo_f(p);
-            v[h][nt][2 * rr + 1] = bt::hi_f(p);
-          }
-    }
-
-    // two-pass layer-norm statistics of each half row, then z (zero past D),
-    // parked for the gate's loop
-    float mean[2][2] = {}, inv[2][2] = {};
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mean[h][j >> 1] += v[h][nt][j];
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) mean[h][rr] = tc::quad_sum(mean[h][rr]) * inv_d;
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (nt * 8 + 2 * q + (j & 1) < d) {
-            const float c = v[h][nt][j] - mean[h][j >> 1];
-            inv[h][j >> 1] = fmaf(c, c, inv[h][j >> 1]);
-          }
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr)
-        inv[h][rr] = rsqrtf(tc::quad_sum(inv[h][rr]) * inv_d + kEps);
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          v[h][nt][j] = nt * 8 + 2 * q + (j & 1) < d
-                            ? (v[h][nt][j] - mean[h][j >> 1]) * inv[h][j >> 1]
-                            : 0.f;
-        if (nt < d8)
-          f_s[(h * 8 + nt) * 32 + lane] =
-              make_float4(v[h][nt][0], v[h][nt][1], v[h][nt][2], v[h][nt][3]);
-      }
-
-    // the gate's backward (gate_row_bwd's arithmetic): d_weights, d_mask,
-    // and the layer norms' gz = d_out * scale with their sums; gz goes over
-    // the z it came from, d_weights over the weights just read
-    float s1[2][2] = {}, s2[2][2] = {}, mask_part[2] = {};
-    float m[2] = {1.f, 1.f};
-    if (kMsg) {
-      m[0] = __bfloat162float(m_s[gid]);
-      m[1] = __bfloat162float(m_s[gid + 8]);
-    }
-#pragma unroll 1
-    for (int nt = 0; nt < d8; ++nt) {
-      const float4 zc4 = f_s[nt * 32 + lane];
-      const float4 zg4 = f_s[(8 + nt) * 32 + lane];
-      const float zc[4] = {zc4.x, zc4.y, zc4.z, zc4.w};
-      const float zg[4] = {zg4.x, zg4.y, zg4.z, zg4.w};
-      const int e = nt * 8 + 2 * q;
-      const float2 ncs = *reinterpret_cast<const float2*>(ncs_s + e);
-      const float2 ncb = *reinterpret_cast<const float2*>(ncb_s + e);
-      const float2 ngs = *reinterpret_cast<const float2*>(ngs_s + e);
-      const float2 ngb = *reinterpret_cast<const float2*>(ngb_s + e);
-      float gzc[4], gzg[4];
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const int at = bt::at<8>(gid + 8 * rr, e);
-        const uint32_t gp = *reinterpret_cast<const uint32_t*>(g_s + at);
-        const uint32_t wp = kMsg ? *reinterpret_cast<const uint32_t*>(wt_s + at) : 0u;
-        float dw[2] = {};
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const int j = 2 * rr + jj;
-          const float sc = jj ? ncs.y : ncs.x;
-          const float sg = jj ? ngs.y : ngs.x;
-          const float cn = fmaf(zc[j], sc, jj ? ncb.y : ncb.x);
-          const float gn = fmaf(zg[j], sg, jj ? ngb.y : ngb.x);
-          const float sig_cn = tcb::sigm_fast(cn);
-          const float silu_cn = cn * sig_cn;
-          const float sig_gn = tcb::sigm_fast(gn);
-          const float gv = jj ? bt::hi_f(gp) : bt::lo_f(gp);  // zero past D
-          float up = gv;
-          if (kMsg) {
-            const float wv = jj ? bt::hi_f(wp) : bt::lo_f(wp);
-            mask_part[rr] = fmaf(gv, silu_cn * sig_gn * wv, mask_part[rr]);
-            up = gv * wv * m[rr];
-            dw[jj] = gv * silu_cn * sig_gn * m[rr];
-          }
-          gzc[j] = up * sig_gn * tcb::silu_grad_of(cn, sig_cn) * sc;
-          gzg[j] = up * silu_cn * sig_gn * (1.f - sig_gn) * sg;
-          s1[0][rr] += gzc[j];
-          s2[0][rr] = fmaf(gzc[j], zc[j], s2[0][rr]);
-          s1[1][rr] += gzg[j];
-          s2[1][rr] = fmaf(gzg[j], zg[j], s2[1][rr]);
-        }
-        if (kMsg) *reinterpret_cast<uint32_t*>(wt_s + at) = bt::pack(dw[0], dw[1]);
-      }
-      f_s[nt * 32 + lane] = make_float4(gzc[0], gzc[1], gzc[2], gzc[3]);
-      f_s[(8 + nt) * 32 + lane] = make_float4(gzg[0], gzg[1], gzg[2], gzg[3]);
-    }
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const long l = row0 + gid + 8 * rr;
-      if (kMsg && d_mask != nullptr) {
-        const float dm = tc::quad_sum(mask_part[rr]);
-        if (q == 0 && l < n_rows) chgnet::store_v(d_mask + l, dm);
-      }
-    }
-    __syncwarp();  // d_weights in its slot; g, weights and mask read
-    if (kMsg) store_rows<8>(wt_s, d_weights, row0, n_rows, d, n, out_walk);
-    __syncwarp();  // the slots free
-    if (ahead)
-      fetch_rows<kMsg>(g_s, wt_s, m_s, g, weights, mask, (long)(tile + step) * kRows,
-                       n_rows, d, vec, row_walk, lane);
-    tc::commit();
-
-    // d_y = (gz - mean(gz) - z mean(gz z)) * inv, zero past D, over z
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        s1[h][rr] = tc::quad_sum(s1[h][rr]) * inv_d;
-        s2[h][rr] = tc::quad_sum(s2[h][rr]) * inv_d;
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const float4 gz4 = nt < d8 ? f_s[(h * 8 + nt) * 32 + lane]
-                                   : make_float4(0.f, 0.f, 0.f, 0.f);
-        const float gz[4] = {gz4.x, gz4.y, gz4.z, gz4.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int rr = j >> 1;
-          v[h][nt][j] = nt * 8 + 2 * q + (j & 1) < d
-                            ? (gz[j] - s1[h][rr] - v[h][nt][j] * s2[h][rr]) * inv[h][rr]
-                            : 0.f;
-        }
-      }
-
-    if constexpr (kW2) {
-      // d_h = d_y @ W2^T, parked; d_acc = d_h * silu'(acc) over the acc stage
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float dh[8][4];
-        product_dh(v[h], w_s + h * kMaxD * kMaxD * 2, d8, d16, lane, dh);
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-          if (nt < d8)
-            f_s[(h * 8 + nt) * 32 + lane] =
-                make_float4(dh[nt][0], dh[nt][1], dh[nt][2], dh[nt][3]);
-      }
-#pragma unroll 1
-      for (int nt = 0; nt < d8; ++nt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float4 dh = f_s[(h * 8 + nt) * 32 + lane];
-#pragma unroll
-          for (int rr = 0; rr < 2; ++rr) {
-            uint32_t* p = reinterpret_cast<uint32_t*>(
-                acc_s + bt::at<16>(gid + 8 * rr, h * kMaxD + nt * 8 + 2 * q));
-            const float a0 = bt::lo_f(*p);
-            const float a1 = bt::hi_f(*p);
-            *p = bt::pack((rr ? dh.z : dh.x) * tcb::silu_grad_of(a0, tcb::sigm_fast(a0)),
-                          (rr ? dh.w : dh.y) * tcb::silu_grad_of(a1, tcb::sigm_fast(a1)));
-          }
-        }
-    } else {
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-          for (int rr = 0; rr < 2; ++rr)
-            if (nt < d8)
-              *reinterpret_cast<uint32_t*>(
-                  acc_s + bt::at<16>(gid + 8 * rr, h * kMaxD + nt * 8 + 2 * q)) =
-                  bt::pack(v[h][nt][2 * rr], v[h][nt][2 * rr + 1]);
-    }
-    __syncwarp();  // d_acc in the stage
-    store_rows<16>(acc_s, d_acc, row0, n_rows, d, n, acc_walk);
-    __syncwarp();  // the stage free for the tile after next
+    row_phase<kMsg, kW2, false>(
+        w_s, b2_s, {acc_s, g_s, wt_s, f_s, nullptr, m_s}, row0, n_rows, geo, n, acc_walk,
+        out_walk, d_acc, d_weights, d_mask, no_sums, [&] {
+          if (ahead)
+            fetch_rows<kMsg>(g_s, wt_s, m_s, g, weights, mask, (long)(tile + step) * kRows,
+                             n_rows, d, vec, row_walk, lane);
+          tc::commit();
+        });
   }
 }
 
@@ -1730,11 +1892,423 @@ __global__ void __launch_bounds__(32 * kFwdWarps, 1)
 }  // namespace tcb16
 
 
+// -------------------- backward with parameter gradients on tensor cores
+// The backward with parameter gradients, which every train step runs (rows
+// 7 and 9 with d_params at D <= 64: "7p" and "9p" in PERF.md): the serving
+// tiles' function plus the parameter gradients of _bwd_kernel (:190) and
+// _bwd_kernel_nw (:734), per-tile sums :213-228: dW2c = silu(acc_c)^T d_y_c
+// and dW2g alike, db2 = the sum of d_y over the rows (with W2), and the
+// four layer-norm vectors' gradients, sum(d_cn z_c), sum(d_cn),
+// sum(d_gn z_g), sum(d_gn), where d_cn and d_gn are the cotangents of the
+// two affine outputs.
+//
+// Bound: at D = 64 the serving backward's bytes (a train step's 14 message
+// calls: 1.276 ms in f32 and 0.638 ms in bf16, bytes) plus a third product
+// the size of the other two, dW2 = h^T d_y. On the CUDA cores (the
+// f32 FMAs of the kernel this replaces) that product alone takes longer than
+// the f32 bound, so it runs on the tensor cores at f32 accuracy like the
+// other two.
+// Design: the serving tiles' row phase (tcb::row_phase, tcb16::row_phase
+// above, with kParams), one 16-row tile a warp through every phase, and a
+// block of kParamGroup warps that meets twice a round of tiles at a named
+// barrier. The warps of a block take its tiles in
+// rounds, one tile each; after its tile's row phase a warp parks the tile's
+// h = silu(acc) and d_y in shared memory (h from the d_acc loop, which
+// takes sigmoid(acc) anyway), and at the barrier each warp becomes the owner
+// of one eighth of dW2 (2 m16 tiles of W's rows by 4 n8 tiles of its
+// columns in one half: 32 accumulators a lane) and adds every parked tile
+// of the round into it, h^T as the A operand and d_y as B, in the order of
+// the tiles; a second barrier frees the parked tiles. f32: 3xTF32
+// (tf32x3.cuh), h over d_h in the fragment slots, d_y where the serving
+// tile leaves it; bf16: h and d_y parked as bf16 hi and lo planes, read by
+// ldmatrix.trans, three m16n8k16 passes (lo hi, hi lo, hi hi). db2 goes to
+// the owners of W's first rows: the sum of d_y's fragments (f32), a product
+// with a ones A fragment (bf16). The layer-norm vectors are summed in the
+// gate's loop: each 8-column tile's terms over the lane's two rows, then
+// over the 8 lanes of its columns by a fixed tree of shuffles that leaves a
+// lane one (vector, column) sum, kept in 8 registers rotated through the
+// loop (a rolled loop cannot index registers). Without W2 (the update tail
+// of the default model) there is no product: the row phase and the vector
+// sums only, 12 warps a block. One acc stage a warp buys the warps a round
+// needs (8 with W2, one block an SM); the next tile's rows are copied while
+// the owners work, where their slots are free. Each block writes one f32
+// row of partial in a fixed order (the owners' tiles, then the warps'
+// vector sums added in warp order), so two runs give equal bits.
+namespace tcb {
+
+// The block's warps: with W2 the group that shares dW2, 8 owners of 8
+// tiles each; without, as many as keep the row phase busy
+constexpr int kParamGroup = 8;
+__host__ __device__ constexpr int param_warps(bool w2) { return w2 ? kParamGroup : 12; }
+// a warp's buffers: one acc stage; the g and weights slots (gz, then d_y's
+// halves); with W2 the fragment slots (y, then d_h, then h); the mask
+__host__ __device__ constexpr int param_warp_floats(bool w2) {
+  return kAccFloats + 2 * kRowFloats + (w2 ? kFragFloats : 0) + kRows;
+}
+__host__ __device__ constexpr size_t param_smem_bytes(bool w2) {
+  return (size_t)((w2 ? kWFloats : 0) + kParamFloats +
+                  param_warps(w2) * param_warp_floats(w2)) *
+         sizeof(float);
+}
+static_assert(param_smem_bytes(true) <= 232448 && param_smem_bytes(false) <= 232448,
+              "over the H100's shared memory a block");
+
+// Element (r, c) of half hh of a tile in the fragment slots of park(): h
+// there once the d_acc loop has read d_h
+__device__ __forceinline__ int at_frag(int hh, int r, int c) {
+  return ((hh * 8 + (c >> 3)) * 4 + 2 * (r >> 3) + (c & 1)) * 32 + 4 * (r & 7) +
+         ((c & 7) >> 1);
+}
+
+// c += h^T d_y over one parked 16-row tile, the owner's 2 x 4 tiles of half
+// oh at 3xTF32 (lo hi, hi lo, hi hi), in two 8-row k steps; h from the
+// tile's fragment slots, d_y from its g (core half) or weights (gate half)
+// slot. With db: the lane's sums of d_y's fragments, column 8 (nt0 + j) +
+// gid, rows q and q + 4 of each step.
+__device__ __forceinline__ void owner_product(const float* h_s, const float* dy_s, int oh,
+                                              int mt0, int nt0, bool with_db, int lane,
+                                              float c[2][4][4], float db[4]) {
+  const int gid = lane >> 2;
+  const int q = lane & 3;
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int r = 8 * s + q;
+    uint32_t ahi[2][4], alo[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = 16 * (mt0 + i) + gid;
+      const float av[4] = {h_s[at_frag(oh, r, m)], h_s[at_frag(oh, r, m + 8)],
+                           h_s[at_frag(oh, r + 4, m)], h_s[at_frag(oh, r + 4, m + 8)]};
+      tc::split_a(av, ahi[i], alo[i]);
+    }
+    uint32_t bhi[4][2], blo[4][2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = 8 * (nt0 + j) + gid;
+      const float b0 = dy_s[at_row(r, n)];
+      const float b1 = dy_s[at_row(r + 4, n)];
+      if (with_db) {
+        db[j] += b0;
+        db[j] += b1;
+      }
+      tc::split(b0, bhi[j][0], blo[j][0]);
+      tc::split(b1, bhi[j][1], blo[j][1]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) tc::mma(c[i][j], alo[i], bhi[j][0], bhi[j][1]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) tc::mma(c[i][j], ahi[i], blo[j][0], blo[j][1]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) tc::mma(c[i][j], ahi[i], bhi[j][0], bhi[j][1]);
+  }
+}
+
+template <bool kMsg, bool kW2>
+__global__ void __launch_bounds__(32 * param_warps(kW2), 1)
+    tail_bwd_param_tc_kernel(Tail t, const float* __restrict__ acc,
+                             const float* __restrict__ weights,
+                             const float* __restrict__ mask, const float* __restrict__ g,
+                             float* __restrict__ d_acc, float* __restrict__ d_weights,
+                             float* __restrict__ d_mask, float* __restrict__ partial,
+                             int n_rows, int d, int vec) {
+  constexpr int kWarps = param_warps(kW2);
+  constexpr int kWarpFloats = param_warp_floats(kW2);
+  extern __shared__ float4 smem4[];
+  float* w_s = reinterpret_cast<float*>(smem4);  // [2][kMaxD][kMaxD] with W2
+  float* b2_s = w_s + (kW2 ? kWFloats : 0);      // [2 kMaxD], gate at kMaxD
+  float* ncs_s = b2_s + 2 * kMaxD;
+  float* ncb_s = ncs_s + kMaxD;
+  float* ngs_s = ncb_s + kMaxD;
+  float* ngb_s = ngs_s + kMaxD;
+  float* warps_s = ngb_s + kMaxD;  // the warps' buffers, kWarpFloats each
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float* acc_s = warps_s + warp * kWarpFloats;
+  float* g_s = acc_s + kAccFloats;
+  float* wt_s = g_s + kRowFloats;
+  float* f_s = wt_s + kRowFloats;  // with W2
+  float* m_s = f_s + (kW2 ? kFragFloats : 0);
+
+  // weights and parameters zero-padded to kMaxD; this warp's buffers zeroed
+  // (the copies never write the pad columns)
+  for (int i = threadIdx.x; kW2 && i < kWFloats; i += blockDim.x) {
+    const int h = i / (kMaxD * kMaxD);
+    const int k = (i / kMaxD) % kMaxD;
+    const int n = i % kMaxD;
+    float v = 0.f;
+    if (kW2 && k < d && n < d) v = (h ? t.w2g : t.w2c)[k * d + n];
+    w_s[h * kMaxD * kMaxD + k * kMaxD + (n ^ swz(k))] = v;
+  }
+  for (int i = threadIdx.x; i < 2 * kMaxD; i += blockDim.x) {
+    const int h = i / kMaxD;
+    const int e = i % kMaxD;
+    b2_s[i] = kW2 && e < d ? t.b2[h * d + e] : 0.f;
+    if (h == 0) {
+      ncs_s[e] = e < d ? t.ncs[e] : 0.f;
+      ncb_s[e] = e < d ? t.ncb[e] : 0.f;
+      ngs_s[e] = e < d ? t.ngs[e] : 0.f;
+      ngb_s[e] = e < d ? t.ngb[e] : 0.f;
+    }
+  }
+  for (int i = lane; i < kWarpFloats; i += 32) acc_s[i] = 0.f;
+  __syncthreads();
+
+  const int gid = lane >> 2;
+  const int q = lane & 3;
+  const prm::Share share = prm::block_share((n_rows + kRows - 1) / kRows);
+  const int rounds = (share.last - share.first + kWarps - 1) / kWarps;
+  // the owner's tiles of dW2: half oh, m-tiles mt0 and mt0 + 1, n-tiles
+  // nt0 .. nt0 + 3 (none that lies wholly past D); the owners of m-tile 0
+  // sum db2
+  const int oh = warp >> 2;
+  const int mt0 = 2 * ((warp >> 1) & 1);
+  const int nt0 = 4 * (warp & 1);
+  const bool owner = kW2 && 16 * mt0 < d && 8 * nt0 < d;
+  float cw[2][4][4] = {}, db[4] = {};
+  prm::Rot8 ln;
+  ln.clear();
+  const Geom geo(d, lane);
+
+  int tile = share.first + warp;
+  if (tile < share.last) {
+    fetch_acc(acc_s, acc, (long)tile * kRows, n_rows, d, lane);
+    fetch_rows<kMsg>(g_s, wt_s, m_s, g, weights, mask, tile, n_rows, d, vec, lane);
+  }
+  tc::commit();
+  for (int k = 0; k < rounds; ++k, tile += kWarps) {
+    const int next = tile + kWarps;
+    if (tile < share.last) {
+      tc::wait_pending<0>();
+      __syncwarp();
+      const long row0 = (long)tile * kRows;
+      row_phase<float, kMsg, kW2, true>(w_s, b2_s, {acc_s, g_s, wt_s, f_s, m_s}, row0,
+                                        n_rows, geo, d_acc, d_weights, d_mask, ln);
+      __syncwarp();  // this tile's acc read
+      if (next < share.last) {
+        fetch_acc(acc_s, acc, (long)next * kRows, n_rows, d, lane);
+        // with W2 the owners read d_y from the g and weights slots first
+        if (!kW2) fetch_rows<kMsg>(g_s, wt_s, m_s, g, weights, mask, next, n_rows, d, vec, lane);
+      }
+      tc::commit();
+    }
+    if constexpr (kW2) {
+      prm::group_sync(32 * kWarps);  // every tile of the round parked
+      if (owner) {
+        const int parked = min(kWarps, share.last - (share.first + k * kWarps));
+        for (int p = 0; p < parked; ++p) {
+          const float* pw = warps_s + p * kWarpFloats;
+          owner_product(pw + kAccFloats + 2 * kRowFloats, pw + kAccFloats + oh * kRowFloats,
+                        oh, mt0, nt0, mt0 == 0, lane, cw, db);
+        }
+      }
+      prm::group_sync(32 * kWarps);  // read: the slots take the next tiles
+      if (tile < share.last && next < share.last)
+        fetch_rows<kMsg>(g_s, wt_s, m_s, g, weights, mask, next, n_rows, d, vec, lane);
+      tc::commit();
+    }
+  }
+
+  // this block's row of partial: [dW2c, dW2g (D x D each), db2 (2D)] with
+  // W2, then ncs, ncb, ngs, ngb
+  tc::wait_pending<0>();
+  float* out = partial + (long)blockIdx.x * ((kW2 ? 2 * d * d + 2 * d : 0) + 4 * d);
+  if (owner) {
+    prm::store_dw(out, cw, oh, mt0, nt0, d, lane);
+    if (mt0 == 0)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float s = tc::quad_sum(db[j]);
+        const int n = 8 * (nt0 + j) + gid;
+        if (q == 0 && n < d) out[2 * d * d + oh * d + n] = s;
+      }
+  }
+  prm::park_vectors(acc_s, ln, lane);
+  __syncthreads();
+  prm::store_vectors(warps_s, kWarpFloats, kWarps, out + (kW2 ? 2 * d * d + 2 * d : 0), d);
+}
+
+}  // namespace tcb
+
+namespace tcb16 {
+
+// The block's warps, as tcb::param_warps
+__host__ __device__ constexpr int param_warps(bool w2) { return w2 ? tcb::kParamGroup : 12; }
+// a warp's buffers: one acc stage; g and weights (d_weights once read); the
+// parked f32 fragments (z, gz, d_h; then d_y's hi and lo planes); with W2
+// h's hi and lo planes; the mask
+__host__ __device__ constexpr int param_warp_bytes(bool msg, bool w2) {
+  return kAccBytes + (msg ? 2 : 1) * kRowBytes + kParkBytes + (w2 ? 2 * kPlane : 0) +
+         (msg ? kMaskBytes : 0);
+}
+__host__ __device__ constexpr size_t param_smem_bytes(bool msg, bool w2) {
+  return (size_t)fixed_bytes(w2) + (size_t)param_warps(w2) * param_warp_bytes(msg, w2);
+}
+static_assert(param_smem_bytes(true, true) <= kSmemPerBlock &&
+                  param_smem_bytes(false, true) <= kSmemPerBlock &&
+                  param_smem_bytes(false, false) <= kSmemPerBlock,
+              "over the H100's shared memory a block");
+
+// c += h^T d_y over one parked 16-row tile (one 16-deep k step), the
+// owner's 2 x 4 tiles of half oh in three bf16 passes (lo hi, hi lo, hi
+// hi): A from h's planes and B from d_y's by ldmatrix.trans. With db: db2's
+// sums, a ones A fragment times d_y's lo, then hi (every row of db[j] the
+// column sums of n-tile nt0 + j).
+__device__ __forceinline__ void owner_product(const char* h_s, const char* dy_s, int oh,
+                                              int mt0, int nt0, bool with_db, int lane,
+                                              float c[2][4][4], float db[4][4]) {
+  const int lr = lane & 7;
+  const int lm = lane >> 3;
+  uint32_t ahi[2][4], alo[2][4], bhi[2][4], blo[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int at = bt::at<16>(lr + 8 * (lm >> 1), oh * kMaxD + 16 * (mt0 + i) + 8 * (lm & 1));
+    bt::ldsm4_t(ahi[i], h_s + at);
+    bt::ldsm4_t(alo[i], h_s + kPlane + at);
+  }
+#pragma unroll
+  for (int jp = 0; jp < 2; ++jp) {
+    const int at = bt::at<16>(lr + 8 * (lm & 1), oh * kMaxD + 8 * (nt0 + 2 * jp) + 8 * (lm >> 1));
+    bt::ldsm4_t(bhi[jp], dy_s + at);
+    bt::ldsm4_t(blo[jp], dy_s + kPlane + at);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int jp = 0; jp < 2; ++jp) bt::mma_pair(c[i][2 * jp], c[i][2 * jp + 1], alo[i], bhi[jp]);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int jp = 0; jp < 2; ++jp) bt::mma_pair(c[i][2 * jp], c[i][2 * jp + 1], ahi[i], blo[jp]);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int jp = 0; jp < 2; ++jp) bt::mma_pair(c[i][2 * jp], c[i][2 * jp + 1], ahi[i], bhi[jp]);
+  if (with_db) {
+    const uint32_t one[4] = {0x3F803F80u, 0x3F803F80u, 0x3F803F80u, 0x3F803F80u};
+#pragma unroll
+    for (int jp = 0; jp < 2; ++jp) bt::mma_pair(db[2 * jp], db[2 * jp + 1], one, blo[jp]);
+#pragma unroll
+    for (int jp = 0; jp < 2; ++jp) bt::mma_pair(db[2 * jp], db[2 * jp + 1], one, bhi[jp]);
+  }
+}
+
+template <bool kMsg, bool kW2>
+__global__ void __launch_bounds__(32 * param_warps(kW2), 1)
+    tail_bwd_param_bf16_kernel(TailT<bf16> t, const bf16* __restrict__ acc,
+                               const bf16* __restrict__ weights,
+                               const bf16* __restrict__ mask, const bf16* __restrict__ g,
+                               bf16* __restrict__ d_acc, bf16* __restrict__ d_weights,
+                               bf16* __restrict__ d_mask, float* __restrict__ partial,
+                               int n_rows, int d, int vec) {
+  constexpr int kWarps = param_warps(kW2);
+  constexpr int kWarpBytes = param_warp_bytes(kMsg, kW2);
+  extern __shared__ float4 smem4[];
+  char* w_s = reinterpret_cast<char*>(smem4);  // [2][kMaxD][kMaxD] bf16 with W2
+  // b2 (gate at kMaxD), then ncs, ncb, ngs, ngb
+  float* b2_s = reinterpret_cast<float*>(w_s + (kW2 ? kWBytes : 0));
+  char* warps_s = w_s + fixed_bytes(kW2);  // the warps' buffers, kWarpBytes each
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  char* acc_s = warps_s + warp * kWarpBytes;
+  char* g_s = acc_s + kAccBytes;
+  char* wt_s = g_s + kRowBytes;  // with kMsg
+  float4* f_s = reinterpret_cast<float4*>(g_s + (kMsg ? 2 : 1) * kRowBytes);
+  char* h_s = reinterpret_cast<char*>(f_s) + kParkBytes;       // with W2
+  bf16* m_s = reinterpret_cast<bf16*>(h_s + (kW2 ? 2 * kPlane : 0));  // with kMsg
+
+  stage_tail<kW2>(w_s, b2_s, t, d);
+  for (int i = lane; i < kWarpBytes / 16; i += 32)
+    reinterpret_cast<float4*>(acc_s)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+
+  const int gid = lane >> 2;
+  const int q = lane & 3;
+  const prm::Share share = prm::block_share((n_rows + kRows - 1) / kRows);
+  const int rounds = (share.last - share.first + kWarps - 1) / kWarps;
+  const int oh = warp >> 2;  // the owner's tiles, as tcb's
+  const int mt0 = 2 * ((warp >> 1) & 1);
+  const int nt0 = 4 * (warp & 1);
+  const bool owner = kW2 && 16 * mt0 < d && 8 * nt0 < d;
+  float cw[2][4][4] = {}, db[4][4] = {};
+  prm::Rot8 ln;
+  ln.clear();
+  const Geom geo(d, lane);
+  // the copies' units, as the serving tile's
+  const int n = d % 8 == 0 ? 8 : 4;
+  const Walk acc_walk(lane, 2 * d / n);
+  const Walk row_walk(lane, d / ((vec & 3) == 2 ? 8 : (vec & 3) == 1 ? 4 : 1));
+  const Walk out_walk(lane, d / n);
+
+  int tile = share.first + warp;
+  if (tile < share.last) {
+    fetch_acc(acc_s, acc, (long)tile * kRows, n_rows, d, n, acc_walk);
+    fetch_rows<kMsg>(g_s, wt_s, m_s, g, weights, mask, (long)tile * kRows, n_rows, d, vec,
+                     row_walk, lane);
+  }
+  tc::commit();
+  for (int k = 0; k < rounds; ++k, tile += kWarps) {
+    const int next = tile + kWarps;
+    const bool ahead = next < share.last;
+    if (tile < share.last) {
+      tc::wait_pending<0>();
+      __syncwarp();
+      const long row0 = (long)tile * kRows;
+      row_phase<kMsg, kW2, true>(
+          w_s, b2_s, {acc_s, g_s, wt_s, f_s, h_s, m_s}, row0, n_rows, geo, n, acc_walk,
+          out_walk, d_acc, d_weights, d_mask, ln, [&] {
+            if (ahead)
+              fetch_rows<kMsg>(g_s, wt_s, m_s, g, weights, mask, (long)next * kRows, n_rows,
+                               d, vec, row_walk, lane);
+            tc::commit();
+          });
+      if (ahead) fetch_acc(acc_s, acc, (long)next * kRows, n_rows, d, n, acc_walk);
+      tc::commit();
+    }
+    if constexpr (kW2) {
+      prm::group_sync(32 * kWarps);  // every tile of the round parked
+      if (owner) {
+        const int parked = min(kWarps, share.last - (share.first + k * kWarps));
+        for (int p = 0; p < parked; ++p) {
+          const char* pw = warps_s + p * kWarpBytes;
+          const char* pf = pw + kAccBytes + (kMsg ? 2 : 1) * kRowBytes;
+          owner_product(pf + kParkBytes, pf, oh, mt0, nt0, mt0 == 0, lane, cw, db);
+        }
+      }
+      prm::group_sync(32 * kWarps);  // read: the planes take the next tiles
+    }
+  }
+
+  // this block's row of partial, as tcb's
+  tc::wait_pending<0>();
+  float* out = partial + (long)blockIdx.x * ((kW2 ? 2 * d * d + 2 * d : 0) + 4 * d);
+  if (owner) {
+    prm::store_dw(out, cw, oh, mt0, nt0, d, lane);
+    if (mt0 == 0 && gid == 0)  // every row of db[j] alike: row 0, columns 2 q, 2 q + 1
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = 8 * (nt0 + j) + 2 * q + e;
+          if (n < d) out[2 * d * d + oh * d + n] = db[j][e];
+        }
+  }
+  prm::park_vectors(reinterpret_cast<float*>(acc_s), ln, lane);
+  __syncthreads();
+  prm::store_vectors(reinterpret_cast<const float*>(warps_s), kWarpBytes / 4, kWarps,
+                     out + (kW2 ? 2 * d * d + 2 * d : 0), d);
+}
+
+}  // namespace tcb16
+
+
 template <typename T>
 using FwdFn = void (*)(TailT<T>, const T*, const T*, T*, int, int);
-template <typename T>
-using BwdFn = void (*)(TailT<T>, const T*, const T*, const T*, const T*, T*, T*, T*,
-                       float*, int, int);
 // the tensor-core kernels
 template <typename T>
 using TcFwdFn = void (*)(TailT<T>, const T*, const T*, const T*, T*, int, int, int);
@@ -1744,16 +2318,14 @@ using TcReduceFn = void (*)(TailT<T>, const T*, const T*, const T*, const int*, 
 template <typename T>
 using TcBwdFn = void (*)(TailT<T>, const T*, const T*, const T*, const T*, T*, T*,
                          T*, int, int, int);
+template <typename T>
+using ParamFn = void (*)(TailT<T>, const T*, const T*, const T*, const T*, T*, T*, T*,
+                         float*, int, int, int);
 
 template <typename T>
 using UpdateFn = void (*)(TailT<T>, const T*, const T*, T*, int, int, int);
 
 size_t fwd_smem() { return (kWeights + 4 * kHalf) * sizeof(float); }
-
-size_t bwd_smem(bool w2, bool params) {
-  if (w2) return (2 * kWeights + 4 * kHalf) * sizeof(float);
-  return params ? kWarps * kVecs * kMaxD * sizeof(float) : 0;
-}
 
 // the update forward with a second layer
 template <typename T>
@@ -1766,12 +2338,6 @@ template <typename T, int kN>
 Kernel<UpdateFn<T>> update_instance() {
   static std::atomic<int> waves[kMaxDevices];
   return {update_fwd_kernel<T, kN>, 0, waves};
-}
-
-template <typename T, bool kMsg, bool kW2, bool kParams>
-Kernel<BwdFn<T>> bwd_instance() {
-  static std::atomic<int> waves[kMaxDevices];
-  return {tail_bwd_kernel<T, kMsg, kW2, kParams>, bwd_smem(kW2, kParams), waves};
 }
 
 // the update forward without a second layer: 16-byte loads, or 8-byte ones
@@ -1798,11 +2364,26 @@ int launch_update(const TailT<T>& t, const T* acc, const T* resnet, T* out,
   return (int)cudaSuccess;
 }
 
-// the backward with parameter gradients
+// the backward with parameter gradients: tcb's kernel in f32, tcb16's in bf16
+template <typename T, bool kMsg, bool kW2>
+Kernel<ParamFn<T>> param_instance() {
+  static std::atomic<int> waves[kMaxDevices];
+  if constexpr (chgnet::is_bf16<T>)
+    return {tcb16::tail_bwd_param_bf16_kernel<kMsg, kW2>, tcb16::param_smem_bytes(kMsg, kW2),
+            waves};
+  else
+    return {tcb::tail_bwd_param_tc_kernel<kMsg, kW2>, tcb::param_smem_bytes(kW2), waves};
+}
+
 template <typename T>
-Kernel<BwdFn<T>> bwd_kernel(bool msg, bool w2) {
-  if (msg) return bwd_instance<T, true, true, true>();
-  return w2 ? bwd_instance<T, false, true, true>() : bwd_instance<T, false, false, true>();
+Kernel<ParamFn<T>> param_kernel(bool msg, bool w2) {
+  if (msg) return param_instance<T, true, true>();
+  return w2 ? param_instance<T, false, true>() : param_instance<T, false, false>();
+}
+
+template <typename T>
+int param_warps(bool w2) {
+  return chgnet::is_bf16<T> ? tcb16::param_warps(w2) : tcb::param_warps(w2);
 }
 
 template <typename T>
@@ -1965,14 +2546,44 @@ int gated_bwd_serving(int msg, const TailT<chgnet::bf16>& t, const chgnet::bf16*
   return (int)cudaSuccess;
 }
 
+// the backward with parameter gradients, by the tensor-core kernel of T
+// (tail_bwd_param_tc_kernel, tail_bwd_param_bf16_kernel) in exactly
+// n_blocks blocks; in bf16 d_acc and d_weights are stored by whole 16-byte
+// units (8-byte where D % 8 != 0), so they must be aligned
+template <typename T>
+int gated_bwd_params(int msg, const TailT<T>& t, const T* acc, const T* weights,
+                     const T* mask, const T* g, T* d_acc, T* d_weights, T* d_mask,
+                     float* partial, int n_rows, int d, int n_blocks, cudaStream_t stream) {
+  const bool w2 = t.w2c != nullptr;
+  int vec;
+  if constexpr (chgnet::is_bf16<T>) {
+    const uintptr_t unit = d % 8 == 0 ? 16 : 8;
+    if ((uintptr_t)acc % 16 || (uintptr_t)d_acc % unit ||
+        (msg && (uintptr_t)d_weights % unit))
+      return (int)cudaErrorInvalidValue;
+    vec = tcb16::vec_of(g, msg ? weights : g, msg ? mask : nullptr, d);
+  } else {
+    vec = ((uintptr_t)g | (uintptr_t)(msg ? weights : g)) % 16 == 0;
+  }
+  const Kernel<ParamFn<T>> k = param_kernel<T>(msg, w2);
+  const int threads = 32 * param_warps<T>(w2);
+  const int wave = wave_blocks(k, threads);
+  if (wave < 0) return -wave;
+  k.fn<<<n_blocks, threads, k.smem, stream>>>(t, acc, weights, mask, g, d_acc, d_weights,
+                                              d_mask, partial, n_rows, d, vec);
+  return (int)cudaSuccess;
+}
+
 // d_acc [n_rows, 2d] (16-byte aligned, as acc), and for msg = 1 d_weights
 // [n_rows, d] and, unless null, d_mask [n_rows]. Without d_params: the
 // tensor-core kernel, 16 rows a warp, at most one wave of persistent
-// blocks (d over 64: wide_tail.cuh's backward, in both modes). With d_params non-null the parameter gradients too, by
-// tail_bwd_kernel in exactly n_blocks = min(tiles, kParamBlocks) blocks,
-// one f32 row each of partial [n_blocks, n_part], summed in f32 in block
-// order and rounded once to T: d_params [n_part] = dW2c, dW2g, db2 (with
-// w2), d nc_scale, d nc_bias, d ng_scale, d ng_bias.
+// blocks (d over 64: wide_tail.cuh's backward, in both modes). With
+// d_params non-null the parameter gradients too, by gated_bwd_params in
+// exactly n_blocks = min(tiles, kParamBlocks) blocks (tiles of 32 rows),
+// each taking an even share of the 16-row tiles in order and writing one
+// f32 row of partial [n_blocks, n_part], summed in f32 in block order and
+// rounded once to T: d_params [n_part] = dW2c, dW2g, db2 (with w2),
+// d nc_scale, d nc_bias, d ng_scale, d ng_bias.
 template <typename T>
 int gated_bwd(int msg, const void* const* tail, const T* acc, const T* weights,
               const T* mask, const T* g, T* d_acc, T* d_weights, T* d_mask,
@@ -1992,12 +2603,9 @@ int gated_bwd(int msg, const void* const* tail, const T* acc, const T* weights,
         params ? partial : nullptr, n_rows, d, n_blocks, stream);
     if (err) return err;
   } else if (n_rows > 0 && params) {
-    const Kernel<BwdFn<T>> k = bwd_kernel<T>(msg, w2);
-    const int wave = wave_blocks(k);
-    if (wave < 0) return -wave;
-    k.fn<<<n_blocks, kThreads, k.smem, stream>>>(t, acc, weights, mask, g, d_acc,
-                                                 d_weights, d_mask, partial,
-                                                 n_rows, d);
+    const int err = gated_bwd_params(msg, t, acc, weights, mask, g, d_acc, d_weights,
+                                     d_mask, partial, n_rows, d, n_blocks, stream);
+    if (err) return err;
   } else if (n_rows > 0) {
     const int err = gated_bwd_serving(msg, t, acc, weights, mask, g, d_acc,
                                       d_weights, d_mask, n_rows, d, stream);
@@ -2106,10 +2714,11 @@ extern "C" int gated_reduce_bf16(const void* const* tail, const chgnet::bf16* ac
 // current device of the tensor-core kernels, info[3 * i ..] for the message
 // forward (i = 0), the message-reduce (1), the message backward (2), the
 // bf16 serving backwards: message (3), update with W2 (4), without (5),
-// and the bf16 message forward (6); nothing is launched. For the build
-// report.
+// the bf16 message forward (6), and the backwards with parameter
+// gradients: f32 message (7), f32 update without W2 (8), bf16 message (9),
+// bf16 update without W2 (10); nothing is launched. For the build report.
 extern "C" int gated_tc_occupancy(int* info) {
-  constexpr int kN = 7;
+  constexpr int kN = 11;
   const int waves[kN] = {
       wave_blocks(tc_fwd_kernel<float>(), 32 * tcb::kFwdWarps),
       wave_blocks(tc_reduce_kernel<float>(), 32 * tcb::kFwdWarps),
@@ -2117,14 +2726,23 @@ extern "C" int gated_tc_occupancy(int* info) {
       wave_blocks(bf16_bwd_kernel(true, true), 32 * tcb16::warps(true, true)),
       wave_blocks(bf16_bwd_kernel(false, true), 32 * tcb16::warps(false, true)),
       wave_blocks(bf16_bwd_kernel(false, false), 32 * tcb16::warps(false, false)),
-      wave_blocks(bf16_fwd_kernel(), 32 * tcb16::kFwdWarps)};
+      wave_blocks(bf16_fwd_kernel(), 32 * tcb16::kFwdWarps),
+      wave_blocks(param_kernel<float>(true, true), 32 * tcb::param_warps(true)),
+      wave_blocks(param_kernel<float>(false, false), 32 * tcb::param_warps(false)),
+      wave_blocks(param_kernel<chgnet::bf16>(true, true), 32 * tcb16::param_warps(true)),
+      wave_blocks(param_kernel<chgnet::bf16>(false, false), 32 * tcb16::param_warps(false))};
   const size_t smem[kN] = {tcb::fwd_smem_bytes(), tcb::fwd_smem_bytes(),
                            tcb::smem_bytes(true), tcb16::smem_bytes(true, true),
                            tcb16::smem_bytes(false, true),
-                           tcb16::smem_bytes(false, false), tcb16::fwd_smem_bytes()};
+                           tcb16::smem_bytes(false, false), tcb16::fwd_smem_bytes(),
+                           tcb::param_smem_bytes(true), tcb::param_smem_bytes(false),
+                           tcb16::param_smem_bytes(true, true),
+                           tcb16::param_smem_bytes(false, false)};
   const int warps[kN] = {tcb::kFwdWarps, tcb::kFwdWarps, tcb::warps(true),
                          tcb16::warps(true, true), tcb16::warps(false, true),
-                         tcb16::warps(false, false), tcb16::kFwdWarps};
+                         tcb16::warps(false, false), tcb16::kFwdWarps,
+                         tcb::param_warps(true), tcb::param_warps(false),
+                         tcb16::param_warps(true), tcb16::param_warps(false)};
   for (int i = 0; i < kN; ++i) {
     if (waves[i] < 0) return -waves[i];
     info[3 * i] = (int)smem[i];

@@ -27,10 +27,11 @@ constexpr int kHalf = kTile * kMaxD + 4;
 constexpr int kWeights = 2 * kMaxD * kMaxD;    // W2c and W2g
 constexpr int kVecs = 6;                       // per-row gradient vectors
 constexpr float kEps = 1e-5f;
-// Blocks of the backward with parameter gradients, whatever the card, so
+// Blocks of the backwards with parameter gradients, whatever the card, so
 // that the wrapper can size their [blocks, n_part] scratch and the sums
-// repeat bit for bit on any card: about one wave on an H100 (132 SMs, two
-// blocks each at 128 registers).
+// repeat bit for bit on any card: about one wave on an H100 (132 SMs) of a
+// kernel that holds two blocks an SM, two of the tails' tensor-core form
+// (gated_message.cu), which holds one.
 constexpr int kParamBlocks = 256;
 constexpr int kMaxDevices = 16;
 

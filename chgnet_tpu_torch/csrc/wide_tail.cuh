@@ -314,8 +314,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 // ------------------------------------------------------------ backward
 // d_acc = d_y (without a second layer) or (d_y @ W2^T) * silu'(acc), and
 // for a message d_weights and, unless null, d_mask. kParams: the block's
-// row of partial [gridDim.x, n_part], as gated_message.cu's tail_bwd_kernel
-// lays it out (kPass: fused_pass.cu's pass_bwd_kernel, with d_b1, the sum
+// row of partial [gridDim.x, n_part], as gated_message.cu's
+// tail_bwd_param_tc_kernel lays it out (kPass: fused_pass.cu's pass_bwd_kernel, with d_b1, the sum
 // of d_acc, at its end).
 template <typename T, typename Src, bool kMsg, bool kW2, bool kParams, bool kPass>
 __global__ void __launch_bounds__(kThreads, 1)

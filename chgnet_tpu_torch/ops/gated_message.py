@@ -88,9 +88,10 @@ _SIGNATURES = {
 # widest tail the kernels take (wide_tail.cuh kD): 2D <= 256; up to 64 the
 # kernels of gated_message.cu, past it those of wide_tail.cuh
 TAIL_MAX_D = 128
-TILE = 32  # rows per tile of the update forward and the parameter gradients
+TILE = 32  # rows per tile of the update forward with W2
 # blocks of the backward with parameter gradients (kParamBlocks), at most
-# one per tile: the rows of its scratch buffer
+# one per TILE rows: the rows of its scratch buffer (each block takes an
+# even share of the kernels' 16-row tiles, in order)
 PARAM_BLOCKS = 256
 W2_KEYS = ("w2c", "w2g", "b2")
 LN_KEYS = ("nc_scale", "nc_bias", "ng_scale", "ng_bias")
@@ -276,7 +277,10 @@ def tc_occupancy() -> dict[str, tuple[int, int, int]]:
     names = ("tail_fwd_tc_kernel", "tail_reduce_tc_kernel",
              "tail_bwd_tc_kernel<true, true>", "tail_bwd_bf16_kernel<true, true>",
              "tail_bwd_bf16_kernel<false, true>", "tail_bwd_bf16_kernel<false, false>",
-             "tail_fwd_bf16_kernel")
+             "tail_fwd_bf16_kernel", "tail_bwd_param_tc_kernel<true, true>",
+             "tail_bwd_param_tc_kernel<false, false>",
+             "tail_bwd_param_bf16_kernel<true, true>",
+             "tail_bwd_param_bf16_kernel<false, false>")
     info = (_I * (3 * len(names)))()
     build.check(_lib().gated_tc_occupancy(info), "gated_tc_occupancy")
     return {name: tuple(info[3 * i: 3 * i + 3]) for i, name in enumerate(names)}

@@ -79,8 +79,9 @@ f32 and bf16) and ``tile=512`` (the halo-tiled neighbour layout):
    a bf16 path's pass (``BF16_ROW_PATH``), with ``bf16_launches`` (from the
    counted pass of phase 3) beside ``launches``, the
    bytes at each tensor's element size, gather_project_sum's bf16
-   products at 989 TFLOP/s and the tails' (f32 by a bf16 W2) at 247.5
-   (two TF32 passes; their dW2, f32 by f32, at 165: ``product_rate``);
+   products at 989 TFLOP/s and the tails' (f32 by a bf16 W2) at 494.5
+   (the f32 operand split into a bf16 hi and lo: two bf16 passes; their
+   dW2, both operands split, three passes: 329.7; ``product_rate``);
 5. profile: one pass of the default, the undirected, the message-reduce,
    the stream-v2, the one-kernel-pass, the bf16, the one-kernel-pass bf16
    and the undirected one-kernel-pass bf16 path under ``torch.profiler``, the
@@ -152,7 +153,9 @@ f32 and bf16) and ``tile=512`` (the halo-tiled neighbour layout):
    them; (d) one step with
    ``conv_dropout=0.1``: no fused tail launches, a finite loss; (e) one
    E+F+S+M pass with ``matmul_precision="high"`` against "highest" (TF32
-   tolerance) and both times; (f) one traced train step; (g)
+   tolerance) and both times; (f) one traced train step, whose trace must
+   show the tails' parameter-gradient tile (``tail_bwd_param_tc_kernel``)
+   and not the CUDA-core kernel it replaced; (g)
    ``Trainer.train`` for 2 epochs with checkpoints, each step timed by CUDA
    events: train steps/s and structures/s over epoch 2, peak device memory,
    the losses and MAEs per epoch (all finite), the checkpoint files, and a
@@ -235,14 +238,18 @@ F32_FLOPS = 67e12  # H100 SXM, f32 without tensor cores
 # H100 SXM, f32-accurate products on the TF32 tensor cores (495 TFLOP/s
 # dense): 3xTF32 takes three TF32 products for each f32 one
 F32_TC_FLOPS = 495e12 / 3
-# H100 SXM, products of an f32 value and a bf16 one on the TF32 tensor
-# cores: the bf16 operand is exact in TF32, so two of 3xTF32's three passes
-# keep f32 accuracy (the bf16 tails' silu(acc) or d_y times a bf16 W2)
-F32_BF16_TC_FLOPS = 495e12 / 2
 # H100 SXM, bf16 products on the tensor cores (989 TFLOP/s dense): the rate
 # a product of two bf16 inputs (gather_project_sum's tables and weights)
 # could run at
 BF16_TC_FLOPS = 989e12
+# H100 SXM, products of an f32 value and a bf16 one on the bf16 tensor
+# cores: the f32 operand split into a bf16 hi and lo, two passes (the bf16
+# tails' silu(acc) or d_y times their bf16 W2, bf16_tile.cuh)
+F32_BF16_TC_FLOPS = BF16_TC_FLOPS / 2
+# H100 SXM, products of two f32 values on the bf16 tensor cores at the bf16
+# tails' accuracy: both split, three passes (lo hi, hi lo, hi hi; the bf16
+# tails' dW2 = silu(acc)^T d_y)
+SPLIT_BF16_TC_FLOPS = BF16_TC_FLOPS / 3
 N_STRUCTS = 32  # bench.py's workload
 TIMED_REPEATS = 5
 MODEL_SAMPLES = 10
@@ -852,10 +859,10 @@ def product_rate(name, args) -> float:
     operands' types: f32 calls multiply f32 by f32 (3xTF32); a bf16
     gather_project_sum multiplies bf16 tables by bf16 weights (the bf16
     rate); a bf16 tail multiplies an f32 value (silu(acc), d_y) by a bf16 W2
-    (two TF32 passes), and its backward with parameter gradients adds one
-    f32 by f32 product of the same size (dW2 from silu(acc) and d_y), so
-    those calls take the rate of two products at the one and one at the
-    other."""
+    (two bf16 passes), and its backward with parameter gradients adds one
+    f32 by f32 product of the same size (dW2 from silu(acc) and d_y: three
+    bf16 passes), so those calls take the rate of two products at the one
+    and one at the other."""
     if call_dtype(args) != torch.bfloat16:
         return F32_TC_FLOPS
     if name == "gather_project_sum":
@@ -863,7 +870,7 @@ def product_rate(name, args) -> float:
     need_params = name.endswith("_bwd") and (
         args[9] if name == "fused_pass_bwd" else args[-1])
     if need_params:
-        return 3 / (2 / F32_BF16_TC_FLOPS + 1 / F32_TC_FLOPS)
+        return 3 / (2 / F32_BF16_TC_FLOPS + 1 / SPLIT_BF16_TC_FLOPS)
     return F32_BF16_TC_FLOPS
 
 
@@ -2617,7 +2624,8 @@ def phase_train():
     phase_tf32(batch)
     profile_call("profile train step", "train step",
                  lambda: _step(f32_trainer, batch, targets),
-                 ("tail_fwd_tc_kernel", "tail_bwd_kernel"))
+                 ("tail_fwd_tc_kernel", "tail_bwd_param_tc_kernel"),
+                 ("tail_bwd_kernel",))
     del f32_trainer
     torch.cuda.empty_cache()
     runs = {"f32": phase_train_run(loaders)}

@@ -1061,10 +1061,15 @@ def test_fused_pass_serving_kernels_at_the_path_shapes(cuda, stream, form):
 
 
 def _kernel_names(fn) -> set[str]:
-    """The CUDA kernels that ``fn()`` launches, by torch.profiler."""
+    """The CUDA kernels that ``fn()`` launches, by torch.profiler. One call
+    runs before the trace, so that building and loading the kernels fall
+    outside it (a trace that held a kernel's first launch has come back
+    without that kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     return {e.key for e in prof.key_averages() if e.device_type.name == "CUDA"}
@@ -1804,6 +1809,122 @@ def test_bf16_tail_parameter_gradients_match_plain(cuda, d, n_rows):
         want = tgm.gated_update_bwd_plain(*args)
         _assert_ulps(got[0], want[0])
         _assert_ulps(got[1], want[1], PARAM_ULPS)
+
+
+# The backward with parameter gradients at D <= 64 (training: rows 7 and 9,
+# "7p" and "9p"): tcb::tail_bwd_param_tc_kernel in f32,
+# tcb16::tail_bwd_param_bf16_kernel in bf16, dW2 on the tensor cores, every
+# row of the block's even share of 16-row tiles in one of its warps' rounds.
+PARAM_FORMS = ["message", "update-w2", "update"]
+
+
+def _param_call(form, x, p):
+    """The form's backward with parameter gradients and its plain version."""
+    if form == "message":
+        args = (x["acc"], x["weights"], x["mask"], _params(p), x["g"], True, True)
+        return tgm.gated_message_bwd, tgm.gated_message_bwd_plain, args
+    args = (x["acc"], _params(p, form == "update-w2"), x["g"], True)
+    return tgm.gated_update_bwd, tgm.gated_update_bwd_plain, args
+
+
+@pytest.mark.parametrize("form", PARAM_FORMS)
+@pytest.mark.parametrize("n_rows", [17, 4_099])
+@pytest.mark.parametrize("d", [12, 36, 60])
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+def test_param_backward_at_narrow_widths_and_ragged_rows(cuda, dtype, d, n_rows, form):
+    """Narrow widths (not multiples of 8 or 16) and ragged tiles: every
+    output against the plain version (f32: TAIL_BWD_TOL of its largest
+    value; bf16: one ulp, the parameter gradients PARAM_ULPS), finite, and
+    equal bits from a second run."""
+    x, p = _tail_inputs(cuda, d, n_rows, seed=11)
+    x = {k: v.to(dtype) for k, v in x.items()}
+    p = {k: v.to(dtype) for k, v in p.items()}
+    fn, plain, args = _param_call(form, x, p)
+    got, want = fn(*args), plain(*args)
+    if dtype == BF16:
+        _assert_ulps(got[:-1], want[:-1])
+        _assert_ulps(got[-1], want[-1], PARAM_ULPS)
+    else:
+        _assert_scaled(_flat(got), _flat(want), TAIL_BWD_TOL)
+    assert all(bool(t.float().isfinite().all()) for t in _flat(got) if t is not None)
+    assert all(torch.equal(a, b) for a, b in zip(_flat(got), _flat(fn(*args)))
+               if a is not None)
+
+
+# One trace, in a process of its own, of the three forms' backward on the
+# card: argv[1] the type ("f32" or "bf16"), argv[2] need_params (0 or 1);
+# prints the traced CUDA kernels' names as a JSON list. (In one process
+# with many earlier traces, torch.profiler has returned traces without
+# any kernel.)
+_LAUNCH_SCRIPT = r"""
+import json, sys
+import torch
+from torch.profiler import ProfilerActivity, profile
+from chgnet_tpu_torch.ops import gated_message as tgm
+
+dtype = torch.bfloat16 if sys.argv[1] == "bf16" else torch.float32
+need = sys.argv[2] == "1"
+gen = torch.Generator(device="cuda").manual_seed(0)
+
+
+def rand(*shape, scale=1.0):
+    return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+
+
+n, d = 4_099, 64
+acc, weights, g = rand(n, 2 * d), rand(n, d), rand(n, d)
+mask = torch.ones(n, device="cuda", dtype=dtype)
+full = (rand(d, d, scale=0.1), rand(d, d, scale=0.1), rand(2 * d, scale=0.1),
+        rand(d), rand(d, scale=0.1), rand(d), rand(d, scale=0.1))
+calls = [lambda: tgm.gated_message_bwd(acc, weights, mask, full, g, need, need),
+         lambda: tgm.gated_update_bwd(acc, full, g, need),
+         lambda: tgm.gated_update_bwd(acc, full[3:], g, need)]
+for call in calls:
+    call()
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+print(json.dumps(sorted({e.key for e in prof.key_averages()
+                         if e.device_type.name == "CUDA"})))
+"""
+FORM_ARGS = ("true, true", "false, true", "false, false")  # message, update-w2, update
+
+
+def _tail_bwd_kernels(dtype, params):
+    """The three forms' backward kernels, by name, with and without
+    parameter gradients."""
+    if params:
+        base = "tail_bwd_param_tc_kernel<" if dtype == torch.float32 else \
+            "tail_bwd_param_bf16_kernel<"
+    else:
+        base = "tail_bwd_tc_kernel<float, " if dtype == torch.float32 else \
+            "tail_bwd_bf16_kernel<"
+    return [f"{base}{a}>" for a in FORM_ARGS]
+
+
+@pytest.mark.parametrize("need_params", [False, True], ids=["serving", "params"])
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+def test_param_backward_launches_its_own_kernel(cuda, dtype, need_params):
+    """With parameter gradients each form launches its parameter-gradient
+    tile and no serving tile, nor the CUDA-core kernel they replaced;
+    serving launches its serving tile and no parameter tile (one trace of
+    the three forms, ``_LAUNCH_SCRIPT``)."""
+    import json
+    import subprocess
+    import sys
+
+    run = subprocess.run(
+        [sys.executable, "-c", _LAUNCH_SCRIPT, "bf16" if dtype == BF16 else "f32",
+         str(int(need_params))],
+        cwd=ROOT, capture_output=True, text=True, timeout=600, check=True)
+    names = json.loads(run.stdout.splitlines()[-1])
+    for kernel in _tail_bwd_kernels(dtype, need_params):
+        assert any(kernel in n for n in names), (kernel, names)
+    other = _tail_bwd_kernels(dtype, not need_params)[0].split("<")[0] + "<"
+    assert not any(other in n for n in names), names
+    assert not any("tail_bwd_kernel<" in n for n in names), names
 
 
 @pytest.mark.parametrize(

@@ -137,17 +137,18 @@ def _rate_args(name, dtype, need_params):
     ("gather_project_sum", torch.float32, False, 495e12 / 3),
     ("gather_project_sum", torch.bfloat16, False, 989e12),
     ("gated_message_bwd", torch.float32, True, 495e12 / 3),
-    ("gated_message_bwd", torch.bfloat16, False, 495e12 / 2),
-    ("gated_message_bwd", torch.bfloat16, True, 3 / (2 / (495e12 / 2) + 1 / (495e12 / 3))),
-    ("gated_update_bwd", torch.bfloat16, True, 3 / (2 / (495e12 / 2) + 1 / (495e12 / 3))),
-    ("fused_pass_bwd", torch.bfloat16, False, 495e12 / 2),
-    ("fused_pass_bwd", torch.bfloat16, True, 3 / (2 / (495e12 / 2) + 1 / (495e12 / 3))),
+    ("gated_message_bwd", torch.bfloat16, False, 989e12 / 2),
+    ("gated_message_bwd", torch.bfloat16, True, 3 / (2 / (989e12 / 2) + 1 / (989e12 / 3))),
+    ("gated_update_bwd", torch.bfloat16, True, 3 / (2 / (989e12 / 2) + 1 / (989e12 / 3))),
+    ("fused_pass_bwd", torch.bfloat16, False, 989e12 / 2),
+    ("fused_pass_bwd", torch.bfloat16, True, 3 / (2 / (989e12 / 2) + 1 / (989e12 / 3))),
 ])
 def test_product_rate_follows_the_operand_types(name, dtype, need_params, rate):
     """f32 by f32 products at 3xTF32 (495 / 3 TFLOP/s); bf16 by bf16 at the
-    bf16 rate; a bf16 tail's f32 value by its bf16 W2 in two TF32 passes
-    (495 / 2), and with parameter gradients two such products and one f32
-    by f32 (dW2) of the same size."""
+    bf16 rate; a bf16 tail's f32 value by its bf16 W2 in two bf16 passes
+    (989 / 2: the f32 value split into a bf16 hi and lo), and with
+    parameter gradients two such products and one f32 by f32 (dW2, both
+    split: three bf16 passes, 989 / 3) of the same size."""
     got = chip_smoke.product_rate(name, _rate_args(name, dtype, need_params))
     assert got == pytest.approx(rate, rel=1e-12)
 
